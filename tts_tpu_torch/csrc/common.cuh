@@ -1,0 +1,54 @@
+// Shared helpers for the port's hand-written Hopper kernels (sm_90a).
+//
+// Every kernel keeps the rounding points of the TPU kernel it replaces: a
+// tensor-core dot accumulates in fp32 and is rounded to bf16 where the TPU
+// kernel casts to the activation dtype; elementwise work on bf16 values runs
+// in fp32 and is rounded once per op, as PyTorch and XLA do for bf16.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace tts {
+
+using bf16 = __nv_bfloat16;
+namespace wmma = nvcuda::wmma;
+
+// 16x16x16 tensor-core fragments: bf16 operands, fp32 accumulator
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ bf16 to_bf(float x) { return __float2bfloat16(x); }
+// round an fp32 value to bf16 and back
+__device__ __forceinline__ float rnd(float x) { return to_f(to_bf(x)); }
+
+// gelu with the tanh approximation (jax.nn.gelu(approximate=True))
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
+}
+
+// mish with the TPU kernel's softplus guard (tts_tpu/ops/grouped_conv.py)
+__device__ __forceinline__ float mish(float x) {
+  const float sp = x > 20.f ? x : log1pf(expf(x));
+  return x * tanhf(sp);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// 8 bf16 values moved as one 16-byte word
+union Vec8 {
+  uint4 u;
+  bf16 h[8];
+};
+
+}  // namespace tts
