@@ -3,21 +3,33 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --kernels-only     # phases 0-2
+    python3 chip_smoke.py --profile DIR      # and a torch.profiler breakdown
+                                             # of one greedy Kani run
+
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
      reports them; turn TF32 off for matmuls and cuDNN;
   1. build the hand-written kernels from tts_tpu_torch/csrc with nvcc;
-  2. each kernel against its plain PyTorch twin at the F5 bench shapes in
-     bf16, with its error, and its time beside the twin's;
+  2. each kernel against its plain PyTorch twin in bf16, at the F5 bench
+     shapes and the kani-tts-370m decode shapes, with its error, and its
+     time beside the twin's;
   3. F5Pipeline.synthesize at full F5TTS_v1_Base width (random weights made
      from a seed) on three requests, checking the audio and that every DiT
      block went through the kernels;
-  4. F5Pipeline.benchmark: single-request latency and sustained RTF.
+  4. F5Pipeline.benchmark: single-request latency and sustained RTF;
+  5. KaniPipeline.synthesize_ids at full kani-tts-370m width (random
+     weights from a seed, the bench config: 256 new tokens, no stop token):
+     greedy bf16 and int8, beam and a batch of 4, checking the audio, that
+     every attention layer's decode step went through kernel 12 (greedy)
+     or kernel 11 (beam, batch), and one step's logits against the plain
+     route; then tokens/s and RTF of greedy bf16 and int8.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import statistics
@@ -37,6 +49,10 @@ import torch
 # these shapes (measured on the CPU); 2^-6 leaves 4x headroom, while a
 # wrong index or layout gives errors of order one.
 TOL = 2.0 ** -6
+# the fused Kani step's logits may be this much further from fp32 than the
+# plain route's (check_step): rounding at other points gives either route
+# the larger error on a given input
+STEP_SLACK = 1.25
 
 REF_TEXT = "Some call me nature, others call me mother nature."
 # the bench request (6 s ref, 15 words) generates 832 frames; the vocoder's
@@ -50,7 +66,16 @@ KERNELS = {
                              "tts_tpu/ops/grouped_conv.py:100"),
     "mlp_block_fused": ("tts_tpu_torch/csrc/dit_mlp.cu",
                         "tts_tpu/ops/dit_mlp.py:171"),
+    "fused_qkv_rope": ("tts_tpu_torch/csrc/decode_qkv.cu",
+                       "tts_tpu/ops/decode_qkv.py:259"),
+    "fused_qkv_attn": ("tts_tpu_torch/csrc/decode_step.cu",
+                       "tts_tpu/ops/decode_step.py:301"),
 }
+F5_KERNELS = ("flash_attention_flat", "conv_pos_embed_fused", "mlp_block_fused")
+
+# the Kani bench request (bench.py:258-264): 5 prompt ids, 256 new tokens
+KANI_IDS = [[3, 9, 4, 17, 2]]
+KANI_NEW = 256
 
 
 def card() -> str:
@@ -78,6 +103,22 @@ def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call: the kernels' time in a torch.profiler trace
+    of `iters` calls, over iters. A decode kernel's single-call event time
+    is mostly the host's enqueue, the card waiting on it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+
+
 def check(label: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     torch.cuda.synchronize()
     ref = ref.float()
@@ -93,6 +134,79 @@ def check(label: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     if not ok:
         raise AssertionError(f"{label}: kernel disagrees with its twin")
     return max_abs
+
+
+def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, kernels 11 and 12 at the kani-tts-370m decode shapes
+    against their fp32 twins on the same bf16 inputs."""
+    from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope, fused_qkv_rope_plain
+    from tts_tpu_torch.ops.decode_step import fused_qkv_attn, fused_qkv_attn_plain
+    from tts_tpu_torch.quant.weight_only import QTensor, quantize_int8
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def f32(a):
+        return a.float() if isinstance(a, torch.Tensor) else a
+
+    def both(fn, plain, label, x, w, *args, **kw):
+        got = fn(x, w, *args, **kw)
+        ref = plain(x.float(), w if isinstance(w, QTensor) else w.float(),
+                    *map(f32, args), **{k: f32(v) for k, v in kw.items()})
+        return max(check(f"{label} {part}", g, r)
+                   for part, g, r in zip(("out", "k", "v"), got, ref))
+
+    hs, heads, kvh, hd = 1024, 16, 8, 64
+    w = rn(hs, (heads + 2 * kvh) * hd, scale=0.02)
+    wq = quantize_int8(w)
+    norm_w = torch.full((hd,), hd ** -0.25, device="cuda").to(torch.bfloat16)
+    cos, sin = rn(1, hd), rn(1, hd)
+    kani = dict(heads=heads, kv_heads=kvh, head_dim=hd, q_norm=norm_w, k_norm=norm_w,
+                eps=1e-5)
+    r = res["fused_qkv_rope"]
+    for b in (1, 5, 8):
+        x = rn(b, hs)
+        for wt, wl in ((w, "bf16"), (wq, "int8")):
+            r["max_abs_err"] = max(r["max_abs_err"], both(
+                fused_qkv_rope, fused_qkv_rope_plain,
+                f"fused_qkv_rope Kani B={b} {wl}", x, wt, cos, sin, **kani))
+    # the other families' variants: Qwen (hd 128), a bias, IndexTTS (LN, no RoPE)
+    x = rn(2, hs)
+    w128 = rn(hs, (16 + 2 * 8) * 128, scale=0.02)
+    n128 = torch.full((128,), 128 ** -0.25, device="cuda").to(torch.bfloat16)
+    for label, wt, args, kw in (
+            ("hd128 q/k norms", w128, (rn(1, 128), rn(1, 128)),
+             dict(heads=16, kv_heads=8, head_dim=128, q_norm=n128, k_norm=n128)),
+            ("hd128 bias int8", quantize_int8(w128), (rn(1, 128), rn(1, 128)),
+             dict(heads=16, kv_heads=8, head_dim=128, bqkv=rn(4096, scale=0.1))),
+            ("LN bias no-RoPE MHA", rn(hs, 3 * 16 * 64, scale=0.02), (None, None),
+             dict(heads=16, kv_heads=16, head_dim=64, bqkv=rn(3072, scale=0.1),
+                  norm="ln", ln_weight=rn(hs, scale=0.1) + 1, ln_bias=rn(hs, scale=0.1)))):
+        r["max_abs_err"] = max(r["max_abs_err"], both(
+            fused_qkv_rope, fused_qkv_rope_plain, f"fused_qkv_rope {label}", x, wt,
+            *args, **kw))
+    x1 = rn(1, hs)
+    timed = {"fused_qkv_rope": (lambda: fused_qkv_rope(x1, w, cos, sin, **kani),
+                                lambda: fused_qkv_rope_plain(x1, w, cos, sin, **kani))}
+
+    r = res["fused_qkv_attn"]
+    kc, vc = rn(6, 1, kvh, 2048, hd), rn(6, 1, kvh, 2048, hd)
+    for pos in (5, 700, 2047):
+        for wt, wl in ((w, "bf16"), (wq, "int8")):
+            r["max_abs_err"] = max(r["max_abs_err"], both(
+                fused_qkv_attn, fused_qkv_attn_plain,
+                f"fused_qkv_attn L=6 T=2048 pos={pos} {wl}", x1, wt, cos, sin, kc, vc,
+                3, pos, **kani))
+    timed["fused_qkv_attn"] = (
+        lambda: fused_qkv_attn(x1, w, cos, sin, kc, vc, 3, 700, **kani),
+        lambda: fused_qkv_attn_plain(x1, w, cos, sin, kc, vc, 3, 700, **kani))
+    for name, (kernel, plain) in timed.items():
+        r = res[name]
+        r["ms"], r["plain_ms"] = device_ms(kernel), device_ms(plain)
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms "
+              f"of device time a call (B=1, pos=700, bf16, profiler over 10 calls); "
+              f"one call's wall {time_ms(kernel):.4f} / {time_ms(plain):.4f} ms "
+              f"(median of 10)", flush=True)
 
 
 def check_kernels(gen: torch.Generator) -> dict:
@@ -162,9 +276,10 @@ def check_kernels(gen: torch.Generator) -> dict:
         if mods.dim() == 2:
             r["ms"] = time_ms(lambda: mlp_block_fused(x, mods, w1, b1, w2, b2))
             r["plain_ms"] = time_ms(lambda: mlp_block_plain(x, mods, w1, b1, w2, b2))
-    for name, r in res.items():
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms "
-              f"(bench shape, median of 10)", flush=True)
+    for name in F5_KERNELS:
+        print(f"  {name}: kernel {res[name]['ms']:.4f} ms, plain twin "
+              f"{res[name]['plain_ms']:.4f} ms (bench shape, median of 10)", flush=True)
+    check_decode_kernels(gen, res)
     return res
 
 
@@ -193,7 +308,7 @@ def run_pipeline() -> tuple:
     rng = np.random.default_rng(0)
     audio = (rng.standard_normal(int(6.0 * cfg.sample_rate)) * 3000).astype(np.int16)
     per_step = {"flash_attention_flat": cfg.depth, "mlp_block_fused": cfg.depth,
-                "conv_pos_embed_fused": 1}
+                "conv_pos_embed_fused": 1, "fused_qkv_rope": 0, "fused_qkv_attn": 0}
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     for words in (15, 8, 25):
@@ -227,7 +342,220 @@ def run_pipeline() -> tuple:
     return pipe, launches
 
 
+def check_step(cfg, params: dict, ids: np.ndarray) -> None:
+    """One decode step from the same state: kani_step(fused="step") in bf16
+    against fused=False. Both bf16 routes are held against the plain route
+    in fp32 on the same (bf16-valued) weights and state: over 16 layers of
+    random weights, bf16 rounding alone moves the logits by several percent
+    (rel L2, measured on the CPU: 3.9% plain, 4.0% fused, 1.7% between
+    them), so 2^-6 cannot hold end to end. The check is that the kernel
+    route is as accurate as the plain one: its error against fp32 at most
+    STEP_SLACK times the plain route's."""
+    from tts_tpu_torch.models.kani import KaniState, init_state, kani_step
+    from tts_tpu_torch.runtime.kani import _prefill_loop
+
+    def cast(tree, dt):
+        if isinstance(tree, dict):
+            return {k: cast(v, dt) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v, dt) for v in tree]
+        return tree.to(dt)
+
+    ids_buf = torch.tensor(np.pad(ids, ((0, 0), (0, 64 - ids.shape[1]))), device="cuda")
+    state, logits = _prefill_loop(params, ids_buf, ids.shape[1],
+                                  init_state(cfg, 1, torch.bfloat16, "cuda"), cfg)
+    h = params["embed"][logits.argmax(-1)][:, None]
+    fused, _ = kani_step(params, h, state.clone(), cfg, fused="step")
+    plain, _ = kani_step(params, h, state.clone(), cfg, fused=False)
+    s32 = state.clone()
+    s32 = KaniState(type(s32.kv)(s32.kv.k.float(), s32.kv.v.float(), s32.kv.length),
+                    s32.conv.float())
+    ref, _ = kani_step(cast(params, torch.float32), h.float(), s32, cfg, fused=False)
+    if not torch.isfinite(fused).all():
+        raise AssertionError("fused step logits not finite")
+
+    def rel(a):
+        return (torch.linalg.vector_norm(a.float() - ref) / torch.linalg.vector_norm(ref)).item()
+
+    e_fused, e_plain, e_both = rel(fused), rel(plain), (torch.linalg.vector_norm(
+        fused.float() - plain.float()) / torch.linalg.vector_norm(plain.float())).item()
+    ok = e_fused <= STEP_SLACK * e_plain
+    print(f"  kani_step logits, rel L2 against the fp32 plain route: fused='step' "
+          f"{e_fused:.6g}, fused=False {e_plain:.6g} (limit {STEP_SLACK} x); fused "
+          f"against plain bf16 {e_both:.6g}; argmax equal "
+          f"{bool((fused.argmax(-1) == plain.argmax(-1)).all())} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the fused decode step is less accurate than the plain one")
+
+
+def run_kani(name_limit: str) -> dict:
+    """Phase 5: KaniPipeline.synthesize_ids at full kani-tts-370m width.
+    Returns the launch counts of the phase."""
+    from tts_tpu_torch.models.kani import KaniConfig, init_params
+    from tts_tpu_torch.models.nanocodec import NanoCodecConfig
+    from tts_tpu_torch.models.nanocodec import init_params as codec_init
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.kani import KaniDecodeConfig, KaniPipeline
+
+    cfg, ccfg = KaniConfig(max_seq_len=2048, stop_token=-1), NanoCodecConfig()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(2), torch.bfloat16)
+    cparams = codec_init(ccfg, torch.Generator("cuda").manual_seed(3), torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"  models: Kani hidden {cfg.hidden_size}, {len(cfg.layer_types)} layers "
+          f"({cfg.num_attn_layers} attention, {cfg.num_conv_layers} conv), "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}; NanoCodec {ccfg.base_channels} channels, upsample "
+          f"{ccfg.total_upsample}; bf16, random init in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    ids = np.array(KANI_IDS, np.int32)
+    dec = KaniDecodeConfig(max_new_tokens=KANI_NEW, repeat_penalty=1.0)
+    pipes = {"greedy bf16": KaniPipeline(params, cfg, cparams, ccfg, dec),
+             "greedy int8": KaniPipeline(params, cfg, cparams, ccfg, dec, quantize=8),
+             "beam 5": KaniPipeline(params, cfg, cparams, ccfg, KaniDecodeConfig(
+                 max_new_tokens=KANI_NEW, repeat_penalty=1.0, use_beam=True,
+                 beam_size=5, top_k=5))}
+    prompts = [ids, np.array([[3, 9, 4]], np.int32), np.array([[5, 8, 13, 21, 34, 55]],
+                                                                np.int32), ids[:, :4]]
+    layers = cfg.num_attn_layers
+
+    def expect(label, grew, tokens):
+        steps = tokens - 1                          # the first token is the prefill's
+        want = ({"fused_qkv_attn": layers * steps, "fused_qkv_rope": 0}
+                if label.startswith("greedy") else
+                {"fused_qkv_attn": 0, "fused_qkv_rope": layers * steps})
+        for k, n in want.items():
+            if grew.get(k, 0) != n:
+                raise AssertionError(f"{label}: {k} launched {grew.get(k, 0)} times, "
+                                     f"expected {n}")
+
+    def audio_ok(label, wav, tokens, peak):
+        frames = (tokens - 2) // ccfg.num_groups
+        if wav.dtype != np.int16 or len(wav) != frames * ccfg.total_upsample:
+            raise AssertionError(f"{label}: {len(wav)} {wav.dtype} samples, expected "
+                                 f"{frames * ccfg.total_upsample} int16")
+        if not math.isfinite(peak) or not wav.any():
+            raise AssertionError(f"{label}: waveform not finite or all zero")
+
+    for pipe in pipes.values():                     # warm-up
+        pipe.synthesize_ids(ids)
+    pipes["greedy bf16"].synthesize_ids_batch(prompts)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    for label, pipe in pipes.items():
+        before = dict(LAUNCHES)
+        wav, st = pipe.synthesize_ids(ids)
+        grew = {k: LAUNCHES[k] - before.get(k, 0) for k in KERNELS}
+        print(f"  {label}: {st['tokens']} tokens, {len(wav)} int16 samples, wall "
+              f"{st['wall_s']:.4f} s, peak |wav| {st['peak']:.6g}, launches {grew}",
+              flush=True)
+        if st["tokens"] != KANI_NEW:
+            raise AssertionError(f"{label}: {st['tokens']} tokens, expected {KANI_NEW}")
+        audio_ok(label, wav, st["tokens"], st["peak"])
+        expect(label, grew, st["tokens"])
+    before = dict(LAUNCHES)
+    wavs, st = pipes["greedy bf16"].synthesize_ids_batch(prompts)
+    grew = {k: LAUNCHES[k] - before.get(k, 0) for k in KERNELS}
+    print(f"  batch of {len(prompts)}: {st['tokens']} tokens, {[len(w) for w in wavs]} "
+          f"samples, wall {st['wall_s']:.4f} s, launches {grew}", flush=True)
+    if st["tokens"] != KANI_NEW * len(prompts):
+        raise AssertionError(f"batch: {st['tokens']} tokens")
+    for w in wavs:
+        audio_ok("batch", w, KANI_NEW, st["peak"])
+    expect("batch", grew, KANI_NEW)
+    launches = dict(LAUNCHES)
+
+    check_step(cfg, params, ids)
+
+    for label in ("greedy bf16", "greedy int8"):
+        b = pipes[label].benchmark(ids, iters=2)
+        print(f"  {name_limit}: Kani {label}: {b['tokens_per_s']:.2f} tokens/s, RTF "
+              f"{b['rtf']:.6f} ({b['wall_s']:.4f} s for {b['audio_s']:.4f} s of audio)",
+              flush=True)
+        print("  " + json.dumps({"kani": label, **b}), flush=True)
+    return launches
+
+
+def profile_kani(out_dir: str, name_limit: str) -> None:
+    """torch.profiler over one greedy bf16 and one greedy int8 run at the
+    bench config: device time by kernel class, and the device's idle share
+    (1 - kernel time / wall). The tables go to out_dir."""
+    import gc
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tts_tpu_torch.models.kani import KaniConfig, init_params
+    from tts_tpu_torch.models.nanocodec import NanoCodecConfig
+    from tts_tpu_torch.models.nanocodec import init_params as codec_init
+    from tts_tpu_torch.runtime.kani import KaniDecodeConfig, KaniPipeline
+
+    os.makedirs(out_dir, exist_ok=True)
+    cfg, ccfg = KaniConfig(max_seq_len=2048, stop_token=-1), NanoCodecConfig()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(2), torch.bfloat16)
+    cparams = codec_init(ccfg, torch.Generator("cuda").manual_seed(3), torch.bfloat16)
+    ids = np.array(KANI_IDS, np.int32)
+    dec = KaniDecodeConfig(max_new_tokens=KANI_NEW, repeat_penalty=1.0)
+    classes = (("kernel 12 (fused_qkv_attn)", ("attn_kernel",)),
+               ("kernel 11 (fused_qkv_rope)", ("qkv_matvec", "qkv_epilogue")),
+               ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma", "cublas")),
+               ("casts / copies", ("copy", "convert")),
+               ("conv (codec)", ("conv", "cudnn", "implicit", "winograd", "fft")))
+    for quant in (None, 8):
+        pipe = KaniPipeline(params, cfg, cparams, ccfg, dec, quantize=quant)
+        pipe.synthesize_ids(ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.synthesize_ids(ids)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, st = pipe.synthesize_ids(ids)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        tag = "int8" if quant else "bf16"
+        events = prof.key_averages()
+        rows = [(e.key, e.count, e.device_time_total / 1e3) for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(ms for _, _, ms in rows)
+        shares = {name: 0.0 for name, _ in classes}
+        shares["elementwise / other"] = 0.0
+        for key, _, ms in rows:
+            low = key.lower()
+            cls = next((name for name, pats in classes if any(p in low for p in pats)),
+                       "elementwise / other")
+            shares[cls] += ms
+        host = {e.key: (e.count, e.cpu_time_total / 1e3) for e in events
+                if e.key in ("aten::item", "aten::_local_scalar_dense",
+                             "cudaStreamSynchronize", "cudaMemcpyAsync",
+                             "cudaLaunchKernel", "cuLaunchKernel")}
+        n_launch = sum(c for k, (c, _) in host.items() if "Launch" in k)
+        print(f"  {name_limit}: profile greedy {tag}: {st['tokens']} tokens, wall "
+              f"{wall:.4f} s profiled ({plain_wall:.4f} s unprofiled), device kernel "
+              f"time {busy:.3f} ms, idle {100 * (1 - busy / 1e3 / wall):.1f}% of the "
+              f"profiled wall, {n_launch} launches ({n_launch / st['tokens']:.1f} a "
+              f"token)", flush=True)
+        for name, ms in shares.items():
+            print(f"    {name}: {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)")
+        for key, (count, ms) in host.items():
+            print(f"    host {key}: {count} calls, {ms:.3f} ms CPU")
+        for key, count, ms in sorted(rows, key=lambda r: -r[2])[:16]:
+            print(f"    kernel {ms:9.3f} ms {count:6d}x  {key[:110]}")
+        with open(os.path.join(out_dir, f"kani_profile_{tag}.txt"), "w") as f:
+            f.write(events.table(sort_by="device_time_total", row_limit=60))
+        del prof, events       # ~10^5 event objects slow every later gc pass
+        gc.collect()
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 2 (build and kernels against twins)")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="also profile one greedy Kani run, tables into DIR")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False)")
@@ -251,6 +579,8 @@ def main() -> None:
 
     print("phase 2: kernels against their twins", flush=True)
     res = check_kernels(torch.Generator("cuda").manual_seed(1234))
+    if args.kernels_only:
+        return
 
     print("phase 3: F5Pipeline.synthesize", flush=True)
     pipe, launches = run_pipeline()
@@ -261,6 +591,13 @@ def main() -> None:
           f" for {bench['audio_s']:.3f} s of audio), sustained RTF "
           f"{bench['sustained_rtf']:.6f}", flush=True)
     print("  " + json.dumps(bench), flush=True)
+
+    print("phase 5: KaniPipeline.synthesize_ids", flush=True)
+    kani = run_kani(name_limit)
+    launches.update({k: kani[k] for k in ("fused_qkv_rope", "fused_qkv_attn")})
+    if args.profile:
+        print("phase 5b: torch.profiler over one greedy Kani run", flush=True)
+        profile_kani(args.profile, name_limit)
 
     summary = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches.get(name, 0),

@@ -81,6 +81,17 @@ def test_f5_tables_equal():
                                   jf5._text_freqs_cis(512, 4096))
 
 
+@pytest.mark.parametrize("max_len,head_dim,base,scaling", [
+    (2048, 64, 1e6, 1.0),          # Kani (LFM2)
+    (4096, 128, 1e6, 1.0),         # Qwen3
+    (512, 64, 1e4, 0.5),
+])
+def test_rope_table_equal(max_len, head_dim, base, scaling):
+    for a, b_ in zip(trope.rope_table(max_len, head_dim, base, scaling),
+                     jrope.rope_table(max_len, head_dim, base, scaling)):
+        np.testing.assert_array_equal(a, b_)
+
+
 def _audio(n, seed=0):
     return (np.random.default_rng(seed).standard_normal((2, n)) * 0.3
             ).astype(np.float32)

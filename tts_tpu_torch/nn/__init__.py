@@ -1,1 +1,1 @@
-"""Shared layers: LayerNorm and RoPE tables (tts_tpu/nn counterparts)."""
+"""Shared layers: LayerNorm, RMSNorm, RoPE and GQA attention (tts_tpu/nn counterparts)."""

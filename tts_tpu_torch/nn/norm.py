@@ -1,10 +1,10 @@
-"""LayerNorm (counterpart of tts_tpu/nn/norm.py:layer_norm): statistics and
-affine in fp32, the result cast back to the input dtype."""
+"""LayerNorm and RMSNorm (counterparts of tts_tpu/nn/norm.py): statistics
+and affine in fp32, the result cast back to the input dtype."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["layer_norm"]
+__all__ = ["layer_norm", "rms_norm"]
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
@@ -17,4 +17,14 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
         out = out * weight.float()
     if bias is not None:
         out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
+             eps: float = 1e-5) -> torch.Tensor:
+    """weight=None means the weight was absorbed into the next projection."""
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    if weight is not None:
+        out = out * weight.float()
     return out.to(x.dtype)

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-All of `tts_tpu_torch/csrc/*.cu` compile into one shared library with a
+Each of `tts_tpu_torch/csrc/*.cu` compiles to an object with its own nvcc,
+all started together, and the objects link into one shared library with a
 plain C interface, for `sm_90a` (H100). The build runs at first use, on the
 machine with the card, into `tts_tpu_torch/_build/<hash>/`, keyed by a hash
 of the sources and flags, so an edited source rebuilds and an unchanged one
@@ -28,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _LIB_NAME = "libtts_tpu_torch_kernels.so"
 
 # kernel name -> number of wrapper calls that launched it
@@ -68,14 +69,32 @@ def build() -> tuple[Path, float, str]:
     if lib.is_file():
         return lib, 0.0, log.read_text() if log.is_file() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc, pid = _nvcc(), os.getpid()
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [out_dir / f"{src.stem}.{pid}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        text = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    text = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{text}")
+    tmp = out_dir / f"{_LIB_NAME}.{pid}.tmp"
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0
-    text = proc.stdout + proc.stderr
+    text += proc.stdout + proc.stderr
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{text}")
     log.write_text(text)
     os.replace(tmp, lib)      # atomic: a concurrent loader sees all or none
     return lib, seconds, text

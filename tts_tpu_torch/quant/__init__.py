@@ -1,1 +1,1 @@
-"""Weight-only quantization (tts_tpu/quant counterpart): the float path."""
+"""Weight-only quantization (tts_tpu/quant counterpart): float and int8 weights."""

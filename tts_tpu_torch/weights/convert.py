@@ -1,18 +1,48 @@
 """Convert tts_tpu parameter pytrees to the port's tensors.
 
-`params_from_jax` takes tts_tpu's F5 or Vocos tree as nested dicts and
-lists of numpy arrays (`jax.tree.map(np.asarray, params)` on the JAX side)
-and returns the same tree of torch tensors, key for key. Each tree is
-checked against a schema of its keys and shapes: dimension names bind at
-their first use and must agree wherever they recur, so an unknown or
-missing key or an inconsistent shape raises.
+`params_from_jax` takes tts_tpu's F5, Vocos, Kani LM or NanoCodec tree as
+nested dicts and lists of numpy arrays (`jax.tree.map(np.asarray, params)`
+on the JAX side) and returns the same tree of torch tensors, key for key;
+the family is told by the tree's keys. Each tree is checked against a
+schema of its keys and shapes: dimension names bind at their first use and
+must agree wherever they recur (None matches any size), so an unknown or
+missing key or an inconsistent shape raises. `_Opt` marks an optional key,
+`_OneOf` a dict of one of several kinds (Kani's attention and conv layers).
+
+tts_tpu's int8 QTensor leaves (objects with `.q` and `.scale` after the
+tree map) become the port's QTensor, q int8 and scale fp32 whatever
+`dtype` is.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..quant.weight_only import QTensor
+
 __all__ = ["params_from_jax"]
+
+
+class _Opt:
+    """A dict entry that may be absent."""
+
+    def __init__(self, schema):
+        self.schema = schema
+
+
+class _OneOf:
+    """A dict that matches one of several dict schemas: the one whose
+    required keys it has and whose keys it does not exceed."""
+
+    def __init__(self, *schemas: dict):
+        self.schemas = schemas
+
+    def pick(self, tree: dict, where: str) -> dict:
+        for sch in self.schemas:
+            required = {k for k, v in sch.items() if not isinstance(v, _Opt)}
+            if required <= set(tree) <= set(sch):
+                return sch
+        raise KeyError(f"{where}: keys {sorted(tree)} fit none of the layer kinds")
 
 
 def _ln(dim: str) -> dict:
@@ -70,47 +100,99 @@ _VOCOS = {
     "head": _lin("dim", "n_head"),
 }
 
+_KANI_FFN = {"w_gate_up": ("hs", "ff2"), "w_down": ("ff", "hs")}
+_KANI = {
+    "embed": ("vocab", "hs"),
+    "layers": [_OneOf(
+        {"ffn": _KANI_FFN, "wqkv": ("hs", "qkv"), "q_norm": ("hd",),
+         "k_norm": ("hd",), "wo": ("q_sz", "hs")},
+        {"ffn": _KANI_FFN, "in_proj": ("hs", "hs3"), "conv_w": ("kc", 1, "hs"),
+         "conv_b": _Opt(("hs",)), "out_proj": ("hs", "hs")},
+    )],
+    "lm_head": ("hs", "vocab"),
+    "rope_cos": ("max_len", "hd"),
+    "rope_sin": ("max_len", "hd"),
+}
+
+# channel counts halve stage by stage, so the codec's dims stay unbound
+_CODEC_CONV = {"w": (None, None, None), "b": _Opt((None,))}
+_CODEC_ACT = {"alpha": (None,), "alpha_recip": _Opt((None,))}
+_NANOCODEC = {
+    "pre_conv": _CODEC_CONV,
+    "stage_acts": [_CODEC_ACT],
+    "ups": [_CODEC_CONV],
+    "res_layers": [[{"acts1": [_CODEC_ACT], "convs1": [_CODEC_CONV],
+                     "acts2": [_CODEC_ACT], "convs2": [_CODEC_CONV]}]],
+    "post_act": _CODEC_ACT,
+    "post_conv": _CODEC_CONV,
+}
+
 # keys that keep fp32 whatever dtype the weights take (tts_tpu's Euler steps)
 _KEEP_FP32 = {"delta_t"}
 
 
-def _convert(tree, schema, path, dims, device, dtype):
-    where = "/".join(path) or "<root>"
-    if isinstance(schema, dict):
-        if not isinstance(tree, dict):
-            raise TypeError(f"{where}: expected a dict, got {type(tree).__name__}")
-        unknown, missing = set(tree) - set(schema), set(schema) - set(tree)
-        if unknown or missing:
-            raise KeyError(f"{where}: unknown keys {sorted(unknown)}, "
-                           f"missing keys {sorted(missing)}")
-        return {k: _convert(tree[k], schema[k], path + (k,), dims, device, dtype)
-                for k in schema}
-    if isinstance(schema, list):
-        if not isinstance(tree, (list, tuple)):
-            raise TypeError(f"{where}: expected a list, got {type(tree).__name__}")
-        return [_convert(v, schema[0], path + (str(i),), dims, device, dtype)
-                for i, v in enumerate(tree)]
-    a = np.asarray(tree)
+def _leaf(a, schema, where: str, dims: dict) -> np.ndarray:
+    a = np.asarray(a)
     if len(a.shape) != len(schema):
         raise ValueError(f"{where}: shape {a.shape} does not match {schema}")
     for size, want in zip(a.shape, schema):
         if isinstance(want, str):
             want = dims.setdefault(want, size)
-        if size != want:
+        if want is not None and size != want:
             raise ValueError(f"{where}: shape {a.shape} does not match {schema} "
                              f"with {dims}")
     if a.dtype.name == "bfloat16":          # ml_dtypes' bf16 has no torch view
         a = a.astype(np.float32)
-    t = torch.from_numpy(np.array(a))
+    return np.array(a)
+
+
+def _convert(tree, schema, path, dims, device, dtype):
+    where = "/".join(path) or "<root>"
+    if isinstance(schema, _OneOf):
+        if not isinstance(tree, dict):
+            raise TypeError(f"{where}: expected a dict, got {type(tree).__name__}")
+        schema = schema.pick(tree, where)
+    if isinstance(schema, dict):
+        if not isinstance(tree, dict):
+            raise TypeError(f"{where}: expected a dict, got {type(tree).__name__}")
+        required = {k for k, v in schema.items() if not isinstance(v, _Opt)}
+        unknown, missing = set(tree) - set(schema), required - set(tree)
+        if unknown or missing:
+            raise KeyError(f"{where}: unknown keys {sorted(unknown)}, "
+                           f"missing keys {sorted(missing)}")
+        return {k: _convert(tree[k], getattr(schema[k], "schema", schema[k]),
+                            path + (k,), dims, device, dtype)
+                for k in schema if k in tree}
+    if isinstance(schema, list):
+        if not isinstance(tree, (list, tuple)):
+            raise TypeError(f"{where}: expected a list, got {type(tree).__name__}")
+        return [_convert(v, schema[0], path + (str(i),), dims, device, dtype)
+                for i, v in enumerate(tree)]
+    if hasattr(tree, "q") and hasattr(tree, "scale"):      # tts_tpu's int8 QTensor
+        q = _leaf(tree.q, schema, where + "/q", dims)
+        if q.dtype != np.int8:
+            raise TypeError(f"{where}: quantized weights of {q.dtype} are not ported")
+        scale = _leaf(tree.scale, schema[-1:], where + "/scale", dims)
+        return QTensor(q=torch.from_numpy(q).to(device),
+                       scale=torch.from_numpy(scale).float().to(device))
+    t = torch.from_numpy(_leaf(tree, schema, where, dims))
     if t.is_floating_point() and path[-1] not in _KEEP_FP32:
         t = t.to(dtype)
     return t.to(device)
 
 
+def _schema_of(tree: dict) -> dict:
+    for key, schema in (("text_embed", _F5), ("lm_head", _KANI),
+                        ("pre_conv", _NANOCODEC), ("head", _VOCOS)):
+        if key in tree:
+            return schema
+    raise KeyError(f"keys {sorted(tree)} are none of F5, Vocos, Kani or NanoCodec")
+
+
 def params_from_jax(tree: dict, device, dtype: torch.dtype) -> dict:
-    """tts_tpu F5 or Vocos params (nested dicts/lists of numpy arrays) ->
-    the same tree of torch tensors on `device`, floats cast to `dtype`."""
+    """tts_tpu F5, Vocos, Kani or NanoCodec params (nested dicts/lists of
+    numpy arrays) -> the same tree of torch tensors on `device`, floats cast
+    to `dtype`."""
     if not isinstance(tree, dict):
         raise TypeError(f"expected a params dict, got {type(tree).__name__}")
-    schema = _F5 if "text_embed" in tree else _VOCOS
-    return _convert(tree, schema, (), {}, torch.device(device), dtype)
+    return _convert(tree, _schema_of(tree), (), {}, torch.device(device), dtype)
