@@ -4,21 +4,26 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py --kernels-only     # phases 0-2
-    python3 chip_smoke.py --profile DIR      # and a torch.profiler breakdown
-                                             # of one greedy Kani run
+    python3 chip_smoke.py --profile DIR      # and torch.profiler breakdowns
+                                             # of one F5 request (bf16, W8A8)
+                                             # and one greedy Kani run
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
      reports them; turn TF32 off for matmuls and cuDNN;
   1. build the hand-written kernels from tts_tpu_torch/csrc with nvcc;
   2. each kernel against its plain PyTorch twin in bf16, at the F5 bench
-     shapes and the kani-tts-370m decode shapes, with its error, and its
-     time beside the twin's;
+     shapes and the kani-tts-370m decode shapes, with its error, its time
+     beside the twin's and a library call's where one exists, and its
+     bound;
   3. F5Pipeline.synthesize at full F5TTS_v1_Base width (random weights made
      from a seed) on three requests, checking the audio and that every DiT
      block went through the kernels;
   4. F5Pipeline.benchmark: single-request latency and sustained RTF;
-  5. KaniPipeline.synthesize_ids at full kani-tts-370m width (random
+  5. F5Pipeline(quantize="w8a8") over the same models: the three requests
+     through kernels 6-8 (W8A8), one DiT forward against the twins in bf16
+     and fp32, latency and sustained RTF; one quantize=4 request;
+  6. KaniPipeline.synthesize_ids at full kani-tts-370m width (random
      weights from a seed, the bench config: 256 new tokens, no stop token):
      greedy bf16 and int8, beam and a batch of 4, checking the audio, that
      every attention layer's decode step went through kernel 12 (greedy)
@@ -30,6 +35,7 @@ The line before the last is a JSON summary of the kernels; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -66,12 +72,39 @@ KERNELS = {
                              "tts_tpu/ops/grouped_conv.py:100"),
     "mlp_block_fused": ("tts_tpu_torch/csrc/dit_mlp.cu",
                         "tts_tpu/ops/dit_mlp.py:171"),
+    "mlp_block_fused_q8": ("tts_tpu_torch/csrc/dit_mlp_q8.cu",
+                           "tts_tpu/ops/dit_mlp.py:124"),
+    "ln_qkv_q8": ("tts_tpu_torch/csrc/quant_matmul.cu",
+                  "tts_tpu/ops/quant_matmul.py:92"),
+    "out_proj_residual_q8": ("tts_tpu_torch/csrc/quant_matmul.cu",
+                             "tts_tpu/ops/quant_matmul.py:141"),
+    "quantized_matmul": ("tts_tpu_torch/csrc/quant_matmul.cu",
+                         "tts_tpu/ops/quant_matmul.py:176"),
     "fused_qkv_rope": ("tts_tpu_torch/csrc/decode_qkv.cu",
                        "tts_tpu/ops/decode_qkv.py:259"),
     "fused_qkv_attn": ("tts_tpu_torch/csrc/decode_step.cu",
                        "tts_tpu/ops/decode_step.py:301"),
 }
 F5_KERNELS = ("flash_attention_flat", "conv_pos_embed_fused", "mlp_block_fused")
+Q8_KERNELS = ("mlp_block_fused_q8", "ln_qkv_q8", "out_proj_residual_q8")
+
+# the least time the card could take (H100 SXM datasheet: dense tensor-core
+# peaks, HBM rate, at the full 700 W)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12}
+
+
+def set_bound(r: dict, nbytes: float, ops: float, kind: str) -> None:
+    """r["bound_ms"]: the larger of the bytes moved (each input read once,
+    each output written once) over the memory rate and the operations over
+    the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[kind]
+    r["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 # the Kani bench request (bench.py:258-264): 5 prompt ids, 256 new tokens
 KANI_IDS = [[3, 9, 4, 17, 2]]
@@ -103,10 +136,12 @@ def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_ms(fn, iters: int = 10, only: str | None = None) -> float:
     """Device time of one call: the kernels' time in a torch.profiler trace
     of `iters` calls, over iters. A decode kernel's single-call event time
-    is mostly the host's enqueue, the card waiting on it."""
+    is mostly the host's enqueue, the card waiting on it. `only` keeps the
+    kernels whose name holds it (a wrapper's own kernels, without the casts
+    it issues around them)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -115,8 +150,12 @@ def device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+    ms = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and (only is None or only in e.key)) / 1e3 / iters
+    if only is not None and ms <= 0:
+        raise AssertionError(f"no {only!r} kernel in the trace")
+    return ms
 
 
 def check(label: str, got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -141,7 +180,7 @@ def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
     against their fp32 twins on the same bf16 inputs."""
     from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope, fused_qkv_rope_plain
     from tts_tpu_torch.ops.decode_step import fused_qkv_attn, fused_qkv_attn_plain
-    from tts_tpu_torch.quant.weight_only import QTensor, quantize_int8
+    from tts_tpu_torch.quant.weight_only import QTensor, quantize_int8_jit
 
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
@@ -158,7 +197,7 @@ def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
 
     hs, heads, kvh, hd = 1024, 16, 8, 64
     w = rn(hs, (heads + 2 * kvh) * hd, scale=0.02)
-    wq = quantize_int8(w)
+    wq = quantize_int8_jit(w)
     norm_w = torch.full((hd,), hd ** -0.25, device="cuda").to(torch.bfloat16)
     cos, sin = rn(1, hd), rn(1, hd)
     kani = dict(heads=heads, kv_heads=kvh, head_dim=hd, q_norm=norm_w, k_norm=norm_w,
@@ -177,7 +216,7 @@ def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
     for label, wt, args, kw in (
             ("hd128 q/k norms", w128, (rn(1, 128), rn(1, 128)),
              dict(heads=16, kv_heads=8, head_dim=128, q_norm=n128, k_norm=n128)),
-            ("hd128 bias int8", quantize_int8(w128), (rn(1, 128), rn(1, 128)),
+            ("hd128 bias int8", quantize_int8_jit(w128), (rn(1, 128), rn(1, 128)),
              dict(heads=16, kv_heads=8, head_dim=128, bqkv=rn(4096, scale=0.1))),
             ("LN bias no-RoPE MHA", rn(hs, 3 * 16 * 64, scale=0.02), (None, None),
              dict(heads=16, kv_heads=16, head_dim=64, bqkv=rn(3072, scale=0.1),
@@ -200,6 +239,12 @@ def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
     timed["fused_qkv_attn"] = (
         lambda: fused_qkv_attn(x1, w, cos, sin, kc, vc, 3, 700, **kani),
         lambda: fused_qkv_attn_plain(x1, w, cos, sin, kc, vc, 3, 700, **kani))
+    # bounds of the timed calls: the weight, the input row, the outputs
+    # (and kernel 12's cache rows 0..pos of its layer, k and v)
+    w_ops = 2 * hs * w.shape[1]
+    set_bound(res["fused_qkv_rope"], nbytes(w, x1) + 2 * w.shape[1], w_ops, "bf16")
+    set_bound(res["fused_qkv_attn"], nbytes(w, x1) + 2 * w.shape[1]
+              + 2 * kvh * 701 * hd * 2, w_ops + 4 * heads * 701 * hd, "bf16")
     for name, (kernel, plain) in timed.items():
         r = res[name]
         r["ms"], r["plain_ms"] = device_ms(kernel), device_ms(plain)
@@ -225,7 +270,7 @@ def check_kernels(gen: torch.Generator) -> dict:
     def f32(*ts):
         return [t.float() for t in ts]
 
-    res = {name: {"max_abs_err": 0.0} for name in KERNELS}
+    res = {name: {"max_abs_err": 0.0, "library_ms": None} for name in KERNELS}
 
     # as the pipeline passes them: bf16 tables taken to fp32 once
     cos_np, sin_np = f5_rope_tables(4096, 64)
@@ -247,6 +292,10 @@ def check_kernels(gen: torch.Generator) -> dict:
             r["ms"] = time_ms(lambda: flash_attention_flat(qkv, cos, sin, kv, heads=16))
             r["plain_ms"] = time_ms(
                 lambda: flash_attention_flat_plain(qkv, cos, sin, kv, heads=16))
+            # QK^T and PV over the 1396 keys the mask keeps
+            set_bound(r, nbytes(qkv, cos[:t], sin[:t], got),
+                      4 * 2 * 16 * t * 1396 * 64, "bf16")
+            r["library_ms"] = sdpa_ms(qkv, cos, sin, 1396)
         del got, ref
 
     r = res["conv_pos_embed_fused"]
@@ -261,6 +310,9 @@ def check_kernels(gen: torch.Generator) -> dict:
         if t == 1408:
             r["ms"] = time_ms(lambda: conv_pos_embed_fused(x, w1, b1, w2, b2))
             r["plain_ms"] = time_ms(lambda: conv_pos_embed_plain(x, w1, b1, w2, b2))
+            # two grouped convs: 2 * rows * C_out * (K * C_in / groups) each
+            set_bound(r, nbytes(x, w1, b1, w2, b2, got),
+                      2 * 2 * (2 * t) * 1024 * 31 * 64, "bf16")
         del got, ref
 
     r = res["mlp_block_fused"]
@@ -276,11 +328,111 @@ def check_kernels(gen: torch.Generator) -> dict:
         if mods.dim() == 2:
             r["ms"] = time_ms(lambda: mlp_block_fused(x, mods, w1, b1, w2, b2))
             r["plain_ms"] = time_ms(lambda: mlp_block_plain(x, mods, w1, b1, w2, b2))
-    for name in F5_KERNELS:
+            set_bound(r, nbytes(x, mods, w1, b1, w2, b2, got),
+                      4 * 2816 * 1024 * 2048, "bf16")
+    check_q8_kernels(gen, res)
+    for name in F5_KERNELS + Q8_KERNELS + ("quantized_matmul",):
+        lib = res[name]["library_ms"]
+        how = ("device time a call of its q8_rows/q8_gemm kernels (twin: all its "
+               "kernels), profiler over 10 calls" if name not in F5_KERNELS
+               else "CUDA events, median of 10")
         print(f"  {name}: kernel {res[name]['ms']:.4f} ms, plain twin "
-              f"{res[name]['plain_ms']:.4f} ms (bench shape, median of 10)", flush=True)
+              f"{res[name]['plain_ms']:.4f} ms, bound {res[name]['bound_ms']:.4f} ms "
+              f"({res[name]['bound_by']}), library call "
+              f"{'none' if lib is None else f'{lib:.4f} ms'} (bench shape, {how})",
+              flush=True)
     check_decode_kernels(gen, res)
     return res
+
+
+def sdpa_ms(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, kv: int) -> float:
+    """Kernel 1's library yardstick: scaled_dot_product_attention on q, k
+    roped ahead (as the twin ropes them) and v, keys >= kv masked, scale 1
+    (F5 folds it into wqkv). The port never calls it."""
+    import torch.nn.functional as F
+
+    b, t, _ = qkv.shape
+    x = qkv.reshape(b, t, 3, 16, 64).float()
+    c, s = cos[:t][None, :, None, :], sin[:t][None, :, None, :]
+
+    def rope(u):
+        return (u * c + torch.cat([-u[..., 32:], u[..., :32]], dim=-1) * s).to(qkv.dtype)
+
+    q, k = rope(x[:, :, 0]).transpose(1, 2), rope(x[:, :, 1]).transpose(1, 2)
+    v = x[:, :, 2].to(qkv.dtype).transpose(1, 2)
+    mask = (torch.arange(t, device=qkv.device) < kv)[None, None, None, :]
+    return time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                          scale=1.0))
+
+
+def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, kernels 6-9 at the F5 bench shapes (M = 2 x 1408 rows, D
+    1024, qkv 3072, F 2048) against their fp32 twins on the same bf16
+    activations and int8 weights."""
+    from tts_tpu_torch.ops.dit_mlp import mlp_block_fused_q8, mlp_block_q8_plain
+    from tts_tpu_torch.ops.quant_matmul import (ln_qkv_q8, ln_qkv_q8_plain,
+                                                out_proj_residual_q8,
+                                                out_proj_residual_q8_plain,
+                                                quantize_rows, quantized_matmul,
+                                                quantized_matmul_plain)
+    from tts_tpu_torch.quant.weight_only import quantize_int8_eager
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def qw(*shape):
+        w = quantize_int8_eager(rn(*shape, scale=0.02))
+        return w.q, w.scale
+
+    m, d, n, f = 2816, 1024, 3072, 2048
+    x = rn(2, 1408, d)
+    wqkv, wo, w1, w2 = qw(d, n), qw(d, d), qw(d, f), qw(f, d)
+
+    def run(name, label, kernel, plain, args, ops):
+        """Check kernel(*args) against plain on fp32 copies; time both at
+        the first call."""
+        f32 = [a.float() if a.is_floating_point() else a for a in args]
+        got = kernel(*args)
+        ref = plain(*f32)
+        r = res[name]
+        r["max_abs_err"] = max(r["max_abs_err"], check(f"{name} {label}", got, ref))
+        if "ms" not in r:
+            # device time of the int8 core's kernels (q8_rows, q8_gemm) alone:
+            # the wrapper's host work and its fp32 copies of biases and mods
+            # are not the kernel's; the twin's is all its kernels' time
+            r["ms"] = device_ms(lambda: kernel(*args), only="q8_")
+            r["plain_ms"] = device_ms(lambda: plain(*args))
+            print(f"  {name}: one call's wall {time_ms(lambda: kernel(*args)):.4f} ms "
+                  f"(median of 10)", flush=True)
+            set_bound(r, nbytes(*args, got), ops, "int8")
+        del got, ref
+
+    run("ln_qkv_q8", "x=(2, 1408, 1024) N=3072", ln_qkv_q8, ln_qkv_q8_plain,
+        (x, rn(2, d, scale=0.5), *wqkv, rn(n, scale=0.1)), 2 * m * d * n)
+    run("out_proj_residual_q8", "o=(2, 1408, 1024) D=1024", out_proj_residual_q8,
+        out_proj_residual_q8_plain,
+        (rn(2, 1408, d), *wo, rn(d, scale=0.1), rn(d, scale=0.5), x), 2 * m * d * d)
+    for mods, label in ((rn(3, d, scale=0.5), "shared (3, D)"),
+                        (rn(2, 3, d, scale=0.5), "per-row (B, 3, D)")):
+        run("mlp_block_fused_q8", f"x=(2, 1408, 1024) F=2048 mods {label}",
+            mlp_block_fused_q8, mlp_block_q8_plain,
+            (x, mods, *w1, rn(f, scale=0.1), *w2, rn(d, scale=0.1)), 4 * m * d * f)
+    x2 = x.reshape(m, d)
+    run("quantized_matmul", "x=(2816, 1024) N=3072", quantized_matmul,
+        quantized_matmul_plain, (x2, *wqkv), 2 * m * d * n)
+    # library yardstick: torch._int_mm on the operands already quantized
+    # (the s8 GEMM alone: no row quantization, no rescale)
+    xq = quantize_rows(x2.float())[0].to(torch.int8)
+    wq = wqkv[0]
+    for b in (wq, wq.t().contiguous().t()):
+        try:
+            res["quantized_matmul"]["library_ms"] = device_ms(lambda: torch._int_mm(xq, b))
+            print(f"  torch._int_mm (2816, 1024) x (1024, 3072), "
+                  f"{'row' if b.is_contiguous() else 'column'}-major int8 weight", flush=True)
+            break
+        except RuntimeError as e:
+            print(f"  torch._int_mm refused a {tuple(b.stride())}-strided weight: {e}",
+                  flush=True)
 
 
 def run_pipeline() -> tuple:
@@ -307,8 +459,8 @@ def run_pipeline() -> tuple:
 
     rng = np.random.default_rng(0)
     audio = (rng.standard_normal(int(6.0 * cfg.sample_rate)) * 3000).astype(np.int16)
-    per_step = {"flash_attention_flat": cfg.depth, "mlp_block_fused": cfg.depth,
-                "conv_pos_embed_fused": 1, "fused_qkv_rope": 0, "fused_qkv_attn": 0}
+    per_step = {**dict.fromkeys(KERNELS, 0), "flash_attention_flat": cfg.depth,
+                "mlp_block_fused": cfg.depth, "conv_pos_embed_fused": 1}
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     for words in (15, 8, 25):
@@ -340,6 +492,192 @@ def run_pipeline() -> tuple:
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
           flush=True)
     return pipe, launches
+
+
+def synth_checked(pipe, audio, words: int, per_step: dict, label: str) -> None:
+    """One request through `pipe`: int16 audio of the expected length,
+    finite and not all zero, and per_step[k] launches of each kernel k a
+    NFE step."""
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    cfg = pipe.cfg
+    gen_text = " ".join(["word"] * words)
+    *_, buckets, n_keep = pipe._prepare(audio, REF_TEXT, gen_text)
+    before = dict(LAUNCHES)
+    wav, stats = pipe.synthesize(audio, REF_TEXT, gen_text)
+    grew = {k: LAUNCHES[k] - before.get(k, 0) for k in KERNELS}
+    print(f"  {label} request {words} words: frame bucket {buckets[2]}, {len(wav)} "
+          f"int16 samples, wall {stats.wall_s:.4f} s, peak |wav| {stats.peak:.6g}, "
+          f"launches {grew}", flush=True)
+    expect = min(n_keep, (buckets[3] - 1) * cfg.hop)
+    if wav.dtype != np.int16 or len(wav) != expect:
+        raise AssertionError(f"{label}: expected {expect} int16 samples, got "
+                             f"{len(wav)} {wav.dtype}")
+    if not math.isfinite(stats.peak) or not wav.any():
+        raise AssertionError(f"{label}: the waveform is not finite or all zeros")
+    for k, n in per_step.items():
+        if grew[k] != n * (cfg.nfe_steps - 1):
+            raise AssertionError(f"{label}: {k} launched {grew[k]} times, expected "
+                                 f"{n * (cfg.nfe_steps - 1)}")
+
+
+@contextlib.contextmanager
+def twins_in_dit():
+    """Run models/f5's kernels through their plain twins on the card."""
+    import tts_tpu_torch.models.f5 as mf5
+    from tts_tpu_torch.ops import dit_mlp, flash_attention, grouped_conv, quant_matmul
+
+    swap = {"ln_qkv_q8": quant_matmul.ln_qkv_q8_plain,
+            "out_proj_residual_q8": quant_matmul.out_proj_residual_q8_plain,
+            "mlp_block_fused_q8": dit_mlp.mlp_block_q8_plain,
+            "mlp_block_fused": dit_mlp.mlp_block_plain,
+            "conv_pos_embed_fused": grouped_conv.conv_pos_embed_plain,
+            "flash_attention_flat": flash_attention.flash_attention_flat_plain}
+    old = {k: getattr(mf5, k) for k in swap}
+    for k, v in swap.items():
+        setattr(mf5, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(mf5, k, v)
+
+
+def check_w8a8_forward(pipe) -> None:
+    """One W8A8 DiT forward at the bench bucket (1408 frames, keys masked at
+    1396) through kernels 1, 2, 6, 7 and 8, in bf16, and through their twins
+    in bf16 and in fp32, on the same int8 weights. As check_step for Kani:
+    the kernel route's error against fp32 at most STEP_SLACK times the bf16
+    twin route's (22 blocks of bf16 rounding move the output by more than
+    2^-6 on either route)."""
+    from tts_tpu_torch.models.f5 import dit_forward
+    from tts_tpu_torch.quant.weight_only import QTensor
+
+    cfg, params = pipe.cfg, pipe.params
+
+    def cast(tree, dt):
+        if isinstance(tree, dict):
+            return {k: v if k == "delta_t" else cast(v, dt) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v, dt) for v in tree]
+        return tree if isinstance(tree, QTensor) else tree.to(dt)
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    t = 1408
+    noise = torch.randn((1, t, cfg.n_mels), generator=gen, device="cuda")
+    cond = torch.randn((1, t, cfg.n_mels + cfg.text_dim), generator=gen, device="cuda")
+    drop = torch.randn((1, t, cfg.n_mels + cfg.text_dim), generator=gen, device="cuda")
+    cos, sin = params["rope_cos"][:t].float(), params["rope_sin"][:t].float()
+    kv = torch.full((2,), 1396, dtype=torch.int32, device="cuda")
+
+    def fwd(p, dt):
+        a, b = dit_forward(p, noise.to(dt), cond.to(dt), drop.to(dt), cos, sin, cfg,
+                           kv_len=kv, step_idx=3)
+        return torch.cat([a, b]).float()
+
+    kern = fwd(params, torch.bfloat16)
+    with twins_in_dit():
+        plain = fwd(params, torch.bfloat16)
+        ref = fwd(cast(params, torch.float32), torch.float32)
+
+    def rel(a, b=ref):
+        return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+    e_k, e_p = rel(kern), rel(plain)
+    ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_p
+    print(f"  W8A8 dit_forward (1408 frames, kv_len 1396, step 3), rel L2 against the "
+          f"fp32 twin route: kernels {e_k:.6g}, bf16 twins {e_p:.6g} (limit {STEP_SLACK} "
+          f"x); kernels against bf16 twins {rel(kern, plain):.6g} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the W8A8 kernel route is less accurate than its twins")
+
+
+def run_w8a8(pipe, name_limit: str, bench16: dict) -> tuple:
+    """Phase 5: F5Pipeline(quantize="w8a8") over the same F5 and Vocos
+    models: three requests through kernels 6-8, one forward against the
+    twins, latency and sustained RTF; then one quantize=4 request. Returns
+    the W8A8 pipeline and the launch counts of its three requests."""
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.f5 import F5Pipeline
+
+    cfg = pipe.cfg
+    t0 = time.perf_counter()
+    q8 = F5Pipeline(pipe.f5, pipe.vocab, pipe.vocos, quantize="w8a8")
+    torch.cuda.synchronize()
+    print(f"  int8 DiT weights (eager quantizer) in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    audio = (np.random.default_rng(0).standard_normal(int(6.0 * cfg.sample_rate))
+             * 3000).astype(np.int16)
+    per_step = {**dict.fromkeys(KERNELS, 0), "flash_attention_flat": cfg.depth,
+                "conv_pos_embed_fused": 1, **dict.fromkeys(Q8_KERNELS, cfg.depth)}
+    q8.synthesize(audio, REF_TEXT, "word word")      # warm-up
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    for words in (15, 8, 25):
+        synth_checked(q8, audio, words, per_step, "w8a8")
+    launches = dict(LAUNCHES)
+    check_w8a8_forward(q8)
+    bench = q8.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
+    print(f"  {name_limit}: W8A8 latency RTF {bench['rtf']:.6f} ({bench['wall_s']:.4f} s "
+          f"for {bench['audio_s']:.3f} s of audio), sustained RTF "
+          f"{bench['sustained_rtf']:.6f}; bf16 latency RTF {bench16['rtf']:.6f}, "
+          f"sustained {bench16['sustained_rtf']:.6f}", flush=True)
+    print("  " + json.dumps({"f5": "w8a8", **bench}), flush=True)
+
+    t0 = time.perf_counter()
+    q4 = F5Pipeline(pipe.f5, pipe.vocab, pipe.vocos, quantize=4)
+    torch.cuda.synchronize()
+    print(f"  int4 DiT weights (k_quant search) in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    synth_checked(q4, audio, 15, {**dict.fromkeys(KERNELS, 0), "conv_pos_embed_fused": 1,
+                                  "flash_attention_flat": cfg.depth}, "int4")
+    return q8, launches
+
+
+def profile_f5(pipes: dict, name_limit: str) -> None:
+    """torch.profiler over one bench request of each F5 pipeline: device
+    kernel time by kernel, and the device's idle share (1 - kernel time /
+    wall)."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    rate = next(iter(pipes.values())).cfg.sample_rate
+    audio = (np.random.default_rng(0).standard_normal(int(6.0 * rate)) * 3000).astype(np.int16)
+    text = " ".join(["word"] * 15)
+    classes = (("kernel 1 (flash_flat_kernel)", ("flash_flat",)),
+               ("kernel 2 (conv_mish_kernel)", ("conv_mish",)),
+               ("kernel 3 (ff1/ff2_kernel)", ("ff1_kernel", "ff2_kernel")),
+               ("kernels 6-8: q8_rows", ("q8_rows",)),
+               ("kernels 6-8: q8_gemm", ("q8_gemm",)),
+               ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma")))
+    for label, pipe in pipes.items():
+        pipe.synthesize(audio, REF_TEXT, text)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe.synthesize(audio, REF_TEXT, text)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(e.key, e.count, e.device_time_total / 1e3) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(ms for _, _, ms in rows)
+        shares = dict.fromkeys([name for name, _ in classes] + ["elementwise / other"], 0.0)
+        for key, _, ms in rows:
+            cls = next((name for name, pats in classes if any(p in key for p in pats)),
+                       "elementwise / other")
+            shares[cls] += ms
+        print(f"  {name_limit}: profile F5 {label}, bench request: wall {wall:.4f} s "
+              f"profiled, device kernel time {busy:.3f} ms, idle "
+              f"{100 * (1 - busy / 1e3 / wall):.1f}% of the profiled wall, "
+              f"{sum(c for _, c, _ in rows)} kernel launches", flush=True)
+        for name, ms in shares.items():
+            print(f"    {name}: {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)")
+        for key, count, ms in sorted(rows, key=lambda r: -r[2])[:12]:
+            print(f"    kernel {ms:9.3f} ms {count:6d}x  {key[:110]}")
+        del prof, rows
+        gc.collect()
 
 
 def check_step(cfg, params: dict, ids: np.ndarray) -> None:
@@ -554,7 +892,8 @@ def main() -> None:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build and kernels against twins)")
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one greedy Kani run, tables into DIR")
+                    help="also profile one F5 request (bf16 and W8A8) and one "
+                         "greedy Kani run, the Kani tables into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -592,17 +931,25 @@ def main() -> None:
           f"{bench['sustained_rtf']:.6f}", flush=True)
     print("  " + json.dumps(bench), flush=True)
 
-    print("phase 5: KaniPipeline.synthesize_ids", flush=True)
+    print('phase 5: F5Pipeline(quantize="w8a8") and quantize=4', flush=True)
+    q8_pipe, q8 = run_w8a8(pipe, name_limit, bench)
+    # kernel 9 is on no pipeline's path (as in tts_tpu): phase 2 checks it
+    launches.update({k: q8.get(k, 0) for k in Q8_KERNELS + ("quantized_matmul",)})
+    if args.profile:
+        print("phase 5b: torch.profiler over one F5 request, bf16 and W8A8", flush=True)
+        profile_f5({"bf16": pipe, "w8a8": q8_pipe}, name_limit)
+    del q8_pipe
+
+    print("phase 6: KaniPipeline.synthesize_ids", flush=True)
     kani = run_kani(name_limit)
     launches.update({k: kani[k] for k in ("fused_qkv_rope", "fused_qkv_attn")})
     if args.profile:
-        print("phase 5b: torch.profiler over one greedy Kani run", flush=True)
+        print("phase 6b: torch.profiler over one greedy Kani run", flush=True)
         profile_kani(args.profile, name_limit)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches.get(name, 0),
-                "max_abs_err": res[name]["max_abs_err"],
-                "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"]}
+                "launches": launches.get(name, 0), **{k: res[name][k] for k in keys}}
                for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ from tts_tpu.runtime.kani import KaniDecodeConfig as JaxDecodeConfig
 from tts_tpu.runtime.kani import KaniPipeline as JaxPipeline
 from tts_tpu_torch.models import kani as tk
 from tts_tpu_torch.models import nanocodec as tnc
-from tts_tpu_torch.quant.weight_only import QTensor, quantize_int8, quantize_pytree
+from tts_tpu_torch.quant.weight_only import QTensor, quantize_int8_jit, quantize_pytree
 from tts_tpu_torch.runtime.kani import KaniDecodeConfig, KaniPipeline
 from tts_tpu_torch.weights.convert import params_from_jax
 
@@ -78,7 +78,7 @@ def test_quantize_int8_is_bit_equal(shape, scale):
     w = (np.random.default_rng(31).standard_normal(shape) * scale).astype(np.float32)
     w.reshape(-1)[:7] = np.array([0.5, -0.5, 1.5, 2.5, -2.5, 0.0, 3.5]) * scale
     ref = jax.jit(jq)(jnp.asarray(w))
-    out = quantize_int8(_t(w))
+    out = quantize_int8_jit(_t(w))
     assert out.q.dtype == torch.int8 and out.scale.dtype == torch.float32
     np.testing.assert_array_equal(out.q.numpy(), _np(ref.q))
     np.testing.assert_array_equal(out.scale.numpy(), _np(ref.scale))
@@ -424,6 +424,14 @@ def test_synthesize_ids_matches_jax(models, case):
         _same_audio(wt, wj)
     else:
         assert len(wt) == len(wj)
+
+
+@pytest.mark.parametrize("quantize", [4, 16, "w8a8"])
+def test_kani_pipeline_rejects_unported_quantize(models, quantize):
+    """Only int8 is ported for Kani: int4 and anything else raise."""
+    with pytest.raises(ValueError):
+        KaniPipeline(models["tp"], tk.KaniConfig(**LM), models["tcp"], models["tcc"],
+                     KaniDecodeConfig(), audio_tokens_start=0, quantize=quantize)
 
 
 def test_synthesize_ids_batch_matches_jax(models):

@@ -4,9 +4,18 @@ Plain functions on tensors over a params dict with tts_tpu's keys and
 layouts: fused `wqkv` whose q/k columns carry the d^-0.25 scale and the
 half-split RoPE permutation, (K, C_in/groups, C_out) conv weights, and the
 precomputed AdaLN tables `ada_table` / `norm_out_table`. Feature-last
-(B, T, C) throughout. The three hot ops go through the port's kernels
-(ops/flash_attention, ops/grouped_conv, ops/dit_mlp), which run their plain
-twins on CPU tensors.
+(B, T, C) throughout. The hot ops go through the port's kernels
+(ops/flash_attention, ops/grouped_conv, ops/dit_mlp, ops/quant_matmul),
+which run their plain twins on CPU tensors.
+
+With int8 DiT weights (F5Pipeline's quantize=8 / "w8a8") a block takes
+tts_tpu's W8A8 route, under tts_tpu's gates: kernel 7 (LN + modulate + qkv),
+kernel 1, kernel 8 (out-proj + gated residual), then kernel 6 (the MLP).
+The gates add the CUDA kernels' own weight-shape limits (`q8_fits`), as
+tts_tpu's encode its VMEM limits; F5TTS_v1_Base is within them. The port
+takes the route on every device, so the CPU tests run the card's route
+through the twins. int4 weights take the plain chain with a quantized
+`dense`, attention through kernel 1.
 """
 from __future__ import annotations
 
@@ -20,10 +29,11 @@ import torch.nn.functional as F
 from ..nn.norm import layer_norm
 from ..nn.rope import rope_table_interleaved
 from ..ops.conv import conv1d
-from ..ops.dit_mlp import mlp_block_fused
+from ..ops.dit_mlp import mlp_block_fused, mlp_block_fused_q8
 from ..ops.flash_attention import flash_attention_flat
 from ..ops.grouped_conv import conv_pos_embed_fused
-from ..quant.weight_only import dense
+from ..ops.quant_matmul import ln_qkv_q8, out_proj_residual_q8, q8_fits
+from ..quant.weight_only import QTensor, dense
 from ._params import ParamTree
 
 __all__ = [
@@ -203,12 +213,31 @@ def _dit_block(p: dict, x: torch.Tensor, mod: torch.Tensor, rope_cos, rope_sin,
     """AdaLN-zero DiT block; mod (Bm, 1, 6*dim) from the AdaLN table."""
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
         torch.chunk(mod, 6, dim=-1)
-    norm = layer_norm(x, eps=1e-6) * (1 + scale_msa) + shift_msa
-    x = x + gate_msa * _dit_attention(p["attn"], norm, rope_cos, rope_sin,
-                                      cfg.heads, kv_len)
+    t = x.shape[1]
+    a, f1, f2 = p["attn"], p["ff1"], p["ff2"]
+    # the W8A8 attention kernels take one shared mod vector
+    if (mod.shape[0] == 1 and t % 128 == 0 and t <= 4096 and cfg.head_dim % 64 == 0
+            and isinstance(a["wqkv"], QTensor) and isinstance(a["wo"], QTensor)
+            and q8_fits(*a["wqkv"].shape) and q8_fits(*a["wo"].shape)):
+        mods_a = torch.cat([shift_msa[0], scale_msa[0]], dim=0)        # (2, D)
+        qkv = ln_qkv_q8(x, mods_a, a["wqkv"].q, a["wqkv"].scale, a["bqkv"])  # kernel 7
+        o = flash_attention_flat(qkv, rope_cos, rope_sin, kv_len, heads=cfg.heads)
+        x = out_proj_residual_q8(o, a["wo"].q, a["wo"].scale, a["bo"],
+                                 gate_msa.reshape(-1), x)               # kernel 8
+    else:
+        norm = layer_norm(x, eps=1e-6) * (1 + scale_msa) + shift_msa
+        x = x + gate_msa * _dit_attention(a, norm, rope_cos, rope_sin, cfg.heads,
+                                          kv_len)
     mods = torch.cat([shift_mlp, scale_mlp, gate_mlp], dim=1)       # (Bm, 3, D)
-    return mlp_block_fused(x, mods, p["ff1"]["w"], p["ff1"]["b"],
-                           p["ff2"]["w"], p["ff2"]["b"])              # kernel 3
+    if (t % 32 == 0 and isinstance(f1["w"], QTensor) and isinstance(f2["w"], QTensor)
+            and q8_fits(*f1["w"].shape) and q8_fits(*f2["w"].shape)):
+        return mlp_block_fused_q8(x, mods, f1["w"].q, f1["w"].scale, f1["b"],
+                                  f2["w"].q, f2["w"].scale, f2["b"])    # kernel 6
+    if isinstance(f1["w"], torch.Tensor) and isinstance(f2["w"], torch.Tensor):
+        return mlp_block_fused(x, mods, f1["w"], f1["b"], f2["w"], f2["b"])  # kernel 3
+    norm = layer_norm(x, eps=1e-6) * (1 + scale_mlp) + shift_mlp
+    h = F.gelu(dense(norm, f1["w"]) + f1["b"], approximate="tanh")
+    return x + gate_mlp * (dense(h, f2["w"]) + f2["b"])
 
 
 def dit_forward(params: dict, noise: torch.Tensor, cond: torch.Tensor,

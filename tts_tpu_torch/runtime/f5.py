@@ -22,8 +22,9 @@ from ..audio.mel import MelSpectrogram
 from ..frontend.f5_text import convert_char_to_pinyin, f5_duration, text_to_ids
 from ..models.f5 import F5Model, dit_forward, text_embedding
 from ..models.vocos import VocosModel, vocos_decode
+from ..quant.weight_only import quantize_int4, quantize_int8_eager
 
-__all__ = ["F5Pipeline", "F5Stats"]
+__all__ = ["F5Pipeline", "F5Stats", "quantize_dit"]
 
 
 def _bucket(n: int, step: int, lo: int) -> int:
@@ -42,13 +43,44 @@ class F5Stats:
         return self.wall_s / max(self.audio_s, 1e-9)
 
 
+def quantize_dit(params: dict, quantize) -> dict:
+    """tts_tpu's F5Pipeline quantize modes over an F5 params dict: the DiT
+    blocks' wqkv, wo, ff1 and ff2 weights become int8 QTensors (8 or
+    "w8a8", the eager quantizer tts_tpu's pipeline calls) or int4 where the
+    input dim is a multiple of 32 (4: the k_quant search, held in the
+    unpacked QTensorG form, int8 for the rest). AdaLN, the convs and the
+    vocoder stay float. Returns a new dict sharing the other tensors."""
+    if quantize not in (8, "w8a8", 4):
+        raise ValueError(f"quantize must be None, 8, 'w8a8' or 4, got {quantize!r}")
+
+    def q(w):
+        if quantize == 4 and w.dim() == 2 and w.shape[0] % 32 == 0:
+            return quantize_int4(w).unpack_runtime()
+        return quantize_int8_eager(w)
+
+    blocks = [{**blk,
+               "attn": {**blk["attn"], "wqkv": q(blk["attn"]["wqkv"]),
+                        "wo": q(blk["attn"]["wo"])},
+               "ff1": {**blk["ff1"], "w": q(blk["ff1"]["w"])},
+               "ff2": {**blk["ff2"], "w": q(blk["ff2"]["w"])}}
+              for blk in params["blocks"]]
+    return {**params, "blocks": blocks}
+
+
 class F5Pipeline:
     """End-to-end F5-TTS over an F5Model and a VocosModel (random init for
-    smoke runs). Runs on the device the models' tensors are on."""
+    smoke runs). Runs on the device the models' tensors are on.
+
+    quantize: None (float weights), 8 or "w8a8" (int8 DiT weights: every
+    block takes the W8A8 kernels 6-8), or 4 (int4 DiT weights, the plain
+    chain with a quantized dense); see `quantize_dit`."""
 
     def __init__(self, f5: F5Model, vocab: dict[str, int], vocos: VocosModel,
-                 seed: int = 9527, allow_degraded_text: bool = False):
+                 seed: int = 9527, allow_degraded_text: bool = False,
+                 quantize: int | str | None = None):
         self.f5, self.vocos = f5, vocos
+        # quantized weights are made once, on the model's device
+        self._qparams = None if quantize is None else quantize_dit(f5.params, quantize)
         self.cfg, self.vcfg = f5.cfg, vocos.cfg
         self.vocab = vocab
         self.seed = seed
@@ -56,6 +88,12 @@ class F5Pipeline:
         cfg = self.cfg
         self.melspec = MelSpectrogram(cfg.sample_rate, cfg.n_fft, cfg.hop,
                                       cfg.win_length, cfg.n_mels)
+
+    @property
+    def params(self) -> dict:
+        """The F5 params the pipeline runs: the model's, or their quantized
+        form."""
+        return self.f5.params if self._qparams is None else self._qparams
 
     def _prepare(self, ref_audio: np.ndarray, ref_text: str, gen_text: str,
                  speed: float = 1.0):
@@ -95,7 +133,7 @@ class F5Pipeline:
         """Queue one synthesis without waiting: returns (int16 waveform
         (1, samples), peak |float waveform|), both on the device."""
         cfg = self.cfg
-        params, vparams = self.f5.params, self.vocos.params
+        params, vparams = self.params, self.vocos.params
         dev = params["proj_out"]["w"].device
         cdt = params["proj_out"]["w"].dtype       # compute dtype follows the weights
         frames, gen_frames = buckets[2], buckets[3]

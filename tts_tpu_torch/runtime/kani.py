@@ -67,6 +67,8 @@ class KaniPipeline:
     def __init__(self, params: dict, cfg: KaniConfig, codec_params: dict,
                  codec_cfg: NanoCodecConfig, decode_cfg: KaniDecodeConfig | None = None,
                  audio_tokens_start: int | None = None, quantize: int | None = None):
+        if quantize not in (None, 8):
+            raise ValueError(f"quantize must be None or 8, got {quantize!r}")
         if quantize:
             # weight-only int8 on the LM matmuls; the codec stays float
             from ..quant.weight_only import quantize_pytree

@@ -9,16 +9,19 @@ must agree wherever they recur (None matches any size), so an unknown or
 missing key or an inconsistent shape raises. `_Opt` marks an optional key,
 `_OneOf` a dict of one of several kinds (Kani's attention and conv layers).
 
-tts_tpu's int8 QTensor leaves (objects with `.q` and `.scale` after the
-tree map) become the port's QTensor, q int8 and scale fp32 whatever
-`dtype` is.
+tts_tpu's quantized leaves (objects with `.q` and `.scale` after the tree
+map) become the port's, q int8 and scale fp32 whatever `dtype` is: an int8
+QTensor (q (in, out), scale (out,)); a packed int4 QTensor4 (q (in/2, out),
+scale (in/G, out), told by its `unpack_runtime`) or an unpacked QTensorG (q
+(in, out), scale (in/G, out), told by its `pack`), each with its
+`group_size` G. The schema checks the unpacked (in, out) shape.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..quant.weight_only import QTensor
+from ..quant.weight_only import QTensor, QTensor4, QTensorG, _unpack_int4_int8
 
 __all__ = ["params_from_jax"]
 
@@ -168,17 +171,37 @@ def _convert(tree, schema, path, dims, device, dtype):
             raise TypeError(f"{where}: expected a list, got {type(tree).__name__}")
         return [_convert(v, schema[0], path + (str(i),), dims, device, dtype)
                 for i, v in enumerate(tree)]
-    if hasattr(tree, "q") and hasattr(tree, "scale"):      # tts_tpu's int8 QTensor
-        q = _leaf(tree.q, schema, where + "/q", dims)
-        if q.dtype != np.int8:
-            raise TypeError(f"{where}: quantized weights of {q.dtype} are not ported")
-        scale = _leaf(tree.scale, schema[-1:], where + "/scale", dims)
-        return QTensor(q=torch.from_numpy(q).to(device),
-                       scale=torch.from_numpy(scale).float().to(device))
+    if hasattr(tree, "q") and hasattr(tree, "scale"):      # a tts_tpu quantized leaf
+        return _quantized(tree, schema, where, dims, device)
     t = torch.from_numpy(_leaf(tree, schema, where, dims))
     if t.is_floating_point() and path[-1] not in _KEEP_FP32:
         t = t.to(dtype)
     return t.to(device)
+
+
+def _quantized(tree, schema, where: str, dims: dict, device):
+    q = np.asarray(tree.q)
+    if q.dtype != np.int8:
+        raise TypeError(f"{where}: quantized weights of {q.dtype} are not ported")
+    qt = torch.from_numpy(np.array(q))
+    group = getattr(tree, "group_size", None)
+    if group is None:                                       # int8 QTensor
+        _leaf(q, schema, where + "/q", dims)
+        scale = _leaf(tree.scale, schema[-1:], where + "/scale", dims)
+        return QTensor(q=qt.to(device), scale=torch.from_numpy(scale).float().to(device))
+    packed = hasattr(tree, "unpack_runtime")                # QTensor4, else QTensorG
+    if not packed and not hasattr(tree, "pack"):
+        raise TypeError(f"{where}: a grouped {type(tree).__name__} is neither "
+                        f"packed nor unpacked int4")
+    full = _unpack_int4_int8(qt) if packed else qt
+    _leaf(full.numpy(), schema, where + "/q", dims)
+    scale = _leaf(tree.scale, (None,) + tuple(schema[-1:]), where + "/scale", dims)
+    if scale.shape[0] * group != full.shape[0]:
+        raise ValueError(f"{where}: scale {scale.shape} does not fit group {group} "
+                         f"of q {tuple(full.shape)}")
+    cls = QTensor4 if packed else QTensorG
+    return cls(q=qt.to(device), scale=torch.from_numpy(scale).float().to(device),
+               group_size=int(group))
 
 
 def _schema_of(tree: dict) -> dict:
