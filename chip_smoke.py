@@ -5,17 +5,19 @@
 
     python3 chip_smoke.py --kernels-only     # phases 0-2
     python3 chip_smoke.py --profile DIR      # and torch.profiler breakdowns
-                                             # of one F5 request (bf16, W8A8)
-                                             # and one greedy Kani run
+                                             # of one F5 request (bf16, W8A8),
+                                             # one greedy Kani run and one
+                                             # Qwen3-TTS request (bf16, int8)
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
      reports them; turn TF32 off for matmuls and cuDNN;
   1. build the hand-written kernels from tts_tpu_torch/csrc with nvcc;
   2. each kernel against its plain PyTorch twin in bf16, at the F5 bench
-     shapes and the kani-tts-370m decode shapes, with its error, its time
-     beside the twin's and a library call's where one exists, and its
-     bound;
+     shapes, the kani-tts-370m decode shapes and the Qwen3-TTS-0.6B talker
+     and predictor shapes (kernel 12 at head_dim 128, kernels 13-15), with
+     its error, its time beside the twin's and a library call's where one
+     exists, and its bound;
   3. F5Pipeline.synthesize at full F5TTS_v1_Base width (random weights made
      from a seed) on three requests, checking the audio and that every DiT
      block went through the kernels;
@@ -28,7 +30,14 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      greedy bf16 and int8, beam and a batch of 4, checking the audio, that
      every attention layer's decode step went through kernel 12 (greedy)
      or kernel 11 (beam, batch), and one step's logits against the plain
-     route; then tokens/s and RTF of greedy bf16 and int8.
+     route; then tokens/s and RTF of greedy bf16 and int8;
+  7. QwenTTSPipeline at full Qwen3-TTS-0.6B width (random weights from a
+     seed): the bench request (32 text ids, language 3, max_frames 120) in
+     bf16 and int8 on the default route, 88 launches of kernel 12 an
+     iteration and none of kernels 13-15, frames/s and RTF; beam 3 and a
+     batch of 4 (kernel 11); fused_decode="all" at max_frames 128 (kernels
+     11, 13, 14 on talker and predictor) and "mlp_q8" (kernels 11, 15);
+     one talker step through "step", "all" and "mlp_q8" against fp32.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -84,9 +93,17 @@ KERNELS = {
                        "tts_tpu/ops/decode_qkv.py:259"),
     "fused_qkv_attn": ("tts_tpu_torch/csrc/decode_step.cu",
                        "tts_tpu/ops/decode_step.py:301"),
+    "decode_gqa_attention": ("tts_tpu_torch/csrc/decode_attention.cu",
+                             "tts_tpu/ops/decode_attention.py:111"),
+    "fused_out_mlp": ("tts_tpu_torch/csrc/decode_mlp.cu",
+                      "tts_tpu/ops/decode_mlp.py:200"),
+    "fused_out_mlp_q8": ("tts_tpu_torch/csrc/decode_mlp_q8.cu",
+                         "tts_tpu/ops/decode_mlp.py:341"),
 }
 F5_KERNELS = ("flash_attention_flat", "conv_pos_embed_fused", "mlp_block_fused")
 Q8_KERNELS = ("mlp_block_fused_q8", "ln_qkv_q8", "out_proj_residual_q8")
+QWEN_KERNELS = ("fused_qkv_rope", "fused_qkv_attn", "decode_gqa_attention",
+                "fused_out_mlp", "fused_out_mlp_q8")
 
 # the least time the card could take (H100 SXM datasheet: dense tensor-core
 # peaks, HBM rate, at the full 700 W)
@@ -109,6 +126,11 @@ def nbytes(*ts) -> int:
 # the Kani bench request (bench.py:258-264): 5 prompt ids, 256 new tokens
 KANI_IDS = [[3, 9, 4, 17, 2]]
 KANI_NEW = 256
+# the Qwen3-TTS bench request (bench.py:186-191): 32 text ids, language 3,
+# max_frames 120
+QWEN_IDS = np.arange(5, 37, dtype=np.int32)[None]
+QWEN_LANG = 3
+QWEN_FRAMES = 120
 
 
 def card() -> str:
@@ -141,20 +163,34 @@ def device_ms(fn, iters: int = 10, only: str | None = None) -> float:
     of `iters` calls, over iters. A decode kernel's single-call event time
     is mostly the host's enqueue, the card waiting on it. `only` keeps the
     kernels whose name holds it (a wrapper's own kernels, without the casts
-    it issues around them)."""
+    it issues around them). A trace that holds no device time is taken
+    again; if the second holds none either, CUDA events around the `iters`
+    calls give the time (enqueue included), and the line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ms = sum(e.device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (only is None or only in e.key)) / 1e3 / iters
-    if only is not None and ms <= 0:
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (only is None or only in e.key)) / 1e3 / iters
+        if ms > 0:
+            return ms
+    if only is not None:
         raise AssertionError(f"no {only!r} kernel in the trace")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    print(f"  (two profiler traces held no device time: CUDA events over {iters} calls, "
+          f"{ms:.4f} ms a call)", flush=True)
     return ms
 
 
@@ -254,6 +290,127 @@ def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
               f"(median of 10)", flush=True)
 
 
+def check_qwen_kernels(gen: torch.Generator, res: dict) -> None:
+    """Phase 2 at the Qwen3-TTS-0.6B talker and predictor shapes (hidden
+    1024, 16/8 heads x 128, FFN 3072): kernel 12 at head_dim 128 (talker L =
+    28, T = 640; predictor L = 4, T = 32), kernel 13 (B = 1, 3, 8; kv_len 7,
+    126, 2047 of T = 2048 and 17 of T = 32), kernel 14 (bf16 and int8) and
+    kernel 15 (B = 1, 3, 8), each against its fp32 twin on the same bf16
+    inputs and int8 weights; then device times (profiler over 10 calls) at
+    B = 1 beside the twins', SDPA's for kernel 13, and the bounds."""
+    import torch.nn.functional as F
+
+    from tts_tpu_torch.ops.decode_attention import (decode_gqa_attention,
+                                                    decode_gqa_attention_plain)
+    from tts_tpu_torch.ops.decode_mlp import (fused_out_mlp, fused_out_mlp_plain,
+                                              fused_out_mlp_q8, fused_out_mlp_q8_plain)
+    from tts_tpu_torch.ops.decode_step import fused_qkv_attn, fused_qkv_attn_plain
+    from tts_tpu_torch.quant.weight_only import QTensor, quantize_int8_jit
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def f32(a):
+        return a.float() if isinstance(a, torch.Tensor) else a
+
+    hs, heads, kvh, hd, ffn = 1024, 16, 8, 128, 3072
+    from tts_tpu_torch.nn.rope import rope_table
+
+    w = rn(hs, (heads + 2 * kvh) * hd, scale=0.02)
+    wq = quantize_int8_jit(w)
+    norm_w = torch.full((hd,), hd ** -0.25, device="cuda").to(torch.bfloat16)
+    # the talker's RoPE rows, as the pipeline passes them (bf16 tables)
+    table = [torch.as_tensor(a, device="cuda").to(torch.bfloat16)
+             for a in rope_table(2048, hd, 1e6)]
+    qwen = dict(heads=heads, kv_heads=kvh, head_dim=hd, q_norm=norm_w, k_norm=norm_w,
+                eps=1e-6)
+    x1 = rn(1, hs)
+    r = res["fused_qkv_attn"]
+    for stack, layers, t, positions in (("talker", 28, 640, (6, 126, 639)),
+                                        ("predictor", 4, 32, (2, 17))):
+        # cached keys at the scale the k norm (weight d^-0.25) gives them
+        kc, vc = rn(layers, 1, kvh, t, hd, scale=hd ** -0.25), rn(layers, 1, kvh, t, hd)
+        for pos in positions:
+            cos, sin = table[0][pos:pos + 1], table[1][pos:pos + 1]
+            for wt, wl in ((w, "bf16"), (wq, "int8")):
+                got = fused_qkv_attn(x1, wt, cos, sin, kc, vc, layers - 1, pos, **qwen)
+                ref = fused_qkv_attn_plain(
+                    x1.float(), wt if isinstance(wt, QTensor) else wt.float(), cos.float(),
+                    sin.float(), kc.float(), vc.float(), layers - 1, pos,
+                    **{k: f32(v) for k, v in qwen.items()})
+                r["max_abs_err"] = max(r["max_abs_err"], *(
+                    check(f"fused_qkv_attn hd128 {stack} L={layers} T={t} pos={pos} {wl} "
+                          f"{part}", g, rf) for part, g, rf in zip(("out", "k", "v"), got, ref)))
+        if stack == "talker":
+            cos, sin = table[0][126:127], table[1][126:127]
+            timed = {"fused_qkv_attn hd128 (talker, pos 126)": (
+                lambda kc=kc, vc=vc: fused_qkv_attn(x1, w, cos, sin, kc, vc, 27, 126, **qwen),
+                lambda kc=kc, vc=vc: fused_qkv_attn_plain(x1, w, cos, sin, kc, vc, 27, 126,
+                                                          **qwen),
+                nbytes(w, x1) + 2 * w.shape[1] + 2 * kvh * 127 * hd * 2,
+                2 * hs * w.shape[1] + 4 * heads * 127 * hd, "bf16", None)}
+
+    r = res["decode_gqa_attention"]
+    for b in (1, 3, 8):
+        for t, lens in ((2048, (7, 126, 2047)), (32, (17,))):
+            q, k, v = rn(b, heads, hd), rn(b, kvh, t, hd), rn(b, kvh, t, hd)
+            for kv_len in lens:
+                r["max_abs_err"] = max(r["max_abs_err"], check(
+                    f"decode_gqa_attention B={b} T={t} kv_len={kv_len}",
+                    decode_gqa_attention(q, k, v, kv_len),
+                    decode_gqa_attention_plain(q.float(), k.float(), v.float(), kv_len)))
+    # timed where the talker runs it (cache bucket 768 at max_frames 128)
+    q, k, v = rn(1, heads, hd), rn(1, kvh, 768, hd), rn(1, kvh, 768, hd)
+    q4, k4, v4 = q[:, :, None], k[:, :, :126], v[:, :, :126]
+    timed["decode_gqa_attention"] = (
+        lambda: decode_gqa_attention(q, k, v, 126),
+        lambda: decode_gqa_attention_plain(q, k, v, 126),
+        nbytes(q, k4, v4) + q.numel() * 2, 4 * heads * 126 * hd, "bf16",
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0, enable_gqa=True))
+
+    wo, wgu, wd = rn(2048, hs, scale=0.02), rn(hs, 2 * ffn, scale=0.02), rn(ffn, hs, scale=0.02)
+    wq3 = [quantize_int8_jit(m) for m in (wo, wgu, wd)]
+    for b in (1, 3, 8):
+        x, att = rn(b, hs), rn(b, 2048)
+        for label, kernel, plain, ws, ws32 in (
+                ("fused_out_mlp", fused_out_mlp, fused_out_mlp_plain, (wo, wgu, wd),
+                 [m.float() for m in (wo, wgu, wd)]),
+                ("fused_out_mlp", fused_out_mlp, fused_out_mlp_plain, wq3, wq3),
+                ("fused_out_mlp_q8", fused_out_mlp_q8, fused_out_mlp_q8_plain, wq3, wq3)):
+            wl = "int8" if isinstance(ws[0], QTensor) else "bf16"
+            res[label]["max_abs_err"] = max(res[label]["max_abs_err"], check(
+                f"{label} B={b} {wl} weights", kernel(x, att, *ws, eps=1e-6),
+                plain(x.float(), att.float(), *ws32, eps=1e-6)))
+    x, att = rn(1, hs), rn(1, 2048)
+    n_w = wo.numel() + wgu.numel() + wd.numel()
+    io = nbytes(x, att) + x.numel() * 2
+    scales = sum(m.scale.numel() * 4 for m in wq3)
+    timed["fused_out_mlp"] = (lambda: fused_out_mlp(x, att, wo, wgu, wd),
+                              lambda: fused_out_mlp_plain(x, att, wo, wgu, wd),
+                              2 * n_w + io, 2 * n_w, "bf16", None)
+    timed["fused_out_mlp int8 weights"] = (lambda: fused_out_mlp(x, att, *wq3),
+                                           lambda: fused_out_mlp_plain(x, att, *wq3),
+                                           n_w + scales + io, 2 * n_w, "bf16", None)
+    timed["fused_out_mlp_q8"] = (lambda: fused_out_mlp_q8(x, att, *wq3),
+                                 lambda: fused_out_mlp_q8_plain(x, att, *wq3),
+                                 n_w + scales + io, 2 * n_w, "int8", None)
+    name_limit = card()
+    for name, (kernel, plain, nb, ops, kind, lib) in timed.items():
+        r = res[name] if name in res else {}
+        r["ms"], r["plain_ms"] = device_ms(kernel), device_ms(plain)
+        set_bound(r, nb, ops, kind)
+        lib_txt = "none"
+        if lib is not None:
+            r["library_ms"] = device_ms(lib)
+            lib_txt = f"{r['library_ms']:.4f} ms (SDPA, enable_gqa)"
+        print(f"  {name_limit}: {name}: kernel {r['ms']:.4f} ms, plain twin "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{nb / 1e6:.3f} MB, "
+              f"{ops / 1e9:.4f} G {kind} ops), library {lib_txt} (Qwen talker shape, "
+              f"B=1, device time a call, profiler over 10 calls); one call's wall "
+              f"{time_ms(kernel):.4f} / {time_ms(plain):.4f} ms (median of 10)", flush=True)
+
+
 def check_kernels(gen: torch.Generator) -> dict:
     """Phase 2: each kernel against its twin (fp32, same bf16 inputs)."""
     from tts_tpu_torch.models.f5 import f5_rope_tables
@@ -342,6 +499,7 @@ def check_kernels(gen: torch.Generator) -> dict:
               f"{'none' if lib is None else f'{lib:.4f} ms'} (bench shape, {how})",
               flush=True)
     check_decode_kernels(gen, res)
+    check_qwen_kernels(gen, res)
     return res
 
 
@@ -522,25 +680,31 @@ def synth_checked(pipe, audio, words: int, per_step: dict, label: str) -> None:
 
 
 @contextlib.contextmanager
+def swapped(module, swap: dict):
+    """Set module.<name> = swap[name] for the block (a model module's
+    kernel wrappers to their plain twins), then restore them."""
+    old = {k: getattr(module, k) for k in swap}
+    for k, v in swap.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
 def twins_in_dit():
     """Run models/f5's kernels through their plain twins on the card."""
     import tts_tpu_torch.models.f5 as mf5
     from tts_tpu_torch.ops import dit_mlp, flash_attention, grouped_conv, quant_matmul
 
-    swap = {"ln_qkv_q8": quant_matmul.ln_qkv_q8_plain,
-            "out_proj_residual_q8": quant_matmul.out_proj_residual_q8_plain,
-            "mlp_block_fused_q8": dit_mlp.mlp_block_q8_plain,
-            "mlp_block_fused": dit_mlp.mlp_block_plain,
-            "conv_pos_embed_fused": grouped_conv.conv_pos_embed_plain,
-            "flash_attention_flat": flash_attention.flash_attention_flat_plain}
-    old = {k: getattr(mf5, k) for k in swap}
-    for k, v in swap.items():
-        setattr(mf5, k, v)
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            setattr(mf5, k, v)
+    return swapped(mf5, {
+        "ln_qkv_q8": quant_matmul.ln_qkv_q8_plain,
+        "out_proj_residual_q8": quant_matmul.out_proj_residual_q8_plain,
+        "mlp_block_fused_q8": dit_mlp.mlp_block_q8_plain,
+        "mlp_block_fused": dit_mlp.mlp_block_plain,
+        "conv_pos_embed_fused": grouped_conv.conv_pos_embed_plain,
+        "flash_attention_flat": flash_attention.flash_attention_flat_plain})
 
 
 def check_w8a8_forward(pipe) -> None:
@@ -887,20 +1051,284 @@ def profile_kani(out_dir: str, name_limit: str) -> None:
         gc.collect()
 
 
+def qwen_models() -> tuple:
+    """Qwen3-TTS-0.6B talker + predictor and the 12 Hz codec decoder at full
+    width, bf16, random weights from fixed seeds."""
+    from tts_tpu_torch.models.qwen_codec import QwenCodecDecoderConfig, init_decoder_params
+    from tts_tpu_torch.models.qwen_tts import (QwenTTSConfig, init_predictor_params,
+                                               init_talker_params)
+
+    cfg, ccfg = QwenTTSConfig(), QwenCodecDecoderConfig()
+    t0 = time.perf_counter()
+    params = {**init_talker_params(cfg, torch.Generator("cuda").manual_seed(4), torch.bfloat16),
+              **init_predictor_params(cfg, torch.Generator("cuda").manual_seed(5),
+                                      torch.bfloat16)}
+    cparams = init_decoder_params(ccfg, torch.Generator("cuda").manual_seed(6), torch.bfloat16)
+    torch.cuda.synchronize()
+    t, p = cfg.talker, cfg.predictor
+    print(f"  models: talker {t.num_layers} layers x hidden {t.hidden_size}, "
+          f"{t.num_heads}/{t.num_kv_heads} heads x {t.head_dim}, FFN {t.ffn_dim}; predictor "
+          f"{p.num_layers} layers, {cfg.num_code_groups} code groups; codec decoder "
+          f"{ccfg.decoder_dim} channels, upsample {ccfg.total_upsample}; bf16, random init "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    return cfg, ccfg, params, cparams
+
+
+def twins_in_qwen():
+    """Run models/qwen_tts's kernels through their plain twins on the card."""
+    import tts_tpu_torch.models.qwen_tts as mq
+    from tts_tpu_torch.ops import decode_attention, decode_mlp, decode_qkv, decode_step
+
+    return swapped(mq, {
+        "fused_qkv_attn": decode_step.fused_qkv_attn_plain,
+        "fused_qkv_rope": decode_qkv.fused_qkv_rope_plain,
+        "decode_gqa_attention": decode_attention.decode_gqa_attention_plain,
+        "fused_out_mlp": decode_mlp.fused_out_mlp_plain,
+        "fused_out_mlp_q8": decode_mlp.fused_out_mlp_q8_plain})
+
+
+def check_qwen_step(cfg, params: dict, q8_params: dict) -> None:
+    """One talker step at full width from one random state (cache bucket 768,
+    126 rows live) through "step", "all" and "mlp_q8" (int8 weights): the
+    kernels in bf16, the same route's twins in bf16 and in fp32. As
+    check_step for Kani: 28 layers of bf16 rounding move the hidden state by
+    more than 2^-6 on any route, so the kernel route's error against the
+    fp32 twins must be at most STEP_SLACK times the bf16 twins'."""
+    from tts_tpu_torch.kv.cache import KVCache
+    from tts_tpu_torch.models.qwen_tts import qwen3_stack_step
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.quant.weight_only import QTensor
+
+    tc = cfg.talker
+    gen = torch.Generator("cuda").manual_seed(8)
+    shape = (tc.num_layers, 1, tc.num_kv_heads, 768, tc.head_dim)
+    k0 = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    v0 = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn((1, 1, tc.hidden_size), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = 126
+    rc, rs = params["rope_cos"][pos:pos + 1], params["rope_sin"][pos:pos + 1]
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v) for v in tree]
+        return tree if isinstance(tree, QTensor) else tree.float()
+
+    def step(p, route, dt):
+        kv = KVCache(k0.to(dt), v0.to(dt), pos)
+        h, _ = qwen3_stack_step(p, x.to(dt), kv, tc, rc.to(dt), rs.to(dt), fused=route)
+        return h.float()
+
+    n = tc.num_layers
+    want = {"step": {"fused_qkv_attn": n},
+            "all": {"fused_qkv_rope": n, "decode_gqa_attention": n, "fused_out_mlp": n},
+            "mlp_q8": {"fused_qkv_rope": n, "fused_out_mlp_q8": n}}
+    for route, counts in want.items():
+        p = (q8_params if route == "mlp_q8" else params)["talker"]
+        before = dict(LAUNCHES)
+        kern = step(p, route, torch.bfloat16)
+        grew = {k: LAUNCHES[k] - before.get(k, 0) for k in QWEN_KERNELS}
+        if grew != {k: counts.get(k, 0) for k in QWEN_KERNELS}:
+            raise AssertionError(f"talker step {route!r}: launches {grew}, expected {counts}")
+        with twins_in_qwen():
+            plain = step(p, route, torch.bfloat16)
+            ref = step(cast(p), route, torch.float32)
+
+        def rel(a, b=ref):
+            return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+        e_k, e_p = rel(kern), rel(plain)
+        ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_p
+        print(f"  talker step fused={route!r} ({n} layers, pos {pos}, cache 768), rel L2 "
+              f"against its fp32 twins: kernels {e_k:.6g}, bf16 twins {e_p:.6g} (limit "
+              f"{STEP_SLACK} x); kernels against bf16 twins {rel(kern, plain):.6g} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"the {route!r} kernel route is less accurate than its twins")
+
+
+def run_qwen(name_limit: str) -> tuple:
+    """Phase 7: QwenTTSPipeline at full Qwen3-TTS-0.6B width. Returns the
+    launch counts of the "all" and "mlp_q8" runs (kernels 13-15) and the
+    bf16, int8 and bf16 "all" pipelines."""
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.qwen import QwenDecodeConfig, QwenTTSPipeline
+
+    cfg, ccfg, params, cparams = qwen_models()
+    up = ccfg.total_upsample
+    per_iter = cfg.talker.num_layers + (cfg.num_code_groups - 1) * cfg.predictor.num_layers
+    talker = cfg.talker.num_layers
+    beam_pred = (cfg.num_code_groups - 2) * cfg.predictor.num_layers
+
+    def dec(**kw):
+        return QwenDecodeConfig(**{"max_frames": QWEN_FRAMES, **kw})
+
+    def iters(frames: int, cap: int) -> int:
+        """Loop iterations: the EOS frame is computed and dropped."""
+        return frames if frames == cap else frames + 1
+
+    def checked(label, fn, cap, per, rows=1):
+        """Run fn() -> (list of int16 waveforms, stats); check the audio and
+        per[k] launches of each kernel k an iteration. Returns (stats,
+        wall, launches)."""
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        wavs, st = fn()
+        wall = time.perf_counter() - t0
+        grew = {k: LAUNCHES[k] - before.get(k, 0) for k in QWEN_KERNELS}
+        frames = [len(w) // up for w in wavs]
+        n_it = max(iters(f, cap) for f in frames)
+        print(f"  {label}: frames {frames} ({sum(len(w) for w in wavs)} int16 samples), "
+              f"{n_it} loop iterations, wall {wall:.4f} s, peak |wav| "
+              f"{st.get('peak', float('nan')):.6g}, "
+              f"launches {grew}", flush=True)
+        for w, f in zip(wavs, frames):
+            if w.dtype != np.int16 or len(w) != f * up or not 1 <= f <= cap:
+                raise AssertionError(f"{label}: {len(w)} {w.dtype} samples, not frames x {up}")
+        if len(wavs) != rows or not math.isfinite(st.get("peak", math.nan)) \
+                or not any(w.any() for w in wavs):
+            raise AssertionError(f"{label}: waveform not finite or all zeros")
+        for k in QWEN_KERNELS:
+            if grew[k] != per.get(k, 0) * n_it:
+                raise AssertionError(f"{label}: {k} launched {grew[k]} times, expected "
+                                     f"{per.get(k, 0)} x {n_it} iterations")
+        return st, wall, grew
+
+    def single(pipe):
+        def fn():
+            wav, st = pipe.synthesize_ids(QWEN_IDS, language_id=QWEN_LANG)
+            return [wav], st
+        return fn
+
+    pipes = {"bf16": QwenTTSPipeline(params, cfg, cparams, ccfg, dec()),
+             "int8": QwenTTSPipeline(params, cfg, cparams, ccfg, dec(), quantize=8)}
+    for pipe in pipes.values():                     # warm-up
+        pipe.synthesize_ids(QWEN_IDS, language_id=QWEN_LANG)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    for label, pipe in pipes.items():
+        st, wall, _ = checked(f"bench request {label}, default route", single(pipe),
+                              QWEN_FRAMES, {"fused_qkv_attn": per_iter})
+        fps = st["frames"] / wall
+        rtf = wall / (st["frames"] / 12.0)
+        print(f"  {name_limit}: Qwen {label}: {fps:.2f} frames/s, RTF {rtf:.6f} ({wall:.4f} s "
+              f"for {st['frames']} frames = {st['frames'] / 12.0:.4f} s of audio)", flush=True)
+        print("  " + json.dumps({"qwen": label, "frames": st["frames"], "wall_s": wall,
+                                 "frames_per_s": fps, "rtf": rtf}), flush=True)
+
+    beam = QwenTTSPipeline(params, cfg, cparams, ccfg, dec(
+        max_frames=8, use_beam=True, beam_size=3, beam_top_k=3))
+    checked("beam 3 / top-k 3, 8 frames", single(beam), 8,
+            {"fused_qkv_attn": talker, "fused_qkv_rope": beam_pred})
+    small = QwenTTSPipeline(params, cfg, cparams, ccfg, dec(max_frames=8))
+    prompts = [QWEN_IDS, np.arange(5, 20, dtype=np.int32)[None],
+               np.arange(40, 90, dtype=np.int32)[None], np.array([[7, 1, 4]], np.int32)]
+    reqs = [small.build_prefill_embeds(i, QWEN_LANG) for i in prompts]
+    checked("batch of 4, 8 frames", lambda: small.synthesize_from_prefill_batch(reqs), 8,
+            {"fused_qkv_rope": per_iter}, rows=4)
+
+    launches = {}
+    q8 = pipes["int8"].params
+    fused_all = QwenTTSPipeline(params, cfg, cparams, ccfg,
+                                dec(max_frames=128, fused_decode="all"))
+    for label, pipe, cap, per in (
+            ('fused_decode="all" bf16, max_frames 128', fused_all,
+             128, {"fused_qkv_rope": per_iter, "decode_gqa_attention": per_iter,
+                   "fused_out_mlp": per_iter}),
+            ('fused_decode="mlp_q8" int8',
+             QwenTTSPipeline(q8, cfg, cparams, ccfg, dec(fused_decode="mlp_q8")),
+             QWEN_FRAMES, {"fused_qkv_rope": per_iter, "fused_out_mlp_q8": per_iter})):
+        st, wall, grew = checked(label, single(pipe), cap, per)
+        print(f"  {name_limit}: Qwen {label}: {st['frames'] / wall:.2f} frames/s, RTF "
+              f"{wall / (st['frames'] / 12.0):.6f} (first call)", flush=True)
+        launches.update({k: grew[k] for k in ("decode_gqa_attention", "fused_out_mlp",
+                                               "fused_out_mlp_q8") if grew[k]})
+    check_qwen_step(cfg, params, {"talker": q8["talker"]})
+    return launches, {**pipes, "bf16 fused_decode=all (max_frames 128)": fused_all}
+
+
+def profile_qwen(pipes: dict, out_dir: str, name_limit: str) -> None:
+    """torch.profiler over one bench request of each pipeline (bf16 and int8
+    on the default route, bf16 on "all"): device time by kernel class, the
+    device's idle share (1 - kernel time / wall), launches a frame, host
+    time by op; tables into out_dir."""
+    import gc
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    classes = (("kernel 12 attention (attn_kernel)", ("attn_kernel",)),
+               ("kernel 11 / 12 qkv head", ("qkv_matvec", "qkv_epilogue")),
+               ("kernel 13", ("block_kernel", "merge_kernel")),
+               ("kernels 14 / 15", ("oproj_kernel", "gateup_kernel", "down_kernel")),
+               ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma", "cublas")),
+               ("casts / copies", ("copy", "convert")),
+               ("conv (codec)", ("conv", "cudnn", "implicit", "winograd", "fft")))
+    for tag, pipe in pipes.items():
+        pipe.synthesize_ids(QWEN_IDS, language_id=QWEN_LANG)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, st = pipe.synthesize_ids(QWEN_IDS, language_id=QWEN_LANG)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        rows = [(e.key, e.count, e.device_time_total / 1e3) for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(ms for _, _, ms in rows)
+        shares = dict.fromkeys([name for name, _ in classes] + ["elementwise / other"], 0.0)
+        for key, _, ms in rows:
+            low = key.lower()
+            cls = next((name for name, pats in classes if any(p in low for p in pats)),
+                       "elementwise / other")
+            shares[cls] += ms
+        n_launch = sum(e.count for e in events
+                       if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+        frames = st["frames"]
+        print(f"  {name_limit}: profile Qwen {tag}, bench request: {frames} frames, wall "
+              f"{wall:.4f} s profiled, device kernel time {busy:.3f} ms "
+              f"({busy / max(frames, 1):.4f} ms a frame), idle "
+              f"{100 * (1 - busy / 1e3 / wall):.1f}% of the profiled wall, {n_launch} launches "
+              f"({n_launch / max(frames, 1):.1f} a frame)", flush=True)
+        for name, ms in shares.items():
+            print(f"    {name}: {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)")
+        for key, count, ms in sorted(rows, key=lambda r: -r[2])[:12]:
+            print(f"    kernel {ms:9.3f} ms {count:6d}x  {key[:110]}")
+        host = sorted(((e.key, e.count, e.self_cpu_time_total / 1e3) for e in events
+                       if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda r: -r[2])
+        for key, count, ms in host[:8]:
+            print(f"    host {ms:9.3f} ms self {count:7d}x  {key[:80]}")
+        name = tag.split()[0] + ("_all" if "all" in tag else "")
+        with open(os.path.join(out_dir, f"qwen_profile_{name}.txt"), "w") as f:
+            f.write(events.table(sort_by="device_time_total", row_limit=60))
+            f.write(events.table(sort_by="self_cpu_time_total", row_limit=40))
+        del prof, events
+        gc.collect()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build and kernels against twins)")
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one F5 request (bf16 and W8A8) and one "
-                         "greedy Kani run, the Kani tables into DIR")
+                    help="also profile one F5 request (bf16 and W8A8), one "
+                         "greedy Kani run and one Qwen3-TTS request (bf16 and "
+                         "int8), the Kani and Qwen tables into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False)")
     from tts_tpu_torch.ops import _build
 
-    print("phase 0: device", flush=True)
+    t_start = time.perf_counter()
+
+    def phase(title: str) -> None:
+        print(f"{title} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    phase("phase 0: device")
     name_limit = card()
     print(name_limit, flush=True)
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -908,7 +1336,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    print("phase 1: build", flush=True)
+    phase("phase 1: build")
     path, seconds, log = _build.build()
     _build.library()
     print(f"  built {path.name} in {seconds:.2f} s (0 = already built)", flush=True)
@@ -916,37 +1344,46 @@ def main() -> None:
         if any(w in line for w in ("entry function", "registers", "spill", "error")):
             print(f"  nvcc: {line.strip()}")
 
-    print("phase 2: kernels against their twins", flush=True)
+    phase("phase 2: kernels against their twins")
     res = check_kernels(torch.Generator("cuda").manual_seed(1234))
     if args.kernels_only:
         return
 
-    print("phase 3: F5Pipeline.synthesize", flush=True)
+    phase("phase 3: F5Pipeline.synthesize")
     pipe, launches = run_pipeline()
 
-    print("phase 4: F5Pipeline.benchmark", flush=True)
+    phase("phase 4: F5Pipeline.benchmark")
     bench = pipe.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
     print(f"  {name_limit}: latency RTF {bench['rtf']:.6f} ({bench['wall_s']:.4f} s"
           f" for {bench['audio_s']:.3f} s of audio), sustained RTF "
           f"{bench['sustained_rtf']:.6f}", flush=True)
     print("  " + json.dumps(bench), flush=True)
 
-    print('phase 5: F5Pipeline(quantize="w8a8") and quantize=4', flush=True)
+    phase('phase 5: F5Pipeline(quantize="w8a8") and quantize=4')
     q8_pipe, q8 = run_w8a8(pipe, name_limit, bench)
     # kernel 9 is on no pipeline's path (as in tts_tpu): phase 2 checks it
     launches.update({k: q8.get(k, 0) for k in Q8_KERNELS + ("quantized_matmul",)})
     if args.profile:
-        print("phase 5b: torch.profiler over one F5 request, bf16 and W8A8", flush=True)
+        phase("phase 5b: torch.profiler over one F5 request, bf16 and W8A8")
         profile_f5({"bf16": pipe, "w8a8": q8_pipe}, name_limit)
     del q8_pipe
 
-    print("phase 6: KaniPipeline.synthesize_ids", flush=True)
+    phase("phase 6: KaniPipeline.synthesize_ids")
     kani = run_kani(name_limit)
     launches.update({k: kani[k] for k in ("fused_qkv_rope", "fused_qkv_attn")})
     if args.profile:
-        print("phase 6b: torch.profiler over one greedy Kani run", flush=True)
+        phase("phase 6b: torch.profiler over one greedy Kani run")
         profile_kani(args.profile, name_limit)
 
+    phase("phase 7: QwenTTSPipeline")
+    qwen, qwen_pipes = run_qwen(name_limit)
+    launches.update(qwen)
+    if args.profile:
+        phase("phase 7b: torch.profiler over one Qwen3-TTS request")
+        profile_qwen(qwen_pipes, args.profile, name_limit)
+    del qwen_pipes
+
+    phase("done")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches.get(name, 0), **{k: res[name][k] for k in keys}}

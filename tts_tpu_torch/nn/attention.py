@@ -4,7 +4,7 @@ tts_tpu/nn/attention.py).
 GQA runs as grouped products over (B, KVH, G, S, D) with no repeat of the
 keys and values; scores and softmax in fp32, masked scores at -1e30, the
 probabilities cast to the activation dtype before P.V. The d^-0.5 scale is
-folded into the weights at load.
+folded into the weights at load (`scale` takes it where it is not).
 """
 from __future__ import annotations
 
@@ -34,9 +34,10 @@ def combine_kv_valid(mask: torch.Tensor, kv_valid: torch.Tensor) -> torch.Tensor
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
+                  mask: torch.Tensor | None, scale: float = 1.0) -> torch.Tensor:
     """q (B, S, H, D); k, v (B, KVH, T, D); mask (S, T) or (B, S, T), True =
-    attend. Returns (B, S, H, D)."""
+    attend, or None (every key). `scale` multiplies the fp32 scores (1.0:
+    d^-0.5 folded into the weights). Returns (B, S, H, D)."""
     b, s, h, d = q.shape
     kvh = k.shape[1]
     g = h // kvh
@@ -44,8 +45,11 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(b, s, kvh, g, d).permute(0, 2, 3, 1, 4)       # (B, KVH, G, S, D)
     # bf16 products are exact in fp32: fp32 operands give the fp32 accumulation
     scores = torch.matmul(qg.float(), k.to(dt).float().transpose(-1, -2)[:, :, None])
-    m = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
-    scores = torch.where(m, scores, NEG_INF)
+    if scale != 1.0:
+        scores = scores * scale
+    if mask is not None:
+        m = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
+        scores = torch.where(m, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dt)
     out = torch.matmul(probs.float(), v.to(dt).float()[:, :, None]).to(dt)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)

@@ -30,7 +30,7 @@ import torch
 from . import _build
 from .decode_qkv import check_contract, fused_qkv_rope_plain, launch_args
 
-__all__ = ["fused_qkv_attn", "fused_qkv_attn_plain", "MAX_GROUP"]
+__all__ = ["fused_qkv_attn", "fused_qkv_attn_plain", "MAX_GROUP", "step_fits"]
 
 MAX_GROUP = 8                     # q heads per kv head the CUDA kernel takes
 _MAX_SMEM = 200 * 1024            # dynamic shared memory it may ask for
@@ -39,6 +39,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # k_cache, v_cache (the layer's (KVH, T, D) slices), attn, T, pos, stream
 _ARGTYPES = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _I, _I, _P]
+
+
+def _smem_bytes(group: int, head_dim: int, pos: int) -> int:
+    """Dynamic shared memory the CUDA kernel asks for at `pos` rows."""
+    return 4 * (9 * group * head_dim + group * pos)
+
+
+def step_fits(group: int, head_dim: int, pos: int) -> bool:
+    """Whether the CUDA kernel takes `group` q heads per kv head and `pos`
+    cache rows in its shared memory (the model gates add this)."""
+    return group <= MAX_GROUP and _smem_bytes(group, head_dim, pos) <= _MAX_SMEM
 
 
 def _attend(q, k_row, v_row, kc, vc, pos: int, heads: int, kv_heads: int,
@@ -126,7 +137,7 @@ def fused_qkv_attn(x: torch.Tensor, wqkv, rope_cos=None, rope_sin=None,
     if g > MAX_GROUP:
         raise ValueError(f"the CUDA kernel takes at most {MAX_GROUP} q heads per "
                          f"kv head, got {g}")
-    smem = 4 * (9 * g * head_dim + g * pos)
+    smem = _smem_bytes(g, head_dim, pos)
     if smem > _MAX_SMEM:
         raise ValueError(f"pos {pos} needs {smem} bytes of shared memory, over "
                          f"the kernel's {_MAX_SMEM}")

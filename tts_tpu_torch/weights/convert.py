@@ -1,6 +1,7 @@
 """Convert tts_tpu parameter pytrees to the port's tensors.
 
-`params_from_jax` takes tts_tpu's F5, Vocos, Kani LM or NanoCodec tree as
+`params_from_jax` takes tts_tpu's F5, Vocos, Kani LM, NanoCodec, Qwen3-TTS
+(the merged talker + predictor tree) or Qwen codec decoder tree as
 nested dicts and lists of numpy arrays (`jax.tree.map(np.asarray, params)`
 on the JAX side) and returns the same tree of torch tensors, key for key;
 the family is told by the tree's keys. Each tree is checked against a
@@ -130,6 +131,59 @@ _NANOCODEC = {
     "post_conv": _CODEC_CONV,
 }
 
+
+def _qwen_stack(p: str) -> dict:
+    """A Qwen3 decoder stack; its dims bind under prefix p (the talker's and
+    the predictor's widths may differ)."""
+    return {"layers": [{
+        "wqkv": (f"{p}hs", f"{p}qkv"), "bqkv": _Opt((f"{p}qkv",)),
+        "q_norm": (f"{p}hd",), "k_norm": (f"{p}hd",), "wo": (f"{p}q_sz", f"{p}hs"),
+        "w_gate_up": (f"{p}hs", f"{p}ff2"), "w_down": (f"{p}ff", f"{p}hs")}]}
+
+
+_QWEN = {
+    "talker": _qwen_stack("t_"),
+    "codec_head": ("t_hs", "codec_vocab"),
+    "suppress_bias": (1, "codec_vocab"),
+    "talker_codec_embed": ("codec_vocab", "t_hs"),
+    "text_embed": ("text_vocab", "text_hidden"),
+    "text_proj_w": ("text_hidden", "t_hs"),
+    "text_proj_b": ("t_hs",),
+    "rope_cos": ("t_max_len", "t_hd"),
+    "rope_sin": ("t_max_len", "t_hd"),
+    "predictor": _qwen_stack("p_"),
+    "small_to_mtp": ("t_hs", "p_hs"),
+    "lm_heads": ("groups", "p_hs", "group_vocab"),
+    "group_embeds": ("groups", "group_vocab", "t_hs"),
+    "pred_rope_cos": ("p_max_len", "p_hd"),
+    "pred_rope_sin": ("p_max_len", "p_hd"),
+}
+
+_QWEN_CONV = {"w": (None, None, None), "b": _Opt((None,))}
+_QWEN_ACT = {"alpha": (None,), "beta_recip": (None,)}
+_QWEN_CODEC = {
+    "sem_codebook": ("bins", "rvq"),
+    "sem_out_proj": ("rvq", "cb_dim"),
+    "ac_codebooks": ("n_ac", "bins", "rvq"),
+    "ac_out_proj": ("rvq", "cb_dim"),
+    "pre_conv": _QWEN_CONV,
+    "input_proj": _lin("latent", "hs"),
+    "layers": [{"wqkv": ("hs", "qkv"), "bqkv": _Opt(("qkv",)), "wo": ("q_sz", "hs"),
+                "w_gate_up": ("hs", "ff2"), "w_down": ("ff", "hs")}],
+    "output_proj": _lin("hs", "latent"),
+    "rope_cos": ("max_len", "hd"),
+    "rope_sin": ("max_len", "hd"),
+    "upsample": [{"conv": _QWEN_CONV,
+                  "convnext": {"dwconv": _QWEN_CONV, "pw1": _lin("latent", "latent4"),
+                               "pw2": _lin("latent4", "latent")}}],
+    "dec_pre": _QWEN_CONV,
+    "dec_blocks": [{"act": _QWEN_ACT, "up": _QWEN_CONV,
+                    "units": [{"act1": _QWEN_ACT, "conv1": _QWEN_CONV,
+                               "act2": _QWEN_ACT, "conv2": _QWEN_CONV}]}],
+    "dec_post_act": _QWEN_ACT,
+    "dec_post": _QWEN_CONV,
+}
+
 # keys that keep fp32 whatever dtype the weights take (tts_tpu's Euler steps)
 _KEEP_FP32 = {"delta_t"}
 
@@ -205,16 +259,18 @@ def _quantized(tree, schema, where: str, dims: dict, device):
 
 
 def _schema_of(tree: dict) -> dict:
-    for key, schema in (("text_embed", _F5), ("lm_head", _KANI),
+    for key, schema in (("talker", _QWEN), ("sem_codebook", _QWEN_CODEC),
+                        ("text_embed", _F5), ("lm_head", _KANI),
                         ("pre_conv", _NANOCODEC), ("head", _VOCOS)):
         if key in tree:
             return schema
-    raise KeyError(f"keys {sorted(tree)} are none of F5, Vocos, Kani or NanoCodec")
+    raise KeyError(f"keys {sorted(tree)} are none of F5, Vocos, Kani, NanoCodec, "
+                   f"Qwen3-TTS or the Qwen codec")
 
 
 def params_from_jax(tree: dict, device, dtype: torch.dtype) -> dict:
-    """tts_tpu F5, Vocos, Kani or NanoCodec params (nested dicts/lists of
-    numpy arrays) -> the same tree of torch tensors on `device`, floats cast
+    """tts_tpu F5, Vocos, Kani, NanoCodec, Qwen3-TTS or Qwen codec params
+    (nested dicts/lists of numpy arrays) -> the same tree of torch tensors on `device`, floats cast
     to `dtype`."""
     if not isinstance(tree, dict):
         raise TypeError(f"expected a params dict, got {type(tree).__name__}")
