@@ -6,16 +6,20 @@
     python3 chip_smoke.py --kernels-only     # phases 0-2
     python3 chip_smoke.py --profile DIR      # and torch.profiler breakdowns
                                              # of one F5 request (bf16, W8A8),
-                                             # one greedy Kani run and one
-                                             # Qwen3-TTS request (bf16, int8)
+                                             # one greedy Kani run, one
+                                             # Qwen3-TTS request (bf16, int8),
+                                             # one BigVGAN call and one
+                                             # IndexTTS request
+    python3 chip_smoke.py --families bigvgan,indextts   # phases 0-2, 8, 9
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
      reports them; turn TF32 off for matmuls and cuDNN;
   1. build the hand-written kernels from tts_tpu_torch/csrc with nvcc;
   2. each kernel against its plain PyTorch twin in bf16, at the F5 bench
-     shapes, the kani-tts-370m decode shapes and the Qwen3-TTS-0.6B talker
-     and predictor shapes (kernel 12 at head_dim 128, kernels 13-15), with
+     shapes, the kani-tts-370m decode shapes, the Qwen3-TTS-0.6B talker
+     and predictor shapes (kernel 12 at head_dim 128, kernels 13-15) and
+     the BigVGAN bench stages (kernel 10 at stages 2 and 5), with
      its error, its time beside the twin's and a library call's where one
      exists, and its bound;
   3. F5Pipeline.synthesize at full F5TTS_v1_Base width (random weights made
@@ -37,7 +41,19 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      iteration and none of kernels 13-15, frames/s and RTF; beam 3 and a
      batch of 4 (kernel 11); fused_decode="all" at max_frames 128 (kernels
      11, 13, 14 on talker and predictor) and "mlp_q8" (kernels 11, 15);
-     one talker step through "step", "all" and "mlp_q8" against fp32.
+     one talker step through "step", "all" and "mlp_q8" against fp32;
+  8. BigVGANVocoder at full bigvgan_v2_24khz_100band_256x width (random
+     weights from a seed, scaled to keep the waveform off zero and off the
+     clamp): the bench mel (1, 512, 100) -> 131,072 int16 samples, 12
+     launches of kernel 10 a call, the float output against the same
+     generator with kernel 10's twin and against fp32, samples/s and RTF;
+  9. IndexTTSPipeline at full IndexTTS-1.5 width (GPT 24 x 1280, 20 heads;
+     conformer 6 x 512; ECAPA 512; BigVGAN 1536 channels from 1280 inputs;
+     random weights from seeds, no stop token): encode_reference on a 6 s
+     reference, requests of 32 text ids x 256 tokens in bf16 and int8 and a
+     batch of 4, 24 launches of kernel 11 a decode step, none of kernel 12,
+     12 of kernel 10 a vocoder call, one GPT step's logits against fp32,
+     tokens/s and RTF.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -47,6 +63,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -99,6 +116,8 @@ KERNELS = {
                       "tts_tpu/ops/decode_mlp.py:200"),
     "fused_out_mlp_q8": ("tts_tpu_torch/csrc/decode_mlp_q8.cu",
                          "tts_tpu/ops/decode_mlp.py:341"),
+    "amp_block_fused": ("tts_tpu_torch/csrc/amp_block.cu",
+                        "tts_tpu/ops/bigvgan_stage.py:202"),
 }
 F5_KERNELS = ("flash_attention_flat", "conv_pos_embed_fused", "mlp_block_fused")
 Q8_KERNELS = ("mlp_block_fused_q8", "ln_qkv_q8", "out_proj_residual_q8")
@@ -108,14 +127,17 @@ QWEN_KERNELS = ("fused_qkv_rope", "fused_qkv_attn", "decode_gqa_attention",
 # the least time the card could take (H100 SXM datasheet: dense tensor-core
 # peaks, HBM rate, at the full 700 W)
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
-def set_bound(r: dict, nbytes: float, ops: float, kind: str) -> None:
+def set_bound(r: dict, nbytes: float, ops: float, kind: str, ops2: float = 0.0,
+              kind2: str = "fp32") -> None:
     """r["bound_ms"]: the larger of the bytes moved (each input read once,
     each output written once) over the memory rate and the operations over
-    the peak rate of their type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[kind]
+    the peak rate of their type (`ops2` a second kind of operations, as
+    kernel 10's fp32 activation work beside its bf16 tensor-core work)."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(ops / PEAK_OPS_S[kind], ops2 / PEAK_OPS_S[kind2])
     r["bound_ms"] = max(t_bytes, t_ops) * 1e3
     r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
@@ -500,7 +522,95 @@ def check_kernels(gen: torch.Generator) -> dict:
               flush=True)
     check_decode_kernels(gen, res)
     check_qwen_kernels(gen, res)
+    check_bigvgan_kernel(gen, res)
     return res
+
+
+# the BigVGAN bench stages kernel 10 runs (bigvgan_v2_24khz_100band_256x at
+# the bench mel of 512 frames): (stage, C, T)
+BV_STAGES = ((2, 192, 16384), (3, 96, 32768), (4, 48, 65536), (5, 24, 131072))
+BV_KS = (3, 7, 11)
+BV_DILS = (1, 3, 5)
+# fp32 operations of one anti-aliased act per (t, c): two upsample phases
+# of 6 products and 5 sums, the snake (alpha product, sine, square,
+# product, sum) on each, 12 decimation products and 11 sums
+ACT_OPS = 2 * (6 + 5) + 2 * 5 + 12 + 11
+
+
+def amp_block_inputs(gen: torch.Generator, b: int, t: int, c: int, k: int) -> tuple:
+    """Kernel 10's operands at one shape: x, then w1, b1, w2, b2 at a scale
+    that keeps the residual stream O(1), snake alphas 1 + U(0, 1) and
+    reciprocals U(0.5, 1.5), all bf16."""
+    j = len(BV_DILS)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def uni(lo):
+        return (lo + torch.rand((j, c), generator=gen, device="cuda")).to(torch.bfloat16)
+
+    ws = (k * c) ** -0.5
+    return (rn(b, t, c), rn(j, k, c, c, scale=ws), rn(j, c, scale=0.1),
+            rn(j, k, c, c, scale=ws), rn(j, c, scale=0.1), uni(1.0), uni(0.5), uni(1.0),
+            uni(0.5))
+
+
+def amp_block_bound(r: dict, b: int, t: int, c: int, k: int) -> None:
+    """Kernel 10's bound at one resblock: x read and written once and the
+    weights read once (bytes); 12 k C^2 T bf16 tensor-core flops (two convs
+    a branch, three branches); 6 acts of ACT_OPS fp32 operations per (t, c)."""
+    j = len(BV_DILS)
+    nb = 2 * (2 * b * t * c + 2 * j * k * c * c + 6 * j * c)
+    set_bound(r, nb, 2 * 2 * j * k * c * c * b * t, "bf16", 2 * j * ACT_OPS * b * t * c)
+
+
+def check_bigvgan_kernel(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, kernel 10 at the BigVGAN bench stages 2 (C 192, T 16384) and
+    5 (C 24, T 131072) for k = 3, 7, 11 against its fp32 twin on the same
+    bf16 inputs, and at both stages' C with 4 batch rows of T / 4 (k = 11);
+    then CUDA-event times (median of 10) of the kernel and its
+    bf16 twin at all four stages the bench call runs it at, with bounds.
+    The kernels' row is stage 2 at k = 11, the heaviest resblock."""
+    from tts_tpu_torch.ops.bigvgan_stage import amp_block_fused, amp_block_fused_plain
+
+    r = res["amp_block_fused"]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    name_limit = card()
+    for stage, c, t in BV_STAGES:
+        for k in BV_KS:
+            args = amp_block_inputs(gen, 1, t, c, k)
+            kern = lambda: amp_block_fused(*args, k=k, dils=BV_DILS)
+            plain = lambda: amp_block_fused_plain(*args, k=k, dils=BV_DILS)
+            if stage in (2, 5):
+                got = kern()
+                ref = amp_block_fused_plain(*[a.float() for a in args], k=k, dils=BV_DILS)
+                r["max_abs_err"] = max(r["max_abs_err"], check(
+                    f"amp_block_fused stage {stage} x=(1, {t}, {c}) k={k} dils={BV_DILS}",
+                    got, ref))
+                del got, ref
+            one = {}
+            one["ms"], one["plain_ms"] = time_ms(kern), time_ms(plain)
+            amp_block_bound(one, 1, t, c, k)
+            for key in tot:
+                tot[key] += one[key]
+            print(f"  {name_limit}: amp_block_fused stage {stage} (C {c}, T {t}) k={k}: "
+                  f"kernel {one['ms']:.4f} ms, bf16 twin {one['plain_ms']:.4f} ms, bound "
+                  f"{one['bound_ms']:.4f} ms ({one['bound_by']}) (CUDA events, median of 10)",
+                  flush=True)
+            if (stage, k) == (2, 11):
+                r.update(one)
+            del args
+    for stage, c, t in (BV_STAGES[0], BV_STAGES[-1]):   # batch rows: a grid dimension
+        args = amp_block_inputs(gen, 4, t // 4, c, 11)
+        got = amp_block_fused(*args, k=11, dils=BV_DILS)
+        ref = amp_block_fused_plain(*[a.float() for a in args], k=11, dils=BV_DILS)
+        r["max_abs_err"] = max(r["max_abs_err"], check(
+            f"amp_block_fused stage {stage} x=(4, {t // 4}, {c}) k=11 dils={BV_DILS}", got, ref))
+        del got, ref, args
+    print(f"  {name_limit}: amp_block_fused over the 12 resblocks of a bench call: kernel "
+          f"{tot['ms']:.4f} ms, bf16 twin {tot['plain_ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms (sum of each resblock's); library call: none",
+          flush=True)
 
 
 def sdpa_ms(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, kv: int) -> float:
@@ -715,16 +825,8 @@ def check_w8a8_forward(pipe) -> None:
     twin route's (22 blocks of bf16 rounding move the output by more than
     2^-6 on either route)."""
     from tts_tpu_torch.models.f5 import dit_forward
-    from tts_tpu_torch.quant.weight_only import QTensor
 
     cfg, params = pipe.cfg, pipe.params
-
-    def cast(tree, dt):
-        if isinstance(tree, dict):
-            return {k: v if k == "delta_t" else cast(v, dt) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [cast(v, dt) for v in tree]
-        return tree if isinstance(tree, QTensor) else tree.to(dt)
 
     gen = torch.Generator("cuda").manual_seed(5)
     t = 1408
@@ -742,7 +844,7 @@ def check_w8a8_forward(pipe) -> None:
     kern = fwd(params, torch.bfloat16)
     with twins_in_dit():
         plain = fwd(params, torch.bfloat16)
-        ref = fwd(cast(params, torch.float32), torch.float32)
+        ref = fwd(cast_tree(params, torch.float32), torch.float32)
 
     def rel(a, b=ref):
         return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
@@ -856,13 +958,6 @@ def check_step(cfg, params: dict, ids: np.ndarray) -> None:
     from tts_tpu_torch.models.kani import KaniState, init_state, kani_step
     from tts_tpu_torch.runtime.kani import _prefill_loop
 
-    def cast(tree, dt):
-        if isinstance(tree, dict):
-            return {k: cast(v, dt) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [cast(v, dt) for v in tree]
-        return tree.to(dt)
-
     ids_buf = torch.tensor(np.pad(ids, ((0, 0), (0, 64 - ids.shape[1]))), device="cuda")
     state, logits = _prefill_loop(params, ids_buf, ids.shape[1],
                                   init_state(cfg, 1, torch.bfloat16, "cuda"), cfg)
@@ -872,7 +967,7 @@ def check_step(cfg, params: dict, ids: np.ndarray) -> None:
     s32 = state.clone()
     s32 = KaniState(type(s32.kv)(s32.kv.k.float(), s32.kv.v.float(), s32.kv.length),
                     s32.conv.float())
-    ref, _ = kani_step(cast(params, torch.float32), h.float(), s32, cfg, fused=False)
+    ref, _ = kani_step(cast_tree(params, torch.float32), h.float(), s32, cfg, fused=False)
     if not torch.isfinite(fused).all():
         raise AssertionError("fused step logits not finite")
 
@@ -1097,7 +1192,6 @@ def check_qwen_step(cfg, params: dict, q8_params: dict) -> None:
     from tts_tpu_torch.kv.cache import KVCache
     from tts_tpu_torch.models.qwen_tts import qwen3_stack_step
     from tts_tpu_torch.ops._build import LAUNCHES
-    from tts_tpu_torch.quant.weight_only import QTensor
 
     tc = cfg.talker
     gen = torch.Generator("cuda").manual_seed(8)
@@ -1107,13 +1201,6 @@ def check_qwen_step(cfg, params: dict, q8_params: dict) -> None:
     x = torch.randn((1, 1, tc.hidden_size), generator=gen, device="cuda").to(torch.bfloat16)
     pos = 126
     rc, rs = params["rope_cos"][pos:pos + 1], params["rope_sin"][pos:pos + 1]
-
-    def cast(tree):
-        if isinstance(tree, dict):
-            return {k: cast(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [cast(v) for v in tree]
-        return tree if isinstance(tree, QTensor) else tree.float()
 
     def step(p, route, dt):
         kv = KVCache(k0.to(dt), v0.to(dt), pos)
@@ -1133,7 +1220,7 @@ def check_qwen_step(cfg, params: dict, q8_params: dict) -> None:
             raise AssertionError(f"talker step {route!r}: launches {grew}, expected {counts}")
         with twins_in_qwen():
             plain = step(p, route, torch.bfloat16)
-            ref = step(cast(p), route, torch.float32)
+            ref = step(cast_tree(p, torch.float32), route, torch.float32)
 
         def rel(a, b=ref):
             return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
@@ -1309,15 +1396,395 @@ def profile_qwen(pipes: dict, out_dir: str, name_limit: str) -> None:
         gc.collect()
 
 
+def bigvgan_weights(cfg, seed: int) -> dict:
+    """BigVGAN params at full width in bf16, random from `seed`, each conv
+    rescaled from tts_tpu's N(0, 0.02^2) to gain / sqrt(k C_in): 1 for
+    conv_pre, sqrt(rate) for the transposed convs (each output sums k /
+    rate taps), 0.5 for the resblock convs (the residual stream grows by a
+    quarter of its variance a branch at most) and 0.3 for conv_post, so the
+    waveform stays off zero and mostly off the clamp."""
+    from tts_tpu_torch.models.bigvgan import init_params
+
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(seed), torch.bfloat16)
+
+    def rescale(conv, gain):
+        k, cin, _ = conv["w"].shape
+        conv["w"].mul_(gain / (0.02 * math.sqrt(k * cin)))
+
+    rescale(params["conv_pre"], 1.0)
+    for up, rate in zip(params["ups"], cfg.upsample_rates):
+        rescale(up, math.sqrt(rate))
+    for rb in params["resblocks"]:
+        for conv in rb["convs1"] + rb["convs2"]:
+            rescale(conv, 0.5)
+    rescale(params["conv_post"], 0.3)
+    return params
+
+
+def kernel10_per_call(cfg, frames: int) -> int:
+    """Resblocks of one vocoder call that the gate sends to kernel 10."""
+    from tts_tpu_torch.ops.bigvgan_stage import fusable_stage
+
+    t, n = frames * (4 if cfg.feat_upsample else 1), 0
+    for c, rate in zip(cfg.stage_channels, cfg.upsample_rates):
+        t *= rate
+        n += cfg.num_kernels * fusable_stage(c, t, torch.bfloat16, "cuda")
+    return n
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (torch.linalg.vector_norm(a.float() - b.float())
+            / torch.linalg.vector_norm(b.float())).item()
+
+
+def cast_tree(tree, dt):
+    """A params tree with its float tensors cast to dt (QTensors kept)."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dt) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_tree(v, dt) for v in tree]
+    return tree.to(dt) if isinstance(tree, torch.Tensor) and tree.is_floating_point() else tree
+
+
+def run_vocoder(name_limit: str) -> tuple:
+    """Phase 8: BigVGANVocoder at full bigvgan_v2_24khz_100band_256x width
+    on the bench mel. Returns the launch counts of one call and the
+    vocoder."""
+    import tts_tpu_torch.ops.bigvgan_stage as k10
+    from tts_tpu_torch.models.bigvgan import BigVGANConfig, bigvgan_apply
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.vocoder import BigVGANVocoder
+
+    cfg = BigVGANConfig()
+    t0 = time.perf_counter()
+    voc = BigVGANVocoder(bigvgan_weights(cfg, 9), cfg, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"  model: BigVGAN {cfg.num_mels} mels, {cfg.upsample_initial_channel} channels, "
+          f"upsample {cfg.total_upsample}, resblocks k {cfg.resblock_kernel_sizes}; bf16, "
+          f"random init in {time.perf_counter() - t0:.2f} s", flush=True)
+    mel = np.random.default_rng(9).standard_normal((1, 512, cfg.num_mels)).astype(np.float32)
+    voc(mel)                                                # warm-up
+    torch.cuda.synchronize()
+    per_call = kernel10_per_call(cfg, 512)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    wav = voc(mel)
+    wall = time.perf_counter() - t0
+    launches = {"amp_block_fused": LAUNCHES["amp_block_fused"]}
+    melt = torch.as_tensor(mel, device="cuda").to(torch.bfloat16)
+    kern = bigvgan_apply(voc.params, melt, cfg).float()
+    rms = kern.square().mean().sqrt().item()
+    clipped = (kern.abs() >= 1.0).float().mean().item()
+    print(f"  bench mel (1, 512, {cfg.num_mels}): {wav.shape[-1]} int16 samples, wall "
+          f"{wall:.4f} s (first timed call), waveform RMS {rms:.4f}, {100 * clipped:.2f}% "
+          f"at the clamp, kernel-10 launches {launches['amp_block_fused']} (expected "
+          f"{per_call})", flush=True)
+    if wav.dtype != np.int16 or wav.shape != (1, 512 * cfg.total_upsample):
+        raise AssertionError(f"expected (1, {512 * cfg.total_upsample}) int16, got "
+                             f"{wav.shape} {wav.dtype}")
+    if not math.isfinite(rms) or rms < 1e-3 or clipped > 0.5 or not wav.any():
+        raise AssertionError("the waveform is not finite, near zero or mostly clamped")
+    if launches["amp_block_fused"] != per_call:
+        raise AssertionError(f"kernel 10 launched {launches['amp_block_fused']} times, "
+                             f"expected {per_call}")
+    with swapped(k10, {"amp_block_fused": k10.amp_block_fused_plain}):
+        plain = bigvgan_apply(voc.params, melt, cfg).float()
+    # fp32 takes the plain chain on the card (the kernel is bf16 only)
+    ref = bigvgan_apply(cast_tree(voc.params, torch.float32), melt.float(), cfg).float()
+    e_k, e_p = rel_l2(kern, ref), rel_l2(plain, ref)
+    ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_p
+    print(f"  generator output, rel L2 against the fp32 generator: kernel 10 {e_k:.6g}, its "
+          f"bf16 twin {e_p:.6g} (limit {STEP_SLACK} x); kernel against twin "
+          f"{rel_l2(kern, plain):.6g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("kernel 10's generator is less accurate than its twin's")
+    del kern, plain, ref
+    bench = voc.benchmark(mel_frames=512, iters=10)
+    plain_ms = time_ms(lambda: bigvgan_apply(voc.params, melt, cfg, fused=False), iters=5,
+                       warmup=1)
+    print(f"  {name_limit}: BigVGAN bench mel (1, 512, 100): {bench['samples_per_sec']:.0f} "
+          f"samples/s, RTF {bench['rtf']:.6f} ({1e3 * bench['wall_s']:.3f} ms a call, "
+          f"{bench['samples']} samples, 10 calls); plain chain (fused=False) "
+          f"{plain_ms:.3f} ms a call (CUDA events, median of 5)", flush=True)
+    print("  " + json.dumps({"bigvgan": "bf16", **bench, "plain_ms": plain_ms}), flush=True)
+    return launches, voc
+
+
+INDEX_IDS = np.arange(5, 37, dtype=np.int32)[None]     # 32 text ids
+INDEX_GEN = 256
+
+
+def indextts_models() -> tuple:
+    """IndexTTS-1.5 at full width (GPT 24 x 1280, 20 heads; conformer 6 x
+    512; ECAPA 512; the IndexTTS-1.5 BigVGAN: 1536 channels from 1280
+    inputs, tanh and bias at the end), bf16, random weights from fixed
+    seeds. No stop token: random weights would stop at a random step.
+
+    The vocoder upsamples 1024x, one GPT latent per mel code: the index-tts
+    release's checkpoints/config.yaml `bigvgan:` section (upsample_rates
+    [4,4,4,4,2,2], upsample_kernel_sizes [8,8,4,4,4,4], feat_upsample
+    false), as recalled; no such file is in the repository to check it
+    against. tts_tpu's loader falls back to 256x when the file is absent."""
+    from tts_tpu_torch.models.bigvgan import BigVGANConfig
+    from tts_tpu_torch.models.indextts import (IndexTTSConfig, init_conformer_params,
+                                               init_ecapa_params, init_gpt_params,
+                                               init_perceiver_params)
+
+    cfg = IndexTTSConfig(stop_token=-1)
+    vcfg = BigVGANConfig(num_mels=cfg.gpt_dim, upsample_rates=(4, 4, 4, 4, 2, 2),
+                         upsample_kernel_sizes=(8, 8, 4, 4, 4, 4),
+                         use_tanh_at_final=True, use_bias_at_final=True)
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+
+    def g(seed):
+        return torch.Generator("cuda").manual_seed(seed)
+
+    def lin(cin, cout, seed):
+        w = torch.randn((cin, cout), generator=g(seed), device="cuda") * cin ** -0.5
+        return {"w": w.to(bf), "b": torch.zeros((cout,), dtype=bf, device="cuda")}
+
+    c0 = vcfg.upsample_initial_channel
+    params = {
+        "conformer": init_conformer_params(cfg, g(20), dtype=bf),
+        "perceiver": init_perceiver_params(cfg, g(21), bf),
+        "ecapa": init_ecapa_params(cfg, g(22), bf),
+        "gpt": init_gpt_params(cfg, g(23), bf),
+        "bigvgan": bigvgan_weights(vcfg, 24),
+        "cond_layer": lin(cfg.speaker_embed_dim, c0, 25),
+        "conds": [lin(cfg.speaker_embed_dim, c, 26 + i)
+                  for i, c in enumerate(vcfg.stage_channels)],
+    }
+    torch.cuda.synchronize()
+    print(f"  models: GPT {cfg.gpt_layers} x {cfg.gpt_dim}, {cfg.gpt_heads} heads x "
+          f"{cfg.gpt_head_dim}, {cfg.num_mel_codes} codes; conformer {cfg.enc_layers} x "
+          f"{cfg.enc_dim}; ECAPA {cfg.ecapa_channels}; BigVGAN {c0} channels from "
+          f"{vcfg.num_mels} inputs, upsample {vcfg.total_upsample}; bf16, random init in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return cfg, vcfg, params
+
+
+def check_index_step(pipe, ref) -> None:
+    """One GPT decode step after the bench request's prefill, through
+    kernel 11 (the route every decode step takes) in bf16, against the
+    plain route in bf16 and in fp32 (params and cache cast): as check_step
+    for Kani, the kernel route's error at most STEP_SLACK times the plain
+    route's."""
+    from tts_tpu_torch.kv.cache import KVCache
+    from tts_tpu_torch.models.indextts import gpt_step
+
+    cfg, gpt = pipe.cfg, pipe.params["gpt"]
+    ids = np.zeros((1, 32), np.int32)
+    ids[0] = INDEX_IDS[0]
+    logits, _, kv, kv_valid, vec = pipe._prefill(ref[0], ids, np.array([32]), INDEX_GEN)
+    tok = logits.argmax(-1)
+    h = (gpt["mel_embed"][tok] + gpt["mel_pos"][1][None])[:, None]
+
+    def step(p, dt, route):
+        c = KVCache(kv.k.to(dt).clone(), kv.v.to(dt).clone(), kv.length)
+        out, _, _ = gpt_step(p, h.to(dt), c, vec, cfg, kv_valid[0], fused=route)
+        return out.float()
+
+    kern, plain = step(gpt, torch.bfloat16, True), step(gpt, torch.bfloat16, False)
+    ref32 = step(cast_tree(gpt, torch.float32), torch.float32, False)
+    e_k, e_p = rel_l2(kern, ref32), rel_l2(plain, ref32)
+    ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_p
+    print(f"  GPT step logits ({cfg.gpt_layers} layers, pos {kv.length}), rel L2 against the fp32 plain "
+          f"route: kernel 11 {e_k:.6g}, plain {e_p:.6g} (limit {STEP_SLACK} x); kernel against "
+          f"plain bf16 {rel_l2(kern, plain):.6g}, argmax equal "
+          f"{bool((kern.argmax(-1) == plain.argmax(-1)).all())} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("the kernel-11 GPT step is less accurate than the plain one")
+
+
+def check_index_vocode(pipe, args: tuple, label: str) -> None:
+    """Kernel 10 in IndexTTS's vocoder at the shapes a request gave it:
+    the arguments `_vocode` was called with run again through kernel 10,
+    through its bf16 twin, and in fp32 (params and inputs cast; fp32 takes
+    the plain chain on the card). As in phase 8, kernel 10's rel L2 against
+    fp32 is at most STEP_SLACK x the twin's."""
+    import tts_tpu_torch.ops.bigvgan_stage as k10
+    from tts_tpu_torch.models.bigvgan import bigvgan_apply
+    from tts_tpu_torch.models.indextts import gpt_final_norm
+
+    hiddens, frames, fb, cond_embed, conds = args
+    dev = hiddens.device
+    keep = torch.arange(fb, device=dev)[None] < torch.tensor(frames, device=dev)[:, None]
+    h = hiddens[:, :fb] * keep[..., None]
+
+    def wav(dt):
+        p = {"final_norm": pipe.params["gpt"]["final_norm"], "bigvgan": pipe.params["bigvgan"]}
+        p = cast_tree(p, dt)
+        return bigvgan_apply(p["bigvgan"], gpt_final_norm(p, h.to(dt)), pipe.vcfg,
+                             conds=[c.to(dt) for c in conds],
+                             cond_embed=cond_embed.to(dt)).float()
+
+    kern = wav(torch.bfloat16)
+    with swapped(k10, {"amp_block_fused": k10.amp_block_fused_plain}):
+        plain = wav(torch.bfloat16)
+    ref = wav(torch.float32)
+    e_k, e_p = rel_l2(kern, ref), rel_l2(plain, ref)
+    ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_p
+    print(f"  {label} vocoder ({tuple(kern.shape)}), rel L2 against the fp32 generator: "
+          f"kernel 10 {e_k:.6g}, its bf16 twin {e_p:.6g} (limit {STEP_SLACK} x); kernel "
+          f"against twin {rel_l2(kern, plain):.6g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: kernel 10's vocoder is less accurate than its twin's")
+
+
+def run_indextts(name_limit: str) -> tuple:
+    """Phase 9: IndexTTSPipeline at full IndexTTS-1.5 width. Returns the
+    launch counts of the bf16 request and the bf16 pipeline and reference."""
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.indextts import IndexTTSPipeline
+
+    cfg, vcfg, params = indextts_models()
+    rate = vcfg.sample_rate
+    tt = np.arange(6 * rate) / rate
+    rng = np.random.default_rng(12)
+    sig = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
+           + 0.1 * np.sin(2 * np.pi * 330 * tt) + 0.05 * rng.standard_normal(tt.size))
+    audio = (sig * 12000).astype(np.int16)
+    pipes = {"bf16": IndexTTSPipeline(params, cfg, vcfg),
+             "int8": IndexTTSPipeline(params, cfg, vcfg, quantize=8)}
+    t0 = time.perf_counter()
+    ref = pipes["bf16"].encode_reference(audio)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    ref = pipes["bf16"].encode_reference(audio)
+    torch.cuda.synchronize()
+    print(f"  encode_reference (6 s at {rate} Hz): conds_latent {tuple(ref[0].shape)}, "
+          f"cond_embed {tuple(ref[1].shape)}, {len(ref[2])} stage conds, first call "
+          f"{t_enc:.3f} s, second {time.perf_counter() - t0 - t_enc:.3f} s", flush=True)
+    if not all(bool(torch.isfinite(t).all()) for t in (ref[0], ref[1], *ref[2])):
+        raise AssertionError("encode_reference gave non-finite conditioning")
+    k10 = kernel10_per_call(vcfg, INDEX_GEN)
+    names = ("fused_qkv_rope", "fused_qkv_attn", "amp_block_fused")
+
+    def checked(label, fn, rows):
+        before = dict(LAUNCHES)
+        wavs, tokens, wall = fn()
+        grew = {k: LAUNCHES[k] - before.get(k, 0) for k in names}
+        steps = INDEX_GEN - 1                  # the first token is the prefill's
+        audio_s = sum(len(w) for w in wavs) / rate
+        print(f"  {name_limit}: IndexTTS {label}: {tokens} tokens, "
+              f"{[len(w) for w in wavs]} int16 samples, wall {wall:.4f} s, "
+              f"{tokens / wall:.2f} tokens/s, RTF {wall / audio_s:.6f}, launches {grew}",
+              flush=True)
+        want = {"fused_qkv_rope": cfg.gpt_layers * steps, "fused_qkv_attn": 0,
+                "amp_block_fused": k10}
+        if grew != want:
+            raise AssertionError(f"{label}: launches {grew}, expected {want}")
+        if tokens != INDEX_GEN * rows or len(wavs) != rows:
+            raise AssertionError(f"{label}: {tokens} tokens, expected {INDEX_GEN * rows}")
+        for w in wavs:
+            if w.dtype != np.int16 or len(w) != (INDEX_GEN - 2) * vcfg.total_upsample \
+                    or not w.any():
+                raise AssertionError(f"{label}: {len(w)} {w.dtype} samples, expected "
+                                     f"{(INDEX_GEN - 2) * vcfg.total_upsample} int16")
+        print("  " + json.dumps({"indextts": label, "tokens": tokens, "wall_s": wall,
+                                 "tokens_per_s": tokens / wall, "rtf": wall / audio_s}),
+              flush=True)
+        return grew
+
+    def single(pipe):
+        def fn():
+            wav, st = pipe.synthesize_ids(INDEX_IDS, ref, max_gen=INDEX_GEN)
+            return [wav], st.tokens, st.wall_s
+        return fn
+
+    for pipe in pipes.values():                     # warm-up
+        pipe.synthesize_ids(INDEX_IDS, ref, max_gen=INDEX_GEN)
+    torch.cuda.synchronize()
+    vocoded = []                                    # _vocode's arguments, by call
+    real_vocode = pipes["bf16"]._vocode
+    pipes["bf16"]._vocode = lambda *a: vocoded.append(a) or real_vocode(*a)
+    LAUNCHES.clear()
+    launches = checked("bf16 request", single(pipes["bf16"]), 1)
+    checked("int8 request", single(pipes["int8"]), 1)
+    prompts = [INDEX_IDS, np.arange(5, 20, dtype=np.int32)[None],
+               np.arange(40, 90, dtype=np.int32)[None], np.array([[7, 1, 4]], np.int32)]
+
+    def batch():
+        wavs, st = pipes["bf16"].synthesize_ids_batch([(p, ref) for p in prompts],
+                                                      max_gen=INDEX_GEN)
+        return wavs, st["tokens"], st["wall_s"]
+
+    checked("batch of 4 (bf16)", batch, 4)
+    del pipes["bf16"]._vocode
+    for args, label in zip(vocoded, ("bf16 request", "batch of 4")):
+        check_index_vocode(pipes["bf16"], args, label)
+    check_index_step(pipes["bf16"], ref)
+    return launches, pipes["bf16"], ref
+
+
+def profile_one(label: str, fn, classes, name_limit: str, per: tuple | None = None,
+                out_path: str | None = None) -> None:
+    """torch.profiler over one fn() after a warm-up: device kernel time by
+    class, the device's idle share (1 - kernel time / wall), launches (per
+    (count, unit) where given); the table into out_path."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    rows = [(e.key, e.count, e.device_time_total / 1e3) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ms for _, _, ms in rows)
+    shares = dict.fromkeys([name for name, _ in classes] + ["elementwise / other"], 0.0)
+    for key, _, ms in rows:
+        low = key.lower()
+        cls = next((name for name, pats in classes if any(p in low for p in pats)),
+                   "elementwise / other")
+        shares[cls] += ms
+    n_launch = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    unit = f" ({n_launch / per[0]:.1f} a {per[1]})" if per else ""
+    print(f"  {name_limit}: profile {label}: wall {wall:.4f} s profiled, device kernel time "
+          f"{busy:.3f} ms, idle {100 * (1 - busy / 1e3 / wall):.1f}% of the profiled wall, "
+          f"{n_launch} launches{unit}", flush=True)
+    for name, ms in shares.items():
+        print(f"    {name}: {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)")
+    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:10]:
+        print(f"    kernel {ms:9.3f} ms {count:6d}x  {key[:110]}")
+    if out_path:
+        with open(out_path, "w") as f:
+            f.write(events.table(sort_by="device_time_total", row_limit=60))
+    del prof, events
+    gc.collect()
+
+
+K10_CLASS = ("kernel 10 (amp_branch_kernel)", ("amp_branch",))
+CONV_CLASS = ("conv (cuDNN)", ("fprop", "dgrad", "conv", "cudnn", "implicit", "winograd",
+                               "fft"))
+GEMM_CLASS = ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "xmma", "cublas"))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build and kernels against twins)")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one F5 request (bf16 and W8A8), one "
-                         "greedy Kani run and one Qwen3-TTS request (bf16 and "
-                         "int8), the Kani and Qwen tables into DIR")
+                         "greedy Kani run, one Qwen3-TTS request (bf16 and "
+                         "int8), one BigVGAN call and one IndexTTS request, "
+                         "the Kani, Qwen, BigVGAN and IndexTTS tables into DIR")
+    ap.add_argument("--families", default="f5,kani,qwen,bigvgan,indextts",
+                    help="the pipeline phases to run after phase 2, by family: "
+                         "f5 (3-5), kani (6), qwen (7), bigvgan (8), indextts (9); "
+                         "default all (the smoke run's contract)")
     args = ap.parse_args()
+    fams = set(args.families.split(","))
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False)")
@@ -1349,39 +1816,69 @@ def main() -> None:
     if args.kernels_only:
         return
 
-    phase("phase 3: F5Pipeline.synthesize")
-    pipe, launches = run_pipeline()
+    launches: dict = {}
+    if "f5" in fams:
+        phase("phase 3: F5Pipeline.synthesize")
+        pipe, launches = run_pipeline()
 
-    phase("phase 4: F5Pipeline.benchmark")
-    bench = pipe.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
-    print(f"  {name_limit}: latency RTF {bench['rtf']:.6f} ({bench['wall_s']:.4f} s"
-          f" for {bench['audio_s']:.3f} s of audio), sustained RTF "
-          f"{bench['sustained_rtf']:.6f}", flush=True)
-    print("  " + json.dumps(bench), flush=True)
+        phase("phase 4: F5Pipeline.benchmark")
+        bench = pipe.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
+        print(f"  {name_limit}: latency RTF {bench['rtf']:.6f} ({bench['wall_s']:.4f} s"
+              f" for {bench['audio_s']:.3f} s of audio), sustained RTF "
+              f"{bench['sustained_rtf']:.6f}", flush=True)
+        print("  " + json.dumps(bench), flush=True)
 
-    phase('phase 5: F5Pipeline(quantize="w8a8") and quantize=4')
-    q8_pipe, q8 = run_w8a8(pipe, name_limit, bench)
-    # kernel 9 is on no pipeline's path (as in tts_tpu): phase 2 checks it
-    launches.update({k: q8.get(k, 0) for k in Q8_KERNELS + ("quantized_matmul",)})
-    if args.profile:
-        phase("phase 5b: torch.profiler over one F5 request, bf16 and W8A8")
-        profile_f5({"bf16": pipe, "w8a8": q8_pipe}, name_limit)
-    del q8_pipe
+        phase('phase 5: F5Pipeline(quantize="w8a8") and quantize=4')
+        q8_pipe, q8 = run_w8a8(pipe, name_limit, bench)
+        # kernel 9 is on no pipeline's path (as in tts_tpu): phase 2 checks it
+        launches.update({k: q8.get(k, 0) for k in Q8_KERNELS + ("quantized_matmul",)})
+        if args.profile:
+            phase("phase 5b: torch.profiler over one F5 request, bf16 and W8A8")
+            profile_f5({"bf16": pipe, "w8a8": q8_pipe}, name_limit)
+        del q8_pipe, pipe
 
-    phase("phase 6: KaniPipeline.synthesize_ids")
-    kani = run_kani(name_limit)
-    launches.update({k: kani[k] for k in ("fused_qkv_rope", "fused_qkv_attn")})
-    if args.profile:
-        phase("phase 6b: torch.profiler over one greedy Kani run")
-        profile_kani(args.profile, name_limit)
+    if "kani" in fams:
+        phase("phase 6: KaniPipeline.synthesize_ids")
+        kani = run_kani(name_limit)
+        launches.update({k: kani[k] for k in ("fused_qkv_rope", "fused_qkv_attn")})
+        if args.profile:
+            phase("phase 6b: torch.profiler over one greedy Kani run")
+            profile_kani(args.profile, name_limit)
 
-    phase("phase 7: QwenTTSPipeline")
-    qwen, qwen_pipes = run_qwen(name_limit)
-    launches.update(qwen)
-    if args.profile:
-        phase("phase 7b: torch.profiler over one Qwen3-TTS request")
-        profile_qwen(qwen_pipes, args.profile, name_limit)
-    del qwen_pipes
+    if "qwen" in fams:
+        phase("phase 7: QwenTTSPipeline")
+        qwen, qwen_pipes = run_qwen(name_limit)
+        launches.update(qwen)
+        if args.profile:
+            phase("phase 7b: torch.profiler over one Qwen3-TTS request")
+            profile_qwen(qwen_pipes, args.profile, name_limit)
+        del qwen_pipes
+
+    if "bigvgan" in fams:
+        phase("phase 8: BigVGANVocoder")
+        voc_launches, voc = run_vocoder(name_limit)
+        launches.update(voc_launches)
+        if args.profile:
+            phase("phase 8b: torch.profiler over one BigVGAN call")
+            mel = np.random.default_rng(9).standard_normal((1, 512, 100)).astype(np.float32)
+            profile_one("BigVGAN bench mel (1, 512, 100)", lambda: voc(mel),
+                        (K10_CLASS, CONV_CLASS, GEMM_CLASS), name_limit,
+                        out_path=os.path.join(args.profile, "bigvgan_profile.txt"))
+        del voc
+
+    if "indextts" in fams:
+        phase("phase 9: IndexTTSPipeline")
+        _, index_pipe, index_ref = run_indextts(name_limit)
+        if args.profile:
+            phase("phase 9b: torch.profiler over one IndexTTS request (bf16)")
+            profile_one(
+                "IndexTTS bf16 request (32 ids, 256 tokens)",
+                lambda: index_pipe.synthesize_ids(INDEX_IDS, index_ref, max_gen=INDEX_GEN),
+                (("kernel 11 (qkv_matvec / qkv_epilogue)", ("qkv_matvec", "qkv_epilogue")),
+                 K10_CLASS, CONV_CLASS, GEMM_CLASS, ("casts / copies", ("copy", "convert"))),
+                name_limit, per=(INDEX_GEN, "token"),
+                out_path=os.path.join(args.profile, "indextts_profile.txt"))
+        del index_pipe
 
     phase("done")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

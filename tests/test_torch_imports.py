@@ -37,9 +37,10 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # every module of the F5, Kani, F5 W8A8 and Qwen3-TTS slices: audio, nn,
-    # kv, decoding, ops (+ the kernels' modules, quant_matmul,
-    # decode_attention and decode_mlp among them), quant, models (qwen_tts
-    # and qwen_codec among them), weights, frontend, runtime (qwen among
-    # them) and their packages
-    assert int(proc.stdout.split()[-1]) >= 43
+    # every module of the F5, Kani, F5 W8A8, Qwen3-TTS, BigVGAN and IndexTTS
+    # slices: audio (filters among them), nn, kv, decoding, ops (+ the
+    # kernels' modules, quant_matmul, decode_attention, decode_mlp and
+    # bigvgan_stage among them), quant, models (qwen_tts, qwen_codec,
+    # bigvgan and indextts among them), weights, frontend, runtime (qwen,
+    # vocoder and indextts among them) and their packages
+    assert int(proc.stdout.split()[-1]) >= 49

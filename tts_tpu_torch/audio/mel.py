@@ -1,8 +1,8 @@
 """Mel filterbank + log-mel extraction (counterpart of tts_tpu/audio/mel.py).
 
 The HTK (or slaney) triangular filterbank of
-torchaudio.functional.melscale_fbanks, built in numpy, then
-log(clamp(fbank @ |STFT|, 1e-5)) in fp32.
+torchaudio.functional.melscale_fbanks, built in numpy, then the log of
+fbank @ |STFT| in fp32, with tts_tpu's options.
 """
 from __future__ import annotations
 
@@ -61,20 +61,34 @@ def mel_filterbank(n_freqs: int, f_min: float, f_max: float, n_mels: int,
 
 
 class MelSpectrogram:
-    """Waveform (..., N) -> log-mel (..., T, n_mels):
-    log(clamp(fbank @ sqrt(re^2 + im^2), 1e-5)), with a hann window, reflect
-    padding and an HTK filterbank over 0 .. sample_rate/2 (the F5 log-mel)."""
+    """Waveform (..., N) -> log-mel (..., T, n_mels): fbank @ sqrt(re^2 +
+    im^2), then log(clamp(mel, 1e-5)) (`log_mode="clamp"`, the F5/BigVGAN
+    convention) or log(mel + 1e-5) (`"add"`, the Qwen speaker mel). The STFT
+    pads `pad_mode` ("reflect", or "constant" zeros as IndexTTS's reference
+    mel does) and windows with `window_type`; the filterbank spans f_min ..
+    f_max (default sample_rate / 2) on the `mel_scale` ("htk" or "slaney")
+    with `norm` (None or "slaney"), as tts_tpu's options."""
 
     def __init__(self, sample_rate: int, n_fft: int, hop: int,
-                 win_length: int | None = None, n_mels: int = 100):
-        self.stft = StftKernel(n_fft, hop, win_length or n_fft)
-        self.fbank = mel_filterbank(n_fft // 2 + 1, 0.0, sample_rate / 2.0, n_mels,
-                                    sample_rate)
+                 win_length: int | None = None, n_mels: int = 100,
+                 window_type: str = "hann", f_min: float = 0.0,
+                 f_max: float | None = None, mel_scale: str = "htk",
+                 norm: str | None = None, pad_mode: str = "reflect",
+                 log_mode: str = "clamp"):
+        if log_mode not in ("clamp", "add"):
+            raise ValueError(f"log_mode must be 'clamp' or 'add': {log_mode}")
+        self.stft = StftKernel(n_fft, hop, win_length or n_fft, window_type)
+        self.pad_mode = pad_mode
+        self.log_mode = log_mode
+        self.fbank = mel_filterbank(n_fft // 2 + 1, f_min, f_max or sample_rate / 2.0,
+                                    n_mels, sample_rate, norm, mel_scale)
         self._dev = _OnDevice()
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        real, imag = self.stft(x)                               # (..., F, T)
+        real, imag = self.stft(x, pad_mode=self.pad_mode)       # (..., F, T)
         mag = torch.sqrt(real * real + imag * imag)
         fbank = self._dev.get("fbank", x.device, lambda: self.fbank)
         mel = torch.matmul(mag.transpose(-1, -2), fbank)        # (..., T, M)
+        if self.log_mode == "add":
+            return torch.log(mel + 1e-5)
         return torch.log(torch.clamp(mel, min=1e-5))

@@ -28,8 +28,10 @@ def attention_mask(q_len: int, kv_max: int, q_start: int, kv_len: int,
 
 
 def combine_kv_valid(mask: torch.Tensor, kv_valid: torch.Tensor) -> torch.Tensor:
-    """AND an (S, T) mask with a per-row (B, T) key-validity mask, giving a
-    (B, S, T) mask."""
+    """AND an (S, T) mask with a key-validity mask: (T,) shared by the batch
+    gives (S, T), (B, T) per row gives (B, S, T)."""
+    if kv_valid.dim() == 1:
+        return mask & kv_valid[None, :]
     return mask[None] & kv_valid[:, None, :]
 
 

@@ -1,14 +1,17 @@
 """Convert tts_tpu parameter pytrees to the port's tensors.
 
 `params_from_jax` takes tts_tpu's F5, Vocos, Kani LM, NanoCodec, Qwen3-TTS
-(the merged talker + predictor tree) or Qwen codec decoder tree as
+(the merged talker + predictor tree), Qwen codec decoder, BigVGAN (either
+resblock kind) or IndexTTS (conformer, perceiver, ECAPA, GPT, speaker-
+conditioned BigVGAN) tree as
 nested dicts and lists of numpy arrays (`jax.tree.map(np.asarray, params)`
 on the JAX side) and returns the same tree of torch tensors, key for key;
 the family is told by the tree's keys. Each tree is checked against a
 schema of its keys and shapes: dimension names bind at their first use and
 must agree wherever they recur (None matches any size), so an unknown or
 missing key or an inconsistent shape raises. `_Opt` marks an optional key,
-`_OneOf` a dict of one of several kinds (Kani's attention and conv layers).
+`_OneOf` a dict of one of several kinds (Kani's attention and conv layers,
+BigVGAN's two resblock kinds).
 
 tts_tpu's quantized leaves (objects with `.q` and `.scale` after the tree
 map) become the port's, q int8 and scale fp32 whatever `dtype` is: an int8
@@ -184,6 +187,83 @@ _QWEN_CODEC = {
     "dec_post": _QWEN_CONV,
 }
 
+# stage widths halve stage by stage, so BigVGAN's dims stay unbound
+_BV_CONV = {"w": (None, None, None), "b": _Opt((None,))}
+_BV_ACT = {"alpha": (None,), "beta_recip": _Opt((None,)), "alpha_recip": _Opt((None,))}
+_BIGVGAN = {
+    "conv_pre": _BV_CONV,
+    "ups": [_BV_CONV],
+    "resblocks": [_OneOf(
+        {"convs1": [_BV_CONV], "convs2": [_BV_CONV], "acts1": [_BV_ACT],
+         "acts2": [_BV_ACT]},                                  # AMPBlock1
+        {"convs": [_BV_CONV], "acts": [_BV_ACT]},              # AMPBlock2
+    )],
+    "act_post": _BV_ACT,
+    "conv_post": _BV_CONV,
+}
+
+_ECAPA_TDNN = {"conv": {"w": (None, None, None), "b": (None,)},
+               "bn": _Opt({"scale": (None,), "shift": (None,)})}
+_INDEXTTS = {
+    "gpt": {
+        "text_embed": ("text_vocab", "d"),
+        "text_pos": ("text_pos", "d"),
+        "mel_embed": ("mel_vocab", "d"),
+        "mel_pos": ("mel_pos", "d"),
+        "layers": [{"ln1": _ln("d"), "wqkv": ("d", "qkv"), "bqkv": ("qkv",),
+                    "wo": ("d", "d"), "bo": ("d",), "ln2": _ln("d"),
+                    "fc": _lin("d", "ff"), "proj": _lin("ff", "d")}],
+        "ln_f": _ln("d"),
+        "final_norm": _ln("d"),
+        "lm_head": ("d", "mel_vocab"),
+        "lm_head_b": ("mel_vocab",),
+    },
+    "conformer": {
+        "sub_convs": [{"w": ("e", None, 3, 3), "b": ("e",)}],
+        "out": _lin("sub_out", "e"),
+        "pos_enc": ("max_pos", "e"),
+        "layers": [{
+            "norm_mha": _ln("e"),
+            "attn": {"wq": ("eh", "e", "ehd"), "bq": ("eh", 1, "ehd"),
+                     "wk": ("eh", "e", "ehd"), "bk": ("eh", 1, "ehd"),
+                     "wv": ("eh", "e", "ehd"), "bv": ("eh", 1, "ehd"),
+                     "wpos": ("eh", "e", "ehd"), "bias_u": ("eh", 1, "ehd"),
+                     "bias_v": ("eh", 1, "ehd"), "wo": ("eh", "ehd", "e"), "bo": ("e",)},
+            "norm_conv": _ln("e"),
+            "conv": {"pw1": _lin("e", "e2"), "dw": {"w": ("ek", 1, "e"), "b": ("e",)},
+                     "norm": _ln("e"), "pw2": _lin("e", "e")},
+            "norm_ff": _ln("e"),
+            "ff1": _lin("e", "eff"),
+            "ff2": _lin("eff", "e"),
+            "norm_final": _ln("e"),
+        }],
+        "after_norm": _ln("e"),
+    },
+    "perceiver": {
+        "proj_context": _lin("e", "d"),
+        "latents": ("latents", "d"),
+        "layers": [{"wq": ("ph", "d", "phd"), "wk": ("ph", "d", "phd"),
+                    "wv": ("ph", "d", "phd"), "wo": ("ph", "phd", "d"),
+                    "ff_norm": _ln("d"), "ff1": _lin("d", "pff"), "ff2": _lin("pff", "d")}],
+        "norm": _ln("d"),
+    },
+    "ecapa": {
+        "block0": _ECAPA_TDNN,
+        "se_blocks": [{"tdnn1": _ECAPA_TDNN, "res2net": {"blocks": [_ECAPA_TDNN]},
+                       "tdnn2": _ECAPA_TDNN,
+                       "se": {"w1": ("ec", "se"), "b1": ("se",), "w2": ("se", "ec"),
+                              "b2": ("ec",)}}],
+        "mfa": _ECAPA_TDNN,
+        "asp_tdnn": _ECAPA_TDNN,
+        "asp_conv": _lin("asp", "mfa"),
+        "asp_bn": _Opt({"scale": ("mfa2",), "shift": ("mfa2",)}),
+        "fc": _lin("mfa2", "spk"),
+    },
+    "bigvgan": _BIGVGAN,
+    "cond_layer": _lin("spk", "c0"),
+    "conds": [{"w": ("spk", None), "b": (None,)}],
+}
+
 # keys that keep fp32 whatever dtype the weights take (tts_tpu's Euler steps)
 _KEEP_FP32 = {"delta_t"}
 
@@ -259,19 +339,20 @@ def _quantized(tree, schema, where: str, dims: dict, device):
 
 
 def _schema_of(tree: dict) -> dict:
-    for key, schema in (("talker", _QWEN), ("sem_codebook", _QWEN_CODEC),
+    for key, schema in (("gpt", _INDEXTTS), ("conv_pre", _BIGVGAN),
+                        ("talker", _QWEN), ("sem_codebook", _QWEN_CODEC),
                         ("text_embed", _F5), ("lm_head", _KANI),
                         ("pre_conv", _NANOCODEC), ("head", _VOCOS)):
         if key in tree:
             return schema
     raise KeyError(f"keys {sorted(tree)} are none of F5, Vocos, Kani, NanoCodec, "
-                   f"Qwen3-TTS or the Qwen codec")
+                   f"Qwen3-TTS, the Qwen codec, BigVGAN or IndexTTS")
 
 
 def params_from_jax(tree: dict, device, dtype: torch.dtype) -> dict:
-    """tts_tpu F5, Vocos, Kani, NanoCodec, Qwen3-TTS or Qwen codec params
-    (nested dicts/lists of numpy arrays) -> the same tree of torch tensors on `device`, floats cast
-    to `dtype`."""
+    """tts_tpu F5, Vocos, Kani, NanoCodec, Qwen3-TTS, Qwen codec, BigVGAN or
+    IndexTTS params (nested dicts/lists of numpy arrays) -> the same tree of
+    torch tensors on `device`, floats cast to `dtype`."""
     if not isinstance(tree, dict):
         raise TypeError(f"expected a params dict, got {type(tree).__name__}")
     return _convert(tree, _schema_of(tree), (), {}, torch.device(device), dtype)
