@@ -10,18 +10,21 @@
                                              # Qwen3-TTS request (bf16, int8),
                                              # one BigVGAN call and one
                                              # IndexTTS request
-    python3 chip_smoke.py --families bigvgan,indextts   # phases 0-2, 8, 9
+    python3 chip_smoke.py --families bigvgan,indextts   # phases 0-2, 8, 8c, 9
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
      reports them; turn TF32 off for matmuls and cuDNN;
   1. build the hand-written kernels from tts_tpu_torch/csrc with nvcc;
-  2. each kernel against its plain PyTorch twin in bf16, at the F5 bench
-     shapes, the kani-tts-370m decode shapes, the Qwen3-TTS-0.6B talker
-     and predictor shapes (kernel 12 at head_dim 128, kernels 13-15) and
-     the BigVGAN bench stages (kernel 10 at stages 2 and 5), with
-     its error, its time beside the twin's and a library call's where one
-     exists, and its bound;
+  2. each kernel against its plain PyTorch twin in fp32 on the same inputs,
+     at the F5 bench shapes (kernel 1 also at head dim 128; kernel 4 in
+     bf16 at head dims 64, 128 and 192 and in fp32; kernel 5 at T 8192 in
+     bf16 and T 2048 in fp32), the kani-tts-370m decode shapes, the
+     Qwen3-TTS-0.6B talker and predictor shapes (kernel 12 at head_dim 128,
+     kernels 13-15) and the BigVGAN bench stages (kernel 10 in bf16 at
+     stages 2 and 5, in fp32 at stages 3 and 5), with its error, its time
+     beside the twin's and a library call's where one exists, and its
+     bound;
   3. F5Pipeline.synthesize at full F5TTS_v1_Base width (random weights made
      from a seed) on three requests, checking the audio and that every DiT
      block went through the kernels;
@@ -29,6 +32,10 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
   5. F5Pipeline(quantize="w8a8") over the same models: the three requests
      through kernels 6-8 (W8A8), one DiT forward against the twins in bf16
      and fp32, latency and sustained RTF; one quantize=4 request;
+  5c. F5Pipeline in fp32 at full F5TTS_v1_Base width: the bench request
+     through kernel 4 (682 launches, none of kernel 1), one fp32 DiT
+     forward against the twins at the bench bucket and one at T 4608
+     through kernel 5 (22 launches), latency and sustained RTF;
   6. KaniPipeline.synthesize_ids at full kani-tts-370m width (random
      weights from a seed, the bench config: 256 new tokens, no stop token):
      greedy bf16 and int8, beam and a batch of 4, checking the audio, that
@@ -47,6 +54,9 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      clamp): the bench mel (1, 512, 100) -> 131,072 int16 samples, 12
      launches of kernel 10 a call, the float output against the same
      generator with kernel 10's twin and against fp32, samples/s and RTF;
+  8c. the same vocoder in fp32: the bench mel, 9 launches of kernel 10's
+     fp32 form a call (stages 3-5), the output against the twin route,
+     samples/s and RTF;
   9. IndexTTSPipeline at full IndexTTS-1.5 width (GPT 24 x 1280, 20 heads;
      conformer 6 x 512; ECAPA 512; BigVGAN 1536 channels from 1280 inputs;
      random weights from seeds, no stop token): encode_reference on a 6 s
@@ -81,6 +91,11 @@ import torch
 # these shapes (measured on the CPU); 2^-6 leaves 4x headroom, while a
 # wrong index or layout gives errors of order one.
 TOL = 2.0 ** -6
+# the same for a kernel in fp32 against its fp32 twin: only the order of
+# fp32 sums differs (measured on the card: 1e-7 to 3e-6)
+TOL32 = 2.0 ** -14
+# an fp32 forward through the kernels against the same through the twins
+FWD32_TOL = 1e-4
 # the fused Kani step's logits may be this much further from fp32 than the
 # plain route's (check_step): rounding at other points gives either route
 # the larger error on a given input
@@ -118,6 +133,12 @@ KERNELS = {
                          "tts_tpu/ops/decode_mlp.py:341"),
     "amp_block_fused": ("tts_tpu_torch/csrc/amp_block.cu",
                         "tts_tpu/ops/bigvgan_stage.py:202"),
+    "flash_attention_onepass": ("tts_tpu_torch/csrc/flash_mha.cu",
+                                "tts_tpu/ops/flash_attention.py:141"),
+    "flash_attention_online": ("tts_tpu_torch/csrc/flash_mha.cu",
+                               "tts_tpu/ops/flash_attention.py:384"),
+    "amp_block_fused_f32": ("tts_tpu_torch/csrc/amp_block.cu",
+                            "tts_tpu/ops/bigvgan_stage.py:202"),
 }
 F5_KERNELS = ("flash_attention_flat", "conv_pos_embed_fused", "mlp_block_fused")
 Q8_KERNELS = ("mlp_block_fused_q8", "ln_qkv_q8", "out_proj_residual_q8")
@@ -216,17 +237,17 @@ def device_ms(fn, iters: int = 10, only: str | None = None) -> float:
     return ms
 
 
-def check(label: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+def check(label: str, got: torch.Tensor, ref: torch.Tensor, tol: float = TOL) -> float:
     torch.cuda.synchronize()
     ref = ref.float()
     err = got.float() - ref
     max_abs = err.abs().max().item()
     scale = ref.abs().max().item()
     rel_l2 = (torch.linalg.vector_norm(err) / torch.linalg.vector_norm(ref)).item()
-    ok = (bool(torch.isfinite(got).all()) and max_abs <= TOL * scale
-          and rel_l2 <= TOL)
+    ok = (bool(torch.isfinite(got).all()) and max_abs <= tol * scale
+          and rel_l2 <= tol)
     print(f"  {label}: max_abs_err {max_abs:.6g} (max|ref| {scale:.6g}, "
-          f"limit {TOL * scale:.6g}), rel_l2 {rel_l2:.6g} (limit {TOL:.6g}) "
+          f"limit {tol * scale:.6g}), rel_l2 {rel_l2:.6g} (limit {tol:.6g}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"{label}: kernel disagrees with its twin")
@@ -520,10 +541,140 @@ def check_kernels(gen: torch.Generator) -> dict:
               f"({res[name]['bound_by']}), library call "
               f"{'none' if lib is None else f'{lib:.4f} ms'} (bench shape, {how})",
               flush=True)
+    # their own generator: the checks after them keep the inputs they had
+    # before kernels 4 and 5 were added
+    check_attention_kernels(torch.Generator("cuda").manual_seed(4321), res)
     check_decode_kernels(gen, res)
     check_qwen_kernels(gen, res)
     check_bigvgan_kernel(gen, res)
+    check_bigvgan_kernel_f32(gen, res)
     return res
+
+
+def sdpa_mha_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv) -> float:
+    """Kernels 4 and 5's library yardstick: scaled_dot_product_attention on
+    the same (B, H, S, D) q, k, v, keys >= kv masked (an int or a (B,)
+    tensor), scale 1. The port never calls it."""
+    import torch.nn.functional as F
+
+    b, s = q.shape[0], q.shape[2]
+    kvv = torch.as_tensor(kv, device=q.device).reshape(-1, 1)
+    mask = (torch.arange(s, device=q.device)[None, :] < kvv).reshape(-1, 1, 1, s)
+    mask = mask.expand(b, 1, 1, s)
+    return time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                          scale=1.0))
+
+
+def check_attention_kernels(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, kernel 1 at head dim 128 (B 2, H 8, T 1408) and kernels 4
+    and 5 on (B, H, S, D) q, k, v as F5's routes give them (scale folded
+    into the weights, so 1): kernel 4 in bf16 at the bench shape (B 2, H
+    16, S 1408, D 64) packed and unpacked, kv_len 1396 and (1396, 700), and
+    at D 128 and 192 (H 8), and the same in fp32; kernel 5 in bf16 at B 2,
+    H 16, S 8192, D 64, kv_len 8000 (tts_tpu's call past T 4096: blocks
+    256 / 512) and in fp32 at S 2048, kv_len 2000, and in both dtypes at
+    D 128 and 192 (H 8, S 2048). Each
+    against its fp32 twin on the same inputs (fp32: within TOL32), then
+    CUDA-event times (median of 10) beside the twin's (same dtype) and
+    SDPA's, with bounds. The kernels' rows: kernel 4 in fp32 at the bench
+    shape (the fp32 F5 path's call), kernel 5 in bf16 at S 8192."""
+    from tts_tpu_torch.models.f5 import f5_rope_tables
+    from tts_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_flat,
+                                                   flash_attention_flat_plain,
+                                                   flash_attention_plain)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    name_limit = card()
+
+    def rn(*shape, dt=bf, scale=0.5):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
+
+    def report(label, r, how):
+        lib = r.get("library_ms")
+        print(f"  {name_limit}: {label}: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+              f"{'none' if lib is None else f'{lib:.4f} ms (SDPA)'} ({how}, CUDA events, "
+              f"median of 10)", flush=True)
+
+    per_row = torch.tensor([1396, 700], dtype=torch.int32, device="cuda")
+    kv_pipe = torch.full((2,), 1396, dtype=torch.int32, device="cuda")
+
+    # kernel 1 at head dim 128
+    cos, sin = (torch.tensor(a, device="cuda").to(bf).float()
+                for a in f5_rope_tables(1408, 128))
+    qkv = rn(2, 1408, 3 * 8 * 128)
+    r = res["flash_attention_flat"]
+    for kv, label in ((1396, "1396"), (per_row, "(1396, 700)")):
+        r["max_abs_err"] = max(r["max_abs_err"], check(
+            f"flash_attention_flat B=2 H=8 D=128 T=1408 kv_len={label}",
+            flash_attention_flat(qkv, cos, sin, kv, heads=8),
+            flash_attention_flat_plain(qkv.float(), cos, sin, kv, heads=8)))
+    one = {"ms": time_ms(lambda: flash_attention_flat(qkv, cos, sin, kv_pipe, heads=8)),
+           "plain_ms": time_ms(lambda: flash_attention_flat_plain(qkv, cos, sin, kv_pipe,
+                                                                  heads=8)),
+           "library_ms": sdpa_ms(qkv, cos, sin, 1396, heads=8)}
+    set_bound(one, nbytes(qkv, cos, sin) + qkv.numel() // 3 * 2,
+              4 * 2 * 8 * 1408 * 1396 * 128, "bf16")
+    report("flash_attention_flat D=128 (B 2, H 8, T 1408, kv_len 1396)", one, "bf16")
+    del qkv
+
+    # kernel 4
+    r4 = res["flash_attention_onepass"]
+    onepass = dict(block_q=128, block_kv=1408, head_block=2)
+    for dt, tol in ((bf, TOL), (f32, TOL32)):
+        for h, d in ((16, 64), (8, 128), (8, 192)):
+            q, k, v = rn(2, h, 1408, d, dt=dt), rn(2, h, 1408, d, dt=dt), rn(2, h, 1408, d, dt=dt)
+            f = [a.float() for a in (q, k, v)]
+            cases = ((False, 1396), (True, 1396), (False, per_row), (True, per_row)) \
+                if d == 64 else ((True, 1396),)
+            for packed, kv in cases:
+                lab = "1396" if isinstance(kv, int) else "(1396, 700)"
+                r4["max_abs_err"] = max(r4["max_abs_err"], check(
+                    f"flash_attention (kernel 4) {str(dt)[6:]} B=2 H={h} S=1408 D={d} "
+                    f"kv_len={lab} packed={packed}",
+                    flash_attention(q, k, v, kv, packed_out=packed, **onepass),
+                    flash_attention_plain(*f, kv, packed_out=packed, **onepass), tol))
+            if d == 64:
+                one = {"ms": time_ms(lambda: flash_attention(q, k, v, kv_pipe, packed_out=True,
+                                                             **onepass)),
+                       "plain_ms": time_ms(lambda: flash_attention_plain(
+                           q, k, v, kv_pipe, packed_out=True, **onepass)),
+                       "library_ms": sdpa_mha_ms(q, k, v, kv_pipe)}
+                set_bound(one, 4 * nbytes(q), 4 * 2 * 16 * 1408 * 1396 * 64,
+                          "bf16" if dt == bf else "fp32")
+                report(f"flash_attention (kernel 4) {str(dt)[6:]} bench shape (B 2, H 16, "
+                       f"S 1408, D 64, kv_len 1396, packed)", one, str(dt)[6:])
+                if dt == f32:
+                    r4.update(one)
+            del q, k, v, f
+
+    # kernel 5
+    r5 = res["flash_attention_online"]
+    for dt, s, kv, tol in ((bf, 8192, 8000, TOL), (f32, 2048, 2000, TOL32)):
+        q, k, v = rn(2, 16, s, 64, dt=dt), rn(2, 16, s, 64, dt=dt), rn(2, 16, s, 64, dt=dt)
+        blocks = dict(block_q=256, block_kv=512)
+        r5["max_abs_err"] = max(r5["max_abs_err"], check(
+            f"flash_attention (kernel 5) {str(dt)[6:]} B=2 H=16 S={s} D=64 kv_len={kv}",
+            flash_attention(q, k, v, kv, **blocks),
+            flash_attention_plain(q.float(), k.float(), v.float(), kv, **blocks), tol))
+        one = {"ms": time_ms(lambda: flash_attention(q, k, v, kv, **blocks)),
+               "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, kv, **blocks),
+                                   iters=5, warmup=1),
+               "library_ms": sdpa_mha_ms(q, k, v, kv)}
+        set_bound(one, 4 * nbytes(q), 4 * 2 * 16 * s * kv * 64, "bf16" if dt == bf else "fp32")
+        report(f"flash_attention (kernel 5) {str(dt)[6:]} (B 2, H 16, S {s}, D 64, kv_len {kv})",
+               one, f"{str(dt)[6:]}, twin median of 5")
+        if dt == bf:
+            r5.update(one)
+        del q, k, v
+    for dt, tol in ((bf, TOL), (f32, TOL32)):
+        for d in (128, 192):
+            q, k, v = rn(2, 8, 2048, d, dt=dt), rn(2, 8, 2048, d, dt=dt), rn(2, 8, 2048, d, dt=dt)
+            r5["max_abs_err"] = max(r5["max_abs_err"], check(
+                f"flash_attention (kernel 5) {str(dt)[6:]} B=2 H=8 S=2048 D={d} kv_len=2000",
+                flash_attention(q, k, v, 2000, **blocks),
+                flash_attention_plain(q.float(), k.float(), v.float(), 2000, **blocks), tol))
+            del q, k, v
 
 
 # the BigVGAN bench stages kernel 10 runs (bigvgan_v2_24khz_100band_256x at
@@ -537,17 +688,18 @@ BV_DILS = (1, 3, 5)
 ACT_OPS = 2 * (6 + 5) + 2 * 5 + 12 + 11
 
 
-def amp_block_inputs(gen: torch.Generator, b: int, t: int, c: int, k: int) -> tuple:
+def amp_block_inputs(gen: torch.Generator, b: int, t: int, c: int, k: int,
+                     dt=torch.bfloat16) -> tuple:
     """Kernel 10's operands at one shape: x, then w1, b1, w2, b2 at a scale
     that keeps the residual stream O(1), snake alphas 1 + U(0, 1) and
-    reciprocals U(0.5, 1.5), all bf16."""
+    reciprocals U(0.5, 1.5), all of dtype dt."""
     j = len(BV_DILS)
 
     def rn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
 
     def uni(lo):
-        return (lo + torch.rand((j, c), generator=gen, device="cuda")).to(torch.bfloat16)
+        return (lo + torch.rand((j, c), generator=gen, device="cuda")).to(dt)
 
     ws = (k * c) ** -0.5
     return (rn(b, t, c), rn(j, k, c, c, scale=ws), rn(j, c, scale=0.1),
@@ -555,13 +707,16 @@ def amp_block_inputs(gen: torch.Generator, b: int, t: int, c: int, k: int) -> tu
             uni(0.5))
 
 
-def amp_block_bound(r: dict, b: int, t: int, c: int, k: int) -> None:
+def amp_block_bound(r: dict, b: int, t: int, c: int, k: int, dt=torch.bfloat16) -> None:
     """Kernel 10's bound at one resblock: x read and written once and the
-    weights read once (bytes); 12 k C^2 T bf16 tensor-core flops (two convs
-    a branch, three branches); 6 acts of ACT_OPS fp32 operations per (t, c)."""
+    weights read once (bytes); 12 k C^2 T flops (two convs a branch, three
+    branches: bf16 tensor cores, or fp32); 6 acts of ACT_OPS fp32
+    operations per (t, c)."""
     j = len(BV_DILS)
-    nb = 2 * (2 * b * t * c + 2 * j * k * c * c + 6 * j * c)
-    set_bound(r, nb, 2 * 2 * j * k * c * c * b * t, "bf16", 2 * j * ACT_OPS * b * t * c)
+    elt = torch.empty((), dtype=dt).element_size()
+    nb = elt * (2 * b * t * c + 2 * j * k * c * c + 6 * j * c)
+    set_bound(r, nb, 2 * 2 * j * k * c * c * b * t, "bf16" if dt == torch.bfloat16 else "fp32",
+              2 * j * ACT_OPS * b * t * c)
 
 
 def check_bigvgan_kernel(gen: torch.Generator, res: dict) -> None:
@@ -613,18 +768,66 @@ def check_bigvgan_kernel(gen: torch.Generator, res: dict) -> None:
           flush=True)
 
 
-def sdpa_ms(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, kv: int) -> float:
+def check_bigvgan_kernel_f32(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, kernel 10's fp32 form at the BigVGAN bench stages 3 (C 96,
+    T 32768) and 5 (C 24, T 131072) for k = 3, 7, 11, and at 4 batch rows of
+    T / 4 (k = 11), against its fp32 twin on the same inputs (within TOL32;
+    TF32 is off); then CUDA-event times (median of 10) of the kernel and
+    the twin at stages 3-5, the ones an fp32 bench call runs it at (C <=
+    128), with bounds. The kernels' row is stage 3 at k = 11."""
+    from tts_tpu_torch.ops.bigvgan_stage import amp_block_fused, amp_block_fused_plain
+
+    f32 = torch.float32
+    r = res["amp_block_fused_f32"]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    name_limit = card()
+    for stage, c, t in BV_STAGES[1:]:
+        for k in BV_KS:
+            args = amp_block_inputs(gen, 1, t, c, k, f32)
+            kern = lambda: amp_block_fused(*args, k=k, dils=BV_DILS)
+            plain = lambda: amp_block_fused_plain(*args, k=k, dils=BV_DILS)
+            if stage in (3, 5):
+                r["max_abs_err"] = max(r["max_abs_err"], check(
+                    f"amp_block_fused fp32 stage {stage} x=(1, {t}, {c}) k={k} "
+                    f"dils={BV_DILS}", kern(), plain(), TOL32))
+            one = {"ms": time_ms(kern), "plain_ms": time_ms(plain)}
+            amp_block_bound(one, 1, t, c, k, f32)
+            for key in tot:
+                tot[key] += one[key]
+            print(f"  {name_limit}: amp_block_fused fp32 stage {stage} (C {c}, T {t}) k={k}: "
+                  f"kernel {one['ms']:.4f} ms, fp32 twin {one['plain_ms']:.4f} ms, bound "
+                  f"{one['bound_ms']:.4f} ms ({one['bound_by']}) (CUDA events, median of 10)",
+                  flush=True)
+            if (stage, k) == (3, 11):
+                r.update(one)
+            del args
+    for stage, c, t in (BV_STAGES[1], BV_STAGES[-1]):
+        args = amp_block_inputs(gen, 4, t // 4, c, 11, f32)
+        r["max_abs_err"] = max(r["max_abs_err"], check(
+            f"amp_block_fused fp32 stage {stage} x=(4, {t // 4}, {c}) k=11 dils={BV_DILS}",
+            amp_block_fused(*args, k=11, dils=BV_DILS),
+            amp_block_fused_plain(*args, k=11, dils=BV_DILS), TOL32))
+        del args
+    print(f"  {name_limit}: amp_block_fused fp32 over the 9 resblocks of an fp32 bench call "
+          f"(stages 3-5): kernel {tot['ms']:.4f} ms, fp32 twin {tot['plain_ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms (sum of each resblock's); library call: none", flush=True)
+
+
+def sdpa_ms(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, kv: int,
+            heads: int = 16) -> float:
     """Kernel 1's library yardstick: scaled_dot_product_attention on q, k
     roped ahead (as the twin ropes them) and v, keys >= kv masked, scale 1
     (F5 folds it into wqkv). The port never calls it."""
     import torch.nn.functional as F
 
-    b, t, _ = qkv.shape
-    x = qkv.reshape(b, t, 3, 16, 64).float()
+    b, t, n3 = qkv.shape
+    d = n3 // (3 * heads)
+    x = qkv.reshape(b, t, 3, heads, d).float()
     c, s = cos[:t][None, :, None, :], sin[:t][None, :, None, :]
 
     def rope(u):
-        return (u * c + torch.cat([-u[..., 32:], u[..., :32]], dim=-1) * s).to(qkv.dtype)
+        return (u * c + torch.cat([-u[..., d // 2:], u[..., :d // 2]], dim=-1) * s
+                ).to(qkv.dtype)
 
     q, k = rope(x[:, :, 0]).transpose(1, 2), rope(x[:, :, 1]).transpose(1, 2)
     v = x[:, :, 2].to(qkv.dtype).transpose(1, 2)
@@ -787,6 +990,7 @@ def synth_checked(pipe, audio, words: int, per_step: dict, label: str) -> None:
         if grew[k] != n * (cfg.nfe_steps - 1):
             raise AssertionError(f"{label}: {k} launched {grew[k]} times, expected "
                                  f"{n * (cfg.nfe_steps - 1)}")
+    return len(wav)
 
 
 @contextlib.contextmanager
@@ -804,7 +1008,8 @@ def swapped(module, swap: dict):
 
 
 def twins_in_dit():
-    """Run models/f5's kernels through their plain twins on the card."""
+    """Run models/f5's kernels through their plain twins on the card
+    (kernels 1-3, 6-8, and 4 and 5 behind `flash_attention`)."""
     import tts_tpu_torch.models.f5 as mf5
     from tts_tpu_torch.ops import dit_mlp, flash_attention, grouped_conv, quant_matmul
 
@@ -814,7 +1019,8 @@ def twins_in_dit():
         "mlp_block_fused_q8": dit_mlp.mlp_block_q8_plain,
         "mlp_block_fused": dit_mlp.mlp_block_plain,
         "conv_pos_embed_fused": grouped_conv.conv_pos_embed_plain,
-        "flash_attention_flat": flash_attention.flash_attention_flat_plain})
+        "flash_attention_flat": flash_attention.flash_attention_flat_plain,
+        "flash_attention": flash_attention.flash_attention_plain})
 
 
 def check_w8a8_forward(pipe) -> None:
@@ -901,6 +1107,92 @@ def run_w8a8(pipe, name_limit: str, bench16: dict) -> tuple:
     return q8, launches
 
 
+def check_f32_forward(pipe, t: int, kv) -> tuple:
+    """One fp32 DiT forward at T frames through the kernels the routes pick
+    on the card and through their twins, on the same fp32 weights and
+    inputs: rel L2 within FWD32_TOL (only fp32 summation order differs).
+    Returns the launches of the kernel run."""
+    from tts_tpu_torch.models.f5 import dit_forward, f5_rope_tables
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    cfg, params = pipe.cfg, pipe.params
+    gen = torch.Generator("cuda").manual_seed(6)
+    noise = torch.randn((1, t, cfg.n_mels), generator=gen, device="cuda")
+    cond = torch.randn((1, t, cfg.n_mels + cfg.text_dim), generator=gen, device="cuda")
+    drop = torch.randn((1, t, cfg.n_mels + cfg.text_dim), generator=gen, device="cuda")
+    cos, sin = (torch.tensor(a, device="cuda") for a in f5_rope_tables(t, cfg.head_dim))
+
+    def fwd():
+        a, b = dit_forward(params, noise, cond, drop, cos, sin, cfg, kv_len=kv, step_idx=3)
+        return torch.cat([a, b])
+
+    before = dict(LAUNCHES)
+    kern = fwd()
+    torch.cuda.synchronize()
+    grew = {k: LAUNCHES[k] - before.get(k, 0) for k in KERNELS}
+    with twins_in_dit():
+        ref = fwd()
+    e = rel_l2(kern, ref)
+    ok = bool(torch.isfinite(kern).all()) and e <= FWD32_TOL
+    print(f"  fp32 dit_forward ({t} frames, kv_len {kv if isinstance(kv, int) else 'per row'}, "
+          f"step 3), kernels against twins: rel L2 {e:.6g} (limit {FWD32_TOL}), launches "
+          f"{ {k: n for k, n in grew.items() if n} } {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the fp32 kernel route disagrees with its twins")
+    return grew
+
+
+def run_f5_fp32(name_limit: str) -> dict:
+    """Phase 5c: F5Pipeline in fp32 at full F5TTS_v1_Base width (random
+    weights from the bf16 phases' seeds): the bench request through kernel
+    4 (22 launches a NFE step, none of kernels 1-3: kernel 1 is bf16 only,
+    and fp32 keeps the conv and the MLP on the plain chain), 212,736
+    samples; one DiT forward against the twins at the bench bucket, and one
+    at T 4608 (past 4096, tts_tpu's route to kernel 5); latency and
+    sustained RTF. Returns the launches of the request (kernel 4) and of
+    the T 4608 forward (kernel 5)."""
+    from tts_tpu_torch.models.f5 import F5Config, F5Model
+    from tts_tpu_torch.models.f5 import init_params as f5_init
+    from tts_tpu_torch.models.vocos import VocosConfig, VocosModel
+    from tts_tpu_torch.models.vocos import init_params as vocos_init
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.f5 import F5Pipeline
+
+    cfg, vcfg = F5Config(), VocosConfig()
+    t0 = time.perf_counter()
+    f5 = F5Model(cfg, f5_init(cfg, torch.Generator("cuda").manual_seed(0), torch.float32))
+    vocos = VocosModel(vcfg, vocos_init(vcfg, torch.Generator("cuda").manual_seed(1),
+                                        torch.float32))
+    pipe = F5Pipeline(f5, {" ": 0}, vocos)
+    torch.cuda.synchronize()
+    print(f"  models: F5 dim {cfg.dim} depth {cfg.depth} heads {cfg.heads}x{cfg.head_dim} "
+          f"NFE {cfg.nfe_steps}, Vocos; fp32, random init in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    audio = (np.random.default_rng(0).standard_normal(int(6.0 * cfg.sample_rate))
+             * 3000).astype(np.int16)
+    pipe.synthesize(audio, REF_TEXT, "word word")      # warm-up
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    n = synth_checked(pipe, audio, 15, {**dict.fromkeys(KERNELS, 0),
+                                        "flash_attention_onepass": cfg.depth}, "fp32")
+    launches = {"flash_attention_onepass": LAUNCHES["flash_attention_onepass"]}
+    if n != BENCH_SAMPLES:
+        raise AssertionError(f"fp32 bench request gave {n} samples, not {BENCH_SAMPLES}")
+    check_f32_forward(pipe, 1408, torch.full((2,), 1396, dtype=torch.int32, device="cuda"))
+    LAUNCHES.clear()
+    grew = check_f32_forward(pipe, 4608, 4600)
+    launches["flash_attention_online"] = LAUNCHES["flash_attention_online"]
+    if grew["flash_attention_online"] != cfg.depth or grew["flash_attention_onepass"]:
+        raise AssertionError(f"T 4608: kernel 5 launched {grew['flash_attention_online']} "
+                             f"times, expected {cfg.depth}")
+    bench = pipe.benchmark(ref_seconds=6.0, gen_words=15, iters=2)
+    print(f"  {name_limit}: fp32 latency RTF {bench['rtf']:.6f} ({bench['wall_s']:.4f} s for "
+          f"{bench['audio_s']:.3f} s of audio), sustained RTF {bench['sustained_rtf']:.6f}",
+          flush=True)
+    print("  " + json.dumps({"f5": "fp32", **bench}), flush=True)
+    return launches
+
+
 def profile_f5(pipes: dict, name_limit: str) -> None:
     """torch.profiler over one bench request of each F5 pipeline: device
     kernel time by kernel, and the device's idle share (1 - kernel time /
@@ -913,6 +1205,7 @@ def profile_f5(pipes: dict, name_limit: str) -> None:
     audio = (np.random.default_rng(0).standard_normal(int(6.0 * rate)) * 3000).astype(np.int16)
     text = " ".join(["word"] * 15)
     classes = (("kernel 1 (flash_flat_kernel)", ("flash_flat",)),
+               ("kernels 4-5 (mha_*_kernel)", ("mha_",)),
                ("kernel 2 (conv_mish_kernel)", ("conv_mish",)),
                ("kernel 3 (ff1/ff2_kernel)", ("ff1_kernel", "ff2_kernel")),
                ("kernels 6-8: q8_rows", ("q8_rows",)),
@@ -1396,8 +1689,8 @@ def profile_qwen(pipes: dict, out_dir: str, name_limit: str) -> None:
         gc.collect()
 
 
-def bigvgan_weights(cfg, seed: int) -> dict:
-    """BigVGAN params at full width in bf16, random from `seed`, each conv
+def bigvgan_weights(cfg, seed: int, dt=torch.bfloat16) -> dict:
+    """BigVGAN params at full width in dt, random from `seed`, each conv
     rescaled from tts_tpu's N(0, 0.02^2) to gain / sqrt(k C_in): 1 for
     conv_pre, sqrt(rate) for the transposed convs (each output sums k /
     rate taps), 0.5 for the resblock convs (the residual stream grows by a
@@ -1405,7 +1698,7 @@ def bigvgan_weights(cfg, seed: int) -> dict:
     waveform stays off zero and mostly off the clamp."""
     from tts_tpu_torch.models.bigvgan import init_params
 
-    params = init_params(cfg, torch.Generator("cuda").manual_seed(seed), torch.bfloat16)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(seed), dt)
 
     def rescale(conv, gain):
         k, cin, _ = conv["w"].shape
@@ -1421,14 +1714,14 @@ def bigvgan_weights(cfg, seed: int) -> dict:
     return params
 
 
-def kernel10_per_call(cfg, frames: int) -> int:
+def kernel10_per_call(cfg, frames: int, dt=torch.bfloat16) -> int:
     """Resblocks of one vocoder call that the gate sends to kernel 10."""
     from tts_tpu_torch.ops.bigvgan_stage import fusable_stage
 
     t, n = frames * (4 if cfg.feat_upsample else 1), 0
     for c, rate in zip(cfg.stage_channels, cfg.upsample_rates):
         t *= rate
-        n += cfg.num_kernels * fusable_stage(c, t, torch.bfloat16, "cuda")
+        n += cfg.num_kernels * fusable_stage(c, t, dt, "cuda")
     return n
 
 
@@ -1489,8 +1782,8 @@ def run_vocoder(name_limit: str) -> tuple:
                              f"expected {per_call}")
     with swapped(k10, {"amp_block_fused": k10.amp_block_fused_plain}):
         plain = bigvgan_apply(voc.params, melt, cfg).float()
-    # fp32 takes the plain chain on the card (the kernel is bf16 only)
-    ref = bigvgan_apply(cast_tree(voc.params, torch.float32), melt.float(), cfg).float()
+        # fp32 through the twin too: kernel 10 takes fp32 at C <= 128
+        ref = bigvgan_apply(cast_tree(voc.params, torch.float32), melt.float(), cfg).float()
     e_k, e_p = rel_l2(kern, ref), rel_l2(plain, ref)
     ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_p
     print(f"  generator output, rel L2 against the fp32 generator: kernel 10 {e_k:.6g}, its "
@@ -1508,6 +1801,64 @@ def run_vocoder(name_limit: str) -> tuple:
           f"{plain_ms:.3f} ms a call (CUDA events, median of 5)", flush=True)
     print("  " + json.dumps({"bigvgan": "bf16", **bench, "plain_ms": plain_ms}), flush=True)
     return launches, voc
+
+
+def run_vocoder_fp32(name_limit: str) -> dict:
+    """Phase 8c: BigVGANVocoder in fp32 at full width (the same weights'
+    seed as phase 8) on the bench mel: 9 launches of kernel 10's fp32 form
+    a call (stages 3-5, C 96, 48, 24; stages 0-2 exceed tts_tpu's fp32
+    gate of C <= 128), none of the bf16 form; the generator output against
+    the same through kernel 10's twin; samples/s and RTF. Returns the
+    launches of one call."""
+    import tts_tpu_torch.ops.bigvgan_stage as k10
+    from tts_tpu_torch.models.bigvgan import BigVGANConfig, bigvgan_apply
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.vocoder import BigVGANVocoder
+
+    cfg, f32 = BigVGANConfig(), torch.float32
+    voc = BigVGANVocoder(bigvgan_weights(cfg, 9, f32), cfg, dtype=f32)
+    mel = np.random.default_rng(9).standard_normal((1, 512, cfg.num_mels)).astype(np.float32)
+    voc(mel)                                                # warm-up
+    torch.cuda.synchronize()
+    per_call = kernel10_per_call(cfg, 512, f32)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    wav = voc(mel)
+    wall = time.perf_counter() - t0
+    launches = {"amp_block_fused_f32": LAUNCHES["amp_block_fused_f32"]}
+    melt = torch.as_tensor(mel, device="cuda")
+    kern = bigvgan_apply(voc.params, melt, cfg)
+    rms = kern.square().mean().sqrt().item()
+    clipped = (kern.abs() >= 1.0).float().mean().item()
+    print(f"  bench mel (1, 512, {cfg.num_mels}) in fp32: {wav.shape[-1]} int16 samples, wall "
+          f"{wall:.4f} s (first timed call), waveform RMS {rms:.4f}, {100 * clipped:.2f}% at "
+          f"the clamp, launches {launches['amp_block_fused_f32']} of the fp32 form (expected "
+          f"{per_call}), {LAUNCHES['amp_block_fused']} of the bf16 form", flush=True)
+    if wav.dtype != np.int16 or wav.shape != (1, 512 * cfg.total_upsample):
+        raise AssertionError(f"expected (1, {512 * cfg.total_upsample}) int16, got "
+                             f"{wav.shape} {wav.dtype}")
+    if not math.isfinite(rms) or rms < 1e-3 or clipped > 0.5 or not wav.any():
+        raise AssertionError("the waveform is not finite, near zero or mostly clamped")
+    if launches["amp_block_fused_f32"] != per_call or per_call != 9 \
+            or LAUNCHES["amp_block_fused"]:
+        raise AssertionError(f"kernel 10 fp32 launched {launches['amp_block_fused_f32']} "
+                             f"times (expected 9), bf16 {LAUNCHES['amp_block_fused']}")
+    with swapped(k10, {"amp_block_fused": k10.amp_block_fused_plain}):
+        ref = bigvgan_apply(voc.params, melt, cfg)
+    e = rel_l2(kern, ref)
+    ok = bool(torch.isfinite(kern).all()) and e <= FWD32_TOL
+    print(f"  fp32 generator output, kernel 10 against its twin: rel L2 {e:.6g} (limit "
+          f"{FWD32_TOL}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the fp32 kernel-10 generator disagrees with its twin's")
+    del kern, ref
+    bench = voc.benchmark(mel_frames=512, iters=5)
+    print(f"  {name_limit}: BigVGAN fp32 bench mel (1, 512, 100): "
+          f"{bench['samples_per_sec']:.0f} samples/s, RTF {bench['rtf']:.6f} "
+          f"({1e3 * bench['wall_s']:.3f} ms a call, {bench['samples']} samples, 5 calls)",
+          flush=True)
+    print("  " + json.dumps({"bigvgan": "fp32", **bench}), flush=True)
+    return launches
 
 
 INDEX_IDS = np.arange(5, 37, dtype=np.int32)[None]     # 32 text ids
@@ -1601,9 +1952,9 @@ def check_index_step(pipe, ref) -> None:
 def check_index_vocode(pipe, args: tuple, label: str) -> None:
     """Kernel 10 in IndexTTS's vocoder at the shapes a request gave it:
     the arguments `_vocode` was called with run again through kernel 10,
-    through its bf16 twin, and in fp32 (params and inputs cast; fp32 takes
-    the plain chain on the card). As in phase 8, kernel 10's rel L2 against
-    fp32 is at most STEP_SLACK x the twin's."""
+    through its bf16 twin, and in fp32 (params and inputs cast, through the
+    twin). As in phase 8, kernel 10's rel L2 against fp32 is at most
+    STEP_SLACK x the twin's."""
     import tts_tpu_torch.ops.bigvgan_stage as k10
     from tts_tpu_torch.models.bigvgan import bigvgan_apply
     from tts_tpu_torch.models.indextts import gpt_final_norm
@@ -1623,7 +1974,7 @@ def check_index_vocode(pipe, args: tuple, label: str) -> None:
     kern = wav(torch.bfloat16)
     with swapped(k10, {"amp_block_fused": k10.amp_block_fused_plain}):
         plain = wav(torch.bfloat16)
-    ref = wav(torch.float32)
+        ref = wav(torch.float32)
     e_k, e_p = rel_l2(kern, ref), rel_l2(plain, ref)
     ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_p
     print(f"  {label} vocoder ({tuple(kern.shape)}), rel L2 against the fp32 generator: "
@@ -1779,7 +2130,7 @@ def main() -> None:
                          "the Kani, Qwen, BigVGAN and IndexTTS tables into DIR")
     ap.add_argument("--families", default="f5,kani,qwen,bigvgan,indextts",
                     help="the pipeline phases to run after phase 2, by family: "
-                         "f5 (3-5), kani (6), qwen (7), bigvgan (8), indextts (9); "
+                         "f5 (3-5c), kani (6), qwen (7), bigvgan (8, 8c), indextts (9); "
                          "default all (the smoke run's contract)")
     args = ap.parse_args()
     fams = set(args.families.split(","))
@@ -1837,6 +2188,9 @@ def main() -> None:
             profile_f5({"bf16": pipe, "w8a8": q8_pipe}, name_limit)
         del q8_pipe, pipe
 
+        phase("phase 5c: F5Pipeline in fp32")
+        launches.update(run_f5_fp32(name_limit))
+
     if "kani" in fams:
         phase("phase 6: KaniPipeline.synthesize_ids")
         kani = run_kani(name_limit)
@@ -1865,6 +2219,9 @@ def main() -> None:
                         (K10_CLASS, CONV_CLASS, GEMM_CLASS), name_limit,
                         out_path=os.path.join(args.profile, "bigvgan_profile.txt"))
         del voc
+
+        phase("phase 8c: BigVGANVocoder in fp32")
+        launches.update(run_vocoder_fp32(name_limit))
 
     if "indextts" in fams:
         phase("phase 9: IndexTTSPipeline")

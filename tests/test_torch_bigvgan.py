@@ -162,15 +162,24 @@ def test_amp_block_guards_raise():
     (24, 100, torch.bfloat16, jnp.bfloat16),
     (24, 131072, torch.float16, jnp.float16),
     (256, 256, torch.bfloat16, jnp.bfloat16),
+    (24, 131072, torch.float32, jnp.float32),
+    (96, 32768, torch.float32, jnp.float32),
+    (128, 256, torch.float32, jnp.float32),
+    (136, 16384, torch.float32, jnp.float32),
 ])
 def test_fusable_stage_agrees(c, t, dtype, jdtype):
     """tts_tpu's test cases of its gate, and on a CUDA device the kernel's
-    own limits on top: bf16 only, C a multiple of 8."""
+    own limits on top (`kernel_fits`: bf16 at C <= 256, fp32 at C <= 128,
+    C a multiple of 8)."""
     want = jks.fusable_stage(c, t, jdtype)
     assert tks.fusable_stage(c, t, dtype) == want
     assert tks.fusable_stage(c, t, dtype, "cpu") == want
-    assert tks.fusable_stage(c, t, dtype, "cuda") == (want and dtype == torch.bfloat16)
+    fits = dtype in (torch.bfloat16, torch.float32) and c % 8 == 0 \
+        and c <= (256 if dtype == torch.bfloat16 else 128)
+    assert tks.kernel_fits(c, dtype) == fits
+    assert tks.fusable_stage(c, t, dtype, "cuda") == (want and fits)
     assert not tks.fusable_stage(20, 4096, torch.bfloat16, "cuda")
+    assert not tks.fusable_stage(20, 4096, torch.float32, "cuda")
 
 
 # ---------------------------------------------------------------- generator

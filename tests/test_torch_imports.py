@@ -19,6 +19,10 @@ names = [m.name for m in pkgutil.walk_packages(tts_tpu_torch.__path__,
                                                 "tts_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the entry points of the F5 route table and kernels 4 and 5
+from tts_tpu_torch.models.f5 import attention_route, conv_fits, mlp_fits
+from tts_tpu_torch.ops.flash_attention import (flash_attention, flash_onepass_plain,
+                                               flash_online_plain)
 assert not any(m.split(".")[0] in ("jax", "tts_tpu") for m, v in sys.modules.items()
                if v is not None), "a jax or tts_tpu module was imported"
 print(len(names))
@@ -42,5 +46,6 @@ def test_port_imports_without_jax():
     # kernels' modules, quant_matmul, decode_attention, decode_mlp and
     # bigvgan_stage among them), quant, models (qwen_tts, qwen_codec,
     # bigvgan and indextts among them), weights, frontend, runtime (qwen,
-    # vocoder and indextts among them) and their packages
+    # vocoder and indextts among them) and their packages; kernels 4 and 5
+    # live in ops/flash_attention, beside kernel 1
     assert int(proc.stdout.split()[-1]) >= 49

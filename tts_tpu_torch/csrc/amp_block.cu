@@ -6,11 +6,14 @@
 // `crop` zeroing every intermediate outside the sequence [0, T).
 //
 // Replaces tts_tpu/ops/bigvgan_stage.py:amp_block_fused (Pallas body
-// _make_kernel). Same rounding points: each act runs in fp32 with the TPU
-// kernel's tap order and is rounded to bf16 once; each conv accumulates in
-// fp32 on the tensor cores, is rounded to bf16, then the bias is added in
-// bf16; the residual is a bf16 add. Every fp32 product and sum of the act is
-// an explicit _rn op, so nvcc contracts none of them into an FMA.
+// _make_kernel), in bf16 and in fp32, as tts_tpu's kernel takes both. Same
+// rounding points: each act runs in fp32 with the TPU kernel's tap order and
+// is rounded to the dtype once; each conv accumulates in fp32, is rounded to
+// the dtype, then the bias is added in the dtype; the residual is an add in
+// the dtype. Every fp32 product and sum of the act is an explicit _rn op, so
+// nvcc contracts none of them into an FMA. In bf16 the convs run on the
+// tensor cores (WMMA); in fp32 they are true fp32 FMAs on the CUDA cores (no
+// TF32), and every rounding to the dtype is exact.
 //
 // What bounds it on an H100: at the BigVGAN bench shapes the convs are
 // 12 k C^2 T flops a resblock (0.02-0.08 ms of tensor-core time at C = 192)
@@ -52,40 +55,52 @@ struct Taps {
   float v[24];
 };
 
+template <typename E>
 struct Branch {
-  const bf16* x;    // branch input (B, T, C)
-  bf16* y;          // branch output (B, T, C)
-  const bf16* w1;   // (K, Cp, Cp) conv 1, dilation d
-  const bf16* b1;   // (C,)
-  const bf16* w2;   // (K, Cp, Cp) conv 2, dilation 1
-  const bf16* b2;
-  const bf16* a1;   // snake alpha / reciprocal of act 1, act 2 (C,)
-  const bf16* r1;
-  const bf16* a2;
-  const bf16* r2;
+  const E* x;    // branch input (B, T, C)
+  E* y;          // branch output (B, T, C)
+  const E* w1;   // (K, Cp, Cp) conv 1, dilation d
+  const E* b1;   // (C,)
+  const E* w2;   // (K, Cp, Cp) conv 2, dilation 1
+  const E* b2;
+  const E* a1;   // snake alpha / reciprocal of act 1, act 2 (C,)
+  const E* r1;
+  const E* a2;
+  const E* r2;
   int T, C, Cp, K, d, Tb, R, rows_x, rows_t, gsize;
 };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 
+// a value of the element type to fp32 and back (the rounding point)
+__device__ __forceinline__ float ld(bf16 v) { return to_f(v); }
+__device__ __forceinline__ float ld(float v) { return v; }
+template <typename E>
+__device__ __forceinline__ E st(float v);
+template <>
+__device__ __forceinline__ bf16 st<bf16>(float v) { return to_bf(v); }
+template <>
+__device__ __forceinline__ float st<float>(float v) { return v; }
+
 // out rows [0, rows_out) (global rows g0 + i) from in rows (global g0 - 6 + j)
-__device__ void act_rows(const bf16* __restrict__ in, bf16* __restrict__ out,
+template <typename E>
+__device__ void act_rows(const E* __restrict__ in, E* __restrict__ out,
                          int rows_out, int g0, int T, int C, int Cp,
-                         const bf16* __restrict__ alpha, const bf16* __restrict__ recip,
+                         const E* __restrict__ alpha, const E* __restrict__ recip,
                          const Taps& tp) {
   const int strips = (rows_out + S - 1) / S;
   for (int item = threadIdx.x; item < strips * Cp; item += NT) {
     const int c = item % Cp, i0 = (item / Cp) * S;
     if (c >= C) {
 #pragma unroll
-      for (int s = 0; s < S; ++s) out[(i0 + s) * Cp + c] = to_bf(0.f);
+      for (int s = 0; s < S; ++s) out[(i0 + s) * Cp + c] = st<E>(0.f);
       continue;
     }
-    const float a = to_f(alpha[c]), rc = to_f(recip[c]);
+    const float a = ld(alpha[c]), rc = ld(recip[c]);
     float u[S + 12];
 #pragma unroll
-    for (int q = 0; q < S + 12; ++q) u[q] = to_f(in[(i0 + q) * Cp + c]);
+    for (int q = 0; q < S + 12; ++q) u[q] = ld(in[(i0 + q) * Cp + c]);
     // phase position p is global row g0 + i0 + p - 3
     float pe[S + 6], po[S + 6];
 #pragma unroll
@@ -110,7 +125,7 @@ __device__ void act_rows(const bf16* __restrict__ in, bf16* __restrict__ out,
 #pragma unroll
       for (int m = 0; m < 6; ++m) r = add(r, mul(po[s + m], tp.v[18 + m]));
       const int g = g0 + i0 + s;
-      out[(i0 + s) * Cp + c] = to_bf(g >= 0 && g < T ? r : 0.f);
+      out[(i0 + s) * Cp + c] = st<E>(g >= 0 && g < T ? r : 0.f);
     }
   }
 }
@@ -120,7 +135,7 @@ __device__ void act_rows(const bf16* __restrict__ in, bf16* __restrict__ out,
 // res + conv (rows [t0, t0 + Tb) of the tile), else to `dst` in shared memory.
 __device__ void conv_rows(const bf16* __restrict__ a_s, const bf16* __restrict__ w,
                           const bf16* __restrict__ bias, int mt, int dc, int gbase,
-                          const Branch& p, float* scratch, bf16* dst,
+                          const Branch<bf16>& p, float* scratch, bf16* dst,
                           const bf16* __restrict__ res, bf16* __restrict__ y,
                           int t0, int b) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -171,20 +186,81 @@ __device__ void conv_rows(const bf16* __restrict__ a_s, const bf16* __restrict__
   }
 }
 
+// the fp32 form of conv_rows: out rows [0, mrows), 64 a pass, each thread
+// rows ty + 16 i (i < 4) and channels tx + 16 j (j < Cp / 16 <= 8), true
+// fp32 FMAs over the k taps and the input channels
+__device__ void conv_rows_f32(const float* __restrict__ a_s, const float* __restrict__ w,
+                              const float* __restrict__ bias, int mrows, int dc, int gbase,
+                              const Branch<float>& p, float* dst,
+                              const float* __restrict__ res, float* __restrict__ y, int t0,
+                              int b) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int Cp = p.Cp, nj = Cp / 16;
+  for (int r0 = 0; r0 < mrows; r0 += 64) {
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    int rows[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rows[i] = min(r0 + ty + 16 * i, mrows - 1);
+    for (int k = 0; k < p.K; ++k) {
+      const float* ak = a_s + (size_t)(k * dc) * Cp;
+      const float* wk = w + (size_t)k * Cp * Cp + tx;
+      for (int ci = 0; ci < Cp; ++ci) {
+        float av[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = ak[rows[i] * Cp + ci];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j < nj) {
+            const float wv = __ldg(wk + (size_t)ci * Cp + 16 * j);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(av[i], wv, acc[i][j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + ty + 16 * i;
+      if (r >= mrows) break;
+      const int g = gbase + r;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= nj) break;
+        const int c = tx + 16 * j;
+        const bool ok = c < p.C && g >= 0 && g < p.T;
+        const float v = ok ? acc[i][j] + bias[c] : 0.f;
+        if (res == nullptr) {
+          dst[r * Cp + c] = v;
+        } else if (ok && g < t0 + p.Tb) {
+          const size_t o = ((size_t)b * p.T + g) * p.C + c;
+          y[o] = res[o] + v;
+        }
+      }
+    }
+  }
+}
+
+template <typename E>
 __global__ void __launch_bounds__(NT)
-amp_branch_kernel(Branch p, Taps tp) {
+amp_branch_kernel(Branch<E> p, Taps tp) {
+  constexpr bool F32 = sizeof(E) == 4;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);                 // X, then T2
-  bf16* ts = xs + (size_t)p.rows_x * p.Cp;                   // T1, then T3
+  E* xs = reinterpret_cast<E*>(smem);                       // X, then T2
+  E* ts = xs + (size_t)p.rows_x * p.Cp;                     // T1, then T3
   float* scratch = reinterpret_cast<float*>(ts + (size_t)p.rows_t * p.Cp);
   const int t0 = blockIdx.x * p.Tb, b = blockIdx.y;
   const int Cp = p.Cp, C = p.C, T = p.T, mid = (p.K - 1) / 2;
 
   // stage x rows [t0 - R, t0 - R + rows_x), zero outside [0, T) and C
-  const bf16* xb = p.x + (size_t)b * T * C;
-  const int chunks = Cp / 8;
+  const E* xb = p.x + (size_t)b * T * C;
+  constexpr int VEC = 16 / sizeof(E);   // elements a 16-byte word
+  const int chunks = Cp / VEC;
   for (int i = threadIdx.x; i < p.rows_x * chunks; i += NT) {
-    const int r = i / chunks, c = (i % chunks) * 8, g = t0 - p.R + r;
+    const int r = i / chunks, c = (i % chunks) * VEC, g = t0 - p.R + r;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (g >= 0 && g < T && c < C) v = *reinterpret_cast<const uint4*>(xb + (size_t)g * C + c);
     *reinterpret_cast<uint4*>(xs + (size_t)r * Cp + c) = v;
@@ -192,15 +268,20 @@ amp_branch_kernel(Branch p, Taps tp) {
   __syncthreads();
 
   const int w1_rows = p.Tb + 2 * (p.R - 6);   // act 1 output rows
-  act_rows(xs, ts, w1_rows, t0 - p.R + 6, T, C, Cp, p.a1, p.r1, tp);
+  act_rows<E>(xs, ts, w1_rows, t0 - p.R + 6, T, C, Cp, p.a1, p.r1, tp);
   __syncthreads();
   const int m2 = (p.Tb + 2 * (6 + mid) + 15) / 16;
-  conv_rows(ts, p.w1, p.b1, m2, p.d, t0 - 6 - mid, p, scratch, xs, nullptr, nullptr,
-            t0, b);
+  if constexpr (F32)
+    conv_rows_f32(ts, p.w1, p.b1, m2 * 16, p.d, t0 - 6 - mid, p, xs, nullptr, nullptr, t0, b);
+  else
+    conv_rows(ts, p.w1, p.b1, m2, p.d, t0 - 6 - mid, p, scratch, xs, nullptr, nullptr, t0, b);
   __syncthreads();
-  act_rows(xs, ts, p.Tb + 2 * mid, t0 - mid, T, C, Cp, p.a2, p.r2, tp);
+  act_rows<E>(xs, ts, p.Tb + 2 * mid, t0 - mid, T, C, Cp, p.a2, p.r2, tp);
   __syncthreads();
-  conv_rows(ts, p.w2, p.b2, p.Tb / 16, 1, t0, p, scratch, nullptr, p.x, p.y, t0, b);
+  if constexpr (F32)
+    conv_rows_f32(ts, p.w2, p.b2, p.Tb, 1, t0, p, nullptr, p.x, p.y, t0, b);
+  else
+    conv_rows(ts, p.w2, p.b2, p.Tb / 16, 1, t0, p, scratch, nullptr, p.x, p.y, t0, b);
 }
 
 int round_up(int a, int m) { return (a + m - 1) / m * m; }
@@ -217,6 +298,62 @@ int group_size(int mt, int nt) {
   return best;
 }
 
+template <typename E>
+int run_block(const void* x, void* out, void* tmp, const void* w1, const void* b1,
+              const void* w2, const void* b2, const void* a1, const void* r1, const void* a2,
+              const void* r2, const float* taps, const int* dils, int J, int B, int T, int C,
+              int K, cudaStream_t s) {
+  constexpr bool F32 = sizeof(E) == 4;
+  Taps tp;
+  for (int i = 0; i < 24; ++i) tp.v[i] = taps[i];
+  const int Cp = round_up(C, 16), mid = (K - 1) / 2;
+  if (F32 && Cp > 128) return (int)cudaErrorInvalidValue;
+  // the row tile: two buffers of Tb + 2R rows fit 227 KB at R <= 42
+  const int Tb = F32 ? (Cp > 64 ? 128 : 256) : (Cp > 128 ? 64 : Cp > 64 ? 128 : 256);
+  static bool attr_set = false;
+  cudaError_t err;
+  if (!attr_set) {
+    err = cudaFuncSetAttribute(amp_branch_kernel<E>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const E* src = (const E*)x;
+  for (int j = 0; j < J; ++j) {
+    const int d = dils[j];
+    Branch<E> p;
+    p.x = src;
+    p.y = (E*)(((J - 1 - j) % 2 == 0) ? out : tmp);
+    p.w1 = (const E*)w1 + (size_t)j * K * Cp * Cp;
+    p.w2 = (const E*)w2 + (size_t)j * K * Cp * Cp;
+    p.b1 = (const E*)b1 + (size_t)j * C;
+    p.b2 = (const E*)b2 + (size_t)j * C;
+    p.a1 = (const E*)a1 + (size_t)j * C;
+    p.r1 = (const E*)r1 + (size_t)j * C;
+    p.a2 = (const E*)a2 + (size_t)j * C;
+    p.r2 = (const E*)r2 + (size_t)j * C;
+    p.T = T, p.C = C, p.Cp = Cp, p.K = K, p.d = d, p.Tb = Tb;
+    p.R = 12 + mid * d + mid;
+    const int w1r = Tb + 2 * (p.R - 6);              // act 1 output rows
+    const int m2 = round_up(Tb + 2 * (6 + mid), 16);  // conv 1 output rows
+    const int w3r = Tb + 2 * mid;                     // act 2 output rows
+    // act strips write S-row blocks and read 12 rows past them; conv 1 reads
+    // 2 mid d rows past its padded output
+    p.rows_x = std::max(std::max(round_up(w1r, S) + 12, m2), round_up(w3r, S) + 12);
+    p.rows_t = std::max(std::max(round_up(w1r, S), m2 + 2 * mid * d), round_up(w3r, S));
+    p.gsize = group_size(m2 / 16, Cp / 16);
+    const size_t smem = (size_t)(p.rows_x + p.rows_t) * Cp * sizeof(E) +
+                        (F32 ? 0 : NW * 256 * sizeof(float));
+    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+    const dim3 grid((T + Tb - 1) / Tb, B);
+    amp_branch_kernel<E><<<grid, NT, smem, s>>>(p, tp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    src = p.y;
+  }
+  return 0;
+}
+
 }  // namespace
 }  // namespace tts
 
@@ -230,52 +367,16 @@ extern "C" int amp_block_fused(const void* x, void* out, void* tmp, const void* 
                                const void* a1, const void* r1, const void* a2,
                                const void* r2, const float* taps, const int* dils,
                                int J, int B, int T, int C, int K, void* stream) {
-  using namespace tts;
-  Taps tp;
-  for (int i = 0; i < 24; ++i) tp.v[i] = taps[i];
-  const int Cp = round_up(C, 16), mid = (K - 1) / 2;
-  const int Tb = Cp > 128 ? 64 : Cp > 64 ? 128 : 256;
-  cudaStream_t s = (cudaStream_t)stream;
-  static bool attr_set = false;
-  cudaError_t err;
-  if (!attr_set) {
-    err = cudaFuncSetAttribute(amp_branch_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
-  const bf16* src = (const bf16*)x;
-  for (int j = 0; j < J; ++j) {
-    const int d = dils[j];
-    Branch p;
-    p.x = src;
-    p.y = (bf16*)(((J - 1 - j) % 2 == 0) ? out : tmp);
-    p.w1 = (const bf16*)w1 + (size_t)j * K * Cp * Cp;
-    p.w2 = (const bf16*)w2 + (size_t)j * K * Cp * Cp;
-    p.b1 = (const bf16*)b1 + (size_t)j * C;
-    p.b2 = (const bf16*)b2 + (size_t)j * C;
-    p.a1 = (const bf16*)a1 + (size_t)j * C;
-    p.r1 = (const bf16*)r1 + (size_t)j * C;
-    p.a2 = (const bf16*)a2 + (size_t)j * C;
-    p.r2 = (const bf16*)r2 + (size_t)j * C;
-    p.T = T, p.C = C, p.Cp = Cp, p.K = K, p.d = d, p.Tb = Tb;
-    p.R = 12 + mid * d + mid;
-    const int w1r = Tb + 2 * (p.R - 6);              // act 1 output rows
-    const int m2 = round_up(Tb + 2 * (6 + mid), 16);  // conv 1 output rows
-    const int w3r = Tb + 2 * mid;                     // act 2 output rows
-    // act strips write S-row blocks and read 12 rows past them; conv 1 reads
-    // 2 mid d rows past its padded output
-    p.rows_x = std::max(std::max(round_up(w1r, S) + 12, m2), round_up(w3r, S) + 12);
-    p.rows_t = std::max(std::max(round_up(w1r, S), m2 + 2 * mid * d), round_up(w3r, S));
-    p.gsize = group_size(m2 / 16, Cp / 16);
-    const size_t smem = (size_t)(p.rows_x + p.rows_t) * Cp * sizeof(bf16) +
-                        NW * 256 * sizeof(float);
-    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-    const dim3 grid((T + Tb - 1) / Tb, B);
-    amp_branch_kernel<<<grid, NT, smem, s>>>(p, tp);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    src = p.y;
-  }
-  return 0;
+  return tts::run_block<tts::bf16>(x, out, tmp, w1, b1, w2, b2, a1, r1, a2, r2, taps, dils,
+                                   J, B, T, C, K, (cudaStream_t)stream);
+}
+
+// The same in fp32: every tensor fp32, C a multiple of 8 and at most 128.
+extern "C" int amp_block_fused_f32(const void* x, void* out, void* tmp, const void* w1,
+                                   const void* b1, const void* w2, const void* b2,
+                                   const void* a1, const void* r1, const void* a2,
+                                   const void* r2, const float* taps, const int* dils,
+                                   int J, int B, int T, int C, int K, void* stream) {
+  return tts::run_block<float>(x, out, tmp, w1, b1, w2, b2, a1, r1, a2, r2, taps, dils, J,
+                               B, T, C, K, (cudaStream_t)stream);
 }

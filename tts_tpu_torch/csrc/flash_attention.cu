@@ -16,6 +16,10 @@
 // It agrees with the one-pass form up to fp32 summation order, including
 // the TPU form's flush of rows whose every logit is below about -66.
 //
+// Head dim 64 (F5) or 128, as tts_tpu's kernel takes both: the kernel is a
+// template on D, with its tiles in dynamic shared memory (48 KB at D 64,
+// 88 KB at D 128).
+//
 // What bounds it on an H100: tensor-core work (4*T*T*D flops per head) once
 // T is past a few hundred keys; k and v are re-read from L2 by every q tile.
 // This first version keeps each warp's 16x64 score tile in shared memory
@@ -30,7 +34,6 @@
 namespace tts {
 namespace {
 
-constexpr int D = 64;     // head dim
 constexpr int BQ = 64;    // query rows per block (16 per warp)
 constexpr int BKV = 64;   // keys per tile
 constexpr int NT = 128;   // threads per block
@@ -38,6 +41,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // rows [t0, t0+64) of one head's q or k block, RoPE'd in fp32 and rounded
 // to bf16: x * cos + rot_half(x) * sin with rot_half = [-x[D/2:], x[:D/2]]
+template <int D>
 __device__ void load_roped(bf16* dst, const bf16* src, const float* cos_t,
                            const float* sin_t, int t0, int col0, int stride) {
   for (int i = threadIdx.x; i < 64 * (D / 8); i += NT) {
@@ -60,6 +64,7 @@ __device__ void load_roped(bf16* dst, const bf16* src, const float* cos_t,
   }
 }
 
+template <int D>
 __device__ void load_tile(bf16* dst, const bf16* src, int t0, int col0,
                           int stride) {
   for (int i = threadIdx.x; i < 64 * (D / 8); i += NT) {
@@ -69,15 +74,29 @@ __device__ void load_tile(bf16* dst, const bf16* src, int t0, int col0,
   }
 }
 
+// the score tile's row stride: it holds 64 scores a row, then the D-wide
+// output tile
+template <int D>
+__host__ __device__ constexpr int ss_ld() { return D > BKV ? D : BKV; }
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return (size_t)(BQ + 2 * BKV) * D * sizeof(bf16) + (size_t)BQ * ss_ld<D>() * sizeof(float) +
+         (size_t)BQ * BKV * sizeof(bf16);
+}
+
+template <int D>
 __global__ void __launch_bounds__(NT)
 flash_flat_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cos_t,
                   const float* __restrict__ sin_t, const int* __restrict__ kv_len,
                   bf16* __restrict__ out, int T, int H) {
-  __shared__ __align__(128) bf16 qs[BQ * D];
-  __shared__ __align__(128) bf16 ks[BKV * D];
-  __shared__ __align__(128) bf16 vs[BKV * D];
-  __shared__ __align__(128) float ss[BQ * BKV];  // scores, then the output tile
-  __shared__ __align__(128) bf16 ps[BQ * BKV];
+  constexpr int SS = ss_ld<D>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + BQ * D;
+  bf16* vs = ks + BKV * D;
+  float* ss = reinterpret_cast<float*>(vs + BKV * D);  // scores, then the output tile
+  bf16* ps = reinterpret_cast<bf16*>(ss + BQ * SS);
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -85,7 +104,7 @@ flash_flat_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cos_t,
   const bf16* base = qkv + (size_t)b * T * stride;
   const int kvl = min(max(kv_len[b], 0), T);
 
-  load_roped(qs, base, cos_t, sin_t, q0, h * D, stride);
+  load_roped<D>(qs, base, cos_t, sin_t, q0, h * D, stride);
   __syncthreads();
 
   // this warp's 16 query rows stay in registers for the whole kv loop
@@ -101,13 +120,13 @@ flash_flat_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cos_t,
 #pragma unroll
   for (int r = 0; r < 16; ++r) lpart[r] = 0.f;
 
-  float* sw = ss + warp * 16 * BKV;
+  float* sw = ss + warp * 16 * SS;
   bf16* pw = ps + warp * 16 * BKV;
 
   for (int k0 = 0; k0 < kvl; k0 += BKV) {
     __syncthreads();  // every warp is done with the previous k and v tiles
-    load_roped(ks, base, cos_t, sin_t, k0, H * D + h * D, stride);
-    load_tile(vs, base, k0, 2 * H * D + h * D, stride);
+    load_roped<D>(ks, base, cos_t, sin_t, k0, H * D + h * D, stride);
+    load_tile<D>(vs, base, k0, 2 * H * D + h * D, stride);
     __syncthreads();
 
     // S = Q K^T for 16 rows x 64 keys
@@ -121,7 +140,7 @@ flash_flat_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cos_t,
         wmma::load_matrix_sync(kb, ks + n * 16 * D + kk * 16, D);
         wmma::mma_sync(s, qa[kk], kb, s);
       }
-      wmma::store_matrix_sync(sw + n * 16, s, BKV, wmma::mem_row_major);
+      wmma::store_matrix_sync(sw + n * 16, s, SS, wmma::mem_row_major);
     }
     __syncwarp();
 
@@ -132,7 +151,7 @@ flash_flat_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cos_t,
       for (int half = 0; half < 2; ++half) {
         const int c = lane + half * 32;
         float p = 0.f;
-        if (k0 + c < kvl) p = exp2f(fminf(sw[r * BKV + c] * LOG2E, 100.f) - 30.f);
+        if (k0 + c < kvl) p = exp2f(fminf(sw[r * SS + c] * LOG2E, 100.f) - 30.f);
         lpart[r] += p;
         pw[r * BKV + c] = to_bf(p);
       }
@@ -156,7 +175,7 @@ flash_flat_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cos_t,
   // each warp only ever touches its own 16 rows of ss
 #pragma unroll
   for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(sw + n * 16, acc[n], BKV, wmma::mem_row_major);
+    wmma::store_matrix_sync(sw + n * 16, acc[n], SS, wmma::mem_row_major);
   __syncwarp();
   const size_t out_stride = (size_t)H * D;
   bf16* ob = out + ((size_t)b * T + q0 + warp * 16) * out_stride + h * D;
@@ -164,25 +183,39 @@ flash_flat_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cos_t,
   for (int r = 0; r < 16; ++r) {
     const float l = warp_sum(lpart[r]) + 1e-37f;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = lane + half * 32;
-      ob[r * out_stride + c] = to_bf(sw[r * BKV + c] / l);
-    }
+    for (int c = lane; c < D; c += 32) ob[r * out_stride + c] = to_bf(sw[r * SS + c] / l);
   }
+}
+
+template <int D>
+int launch_flat(const void* qkv, const void* cos_t, const void* sin_t, const void* kv_len,
+                void* out, int B, int T, int H, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_flat_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<D>());
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const dim3 grid(T / BQ, H, B);
+  flash_flat_kernel<D><<<grid, NT, smem_bytes<D>(), stream>>>(
+      (const bf16*)qkv, (const float*)cos_t, (const float*)sin_t, (const int*)kv_len,
+      (bf16*)out, T, H);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace tts
 
-// qkv (B, T, 3*H*64) bf16; cos, sin (T, 64) fp32; kv_len (B,) int32;
-// out (B, T, H*64) bf16. T must be a multiple of 64.
+// qkv (B, T, 3*H*D) bf16; cos, sin (T, D) fp32; kv_len (B,) int32;
+// out (B, T, H*D) bf16. D is 64 or 128; T must be a multiple of 64.
 extern "C" int flash_attention_flat(const void* qkv, const void* cos_t,
                                     const void* sin_t, const void* kv_len,
-                                    void* out, int B, int T, int H,
+                                    void* out, int B, int T, int H, int D,
                                     void* stream) {
-  const dim3 grid(T / tts::BQ, H, B);
-  tts::flash_flat_kernel<<<grid, tts::NT, 0, (cudaStream_t)stream>>>(
-      (const tts::bf16*)qkv, (const float*)cos_t, (const float*)sin_t,
-      (const int*)kv_len, (tts::bf16*)out, T, H);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64) return tts::launch_flat<64>(qkv, cos_t, sin_t, kv_len, out, B, T, H, s);
+  if (D == 128) return tts::launch_flat<128>(qkv, cos_t, sin_t, kv_len, out, B, T, H, s);
+  return (int)cudaErrorInvalidValue;
 }

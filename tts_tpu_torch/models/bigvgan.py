@@ -11,7 +11,7 @@ exp(a), beta_recip = 1/exp(b)), as tts_tpu's params tree has them.
 `bigvgan_stage` routes an AMPBlock1 stage through kernel 10
 (ops/bigvgan_stage.amp_block_fused) where `fusable_stage` admits it:
 tts_tpu's gate (C <= 256 in bf16, <= 128 in fp32, T >= 256) plus, on the
-card, the CUDA kernel's limits (bf16, C a multiple of 8). `fused=None`
+card, the CUDA kernel's limits (C a multiple of 8). `fused=None`
 means that route on every device, so the CPU takes the kernel's twin where
 the card takes the kernel. The plain chain's act is
 AliasFreeResample.alias_free_act in the activation dtype.

@@ -8,14 +8,24 @@ precomputed AdaLN tables `ada_table` / `norm_out_table`. Feature-last
 (ops/flash_attention, ops/grouped_conv, ops/dit_mlp, ops/quant_matmul),
 which run their plain twins on CPU tensors.
 
+Every kernel sits behind a gate that picks its route before any call:
+tts_tpu's gates, with the CUDA kernels' own limits added on a CUDA device
+(`attention_route`, `conv_fits`, `mlp_fits`, `q8_fits`). Past a gate the
+block runs the plain chain, a copy of tts_tpu's XLA path. Attention takes
+kernel 1 (flat qkv, RoPE in its prologue) where the head geometry allows
+it, kernel 4 (`_rope_qkv_flat` + the single pass) at the other head dims
+that are multiples of 64, kernel 5 (the online softmax) past T = 4096, and
+the plain chain otherwise; on the card, fp32 at a flat geometry takes
+kernel 4 (kernel 1 is bf16 only), which computes the same contract after
+the flat RoPE. On the CPU the routes are tts_tpu's, through the twins;
+the tests pin the card's routes by passing the device to the gates.
+
 With int8 DiT weights (F5Pipeline's quantize=8 / "w8a8") a block takes
 tts_tpu's W8A8 route, under tts_tpu's gates: kernel 7 (LN + modulate + qkv),
-kernel 1, kernel 8 (out-proj + gated residual), then kernel 6 (the MLP).
-The gates add the CUDA kernels' own weight-shape limits (`q8_fits`), as
-tts_tpu's encode its VMEM limits; F5TTS_v1_Base is within them. The port
-takes the route on every device, so the CPU tests run the card's route
-through the twins. int4 weights take the plain chain with a quantized
-`dense`, attention through kernel 1.
+attention as above, kernel 8 (out-proj + gated residual), then kernel 6
+(the MLP). The gates add the CUDA kernels' own weight-shape limits
+(`q8_fits`), as tts_tpu's encode its VMEM limits; F5TTS_v1_Base is within
+them. int4 weights take the plain chain with a quantized `dense`.
 """
 from __future__ import annotations
 
@@ -28,10 +38,13 @@ import torch.nn.functional as F
 
 from ..nn.norm import layer_norm
 from ..nn.rope import rope_table_interleaved
+from ..ops import dit_mlp as _k3
+from ..ops import flash_attention as _k1
+from ..ops import grouped_conv as _k2
 from ..ops.conv import conv1d
 from ..ops.dit_mlp import mlp_block_fused, mlp_block_fused_q8
-from ..ops.flash_attention import flash_attention_flat
-from ..ops.grouped_conv import conv_pos_embed_fused
+from ..ops.flash_attention import flash_attention, flash_attention_flat
+from ..ops.grouped_conv import _grouped_conv_mm, conv_pos_embed_fused
 from ..ops.quant_matmul import ln_qkv_q8, out_proj_residual_q8, q8_fits
 from ..quant.weight_only import QTensor, dense
 from ._params import ParamTree
@@ -43,6 +56,9 @@ __all__ = [
     "f5_time_embed_table",
     "f5_rope_tables",
     "attach_mod_tables",
+    "attention_route",
+    "conv_fits",
+    "mlp_fits",
     "hs_perm",
     "text_embedding",
     "input_embedding",
@@ -189,22 +205,149 @@ def text_embedding(params: dict, text_ids: torch.Tensor, seq_len: int,
 # --------------------------------------------------------------------------
 # Input embedding + DiT blocks
 
+def _on_card(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def conv_fits(dtype, cin_pg: int, k: int, t: int, device=None) -> bool:
+    """Kernel 2's gate: tts_tpu's T % 8 == 0 and, on a CUDA device, the
+    kernel's own limits (`grouped_conv.kernel_fits`: bf16, 64 channels a
+    group, an odd width <= 33, T % 64 == 0). tts_tpu's 7 MB column gate
+    was a VMEM limit the CUDA kernel does not have."""
+    return t % 8 == 0 and (not _on_card(device) or _k2.kernel_fits(dtype, cin_pg, k, t))
+
+
+def mlp_fits(dtype, rows: int, d: int, f: int, t: int, device=None) -> bool:
+    """Kernel 3's gate: tts_tpu's (T % 8 == 0 and both weights within 12 MB,
+    which keeps fp32 at F5TTS_v1_Base width on the plain chain) and, on a
+    CUDA device, the kernel's own limits (`dit_mlp.kernel_fits`: bf16, the
+    rows, D and F multiples of 64)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    ok = t % 8 == 0 and 2 * d * f * itemsize <= 12 << 20
+    return ok and (not _on_card(device) or _k3.kernel_fits(dtype, rows, d, f))
+
+
+def attention_route(dtype, head_dim: int, heads: int, t: int, device=None) -> str:
+    """The DiT attention's route, for `_dit_attention` and the W8A8 block:
+    "flat" (kernel 1), "onepass" (`_rope_qkv_flat` + kernel 4), "online"
+    (kernel 5) or "plain" (the XLA chain's copy).
+
+    tts_tpu's gates: T % 128 == 0 and head_dim % 64 == 0 for any kernel;
+    then kernel 5 past T = 4096, kernel 1 where 128 % head_dim == 0 and
+    heads % (128 // head_dim) == 0, kernel 4 otherwise. On a CUDA device the
+    kernels' own limits come on top: kernel 1 takes bf16 only, so other
+    dtypes at a flat geometry take kernel 4 (the same contract after the
+    flat RoPE); kernels 4 and 5 take bf16 or fp32 with head_dim <= 256, and
+    anything else takes the plain chain."""
+    if t % 128 or head_dim % 64:
+        return "plain"
+    if t > 4096:
+        route = "online"
+    elif 128 % head_dim == 0 and heads % (128 // head_dim) == 0:
+        route = "flat"
+    else:
+        route = "onepass"
+    if _on_card(device):
+        if route == "flat" and not _k1.flat_kernel_fits(dtype, head_dim, t):
+            route = "onepass"
+        if route != "flat" and not _k1.mha_kernel_fits(dtype, head_dim, t):
+            route = "plain"
+    return route
+
+
 def input_embedding(params: dict, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
     """cat(x, cond) -> proj -> conv position embedding with residual
-    (kernel 2, ops/grouped_conv.py)."""
+    (kernel 2, ops/grouped_conv.py, where `conv_fits`; else tts_tpu's
+    im2col chain)."""
     p = params["input_embed"]
     h = torch.cat([x, cond], dim=-1)
     h = torch.matmul(h, p["proj"]["w"]) + p["proj"]["b"]
-    return conv_pos_embed_fused(h, p["conv1"]["w"], p["conv1"]["b"],
-                                p["conv2"]["w"], p["conv2"]["b"])
+    k, cin_pg, _ = p["conv1"]["w"].shape
+    if conv_fits(h.dtype, cin_pg, k, h.shape[1], h.device):
+        return conv_pos_embed_fused(h, p["conv1"]["w"], p["conv1"]["b"],
+                                    p["conv2"]["w"], p["conv2"]["b"])
+    c = _grouped_conv_mm(h, p["conv1"]["w"], p["conv1"]["b"])
+    c = c * torch.tanh(torch.logaddexp(c, torch.zeros_like(c)))          # mish
+    c = _grouped_conv_mm(c, p["conv2"]["w"], p["conv2"]["b"])
+    c = c * torch.tanh(torch.logaddexp(c, torch.zeros_like(c)))
+    return c + h
+
+
+def _rope_qkv_flat(qkv: torch.Tensor, rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                   heads: int, head_dim: int):
+    """Half-split RoPE over the (B, T, 3*H*D) qkv tensor: q and k as
+    x * cos + rot_half(x) * sin in fp32, rounded to qkv's dtype; v passes
+    through. Returns q, k, v in (B, H, T, D)."""
+    b, t, _ = qkv.shape
+    x = qkv.reshape(b, t, 3, heads, head_dim)
+    cos = rope_cos[:t].float()[None, :, None, :]
+    sin = rope_sin[:t].float()[None, :, None, :]
+    half = head_dim // 2
+
+    def rope(u):
+        rot = torch.cat([-u[..., half:], u[..., :half]], dim=-1)
+        return (u.float() * cos + rot.float() * sin).to(qkv.dtype)
+
+    q, k, v = rope(x[:, :, 0]), rope(x[:, :, 1]), x[:, :, 2]
+    return (q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous())
+
+
+def _plain_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len) -> torch.Tensor:
+    """Plain packed attention, tts_tpu's XLA chain (`_dit_attention`'s
+    fallback): fp32 scores, keys >= kv_len at -1e30, softmax, the weights
+    rounded to the activation dtype, then P.V. Returns (B, T, H*D)."""
+    b, h, t, d = q.shape
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    if kv_len is not None:
+        kv = kv_len if isinstance(kv_len, torch.Tensor) else torch.tensor(kv_len)
+        kv = kv.to(device=q.device, dtype=torch.int64).reshape(-1, 1, 1, 1)
+        mask = torch.arange(t, device=q.device)[None, None, None, :] < kv
+        scores = torch.where(mask, scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", w.float(), v.float()).to(q.dtype)
+    return o.transpose(1, 2).reshape(b, t, h * d)
+
+
+def _flash_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len) -> torch.Tensor:
+    """Kernel 4 with the packed (B, T, H*D) output, two heads a program
+    where the count is even, as tts_tpu calls it. tts_tpu sizes its q block
+    to VMEM; here the q block only selects the route (the CUDA kernel tiles
+    itself), and T % 128 == 0 on every path that calls this."""
+    heads, t = q.shape[1], q.shape[2]
+    hb = 2 if heads % 2 == 0 else 1
+    return flash_attention(q, k, v, kv_len, block_q=128, block_kv=t, head_block=hb,
+                           packed_out=True)
+
+
+def _attend(qkv: torch.Tensor, rope_cos, rope_sin, heads: int, head_dim: int, kv_len,
+            route: str) -> torch.Tensor:
+    """Attention over the flat qkv tensor on `route` (`attention_route`):
+    (B, T, 3*H*D) -> (B, T, H*D)."""
+    if route == "flat":
+        return flash_attention_flat(qkv, rope_cos, rope_sin, kv_len, heads=heads)
+    q, k, v = _rope_qkv_flat(qkv, rope_cos, rope_sin, heads, head_dim)
+    if route == "onepass":
+        return _flash_packed(q, k, v, kv_len)
+    if route == "online":
+        # tts_tpu calls it with blocks of 256 / 512 and so raises where its
+        # gate admits T % 512 != 0 (as 4224); the largest kv block of 512,
+        # 256 and 128 that divides T keeps its call where it works
+        b, _, t, _ = q.shape
+        bkv = next(n for n in (512, 256, 128) if t % n == 0)
+        out = flash_attention(q, k, v, kv_len, block_q=min(256, bkv), block_kv=bkv)
+        return out.transpose(1, 2).reshape(b, t, heads * head_dim)
+    return _plain_packed(q, k, v, kv_len)
 
 
 def _dit_attention(p: dict, x: torch.Tensor, rope_cos: torch.Tensor,
-                   rope_sin: torch.Tensor, heads: int, kv_len=None) -> torch.Tensor:
-    """Full (non-causal) self-attention with RoPE on q and k (kernel 1,
-    ops/flash_attention.py); the d^-0.5 scale is folded into wqkv."""
+                   rope_sin: torch.Tensor, heads: int, head_dim: int,
+                   kv_len=None) -> torch.Tensor:
+    """Full (non-causal) self-attention with RoPE on q and k, on the route
+    `attention_route` picks; the d^-0.5 scale is folded into wqkv."""
     qkv = dense(x, p["wqkv"]) + p["bqkv"]
-    out = flash_attention_flat(qkv, rope_cos, rope_sin, kv_len, heads=heads)
+    route = attention_route(qkv.dtype, head_dim, heads, qkv.shape[1], qkv.device)
+    out = _attend(qkv, rope_cos, rope_sin, heads, head_dim, kv_len, route)
     return dense(out, p["wo"]) + p["bo"]
 
 
@@ -213,7 +356,7 @@ def _dit_block(p: dict, x: torch.Tensor, mod: torch.Tensor, rope_cos, rope_sin,
     """AdaLN-zero DiT block; mod (Bm, 1, 6*dim) from the AdaLN table."""
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
         torch.chunk(mod, 6, dim=-1)
-    t = x.shape[1]
+    b, t, d = x.shape
     a, f1, f2 = p["attn"], p["ff1"], p["ff2"]
     # the W8A8 attention kernels take one shared mod vector
     if (mod.shape[0] == 1 and t % 128 == 0 and t <= 4096 and cfg.head_dim % 64 == 0
@@ -221,19 +364,21 @@ def _dit_block(p: dict, x: torch.Tensor, mod: torch.Tensor, rope_cos, rope_sin,
             and q8_fits(*a["wqkv"].shape) and q8_fits(*a["wo"].shape)):
         mods_a = torch.cat([shift_msa[0], scale_msa[0]], dim=0)        # (2, D)
         qkv = ln_qkv_q8(x, mods_a, a["wqkv"].q, a["wqkv"].scale, a["bqkv"])  # kernel 7
-        o = flash_attention_flat(qkv, rope_cos, rope_sin, kv_len, heads=cfg.heads)
+        route = attention_route(qkv.dtype, cfg.head_dim, cfg.heads, t, qkv.device)
+        o = _attend(qkv, rope_cos, rope_sin, cfg.heads, cfg.head_dim, kv_len, route)
         x = out_proj_residual_q8(o, a["wo"].q, a["wo"].scale, a["bo"],
                                  gate_msa.reshape(-1), x)               # kernel 8
     else:
         norm = layer_norm(x, eps=1e-6) * (1 + scale_msa) + shift_msa
         x = x + gate_msa * _dit_attention(a, norm, rope_cos, rope_sin, cfg.heads,
-                                          kv_len)
+                                          cfg.head_dim, kv_len)
     mods = torch.cat([shift_mlp, scale_mlp, gate_mlp], dim=1)       # (Bm, 3, D)
     if (t % 32 == 0 and isinstance(f1["w"], QTensor) and isinstance(f2["w"], QTensor)
             and q8_fits(*f1["w"].shape) and q8_fits(*f2["w"].shape)):
         return mlp_block_fused_q8(x, mods, f1["w"].q, f1["w"].scale, f1["b"],
                                   f2["w"].q, f2["w"].scale, f2["b"])    # kernel 6
-    if isinstance(f1["w"], torch.Tensor) and isinstance(f2["w"], torch.Tensor):
+    if (isinstance(f1["w"], torch.Tensor) and isinstance(f2["w"], torch.Tensor)
+            and mlp_fits(x.dtype, b * t, d, f1["w"].shape[1], t, x.device)):
         return mlp_block_fused(x, mods, f1["w"], f1["b"], f2["w"], f2["b"])  # kernel 3
     norm = layer_norm(x, eps=1e-6) * (1 + scale_mlp) + shift_mlp
     h = F.gelu(dense(norm, f1["w"]) + f1["b"], approximate="tanh")

@@ -17,8 +17,9 @@ a CUDA tensor and its plain PyTorch twin `amp_block_fused_plain` on a CPU
 tensor. Both keep the TPU kernel's rounding points: each act in fp32 (taps
 and snake parameters as the kernel sees them), rounded to the dtype once;
 each conv accumulated in fp32, rounded, then the bias added in the dtype;
-the residual added in the dtype. The CUDA kernel takes bf16 only
-(`kernel_fits`); an fp32 vocoder on the card takes the plain chain.
+the residual added in the dtype. The CUDA kernel takes bf16 at C <= 256
+and fp32 at C <= 128 (`kernel_fits`), launched as "amp_block_fused" and
+"amp_block_fused_f32" (each counted under its name).
 """
 from __future__ import annotations
 
@@ -35,11 +36,13 @@ from . import _build
 __all__ = ["LAUNCHES", "amp_block_fused", "amp_block_fused_plain", "fusable_stage",
            "kernel_fits", "act_plan"]
 
-LAUNCHES = _build.LAUNCHES          # counted under "amp_block_fused"
+LAUNCHES = _build.LAUNCHES     # counted under "amp_block_fused" / "amp_block_fused_f32"
 
 _H = 128          # tts_tpu's halo: the chained receptive radius it covers
 _S = 32           # tts_tpu's staging margin: the widest conv tap offset
-_MAX_C = 256      # channels the CUDA kernel's shared-memory tiles take
+# channels the CUDA kernel's shared-memory tiles take, by dtype
+_MAX_C = {torch.bfloat16: 256, torch.float32: 128}
+_ENTRY = {torch.bfloat16: "amp_block_fused", torch.float32: "amp_block_fused_f32"}
 _MAX_TAPS = 11    # conv width it is built for (odd)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, out, tmp, w1, b1, w2, b2, a1, r1, a2, r2, taps (24 host floats), dils
@@ -73,8 +76,8 @@ def act_plan() -> tuple[tuple, tuple]:
 
 def fusable_stage(c: int, t: int, dtype, device=None) -> bool:
     """tts_tpu's gate: C <= 256 in bf16, C <= 128 in fp32, T of at least one
-    tile (256). On a CUDA device the kernel's own limit is added: bf16
-    only (`kernel_fits`)."""
+    tile (256). On a CUDA device the kernel's own limits are added
+    (`kernel_fits`: C a multiple of 8)."""
     if dtype == torch.bfloat16:
         cmax = 256
     elif dtype == torch.float32:
@@ -88,10 +91,10 @@ def fusable_stage(c: int, t: int, dtype, device=None) -> bool:
 
 
 def kernel_fits(c: int, dtype) -> bool:
-    """Whether the CUDA kernel takes C channels of `dtype`: bf16, C a
-    multiple of 8 (16-byte row loads) and at most 256 (its shared-memory
-    tiles)."""
-    return dtype == torch.bfloat16 and c <= _MAX_C and c % 8 == 0
+    """Whether the CUDA kernel takes C channels of `dtype`: C a multiple of 8
+    (16-byte row loads), at most 256 in bf16 and 128 in fp32 (its
+    shared-memory tiles)."""
+    return dtype in _MAX_C and c <= _MAX_C[dtype] and c % 8 == 0
 
 
 def _check(x, w1, b1, w2, b2, a1, r1, a2, r2, k: int, dils: tuple) -> None:
@@ -213,21 +216,21 @@ def amp_block_fused(x: torch.Tensor, w1, b1, w2, b2, a1, r1, a2, r2, *, k: int,
         raise ValueError(f"no kernel for device {x.device}")
     bsz, t, c = x.shape
     if not kernel_fits(c, x.dtype):
-        raise TypeError(f"the CUDA kernel takes bf16 x with at most {_MAX_C} "
-                        f"channels, got {x.dtype} with {c}")
+        raise TypeError(f"the CUDA kernel takes bf16 x with at most 256 channels or "
+                        f"fp32 with at most 128, C a multiple of 8; got {x.dtype} with {c}")
     if k % 2 == 0 or k > _MAX_TAPS:
         raise ValueError(f"the CUDA kernel takes an odd width <= {_MAX_TAPS}, got {k}")
     ops = {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2, "a1": a1, "r1": r1,
            "a2": a2, "r2": r2}
     for name, a in ops.items():
-        if a.dtype != torch.bfloat16 or a.device != x.device:
-            raise TypeError(f"the CUDA kernel takes bf16 tensors on {x.device}; "
+        if a.dtype != x.dtype or a.device != x.device:
+            raise TypeError(f"the CUDA kernel takes {x.dtype} tensors on {x.device}; "
                             f"{name} is {a.dtype} on {a.device}")
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     cp = -(-c // 16) * 16
     if cp != c:
-        # the tensor-core tiles read 16 channels at a time: zero-pad the
+        # the kernel's tiles read 16 channels at a time: zero-pad the
         # weights to a multiple of 16 in and out
         w1 = F.pad(w1, (0, cp - c, 0, cp - c))
         w2 = F.pad(w2, (0, cp - c, 0, cp - c))
@@ -238,7 +241,7 @@ def amp_block_fused(x: torch.Tensor, w1, b1, w2, b2, a1, r1, a2, r2, *, k: int,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     # the dilations go as a host array: the C entry sizes each branch's
     # halo and shared memory from them
-    _build.launch("amp_block_fused", _ARGTYPES, x.data_ptr(), out.data_ptr(),
+    _build.launch(_ENTRY[x.dtype], _ARGTYPES, x.data_ptr(), out.data_ptr(),
                   tmp.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                   a1.data_ptr(), r1.data_ptr(), a2.data_ptr(), r2.data_ptr(),
                   _kernel_taps(), (ctypes.c_int * len(dils))(*dils),

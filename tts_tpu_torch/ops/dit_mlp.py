@@ -27,12 +27,18 @@ import torch.nn.functional as F
 from . import _build
 from .quant_matmul import check_cuda_args, int_dot, quantize_rows, row_scratch
 
-__all__ = ["mlp_block_fused", "mlp_block_plain", "mlp_block_fused_q8",
+__all__ = ["kernel_fits", "mlp_block_fused", "mlp_block_plain", "mlp_block_fused_q8",
            "mlp_block_q8_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _TILE = 64   # rows, D and F must be multiples of the kernel's GEMM tile
+
+
+def kernel_fits(dtype, rows: int, d: int, f: int) -> bool:
+    """Whether `mlp_block_fused`'s CUDA kernel takes this call: bf16, and
+    the rows (B * T), D and F multiples of its 64-wide GEMM tile."""
+    return dtype == torch.bfloat16 and rows % _TILE == 0 and d % _TILE == 0 and f % _TILE == 0
 
 
 def _mods3(mods: torch.Tensor, b: int, d: int) -> torch.Tensor:
@@ -77,6 +83,9 @@ def mlp_block_fused(x: torch.Tensor, mods: torch.Tensor, w1: torch.Tensor,
         return mlp_block_plain(x, mods, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if not kernel_fits(x.dtype, bsz * t, d, f):
+        raise ValueError(f"the CUDA kernel takes bf16 x with rows {bsz * t}, D {d} and "
+                         f"F {f} multiples of {_TILE}; got {x.dtype}")
     args = (("x", x), ("mods", mods), ("w1", w1), ("b1", b1), ("w2", w2),
             ("b2", b2))
     for name, a in args:
@@ -85,9 +94,6 @@ def mlp_block_fused(x: torch.Tensor, mods: torch.Tensor, w1: torch.Tensor,
                             f" {name} is {a.dtype} on {a.device}")
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if (bsz * t) % _TILE or d % _TILE or f % _TILE:
-        raise ValueError(f"rows {bsz * t}, D {d} and F {f} must be multiples "
-                         f"of {_TILE}")
     hidden = torch.empty((bsz * t, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream

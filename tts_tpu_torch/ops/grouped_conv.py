@@ -18,13 +18,20 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["conv_pos_embed_fused", "conv_pos_embed_plain"]
+__all__ = ["conv_pos_embed_fused", "conv_pos_embed_plain", "kernel_fits"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _CPG = 64        # channels per group the kernel is built for
 _TILE = 64       # output rows per block
 _MAX_TAPS = 33   # widest kernel its halo buffer takes
+
+
+def kernel_fits(dtype, cin_pg: int, k: int, t: int) -> bool:
+    """Whether the CUDA kernel takes this conv: bf16, 64 channels a group,
+    an odd width of at most 33 taps, T a multiple of its 64-row tile."""
+    return (dtype == torch.bfloat16 and cin_pg == _CPG and k % 2 == 1 and k <= _MAX_TAPS
+            and t % _TILE == 0)
 
 
 def _grouped_conv_mm(x: torch.Tensor, w: torch.Tensor,
@@ -74,20 +81,16 @@ def conv_pos_embed_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         return conv_pos_embed_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if not kernel_fits(x.dtype, cin, k, t):
+        raise ValueError(f"the CUDA kernel takes bf16 x with {_CPG} channels a group, "
+                         f"an odd width <= {_MAX_TAPS} and T a multiple of {_TILE}; got "
+                         f"{x.dtype}, {cin} channels a group, width {k}, T {t}")
     for name, a in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
         if a.dtype != torch.bfloat16 or a.device != x.device:
             raise TypeError(f"the CUDA kernel takes bf16 tensors on {x.device};"
                             f" {name} is {a.dtype} on {a.device}")
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if cin != _CPG:
-        raise ValueError(f"the CUDA kernel is built for {_CPG} channels per "
-                         f"group, got {cin}")
-    if k % 2 == 0 or k > _MAX_TAPS:
-        raise ValueError(f"the CUDA kernel takes an odd width <= {_MAX_TAPS}, "
-                         f"got {k}")
-    if t % _TILE:
-        raise ValueError(f"sequence {t} is not a multiple of {_TILE}")
     scratch = torch.empty_like(x)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -22,8 +22,9 @@ __all__ = ["BigVGANVocoder"]
 class BigVGANVocoder:
     """params: a BigVGAN params dict (tts_tpu's layout, e.g. from
     `weights.convert.params_from_jax` or `models.bigvgan.init_params`) on
-    the device to run on; floats are cast to `dtype`. Kernel 10 is bf16
-    only: in fp32 on a CUDA device every stage takes the plain chain."""
+    the device to run on; floats are cast to `dtype`. Kernel 10 takes the
+    stages its gate admits in bf16 (C <= 256) and in fp32 (C <= 128: stages
+    3-5 of bigvgan_v2_24khz_100band_256x)."""
 
     def __init__(self, params: dict, cfg: BigVGANConfig | None = None,
                  dtype=torch.bfloat16):
