@@ -19,23 +19,30 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
   2. each kernel against its plain PyTorch twin in fp32 on the same inputs,
      at the F5 bench shapes (kernel 1 also at head dim 128; kernel 4 in
      bf16 at head dims 64, 128 and 192 and in fp32; kernel 5 at T 8192 in
-     bf16 and T 2048 in fp32), the kani-tts-370m decode shapes, the
+     bf16 and T 2048 in fp32; kernels 6-8 also on fp32 activations), the
+     flash core's edges (kernels 1 and 5 at kv_len 0, 1, 63, 64, 65, T 64,
+     a row below -66, kernel 5 at D 256 and S 4224), the kani-tts-370m
+     decode shapes (kernel 12 also against its bf16 twin), the
      Qwen3-TTS-0.6B talker and predictor shapes (kernel 12 at head_dim 128,
      kernels 13-15) and the BigVGAN bench stages (kernel 10 in bf16 at
      stages 2 and 5, in fp32 at stages 3 and 5), with its error, its time
      beside the twin's and a library call's where one exists, and its
-     bound;
+     bound (and the flash kernels' exp floor);
   3. F5Pipeline.synthesize at full F5TTS_v1_Base width (random weights made
      from a seed) on three requests, checking the audio and that every DiT
      block went through the kernels;
-  4. F5Pipeline.benchmark: single-request latency and sustained RTF;
+  4. F5Pipeline.benchmark: single-request latency and sustained RTF; one
+     bf16 DiT forward at T 4608 through kernel 5 (22 launches) against the
+     twins;
   5. F5Pipeline(quantize="w8a8") over the same models: the three requests
      through kernels 6-8 (W8A8), one DiT forward against the twins in bf16
      and fp32, latency and sustained RTF; one quantize=4 request;
   5c. F5Pipeline in fp32 at full F5TTS_v1_Base width: the bench request
      through kernel 4 (682 launches, none of kernel 1), one fp32 DiT
      forward against the twins at the bench bucket and one at T 4608
-     through kernel 5 (22 launches), latency and sustained RTF;
+     through kernel 5 (22 launches), latency and sustained RTF; then with
+     quantize="w8a8": the bench request and one DiT forward against the
+     twins through kernels 7, 4, 8 and 6 in fp32;
   6. KaniPipeline.synthesize_ids at full kani-tts-370m width (random
      weights from a seed, the bench config: 256 new tokens, no stop token):
      greedy bf16 and int8, beam and a batch of 4, checking the audio, that
@@ -96,6 +103,14 @@ TOL = 2.0 ** -6
 TOL32 = 2.0 ** -14
 # an fp32 forward through the kernels against the same through the twins
 FWD32_TOL = 1e-4
+# the same with int8 DiT weights (W8A8): each activation row is quantized to
+# int8, and where the kernel's fp32 LayerNorm or attention sums run in
+# another order than the twin's, a value on a rounding tie of v / xs moves
+# by one int8 step (1/127 of its row's max) on one route only. About 1e-5
+# of the values sit that close to a tie; each step moves its output row by
+# about 1/(127 sqrt(K)), so a forward's rel L2 stays below 1e-3, while a
+# wrong index or layout gives errors of order one
+Q8_FWD32_TOL = 2.0 ** -10
 # the fused Kani step's logits may be this much further from fp32 than the
 # plain route's (check_step): rounding at other points gives either route
 # the larger error on a given input
@@ -206,14 +221,16 @@ def device_ms(fn, iters: int = 10, only: str | None = None) -> float:
     of `iters` calls, over iters. A decode kernel's single-call event time
     is mostly the host's enqueue, the card waiting on it. `only` keeps the
     kernels whose name holds it (a wrapper's own kernels, without the casts
-    it issues around them). A trace that holds no device time is taken
-    again; if the second holds none either, CUDA events around the `iters`
-    calls give the time (enqueue included), and the line says so."""
+    it issues around them). A trace that holds none of those kernels is
+    taken again, up to three in all (on the card a trace has come back
+    without them, once in several runs); then CUDA events around the
+    `iters` calls give the time (enqueue and every kernel of the call
+    included), and the line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -223,8 +240,6 @@ def device_ms(fn, iters: int = 10, only: str | None = None) -> float:
                  and (only is None or only in e.key)) / 1e3 / iters
         if ms > 0:
             return ms
-    if only is not None:
-        raise AssertionError(f"no {only!r} kernel in the trace")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -232,22 +247,27 @@ def device_ms(fn, iters: int = 10, only: str | None = None) -> float:
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / iters
-    print(f"  (two profiler traces held no device time: CUDA events over {iters} calls, "
+    what = "device time" if only is None else f"a {only!r} kernel"
+    print(f"  (three profiler traces held no {what}: CUDA events over {iters} calls, "
           f"{ms:.4f} ms a call)", flush=True)
     return ms
 
 
-def check(label: str, got: torch.Tensor, ref: torch.Tensor, tol: float = TOL) -> float:
+def check(label: str, got: torch.Tensor, ref: torch.Tensor, tol: float = TOL,
+          max_tol: float | None = None) -> float:
+    """got within tol of ref: rel L2 <= tol and max |err| <= max_tol (default
+    tol) times max |ref|."""
     torch.cuda.synchronize()
+    max_tol = tol if max_tol is None else max_tol
     ref = ref.float()
     err = got.float() - ref
     max_abs = err.abs().max().item()
     scale = ref.abs().max().item()
     rel_l2 = (torch.linalg.vector_norm(err) / torch.linalg.vector_norm(ref)).item()
-    ok = (bool(torch.isfinite(got).all()) and max_abs <= tol * scale
+    ok = (bool(torch.isfinite(got).all()) and max_abs <= max_tol * scale
           and rel_l2 <= tol)
     print(f"  {label}: max_abs_err {max_abs:.6g} (max|ref| {scale:.6g}, "
-          f"limit {tol * scale:.6g}), rel_l2 {rel_l2:.6g} (limit {tol:.6g}) "
+          f"limit {max_tol * scale:.6g}), rel_l2 {rel_l2:.6g} (limit {tol:.6g}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"{label}: kernel disagrees with its twin")
@@ -315,6 +335,14 @@ def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
                 fused_qkv_attn, fused_qkv_attn_plain,
                 f"fused_qkv_attn L=6 T=2048 pos={pos} {wl}", x1, wt, cos, sin, kc, vc,
                 3, pos, **kani))
+            # beside it, the bf16 twin (its rounding points in bf16): no new
+            # draws, so every later check keeps its inputs
+            for part, g, r16 in zip(
+                    ("out", "k", "v"),
+                    fused_qkv_attn(x1, wt, cos, sin, kc, vc, 3, pos, **kani),
+                    fused_qkv_attn_plain(x1, wt, cos, sin, kc, vc, 3, pos, **kani)):
+                check(f"fused_qkv_attn L=6 T=2048 pos={pos} {wl} {part} against the bf16 "
+                      f"twin", g, r16)
     timed["fused_qkv_attn"] = (
         lambda: fused_qkv_attn(x1, w, cos, sin, kc, vc, 3, 700, **kani),
         lambda: fused_qkv_attn_plain(x1, w, cos, sin, kc, vc, 3, 700, **kani))
@@ -496,6 +524,13 @@ def check_kernels(gen: torch.Generator) -> dict:
             set_bound(r, nbytes(qkv, cos[:t], sin[:t], got),
                       4 * 2 * 16 * t * 1396 * 64, "bf16")
             r["library_ms"] = sdpa_ms(qkv, cos, sin, 1396)
+            print(f"  flash_attention_flat bench shape: exp floor "
+                  f"{exp_floor_ms(2 * 16 * t * 1396):.4f} ms beside the bound "
+                  f"{r['bound_ms']:.4f} ms; device time a call (profiler over 10 calls, "
+                  f"no host enqueue): kernel "
+                  f"{device_ms(lambda: flash_attention_flat(qkv, cos, sin, kv, heads=16)):.4f} "
+                  f"ms (pre-pass and core), SDPA {sdpa_ms(qkv, cos, sin, 1396, device=True):.4f} ms",
+                  flush=True)
         del got, ref
 
     r = res["conv_pos_embed_fused"]
@@ -541,9 +576,10 @@ def check_kernels(gen: torch.Generator) -> dict:
               f"({res[name]['bound_by']}), library call "
               f"{'none' if lib is None else f'{lib:.4f} ms'} (bench shape, {how})",
               flush=True)
-    # their own generator: the checks after them keep the inputs they had
-    # before kernels 4 and 5 were added
+    # their own generators: the checks after them keep the inputs they had
+    # before kernels 4 and 5 and the flash core's edge cases were added
     check_attention_kernels(torch.Generator("cuda").manual_seed(4321), res)
+    check_flash_edges(torch.Generator("cuda").manual_seed(4322), res)
     check_decode_kernels(gen, res)
     check_qwen_kernels(gen, res)
     check_bigvgan_kernel(gen, res)
@@ -616,6 +652,8 @@ def check_attention_kernels(gen: torch.Generator, res: dict) -> None:
     set_bound(one, nbytes(qkv, cos, sin) + qkv.numel() // 3 * 2,
               4 * 2 * 8 * 1408 * 1396 * 128, "bf16")
     report("flash_attention_flat D=128 (B 2, H 8, T 1408, kv_len 1396)", one, "bf16")
+    print(f"  flash_attention_flat D=128: exp floor {exp_floor_ms(2 * 8 * 1408 * 1396):.4f} ms",
+          flush=True)
     del qkv
 
     # kernel 4
@@ -664,6 +702,8 @@ def check_attention_kernels(gen: torch.Generator, res: dict) -> None:
         set_bound(one, 4 * nbytes(q), 4 * 2 * 16 * s * kv * 64, "bf16" if dt == bf else "fp32")
         report(f"flash_attention (kernel 5) {str(dt)[6:]} (B 2, H 16, S {s}, D 64, kv_len {kv})",
                one, f"{str(dt)[6:]}, twin median of 5")
+        print(f"  flash_attention (kernel 5) {str(dt)[6:]}: exp floor "
+              f"{exp_floor_ms(2 * 16 * s * kv):.4f} ms", flush=True)
         if dt == bf:
             r5.update(one)
         del q, k, v
@@ -675,6 +715,92 @@ def check_attention_kernels(gen: torch.Generator, res: dict) -> None:
                 flash_attention(q, k, v, 2000, **blocks),
                 flash_attention_plain(q.float(), k.float(), v.float(), 2000, **blocks), tol))
             del q, k, v
+
+
+# the card's exp rate: 132 SMs x 16 SFU results a clock at 1.83 GHz (boost)
+EXP_S = 132 * 16 * 1.83e9
+
+
+def exp_floor_ms(n_scores: float) -> float:
+    """The least time the SFUs take for one exp2 a score, beside a flash
+    kernel's tensor-core bound (not part of bound_ms)."""
+    return n_scores / EXP_S * 1e3
+
+
+def check_flash_edges(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, the flash core's edge cases against the fp32 twins: kernel
+    1 (D 64, B 2, H 4, T 256) at kv_len 0, 1, 63, 64, 65 and per row (0,
+    65); at T 64 (one tile) with kv_len 64 and 33; with identity RoPE and
+    one query row whose every logit is below -66 (the exp2 flush: that row
+    is 0, not NaN); kernel 5 (D 64, B 2, H 4, S 1024) at kv_len 0 (each row
+    the mean of v), 1, 63, 64, 65, at D 256 (H 4, S 1024, kv_len 1000) and
+    at S 4224 (the route's 128-key blocks, kv_len 4200)."""
+    from tts_tpu_torch.models.f5 import f5_rope_tables
+    from tts_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_flat,
+                                                   flash_attention_flat_plain,
+                                                   flash_attention_plain)
+
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=0.5):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
+
+    def tables(t, d=64):
+        return [torch.tensor(a, device="cuda").to(bf).float() for a in f5_rope_tables(t, d)]
+
+    r1, r5 = res["flash_attention_flat"], res["flash_attention_online"]
+
+    def flat(label, qkv, cos, sin, kv, heads=4):
+        got = flash_attention_flat(qkv, cos, sin, kv, heads=heads)
+        if isinstance(kv, int) and kv == 0:
+            # every key masked: the twin's output is all zeros (no rel L2)
+            torch.cuda.synchronize()
+            ok = not got.any()
+            print(f"  flash_attention_flat {label}: all zeros {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError("flash_attention_flat kv_len 0: not all zeros")
+            return got
+        r1["max_abs_err"] = max(r1["max_abs_err"], check(
+            f"flash_attention_flat {label}", got,
+            flash_attention_flat_plain(qkv.float(), cos, sin, kv, heads=heads)))
+        return got
+
+    cos, sin = tables(256)
+    qkv = rn(2, 256, 3 * 4 * 64)
+    for kv in (0, 1, 63, 64, 65, torch.tensor([0, 65], dtype=torch.int32, device="cuda")):
+        lab = kv if isinstance(kv, int) else "(0, 65)"
+        flat(f"B=2 H=4 D=64 T=256 kv_len={lab}", qkv, cos, sin, kv)
+    cos64, sin64 = tables(64)
+    qkv64 = rn(2, 64, 3 * 4 * 64)
+    for kv in (64, 33):
+        flat(f"B=2 H=4 D=64 T=64 kv_len={kv}", qkv64, cos64, sin64, kv)
+    # identity RoPE; every key leans on dimension 0 and query row 5 of each
+    # head points against it, so that row's logits are about -90 (< -66)
+    ones, zeros = torch.ones(256, 64, device="cuda"), torch.zeros(256, 64, device="cuda")
+    x = qkv.float().reshape(2, 256, 3, 4, 64)
+    x[:, :, 1, :, 0] = 3.0 + 0.1 * x[:, :, 1, :, 0]
+    x[:, 5, 0, :, :] = 0.0
+    x[:, 5, 0, :, 0] = -30.0
+    low = x.reshape(2, 256, -1).to(bf)
+    got = flat("B=2 H=4 D=64 T=256 kv_len=256, row 5 below -66", low, ones, zeros, 256)
+    if got[:, 5].any() or not got[:, 6].any():
+        raise AssertionError("flash_attention_flat: the row below -66 is not 0")
+
+    blocks = dict(block_q=256, block_kv=512)
+    for h, s, d, kvs in ((4, 1024, 64, (0, 1, 63, 64, 65)), (4, 1024, 256, (1000,)),
+                         (4, 4224, 64, (4200,))):
+        q, k, v = rn(2, h, s, d), rn(2, h, s, d), rn(2, h, s, d)
+        bl = dict(block_q=128, block_kv=128) if s % 512 else blocks
+        for kv in kvs:
+            got = flash_attention(q, k, v, kv, **bl)
+            r5["max_abs_err"] = max(r5["max_abs_err"], check(
+                f"flash_attention (kernel 5) bf16 B=2 H={h} S={s} D={d} kv_len={kv}", got,
+                flash_attention_plain(q.float(), k.float(), v.float(), kv, **bl)))
+            if kv == 0:
+                check(f"flash_attention (kernel 5) kv_len=0 against the mean of v", got,
+                      v.float().mean(dim=2, keepdim=True).expand_as(got))
+        del q, k, v
 
 
 # the BigVGAN bench stages kernel 10 runs (bigvgan_v2_24khz_100band_256x at
@@ -814,10 +940,11 @@ def check_bigvgan_kernel_f32(gen: torch.Generator, res: dict) -> None:
 
 
 def sdpa_ms(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, kv: int,
-            heads: int = 16) -> float:
+            heads: int = 16, device: bool = False) -> float:
     """Kernel 1's library yardstick: scaled_dot_product_attention on q, k
     roped ahead (as the twin ropes them) and v, keys >= kv masked, scale 1
-    (F5 folds it into wqkv). The port never calls it."""
+    (F5 folds it into wqkv); CUDA events around one call, or with `device`
+    its kernels' device time a call. The port never calls it."""
     import torch.nn.functional as F
 
     b, t, n3 = qkv.shape
@@ -832,14 +959,19 @@ def sdpa_ms(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, kv: int,
     q, k = rope(x[:, :, 0]).transpose(1, 2), rope(x[:, :, 1]).transpose(1, 2)
     v = x[:, :, 2].to(qkv.dtype).transpose(1, 2)
     mask = (torch.arange(t, device=qkv.device) < kv)[None, None, None, :]
-    return time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                          scale=1.0))
+    timer = device_ms if device else time_ms
+    return timer(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0))
 
 
 def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
     """Phase 2, kernels 6-9 at the F5 bench shapes (M = 2 x 1408 rows, D
     1024, qkv 3072, F 2048) against their fp32 twins on the same bf16
-    activations and int8 weights."""
+    activations and int8 weights; then kernels 6-8 on the same activations
+    in fp32 (no new draws) against the twins, rel L2 within TOL32: where
+    the kernel's fp32 LayerNorm or gelu rounds otherwise than the twin's,
+    a value on a tie of v / xs takes the other int8 step, which moves one
+    output by one step of x times one weight, under 2^-10 of max |ref| (so
+    max |err| is held to TOL), and the rel L2 by far less."""
     from tts_tpu_torch.ops.dit_mlp import mlp_block_fused_q8, mlp_block_q8_plain
     from tts_tpu_torch.ops.quant_matmul import (ln_qkv_q8, ln_qkv_q8_plain,
                                                 out_proj_residual_q8,
@@ -878,16 +1010,23 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
             set_bound(r, nbytes(*args, got), ops, "int8")
         del got, ref
 
-    run("ln_qkv_q8", "x=(2, 1408, 1024) N=3072", ln_qkv_q8, ln_qkv_q8_plain,
-        (x, rn(2, d, scale=0.5), *wqkv, rn(n, scale=0.1)), 2 * m * d * n)
-    run("out_proj_residual_q8", "o=(2, 1408, 1024) D=1024", out_proj_residual_q8,
-        out_proj_residual_q8_plain,
-        (rn(2, 1408, d), *wo, rn(d, scale=0.1), rn(d, scale=0.5), x), 2 * m * d * d)
+    calls = [("ln_qkv_q8", "x=(2, 1408, 1024) N=3072", ln_qkv_q8, ln_qkv_q8_plain,
+              (x, rn(2, d, scale=0.5), *wqkv, rn(n, scale=0.1)), 2 * m * d * n),
+             ("out_proj_residual_q8", "o=(2, 1408, 1024) D=1024", out_proj_residual_q8,
+              out_proj_residual_q8_plain,
+              (rn(2, 1408, d), *wo, rn(d, scale=0.1), rn(d, scale=0.5), x), 2 * m * d * d)]
     for mods, label in ((rn(3, d, scale=0.5), "shared (3, D)"),
                         (rn(2, 3, d, scale=0.5), "per-row (B, 3, D)")):
-        run("mlp_block_fused_q8", f"x=(2, 1408, 1024) F=2048 mods {label}",
-            mlp_block_fused_q8, mlp_block_q8_plain,
-            (x, mods, *w1, rn(f, scale=0.1), *w2, rn(d, scale=0.1)), 4 * m * d * f)
+        calls.append(("mlp_block_fused_q8", f"x=(2, 1408, 1024) F=2048 mods {label}",
+                      mlp_block_fused_q8, mlp_block_q8_plain,
+                      (x, mods, *w1, rn(f, scale=0.1), *w2, rn(d, scale=0.1)),
+                      4 * m * d * f))
+    for call in calls:
+        run(*call)
+    for name, label, kernel, plain, args, _ in calls:
+        a32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], check(
+            f"{name} {label}, fp32 activations", kernel(*a32), plain(*a32), TOL32, TOL))
     x2 = x.reshape(m, d)
     run("quantized_matmul", "x=(2816, 1024) N=3072", quantized_matmul,
         quantized_matmul_plain, (x2, *wqkv), 2 * m * d * n)
@@ -1023,31 +1162,39 @@ def twins_in_dit():
         "flash_attention": flash_attention.flash_attention_plain})
 
 
-def check_w8a8_forward(pipe) -> None:
-    """One W8A8 DiT forward at the bench bucket (1408 frames, keys masked at
-    1396) through kernels 1, 2, 6, 7 and 8, in bf16, and through their twins
-    in bf16 and in fp32, on the same int8 weights. As check_step for Kani:
-    the kernel route's error against fp32 at most STEP_SLACK times the bf16
-    twin route's (22 blocks of bf16 rounding move the output by more than
-    2^-6 on either route)."""
-    from tts_tpu_torch.models.f5 import dit_forward
+def check_bf16_forward(pipe, t: int, kv, label: str) -> dict:
+    """One bf16 DiT forward at T frames through the kernels the routes pick
+    on the card, and through their twins in bf16 and in fp32, on the same
+    weights (int8 where the pipeline quantized them). As check_step for
+    Kani: the kernel route's error against fp32 at most STEP_SLACK times
+    the bf16 twin route's (22 blocks of bf16 rounding move the output by
+    more than 2^-6 on either route). Returns the launches of the kernel
+    run. The W8A8 bench bucket (1408 frames, keys masked at 1396) runs
+    kernels 1, 2, 6, 7 and 8; bf16 at T 4608 runs kernel 5."""
+    from tts_tpu_torch.models.f5 import dit_forward, f5_rope_tables
+    from tts_tpu_torch.ops._build import LAUNCHES
 
     cfg, params = pipe.cfg, pipe.params
 
     gen = torch.Generator("cuda").manual_seed(5)
-    t = 1408
     noise = torch.randn((1, t, cfg.n_mels), generator=gen, device="cuda")
     cond = torch.randn((1, t, cfg.n_mels + cfg.text_dim), generator=gen, device="cuda")
     drop = torch.randn((1, t, cfg.n_mels + cfg.text_dim), generator=gen, device="cuda")
-    cos, sin = params["rope_cos"][:t].float(), params["rope_sin"][:t].float()
-    kv = torch.full((2,), 1396, dtype=torch.int32, device="cuda")
+    if t <= params["rope_cos"].shape[0]:
+        cos, sin = params["rope_cos"][:t].float(), params["rope_sin"][:t].float()
+    else:   # past the pipeline's tables: the same tables, as long as T
+        cos, sin = (torch.tensor(a, device="cuda").to(params["rope_cos"].dtype).float()
+                    for a in f5_rope_tables(t, cfg.head_dim))
 
     def fwd(p, dt):
         a, b = dit_forward(p, noise.to(dt), cond.to(dt), drop.to(dt), cos, sin, cfg,
                            kv_len=kv, step_idx=3)
         return torch.cat([a, b]).float()
 
+    before = dict(LAUNCHES)
     kern = fwd(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    grew = {k: LAUNCHES[k] - before.get(k, 0) for k in KERNELS}
     with twins_in_dit():
         plain = fwd(params, torch.bfloat16)
         ref = fwd(cast_tree(params, torch.float32), torch.float32)
@@ -1057,12 +1204,14 @@ def check_w8a8_forward(pipe) -> None:
 
     e_k, e_p = rel(kern), rel(plain)
     ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_p
-    print(f"  W8A8 dit_forward (1408 frames, kv_len 1396, step 3), rel L2 against the "
+    kv_l = kv if isinstance(kv, int) else "per row"
+    print(f"  {label} dit_forward ({t} frames, kv_len {kv_l}, step 3), rel L2 against the "
           f"fp32 twin route: kernels {e_k:.6g}, bf16 twins {e_p:.6g} (limit {STEP_SLACK} "
-          f"x); kernels against bf16 twins {rel(kern, plain):.6g} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"x); kernels against bf16 twins {rel(kern, plain):.6g}, launches "
+          f"{ {k: n for k, n in grew.items() if n} } {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise AssertionError("the W8A8 kernel route is less accurate than its twins")
+        raise AssertionError(f"the {label} kernel route is less accurate than its twins")
+    return grew
 
 
 def run_w8a8(pipe, name_limit: str, bench16: dict) -> tuple:
@@ -1089,7 +1238,8 @@ def run_w8a8(pipe, name_limit: str, bench16: dict) -> tuple:
     for words in (15, 8, 25):
         synth_checked(q8, audio, words, per_step, "w8a8")
     launches = dict(LAUNCHES)
-    check_w8a8_forward(q8)
+    check_bf16_forward(q8, 1408, torch.full((2,), 1396, dtype=torch.int32, device="cuda"),
+                       "W8A8")
     bench = q8.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
     print(f"  {name_limit}: W8A8 latency RTF {bench['rtf']:.6f} ({bench['wall_s']:.4f} s "
           f"for {bench['audio_s']:.3f} s of audio), sustained RTF "
@@ -1107,11 +1257,13 @@ def run_w8a8(pipe, name_limit: str, bench16: dict) -> tuple:
     return q8, launches
 
 
-def check_f32_forward(pipe, t: int, kv) -> tuple:
+def check_f32_forward(pipe, t: int, kv, tol: float = FWD32_TOL,
+                      label: str = "fp32") -> dict:
     """One fp32 DiT forward at T frames through the kernels the routes pick
-    on the card and through their twins, on the same fp32 weights and
-    inputs: rel L2 within FWD32_TOL (only fp32 summation order differs).
-    Returns the launches of the kernel run."""
+    on the card and through their twins, on the same fp32 weights (int8
+    where the pipeline quantized them) and inputs: rel L2 within `tol`
+    (FWD32_TOL: only fp32 summation order differs). Returns the launches
+    of the kernel run."""
     from tts_tpu_torch.models.f5 import dit_forward, f5_rope_tables
     from tts_tpu_torch.ops._build import LAUNCHES
 
@@ -1133,12 +1285,13 @@ def check_f32_forward(pipe, t: int, kv) -> tuple:
     with twins_in_dit():
         ref = fwd()
     e = rel_l2(kern, ref)
-    ok = bool(torch.isfinite(kern).all()) and e <= FWD32_TOL
-    print(f"  fp32 dit_forward ({t} frames, kv_len {kv if isinstance(kv, int) else 'per row'}, "
-          f"step 3), kernels against twins: rel L2 {e:.6g} (limit {FWD32_TOL}), launches "
-          f"{ {k: n for k, n in grew.items() if n} } {'ok' if ok else 'FAIL'}", flush=True)
+    ok = bool(torch.isfinite(kern).all()) and e <= tol
+    print(f"  {label} dit_forward ({t} frames, kv_len "
+          f"{kv if isinstance(kv, int) else 'per row'}, step 3), kernels against twins: rel "
+          f"L2 {e:.6g} (limit {tol}), launches { {k: n for k, n in grew.items() if n} } "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise AssertionError("the fp32 kernel route disagrees with its twins")
+        raise AssertionError(f"the {label} kernel route disagrees with its twins")
     return grew
 
 
@@ -1149,8 +1302,11 @@ def run_f5_fp32(name_limit: str) -> dict:
     and fp32 keeps the conv and the MLP on the plain chain), 212,736
     samples; one DiT forward against the twins at the bench bucket, and one
     at T 4608 (past 4096, tts_tpu's route to kernel 5); latency and
-    sustained RTF. Returns the launches of the request (kernel 4) and of
-    the T 4608 forward (kernel 5)."""
+    sustained RTF; then F5Pipeline(quantize="w8a8") over the fp32 models:
+    the bench request and one DiT forward against the twins (within
+    Q8_FWD32_TOL) through kernels 7, 4, 8 and 6 in fp32. Returns the
+    launches of the request (kernel 4) and of the T 4608 forward (kernel
+    5)."""
     from tts_tpu_torch.models.f5 import F5Config, F5Model
     from tts_tpu_torch.models.f5 import init_params as f5_init
     from tts_tpu_torch.models.vocos import VocosConfig, VocosModel
@@ -1190,6 +1346,17 @@ def run_f5_fp32(name_limit: str) -> dict:
           f"{bench['audio_s']:.3f} s of audio), sustained RTF {bench['sustained_rtf']:.6f}",
           flush=True)
     print("  " + json.dumps({"f5": "fp32", **bench}), flush=True)
+
+    q8 = F5Pipeline(f5, {" ": 0}, vocos, quantize="w8a8")
+    per_step = {**dict.fromkeys(KERNELS, 0), "flash_attention_onepass": cfg.depth,
+                **dict.fromkeys(Q8_KERNELS, cfg.depth)}
+    synth_checked(q8, audio, 15, per_step, "fp32 w8a8")
+    grew = check_f32_forward(q8, 1408, torch.full((2,), 1396, dtype=torch.int32,
+                                                  device="cuda"),
+                             Q8_FWD32_TOL, "fp32 W8A8")
+    want = {k: cfg.depth for k in Q8_KERNELS + ("flash_attention_onepass",)}
+    if {k: n for k, n in grew.items() if n} != want:
+        raise AssertionError(f"fp32 W8A8 forward launched {grew}, expected {want}")
     return launches
 
 
@@ -1204,8 +1371,9 @@ def profile_f5(pipes: dict, name_limit: str) -> None:
     rate = next(iter(pipes.values())).cfg.sample_rate
     audio = (np.random.default_rng(0).standard_normal(int(6.0 * rate)) * 3000).astype(np.int16)
     text = " ".join(["word"] * 15)
-    classes = (("kernel 1 (flash_flat_kernel)", ("flash_flat",)),
-               ("kernels 4-5 (mha_*_kernel)", ("mha_",)),
+    classes = (("kernel 1 (rope_qk_kernel + flash_flat_kernel)", ("rope_qk", "flash_flat")),
+               ("kernel 5 bf16 (mha_online_kernel)", ("mha_online",)),
+               ("kernels 4-5 (mha_bf16/f32_kernel)", ("mha_",)),
                ("kernel 2 (conv_mish_kernel)", ("conv_mish",)),
                ("kernel 3 (ff1/ff2_kernel)", ("ff1_kernel", "ff2_kernel")),
                ("kernels 6-8: q8_rows", ("q8_rows",)),
@@ -2178,6 +2346,11 @@ def main() -> None:
               f" for {bench['audio_s']:.3f} s of audio), sustained RTF "
               f"{bench['sustained_rtf']:.6f}", flush=True)
         print("  " + json.dumps(bench), flush=True)
+        # past T 4096 the bf16 route is kernel 5 (the flash core, ONLINE)
+        k5 = check_bf16_forward(pipe, 4608, 4600, "bf16")["flash_attention_online"]
+        if k5 != pipe.cfg.depth:
+            raise AssertionError(f"bf16 T 4608: kernel 5 launched {k5} times, expected "
+                                 f"{pipe.cfg.depth}")
 
         phase('phase 5: F5Pipeline(quantize="w8a8") and quantize=4')
         q8_pipe, q8 = run_w8a8(pipe, name_limit, bench)
@@ -2190,6 +2363,7 @@ def main() -> None:
 
         phase("phase 5c: F5Pipeline in fp32")
         launches.update(run_f5_fp32(name_limit))
+        launches["flash_attention_online"] += k5
 
     if "kani" in fams:
         phase("phase 6: KaniPipeline.synthesize_ids")

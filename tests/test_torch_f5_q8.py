@@ -81,6 +81,43 @@ def _jax_q8(jp):
     return {**jp, "blocks": blocks}
 
 
+@pytest.mark.parametrize("dts,want", [
+    ((torch.bfloat16,), torch.bfloat16),
+    ((torch.float32,), torch.float32),
+    ((torch.float32, torch.float32), torch.float32),
+    ((torch.bfloat16, torch.bfloat16), torch.bfloat16),
+    ((torch.float32, torch.bfloat16), TypeError),
+    ((torch.bfloat16, torch.float32), TypeError),
+    ((torch.float16,), TypeError),
+])
+def test_w8a8_kernels_take_bf16_or_fp32_activations(dts, want):
+    """The W8A8 wrappers' argument check on the card (kernels 7 and 8 in
+    ops/quant_matmul, kernel 6 in ops/dit_mlp): activations of one dtype,
+    bf16 or fp32, as tts_tpu's kernels take any activation dtype and write
+    x.dtype; mixed or other dtypes raise TypeError."""
+    from tts_tpu_torch.ops.quant_matmul import activation_dtype
+
+    acts = {f"a{i}": torch.zeros(2, 64, dtype=dt) for i, dt in enumerate(dts)}
+    if want is TypeError:
+        with pytest.raises(TypeError):
+            activation_dtype(**acts)
+    else:
+        assert activation_dtype(**acts) == want
+
+
+def test_fp32_w8a8_block_routes_on_the_card(bound):
+    """fp32 activations with int8 weights: on a CUDA device the W8A8 block
+    keeps kernels 7, 8 and 6, and its attention takes kernel 4 in fp32
+    (kernel 1 is bf16 only), as tts_tpu's gates have no dtype term."""
+    cfg = bound["tc"]
+    assert tf5.attention_route(torch.float32, cfg.head_dim, cfg.heads, T, "cuda") == "onepass"
+    assert tf5.attention_route(torch.bfloat16, cfg.head_dim, cfg.heads, T, "cuda") == "flat"
+    tq = quantize_dit(bound["tp"], "w8a8")
+    blk = tq["blocks"][0]
+    assert all(tf5.q8_fits(*w.shape) for w in (blk["attn"]["wqkv"], blk["attn"]["wo"],
+                                               blk["ff1"]["w"], blk["ff2"]["w"]))
+
+
 @pytest.mark.parametrize("step", [0, 5])
 def test_w8a8_dit_forward_matches_jax(bound, step):
     cfg, jq = bound["jc"], _jax_q8(bound["jp"])

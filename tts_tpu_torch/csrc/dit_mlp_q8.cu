@@ -3,13 +3,15 @@
 //   n = LN(x) * (1 + scale) + shift                          (fp32)
 //   h = gelu_tanh(q(n) @ W1q * xs * s1 + b1)                 (fp32)
 //   y = q(h) @ W2q * hs * s2 + b2                            (fp32)
-//   out = x + gate * bf16(y)                                 (bf16)
+//   out = x + gate * Act(y)                                  (Act)
 //
 // Replaces tts_tpu/ops/dit_mlp.py:mlp_block_fused_q8 (Pallas body
 // _kernel_q8), with its rounding points: LN and modulate in fp32 (kernel 3
 // rounds the LN to bf16 first; this one does not), mods taken in the
 // activation dtype, each row quantized with xs = max(amax, 1e-8) * f32(1/127)
 // and q = clip(rint(v / xs)), the rescale ((acc * xs) * ws + b) in fp32.
+// Act, the activation type of x and out, is bf16 or fp32 (f32 = 1), as the
+// TPU kernel takes either.
 //
 // Design: the TPU kernel held both int8 weights and a row block's whole
 // (rows, F) hidden layer in VMEM, so the second quantization saw each
@@ -27,25 +29,20 @@
 
 using namespace tts::q8;
 
-// x, out (M, D) bf16 with M = B * T; mods (Bm, 3, D) fp32 rows [shift,
-// scale, gate] (values of the activation dtype), Bm in {1, B}; w1q (D, F),
-// w2q (F, D) int8; s1, b1 (F,), s2, b2 (D,) fp32. Scratch: xq (M, max(D, F))
-// int8, xs (M,) fp32, hid (M, F) fp32. D, F % 128 == 0 and <= 2048.
-extern "C" int mlp_block_fused_q8(const void* x, const void* mods, int mods_rows,
-                                  const void* w1q, const void* s1, const void* b1,
-                                  const void* w2q, const void* s2, const void* b2,
-                                  void* xq, void* xs, void* hid, void* out, int M,
-                                  int T, int D, int F, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int mstride = mods_rows == 1 ? 0 : 3 * D;
+namespace {
+
+template <typename Act>
+int mlp(const void* x, const float* mods, int mstride, const void* w1q, const void* s1,
+        const void* b1, const void* w2q, const void* s2, const void* b2, void* xq, void* xs,
+        void* hid, void* out, int M, int T, int D, int F, cudaStream_t s) {
   RowArgs r{};
   r.a = x;
-  r.mods = (const float*)mods;
+  r.mods = mods;
   r.mods_bstride = mstride;
   r.q = (int8_t*)xq;
   r.xs = (float*)xs;
   r.M = M, r.K = D, r.T = T;
-  int err = launch_rows<ROWS_LN>(r, s);
+  int err = launch_rows<ROWS_LN, Act>(r, s);
   if (err) return err;
 
   GemmArgs g{};
@@ -56,19 +53,40 @@ extern "C" int mlp_block_fused_q8(const void* x, const void* mods, int mods_rows
   g.bias = (const float*)b1;
   g.out = hid;
   g.M = M, g.K = D, g.N = F, g.T = T;
-  if ((err = launch_gemm<EPI_GELU>(g, s))) return err;
+  if ((err = launch_gemm<EPI_GELU, float>(g, s))) return err;
 
   r.a = hid;
   r.K = F;
-  if ((err = launch_rows<ROWS_F32>(r, s))) return err;
+  if ((err = launch_rows<ROWS_RAW, float>(r, s))) return err;
 
   g.wq = (const int8_t*)w2q;
   g.ws = (const float*)s2;
   g.bias = (const float*)b2;
-  g.res = (const tts::bf16*)x;
-  g.gate = (const float*)mods + 2 * D;
+  g.res = x;
+  g.gate = mods + 2 * D;
   g.gate_bstride = mstride;
   g.out = out;
   g.K = F, g.N = D;
-  return launch_gemm<EPI_RESIDUAL>(g, s);
+  return launch_gemm<EPI_RESIDUAL, Act>(g, s);
+}
+
+}  // namespace
+
+// x, out (M, D) with M = B * T, bf16 (f32 = 0) or fp32 (f32 = 1); mods (Bm,
+// 3, D) fp32 rows [shift, scale, gate] (values of the activation dtype), Bm
+// in {1, B}; w1q (D, F), w2q (F, D) int8; s1, b1 (F,), s2, b2 (D,) fp32.
+// Scratch: xq (M, max(D, F)) int8, xs (M,) fp32, hid (M, F) fp32. D, F %
+// 128 == 0 and <= 2048.
+extern "C" int mlp_block_fused_q8(const void* x, const void* mods, int mods_rows,
+                                  const void* w1q, const void* s1, const void* b1,
+                                  const void* w2q, const void* s2, const void* b2,
+                                  void* xq, void* xs, void* hid, void* out, int M,
+                                  int T, int D, int F, int f32, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int mstride = mods_rows == 1 ? 0 : 3 * D;
+  const float* m = (const float*)mods;
+  if (f32)
+    return mlp<float>(x, m, mstride, w1q, s1, b1, w2q, s2, b2, xq, xs, hid, out, M, T, D, F, s);
+  return mlp<tts::bf16>(x, m, mstride, w1q, s1, b1, w2q, s2, b2, xq, xs, hid, out, M, T, D,
+                        F, s);
 }

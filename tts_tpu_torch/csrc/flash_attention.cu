@@ -1,7 +1,7 @@
-// Flat-qkv flash attention with RoPE in the prologue, for the F5 DiT.
+// Flat-qkv flash attention with RoPE, for the F5 DiT.
 //
 // Replaces tts_tpu/ops/flash_attention.py:flash_attention_flat (Pallas body
-// _kernel_flat). Same contract: q, k and v are read straight off the fused
+// _kernel_flat). Same contract: q, k and v are read off the fused
 // (B, T, 3*H*D) qkv projection at column offsets h*D, H*D + h*D and
 // 2*H*D + h*D; q and k get half-split RoPE in fp32 and are rounded to bf16
 // before the dots; keys >= kv_len[b] are masked, query rows never are; the
@@ -10,212 +10,122 @@
 // Softmax: the TPU form has no row max. Scores are clamped at +100 in the
 // log2 domain and exponentiated as exp2(s - 30), so the normaliser and the
 // P.V sum are plain sums over keys: l = sum(p) + 1e-37, o = sum(bf16(p) v) / l.
-// Because nothing is rescaled, the sums split over kv tiles exactly, and
-// this kernel streams 64-key tiles through shared memory instead of holding
-// a whole score row (a 4096-key fp32 row block does not fit in 227 KB).
-// It agrees with the one-pass form up to fp32 summation order, including
-// the TPU form's flush of rows whose every logit is below about -66.
+// That is the FIXED contract of the flash core (flash_core.cuh), which
+// streams 64-key tiles with S, P and O in registers.
 //
-// Head dim 64 (F5) or 128, as tts_tpu's kernel takes both: the kernel is a
-// template on D, with its tiles in dynamic shared memory (48 KB at D 64,
-// 88 KB at D 128).
+// Two launches a call, counted as one (the wrapper's): a pre-pass ropes q
+// and k once into a bf16 (2, B, H, T, D) scratch the wrapper allocates,
+// computing x * cos + rot_half(x) * sin in fp32 with rot_half = [-x[D/2:],
+// x[:D/2]], each product and the sum rounded once (no FMA), then rounding
+// to bf16: tts_tpu's rounding point. The TPU kernel ropes k once per (b,
+// head pair) into VMEM scratch; a CUDA block cannot share that with the
+// other query tiles of its head, and roping k in every query tile would
+// read k twice plus fp32 cos and sin rows for every key tile, 12 bytes of
+// L2 traffic a k element where the core reads 2. The scratch costs
+// 4 B*H*T*D bytes written and read once (11.5 MB at the bench shape). v is
+// read in place, rows 3*H*D apart.
 //
-// What bounds it on an H100: tensor-core work (4*T*T*D flops per head) once
-// T is past a few hundred keys; k and v are re-read from L2 by every q tile.
-// This first version keeps each warp's 16x64 score tile in shared memory
-// between the two dots (WMMA fragments have no exposed element layout) and
-// does not overlap loads with dots, so it runs far below the tensor-core
-// peak. The P.V accumulator stays in registers across all kv tiles, because
-// the fixed exp2 shift never asks for a rescale. Fully masked kv tiles are
-// skipped.
+// Head dim 64 (F5) or 128, as tts_tpu's kernel takes both; T a multiple of
+// 64, a warpgroup's rows (a CTA's second warpgroup past T stores nothing).
+//
+// What bounds it on an H100: tensor-core work (4*T*kv*D flops a head) and,
+// as much at D 64, one exp2 a score on the SFUs; see flash_core.cuh.
 // No atomics: the result is bitwise reproducible run to run.
-#include "common.cuh"
+#include "flash_core.cuh"
 
 namespace tts {
 namespace {
 
-constexpr int BQ = 64;    // query rows per block (16 per warp)
-constexpr int BKV = 64;   // keys per tile
-constexpr int NT = 128;   // threads per block
-constexpr float LOG2E = 1.4426950408889634f;
+using flash::Args;
 
-// rows [t0, t0+64) of one head's q or k block, RoPE'd in fp32 and rounded
-// to bf16: x * cos + rot_half(x) * sin with rot_half = [-x[D/2:], x[:D/2]]
+constexpr int ROPE_NT = 256;
+
+// one thread: 8 columns of q or k of one (b, t, head)
 template <int D>
-__device__ void load_roped(bf16* dst, const bf16* src, const float* cos_t,
-                           const float* sin_t, int t0, int col0, int stride) {
-  for (int i = threadIdx.x; i < 64 * (D / 8); i += NT) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const int pc = c < D / 2 ? c + D / 2 : c - D / 2;
-    const float sign = c < D / 2 ? -1.f : 1.f;
-    const bf16* row = src + (size_t)(t0 + r) * stride + col0;
-    Vec8 xv, pv, ov;
-    xv.u = *reinterpret_cast<const uint4*>(row + c);
-    pv.u = *reinterpret_cast<const uint4*>(row + pc);
-    const float* cr = cos_t + (size_t)(t0 + r) * D + c;
-    const float* sr = sin_t + (size_t)(t0 + r) * D + c;
+__global__ void __launch_bounds__(ROPE_NT)
+rope_qk_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cos_t,
+               const float* __restrict__ sin_t, bf16* __restrict__ qk, int B, int T, int H) {
+  const long long i = (long long)blockIdx.x * ROPE_NT + threadIdx.x;
+  if (i >= (long long)B * T * 2 * H * (D / 8)) return;
+  const int c = (int)(i % (D / 8)) * 8;
+  const long long rest = i / (D / 8);
+  const int hh = (int)(rest % (2 * H));  // q heads, then k heads
+  const long long bt = rest / (2 * H);
+  const int t = (int)(bt % T), b = (int)(bt / T);
+  const int pc = c < D / 2 ? c + D / 2 : c - D / 2;
+  const float sign = c < D / 2 ? -1.f : 1.f;
+  const bf16* row = qkv + bt * 3 * H * D + (long long)hh * D;
+  Vec8 xv, pv, ov;
+  xv.u = *reinterpret_cast<const uint4*>(row + c);
+  pv.u = *reinterpret_cast<const uint4*>(row + pc);
+  const float* cr = cos_t + (long long)t * D + c;
+  const float* sr = sin_t + (long long)t * D + c;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float a = __fmul_rn(to_f(xv.h[j]), cr[j]);
-      const float b = __fmul_rn(sign * to_f(pv.h[j]), sr[j]);
-      ov.h[j] = to_bf(__fadd_rn(a, b));
-    }
-    *reinterpret_cast<uint4*>(dst + r * D + c) = ov.u;
+  for (int j = 0; j < 8; ++j) {
+    const float x = __fmul_rn(to_f(xv.h[j]), cr[j]);
+    const float y = __fmul_rn(sign * to_f(pv.h[j]), sr[j]);
+    ov.h[j] = to_bf(__fadd_rn(x, y));
   }
+  const int which = hh / H, h = hh % H;
+  bf16* dst = qk + ((((long long)which * B + b) * H + h) * T + t) * D + c;
+  *reinterpret_cast<uint4*>(dst) = ov.u;
 }
 
 template <int D>
-__device__ void load_tile(bf16* dst, const bf16* src, int t0, int col0,
-                          int stride) {
-  for (int i = threadIdx.x; i < 64 * (D / 8); i += NT) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * D + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)(t0 + r) * stride + col0 + c);
-  }
-}
-
-// the score tile's row stride: it holds 64 scores a row, then the D-wide
-// output tile
-template <int D>
-__host__ __device__ constexpr int ss_ld() { return D > BKV ? D : BKV; }
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return (size_t)(BQ + 2 * BKV) * D * sizeof(bf16) + (size_t)BQ * ss_ld<D>() * sizeof(float) +
-         (size_t)BQ * BKV * sizeof(bf16);
+__global__ void __launch_bounds__(flash::CTA_THREADS) flash_flat_kernel(const Args a) {
+  flash::attend<D, flash::FIXED>(a);
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT)
-flash_flat_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cos_t,
-                  const float* __restrict__ sin_t, const int* __restrict__ kv_len,
-                  bf16* __restrict__ out, int T, int H) {
-  constexpr int SS = ss_ld<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + BQ * D;
-  bf16* vs = ks + BKV * D;
-  float* ss = reinterpret_cast<float*>(vs + BKV * D);  // scores, then the output tile
-  bf16* ps = reinterpret_cast<bf16*>(ss + BQ * SS);
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int stride = 3 * H * D;
-  const bf16* base = qkv + (size_t)b * T * stride;
-  const int kvl = min(max(kv_len[b], 0), T);
-
-  load_roped<D>(qs, base, cos_t, sin_t, q0, h * D, stride);
-  __syncthreads();
-
-  // this warp's 16 query rows stay in registers for the whole kv loop
-  FragA qa[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], qs + warp * 16 * D + kk * 16, D);
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-  float lpart[16];  // this lane's share of each row's normaliser
-#pragma unroll
-  for (int r = 0; r < 16; ++r) lpart[r] = 0.f;
-
-  float* sw = ss + warp * 16 * SS;
-  bf16* pw = ps + warp * 16 * BKV;
-
-  for (int k0 = 0; k0 < kvl; k0 += BKV) {
-    __syncthreads();  // every warp is done with the previous k and v tiles
-    load_roped<D>(ks, base, cos_t, sin_t, k0, H * D + h * D, stride);
-    load_tile<D>(vs, base, k0, 2 * H * D + h * D, stride);
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys
-#pragma unroll
-    for (int n = 0; n < BKV / 16; ++n) {
-      FragC s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        FragBt kb;
-        wmma::load_matrix_sync(kb, ks + n * 16 * D + kk * 16, D);
-        wmma::mma_sync(s, qa[kk], kb, s);
-      }
-      wmma::store_matrix_sync(sw + n * 16, s, SS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // p = exp2(min(s * log2e, 100) - 30) on valid keys, 0 on masked ones
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + half * 32;
-        float p = 0.f;
-        if (k0 + c < kvl) p = exp2f(fminf(sw[r * SS + c] * LOG2E, 100.f) - 30.f);
-        lpart[r] += p;
-        pw[r * BKV + c] = to_bf(p);
-      }
-    }
-    __syncwarp();
-
-    // O += bf16(P) V
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      FragA pa;
-      wmma::load_matrix_sync(pa, pw + kk * 16, BKV);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        FragB vb;
-        wmma::load_matrix_sync(vb, vs + kk * 16 * D + n * 16, D);
-        wmma::mma_sync(acc[n], pa, vb, acc[n]);
-      }
-    }
-  }
-
-  // each warp only ever touches its own 16 rows of ss
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(sw + n * 16, acc[n], SS, wmma::mem_row_major);
-  __syncwarp();
-  const size_t out_stride = (size_t)H * D;
-  bf16* ob = out + ((size_t)b * T + q0 + warp * 16) * out_stride + h * D;
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const float l = warp_sum(lpart[r]) + 1e-37f;
-#pragma unroll
-    for (int c = lane; c < D; c += 32) ob[r * out_stride + c] = to_bf(sw[r * SS + c] / l);
-  }
-}
-
-template <int D>
-int launch_flat(const void* qkv, const void* cos_t, const void* sin_t, const void* kv_len,
-                void* out, int B, int T, int H, cudaStream_t stream) {
+int launch_flat(const bf16* qkv, const float* cos_t, const float* sin_t, const int* kv_len,
+                bf16* qk, bf16* out, int B, int T, int H, cudaStream_t stream) {
   static bool attr_set = false;
+  constexpr size_t smem = flash::smem_bytes<D>();
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_flat_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes<D>());
+        flash_flat_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  const dim3 grid(T / BQ, H, B);
-  flash_flat_kernel<D><<<grid, NT, smem_bytes<D>(), stream>>>(
-      (const bf16*)qkv, (const float*)cos_t, (const float*)sin_t, (const int*)kv_len,
-      (bf16*)out, T, H);
+  const long long n = (long long)B * T * 2 * H * (D / 8);
+  rope_qk_kernel<D><<<(unsigned)((n + ROPE_NT - 1) / ROPE_NT), ROPE_NT, 0, stream>>>(
+      qkv, cos_t, sin_t, qk, B, T, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const long long head = (long long)T * D, stride = 3LL * H * D;
+  Args a;
+  a.q = qk;
+  a.k = qk + (long long)B * H * head;
+  a.q_b = a.k_b = H * head, a.q_h = a.k_h = head, a.q_r = a.k_r = D;
+  a.v = qkv + 2LL * H * D;
+  a.v_b = T * stride, a.v_h = D, a.v_r = stride;
+  a.out = out;
+  a.o_b = (long long)T * H * D, a.o_h = D, a.o_r = (long long)H * D;
+  a.kv_len = kv_len;
+  a.c = 1.4426950408889634f;  // log2e: the 1/sqrt(D) scale is folded into wqkv
+  a.S = T;
+  const int tiles = (T + flash::CTA_ROWS - 1) / flash::CTA_ROWS;
+  flash_flat_kernel<D><<<dim3(tiles, H, B), flash::CTA_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace tts
 
-// qkv (B, T, 3*H*D) bf16; cos, sin (T, D) fp32; kv_len (B,) int32;
-// out (B, T, H*D) bf16. D is 64 or 128; T must be a multiple of 64.
-extern "C" int flash_attention_flat(const void* qkv, const void* cos_t,
-                                    const void* sin_t, const void* kv_len,
-                                    void* out, int B, int T, int H, int D,
-                                    void* stream) {
+// qkv (B, T, 3*H*D) bf16; cos, sin (T, D) fp32; kv_len (B,) int32; qk
+// (2, B, H, T, D) bf16 scratch; out (B, T, H*D) bf16. D is 64 or 128; T
+// must be a multiple of 64.
+extern "C" int flash_attention_flat(const void* qkv, const void* cos_t, const void* sin_t,
+                                    const void* kv_len, void* qk, void* out, int B, int T,
+                                    int H, int D, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64) return tts::launch_flat<64>(qkv, cos_t, sin_t, kv_len, out, B, T, H, s);
-  if (D == 128) return tts::launch_flat<128>(qkv, cos_t, sin_t, kv_len, out, B, T, H, s);
+  if (T % 64) return (int)cudaErrorInvalidValue;
+  const auto* x = (const tts::bf16*)qkv;
+  const auto *c = (const float*)cos_t, *sn = (const float*)sin_t;
+  const auto* kv = (const int*)kv_len;
+  auto *q = (tts::bf16*)qk, *o = (tts::bf16*)out;
+  if (D == 64) return tts::launch_flat<64>(x, c, sn, kv, q, o, B, T, H, s);
+  if (D == 128) return tts::launch_flat<128>(x, c, sn, kv, q, o, B, T, H, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,31 +11,34 @@
 //     scale, -1e30 at masked keys before a running row max m (from -1e30),
 //     p = exp(s - m_new), alpha = exp(m - m_new), l = l alpha + sum(p),
 //     acc = acc alpha + bf16(P).V, acc / l at the end.
-// Both take bf16 (dots on the tensor cores, WMMA 16x16x16 with fp32
-// accumulators, P rounded to bf16 before the P.V dot as the TPU kernel
-// casts it to v's dtype) or fp32 (true fp32 products on the CUDA cores,
-// no TF32), with D a multiple of 64 up to 256.
+// Both take bf16 or fp32 (true fp32 products on the CUDA cores, no TF32),
+// with D a multiple of 64 up to 256. P is rounded to v's dtype before the
+// P.V dot, as the TPU kernel casts it.
 //
-// Tiling: a CTA takes 64 query rows of one (b, h) and streams 64-key tiles
-// of k and v through shared memory. Kernel 4's fixed exp2 shift needs no
-// rescale, so its sums split over kv tiles exactly (as in kernel 1); kernel
-// 5 keeps the running max and rescales its accumulator row by alpha each
-// tile. The TPU grid's kv axis becomes the CTA's loop. Kv tiles wholly past
-// kv_len are skipped: their p are exact zeros in kernel 4, and in kernel 5
-// too once a valid key has set a finite max (kv_len >= 1). With kv_len 0,
-// kernel 5 runs every tile, so each row gets the mean of v over all S keys
-// (every score is -1e30, as in tts_tpu), while kernel 4 gives zeros (its
-// 1e-37 guard).
+// Kernel 5 in bf16 is the flash core (flash_core.cuh) in ONLINE mode: S, P
+// and O in registers (wgmma), cp.async double-buffered K and V tiles.
+// The other three forms (kernel 4 in bf16, both in fp32): a CTA takes 64
+// query rows of one (b, h) and streams 64-key tiles of k and v through
+// shared memory.
+// Kernel 4's fixed exp2 shift needs no rescale, so its sums split over kv
+// tiles exactly (as in kernel 1); kernel 5 keeps the running max and
+// rescales its accumulator row by alpha each tile. The TPU grid's kv axis
+// becomes the CTA's loop. Kv tiles wholly past kv_len are skipped: their p
+// are exact zeros in kernel 4, and in kernel 5 too once a valid key has set
+// a finite max (kv_len >= 1). With kv_len 0, kernel 5 runs every tile, so
+// each row gets the mean of v over all S keys (every score is -1e30, as in
+// tts_tpu), while kernel 4 gives zeros (its 1e-37 guard).
 //
 // What bounds it on an H100: the dots, 4 S kv_len D flops a head (bf16
-// tensor cores at 989 TFLOP/s, or fp32 CUDA cores at 67). This first
-// version keeps the bf16 accumulator in shared memory (a WMMA fragment has
-// no exposed element layout, and kernel 5 must scale it by rows) and does
-// not overlap loads with dots, so it runs far below either peak. The fp32
-// form gives each of 256 threads a 4 x 4 score tile and a 4 x D/16 output
-// tile, with q, k and v rows padded to D + 1 floats against bank
-// conflicts. No atomics: bitwise reproducible run to run.
-#include "common.cuh"
+// tensor cores at 989 TFLOP/s, or fp32 CUDA cores at 67), and in bf16 at D
+// 64 as much the one exp a score on the SFUs. Kernel 4's bf16 form keeps
+// its WMMA accumulator in shared memory (a WMMA fragment has no exposed
+// element layout) and does not overlap loads with dots, so it runs far
+// below either peak; its contract is the core's FIXED mode. The fp32 forms
+// give each of 256 threads a 4 x 4 score tile and a 4 x D/16 output tile,
+// with q, k and v rows padded to D + 1 floats against bank conflicts. No
+// atomics: bitwise reproducible run to run.
+#include "flash_core.cuh"
 
 namespace tts {
 namespace {
@@ -72,7 +75,14 @@ __device__ __forceinline__ int kv_limit(const MhaArgs& a, int b, bool online, in
   return online && *kvl == 0 ? a.S : *kvl;
 }
 
-// ---------------------------------------------------------------- bf16
+// ------------------------------------------------------- bf16 kernel 5
+
+template <int D>
+__global__ void __launch_bounds__(flash::CTA_THREADS) mha_online_kernel(const flash::Args a) {
+  flash::attend<D, flash::ONLINE>(a);
+}
+
+// ------------------------------------------------------- bf16 kernel 4
 
 constexpr int NT16 = 128;  // 4 warps, 16 query rows each
 
@@ -87,7 +97,7 @@ __device__ __forceinline__ void copy16(bf16* dst, const bf16* src, int n, int nt
     *reinterpret_cast<uint4*>(dst + i) = *reinterpret_cast<const uint4*>(src + i);
 }
 
-template <int D, bool ONLINE>
+template <int D>
 __global__ void __launch_bounds__(NT16) mha_bf16_kernel(MhaArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -103,7 +113,7 @@ __global__ void __launch_bounds__(NT16) mha_bf16_kernel(MhaArgs a) {
   const bf16* kg = reinterpret_cast<const bf16*>(a.k) + head;
   const bf16* vg = reinterpret_cast<const bf16*>(a.v) + head;
   int kvl;
-  const int kv_end = kv_limit(a, b, ONLINE, &kvl);
+  const int kv_end = kv_limit(a, b, false, &kvl);
 
   copy16(qs, reinterpret_cast<const bf16*>(a.q) + head + (size_t)q0 * D, BQ * D, NT16);
   for (int i = threadIdx.x; i < BQ * D; i += NT16) os[i] = 0.f;
@@ -112,11 +122,9 @@ __global__ void __launch_bounds__(NT16) mha_bf16_kernel(MhaArgs a) {
   float* sw = ss + warp * 16 * BKV;
   bf16* pw = ps + warp * 16 * BKV;
   float* ow = os + warp * 16 * D;
-  // kernel 4: this lane's share of each row's sum of p; kernel 5: l (the
-  // same in every lane) and the running max m
-  float lr[16], mr[16];
+  float lr[16];  // this lane's share of each row's sum of p
 #pragma unroll
-  for (int r = 0; r < 16; ++r) lr[r] = 0.f, mr[r] = NEG;
+  for (int r = 0; r < 16; ++r) lr[r] = 0.f;
 
   for (int k0 = 0; k0 < kv_end; k0 += BKV) {
     __syncthreads();  // q staged; every warp is done with the last k, v tiles
@@ -143,24 +151,11 @@ __global__ void __launch_bounds__(NT16) mha_bf16_kernel(MhaArgs a) {
 
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
-      float s0 = sw[r * BKV + lane], s1 = sw[r * BKV + lane + 32];
+      const float s0 = sw[r * BKV + lane], s1 = sw[r * BKV + lane + 32];
       const bool v0 = k0 + lane < kvl, v1 = k0 + lane + 32 < kvl;
-      float p0, p1;
-      if (ONLINE) {
-        s0 = v0 ? s0 * a.c : NEG;
-        s1 = v1 ? s1 * a.c : NEG;
-        const float mn = fmaxf(mr[r], warp_max(fmaxf(s0, s1)));
-        const float alpha = expf(mr[r] - mn);
-        p0 = expf(s0 - mn);
-        p1 = expf(s1 - mn);
-        lr[r] = lr[r] * alpha + warp_sum(p0 + p1);
-        mr[r] = mn;
-        for (int c = lane; c < D; c += 32) ow[r * D + c] *= alpha;
-      } else {
-        p0 = exp2f(fminf(s0 * a.c, 100.f) + (v0 ? -30.f : NEG));
-        p1 = exp2f(fminf(s1 * a.c, 100.f) + (v1 ? -30.f : NEG));
-        lr[r] += p0 + p1;
-      }
+      const float p0 = exp2f(fminf(s0 * a.c, 100.f) + (v0 ? -30.f : NEG));
+      const float p1 = exp2f(fminf(s1 * a.c, 100.f) + (v1 ? -30.f : NEG));
+      lr[r] += p0 + p1;
       pw[r * BKV + lane] = to_bf(p0);
       pw[r * BKV + lane + 32] = to_bf(p1);
     }
@@ -188,7 +183,7 @@ __global__ void __launch_bounds__(NT16) mha_bf16_kernel(MhaArgs a) {
   bf16* out = reinterpret_cast<bf16*>(a.out);
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
-    const float l = ONLINE ? lr[r] : warp_sum(lr[r]) + 1e-37f;
+    const float l = warp_sum(lr[r]) + 1e-37f;
     bf16* o = out + out_offset<D>(a, b, h, q0 + warp * 16 + r);
     for (int c = lane; c < D; c += 32) o[c] = to_bf(ow[r * D + c] / l);
   }
@@ -334,11 +329,40 @@ __global__ void __launch_bounds__(NT32) mha_f32_kernel(MhaArgs a) {
 
 // ---------------------------------------------------------------- launch
 
+// kernel 5 in bf16: the core on contiguous (B, H, S, D) q, k, v and out
+template <int D>
+int launch_online_bf16(const MhaArgs& m, int B, cudaStream_t stream) {
+  static bool attr_set = false;
+  constexpr size_t smem = flash::smem_bytes<D>();
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mha_online_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const long long head = (long long)m.S * D;
+  flash::Args a;
+  a.q = static_cast<const bf16*>(m.q);
+  a.k = static_cast<const bf16*>(m.k);
+  a.v = static_cast<const bf16*>(m.v);
+  a.out = static_cast<bf16*>(m.out);
+  a.q_b = a.k_b = a.v_b = a.o_b = m.H * head;
+  a.q_h = a.k_h = a.v_h = a.o_h = head;
+  a.q_r = a.k_r = a.v_r = a.o_r = D;
+  a.kv_len = m.kv_len;
+  a.c = (float)((double)m.c * 1.4426950408889634);  // scale * log2e
+  a.S = m.S;
+  const int tiles = (m.S + flash::CTA_ROWS - 1) / flash::CTA_ROWS;
+  mha_online_kernel<D><<<dim3(tiles, m.H, B), flash::CTA_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <int D, bool ONLINE, bool F32>
 int launch_one(const MhaArgs& a, int B, cudaStream_t stream) {
+  if constexpr (ONLINE && !F32) return launch_online_bf16<D>(a, B, stream);
   static bool attr_set = false;
   const size_t smem = F32 ? smem_f32<D>() : smem_bf16<D>();
-  auto kernel = F32 ? mha_f32_kernel<D, ONLINE> : mha_bf16_kernel<D, ONLINE>;
+  auto kernel = F32 ? mha_f32_kernel<D, ONLINE> : mha_bf16_kernel<D>;
   if (!attr_set) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

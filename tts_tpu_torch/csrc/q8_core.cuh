@@ -1,6 +1,8 @@
 // The W8A8 core shared by the port's int8 kernels (kernels 6-9 of the TPU
 // package): per-row symmetric int8 activations, an s8 x s8 -> s32 product
-// on the tensor cores, and an fp32 rescale epilogue. Two kernels:
+// on the tensor cores, and an fp32 rescale epilogue. Two kernels, each
+// templated on the activation type it reads or writes (bf16 or fp32, as
+// the TPU kernels take either and write x.dtype):
 //
 //   q8_rows   quantizes whole rows of A: one warp a row, the row staged in
 //             shared memory as fp32 (after the LayerNorm prologue where
@@ -47,23 +49,24 @@ using FragA8 = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row
 using FragB8 = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major>;
 using FragI = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
 
-// what q8_rows quantizes
+// what q8_rows quantizes, of rows of type T (bf16 or float)
 enum Rows {
-  ROWS_BF16,  // bf16 rows as they are (kernels 8, 9)
-  ROWS_LN,    // LayerNorm (fp32, eps 1e-6, no affine) * (1 + scale) + shift
-              // of bf16 rows, in fp32 (kernels 6 ff1, 7)
-  ROWS_F32,   // fp32 rows as they are (kernel 6's hidden layer)
+  ROWS_RAW,   // the rows as they are (kernels 8, 9; kernel 6's fp32 hidden layer)
+  ROWS_LN,    // LayerNorm (fp32, eps 1e-6, no affine) * (1 + scale) + shift,
+              // in fp32 (kernels 6 ff1, 7)
 };
-// what q8_gemm writes, from y = (acc * xs) * ws (+ b)
+// what q8_gemm writes, from y = (acc * xs) * ws (+ b), in type T: with T
+// bf16 each value below is rounded where the TPU kernel casts to bf16; with
+// T float those casts are no-ops and nothing is rounded past fp32
 enum Epi {
-  EPI_SCALE,     // bf16(y), no bias (kernel 9)
-  EPI_BIAS,      // bf16(y + b) (kernel 7)
-  EPI_RESIDUAL,  // bf16(x + bf16(bf16(gate) * bf16(y + b))) (kernels 6 ff2, 8)
-  EPI_GELU,      // fp32 gelu_tanh(y + b) (kernel 6 ff1)
+  EPI_SCALE,     // T(y), no bias (kernel 9)
+  EPI_BIAS,      // T(y + b) (kernel 7)
+  EPI_RESIDUAL,  // T(x + T(T(gate) * T(y + b))) (kernels 6 ff2, 8)
+  EPI_GELU,      // fp32 gelu_tanh(y + b), T float (kernel 6 ff1)
 };
 
 struct RowArgs {
-  const void* a;      // (M, K) bf16, or fp32 for ROWS_F32
+  const void* a;      // (M, K) of the row type
   const float* mods;  // ROWS_LN: [shift (K), scale (K), ...] fp32 for batch
   int mods_bstride;   //   row `row / T`, this far apart (0 = shared)
   int8_t* q;          // (M, K) int8 out
@@ -77,10 +80,10 @@ struct GemmArgs {
   const int8_t* wq;    // (K, N) int8
   const float* ws;     // (N,) fp32 per-column weight scale
   const float* bias;   // (N,) fp32, unused by EPI_SCALE
-  const bf16* res;     // EPI_RESIDUAL: (M, N) residual input
+  const void* res;     // EPI_RESIDUAL: (M, N) residual input, of the output type
   const float* gate;   // EPI_RESIDUAL: (N,) fp32 for batch row `row / T`,
   int gate_bstride;    //   this far apart (0 = shared)
-  void* out;           // (M, N) bf16, or fp32 for EPI_GELU
+  void* out;           // (M, N) of the output type
   int M, K, N, T;
 };
 
@@ -103,13 +106,62 @@ __device__ __forceinline__ float gelu_q8(float x) {
   return __fmul_rn(x, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(u))));
 }
 
+// 8 consecutive values of a row, as fp32
+__device__ __forceinline__ void load8(const bf16* src, float (&v)[8]) {
+  Vec8 x;
+  x.u = *reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = to_f(x.h[j]);
+}
+
+__device__ __forceinline__ void load8(const float* src, float (&v)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(src);
+  const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+}
+
+// 4 consecutive values of a row of T, as fp32, and back
+__device__ __forceinline__ void load4(const bf16* src, float (&v)[4]) {
+  union {
+    uint2 u;
+    bf16 h[4];
+  } x;
+  x.u = *reinterpret_cast<const uint2*>(src);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = to_f(x.h[j]);
+}
+
+__device__ __forceinline__ void load4(const float* src, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+}
+
+__device__ __forceinline__ void store4(bf16* dst, const float (&v)[4]) {
+  union {
+    uint2 u;
+    bf16 h[4];
+  } o;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) o.h[j] = to_bf(v[j]);
+  *reinterpret_cast<uint2*>(dst) = o.u;
+}
+
+__device__ __forceinline__ void store4(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// x rounded to T and back: a no-op for float
+__device__ __forceinline__ float as_t(float x, const bf16*) { return rnd(x); }
+__device__ __forceinline__ float as_t(float x, const float*) { return x; }
+
 // K rounded up to whole 256-column strides of a warp
 __host__ __device__ __forceinline__ int k256(int K) { return (K + 255) / 256 * 256; }
 
 // One warp a row, rows blockIdx.x * 4 + warp. Lane l takes columns
 // c = l*8 + 256*i and keeps value j of them at float 256*i + 32*j + l of its
 // warp's k256(K) of shared memory, so a warp's accesses hit 32 banks.
-template <Rows ROWS>
+template <Rows ROWS, typename T>
 __global__ void __launch_bounds__(NT) q8_rows(const RowArgs p) {
   extern __shared__ float rowbuf[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -120,19 +172,7 @@ __global__ void __launch_bounds__(NT) q8_rows(const RowArgs p) {
   float amax = 0.f, sum = 0.f;
   for (int c = lane * 8; c < K; c += 256) {
     float v[8];
-    if (ROWS == ROWS_F32) {
-      const float* src = static_cast<const float*>(p.a) + (size_t)row * K + c;
-      const float4 lo = *reinterpret_cast<const float4*>(src);
-      const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-      v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-      v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-    } else {
-      Vec8 x;
-      x.u = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.a) +
-                                            (size_t)row * K + c);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = to_f(x.h[j]);
-    }
+    load8(static_cast<const T*>(p.a) + (size_t)row * K + c, v);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       buf[(c & ~255) + j * 32] = v[j];
@@ -211,7 +251,7 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const GemmArgs& p,
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <Epi EPI>
+template <Epi EPI, typename T>
 __global__ void __launch_bounds__(NT) q8_gemm(const GemmArgs p) {
   // two stages of 12 KB during the main loop; the epilogue's 32 KB int32
   // tile reuses them
@@ -286,46 +326,35 @@ __global__ void __launch_bounds__(NT) q8_gemm(const GemmArgs p) {
       if (EPI != EPI_SCALE) y[j] = __fadd_rn(y[j], b[j]);
     }
     const size_t o = (size_t)row * p.N + col;
+    T* out = static_cast<T*>(p.out) + o;
     if (EPI == EPI_GELU) {
-      *reinterpret_cast<float4*>(static_cast<float*>(p.out) + o) =
-          make_float4(gelu_q8(y[0]), gelu_q8(y[1]), gelu_q8(y[2]), gelu_q8(y[3]));
-      continue;
-    }
-    union {
-      uint2 u;
-      bf16 h[4];
-    } ov;
-    if (EPI == EPI_RESIDUAL) {
-      union {
-        uint2 u;
-        bf16 h[4];
-      } xv;
-      xv.u = *reinterpret_cast<const uint2*>(p.res + o);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y[j] = gelu_q8(y[j]);
+    } else if (EPI == EPI_RESIDUAL) {
+      float x[4];
+      load4(static_cast<const T*>(p.res) + o, x);
       const float* g = p.gate + (size_t)(row / p.T) * p.gate_bstride + col;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        ov.h[j] = to_bf(to_f(xv.h[j]) + rnd(rnd(g[j]) * rnd(y[j])));
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ov.h[j] = to_bf(y[j]);
+        y[j] = __fadd_rn(x[j], as_t(__fmul_rn(as_t(g[j], out), as_t(y[j], out)), out));
     }
-    *reinterpret_cast<uint2*>(static_cast<bf16*>(p.out) + o) = ov.u;
+    store4(out, y);
   }
 }
 
 // quantize the M rows of p.a; K % 8 == 0 and K <= 2048 (the row buffers
 // stay under the 48 KB of shared memory a launch has without opting in)
-template <Rows ROWS>
+template <Rows ROWS, typename T>
 int launch_rows(const RowArgs& p, cudaStream_t s) {
   const int bytes = (NT / 32) * k256(p.K) * (int)sizeof(float);
-  q8_rows<ROWS><<<(p.M + NT / 32 - 1) / (NT / 32), NT, bytes, s>>>(p);
+  q8_rows<ROWS, T><<<(p.M + NT / 32 - 1) / (NT / 32), NT, bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 
 // the (N / BN, ceil(M / BM)) grid of q8_gemm; K % 64 == 0, N % 128 == 0
-template <Epi EPI>
+template <Epi EPI, typename T>
 int launch_gemm(const GemmArgs& p, cudaStream_t s) {
-  q8_gemm<EPI><<<dim3(p.N / BN, (p.M + BM - 1) / BM), NT, 0, s>>>(p);
+  q8_gemm<EPI, T><<<dim3(p.N / BN, (p.M + BM - 1) / BM), NT, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 

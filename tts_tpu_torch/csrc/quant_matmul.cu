@@ -4,11 +4,13 @@
 // Replaces tts_tpu/ops/quant_matmul.py:
 //   quantized_matmul      (Pallas body _kernel):          bf16(q(x) @ Wq * xs * ws)
 //   ln_qkv_q8             (Pallas body _ln_qkv_kernel):   LN + modulate in fp32,
-//                         row int8, s8 GEMM, bf16(acc * xs * ws + b)
+//                         row int8, s8 GEMM, T(acc * xs * ws + b)
 //   out_proj_residual_q8  (Pallas body _out_proj_kernel): row int8 of the
 //                         attention output, s8 GEMM, y = acc * xs * ws + b,
-//                         bf16(x + bf16(gate) * bf16(y)) in bf16
-// with the TPU kernels' rounding points (see q8_core.cuh).
+//                         x + T(gate) * T(y) in T
+// with the TPU kernels' rounding points (see q8_core.cuh). T, the
+// activation type, is bf16 or fp32 (f32 = 1), as the TPU kernels take
+// either; quantized_matmul takes bf16.
 //
 // What bounds them on an H100, at the F5 bench shape (M = 2816 rows):
 // ln_qkv_q8 does 2 * 2816 * 1024 * 3072 = 17.7 G int8 ops against 26.2 MB
@@ -47,6 +49,18 @@ RowArgs row_args(const void* a, void* xq, void* xs, int M, int K) {
   return r;
 }
 
+template <typename T>
+int ln_qkv(const RowArgs& r, const GemmArgs& g, cudaStream_t s) {
+  const int err = launch_rows<ROWS_LN, T>(r, s);
+  return err ? err : launch_gemm<EPI_BIAS, T>(g, s);
+}
+
+template <typename T>
+int out_proj(const RowArgs& r, const GemmArgs& g, cudaStream_t s) {
+  const int err = launch_rows<ROWS_RAW, T>(r, s);
+  return err ? err : launch_gemm<EPI_RESIDUAL, T>(g, s);
+}
+
 }  // namespace
 
 // x (M, K) bf16; wq (K, N) int8; ws (N,) fp32 -> out (M, N) bf16; xq (M, K)
@@ -55,42 +69,39 @@ extern "C" int quantized_matmul(const void* x, const void* wq, const void* ws,
                                 void* xq, void* xs, void* out, int M, int K, int N,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_rows<ROWS_BF16>(row_args(x, xq, xs, M, K), s);
+  int err = launch_rows<ROWS_RAW, tts::bf16>(row_args(x, xq, xs, M, K), s);
   if (err) return err;
-  return launch_gemm<EPI_SCALE>(gemm_args(xq, xs, wq, ws, out, M, K, N), s);
+  return launch_gemm<EPI_SCALE, tts::bf16>(gemm_args(xq, xs, wq, ws, out, M, K, N), s);
 }
 
-// x (M, D) bf16; mods (2, D) fp32 [shift, scale]; wq (D, N) int8; ws, b (N,)
-// fp32 -> out (M, N) bf16; xq, xs scratch as above. D % 64 == 0,
-// D <= 2048, N % 128 == 0.
+// x (M, D) bf16 (f32 = 0) or fp32 (f32 = 1); mods (2, D) fp32 [shift,
+// scale]; wq (D, N) int8; ws, b (N,) fp32 -> out (M, N) of x's type; xq, xs
+// scratch as above. D % 64 == 0, D <= 2048, N % 128 == 0.
 extern "C" int ln_qkv_q8(const void* x, const void* mods, const void* wq,
                          const void* ws, const void* b, void* xq, void* xs, void* out,
-                         int M, int D, int N, void* stream) {
+                         int M, int D, int N, int f32, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   RowArgs r = row_args(x, xq, xs, M, D);
   r.mods = (const float*)mods;
   r.mods_bstride = 0;
-  int err = launch_rows<ROWS_LN>(r, s);
-  if (err) return err;
   GemmArgs g = gemm_args(xq, xs, wq, ws, out, M, D, N);
   g.bias = (const float*)b;
-  return launch_gemm<EPI_BIAS>(g, s);
+  return f32 ? ln_qkv<float>(r, g, s) : ln_qkv<tts::bf16>(r, g, s);
 }
 
-// o (M, HD) bf16 attention output; wq (HD, D) int8; ws, b, gate (D,) fp32;
-// x_res (M, D) bf16 -> out (M, D) bf16; xq (M, HD), xs scratch. HD % 64 ==
-// 0, HD <= 2048, D % 128 == 0.
+// o (M, HD) attention output, x_res (M, D) and out (M, D), all bf16 (f32 =
+// 0) or all fp32 (f32 = 1); wq (HD, D) int8; ws, b, gate (D,) fp32; xq (M,
+// HD), xs scratch. HD % 64 == 0, HD <= 2048, D % 128 == 0.
 extern "C" int out_proj_residual_q8(const void* o, const void* wq, const void* ws,
                                     const void* b, const void* gate,
                                     const void* x_res, void* xq, void* xs, void* out,
-                                    int M, int HD, int D, void* stream) {
+                                    int M, int HD, int D, int f32, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_rows<ROWS_BF16>(row_args(o, xq, xs, M, HD), s);
-  if (err) return err;
+  const RowArgs r = row_args(o, xq, xs, M, HD);
   GemmArgs g = gemm_args(xq, xs, wq, ws, out, M, HD, D);
   g.bias = (const float*)b;
-  g.res = (const tts::bf16*)x_res;
+  g.res = x_res;
   g.gate = (const float*)gate;
   g.gate_bstride = 0;
-  return launch_gemm<EPI_RESIDUAL>(g, s);
+  return f32 ? out_proj<float>(r, g, s) : out_proj<tts::bf16>(r, g, s);
 }

@@ -16,6 +16,7 @@ weights (W8A8): the mods taken in the activation dtype; LayerNorm and
 modulation in fp32, not rounded; each dot's input quantized to int8 per
 row (ops/quant_matmul's contract), rescaled in fp32 with its bias; the gelu
 in fp32; y rounded to the activation dtype, then x + gate * y in that dtype.
+The CUDA kernel takes bf16 or fp32 activations.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .quant_matmul import check_cuda_args, int_dot, quantize_rows, row_scratch
+from .quant_matmul import (activation_dtype, check_cuda_args, int_dot, quantize_rows,
+                           row_scratch)
 
 __all__ = ["kernel_fits", "mlp_block_fused", "mlp_block_plain", "mlp_block_fused_q8",
            "mlp_block_q8_plain"]
@@ -147,18 +149,18 @@ def mlp_block_fused_q8(x: torch.Tensor, mods: torch.Tensor, w1_q: torch.Tensor,
     # fp32 for the kernel: exact
     mods = mods.to(x.dtype).float().contiguous()
     s1, b1, s2, b2 = (a.to(torch.float32).contiguous() for a in (w1_scale, b1, w2_scale, b2))
-    fp32 = torch.float32
-    check_cuda_args(x, d, f, x=(x, torch.bfloat16), mods=(mods, fp32),
+    fp32, dt = torch.float32, activation_dtype(x=x)
+    check_cuda_args(x, d, f, x=(x, dt), mods=(mods, fp32),
                     w1_q=(w1_q, torch.int8), w1_scale=(s1, fp32), b1=(b1, fp32))
     check_cuda_args(x, f, d, w2_q=(w2_q, torch.int8), w2_scale=(s2, fp32), b2=(b2, fp32))
     m = bsz * t
     xq, xs = row_scratch(x, m, max(d, f))            # the int8 rows of both dots
     hidden = torch.empty((m, f), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    _build.launch("mlp_block_fused_q8", [_P, _P, _I] + [_P] * 10 + [_I] * 4 + [_P],
+    _build.launch("mlp_block_fused_q8", [_P, _P, _I] + [_P] * 10 + [_I] * 5 + [_P],
                   x.data_ptr(), mods.data_ptr(), mods.shape[0], w1_q.data_ptr(),
                   s1.data_ptr(), b1.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
                   b2.data_ptr(), xq.data_ptr(), xs.data_ptr(), hidden.data_ptr(),
-                  out.data_ptr(), m, t, d, f,
+                  out.data_ptr(), m, t, d, f, int(dt == fp32),
                   torch.cuda.current_stream(x.device).cuda_stream)
     return out

@@ -2,12 +2,14 @@
 tts_tpu/ops/flash_attention.py: flash_attention_flat and flash_attention).
 
 `flash_attention_flat` (kernel 1, csrc/flash_attention.cu; twin
-`flash_attention_flat_plain`) reads q, k and v straight off the fused
-(B, T, 3*H*D) qkv tensor: half-split RoPE on q and k in fp32, rounded to
-the input dtype before the dots; scores in fp32; keys >= kv_len masked; the
-exp2 softmax with no row max (clamp at +100 in the log2 domain, a -30 shift
-and a 1e-37 guard on the normaliser); P rounded to the input dtype before
-the P.V dot. Head dim 64 or 128.
+`flash_attention_flat_plain`) reads q, k and v off the fused (B, T, 3*H*D)
+qkv tensor: half-split RoPE on q and k in fp32, rounded to the input dtype
+before the dots (on the card a pre-pass, twin `rope_qk_plain`, writes them
+to a scratch once); scores in fp32; keys >= kv_len masked; the exp2
+softmax with no row max (clamp at +100 in the log2 domain, a -30 shift, p
+below 2^-126 flushed to 0 as the TPU flushes it, and a 1e-37 guard on the
+normaliser); P rounded to the input dtype before the P.V dot. Head dim 64
+or 128.
 
 `flash_attention` takes roped (B, H, S, D) q, k and v and dispatches as
 tts_tpu's does: `block_kv == S` with `H % head_block == 0` takes the single
@@ -16,9 +18,10 @@ whole key row, a scalar or (B,) kv_len, optionally the packed (B, S, H*D)
 output), anything else the online softmax (kernel 5, twin
 `flash_online_plain`: a running row max over kv blocks, natural exp, a
 scalar kv_len). Both are in csrc/flash_mha.cu, for bf16 (tensor cores) and
-fp32 (CUDA cores), D a multiple of 64 up to 256. The block sizes and
-`head_block` select the route and the errors only: the CUDA kernels pick
-their own tiles.
+fp32 (CUDA cores), D a multiple of 64 up to 256; kernel 1 and kernel 5's
+bf16 form run the register-resident flash core (csrc/flash_core.cuh). The
+block sizes and `head_block` select the route and the errors only: the
+CUDA kernels pick their own tiles.
 
 Every wrapper runs its CUDA kernel on a CUDA tensor and its plain PyTorch
 twin on a CPU tensor.
@@ -31,19 +34,21 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_flat", "flash_attention_flat_plain", "flash_attention",
-           "flash_attention_plain", "flash_onepass_plain", "flash_online_plain",
-           "flat_kernel_fits", "mha_kernel_fits"]
+__all__ = ["flash_attention_flat", "flash_attention_flat_plain", "rope_qk_plain",
+           "flash_attention", "flash_attention_plain", "flash_onepass_plain",
+           "flash_online_plain", "flat_kernel_fits", "mha_kernel_fits"]
 
 _LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+# qkv, cos, sin, kv_len, qk scratch, out, B, T, H, D, stream
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 # q, k, v, kv_len, out, scale constant, B, H, S, D, fp32, packed, stream
 _MHA_ARGTYPES = [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P]
 _FLAT_HEAD_DIMS = (64, 128)   # kernel 1 is built for these head dims
 _MHA_MAX_D = 256              # kernels 4 and 5: D a multiple of 64 up to this
 _TILE = 64                    # query rows per block and keys per tile
+_TINY = 2.0 ** -126           # exp2 results below this flush to 0 (TPU, kernel 1)
 
 
 def flat_kernel_fits(dtype, head_dim: int, t: int) -> bool:
@@ -80,6 +85,21 @@ def _stream(x: torch.Tensor) -> int:
 # --------------------------------------------------------------------------
 # kernel 1: flat qkv with RoPE in the prologue
 
+def rope_qk_plain(qkv: torch.Tensor, rope_cos: torch.Tensor, rope_sin: torch.Tensor, *,
+                  heads: int) -> torch.Tensor:
+    """Plain twin of kernel 1's RoPE pre-pass: q and k of the (B, T, 3*H*D)
+    qkv tensor as x * cos + rot_half(x) * sin in fp32 (each product and the
+    sum rounded once), rot_half(x) = [-x[D/2:], x[:D/2]], rounded to qkv's
+    dtype. Returns (2, B, H, T, D): roped q, then roped k."""
+    b, t, n3 = qkv.shape
+    d = n3 // (3 * heads)
+    x = qkv.reshape(b, t, 3, heads, d)[:, :, :2].float()
+    cos = rope_cos[:t].float()[None, :, None, None, :]
+    sin = rope_sin[:t].float()[None, :, None, None, :]
+    rot = torch.cat([-x[..., d // 2:], x[..., :d // 2]], dim=-1)
+    return (x * cos + rot * sin).to(qkv.dtype).permute(2, 0, 3, 1, 4)
+
+
 def flash_attention_flat_plain(qkv: torch.Tensor, rope_cos: torch.Tensor,
                                rope_sin: torch.Tensor, kv_len, *,
                                heads: int) -> torch.Tensor:
@@ -89,20 +109,14 @@ def flash_attention_flat_plain(qkv: torch.Tensor, rope_cos: torch.Tensor,
     b, t, n3 = qkv.shape
     d = n3 // (3 * heads)
     dt = qkv.dtype
-    x = qkv.reshape(b, t, 3, heads, d).float()
-    cos = rope_cos[:t].float()[None, :, None, :]
-    sin = rope_sin[:t].float()[None, :, None, :]
-
-    def rope(u):
-        rot = torch.cat([-u[..., d // 2:], u[..., :d // 2]], dim=-1)
-        return (u * cos + rot * sin).to(dt).float()
-
-    q, k, v = rope(x[:, :, 0]), rope(x[:, :, 1]), x[:, :, 2]
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    q, k = rope_qk_plain(qkv, rope_cos, rope_sin, heads=heads).float()
+    v = qkv.reshape(b, t, 3, heads, d)[:, :, 2].float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k)
     s = torch.clamp(s * _LOG2E, max=100.0) - 30.0
     kv = _kv_lengths(kv_len, b, t, qkv.device)
     valid = torch.arange(t, device=qkv.device)[None, :] < kv[:, None]
-    p = torch.where(valid[:, None, None, :], torch.exp2(s), 0.0)
+    p = torch.exp2(s)
+    p = torch.where(valid[:, None, None, :] & (p >= _TINY), p, 0.0)
     denom = p.sum(dim=-1, keepdim=True) + 1e-37
     o = torch.einsum("bhqk,bkhd->bhqd", p.to(dt).float(), v) / denom
     return o.to(dt).permute(0, 2, 1, 3).reshape(b, t, heads * d)
@@ -142,10 +156,11 @@ def flash_attention_flat(qkv: torch.Tensor, rope_cos: torch.Tensor,
     cos = rope_cos[:t].to(device=qkv.device, dtype=torch.float32).contiguous()
     sin = rope_sin[:t].to(device=qkv.device, dtype=torch.float32).contiguous()
     kv = _kv_lengths(kv_len, b, t, qkv.device)
+    qk = torch.empty((2, b, heads, t, d), dtype=qkv.dtype, device=qkv.device)
     out = torch.empty((b, t, heads * d), dtype=qkv.dtype, device=qkv.device)
     _build.launch("flash_attention_flat", _ARGTYPES, qkv.data_ptr(),
-                  cos.data_ptr(), sin.data_ptr(), kv.data_ptr(), out.data_ptr(),
-                  b, t, heads, d, _stream(qkv))
+                  cos.data_ptr(), sin.data_ptr(), kv.data_ptr(), qk.data_ptr(),
+                  out.data_ptr(), b, t, heads, d, _stream(qkv))
     return out
 
 

@@ -12,7 +12,9 @@ exactly in integers and converted to fp32; the rescale ((acc * xs) * ws
 integer product as a float64 matmul of the int8 values, exact below 2^53.
 
 The weights are tts_tpu's int8 QTensor parts: q (K, N) int8, scale (N,)
-fp32, per output channel.
+fp32, per output channel. Kernels 7 and 8 take bf16 or fp32 activations
+(`activation_dtype`) and write their dtype, as tts_tpu's kernels do;
+kernel 9 takes bf16.
 """
 from __future__ import annotations
 
@@ -24,12 +26,14 @@ from . import _build
 
 __all__ = ["quantized_matmul", "quantized_matmul_plain", "ln_qkv_q8",
            "ln_qkv_q8_plain", "out_proj_residual_q8", "out_proj_residual_q8_plain",
-           "quantize_rows", "int_dot", "q8_fits", "check_cuda_args", "row_scratch"]
+           "quantize_rows", "int_dot", "q8_fits", "activation_dtype", "check_cuda_args",
+           "row_scratch"]
 
 _INV_127 = 1.0 / 127.0     # taken to fp32 where it multiplies: float32(1/127)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _K_TILE, _N_TILE, _K_MAX = 64, 128, 2048   # the CUDA kernels' depth step, column
                                            # tile and the longest row they quantize
+_ACT_DTYPES = (torch.bfloat16, torch.float32)   # what the W8A8 kernels read and write
 
 
 def quantize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -76,6 +80,18 @@ def q8_fits(k: int, n: int) -> bool:
     K <= 2048 (the row kernel stages 4 rows of K fp32 in 48 KB of shared
     memory) and N % 128 == 0."""
     return k % _K_TILE == 0 and k <= _K_MAX and n % _N_TILE == 0
+
+
+def activation_dtype(**acts: torch.Tensor) -> torch.dtype:
+    """The one dtype of the named activation tensors of a W8A8 kernel call,
+    bf16 or fp32 (the CUDA kernels are built for both); TypeError for
+    mixed dtypes or any other."""
+    dts = {a.dtype for a in acts.values()}
+    if len(dts) != 1 or next(iter(dts)) not in _ACT_DTYPES:
+        got = ", ".join(f"{name} {a.dtype}" for name, a in acts.items())
+        raise TypeError(f"the W8A8 kernels take activations of one dtype, bf16 or "
+                        f"fp32; got {got}")
+    return dts.pop()
 
 
 def check_cuda_args(ref: torch.Tensor, k: int, n: int, **tensors) -> None:
@@ -149,16 +165,17 @@ def ln_qkv_q8(x: torch.Tensor, mods: torch.Tensor, w_q: torch.Tensor,
                          f"do not fit x {tuple(x.shape)}")
     if _device_of(x) == "cpu":
         return ln_qkv_q8_plain(x, mods, w_q, w_scale, b)
+    dt = activation_dtype(x=x)
     mods, ws, bias = _fp32(mods), _fp32(w_scale), _fp32(b)
-    check_cuda_args(x, d, n, x=(x, torch.bfloat16), w_q=(w_q, torch.int8),
+    check_cuda_args(x, d, n, x=(x, dt), w_q=(w_q, torch.int8),
                     mods=(mods, torch.float32), w_scale=(ws, torch.float32),
                     b=(bias, torch.float32))
     xq, xs = row_scratch(x, bsz * t, d)
     out = torch.empty((bsz, t, n), dtype=x.dtype, device=x.device)
-    _build.launch("ln_qkv_q8", [_P] * 8 + [_I] * 3 + [_P],
+    _build.launch("ln_qkv_q8", [_P] * 8 + [_I] * 4 + [_P],
                   x.data_ptr(), mods.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
                   bias.data_ptr(), xq.data_ptr(), xs.data_ptr(), out.data_ptr(),
-                  bsz * t, d, n, _stream(x))
+                  bsz * t, d, n, int(dt == torch.float32), _stream(x))
     return out
 
 
@@ -177,14 +194,15 @@ def out_proj_residual_q8(o: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tens
                          f"{tuple(x_res.shape)} do not fit o {tuple(o.shape)}")
     if _device_of(o) == "cpu":
         return out_proj_residual_q8_plain(o, w_q, w_scale, b, gate, x_res)
+    dt = activation_dtype(o=o, x_res=x_res)
     ws, bias, g = _fp32(w_scale), _fp32(b), _fp32(gate)
-    check_cuda_args(o, hd, d, o=(o, torch.bfloat16), w_q=(w_q, torch.int8),
+    check_cuda_args(o, hd, d, o=(o, dt), w_q=(w_q, torch.int8),
                     w_scale=(ws, torch.float32), b=(bias, torch.float32),
-                    gate=(g, torch.float32), x_res=(x_res, torch.bfloat16))
+                    gate=(g, torch.float32), x_res=(x_res, dt))
     xq, xs = row_scratch(o, bsz * t, hd)
     out = torch.empty_like(x_res)
-    _build.launch("out_proj_residual_q8", [_P] * 9 + [_I] * 3 + [_P],
+    _build.launch("out_proj_residual_q8", [_P] * 9 + [_I] * 4 + [_P],
                   o.data_ptr(), w_q.data_ptr(), ws.data_ptr(), bias.data_ptr(),
                   g.data_ptr(), x_res.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-                  out.data_ptr(), bsz * t, hd, d, _stream(o))
+                  out.data_ptr(), bsz * t, hd, d, int(dt == torch.float32), _stream(o))
     return out
