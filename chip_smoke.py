@@ -5,7 +5,8 @@
 
     python3 chip_smoke.py --kernels-only     # phases 0-2
     python3 chip_smoke.py --profile DIR      # and torch.profiler breakdowns
-                                             # of one F5 request (bf16, W8A8),
+                                             # of one F5 request (bf16, W8A8,
+                                             # fp32, fp32 W8A8),
                                              # one greedy Kani run, one
                                              # Qwen3-TTS request (bf16, int8),
                                              # one BigVGAN call and one
@@ -20,11 +21,15 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      at the F5 bench shapes (kernel 1 also at head dim 128; kernel 4 in
      bf16 at head dims 64, 128 and 192 and in fp32; kernel 5 at T 8192 in
      bf16 and T 2048 in fp32; kernels 6-8 also on fp32 activations), the
-     flash core's edges (kernels 1 and 5 at kv_len 0, 1, 63, 64, 65, T 64,
-     a row below -66, kernel 5 at D 256 and S 4224), the kani-tts-370m
-     decode shapes (kernel 12 also against its bf16 twin), the
-     Qwen3-TTS-0.6B talker and predictor shapes (kernel 12 at head_dim 128,
-     kernels 13-15) and the BigVGAN bench stages (kernel 10 in bf16 at
+     flash core's edges (kernels 1, 4 and 5 at kv_len 0, 1, 63, 64, 65, T
+     64, kernels 4 and 5 at D 256, kernel 5 at S 4224; kernel 1 with a row
+     below -66, kernel 4 in fp32 with rows at -90 and -70), kernel 13 at
+     its cluster slices' edges, head dim 64 and G 1 and 8, one launch a
+     call at kv_len 2047, the kani-tts-370m decode shapes (kernel 12 also
+     against its bf16 twin, and no further from fp32 than 1.25x that
+     twin), the Qwen3-TTS-0.6B talker and predictor shapes (kernel 12 at
+     head_dim 128, kernels 13-15, kernel 13 timed at both) and the BigVGAN
+     bench stages (kernel 10 in bf16 at
      stages 2 and 5, in fp32 at stages 3 and 5), with its error, its time
      beside the twin's and a library call's where one exists, and its
      bound (and the flash kernels' exp floor);
@@ -42,7 +47,8 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      forward against the twins at the bench bucket and one at T 4608
      through kernel 5 (22 launches), latency and sustained RTF; then with
      quantize="w8a8": the bench request and one DiT forward against the
-     twins through kernels 7, 4, 8 and 6 in fp32;
+     twins through kernels 7, 4, 8 and 6 in fp32 (with --profile, one
+     request of each under torch.profiler);
   6. KaniPipeline.synthesize_ids at full kani-tts-370m width (random
      weights from a seed, the bench config: 256 new tokens, no stop token):
      greedy bf16 and int8, beam and a batch of 4, checking the audio, that
@@ -335,14 +341,28 @@ def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
                 fused_qkv_attn, fused_qkv_attn_plain,
                 f"fused_qkv_attn L=6 T=2048 pos={pos} {wl}", x1, wt, cos, sin, kc, vc,
                 3, pos, **kani))
-            # beside it, the bf16 twin (its rounding points in bf16): no new
-            # draws, so every later check keeps its inputs
-            for part, g, r16 in zip(
+            # beside it, the bf16 twin (its rounding points in bf16), and both
+            # against fp32 as check_step holds a route: the kernel no further
+            # from fp32 than STEP_SLACK times the bf16 twin. No new draws, so
+            # every later check keeps its inputs
+            ref32 = fused_qkv_attn_plain(
+                x1.float(), wt if isinstance(wt, QTensor) else wt.float(), cos.float(),
+                sin.float(), kc.float(), vc.float(), 3, pos,
+                **{k: f32(v) for k, v in kani.items()})
+            for part, g, r16, r32 in zip(
                     ("out", "k", "v"),
                     fused_qkv_attn(x1, wt, cos, sin, kc, vc, 3, pos, **kani),
-                    fused_qkv_attn_plain(x1, wt, cos, sin, kc, vc, 3, pos, **kani)):
-                check(f"fused_qkv_attn L=6 T=2048 pos={pos} {wl} {part} against the bf16 "
-                      f"twin", g, r16)
+                    fused_qkv_attn_plain(x1, wt, cos, sin, kc, vc, 3, pos, **kani), ref32):
+                label = f"fused_qkv_attn L=6 T=2048 pos={pos} {wl} {part}"
+                check(f"{label} against the bf16 twin", g, r16)
+                e_kernel, e_twin = rel_l2(g, r32), rel_l2(r16, r32)
+                ok = e_kernel <= STEP_SLACK * e_twin
+                print(f"  {label}: rel L2 against fp32: kernel {e_kernel:.6g}, bf16 twin "
+                      f"{e_twin:.6g} (limit {STEP_SLACK} x) {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    raise AssertionError(f"{label}: the kernel is less accurate than its "
+                                         f"bf16 twin")
     timed["fused_qkv_attn"] = (
         lambda: fused_qkv_attn(x1, w, cos, sin, kc, vc, 3, 700, **kani),
         lambda: fused_qkv_attn_plain(x1, w, cos, sin, kc, vc, 3, 700, **kani))
@@ -580,6 +600,8 @@ def check_kernels(gen: torch.Generator) -> dict:
     # before kernels 4 and 5 and the flash core's edge cases were added
     check_attention_kernels(torch.Generator("cuda").manual_seed(4321), res)
     check_flash_edges(torch.Generator("cuda").manual_seed(4322), res)
+    check_onepass_edges(torch.Generator("cuda").manual_seed(4323), res)
+    check_decode_attention_edges(torch.Generator("cuda").manual_seed(4324), res)
     check_decode_kernels(gen, res)
     check_qwen_kernels(gen, res)
     check_bigvgan_kernel(gen, res)
@@ -587,18 +609,20 @@ def check_kernels(gen: torch.Generator) -> dict:
     return res
 
 
-def sdpa_mha_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv) -> float:
+def sdpa_mha_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv,
+                device: bool = False) -> float:
     """Kernels 4 and 5's library yardstick: scaled_dot_product_attention on
     the same (B, H, S, D) q, k, v, keys >= kv masked (an int or a (B,)
-    tensor), scale 1. The port never calls it."""
+    tensor), scale 1, by CUDA events (or device time). The port never
+    calls it."""
     import torch.nn.functional as F
 
     b, s = q.shape[0], q.shape[2]
     kvv = torch.as_tensor(kv, device=q.device).reshape(-1, 1)
     mask = (torch.arange(s, device=q.device)[None, :] < kvv).reshape(-1, 1, 1, s)
     mask = mask.expand(b, 1, 1, s)
-    return time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                          scale=1.0))
+    return (device_ms if device else time_ms)(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0))
 
 
 def check_attention_kernels(gen: torch.Generator, res: dict) -> None:
@@ -682,6 +706,12 @@ def check_attention_kernels(gen: torch.Generator, res: dict) -> None:
                           "bf16" if dt == bf else "fp32")
                 report(f"flash_attention (kernel 4) {str(dt)[6:]} bench shape (B 2, H 16, "
                        f"S 1408, D 64, kv_len 1396, packed)", one, str(dt)[6:])
+                dev = device_ms(lambda: flash_attention(q, k, v, kv_pipe, packed_out=True,
+                                                        **onepass))
+                print(f"  {name_limit}: flash_attention (kernel 4) {str(dt)[6:]} bench shape: "
+                      f"device time a call (profiler over 10 calls, no host enqueue): "
+                      f"kernel {dev:.4f} ms, SDPA "
+                      f"{sdpa_mha_ms(q, k, v, kv_pipe, device=True):.4f} ms", flush=True)
                 if dt == f32:
                     r4.update(one)
             del q, k, v, f
@@ -801,6 +831,152 @@ def check_flash_edges(gen: torch.Generator, res: dict) -> None:
                 check(f"flash_attention (kernel 5) kv_len=0 against the mean of v", got,
                       v.float().mean(dim=2, keepdim=True).expand_as(got))
         del q, k, v
+
+
+def check_onepass_edges(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, kernel 4 in bf16 (the flash core, FIXED) and in fp32 against
+    the fp32 twin at the tile edges: B 2, H 4, S 256, D 64 at kv_len 0 (all
+    zeros), 1, 63, 64, 65 and per row (0, 65), packed and not; S 64 (one
+    tile) at kv_len 64 and 33; D 256 (S 1024, kv_len 1000), packed and not;
+    and in fp32 two query rows whose every logit is below -66: one at about
+    -90, where p underflows to 0 in fp32 (the row is 0), and one at about
+    -70, where p is denormal and exp2f keeps it, as the twin does (the row
+    is not 0)."""
+    from tts_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    r4 = res["flash_attention_onepass"]
+    onepass = dict(block_q=64, block_kv=4096, head_block=1)
+
+    def rn(*shape, dt, scale=0.5):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
+
+    def one(label, q, k, v, kv, packed, tol):
+        got = flash_attention(q, k, v, kv, packed_out=packed, **onepass)
+        if isinstance(kv, int) and kv == 0:
+            # every key masked: the 1e-37 guard gives zeros
+            torch.cuda.synchronize()
+            ok = not got.any()
+            print(f"  flash_attention (kernel 4) {label}: all zeros {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError("flash_attention kernel 4 kv_len 0: not all zeros")
+            return got
+        r4["max_abs_err"] = max(r4["max_abs_err"], check(
+            f"flash_attention (kernel 4) {label}", got,
+            flash_attention_plain(q.float(), k.float(), v.float(), kv, packed_out=packed,
+                                  **onepass), tol))
+        return got
+
+    for dt, tol in ((torch.bfloat16, TOL), (torch.float32, TOL32)):
+        name = str(dt)[6:]
+        q, k, v = (rn(2, 4, 256, 64, dt=dt) for _ in range(3))
+        for i, kv in enumerate((0, 1, 63, 64, 65,
+                                torch.tensor([0, 65], dtype=torch.int32, device="cuda"))):
+            lab = kv if isinstance(kv, int) else "(0, 65)"
+            one(f"{name} B=2 H=4 S=256 D=64 kv_len={lab} packed={bool(i % 2)}", q, k, v, kv,
+                bool(i % 2), tol)
+        q, k, v = (rn(2, 4, 64, 64, dt=dt) for _ in range(3))
+        for kv in (64, 33):
+            one(f"{name} B=2 H=4 S=64 D=64 kv_len={kv}", q, k, v, kv, False, tol)
+        q, k, v = (rn(2, 4, 1024, 256, dt=dt) for _ in range(3))
+        for packed in (False, True):
+            one(f"{name} B=2 H=4 S=1024 D=256 kv_len=1000 packed={packed}", q, k, v, 1000,
+                packed, tol)
+        del q, k, v
+
+    # fp32 rows below -66: every key leans on dimension 0, query rows 5 and 6
+    # point against it (logits about -90 and -70 at scale 1)
+    q, k, v = (rn(2, 4, 256, 64, dt=torch.float32) for _ in range(3))
+    k[..., 0] = 3.0 + 0.01 * k[..., 0]
+    q[:, :, 5:7] = 0.0
+    q[:, :, 5, 0] = -30.0
+    q[:, :, 6, 0] = -70.0 / 3.0
+    got = one("fp32 B=2 H=4 S=256 D=64 kv_len=250, rows 5 and 6 below -66", q, k, v, 250,
+              False, TOL32)
+    ref = flash_attention_plain(q, k, v, 250, **onepass)
+    if got[:, :, 5].any() or not got[:, :, 6].any() or not ref[:, :, 6].any():
+        raise AssertionError("flash_attention kernel 4 fp32: row 5 is not 0 or row 6 is")
+    check("flash_attention (kernel 4) fp32 row 6 (denormal p) alone", got[:, :, 6],
+          ref[:, :, 6], TOL32)
+
+
+def check_decode_attention_edges(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, kernel 13 at its cluster plan's slice edges against the
+    fp32 twin: head dim 128 (16/8 heads, T 2048) at kv_len 16, 17, 32, 33,
+    128, 129, 255, 256, 257, 512, 513 (B 1; some at B 3); head dim 64 (16/2
+    heads, G 8, T 512) at kv_len 1, 17, 33, 126, 257, 512 with scale 0.125;
+    G 1 (8/8 heads x 128, T 256) at kv_len 200; G 8 at head dim 128 (16/2
+    heads, T 256: 64-row rounds, two of them in one CTA) at kv_len 100 and
+    256. Then one call at kv_len 2047 is one launch (a profiler trace holds
+    one kernel; LAUNCHES grows by one), and the predictor's shape (B 1, T
+    32, kv_len 17) is timed beside SDPA."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.ops.decode_attention import (cluster_plan, decode_gqa_attention,
+                                                    decode_gqa_attention_plain)
+
+    r = res["decode_gqa_attention"]
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    for b, h, kvh, t, d, lens, scale in (
+            (1, 16, 8, 2048, 128, (16, 17, 32, 33, 128, 129, 255, 256, 257, 512, 513), 1.0),
+            (3, 16, 8, 2048, 128, (17, 33, 257), 1.0),
+            (2, 16, 2, 512, 64, (1, 17, 33, 126, 257, 512), 0.125),
+            (1, 8, 8, 256, 128, (200,), 1.0),
+            (1, 16, 2, 256, 128, (100, 256), 1.0)):
+        q, k, v = rn(b, h, d), rn(b, kvh, t, d), rn(b, kvh, t, d)
+        for kv_len in lens:
+            r["max_abs_err"] = max(r["max_abs_err"], check(
+                f"decode_gqa_attention B={b} {h}/{kvh} heads x {d} T={t} kv_len={kv_len} "
+                f"scale={scale} (plan {cluster_plan(kv_len)})",
+                decode_gqa_attention(q, k, v, kv_len, scale),
+                decode_gqa_attention_plain(q.float(), k.float(), v.float(), kv_len, scale)))
+
+    # one call, one launch, at the longest live length of a 2048-row cache
+    q, k, v = rn(1, 16, 128), rn(1, 8, 2048, 128), rn(1, 8, 2048, 128)
+    decode_gqa_attention(q, k, v, 2047)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        before = LAUNCHES["decode_gqa_attention"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            decode_gqa_attention(q, k, v, 2047)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [(e.key, e.count) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        api = sum(e.count for e in events if e.key in (
+            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cudaMalloc"))
+        counted = LAUNCHES["decode_gqa_attention"] - before
+        print(f"  decode_gqa_attention kv_len=2047 (plan {cluster_plan(2047)}): device "
+              f"kernels {kernels}, launch and malloc calls {api}, wrapper count {counted}",
+              flush=True)
+        n_dev = sum(c for _, c in kernels)
+        if n_dev > 1 or api > 1 or counted != 1:
+            raise AssertionError("decode_gqa_attention: one call is not one launch")
+        if n_dev == 1:
+            break
+    else:
+        raise AssertionError("decode_gqa_attention: three traces held no kernel")
+
+    # the predictor's shape, beside the talker's (timed in check_qwen_kernels)
+    name_limit = card()
+    q, k, v = rn(1, 16, 128), rn(1, 8, 32, 128), rn(1, 8, 32, 128)
+    q4, k4, v4 = q[:, :, None], k[:, :, :17], v[:, :, :17]
+    one = {"ms": device_ms(lambda: decode_gqa_attention(q, k, v, 17)),
+           "plain_ms": device_ms(lambda: decode_gqa_attention_plain(q, k, v, 17)),
+           "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+               q4, k4, v4, scale=1.0, enable_gqa=True))}
+    set_bound(one, nbytes(q, k4, v4) + q.numel() * 2, 4 * 16 * 17 * 128, "bf16")
+    print(f"  {name_limit}: decode_gqa_attention (Qwen predictor shape, B=1, T=32, kv_len=17):"
+          f" kernel {one['ms']:.4f} ms, plain twin {one['plain_ms']:.4f} ms, bound "
+          f"{one['bound_ms']:.4f} ms ({one['bound_by']}), library {one['library_ms']:.4f} ms "
+          f"(SDPA, enable_gqa) (device time a call, profiler over 10 calls); one call's wall "
+          f"{time_ms(lambda: decode_gqa_attention(q, k, v, 17)):.4f} ms (median of 10)",
+          flush=True)
 
 
 # the BigVGAN bench stages kernel 10 runs (bigvgan_v2_24khz_100band_256x at
@@ -1295,7 +1471,7 @@ def check_f32_forward(pipe, t: int, kv, tol: float = FWD32_TOL,
     return grew
 
 
-def run_f5_fp32(name_limit: str) -> dict:
+def run_f5_fp32(name_limit: str, profile: bool = False) -> dict:
     """Phase 5c: F5Pipeline in fp32 at full F5TTS_v1_Base width (random
     weights from the bf16 phases' seeds): the bench request through kernel
     4 (22 launches a NFE step, none of kernels 1-3: kernel 1 is bf16 only,
@@ -1304,9 +1480,9 @@ def run_f5_fp32(name_limit: str) -> dict:
     at T 4608 (past 4096, tts_tpu's route to kernel 5); latency and
     sustained RTF; then F5Pipeline(quantize="w8a8") over the fp32 models:
     the bench request and one DiT forward against the twins (within
-    Q8_FWD32_TOL) through kernels 7, 4, 8 and 6 in fp32. Returns the
-    launches of the request (kernel 4) and of the T 4608 forward (kernel
-    5)."""
+    Q8_FWD32_TOL) through kernels 7, 4, 8 and 6 in fp32; with `profile`,
+    profile_f5 over one request of each. Returns the launches of the request
+    (kernel 4) and of the T 4608 forward (kernel 5)."""
     from tts_tpu_torch.models.f5 import F5Config, F5Model
     from tts_tpu_torch.models.f5 import init_params as f5_init
     from tts_tpu_torch.models.vocos import VocosConfig, VocosModel
@@ -1357,6 +1533,8 @@ def run_f5_fp32(name_limit: str) -> dict:
     want = {k: cfg.depth for k in Q8_KERNELS + ("flash_attention_onepass",)}
     if {k: n for k, n in grew.items() if n} != want:
         raise AssertionError(f"fp32 W8A8 forward launched {grew}, expected {want}")
+    if profile:
+        profile_f5({"fp32": pipe, "fp32 w8a8": q8}, name_limit)
     return launches
 
 
@@ -1372,8 +1550,9 @@ def profile_f5(pipes: dict, name_limit: str) -> None:
     audio = (np.random.default_rng(0).standard_normal(int(6.0 * rate)) * 3000).astype(np.int16)
     text = " ".join(["word"] * 15)
     classes = (("kernel 1 (rope_qk_kernel + flash_flat_kernel)", ("rope_qk", "flash_flat")),
+               ("kernel 4 bf16 (mha_fixed_kernel)", ("mha_fixed",)),
                ("kernel 5 bf16 (mha_online_kernel)", ("mha_online",)),
-               ("kernels 4-5 (mha_bf16/f32_kernel)", ("mha_",)),
+               ("kernels 4-5 fp32 (mha_f32_kernel)", ("mha_f32",)),
                ("kernel 2 (conv_mish_kernel)", ("conv_mish",)),
                ("kernel 3 (ff1/ff2_kernel)", ("ff1_kernel", "ff2_kernel")),
                ("kernels 6-8: q8_rows", ("q8_rows",)),
@@ -1809,7 +1988,7 @@ def profile_qwen(pipes: dict, out_dir: str, name_limit: str) -> None:
     os.makedirs(out_dir, exist_ok=True)
     classes = (("kernel 12 attention (attn_kernel)", ("attn_kernel",)),
                ("kernel 11 / 12 qkv head", ("qkv_matvec", "qkv_epilogue")),
-               ("kernel 13", ("block_kernel", "merge_kernel")),
+               ("kernel 13", ("cluster_kernel",)),
                ("kernels 14 / 15", ("oproj_kernel", "gateup_kernel", "down_kernel")),
                ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma", "cublas")),
                ("casts / copies", ("copy", "convert")),
@@ -2362,7 +2541,7 @@ def main() -> None:
         del q8_pipe, pipe
 
         phase("phase 5c: F5Pipeline in fp32")
-        launches.update(run_f5_fp32(name_limit))
+        launches.update(run_f5_fp32(name_limit, profile=bool(args.profile)))
         launches["flash_attention_online"] += k5
 
     if "kani" in fams:

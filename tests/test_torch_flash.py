@@ -1,10 +1,11 @@
 """The port's kernels 4 and 5 (ops/flash_attention.flash_attention on CPU
 tensors: the twins `flash_onepass_plain` and `flash_online_plain`) against
 tts_tpu's Pallas `flash_attention` in interpret mode, as
-tests/test_flash_attention.py runs it; kernel 1's twin and its RoPE
-pre-pass against tts_tpu's `flash_attention_flat` and its prologue, at
-the flash core's edges (kv_len 0, 1, 63, 64, 65; one 64-row tile; a row
-whose every logit is below -66). Same numpy inputs, fp32 on both sides
+tests/test_flash_attention.py runs it, D 64 to 256, kernel 4 also at the
+flash core's edges (kv_len 0, 1, 63, 64, 65; packed); kernel 1's twin and
+its RoPE pre-pass against tts_tpu's `flash_attention_flat` and its
+prologue, at the same edges, one 64-row tile, and a row whose every logit
+is below -66. Same numpy inputs, fp32 on both sides
 (bf16 for the pre-pass, whose rounding point is the point).
 
 Tolerance: atol 2e-5, the one the Pallas kernels' own parity tests use:
@@ -53,7 +54,7 @@ def _both(q, k, v, kv_len, **kw):
 @pytest.mark.parametrize("kv_len", [256, 150, 0, (256, 97)])
 @pytest.mark.parametrize("packed_out", [False, True])
 @pytest.mark.parametrize("head_block", [1, 2])
-@pytest.mark.parametrize("d", [64, 128, 192])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_onepass_matches_pallas(d, head_block, packed_out, kv_len):
     """Kernel 4: block_kv == S, scale d^-0.5 (folded with log2e)."""
     q, k, v = _qkv(d, 31 + d)
@@ -66,9 +67,24 @@ def test_onepass_matches_pallas(d, head_block, packed_out, kv_len):
         assert not out.any()
 
 
+@pytest.mark.parametrize("kv_len", [0, 1, 63, 64, 65])
+@pytest.mark.parametrize("packed_out", [False, True])
+@pytest.mark.parametrize("d", [64, 192, 256])
+def test_onepass_edges_match_pallas(d, packed_out, kv_len):
+    """Kernel 4 at the tile edges its CUDA forms must keep (no key, one key,
+    a 64-key tile less one, one tile, one past it); packed, the output the
+    bf16 core writes through strides."""
+    q, k, v = _qkv(d, 51 + d)
+    out, ref = _both(q, k, v, kv_len, scale=d ** -0.5, block_q=128, block_kv=S,
+                     head_block=1, packed_out=packed_out)
+    assert out.shape == ((B, S, H * d) if packed_out else (B, H, S, d))
+    np.testing.assert_allclose(out, ref, atol=2e-5, rtol=0)
+    assert (not out.any()) == (kv_len == 0)
+
+
 @pytest.mark.parametrize("kv_len", [256, 150, 0, 1, 63, 64, 65])
 @pytest.mark.parametrize("block_kv", [64, 128])
-@pytest.mark.parametrize("d", [64, 128, 192])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_online_matches_pallas(d, block_kv, kv_len):
     """Kernel 5: the online softmax over kv blocks, scalar kv_len."""
     q, k, v = _qkv(d, 41 + d)

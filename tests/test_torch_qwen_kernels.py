@@ -1,6 +1,7 @@
 """The Qwen3-TTS decode kernels' wrappers on CPU tensors (their plain
 PyTorch twins) against tts_tpu's Pallas kernels run in interpret mode:
-ops/decode_attention.decode_gqa_attention (kernel 13),
+ops/decode_attention.decode_gqa_attention (kernel 13, and a plain model of
+its CUDA form's cluster split),
 ops/decode_mlp.fused_out_mlp (kernel 14, bf16 and int8 weights) and
 ops/decode_mlp.fused_out_mlp_q8 (kernel 15, W8A8). Same numpy inputs on
 both sides, fp32 activations on both sides.
@@ -11,6 +12,9 @@ Tolerances:
     sums inside a block's two products differs. Scores of O(10) then differ
     by ulps (~1e-6), and each output is a weighted mean of values of O(1)
     that cancels, so the bound is absolute: a few ulps of max |v| (~4).
+    The CUDA kernel's split (slices with their own max, merged at the end)
+    is held in bf16 at the card's 2^-6 (chip_smoke.py's TOL): there only
+    the bf16 roundings of p and of the output differ.
   * kernel 14: atol 3e-5, rtol 2e-4, tts_tpu's own bound for this kernel
     against its XLA chain: the TPU kernel adds the out-projection and the
     down product block by block (512 rows), the twin in one matmul.
@@ -30,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from tts_tpu_torch.ops.decode_attention import decode_gqa_attention
+from tts_tpu_torch.ops.decode_attention import cluster_plan, decode_gqa_attention
 from tts_tpu_torch.ops.decode_mlp import (_pick_block, fused_out_mlp, fused_out_mlp_q8,
                                           out_mlp_fits)
 from tts_tpu_torch.quant.weight_only import QTensor
@@ -94,6 +98,83 @@ def test_decode_gqa_attention_rejects(bad):
         q, k = q.to("meta"), k.to("meta")
     with pytest.raises(ValueError):
         decode_gqa_attention(q, k, k, kv_len)
+
+
+# the slice edges of the CUDA kernel's cluster plan, the talker's kv_len 126
+# and the ends of a 2048-row cache
+PLAN_KV_LENS = [1, 16, 17, 32, 33, 126, 128, 129, 255, 256, 257, 512, 513, 2047, 2048]
+
+
+@pytest.mark.parametrize("kv_len", PLAN_KV_LENS)
+def test_cluster_plan_covers_live_rows(kv_len):
+    """Every live row in exactly one slice, the slices in order and none
+    empty, 1 to 8 CTAs (the portable cluster size)."""
+    ctas, rows = cluster_plan(kv_len)
+    assert 1 <= ctas <= 8 and rows >= 1
+    slices = [range(r * rows, min((r + 1) * rows, kv_len)) for r in range(ctas)]
+    assert all(len(sl) > 0 for sl in slices)
+    assert [t for sl in slices for t in sl] == list(range(kv_len))
+
+
+def _cluster_model(q, k, v, kv_len, scale=1.0):
+    """The CUDA kernel's arithmetic in plain torch, fp32 on bf16 inputs: the
+    live rows cut as cluster_plan cuts them, each slice with its own max m_i,
+    l_i from the unrounded p = exp(s - m_i), p rounded to bf16 for P.V; the
+    slices merged in rank order, each scaled by exp(m_i - M); the output
+    rounded to bf16 once."""
+    ctas, rows = cluster_plan(kv_len)
+    b, h, d = q.shape
+    kvh = k.shape[1]
+    qr = q.float().reshape(b, kvh, h // kvh, d)
+    parts = []
+    for r in range(ctas):
+        lo, hi = r * rows, min((r + 1) * rows, kv_len)
+        s = qr @ k[:, :, lo:hi].float().transpose(-1, -2)
+        if scale != 1.0:
+            s = s * scale
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        parts.append((m, p.sum(-1, keepdim=True),
+                      p.to(torch.bfloat16).float() @ v[:, :, lo:hi].float()))
+    big_m = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = den = 0.0
+    for m, l, acc in parts:
+        w = torch.exp(m - big_m)
+        den = den + l * w
+        num = num + acc * w
+    return (num / den).to(torch.bfloat16).reshape(b, h, d)
+
+
+def _within_bf16_tol(got, ref, tol=2.0 ** -6):
+    """chip_smoke.py's `check`: max |err| and rel L2 within tol of max |ref|."""
+    got, ref = got.float(), ref.float()
+    err = got - ref
+    assert err.abs().max() <= tol * ref.abs().max()
+    assert torch.linalg.vector_norm(err) <= tol * torch.linalg.vector_norm(ref)
+
+
+@pytest.mark.parametrize("kv_len", PLAN_KV_LENS)
+def test_cluster_split_matches_pallas_and_twin(kv_len):
+    """The CUDA kernel's split (its model above) against tts_tpu's kernel in
+    interpret mode and against the twin, on the same bf16 inputs at the
+    Qwen talker's head width: the slices change only where p rounds to
+    bf16, so all three agree within the card's bf16 tolerance (2^-6)."""
+    from tts_tpu.ops.decode_attention import decode_gqa_attention as pallas
+
+    rng = np.random.default_rng(47)
+    b, h, kvh, t, d = 1, 4, 2, 2048, 128
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
+    k = torch.from_numpy((rng.standard_normal((b, kvh, t, d)) * 0.25).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, kvh, t, d)).astype(np.float32))
+    q, k, v = (a.to(torch.bfloat16) for a in (q, k, v))
+    model = _cluster_model(q, k, v, kv_len)
+    ref = pallas(*(jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in (q, k, v)),
+                 kv_len, interpret=True)
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    twin = decode_gqa_attention(q, k, v, kv_len)
+    assert model.shape == twin.shape == (b, h, d) and twin.dtype == torch.bfloat16
+    _within_bf16_tol(model, ref)
+    _within_bf16_tol(model, twin)
 
 
 # ---------------------------------------------------------------- kernel 14

@@ -19,7 +19,6 @@ namespace wmma = nvcuda::wmma;
 // 16x16x16 tensor-core fragments: bf16 operands, fp32 accumulator
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -50,5 +49,26 @@ union Vec8 {
   uint4 u;
   bf16 h[8];
 };
+
+// Launch `kernel` in thread-block clusters of `cx` CTAs along x (grid.x a
+// multiple of cx); returns the launch's error.
+template <typename Arg>
+cudaError_t launch_cluster(void (*kernel)(Arg), dim3 grid, int threads, size_t smem,
+                           cudaStream_t stream, int cx, Arg arg) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cx;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, arg);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
 
 }  // namespace tts

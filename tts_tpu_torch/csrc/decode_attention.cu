@@ -4,253 +4,372 @@
 //
 // Replaces tts_tpu/ops/decode_attention.py:decode_gqa_attention (Pallas
 // body _kernel). Same numerics: fp32 scores (times `scale` when it is not
-// 1), a softmax over blocks of bkv = min(256, T) rows with the denominator
-// summed from the unrounded p = exp(s - m), p rounded to bf16 for the P.V
-// product with fp32 accumulation, (acc / l) rounded to bf16 once.
+// 1), softmax statistics in fp32 with the denominator summed from the
+// unrounded p = exp(s - m), p rounded to bf16 for the P.V product with fp32
+// accumulation, (acc / l) rounded to bf16 once. The TPU kernel walks blocks
+// of up to 256 rows in order with a running max; here the rows split into
+// contiguous slices, each with its own max, merged at the end, so p rounds
+// to bf16 at another max: the same sums, other bf16 roundings.
 //
 // What bounds it on an H100: the live k/v rows, 2 x kv_len x D x 2 bytes a
 // kv head (0.5 MB a layer at Qwen's 8 kv heads x 128 and kv_len 126), read
 // once; the products are 4 x H x kv_len x D operations, far below the
-// tensor cores' line. Design: the TPU kernel walked the blocks in order on
-// one core, carrying (m, l, acc) in VMEM; here every live block is a CTA of
-// its own, grid (blocks, KVH, B), so a long context spreads over the SMs
-// (flash decoding). A CTA holds its G heads' scores of up to 256 rows in
-// shared memory: scores one row a thread, the block's max and sum by block
-// reductions, P.V with 8 bf16 values a thread and row groups reduced by
-// warp shuffles and shared memory in a fixed order. With one live block the
-// CTA writes the output itself (one launch); with more, each writes its
-// (m, l, acc) and merge_kernel combines them in block order, scaling each
-// by exp(m_i - M). No atomics: runs are bitwise reproducible. Blocks past
-// the live length are never launched and rows >= kv_len never read.
+// tensor cores' line. At decode sizes that is a fraction of a microsecond,
+// so the kernel is latency-bound: one launch, every load in flight at once,
+// few barriers and shuffles.
+//
+// Design: one CTA, or one thread-block cluster of up to 8 CTAs (the
+// portable cluster size), for each (kv head, batch row); the wrapper's
+// cluster_plan picks the split from kv_len (one CTA up to 128 rows: in
+// trial builds a cluster's launch and merge cost more than they saved
+// there). CTA r takes the live rows r * rows .. min((r + 1) * rows,
+// kv_len) - 1. In a CTA, a group of D / 8 lanes covers one row with
+// 16-byte loads (8 bf16 a lane), q in registers. Up to 8 rows a group are
+// loaded at once (128 rows a round at D 128, 256 at D 64; half that at G >
+// 4); when the slice fits one round its K and V loads are all issued up
+// front, else pass 1 reads K round by round and pass 2 reads V. The dot
+// products of a group's rows and the G q heads are summed over the group
+// by a transposing butterfly (n values over the group in n - 1 shuffles).
+// The scores wait in shared memory for the slice's max, which every warp
+// takes for itself; then p = exp(s - m) per q head in registers, l summed
+// from the unrounded p, P rounded to bf16 for P.V, and the sums over the
+// warps in a fixed order. A lone CTA writes out = acc / l. In a cluster
+// each CTA leaves (m, l, acc[G][D]) in its own shared memory; after
+// cluster.sync(), rank 0 reads ranks 0 .. ctas - 1 through distributed
+// shared memory in rank order, scales each by exp(m_i - M) and writes out
+// = sum acc / sum l; a second cluster.sync() keeps every CTA's shared
+// memory alive until rank 0 has read it. One launch at every kv_len, no
+// scratch in device memory, no atomics (bitwise reproducible runs), rows
+// >= kv_len never read.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace tts {
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int DA_THREADS = 256;
 constexpr int DA_WARPS = DA_THREADS / 32;
 constexpr int DA_MAX_G = 8;
+constexpr int DA_MAX_CTAS = 8;  // the portable cluster size
+constexpr int SMEM_MAX = 232448;
 
-__device__ __forceinline__ float da_warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+struct DaArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
+  int KVH, T, kv_len, rows;  // rows: the live rows a CTA takes (the last fewer)
+  float scale;
+};
+
+// shared memory, in floats: what rank 0 reads (acc [G][HD], m [G], l [G]),
+// then the per-warp sums ([DA_WARPS][G][HD] acc, [DA_WARPS][G] l) and the
+// slice's scores [G][rows]
+template <int HD, int G>
+constexpr size_t da_smem_floats(int rows) {
+  return (size_t)(1 + DA_WARPS) * G * HD + 2 * G + DA_WARPS * G + (size_t)G * rows;
 }
 
-__device__ __forceinline__ float da_block_sum(float v, float* scratch) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
+// One step of a transposing butterfly over the lanes OFF apart, on CNT
+// values a lane, then the next: each lane sends the half it does not keep
+// and adds the partner's copy of the half it keeps (the upper lane keeps
+// the upper half, `base` counting the values it passed over); once one
+// value is left, the steps are plain sums.
+template <int OFF, int CNT>
+__device__ __forceinline__ void butterfly(float* val, int li, int& base) {
+  if constexpr (OFF > 0) {
+    if constexpr (CNT > 1) {
+      constexpr int HALF = CNT / 2;
+      const bool upper = (li & OFF) != 0;
 #pragma unroll
-  for (int i = 0; i < DA_WARPS; ++i) s += scratch[i];
-  return s;
+      for (int i = 0; i < HALF; ++i) {
+        const float sent = upper ? val[i] : val[i + HALF];
+        const float kept = upper ? val[i + HALF] : val[i];
+        val[i] = kept + __shfl_xor_sync(0xffffffffu, sent, OFF);
+      }
+      base += upper ? HALF : 0;
+      butterfly<OFF / 2, HALF>(val, li, base);
+    } else {
+      val[0] += __shfl_xor_sync(0xffffffffu, val[0], OFF);
+      butterfly<OFF / 2, 1>(val, li, base);
+    }
+  }
 }
 
-__device__ __forceinline__ float da_block_max(float v, float* scratch) {
-  v = da_warp_max(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = scratch[0];
+// The scores of a round's rows t0 + u NG + grp (u < UE) for the G q heads
+// into sc: each lane's dot products over its 8 elements for GP heads (G
+// padded with zeros), summed over the group's LG lanes by the transposing
+// butterfly (UE * GP values take UE * GP - 1 shuffles, not UE * GP * log2
+// LG); the lane holding a sum writes it (with fewer values than lanes,
+// LG / (UE * GP) lanes hold each, and the first of them writes).
+template <int LG, int NG, int G, int GP, int UE, int U>
+__device__ __forceinline__ void round_scores(const uint4 (&kr)[U], const float (&qf)[G][8],
+                                             int li, int grp, int t0, int n, float* sc,
+                                             int rows, float scale) {
+  constexpr int CP = UE * GP, CNT = CP > LG ? CP / LG : 1;
+  float val[CP];
 #pragma unroll
-  for (int i = 1; i < DA_WARPS; ++i) m = fmaxf(m, scratch[i]);
-  return m;
+  for (int u = 0; u < UE; ++u) {
+    Vec8 kx;
+    kx.u = kr[u];
+    float kf[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) kf[e] = to_f(kx.h[e]);
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      float acc = 0.f;
+      if (g < G) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(qf[g][e], kf[e], acc);
+      }
+      val[u * GP + g] = acc;
+    }
+  }
+  int base = 0;
+  butterfly<LG / 2, CP>(val, li, base);
+#pragma unroll
+  for (int i = 0; i < CNT; ++i) {
+    const int u = (base + i) / GP, g = (base + i) % GP;
+    const int t = t0 + u * NG + grp;
+    if (g < G && t < n && (CP >= LG || li % (LG / CP) == 0))
+      sc[g * rows + t] = scale != 1.f ? val[i] * scale : val[i];
+  }
 }
 
-// One CTA per (live block, kv head, batch row). partial: per (b, kvh, block,
-// g) the row [m, l, acc[0..HD)]; null when there is one block, and the CTA
-// then writes out = acc / l.
-template <int HD>
-__global__ void __launch_bounds__(DA_THREADS)
-block_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ partial,
-             int KVH, int G, int T, int kv_len, int bkv, float scale) {
-  extern __shared__ float sm[];
-  float* qs = sm;                           // [G][HD]
-  float* red = qs + G * HD;                 // [DA_WARPS][G][HD] P.V partials
-  float* s = red + DA_WARPS * G * HD;       // [G][bkv] scores, then bf16 p
-  __shared__ float mx[DA_MAX_G], den[DA_MAX_G];
-  __shared__ float scratch[DA_WARPS];
-  const int blk = blockIdx.x, j = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int r0 = blk * bkv;
-  const int n = min(kv_len - r0, bkv);      // live rows of this block, >= 1
-  const size_t head = (size_t)b * KVH + j;
-  const bf16* kj = k + (head * T + r0) * HD;
-  const bf16* vj = v + (head * T + r0) * HD;
+template <int HD, int G>
+__global__ void __launch_bounds__(DA_THREADS) cluster_kernel(const DaArgs a) {
+  constexpr int LG = HD / 8;           // lanes a row
+  constexpr int NG = DA_THREADS / LG;  // lane groups
+  constexpr int U = G <= 4 ? 8 : 4;    // rows a group loads at once (registers)
+  constexpr int GP = G <= 2 ? G : G <= 4 ? 4 : 8;  // G padded to a power of two
+  constexpr int RR = NG * U;           // rows a round: 128 at D 128, 256 at D 64
+  extern __shared__ __align__(16) float sm[];
+  float* acc_s = sm;
+  float* m_s = acc_s + G * HD;
+  float* l_s = m_s + G;
+  float* wacc = l_s + G;
+  float* wl = wacc + DA_WARPS * G * HD;
+  float* sc = wl + DA_WARPS * G;
 
-  for (int i = tid; i < G * HD; i += DA_THREADS) qs[i] = to_f(q[head * G * HD + i]);
-  __syncthreads();
+  // one CTA (the short slices of a predictor step) launches without a
+  // cluster and writes its output itself
+  const int nct = gridDim.x;
+  const int rank = nct > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int j = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, li = tid % LG, grp = tid / LG;
+  const int r0 = rank * a.rows;
+  const int n = min(a.kv_len - r0, a.rows);  // >= 1: the plan leaves no slice empty
+  const size_t head = (size_t)b * a.KVH + j;
+  const bf16* kj = a.k + (head * a.T + r0) * HD + li * 8;
+  const bf16* vj = a.v + (head * a.T + r0) * HD + li * 8;
+  const int rounds = (n + RR - 1) / RR;
 
-  // scores: one row a thread
-  for (int t = tid; t < n; t += DA_THREADS) {
-    float a[DA_MAX_G];
+  float qf[G][8];
 #pragma unroll
-    for (int g = 0; g < DA_MAX_G; ++g) a[g] = 0.f;
-    const bf16* kr = kj + (size_t)t * HD;
-#pragma unroll 2
-    for (int d = 0; d < HD; d += 8) {
-      Vec8 kv;
-      kv.u = *reinterpret_cast<const uint4*>(kr + d);
+  for (int g = 0; g < G; ++g) {
+    Vec8 x;
+    x.u = *reinterpret_cast<const uint4*>(a.q + (head * G + g) * HD + li * 8);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float kf = to_f(kv.h[e]);
+    for (int e = 0; e < 8; ++e) qf[g][e] = to_f(x.h[e]);
+  }
+
+  // pass 1: scores of the slice into shared memory
+  uint4 kr[U], vr[U];
+  for (int rd = 0; rd < rounds; ++rd) {
 #pragma unroll
-        for (int g = 0; g < DA_MAX_G; ++g)
-          if (g < G) a[g] = fmaf(qs[g * HD + d + e], kf, a[g]);
+    for (int u = 0; u < U; ++u) {
+      const int t = rd * RR + u * NG + grp;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (t < n) {
+        kr[u] = *reinterpret_cast<const uint4*>(kj + (size_t)t * HD);
+        if (rounds == 1) vr[u] = *reinterpret_cast<const uint4*>(vj + (size_t)t * HD);
       }
     }
-#pragma unroll
-    for (int g = 0; g < DA_MAX_G; ++g)
-      if (g < G) s[g * bkv + t] = scale != 1.f ? a[g] * scale : a[g];
+    // the group's rows this round: fewer rows take a smaller butterfly
+    const int t0 = rd * RR, need = min(U, (n - t0 + NG - 1) / NG);
+    if (need > U / 2)
+      round_scores<LG, NG, G, GP, U>(kr, qf, li, grp, t0, n, sc, a.rows, a.scale);
+    else if (need > U / 4)
+      round_scores<LG, NG, G, GP, U / 2>(kr, qf, li, grp, t0, n, sc, a.rows, a.scale);
+    else
+      round_scores<LG, NG, G, GP, U / 4>(kr, qf, li, grp, t0, n, sc, a.rows, a.scale);
   }
   __syncthreads();
 
-  // the block's softmax statistics per q head; p kept rounded to bf16 for P.V
+  // the slice's max per q head, each warp over every score (no barrier)
+  float mx[G];
+#pragma unroll
   for (int g = 0; g < G; ++g) {
-    float* sg = s + g * bkv;
-    float m = __int_as_float(static_cast<int>(0xff800000u));   // -inf
-    for (int t = tid; t < n; t += DA_THREADS) m = fmaxf(m, sg[t]);
-    m = da_block_max(m, scratch);
-    float sum = 0.f;
-    for (int t = tid; t < n; t += DA_THREADS) {
-      const float p = expf(sg[t] - m);
-      sg[t] = rnd(p);
-      sum += p;
-    }
-    sum = da_block_sum(sum, scratch);
-    if (tid == 0) {
-      mx[g] = m;
-      den[g] = sum;
-    }
-  }
-  __syncthreads();
-
-  // P.V: VT threads cover a row (8 values each), RG row groups take every
-  // RG-th row
-  constexpr int VT = HD / 8;
-  constexpr int RG = DA_THREADS / VT;
-  const int dv = tid % VT, rg = tid / VT;
-  float acc[DA_MAX_G][8];
+    float v = __int_as_float(static_cast<int>(0xff800000u));  // -inf
+    for (int t = lane; t < n; t += 32) v = fmaxf(v, sc[g * a.rows + t]);
 #pragma unroll
-  for (int g = 0; g < DA_MAX_G; ++g)
+    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    mx[g] = v;
+  }
+
+  // pass 2: p = exp(s - m); l from the unrounded p, P.V from bf16(p)
+  float acc[G][8], lsum[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    lsum[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
-  for (int t = rg; t < n; t += RG) {
-    Vec8 vv;
-    vv.u = *reinterpret_cast<const uint4*>(vj + (size_t)t * HD + dv * 8);
-    float vf[8];
+  }
+  for (int rd = 0; rd < rounds; ++rd) {
+    if (rounds > 1) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) vf[e] = to_f(vv.h[e]);
+      for (int u = 0; u < U; ++u) {
+        const int t = rd * RR + u * NG + grp;
+        if (t < n) vr[u] = *reinterpret_cast<const uint4*>(vj + (size_t)t * HD);
+      }
+    }
 #pragma unroll
-    for (int g = 0; g < DA_MAX_G; ++g) {
-      if (g < G) {
-        const float p = s[g * bkv + t];
+    for (int u = 0; u < U; ++u) {
+      const int t = rd * RR + u * NG + grp;
+      if (t >= n) break;
+      Vec8 vx;
+      vx.u = vr[u];
+      float vf[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+      for (int e = 0; e < 8; ++e) vf[e] = to_f(vx.h[e]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float p = expf(sc[g * a.rows + t] - mx[g]);
+        lsum[g] += p;
+        const float pr = rnd(p);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
       }
     }
   }
-  // lanes dv, dv + VT, ... of a warp hold the same columns
+
+  // the CTA's sums: over the lane groups of a warp by shuffles (lanes li,
+  // li + LG, ... hold the same columns), then over the warps in order
 #pragma unroll
-  for (int g = 0; g < DA_MAX_G; ++g)
+  for (int off = LG; off < 32; off <<= 1)
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
+    for (int g = 0; g < G; ++g) {
+      lsum[g] += __shfl_xor_sync(0xffffffffu, lsum[g], off);
 #pragma unroll
-      for (int off = VT; off < 32; off <<= 1)
-        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
-  if (lane < VT) {
+      for (int e = 0; e < 8; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+    }
+  if (lane < LG) {
 #pragma unroll
-    for (int g = 0; g < DA_MAX_G; ++g)
-      if (g < G)
+    for (int g = 0; g < G; ++g) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) red[(warp * G + g) * HD + dv * 8 + e] = acc[g][e];
+      for (int e = 0; e < 8; ++e) wacc[(warp * G + g) * HD + li * 8 + e] = acc[g][e];
+      if (li == 0) wl[warp * G + g] = lsum[g];
+    }
   }
   __syncthreads();
-  const int nblk = gridDim.x;
-  for (int i = tid; i < G * HD; i += DA_THREADS) {
-    const int g = i / HD, d = i % HD;
-    float o = 0.f;
+  if (nct == 1) {
+    for (int i = tid; i < G * HD; i += DA_THREADS) {
+      float s = 0.f, l = 0.f;
 #pragma unroll
-    for (int w = 0; w < DA_WARPS; ++w) o += red[(w * G + g) * HD + d];
-    if (partial == nullptr) {
-      out[(head * G + g) * HD + d] = to_bf(o / den[g]);
-    } else {
-      float* row = partial + ((head * nblk + blk) * G + g) * (HD + 2);
-      row[2 + d] = o;
-      if (d == 0) {
-        row[0] = mx[g];
-        row[1] = den[g];
+      for (int w = 0; w < DA_WARPS; ++w) {
+        s += wacc[w * G * HD + i];
+        l += wl[w * G + i / HD];
       }
+      a.out[head * G * HD + i] = to_bf(s / l);
+    }
+    return;
+  }
+  for (int i = tid; i < G * HD; i += DA_THREADS) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < DA_WARPS; ++w) s += wacc[w * G * HD + i];
+    acc_s[i] = s;
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < DA_WARPS; ++w) s += wl[w * G + g];
+      l_s[g] = s;
+      m_s[g] = mx[g];
     }
   }
-}
 
-// Merge the live blocks of one (kv head, batch row) in block order:
-// out = sum_i acc_i e^(m_i - M) / sum_i l_i e^(m_i - M), M = max_i m_i.
-template <int HD>
-__global__ void __launch_bounds__(DA_THREADS)
-merge_kernel(const float* __restrict__ partial, bf16* __restrict__ out, int KVH, int G,
-             int nblk) {
-  const int j = blockIdx.x, b = blockIdx.y;
-  const size_t head = (size_t)b * KVH + j;
-  for (int i = threadIdx.x; i < G * HD; i += DA_THREADS) {
-    const int g = i / HD, d = i % HD;
-    float m = -1e30f;
-    for (int blk = 0; blk < nblk; ++blk)
-      m = fmaxf(m, partial[((head * nblk + blk) * G + g) * (HD + 2)]);
-    float acc = 0.f, l = 0.f;
-    for (int blk = 0; blk < nblk; ++blk) {
-      const float* row = partial + ((head * nblk + blk) * G + g) * (HD + 2);
-      const float w = expf(row[0] - m);
-      l += row[1] * w;
-      acc += row[2 + d] * w;
+  // the merge: rank 0 reads every CTA's (m, l, acc) in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (rank == 0) {
+    for (int i = tid; i < G * HD; i += DA_THREADS) {
+      const int g = i / HD;
+      float M = __int_as_float(static_cast<int>(0xff800000u));
+      for (int r = 0; r < nct; ++r) M = fmaxf(M, cluster.map_shared_rank(m_s, r)[g]);
+      float L = 0.f, A = 0.f;
+      for (int r = 0; r < nct; ++r) {
+        const float w = expf(cluster.map_shared_rank(m_s, r)[g] - M);
+        L += cluster.map_shared_rank(l_s, r)[g] * w;
+        A += cluster.map_shared_rank(acc_s, r)[i] * w;
+      }
+      a.out[head * G * HD + i] = to_bf(A / L);
     }
-    out[(head * G + g) * HD + d] = to_bf(acc / l);
   }
+  cluster.sync();  // no CTA's shared memory goes before rank 0 has read it
 }
 
-template <int HD>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* partial, int B,
-           int KVH, int G, int T, int kv_len, int bkv, float scale, cudaStream_t st) {
-  const int nblk = (kv_len + bkv - 1) / bkv;
-  const size_t smem = sizeof(float) * ((size_t)(1 + DA_WARPS) * G * HD + (size_t)G * bkv);
+template <int HD, int G>
+int launch(const DaArgs& a, int B, int ctas, cudaStream_t st) {
+  const size_t smem = sizeof(float) * da_smem_floats<HD, G>(a.rows);
+  if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   static size_t allowed = 48 * 1024;
   if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        block_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        cluster_kernel<HD, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     allowed = smem;
   }
-  block_kernel<HD><<<dim3(nblk, KVH, B), DA_THREADS, smem, st>>>(
-      q, k, v, out, nblk > 1 ? partial : nullptr, KVH, G, T, kv_len, bkv, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || nblk == 1) return (int)err;
-  merge_kernel<HD><<<dim3(KVH, B), DA_THREADS, 0, st>>>(partial, out, KVH, G, nblk);
-  return (int)cudaGetLastError();
+  if (ctas == 1) {
+    cluster_kernel<HD, G><<<dim3(1, a.KVH, B), DA_THREADS, smem, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  return (int)launch_cluster(cluster_kernel<HD, G>, dim3(ctas, a.KVH, B), DA_THREADS, smem,
+                             st, ctas, a);
+}
+
+template <int HD>
+int launch_hd(const DaArgs& a, int B, int G, int ctas, cudaStream_t st) {
+  switch (G) {
+    case 1: return launch<HD, 1>(a, B, ctas, st);
+    case 2: return launch<HD, 2>(a, B, ctas, st);
+    case 3: return launch<HD, 3>(a, B, ctas, st);
+    case 4: return launch<HD, 4>(a, B, ctas, st);
+    case 5: return launch<HD, 5>(a, B, ctas, st);
+    case 6: return launch<HD, 6>(a, B, ctas, st);
+    case 7: return launch<HD, 7>(a, B, ctas, st);
+    case 8: return launch<HD, 8>(a, B, ctas, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 }  // namespace tts
 
-// q (B, KVH*G, hd) bf16; k, v (B, KVH, T, hd) bf16; out like q; partial
-// B * KVH * ceil(kv_len / bkv) * G * (hd + 2) fp32 scratch (null when
-// kv_len <= bkv). hd 64 or 128, G <= 8, 1 <= kv_len <= T, bkv <= 256.
+// q (B, KVH*G, hd) bf16; k, v (B, KVH, T, hd) bf16; out like q. hd 64 or
+// 128, G <= 8, 1 <= kv_len <= T. The live rows split into `ctas` (1 to 8)
+// slices of `rows`, the last one shorter and none empty (the wrapper's
+// cluster_plan); the slice's scores need G * rows floats of shared memory.
 extern "C" int decode_gqa_attention(const void* q, const void* k, const void* v, void* out,
-                                    void* partial, int B, int KVH, int G, int T, int kv_len,
-                                    int bkv, int hd, float scale, void* stream) {
-  using tts::bf16;
-  if (G < 1 || G > tts::DA_MAX_G || kv_len < 1 || kv_len > T || bkv < 1 || bkv > 256 ||
-      (kv_len > bkv && partial == nullptr))
+                                    int B, int KVH, int G, int T, int kv_len, int ctas,
+                                    int rows, int hd, float scale, void* stream) {
+  if (G < 1 || G > tts::DA_MAX_G || kv_len < 1 || kv_len > T || ctas < 1 ||
+      ctas > tts::DA_MAX_CTAS || rows < 1 || (long long)ctas * rows < kv_len ||
+      (long long)(ctas - 1) * rows >= kv_len)
     return (int)cudaErrorInvalidValue;
+  tts::DaArgs a;
+  a.q = (const tts::bf16*)q;
+  a.k = (const tts::bf16*)k;
+  a.v = (const tts::bf16*)v;
+  a.out = (tts::bf16*)out;
+  a.KVH = KVH, a.T = T, a.kv_len = kv_len, a.rows = rows, a.scale = scale;
   cudaStream_t st = (cudaStream_t)stream;
-  if (hd == 64)
-    return tts::launch<64>((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-                           (float*)partial, B, KVH, G, T, kv_len, bkv, scale, st);
-  if (hd == 128)
-    return tts::launch<128>((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-                            (float*)partial, B, KVH, G, T, kv_len, bkv, scale, st);
+  if (hd == 64) return tts::launch_hd<64>(a, B, G, ctas, st);
+  if (hd == 128) return tts::launch_hd<128>(a, B, G, ctas, st);
   return (int)cudaErrorInvalidValue;
 }

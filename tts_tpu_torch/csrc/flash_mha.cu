@@ -1,50 +1,71 @@
 // Flash attention on roped (B, H, S, D) q, k and v, for the F5 DiT's head
-// geometries that the flat kernel does not take and for sequences past it.
+// geometries that the flat kernel does not take, for fp32, and for
+// sequences past it.
 //
 // Replaces two paths of tts_tpu/ops/flash_attention.py:flash_attention:
 //   * kernel 4, the single pass (Pallas body _kernel_onepass): the whole key
 //     row at once, s * f32(scale * log2e) clamped at +100 plus a bias row of
 //     -30 (valid keys) or -1e30 (keys >= kv_len[b]), exp2 with no row max,
-//     l = sum(p) + 1e-37, bf16(P).V, then o / l; output (B, H, S, D) or
-//     packed (B, S, H*D);
+//     l = sum(p) + 1e-37, P.V with P in v's dtype, then o / l; output (B, H,
+//     S, D) or packed (B, S, H*D);
 //   * kernel 5, the online softmax (Pallas body _kernel): scores times
 //     scale, -1e30 at masked keys before a running row max m (from -1e30),
 //     p = exp(s - m_new), alpha = exp(m - m_new), l = l alpha + sum(p),
-//     acc = acc alpha + bf16(P).V, acc / l at the end.
-// Both take bf16 or fp32 (true fp32 products on the CUDA cores, no TF32),
-// with D a multiple of 64 up to 256. P is rounded to v's dtype before the
-// P.V dot, as the TPU kernel casts it.
+//     acc = acc alpha + P.V, acc / l at the end.
+// Both take bf16 or fp32, with D a multiple of 64 up to 256. Kv tiles
+// wholly past kv_len are skipped: their p are exact zeros in kernel 4, and
+// in kernel 5 too once a valid key has set a finite max (kv_len >= 1). With
+// kv_len 0, kernel 5 runs every tile, so each row gets the mean of v over
+// all S keys (every score is -1e30, as in tts_tpu), while kernel 4 gives
+// zeros (its 1e-37 guard).
 //
-// Kernel 5 in bf16 is the flash core (flash_core.cuh) in ONLINE mode: S, P
-// and O in registers (wgmma), cp.async double-buffered K and V tiles.
-// The other three forms (kernel 4 in bf16, both in fp32): a CTA takes 64
-// query rows of one (b, h) and streams 64-key tiles of k and v through
-// shared memory.
-// Kernel 4's fixed exp2 shift needs no rescale, so its sums split over kv
-// tiles exactly (as in kernel 1); kernel 5 keeps the running max and
-// rescales its accumulator row by alpha each tile. The TPU grid's kv axis
-// becomes the CTA's loop. Kv tiles wholly past kv_len are skipped: their p
-// are exact zeros in kernel 4, and in kernel 5 too once a valid key has set
-// a finite max (kv_len >= 1). With kv_len 0, kernel 5 runs every tile, so
-// each row gets the mean of v over all S keys (every score is -1e30, as in
-// tts_tpu), while kernel 4 gives zeros (its 1e-37 guard).
+// bf16: both kernels are the flash core (flash_core.cuh), kernel 4 in its
+// FIXED mode (kernel 1's contract) and kernel 5 in ONLINE mode, addressed
+// through strides, so kernel 4's packed output is only other strides. S, P
+// and O stay in registers (wgmma), K and V tiles arrive by cp.async one
+// tile ahead. Bound on an H100: the two products, 4 S kv_len D flops a
+// head at 989 TFLOP/s, and beside them one exp2 a score on the SFUs.
 //
-// What bounds it on an H100: the dots, 4 S kv_len D flops a head (bf16
-// tensor cores at 989 TFLOP/s, or fp32 CUDA cores at 67), and in bf16 at D
-// 64 as much the one exp a score on the SFUs. Kernel 4's bf16 form keeps
-// its WMMA accumulator in shared memory (a WMMA fragment has no exposed
-// element layout) and does not overlap loads with dots, so it runs far
-// below either peak; its contract is the core's FIXED mode. The fp32 forms
-// give each of 256 threads a 4 x 4 score tile and a 4 x D/16 output tile,
-// with q, k and v rows padded to D + 1 floats against bank conflicts. No
-// atomics: bitwise reproducible run to run.
+// fp32 (true fp32 products on the CUDA cores, no TF32): one template for
+// both softmax contracts, mha_f32_kernel<D, ONLINE>. Bound: the same 4 S
+// kv_len D flops at 67 TFLOP/s, so the design feeds the FMA pipes and
+// keeps shared memory off the critical path:
+//   * register tiles: a thread owns RT query rows (ty + 16 i) and, for S =
+//     Q K^T, 4 keys of a 32-key tile (tx + 8 j); for O += P V the same rows
+//     and D / 8 columns (4 tx + 32 c .. + 3). Operands come as float4 along
+//     D (S) or along the keys (P) from rows padded to D + 4 (and 32 + 8)
+//     floats: 16-byte aligned, the 8 rows a warp reads at once on distinct
+//     banks, and the 4 rows it shares broadcast; no transpose. At D 64 (RT
+//     8) S takes 12 float4 loads for 128 FMAs and P.V 16 for 256;
+//   * K and V tiles arrive by cp.async (16 bytes a thread) in two slots
+//     each, the next tile's copies queued right after the one barrier of an
+//     iteration, so they land while this tile's products run;
+//   * P crosses lanes through shared memory, but only within a warp (a
+//     warp's 8 tx lanes hold all keys of its rows): a __syncwarp, no block
+//     barrier; each row's max (ONLINE) takes 3 shuffles over those lanes,
+//     and l is a lane's partial sum until the end;
+//   * rows a CTA: 128 at D 64 (2 CTAs an SM, 90 KB of shared memory each;
+//     in trial builds 128 rows ran faster than 64 at kernel 5's shape),
+//     64 at D >= 128, where an O tile of 128 rows would not fit in
+//     registers. 128 threads a CTA;
+//   * kernel 4's sums split exactly (no row max), so where the row blocks
+//     would leave the card's last wave part empty (the F5 bench shape: 352
+//     CTAs on 2 x 132 slots), 2 or 4 CTAs of one thread-block cluster share
+//     a row block's key tiles (f32_splits); each leaves its O and l in its
+//     shared memory, and rank 0 adds them in rank order through distributed
+//     shared memory. Kernel 5 fills the card at the lengths that reach it.
+// The exps are those of tts_tpu's fp32 bodies: exp2f in kernel 4 (keeping
+// denormal p, as the twin does), expf in kernel 5. Every sum runs in a
+// fixed order, with no atomics: bitwise reproducible run to run.
+#include <cooperative_groups.h>
+
 #include "flash_core.cuh"
 
 namespace tts {
 namespace {
 
-constexpr int BQ = 64;    // query rows a CTA
-constexpr int BKV = 64;   // keys a tile
+namespace cg = cooperative_groups;
+
 constexpr float NEG = -1e30f;
 
 struct MhaArgs {
@@ -55,13 +76,8 @@ struct MhaArgs {
   void* out;
   float c;            // kernel 4: f32(scale * log2e); kernel 5: scale
   int H, S, packed;
+  int splits;         // fp32 kernel 4: CTAs (one cluster) sharing a row block's keys
 };
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
 
 // element offset of (b, h, row, 0) in the output
 template <int D>
@@ -70,273 +86,28 @@ __device__ __forceinline__ size_t out_offset(const MhaArgs& a, int b, int h, int
                   : (((size_t)b * a.H + h) * a.S + row) * D;
 }
 
-__device__ __forceinline__ int kv_limit(const MhaArgs& a, int b, bool online, int* kvl) {
-  *kvl = min(max(a.kv_len[b], 0), a.S);
-  return online && *kvl == 0 ? a.S : *kvl;
-}
+// ------------------------------------------------------------------ bf16
 
-// ------------------------------------------------------- bf16 kernel 5
+template <int D>
+__global__ void __launch_bounds__(flash::CTA_THREADS) mha_fixed_kernel(const flash::Args a) {
+  flash::attend<D, flash::FIXED>(a);
+}
 
 template <int D>
 __global__ void __launch_bounds__(flash::CTA_THREADS) mha_online_kernel(const flash::Args a) {
   flash::attend<D, flash::ONLINE>(a);
 }
 
-// ------------------------------------------------------- bf16 kernel 4
-
-constexpr int NT16 = 128;  // 4 warps, 16 query rows each
-
-template <int D>
-constexpr size_t smem_bf16() {
-  return (size_t)(BQ + 2 * BKV) * D * sizeof(bf16) + (size_t)BQ * BKV * sizeof(float) +
-         (size_t)BQ * BKV * sizeof(bf16) + (size_t)BQ * D * sizeof(float);
-}
-
-__device__ __forceinline__ void copy16(bf16* dst, const bf16* src, int n, int nt) {
-  for (int i = threadIdx.x * 8; i < n; i += nt * 8)
-    *reinterpret_cast<uint4*>(dst + i) = *reinterpret_cast<const uint4*>(src + i);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT16) mha_bf16_kernel(MhaArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + BQ * D;
-  bf16* vs = ks + BKV * D;
-  float* ss = reinterpret_cast<float*>(vs + BKV * D);
-  bf16* ps = reinterpret_cast<bf16*>(ss + BQ * BKV);
-  float* os = reinterpret_cast<float*>(ps + BQ * BKV);  // the P.V accumulator
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t head = ((size_t)b * a.H + h) * a.S * D;
-  const bf16* kg = reinterpret_cast<const bf16*>(a.k) + head;
-  const bf16* vg = reinterpret_cast<const bf16*>(a.v) + head;
-  int kvl;
-  const int kv_end = kv_limit(a, b, false, &kvl);
-
-  copy16(qs, reinterpret_cast<const bf16*>(a.q) + head + (size_t)q0 * D, BQ * D, NT16);
-  for (int i = threadIdx.x; i < BQ * D; i += NT16) os[i] = 0.f;
-
-  const bf16* qw = qs + warp * 16 * D;
-  float* sw = ss + warp * 16 * BKV;
-  bf16* pw = ps + warp * 16 * BKV;
-  float* ow = os + warp * 16 * D;
-  float lr[16];  // this lane's share of each row's sum of p
-#pragma unroll
-  for (int r = 0; r < 16; ++r) lr[r] = 0.f;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();  // q staged; every warp is done with the last k, v tiles
-    copy16(ks, kg + (size_t)k0 * D, BKV * D, NT16);
-    copy16(vs, vg + (size_t)k0 * D, BKV * D, NT16);
-    __syncthreads();
-
-    // S = Q K^T, 16 rows x 64 keys a warp
-#pragma unroll
-    for (int n = 0; n < BKV / 16; ++n) {
-      FragC s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll 4
-      for (int kk = 0; kk < D / 16; ++kk) {
-        FragA qa;
-        FragBt kb;
-        wmma::load_matrix_sync(qa, qw + kk * 16, D);
-        wmma::load_matrix_sync(kb, ks + n * 16 * D + kk * 16, D);
-        wmma::mma_sync(s, qa, kb, s);
-      }
-      wmma::store_matrix_sync(sw + n * 16, s, BKV, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float s0 = sw[r * BKV + lane], s1 = sw[r * BKV + lane + 32];
-      const bool v0 = k0 + lane < kvl, v1 = k0 + lane + 32 < kvl;
-      const float p0 = exp2f(fminf(s0 * a.c, 100.f) + (v0 ? -30.f : NEG));
-      const float p1 = exp2f(fminf(s1 * a.c, 100.f) + (v1 ? -30.f : NEG));
-      lr[r] += p0 + p1;
-      pw[r * BKV + lane] = to_bf(p0);
-      pw[r * BKV + lane + 32] = to_bf(p1);
-    }
-    __syncwarp();
-
-    // O += bf16(P) V, the accumulator through shared memory
-#pragma unroll 2
-    for (int n = 0; n < D / 16; ++n) {
-      FragC acc;
-      wmma::load_matrix_sync(acc, ow + n * 16, D, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        FragA pa;
-        FragB vb;
-        wmma::load_matrix_sync(pa, pw + kk * 16, BKV);
-        wmma::load_matrix_sync(vb, vs + kk * 16 * D + n * 16, D);
-        wmma::mma_sync(acc, pa, vb, acc);
-      }
-      wmma::store_matrix_sync(ow + n * 16, acc, D, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-  __syncthreads();  // the zeroed accumulator when no tile ran
-
-  bf16* out = reinterpret_cast<bf16*>(a.out);
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const float l = warp_sum(lr[r]) + 1e-37f;
-    bf16* o = out + out_offset<D>(a, b, h, q0 + warp * 16 + r);
-    for (int c = lane; c < D; c += 32) o[c] = to_bf(ow[r * D + c] / l);
-  }
-}
-
-// ---------------------------------------------------------------- fp32
-
-constexpr int NT32 = 256;  // a 16 x 16 grid of threads
-
-template <int D>
-constexpr size_t smem_f32() {
-  return ((size_t)(BQ + BKV) * (D + 1) + (size_t)BQ * (BKV + 1) + 2 * BQ) * sizeof(float);
-}
-
-template <int D, bool ONLINE>
-__global__ void __launch_bounds__(NT32) mha_f32_kernel(MhaArgs a) {
-  constexpr int LD = D + 1, SL = BKV + 1, DJ = D / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  float* kvs = qs + BQ * LD;        // the k tile, then the v tile
-  float* ss = kvs + BKV * LD;       // scores, then p
-  float* alpha_s = ss + BQ * SL;    // kernel 5: each row's rescale this tile
-  float* l_s = alpha_s + BQ;        // each row's normaliser, at the end
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t head = ((size_t)b * a.H + h) * a.S * D;
-  const float* kg = reinterpret_cast<const float*>(a.k) + head;
-  const float* vg = reinterpret_cast<const float*>(a.v) + head;
-  int kvl;
-  const int kv_end = kv_limit(a, b, ONLINE, &kvl);
-
-  const float* qg = reinterpret_cast<const float*>(a.q) + head + (size_t)q0 * D;
-  for (int i = threadIdx.x; i < BQ * D; i += NT32) qs[(i / D) * LD + i % D] = qg[i];
-
-  // thread (ty, tx) owns output rows ty + 16 i and columns tx + 16 j;
-  // warp w owns the softmax of rows 8 w .. 8 w + 7
-  float o[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) o[i][j] = 0.f;
-  float lr[8], mr[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) lr[r] = 0.f, mr[r] = NEG;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();  // q staged; the last tile's P.V is done with kvs and ss
-    for (int i = threadIdx.x; i < BKV * D; i += NT32)
-      kvs[(i / D) * LD + i % D] = kg[(size_t)k0 * D + i];
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = qs[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = kvs[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ss[(ty + 16 * i) * SL + tx + 16 * j] = s[i][j];
-    __syncthreads();  // scores in; every thread is done reading the k tile
-
-    for (int i = threadIdx.x; i < BKV * D; i += NT32)
-      kvs[(i / D) * LD + i % D] = vg[(size_t)k0 * D + i];
-#pragma unroll
-    for (int rr = 0; rr < 8; ++rr) {
-      const int r = warp * 8 + rr;
-      float s0 = ss[r * SL + lane], s1 = ss[r * SL + lane + 32];
-      const bool v0 = k0 + lane < kvl, v1 = k0 + lane + 32 < kvl;
-      float p0, p1;
-      if (ONLINE) {
-        s0 = v0 ? s0 * a.c : NEG;
-        s1 = v1 ? s1 * a.c : NEG;
-        const float mn = fmaxf(mr[rr], warp_max(fmaxf(s0, s1)));
-        const float alpha = expf(mr[rr] - mn);
-        p0 = expf(s0 - mn);
-        p1 = expf(s1 - mn);
-        lr[rr] = lr[rr] * alpha + warp_sum(p0 + p1);
-        mr[rr] = mn;
-        if (lane == 0) alpha_s[r] = alpha;
-      } else {
-        p0 = exp2f(fminf(s0 * a.c, 100.f) + (v0 ? -30.f : NEG));
-        p1 = exp2f(fminf(s1 * a.c, 100.f) + (v1 ? -30.f : NEG));
-        lr[rr] += p0 + p1;
-      }
-      ss[r * SL + lane] = p0;
-      ss[r * SL + lane + 32] = p1;
-    }
-    __syncthreads();  // p, alpha and the v tile in
-
-    if (ONLINE) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float al = alpha_s[ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) o[i][j] *= al;
-      }
-    }
-#pragma unroll 2
-    for (int n = 0; n < BKV; ++n) {
-      float pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = ss[(ty + 16 * i) * SL + n];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vb = kvs[n * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) o[i][j] = fmaf(pa[i], vb, o[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < 8; ++rr) {
-    const float l = ONLINE ? lr[rr] : warp_sum(lr[rr]) + 1e-37f;
-    if (lane == 0) l_s[warp * 8 + rr] = l;
-  }
-  __syncthreads();
-  float* out = reinterpret_cast<float*>(a.out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const float l = l_s[r];
-    float* orow = out + out_offset<D>(a, b, h, q0 + r);
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = o[i][j] / l;
-  }
-}
-
-// ---------------------------------------------------------------- launch
-
-// kernel 5 in bf16: the core on contiguous (B, H, S, D) q, k, v and out
-template <int D>
-int launch_online_bf16(const MhaArgs& m, int B, cudaStream_t stream) {
-  static bool attr_set = false;
+// the core on contiguous (B, H, S, D) q, k, v; out (B, H, S, D) or packed
+// (B, S, H*D)
+template <int D, flash::Softmax MODE>
+int launch_bf16(const MhaArgs& m, int B, cudaStream_t stream) {
+  const auto kernel = MODE == flash::ONLINE ? mha_online_kernel<D> : mha_fixed_kernel<D>;
   constexpr size_t smem = flash::smem_bytes<D>();
+  static bool attr_set = false;
   if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mha_online_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
@@ -346,46 +117,321 @@ int launch_online_bf16(const MhaArgs& m, int B, cudaStream_t stream) {
   a.k = static_cast<const bf16*>(m.k);
   a.v = static_cast<const bf16*>(m.v);
   a.out = static_cast<bf16*>(m.out);
-  a.q_b = a.k_b = a.v_b = a.o_b = m.H * head;
-  a.q_h = a.k_h = a.v_h = a.o_h = head;
-  a.q_r = a.k_r = a.v_r = a.o_r = D;
+  a.q_b = a.k_b = a.v_b = a.o_b = m.H * head;  // packed: S * H * D as well
+  a.q_h = a.k_h = a.v_h = head;
+  a.q_r = a.k_r = a.v_r = D;
+  a.o_h = m.packed ? D : head;
+  a.o_r = m.packed ? (long long)m.H * D : D;
   a.kv_len = m.kv_len;
-  a.c = (float)((double)m.c * 1.4426950408889634);  // scale * log2e
+  // FIXED takes kernel 4's f32(scale * log2e) as it is; ONLINE works in the
+  // log2 domain, scale * log2e
+  a.c = MODE == flash::ONLINE ? (float)((double)m.c * 1.4426950408889634) : m.c;
   a.S = m.S;
   const int tiles = (m.S + flash::CTA_ROWS - 1) / flash::CTA_ROWS;
-  mha_online_kernel<D><<<dim3(tiles, m.H, B), flash::CTA_THREADS, smem, stream>>>(a);
+  kernel<<<dim3(tiles, m.H, B), flash::CTA_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool ONLINE, bool F32>
-int launch_one(const MhaArgs& a, int B, cudaStream_t stream) {
-  if constexpr (ONLINE && !F32) return launch_online_bf16<D>(a, B, stream);
+// ------------------------------------------------------------------ fp32
+
+constexpr int NT32 = 128;  // threads a CTA: ty = 4 warp + lane / 8 (16), tx = lane % 8
+
+template <int D>
+struct F32Shape {
+  static constexpr int RT = D == 64 ? 8 : 4;   // query rows a thread
+  static constexpr int BQ = 16 * RT;           // query rows a CTA
+  static constexpr int BKV = 32;               // keys a tile
+  static constexpr int LDQ = D + 4;            // pitch of q, k, v rows (floats)
+  static constexpr int LDP = BKV + 8;          // pitch of p rows
+  static constexpr size_t smem =
+      ((size_t)BQ * LDQ + 4 * (size_t)BKV * LDQ + (size_t)BQ * LDP) * sizeof(float);
+  // CTAs an SM by shared memory (228 KB, 1 KB of it reserved a CTA), at most 3
+  static constexpr int CTAS = (int)(228 * 1024 / (smem + 1024)) < 3
+                                  ? (int)(228 * 1024 / (smem + 1024)) : 3;
+};
+
+// queue the copy of rows row0 .. row0 + ROWS - 1 of a (S, D) fp32 head into
+// shared rows of pitch D + 4 (rows past S repeat the last; never stored)
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int S) {
+  constexpr int CH = D / 4;
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT32) {
+    const int r = i / CH, ch = i % CH;
+    flash::cp_async16(flash::smem_u32(dst + r * F32Shape<D>::LDQ + ch * 4),
+                      src + (size_t)min(row0 + r, S - 1) * D + ch * 4);
+  }
+}
+
+template <int D, bool ONLINE>
+__global__ void __launch_bounds__(NT32, F32Shape<D>::CTAS) mha_f32_kernel(const MhaArgs a) {
+  using Sh = F32Shape<D>;
+  constexpr int RT = Sh::RT, BQ = Sh::BQ, BKV = Sh::BKV, LDQ = Sh::LDQ, LDP = Sh::LDP;
+  constexpr int KJ = BKV / 8, DC = D / 32;
+  extern __shared__ __align__(16) float smf[];
+  float* qs = smf;                   // (BQ, LDQ)
+  float* kvs = qs + BQ * LDQ;        // slot s: K at kvs + 2 s BKV LDQ, V after it
+  float* ps = kvs + 4 * BKV * LDQ;   // (BQ, LDP): each warp's rows, its p
+
+  // the `splits` CTAs of a cluster (consecutive in x) share one row block;
+  // rank r takes its key tiles [r n / splits, (r + 1) n / splits)
+  const int splits = ONLINE ? 1 : a.splits, rank = blockIdx.x % splits;
+  const int q0 = blockIdx.x / splits * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, tx = lane & 7, ty = (threadIdx.x >> 5) * 4 + (lane >> 3);
+  const size_t head = ((size_t)b * a.H + h) * a.S * D;
+  const float* qg = static_cast<const float*>(a.q) + head;
+  const float* kg = static_cast<const float*>(a.k) + head;
+  const float* vg = static_cast<const float*>(a.v) + head;
+  const int kvl = min(max(a.kv_len[b], 0), a.S);
+  const int kv_end = ONLINE && kvl == 0 ? a.S : kvl;
+  const int all_tiles = (kv_end + BKV - 1) / BKV;
+  const int t0 = rank * all_tiles / splits;
+  const int ntiles = (rank + 1) * all_tiles / splits - t0;
+
+  float o[RT][DC][4];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][c][e] = 0.f;
+  // this lane's share of each row's l, and (ONLINE) the row's running max
+  float l[RT], m[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) l[i] = 0.f, m[i] = NEG;
+
+  if (ntiles > 0) {
+    load_rows<D, BQ>(qs, qg, q0, a.S);
+    load_rows<D, BKV>(kvs, kg, t0 * BKV, a.S);
+    load_rows<D, BKV>(kvs + BKV * LDQ, vg, t0 * BKV, a.S);
+    flash::cp_commit();
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = (t0 + it) * BKV;
+    flash::cp_wait_all();
+    __syncthreads();  // tile it in for all; every warp is done with tile it - 1
+    if (it + 1 < ntiles) {
+      float* st = kvs + ((it + 1) & 1) * 2 * BKV * LDQ;
+      load_rows<D, BKV>(st, kg, k0 + BKV, a.S);
+      load_rows<D, BKV>(st + BKV * LDQ, vg, k0 + BKV, a.S);
+      flash::cp_commit();
+    }
+    const float* ks = kvs + (it & 1) * 2 * BKV * LDQ;
+    const float* vs = ks + BKV * LDQ;
+
+    // S = Q K^T: rows ty + 16 i, keys k0 + tx + 8 j, summed over d in order
+    float s[RT][KJ];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 kb[KJ];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+        kb[j] = *reinterpret_cast<const float4*>(ks + (tx + 8 * j) * LDQ + d);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float4 qa = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * LDQ + d);
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          s[i][j] = fmaf(qa.x, kb[j].x, s[i][j]);
+          s[i][j] = fmaf(qa.y, kb[j].y, s[i][j]);
+          s[i][j] = fmaf(qa.z, kb[j].z, s[i][j]);
+          s[i][j] = fmaf(qa.w, kb[j].w, s[i][j]);
+        }
+      }
+    }
+
+    // the softmax on the registers; p to this warp's rows of ps
+    const int key = k0 + tx;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      if (ONLINE) {
+        float mx = NEG;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          s[i][j] = key + 8 * j < kvl ? s[i][j] * a.c : NEG;
+          mx = fmaxf(mx, s[i][j]);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float mn = fmaxf(m[i], mx);
+        const float alpha = expf(m[i] - mn);
+        m[i] = mn;
+        l[i] *= alpha;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          s[i][j] = expf(s[i][j] - mn);
+          l[i] += s[i][j];
+        }
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[i][c][e] *= alpha;
+      } else {
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          s[i][j] = exp2f(fminf(s[i][j] * a.c, 100.f) + (key + 8 * j < kvl ? -30.f : NEG));
+          l[i] += s[i][j];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) ps[(ty + 16 * i) * LDP + tx + 8 * j] = s[i][j];
+    }
+    __syncwarp();  // the warp's p rows in
+
+    // O += P V: keys in order, 4 at a time
+#pragma unroll 2
+    for (int n = 0; n < BKV; n += 4) {
+      float4 pa[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+        pa[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * LDP + n);
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const float4 vb =
+              *reinterpret_cast<const float4*>(vs + (n + nn) * LDQ + 4 * tx + 32 * c);
+#pragma unroll
+          for (int i = 0; i < RT; ++i) {
+            const float p = nn == 0 ? pa[i].x : nn == 1 ? pa[i].y : nn == 2 ? pa[i].z : pa[i].w;
+            o[i][c][0] = fmaf(p, vb.x, o[i][c][0]);
+            o[i][c][1] = fmaf(p, vb.y, o[i][c][1]);
+            o[i][c][2] = fmaf(p, vb.z, o[i][c][2]);
+            o[i][c][3] = fmaf(p, vb.w, o[i][c][3]);
+          }
+        }
+      }
+    }
+  }
+
+  // l over the row's 8 lanes
+  float lt[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    lt[i] = l[i];
+    lt[i] += __shfl_xor_sync(0xffffffffu, lt[i], 1);
+    lt[i] += __shfl_xor_sync(0xffffffffu, lt[i], 2);
+    lt[i] += __shfl_xor_sync(0xffffffffu, lt[i], 4);
+  }
+
+  if (!ONLINE && splits > 1) {
+    // FIXED sums split exactly: each rank leaves its O and l in its shared
+    // memory (thread-major, as this thread holds them) and rank 0 adds
+    // ranks 1 .. splits - 1 to its own, in rank order
+    constexpr int NO = RT * DC * 4;
+    __syncthreads();  // every warp is done with its tiles' shared memory
+    float* po = smf;
+    float* pl = po + NO * NT32;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          po[((i * DC + c) * 4 + e) * NT32 + threadIdx.x] = o[i][c][e];
+      pl[i * NT32 + threadIdx.x] = lt[i];
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    if (rank == 0) {
+      for (int r = 1; r < splits; ++r) {
+        const float* ro = cluster.map_shared_rank(po, r);
+        const float* rl = cluster.map_shared_rank(pl, r);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+#pragma unroll
+          for (int c = 0; c < DC; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              o[i][c][e] += ro[((i * DC + c) * 4 + e) * NT32 + threadIdx.x];
+          lt[i] += rl[i * NT32 + threadIdx.x];
+        }
+      }
+    }
+    cluster.sync();  // no rank's shared memory goes before rank 0 has read it
+    if (rank != 0) return;
+  }
+
+  // o / l
+  float* out = static_cast<float*>(a.out);
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const float li = ONLINE ? lt[i] : lt[i] + 1e-37f;
+    const int row = q0 + ty + 16 * i;
+    if (row >= a.S) continue;
+    float* orow = out + out_offset<D>(a, b, h, row) + 4 * tx;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      *reinterpret_cast<float4*>(orow + 32 * c) =
+          make_float4(o[i][c][0] / li, o[i][c][1] / li, o[i][c][2] / li, o[i][c][3] / li);
+  }
+}
+
+// Kernel 4's split: the CTAs that share a row block's keys, 1, 2 or 4 (a
+// cluster of 3 placed worse in trial builds on an H100), at most a quarter
+// of the key tiles, chosen to fill the card's CTA slots in whole waves
+// (units * splits over SMs * CTAs an SM); the smaller on a tie.
+int f32_splits(long long units, int ctas_per_sm, int tiles) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 1;
+  }
+  const long long slots = (long long)sms * ctas_per_sm;
+  int best = 1;
+  double best_fill = 0.0;
+  for (int f = 1; f <= 4 && (f == 1 || 4 * f <= tiles); f *= 2) {
+    const long long n = units * f, waves = (n + slots - 1) / slots;
+    const double fill = (double)n / (double)(waves * slots);
+    if (fill > best_fill + 1e-9) best = f, best_fill = fill;
+  }
+  return best;
+}
+
+template <int D, bool ONLINE>
+int launch_f32(const MhaArgs& m, int B, cudaStream_t stream) {
+  using Sh = F32Shape<D>;
   static bool attr_set = false;
-  const size_t smem = F32 ? smem_f32<D>() : smem_bf16<D>();
-  auto kernel = F32 ? mha_f32_kernel<D, ONLINE> : mha_bf16_kernel<D>;
   if (!attr_set) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        mha_f32_kernel<D, ONLINE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::smem);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  const dim3 grid(a.S / BQ, a.H, B);
-  kernel<<<grid, F32 ? NT32 : NT16, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  MhaArgs a = m;
+  const int rows = (a.S + Sh::BQ - 1) / Sh::BQ;
+  a.splits = ONLINE ? 1 : f32_splits((long long)rows * a.H * B, Sh::CTAS, a.S / Sh::BKV);
+  const dim3 grid(rows * a.splits, a.H, B);
+  if (a.splits == 1) {
+    mha_f32_kernel<D, ONLINE><<<grid, NT32, Sh::smem, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  return (int)launch_cluster(mha_f32_kernel<D, ONLINE>, grid, NT32, Sh::smem, stream,
+                             a.splits, a);
 }
+
+// ---------------------------------------------------------------- launch
 
 template <bool ONLINE>
 int launch(const MhaArgs& a, int B, int D, int fp32, cudaStream_t s) {
-  if (a.S % BQ) return (int)cudaErrorInvalidValue;
+  constexpr flash::Softmax MODE = ONLINE ? flash::ONLINE : flash::FIXED;
+  if (a.S < 64 || a.S % 64) return (int)cudaErrorInvalidValue;
   switch (D * 2 + (fp32 ? 1 : 0)) {
-    case 128: return launch_one<64, ONLINE, false>(a, B, s);
-    case 129: return launch_one<64, ONLINE, true>(a, B, s);
-    case 256: return launch_one<128, ONLINE, false>(a, B, s);
-    case 257: return launch_one<128, ONLINE, true>(a, B, s);
-    case 384: return launch_one<192, ONLINE, false>(a, B, s);
-    case 385: return launch_one<192, ONLINE, true>(a, B, s);
-    case 512: return launch_one<256, ONLINE, false>(a, B, s);
-    case 513: return launch_one<256, ONLINE, true>(a, B, s);
+    case 128: return launch_bf16<64, MODE>(a, B, s);
+    case 129: return launch_f32<64, ONLINE>(a, B, s);
+    case 256: return launch_bf16<128, MODE>(a, B, s);
+    case 257: return launch_f32<128, ONLINE>(a, B, s);
+    case 384: return launch_bf16<192, MODE>(a, B, s);
+    case 385: return launch_f32<192, ONLINE>(a, B, s);
+    case 512: return launch_bf16<256, MODE>(a, B, s);
+    case 513: return launch_f32<256, ONLINE>(a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -394,7 +440,7 @@ MhaArgs make_args(const void* q, const void* k, const void* v, const void* kv_le
                   float c, int H, int S, int packed) {
   MhaArgs a;
   a.q = q, a.k = k, a.v = v, a.kv_len = (const int*)kv_len, a.out = out;
-  a.c = c, a.H = H, a.S = S, a.packed = packed;
+  a.c = c, a.H = H, a.S = S, a.packed = packed, a.splits = 1;
   return a;
 }
 

@@ -13,10 +13,14 @@ kernel's block loop: blocks of bkv = min(block_kv, T) rows in order, fp32
 scores (times `scale` when it is not 1), rows >= kv_len at -1e30, an online
 softmax (running max m, denominator l from the unrounded p = exp(s - m)),
 p rounded to the value dtype for the P.V product with fp32 accumulation,
-and (acc / l) rounded once. The CUDA kernel reads the same blocks but gives
-each its own CTA (its own max) and merges the blocks in order, so its p
-round at another max than the TPU's running one: the same sum, other bf16
-roundings. Rows >= kv_len are never read, by either.
+and (acc / l) rounded once. The CUDA kernel is one launch at every
+kv_len: `cluster_plan(kv_len)` splits the live rows of each (kv head,
+batch row) into contiguous slices, one CTA each (one CTA alone, or one
+thread-block cluster); every slice takes its own max, and the cluster's
+first CTA merges the slices in order, scaling each by exp(m_i - M). So
+its p round to bf16 at the slice's max, not at the TPU's running one: the
+same sums, other bf16 roundings. The block size selects tts_tpu's errors
+and the route only. Rows >= kv_len are never read, by either.
 """
 from __future__ import annotations
 
@@ -26,15 +30,35 @@ import torch
 
 from . import _build
 
-__all__ = ["decode_gqa_attention", "decode_gqa_attention_plain", "attn_fits"]
+__all__ = ["decode_gqa_attention", "decode_gqa_attention_plain", "attn_fits",
+           "cluster_plan"]
 
 NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)        # head widths the CUDA kernel is built for
 _MAX_GROUP = 8                # q heads per kv head it takes
-_MAX_BLOCK = 256              # rows a CTA holds the scores of
+_MAX_BLOCK = 256              # tts_tpu's largest block: the route's gate
+_MAX_CTAS = 8                 # CTAs a cluster (the portable cluster size)
+_ONE_CTA_ROWS = 128           # live rows one CTA takes alone, without a cluster
+_CTA_ROWS = 64                # rows a CTA of a cluster takes before the slices grow
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# q, k, v, out, partial, B, KVH, G, T, kv_len, bkv, hd, scale, stream
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+# q, k, v, out, B, KVH, G, T, kv_len, ctas, rows, hd, scale, stream
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+
+
+def cluster_plan(kv_len: int) -> tuple[int, int]:
+    """The CUDA kernel's split of the live rows 0 .. kv_len - 1 over the
+    CTAs of one cluster: (ctas, rows). CTA r takes rows r * rows ..
+    min((r + 1) * rows, kv_len) - 1: in order, each row in one slice, none
+    empty. Up to 128 rows one CTA takes them all (a cluster's launch and
+    merge cost more than they save there); past that one CTA for each 64
+    rows, at most 8 (the slices then grow)."""
+    if kv_len < 1:
+        raise ValueError(f"kv_len {kv_len} < 1")
+    if kv_len <= _ONE_CTA_ROWS:
+        return 1, kv_len
+    ctas = min(_MAX_CTAS, -(-kv_len // _CTA_ROWS))
+    rows = -(-kv_len // ctas)
+    return -(-kv_len // rows), rows
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int,
@@ -113,14 +137,9 @@ def decode_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 or not a.is_contiguous() or a.data_ptr() % 16:
             raise TypeError(f"{name} must be a contiguous, 16-byte aligned bf16 "
                             f"tensor on {q.device}")
-    nblk = -(-kv_len // bkv)
+    ctas, rows = cluster_plan(kv_len)
     out = torch.empty_like(q)
-    # per-block (m, l, acc) rows for the merge; none when one block holds
-    # every live row (the kernel then writes the output itself)
-    partial = (torch.empty((b * kvh * nblk * (h // kvh) * (d + 2),),
-                           dtype=torch.float32, device=q.device) if nblk > 1 else None)
     _build.launch("decode_gqa_attention", _ARGTYPES, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(),
-                  None if partial is None else partial.data_ptr(), b, kvh, h // kvh, t,
-                  kv_len, bkv, d, scale, torch.cuda.current_stream(q.device).cuda_stream)
+                  v.data_ptr(), out.data_ptr(), b, kvh, h // kvh, t, kv_len, ctas, rows, d,
+                  scale, torch.cuda.current_stream(q.device).cuda_stream)
     return out
