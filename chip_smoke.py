@@ -18,7 +18,9 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      reports them; turn TF32 off for matmuls and cuDNN;
   1. build the hand-written kernels from tts_tpu_torch/csrc with nvcc;
   2. each kernel against its plain PyTorch twin in fp32 on the same inputs,
-     at the F5 bench shapes (kernel 1 also at head dim 128; kernel 4 in
+     at the F5 bench shapes (kernel 1 also at head dim 128; kernel 3 also
+     at B 1 T 1088, B 2 T 4608, D 512 F 1536 and rows offset by +100, and
+     beside a cuBLAS yardstick of its two GEMMs; kernel 4 in
      bf16 at head dims 64, 128 and 192 and in fp32; kernel 5 at T 8192 in
      bf16 and T 2048 in fp32; kernels 6-8 also on fp32 activations), the
      flash core's edges (kernels 1, 4 and 5 at kv_len 0, 1, 63, 64, 65, T
@@ -581,10 +583,12 @@ def check_kernels(gen: torch.Generator) -> dict:
         r["max_abs_err"] = max(r["max_abs_err"], check(
             f"mlp_block_fused x=(2, 1408, 1024) F=2048 mods {label}", got, ref))
         if mods.dim() == 2:
-            r["ms"] = time_ms(lambda: mlp_block_fused(x, mods, w1, b1, w2, b2))
-            r["plain_ms"] = time_ms(lambda: mlp_block_plain(x, mods, w1, b1, w2, b2))
+            time_dit_mlp(r, x, mods, w1, b1, w2, b2)
             set_bound(r, nbytes(x, mods, w1, b1, w2, b2, got),
                       4 * 2816 * 1024 * 2048, "bf16")
+    del x, w1, w2, got, ref
+    # its own generator: the checks after it keep the inputs they had
+    check_dit_mlp_shapes(torch.Generator("cuda").manual_seed(4325))
     check_q8_kernels(gen, res)
     for name in F5_KERNELS + Q8_KERNELS + ("quantized_matmul",):
         lib = res[name]["library_ms"]
@@ -607,6 +611,70 @@ def check_kernels(gen: torch.Generator) -> dict:
     check_bigvgan_kernel(gen, res)
     check_bigvgan_kernel_f32(gen, res)
     return res
+
+
+def time_dit_mlp(r: dict, x, mods, w1, b1, w2, b2) -> None:
+    """Kernel 3 at the bench shape: CUDA events (r["ms"]) and device time
+    from a profiler trace of 10 calls (its row pass and both GEMMs), the
+    twin's events, and the cuBLAS yardstick: two bf16 torch.matmul at the
+    GEMMs' shapes (no LayerNorm, bias or epilogue), a measure of what the
+    tensor cores give here, not a call for the same function (library_ms
+    stays None); the port never calls it."""
+    from tts_tpu_torch.ops.dit_mlp import gemm_plan, mlp_block_fused, mlp_block_plain
+
+    m, d, f = x.shape[0] * x.shape[1], x.shape[2], w1.shape[1]
+    a1, a2 = x.reshape(m, d), torch.empty((m, f), dtype=x.dtype, device=x.device).normal_()
+
+    def kernel():
+        return mlp_block_fused(x, mods, w1, b1, w2, b2)
+
+    def yardstick():
+        return torch.matmul(a1, w1), torch.matmul(a2, w2)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    r["ms"] = time_ms(kernel)
+    r["plain_ms"] = time_ms(lambda: mlp_block_plain(x, mods, w1, b1, w2, b2))
+    dev = device_ms(kernel)
+    print(f"  {card()}: mlp_block_fused bench shape (M {m}, D {d}, F {f}; plans ff1 "
+          f"{gemm_plan(m, f, sms)}, ff2 {gemm_plan(m, d, sms)} on {sms} SMs): kernel "
+          f"{r['ms']:.4f} ms by CUDA events (median of 10), device time {dev:.4f} ms a call "
+          f"(profiler over 10 calls: row pass and both GEMMs); cuBLAS yardstick, two bf16 "
+          f"torch.matmul ({m}x{d} @ {d}x{f}, {m}x{f} @ {f}x{d}): {time_ms(yardstick):.4f} ms "
+          f"by events, {device_ms(yardstick):.4f} ms device time", flush=True)
+
+
+def check_dit_mlp_shapes(gen: torch.Generator) -> None:
+    """Phase 2, kernel 3 beyond the bench shape, each against its fp32 twin
+    on the same bf16 inputs: B 1, T 1088 (M % 128 = 64: the GEMMs' last row
+    tile runs half past the end), B 2, T 4608 (M 9216: the DiT forward past
+    T 4096), D 512, F 1536, and the bench shape with every row of x offset
+    by +100 (the LayerNorm's statistics on rows far from 0)."""
+    from tts_tpu_torch.ops.dit_mlp import gemm_plan, mlp_block_fused, mlp_block_plain
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        x = torch.randn(shape, generator=gen, device="cuda") * scale + shift
+        return x.to(torch.bfloat16)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, t, d, f, offset in ((1, 1088, 1024, 2048, 0.0), (2, 4608, 1024, 2048, 0.0),
+                               (2, 1408, 512, 1536, 0.0), (2, 1408, 1024, 2048, 100.0)):
+        x = rn(b, t, d, shift=offset)
+        w1, w2 = rn(d, f, scale=0.02), rn(f, d, scale=0.02)
+        b1, b2 = rn(f, scale=0.1), rn(d, scale=0.1)
+        for mods, label in ((rn(3, d, scale=0.5), "shared"), (rn(b, 3, d, scale=0.5),
+                                                               "per-row")):
+            got = mlp_block_fused(x, mods, w1, b1, w2, b2)
+            ref = mlp_block_plain(*(a.float() for a in (x, mods, w1, b1, w2, b2)))
+            p1, p2 = gemm_plan(b * t, f, sms), gemm_plan(b * t, d, sms)
+            check(f"mlp_block_fused x=({b}, {t}, {d}) F={f} rows +{offset:g} mods {label} "
+                  f"(ff1 bn {p1.bn} x {p1.stages} stages, ff2 bn {p2.bn} x {p2.stages}; "
+                  f"masked rows {p1.masked_rows})", got, ref)
+        if offset == 0.0:
+            ms = device_ms(lambda: mlp_block_fused(x, mods, w1, b1, w2, b2))
+            print(f"  mlp_block_fused x=({b}, {t}, {d}) F={f}: device time {ms:.4f} ms a call "
+                  f"(profiler over 10 calls), bound {4 * b * t * d * f / PEAK_OPS_S['bf16'] * 1e3:.4f}"
+                  f" ms (ops)", flush=True)
+        del x, w1, w2, got, ref
 
 
 def sdpa_mha_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv,
@@ -1554,7 +1622,8 @@ def profile_f5(pipes: dict, name_limit: str) -> None:
                ("kernel 5 bf16 (mha_online_kernel)", ("mha_online",)),
                ("kernels 4-5 fp32 (mha_f32_kernel)", ("mha_f32",)),
                ("kernel 2 (conv_mish_kernel)", ("conv_mish",)),
-               ("kernel 3 (ff1/ff2_kernel)", ("ff1_kernel", "ff2_kernel")),
+               ("kernel 3 (ln_mod_kernel + dit_gemm_kernel)", ("ln_mod_kernel",
+                                                                "dit_gemm_kernel")),
                ("kernels 6-8: q8_rows", ("q8_rows",)),
                ("kernels 6-8: q8_gemm", ("q8_gemm",)),
                ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma")))

@@ -157,7 +157,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int row0
   constexpr int CH = D / 4;
   for (int i = threadIdx.x; i < ROWS * CH; i += NT32) {
     const int r = i / CH, ch = i % CH;
-    flash::cp_async16(flash::smem_u32(dst + r * F32Shape<D>::LDQ + ch * 4),
+    cp_async16(smem_u32(dst + r * F32Shape<D>::LDQ + ch * 4),
                       src + (size_t)min(row0 + r, S - 1) * D + ch * 4);
   }
 }
@@ -203,18 +203,18 @@ __global__ void __launch_bounds__(NT32, F32Shape<D>::CTAS) mha_f32_kernel(const 
     load_rows<D, BQ>(qs, qg, q0, a.S);
     load_rows<D, BKV>(kvs, kg, t0 * BKV, a.S);
     load_rows<D, BKV>(kvs + BKV * LDQ, vg, t0 * BKV, a.S);
-    flash::cp_commit();
+    cp_commit();
   }
 
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = (t0 + it) * BKV;
-    flash::cp_wait_all();
+    cp_wait_all();
     __syncthreads();  // tile it in for all; every warp is done with tile it - 1
     if (it + 1 < ntiles) {
       float* st = kvs + ((it + 1) & 1) * 2 * BKV * LDQ;
       load_rows<D, BKV>(st, kg, k0 + BKV, a.S);
       load_rows<D, BKV>(st + BKV * LDQ, vg, k0 + BKV, a.S);
-      flash::cp_commit();
+      cp_commit();
     }
     const float* ks = kvs + (it & 1) * 2 * BKV * LDQ;
     const float* vs = ks + BKV * LDQ;

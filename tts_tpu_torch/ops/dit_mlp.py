@@ -9,7 +9,10 @@ plain PyTorch twin on a CPU tensor, with the TPU kernel's rounding points.
 weights: LayerNorm statistics in fp32 (eps 1e-6) rounded to the activation
 dtype; the modulation in the activation dtype; each dot accumulates in
 fp32 and is rounded to the activation dtype before its bias; the gelu (tanh
-form) in fp32, rounded once.
+form) in fp32, rounded once. On the card: one row pass (LayerNorm and
+modulation into a scratch) and two wgmma GEMMs with their epilogues, each
+in the form (column tile, ring depth, CTAs an SM) that `gemm_plan` picks
+from its grid and the card's SM count.
 
 `mlp_block_fused_q8` (csrc/dit_mlp_q8.cu; twin `mlp_block_q8_plain`), int8
 weights (W8A8): the mods taken in the activation dtype; LayerNorm and
@@ -21,6 +24,8 @@ The CUDA kernel takes bf16 or fp32 activations.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -29,12 +34,52 @@ from . import _build
 from .quant_matmul import (activation_dtype, check_cuda_args, int_dot, quantize_rows,
                            row_scratch)
 
-__all__ = ["kernel_fits", "mlp_block_fused", "mlp_block_plain", "mlp_block_fused_q8",
-           "mlp_block_q8_plain"]
+__all__ = ["GemmPlan", "gemm_plan", "kernel_fits", "mlp_block_fused", "mlp_block_plain",
+           "mlp_block_fused_q8", "mlp_block_q8_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]
 _TILE = 64   # rows, D and F must be multiples of the kernel's GEMM tile
+_BM = 128    # rows of a GEMM CTA (two warpgroups of 64)
+
+
+class GemmPlan(NamedTuple):
+    """The form and tiling of one of the kernel's GEMMs, (rows, n) outputs."""
+    bn: int            # columns a CTA
+    stages: int        # K steps in the shared-memory ring
+    ctas_per_sm: int   # CTAs of this form that share an SM
+    row_tiles: int     # CTAs down the rows, _BM rows each
+    col_tiles: int     # CTAs across the columns
+    ctas: int
+    waves: float       # CTAs over the card's CTA slots (sms * ctas_per_sm)
+    masked_rows: int   # rows of the last row tile past the end (0 or 64)
+
+
+@functools.lru_cache(maxsize=None)     # a request repeats a few shapes 682 times
+def gemm_plan(rows: int, n: int, sms: int) -> GemmPlan:
+    """The form of a GEMM with `rows` x `n` outputs (multiples of 64) on a
+    card of `sms` SMs, one of csrc/dit_mlp.cu's three: a grid of 128-column
+    tiles that fits one CTA an SM takes 4 stages, one CTA an SM; otherwise
+    two CTAs share an SM, at 128 columns and 3 stages or 64 columns and 4,
+    whichever leaves the card less idle in its last wave. A tile's time
+    grows with its width, so the estimate is the tiles the busiest SM
+    takes, ceil(ctas / sms), times bn; a tie keeps 128 (each A tile then
+    feeds twice the columns). n % 128 = 64 takes 64 columns."""
+    row_tiles = -(-rows // _BM)
+    if n % 128 == 0 and row_tiles * (n // 128) <= sms:
+        bn, stages, per_sm = 128, 4, 1
+    else:
+        cost = {bn: -(-(row_tiles * (n // bn)) // sms) * bn for bn in (128, 64) if n % bn == 0}
+        bn = min(cost, key=lambda b: (cost[b], -b))
+        stages, per_sm = (3, 2) if bn == 128 else (4, 2)
+    ctas = row_tiles * (n // bn)
+    return GemmPlan(bn, stages, per_sm, row_tiles, n // bn, ctas, ctas / (sms * per_sm),
+                    row_tiles * _BM - rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def kernel_fits(dtype, rows: int, d: int, f: int) -> bool:
@@ -96,13 +141,15 @@ def mlp_block_fused(x: torch.Tensor, mods: torch.Tensor, w1: torch.Tensor,
                             f" {name} is {a.dtype} on {a.device}")
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    hidden = torch.empty((bsz * t, f), dtype=x.dtype, device=x.device)
+    m, sms = bsz * t, _sm_count(x.device)
+    normed = torch.empty((m, d), dtype=x.dtype, device=x.device)
+    hidden = torch.empty((m, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.launch("mlp_block_fused", _ARGTYPES, x.data_ptr(), mods.data_ptr(),
                   mods.shape[0], w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                  b2.data_ptr(), hidden.data_ptr(), out.data_ptr(), bsz, t, d, f,
-                  stream)
+                  b2.data_ptr(), normed.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+                  bsz, t, d, f, *gemm_plan(m, f, sms)[:2], *gemm_plan(m, d, sms)[:2], stream)
     return out
 
 
