@@ -6,13 +6,17 @@
 
 Each turn runs this script's `turn` in a fresh process from that tree's
 root, so it imports that tree's tts_tpu_torch and chip_smoke.py:
-  * the bf16 F5TTS_v1_Base bench request under torch.profiler (device time,
-    kernel 3's share, the profiled wall and the card's idle share), then
+  * the bf16 F5TTS_v1_Base bench request, float and quantize="w8a8", under
+    torch.profiler (device time, kernel 3's and the int8 kernels' (q8_*)
+    shares, the profiled wall and the card's idle share), then
     F5Pipeline.benchmark (latency and sustained RTF, dispatch_ms: the host's
-    prep and enqueue, fence_ms: the wait for the card);
+    prep and enqueue, fence_ms: the wait for the card); a digest of the
+    W8A8 request's audio;
   * a digest of kernels 1, 4 and 5's bf16 outputs on seeded inputs (the
-    flash core; two trees whose kernels compute the same bits give the same
-    digest, which the last line compares);
+    flash core), and of kernels 6, 7 and 8's outputs on seeded inputs in
+    bf16 and fp32 activations, through the wrappers' signatures that both
+    trees share (two trees whose kernels compute the same bits give the
+    same digests, which the last line compares);
   * after a warm-up, one Qwen3-TTS-0.6B request on fused_decode="all"
     (bench ids, max_frames 128) under torch.profiler (device time a frame,
     kernel 13's share of it) and two timed;
@@ -83,32 +87,82 @@ def _f5_models(dtype):
     return f5, vocos, audio, " ".join(["word"] * 15)
 
 
+def _digest(a) -> str:
+    """sha256 of a tensor's or an array's bytes, 16 hex digits."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        a = (a.view(torch.int16) if a.dtype == torch.bfloat16 else a).cpu().numpy()
+    return hashlib.sha256(a.tobytes()).hexdigest()[:16]
+
+
 def _f5_bf16(tag: str, card: str) -> None:
-    """The bf16 F5 bench request: profiled device time by kernel 3 and the
-    rest, then F5Pipeline.benchmark."""
+    """The bf16 F5 bench request, float and W8A8: profiled device time by
+    kernel 3 and the int8 kernels and the rest, then F5Pipeline.benchmark;
+    the W8A8 request's audio digest."""
     import torch
 
     import chip_smoke as cs
     from tts_tpu_torch.runtime.f5 import F5Pipeline
 
     f5, vocos, audio, text = _f5_models(torch.bfloat16)
-    pipe = F5Pipeline(f5, {" ": 0}, vocos)
+    for quantize in (None, "w8a8"):
+        pipe = F5Pipeline(f5, {" ": 0}, vocos, quantize=quantize)
 
-    def request():
-        return pipe.synthesize(audio, cs.REF_TEXT, text)
+        def request():
+            return pipe.synthesize(audio, cs.REF_TEXT, text)
 
-    _, rows, wall = _profile(request, walled=True)
-    # kernel 3 in either tree: the older ff1/ff2_kernel, or the row pass and GEMMs
-    k3 = sum(ms for k, ms in rows if any(
-        p in k for p in ("ff1_kernel", "ff2_kernel", "ln_mod_kernel", "dit_gemm_kernel")))
-    busy = sum(ms for _, ms in rows)
-    bench = pipe.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
-    print(json.dumps({"tree": tag, "card": card, "f5_bf16": "float", "device_ms": busy,
-                      "kernel3_ms": k3, "kernel3_share": k3 / busy,
-                      "profiled_wall_s": wall,
-                      "idle_share": 1 - busy / 1e3 / wall,
-                      **{k: bench[k] for k in ("wall_s", "rtf", "sustained_rtf", "prep_ms",
-                                               "dispatch_ms", "fence_ms")}}), flush=True)
+        (wav, _), rows, wall = _profile(request, walled=True)
+        # kernel 3 in either tree: the older ff1/ff2_kernel, or the row pass and GEMMs
+        k3 = sum(ms for k, ms in rows if any(
+            p in k for p in ("ff1_kernel", "ff2_kernel", "ln_mod_kernel", "dit_gemm_kernel")))
+        q8 = sum(ms for k, ms in rows if "q8_" in k)
+        busy = sum(ms for _, ms in rows)
+        bench = pipe.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
+        extra = {"audio_digest": _digest(wav)} if quantize else {}
+        print(json.dumps({"tree": tag, "card": card, "f5_bf16": quantize or "float",
+                          "device_ms": busy, "kernel3_ms": k3, "kernel3_share": k3 / busy,
+                          "q8_ms": q8, "q8_share": q8 / busy, "profiled_wall_s": wall,
+                          "idle_share": 1 - busy / 1e3 / wall,
+                          **{k: bench[k] for k in ("wall_s", "rtf", "sustained_rtf", "prep_ms",
+                                                   "dispatch_ms", "fence_ms")},
+                          **extra}), flush=True)
+        del pipe
+
+
+def _q8_digest(tag: str) -> None:
+    """sha256 of kernels 6, 7 and 8's outputs on seeded inputs at the F5
+    bench shapes, bf16 and fp32 activations."""
+    import torch
+
+    from tts_tpu_torch.ops.dit_mlp import mlp_block_fused_q8
+    from tts_tpu_torch.ops.quant_matmul import ln_qkv_q8, out_proj_residual_q8
+    from tts_tpu_torch.quant.weight_only import quantize_int8_eager
+
+    gen = torch.Generator("cuda").manual_seed(4328)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def qw(*shape):
+        w = quantize_int8_eager(rn(*shape, scale=0.02))
+        return w.q, w.scale
+
+    d, n, f = 1024, 3072, 2048
+    x, o = rn(2, 1408, d), rn(2, 1408, d)
+    wqkv, wo, w1, w2 = qw(d, n), qw(d, d), qw(d, f), qw(f, d)
+    mods2, mods3 = rn(2, d, scale=0.5), rn(2, 3, d, scale=0.5)
+    bq, bo, gate, b1, b2 = (rn(k, scale=0.1) for k in (n, d, d, f, d))
+    outs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        xd, od = x.to(dt), o.to(dt)
+        key = "bf16" if dt == torch.bfloat16 else "fp32"
+        outs[f"kernel7_{key}"] = ln_qkv_q8(xd, mods2, *wqkv, bq)
+        outs[f"kernel8_{key}"] = out_proj_residual_q8(od, *wo, bo, gate, xd)
+        outs[f"kernel6_{key}"] = mlp_block_fused_q8(xd, mods3, *w1, b1, *w2, b2)
+    torch.cuda.synchronize()
+    print(json.dumps({"tree": tag, "q8_digest": {k: _digest(v) for k, v in outs.items()}}),
+          flush=True)
 
 
 def _flash_digest(tag: str) -> None:
@@ -134,8 +188,7 @@ def _flash_digest(tag: str) -> None:
             "kernel5": flash_attention(q5, k5, v5, 4600, block_q=256, block_kv=512)}
     torch.cuda.synchronize()
     print(json.dumps({"tree": tag, "flash_digest": {
-        name: hashlib.sha256(o.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
-        for name, o in outs.items()}}), flush=True)
+        name: _digest(o) for name, o in outs.items()}}), flush=True)
 
 
 def turn(tag: str) -> None:
@@ -152,6 +205,7 @@ def turn(tag: str) -> None:
     card = cs.card()
     _f5_bf16(tag, card)
     _flash_digest(tag)
+    _q8_digest(tag)
 
     cfg, ccfg, params, cparams = cs.qwen_models()
     qp = QwenTTSPipeline(params, cfg, cparams, ccfg,
@@ -205,20 +259,30 @@ def main() -> None:
     if any(p.wait() for p in builds):
         raise SystemExit("chip_ab: a build failed")
     me = os.path.abspath(__file__)
-    digests = {}
+    digests: dict = {}
     for tag in ("A", "B", "B", "A"):
         out = subprocess.run([sys.executable, me, "--turn", tag], cwd=trees[tag], check=True,
                              stdout=subprocess.PIPE, text=True).stdout
         print(out, end="", flush=True)
         for line in out.splitlines():
-            if '"flash_digest"' in line:
-                digests.setdefault(tag, []).append(json.loads(line)["flash_digest"])
-    same = all(d == digests["A"][0] for tree in digests.values() for d in tree)
-    print(json.dumps({"kernels_1_4_5_bitwise_equal_across_trees": same, "digests": digests}),
-          flush=True)
-    if not same:
-        raise SystemExit("chip_ab: kernels 1, 4 and 5 differ between the trees")
+            rec = json.loads(line) if line.startswith("{") else {}
+            for key in ("flash_digest", "q8_digest"):
+                if key in rec:
+                    digests.setdefault(key, {}).setdefault(tag, []).append(rec[key])
+            if rec.get("f5_bf16") == "w8a8":
+                digests.setdefault("w8a8_audio", {}).setdefault(tag, []).append(
+                    rec["audio_digest"])
 
+    def same(key):
+        runs = digests[key]
+        return all(d == runs["A"][0] for tree in runs.values() for d in tree)
+
+    flash, q8 = same("flash_digest"), same("q8_digest") and same("w8a8_audio")
+    print(json.dumps({"kernels_1_4_5_bitwise_equal_across_trees": flash,
+                      "kernels_6_7_8_and_w8a8_audio_bitwise_equal_across_trees": q8,
+                      "digests": digests}), flush=True)
+    if not (flash and q8):
+        raise SystemExit("chip_ab: kernel outputs differ between the trees")
 
 if __name__ == "__main__":
     main()

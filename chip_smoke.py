@@ -22,7 +22,11 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      at B 1 T 1088, B 2 T 4608, D 512 F 1536 and rows offset by +100, and
      beside a cuBLAS yardstick of its two GEMMs; kernel 4 in
      bf16 at head dims 64, 128 and 192 and in fp32; kernel 5 at T 8192 in
-     bf16 and T 2048 in fp32; kernels 6-8 also on fp32 activations), the
+     bf16 and T 2048 in fp32; kernels 6-8 also on fp32 activations;
+     kernels 6 and 7 also at B 2 T 1400 and B 1 T 1088, kernel 7 at D 576
+     (a half K step), kernel 6 at D 640 F 1152 (ff1 a cluster of 9), each
+     GEMM form at the bench shape, torch._int_mm at their GEMMs' shapes as
+     a yardstick), the
      flash core's edges (kernels 1, 4 and 5 at kv_len 0, 1, 63, 64, 65, T
      64, kernels 4 and 5 at D 256, kernel 5 at S 4224; kernel 1 with a row
      below -66, kernel 4 in fp32 with rows at -90 and -70), kernel 13 at
@@ -167,6 +171,10 @@ F5_KERNELS = ("flash_attention_flat", "conv_pos_embed_fused", "mlp_block_fused")
 Q8_KERNELS = ("mlp_block_fused_q8", "ln_qkv_q8", "out_proj_residual_q8")
 QWEN_KERNELS = ("fused_qkv_rope", "fused_qkv_attn", "decode_gqa_attention",
                 "fused_out_mlp", "fused_out_mlp_q8")
+
+# the s8 wgmma GEMM's forms with a bias or residual epilogue (ring depth,
+# CTAs an SM)
+FORMS_Q8 = ((4, 1), (3, 2))
 
 # the least time the card could take (H100 SXM datasheet: dense tensor-core
 # peaks, HBM rate, at the full 700 W)
@@ -592,7 +600,7 @@ def check_kernels(gen: torch.Generator) -> dict:
     check_q8_kernels(gen, res)
     for name in F5_KERNELS + Q8_KERNELS + ("quantized_matmul",):
         lib = res[name]["library_ms"]
-        how = ("device time a call of its q8_rows/q8_gemm kernels (twin: all its "
+        how = ("device time a call of its q8_* kernels (twin: all its "
                "kernels), profiler over 10 calls" if name not in F5_KERNELS
                else "CUDA events, median of 10")
         print(f"  {name}: kernel {res[name]['ms']:.4f} ms, plain twin "
@@ -1215,13 +1223,16 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
     the kernel's fp32 LayerNorm or gelu rounds otherwise than the twin's,
     a value on a tie of v / xs takes the other int8 step, which moves one
     output by one step of x times one weight, under 2^-10 of max |ref| (so
-    max |err| is held to TOL), and the rel L2 by far less."""
+    max |err| is held to TOL), and the rel L2 by far less. Kernels 7 and 6
+    get their weights' K-major copies, as the pipeline hands them; their
+    yardstick is torch._int_mm at their GEMMs' shapes; check_q8_shapes
+    takes them past the bench shape, time_q8_forms through every form of
+    their GEMMs."""
     from tts_tpu_torch.ops.dit_mlp import mlp_block_fused_q8, mlp_block_q8_plain
     from tts_tpu_torch.ops.quant_matmul import (ln_qkv_q8, ln_qkv_q8_plain,
                                                 out_proj_residual_q8,
-                                                out_proj_residual_q8_plain,
-                                                quantize_rows, quantized_matmul,
-                                                quantized_matmul_plain)
+                                                out_proj_residual_q8_plain, q8_plan,
+                                                quantized_matmul, quantized_matmul_plain)
     from tts_tpu_torch.quant.weight_only import quantize_int8_eager
 
     def rn(*shape, scale=1.0):
@@ -1234,59 +1245,194 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
     m, d, n, f = 2816, 1024, 3072, 2048
     x = rn(2, 1408, d)
     wqkv, wo, w1, w2 = qw(d, n), qw(d, d), qw(d, f), qw(f, d)
+    # the K-major copies of kernels 7 and 6's weights, as quantize_dit makes
+    # them once for the pipeline
+    k7 = {"w_qt": wqkv[0].t().contiguous()}
+    k6 = {"w1_qt": w1[0].t().contiguous(), "w2_qt": w2[0].t().contiguous()}
 
-    def run(name, label, kernel, plain, args, ops):
-        """Check kernel(*args) against plain on fp32 copies; time both at
-        the first call."""
+    def run(name, label, kernel, plain, args, ops, kw=None):
+        """Check kernel(*args, **kw) against plain on fp32 copies; time both
+        at the first call."""
+        kw = kw or {}
         f32 = [a.float() if a.is_floating_point() else a for a in args]
-        got = kernel(*args)
+        got = kernel(*args, **kw)
         ref = plain(*f32)
         r = res[name]
         r["max_abs_err"] = max(r["max_abs_err"], check(f"{name} {label}", got, ref))
         if "ms" not in r:
-            # device time of the int8 core's kernels (q8_rows, q8_gemm) alone:
-            # the wrapper's host work and its fp32 copies of biases and mods
-            # are not the kernel's; the twin's is all its kernels' time
-            r["ms"] = device_ms(lambda: kernel(*args), only="q8_")
+            # device time of the int8 kernels (q8_rows, q8_gemm, q8_wgmma*)
+            # alone: the wrapper's host work and its fp32 copies of biases
+            # and mods are not the kernel's; the twin's is all its kernels' time
+            r["ms"] = device_ms(lambda: kernel(*args, **kw), only="q8_")
             r["plain_ms"] = device_ms(lambda: plain(*args))
-            print(f"  {name}: one call's wall {time_ms(lambda: kernel(*args)):.4f} ms "
+            print(f"  {name}: one call's wall {time_ms(lambda: kernel(*args, **kw)):.4f} ms "
                   f"(median of 10)", flush=True)
             set_bound(r, nbytes(*args, got), ops, "int8")
         del got, ref
 
     calls = [("ln_qkv_q8", "x=(2, 1408, 1024) N=3072", ln_qkv_q8, ln_qkv_q8_plain,
-              (x, rn(2, d, scale=0.5), *wqkv, rn(n, scale=0.1)), 2 * m * d * n),
+              (x, rn(2, d, scale=0.5), *wqkv, rn(n, scale=0.1)), 2 * m * d * n, k7),
              ("out_proj_residual_q8", "o=(2, 1408, 1024) D=1024", out_proj_residual_q8,
               out_proj_residual_q8_plain,
-              (rn(2, 1408, d), *wo, rn(d, scale=0.1), rn(d, scale=0.5), x), 2 * m * d * d)]
+              (rn(2, 1408, d), *wo, rn(d, scale=0.1), rn(d, scale=0.5), x), 2 * m * d * d,
+              {})]
     for mods, label in ((rn(3, d, scale=0.5), "shared (3, D)"),
                         (rn(2, 3, d, scale=0.5), "per-row (B, 3, D)")):
         calls.append(("mlp_block_fused_q8", f"x=(2, 1408, 1024) F=2048 mods {label}",
                       mlp_block_fused_q8, mlp_block_q8_plain,
                       (x, mods, *w1, rn(f, scale=0.1), *w2, rn(d, scale=0.1)),
-                      4 * m * d * f))
+                      4 * m * d * f, k6))
     for call in calls:
         run(*call)
-    for name, label, kernel, plain, args, _ in calls:
+    for name, label, kernel, plain, args, _, kw in calls:
         a32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], check(
-            f"{name} {label}, fp32 activations", kernel(*a32), plain(*a32), TOL32, TOL))
+            f"{name} {label}, fp32 activations", kernel(*a32, **kw), plain(*a32), TOL32,
+            TOL))
     x2 = x.reshape(m, d)
     run("quantized_matmul", "x=(2816, 1024) N=3072", quantized_matmul,
         quantized_matmul_plain, (x2, *wqkv), 2 * m * d * n)
-    # library yardstick: torch._int_mm on the operands already quantized
-    # (the s8 GEMM alone: no row quantization, no rescale)
-    xq = quantize_rows(x2.float())[0].to(torch.int8)
-    wq = wqkv[0]
-    for b in (wq, wq.t().contiguous().t()):
+    # torch._int_mm at the GEMMs' shapes, the s8 products alone (no row
+    # quantization, no rescale): kernel 9's library call, and a yardstick
+    # beside kernels 7 and 6 (no call computes either's function)
+    ym = {shape: int_mm_ms(*shape) for shape in ((m, d, n), (m, d, f), (m, f, d))}
+    res["quantized_matmul"]["library_ms"] = ym[(m, d, n)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"  {card()}: ln_qkv_q8 bench shape (plan {q8_plan(m, n, d, sms)}): device time "
+          f"{res['ln_qkv_q8']['ms']:.4f} ms, bound {res['ln_qkv_q8']['bound_ms']:.4f} ms; "
+          f"yardstick torch._int_mm ({m}x{d} @ {d}x{n}) {ym[(m, d, n)]:.4f} ms device time",
+          flush=True)
+    k6_split = device_split(lambda: mlp_block_fused_q8(*calls[2][4], **k6))
+    print(f"  {card()}: mlp_block_fused_q8 bench shape (plans ff1 "
+          f"{q8_plan(m, f, d, sms, whole_rows=True)}, ff2 {q8_plan(m, d, f, sms)}): device "
+          f"time {res['mlp_block_fused_q8']['ms']:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in k6_split.items()) + "), bound "
+          f"{res['mlp_block_fused_q8']['bound_ms']:.4f} ms; yardstick torch._int_mm "
+          f"({m}x{d} @ {d}x{f} and {m}x{f} @ {f}x{d}) {ym[(m, d, f)]:.4f} + "
+          f"{ym[(m, f, d)]:.4f} = {ym[(m, d, f)] + ym[(m, f, d)]:.4f} ms device time",
+          flush=True)
+    time_q8_forms((ln_qkv_q8, calls[0][4], k7), (mlp_block_fused_q8, calls[2][4], k6))
+    check_q8_shapes(torch.Generator("cuda").manual_seed(4327), res)
+
+
+Q8_SPLIT = (("q8_rows", "q8_rows"), ("ff1 (q8_wgmma_hidden_kernel)", "q8_wgmma_hidden"),
+            ("GEMM (q8_wgmma_kernel)", "q8_wgmma_kernel"))
+
+
+def device_split(fn, parts=Q8_SPLIT, iters: int = 10) -> dict:
+    """Device time a call of fn() by kernel: {label: ms} over the kernels
+    whose names hold each pattern, from a torch.profiler trace of `iters`
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3 / iters) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {label: sum(ms for k, ms in rows if pat in k) for label, pat in parts}
+
+
+def time_q8_forms(k7: tuple, k6: tuple) -> None:
+    """Kernel 7 and kernel 6 (its ff2; ff1 keeps its one cluster form) at
+    the bench shape in each form of the bias / residual GEMM (q8_plan's
+    choice swapped for the call): device time a call by kernel, and the
+    output bitwise equal to the planned form's (a form changes no
+    rounding)."""
+    from tts_tpu_torch.ops import dit_mlp, quant_matmul
+
+    plan = quant_matmul.q8_plan
+    for name, module, (kernel, args, kw) in (("ln_qkv_q8", quant_matmul, k7),
+                                             ("mlp_block_fused_q8", dit_mlp, k6)):
+        want = kernel(*args, **kw)
+        for stages, per_sm in FORMS_Q8:
+            def forced(rows, n, k, sms, whole_rows=False, _f=(stages, per_sm)):
+                p = plan(rows, n, k, sms, whole_rows)
+                return p if whole_rows else p._replace(stages=_f[0], ctas_per_sm=_f[1])
+
+            with swapped(module, {"q8_plan": forced}):
+                same = torch.equal(kernel(*args, **kw), want)
+                split = device_split(lambda: kernel(*args, **kw))
+            print(f"  {name} bench shape, {'ff2 ' if module is dit_mlp else ''}form ({stages} "
+                  f"stages, {per_sm} CTA(s) an SM): device time {sum(split.values()):.4f} ms a "
+                  f"call (" + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v) +
+                  f"), output {'bitwise equal to' if same else 'DIFFERENT from'} the planned "
+                  f"form's", flush=True)
+            if not same:
+                raise AssertionError(f"{name}: a GEMM form changed the output")
+
+
+def int_mm_ms(m: int, k: int, n: int) -> float:
+    """Device time of one torch._int_mm of random int8 (m, k) @ (k, n), with
+    the (k, n) operand row-major or, where that is refused, column-major."""
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda")
+    b = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda")
+    for w in (b, b.t().contiguous().t()):
         try:
-            res["quantized_matmul"]["library_ms"] = device_ms(lambda: torch._int_mm(xq, b))
-            print(f"  torch._int_mm (2816, 1024) x (1024, 3072), "
-                  f"{'row' if b.is_contiguous() else 'column'}-major int8 weight", flush=True)
-            break
+            return device_ms(lambda: torch._int_mm(a, w))
         except RuntimeError as e:
-            print(f"  torch._int_mm refused a {tuple(b.stride())}-strided weight: {e}",
+            print(f"  torch._int_mm refused a {tuple(w.stride())}-strided operand: {e}",
                   flush=True)
+    raise RuntimeError("torch._int_mm took neither layout")
+
+
+def check_q8_shapes(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, kernels 7 and 6 past the bench shape, in bf16 and fp32
+    activations against their fp32 twins (TOL; fp32 TOL32 rel L2 with max
+    |err| TOL): a ragged M (B 2, T 1400: the last row tile 16 rows past the
+    end), a half-empty last row tile (B 1, T 1088), and D 576 (a last K step
+    of 64 values; N 1152) and kernel 6 at D 640, F 1152, whose ff1 takes
+    the 128-column cluster form (9 CTAs, past the portable 8). Device time
+    by kernel and bound at each, with the plans."""
+    from tts_tpu_torch.ops.dit_mlp import mlp_block_fused_q8, mlp_block_q8_plain
+    from tts_tpu_torch.ops.quant_matmul import ln_qkv_q8, ln_qkv_q8_plain, q8_plan
+    from tts_tpu_torch.quant.weight_only import quantize_int8_eager
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def qw(*shape):
+        w = quantize_int8_eager(rn(*shape, scale=0.02))
+        return w.q, w.scale
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # (B, T, kernel 7's D and N, kernel 6's D and F)
+    for b, t, d7, n, d, f in ((2, 1400, 1024, 3072, 1024, 2048),
+                              (1, 1088, 1024, 3072, 1024, 2048),
+                              (2, 1408, 576, 1152, 640, 1152)):
+        m = b * t
+        x7, x = rn(b, t, d7), rn(b, t, d)
+        wqkv, w1, w2 = qw(d7, n), qw(d, f), qw(f, d)
+        k7 = (x7, rn(2, d7, scale=0.5), *wqkv, rn(n, scale=0.1))
+        k6 = (x, rn(b, 3, d, scale=0.5), *w1, rn(f, scale=0.1), *w2, rn(d, scale=0.1))
+        for name, kernel, plain, args, kw, label, ops in (
+                ("ln_qkv_q8", ln_qkv_q8, ln_qkv_q8_plain, k7,
+                 {"w_qt": wqkv[0].t().contiguous()},
+                 f"x=({b}, {t}, {d7}) N={n} (plan {q8_plan(m, n, d7, sms)})", 2 * m * d7 * n),
+                ("mlp_block_fused_q8", mlp_block_fused_q8, mlp_block_q8_plain, k6,
+                 {"w1_qt": w1[0].t().contiguous(), "w2_qt": w2[0].t().contiguous()},
+                 f"x=({b}, {t}, {d}) F={f} mods per-row (plans ff1 "
+                 f"{q8_plan(m, f, d, sms, whole_rows=True)}, ff2 {q8_plan(m, d, f, sms)})",
+                 4 * m * d * f)):
+            got = kernel(*args, **kw)
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], check(
+                f"{name} {label}", got, plain(*(a.float() if a.is_floating_point() else a
+                                                for a in args))))
+            a32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], check(
+                f"{name} {label}, fp32 activations", kernel(*a32, **kw), plain(*a32), TOL32,
+                TOL))
+            r = {}
+            set_bound(r, nbytes(*args, got), ops, "int8")
+            split = device_split(lambda: kernel(*args, **kw))
+            print(f"  {name} x={tuple(args[0].shape)}: device time {sum(split.values()):.4f} "
+                  f"ms a call (profiler over 10 calls: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v) +
+                  f"), bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+            del got
 
 
 def run_pipeline() -> tuple:
@@ -1625,7 +1771,8 @@ def profile_f5(pipes: dict, name_limit: str) -> None:
                ("kernel 3 (ln_mod_kernel + dit_gemm_kernel)", ("ln_mod_kernel",
                                                                 "dit_gemm_kernel")),
                ("kernels 6-8: q8_rows", ("q8_rows",)),
-               ("kernels 6-8: q8_gemm", ("q8_gemm",)),
+               ("kernels 6-7: q8_wgmma (s8 wgmma GEMMs)", ("q8_wgmma",)),
+               ("kernel 8: q8_gemm (WMMA)", ("q8_gemm",)),
                ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma")))
     for label, pipe in pipes.items():
         pipe.synthesize(audio, REF_TEXT, text)

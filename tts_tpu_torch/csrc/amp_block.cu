@@ -310,14 +310,10 @@ int run_block(const void* x, void* out, void* tmp, const void* w1, const void* b
   if (F32 && Cp > 128) return (int)cudaErrorInvalidValue;
   // the row tile: two buffers of Tb + 2R rows fit 227 KB at R <= 42
   const int Tb = F32 ? (Cp > 64 ? 128 : 256) : (Cp > 128 ? 64 : Cp > 64 ? 128 : 256);
-  static bool attr_set = false;
-  cudaError_t err;
-  if (!attr_set) {
-    err = cudaFuncSetAttribute(amp_branch_kernel<E>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  static int smem_set[MAX_DEVICES];
+  cudaError_t err = raise_attr(amp_branch_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               227 * 1024, smem_set);
+  if (err != cudaSuccess) return (int)err;
   const E* src = (const E*)x;
   for (int j = 0; j < J; ++j) {
     const int d = dils[j];

@@ -50,6 +50,41 @@ union Vec8 {
   bf16 h[8];
 };
 
+// Per-device state of the C entries. A kernel attribute set with
+// cudaFuncSetAttribute holds only on the device current when it was set,
+// and each wrapper launches under its tensor's device (ops/_build.launch),
+// so every cache of such state has one slot a device, indexed by
+// cudaGetDevice.
+constexpr int MAX_DEVICES = 64;
+
+// Raise attribute `attr` of `kernel` to `value` on the current device,
+// unless this call site has already set it that high there; `done` is the
+// site's record (a static array, zero at start).
+template <typename K>
+cudaError_t raise_attr(K kernel, cudaFuncAttribute attr, int value, int (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (value <= done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, attr, value);
+  if (err == cudaSuccess) done[dev] = value;
+  return err;
+}
+
+// The current device's SM count, 0 if it cannot be read
+inline int sm_count() {
+  static int sms[MAX_DEVICES];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return 0;
+  if (sms[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+    sms[dev] = n;
+  }
+  return sms[dev];
+}
+
 // Launch `kernel` in thread-block clusters of `cx` CTAs along x (grid.x a
 // multiple of cx); returns the launch's error.
 template <typename Arg>

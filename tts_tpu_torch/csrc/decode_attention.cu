@@ -318,12 +318,11 @@ template <int HD, int G>
 int launch(const DaArgs& a, int B, int ctas, cudaStream_t st) {
   const size_t smem = sizeof(float) * da_smem_floats<HD, G>(a.rows);
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
-  static size_t allowed = 48 * 1024;
-  if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cluster_kernel<HD, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static int allowed[MAX_DEVICES];
+  if (smem > 48 * 1024) {
+    const cudaError_t err = raise_attr(
+        cluster_kernel<HD, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem, allowed);
     if (err != cudaSuccess) return (int)err;
-    allowed = smem;
   }
   if (ctas == 1) {
     cluster_kernel<HD, G><<<dim3(1, a.KVH, B), DA_THREADS, smem, st>>>(a);

@@ -388,31 +388,28 @@ __global__ void __launch_bounds__(NT) down_kernel(const Args p) {
 // ---------------------------------------------------------------- host side
 
 // dynamic shared memory past 48 KB (with the static arrays) needs an opt-in,
-// set once per kernel for the largest size asked so far
+// set once per kernel and device for the largest size asked so far
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, size_t* allowed) {
-  if (bytes + 24 * 1024 <= 48 * 1024 || bytes <= *allowed) return cudaSuccess;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) *allowed = bytes;
-  return err;
+cudaError_t allow_smem(K kernel, size_t bytes, int (&allowed)[MAX_DEVICES]) {
+  if (bytes + 24 * 1024 <= 48 * 1024) return cudaSuccess;
+  return raise_attr(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes, allowed);
 }
 
 template <typename W, bool Q8, int NB>
 int run(const Args& p, cudaStream_t st) {
-  static size_t ok1 = 0, ok2 = 0, ok3 = 0;
+  static int ok1[MAX_DEVICES], ok2[MAX_DEVICES], ok3[MAX_DEVICES];
   const size_t act = Q8 ? 1 : sizeof(float);
   const size_t s1 = act * NB * p.kslice;
   const size_t s2 = act * NB * p.H;
   const size_t s3 = act * NB * p.F + 16 + (Q8 ? sizeof(float) * NB * (p.F / p.fb) : 0);
   cudaError_t err;
-  if ((err = allow_smem(oproj_kernel<W, Q8, NB>, s1, &ok1)) != cudaSuccess) return (int)err;
+  if ((err = allow_smem(oproj_kernel<W, Q8, NB>, s1, ok1)) != cudaSuccess) return (int)err;
   oproj_kernel<W, Q8, NB><<<dim3(p.H / (OP_CG * 8), p.ks), NT, s1, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = allow_smem(gateup_kernel<W, Q8, NB>, s2, &ok2)) != cudaSuccess) return (int)err;
+  if ((err = allow_smem(gateup_kernel<W, Q8, NB>, s2, ok2)) != cudaSuccess) return (int)err;
   gateup_kernel<W, Q8, NB><<<p.F / (GU_CG / 2 * 8), NT, s2, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = allow_smem(down_kernel<W, Q8, NB>, s3, &ok3)) != cudaSuccess) return (int)err;
+  if ((err = allow_smem(down_kernel<W, Q8, NB>, s3, ok3)) != cudaSuccess) return (int)err;
   down_kernel<W, Q8, NB><<<p.H / (DN_CG * 8), NT, s3, st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -204,12 +204,11 @@ cudaError_t launch_attn(const bf16* q, const bf16* knew, const bf16* vnew, const
                         const bf16* vc, bf16* out, int kv_heads, int T, int pos, int G,
                         cudaStream_t s) {
   const size_t smem = sizeof(float) * ((size_t)(1 + AT_WARPS) * G * HD + (size_t)G * pos);
-  static size_t allowed = 48 * 1024;
-  if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static int allowed[MAX_DEVICES];
+  if (smem > 48 * 1024) {
+    const cudaError_t err = raise_attr(attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem, allowed);
     if (err != cudaSuccess) return err;
-    allowed = smem;
   }
   attn_kernel<HD><<<kv_heads, AT_THREADS, smem, s>>>(q, knew, vnew, kc, vc, out, T, pos, G);
   return cudaGetLastError();

@@ -224,15 +224,12 @@ __global__ void __launch_bounds__(NT, CTAS) dit_gemm_kernel(const GemmArgs g) {
 
 template <int BN, int STAGES, int CTAS, int EPI>
 int launch_gemm(const GemmArgs& g, cudaStream_t stream) {
-  static bool attr_set = false;
+  static int smem_set[MAX_DEVICES];
   constexpr size_t smem = gemm_smem<BN, STAGES>();
   const auto kernel = dit_gemm_kernel<BN, STAGES, CTAS, EPI>;
-  if (!attr_set) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  const cudaError_t err =
+      raise_attr(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(g.N / BN, (g.M + BM - 1) / BM), NT, smem, stream>>>(g);
   return (int)cudaGetLastError();
 }

@@ -79,18 +79,15 @@ __global__ void __launch_bounds__(flash::CTA_THREADS) flash_flat_kernel(const Ar
 template <int D>
 int launch_flat(const bf16* qkv, const float* cos_t, const float* sin_t, const int* kv_len,
                 bf16* qk, bf16* out, int B, int T, int H, cudaStream_t stream) {
-  static bool attr_set = false;
+  static int smem_set[MAX_DEVICES];
   constexpr size_t smem = flash::smem_bytes<D>();
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_flat_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  cudaError_t err = raise_attr(flash_flat_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
   const long long n = (long long)B * T * 2 * H * (D / 8);
   rope_qk_kernel<D><<<(unsigned)((n + ROPE_NT - 1) / ROPE_NT), ROPE_NT, 0, stream>>>(
       qkv, cos_t, sin_t, qk, B, T, H);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const long long head = (long long)T * D, stride = 3LL * H * D;

@@ -104,13 +104,10 @@ template <int D, flash::Softmax MODE>
 int launch_bf16(const MhaArgs& m, int B, cudaStream_t stream) {
   const auto kernel = MODE == flash::ONLINE ? mha_online_kernel<D> : mha_fixed_kernel<D>;
   constexpr size_t smem = flash::smem_bytes<D>();
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  static int smem_set[MAX_DEVICES];
+  const cudaError_t err =
+      raise_attr(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
   const long long head = (long long)m.S * D;
   flash::Args a;
   a.q = static_cast<const bf16*>(m.q);
@@ -377,13 +374,8 @@ __global__ void __launch_bounds__(NT32, F32Shape<D>::CTAS) mha_f32_kernel(const 
 // of the key tiles, chosen to fill the card's CTA slots in whole waves
 // (units * splits over SMs * CTAs an SM); the smaller on a tie.
 int f32_splits(long long units, int ctas_per_sm, int tiles) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 1;
-  }
+  const int sms = sm_count();  // the current device's
+  if (sms == 0) return 1;
   const long long slots = (long long)sms * ctas_per_sm;
   int best = 1;
   double best_fill = 0.0;
@@ -398,13 +390,11 @@ int f32_splits(long long units, int ctas_per_sm, int tiles) {
 template <int D, bool ONLINE>
 int launch_f32(const MhaArgs& m, int B, cudaStream_t stream) {
   using Sh = F32Shape<D>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mha_f32_kernel<D, ONLINE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::smem);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  static int smem_set[MAX_DEVICES];
+  const cudaError_t err = raise_attr(
+      mha_f32_kernel<D, ONLINE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::smem,
+      smem_set);
+  if (err != cudaSuccess) return (int)err;
   MhaArgs a = m;
   const int rows = (a.S + Sh::BQ - 1) / Sh::BQ;
   a.splits = ONLINE ? 1 : f32_splits((long long)rows * a.H * B, Sh::CTAS, a.S / Sh::BKV);

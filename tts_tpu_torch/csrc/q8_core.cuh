@@ -14,6 +14,8 @@
 //             brought in by cp.async into two stages of shared memory, WMMA
 //             16x16x16 s8 fragments with s32 accumulators, 2 x 2 warps of
 //             32 x 64; acc -> fp32 rounds to nearest, as the TPU's astype.
+//             Kernels 8 and 9 run it; kernels 6 and 7 run the s8 wgmma GEMM
+//             of q8_wgmma.cuh, with the same rounding.
 //
 // Why two kernels: the row's amax needs the whole row before any of it can
 // be quantized, and the TPU kernel had it because a grid step held whole
@@ -51,7 +53,7 @@ using FragI = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
 
 // what q8_rows quantizes, of rows of type T (bf16 or float)
 enum Rows {
-  ROWS_RAW,   // the rows as they are (kernels 8, 9; kernel 6's fp32 hidden layer)
+  ROWS_RAW,   // the rows as they are (kernels 8, 9)
   ROWS_LN,    // LayerNorm (fp32, eps 1e-6, no affine) * (1 + scale) + shift,
               // in fp32 (kernels 6 ff1, 7)
 };
@@ -60,9 +62,7 @@ enum Rows {
 // T float those casts are no-ops and nothing is rounded past fp32
 enum Epi {
   EPI_SCALE,     // T(y), no bias (kernel 9)
-  EPI_BIAS,      // T(y + b) (kernel 7)
-  EPI_RESIDUAL,  // T(x + T(T(gate) * T(y + b))) (kernels 6 ff2, 8)
-  EPI_GELU,      // fp32 gelu_tanh(y + b), T float (kernel 6 ff1)
+  EPI_RESIDUAL,  // T(x + T(T(gate) * T(y + b))) (kernel 8)
 };
 
 struct RowArgs {
@@ -327,10 +327,7 @@ __global__ void __launch_bounds__(NT) q8_gemm(const GemmArgs p) {
     }
     const size_t o = (size_t)row * p.N + col;
     T* out = static_cast<T*>(p.out) + o;
-    if (EPI == EPI_GELU) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) y[j] = gelu_q8(y[j]);
-    } else if (EPI == EPI_RESIDUAL) {
+    if (EPI == EPI_RESIDUAL) {
       float x[4];
       load4(static_cast<const T*>(p.res) + o, x);
       const float* g = p.gate + (size_t)(row / p.T) * p.gate_bstride + col;

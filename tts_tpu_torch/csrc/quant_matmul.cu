@@ -1,5 +1,5 @@
 // W8A8 matmuls of the F5 DiT attention, and the bare int8 matmul, on the
-// int8 core of q8_core.cuh (q8_rows, then q8_gemm).
+// int8 core of q8_core.cuh (q8_rows, then a GEMM).
 //
 // Replaces tts_tpu/ops/quant_matmul.py:
 //   quantized_matmul      (Pallas body _kernel):          bf16(q(x) @ Wq * xs * ws)
@@ -18,10 +18,11 @@
 // out_proj_residual_q8 does 5.9 G ops against 18.4 MB, so memory bounds it
 // (5.5 us at 3.35 TB/s). Each TPU kernel was one program that held the
 // weight in VMEM; here each is two launches, the row quantization and the
-// GEMM, with the int8 rows (2.9 MB) between them in device memory. The GEMM
-// runs WMMA (mma.sync) from a two-stage cp.async pipeline rather than
-// Hopper's wgmma from TMA, so it runs well below either bound.
-#include "q8_core.cuh"
+// GEMM, with the int8 rows (2.9 MB) between them in device memory.
+// ln_qkv_q8's GEMM is the s8 wgmma GEMM of q8_wgmma.cuh (on the weight's
+// K-major copy); the other two still run q8_gemm, WMMA (mma.sync) from a
+// two-stage cp.async ring, well below either bound.
+#include "q8_wgmma.cuh"
 
 using namespace tts::q8;
 
@@ -50,9 +51,9 @@ RowArgs row_args(const void* a, void* xq, void* xs, int M, int K) {
 }
 
 template <typename T>
-int ln_qkv(const RowArgs& r, const GemmArgs& g, cudaStream_t s) {
+int ln_qkv(const RowArgs& r, const WgArgs& g, int stages, cudaStream_t s) {
   const int err = launch_rows<ROWS_LN, T>(r, s);
-  return err ? err : launch_gemm<EPI_BIAS, T>(g, s);
+  return err ? err : launch_wgemm_form<WEPI_BIAS, T>(stages, g, s);
 }
 
 template <typename T>
@@ -75,18 +76,25 @@ extern "C" int quantized_matmul(const void* x, const void* wq, const void* ws,
 }
 
 // x (M, D) bf16 (f32 = 0) or fp32 (f32 = 1); mods (2, D) fp32 [shift,
-// scale]; wq (D, N) int8; ws, b (N,) fp32 -> out (M, N) of x's type; xq, xs
-// scratch as above. D % 64 == 0, D <= 2048, N % 128 == 0.
-extern "C" int ln_qkv_q8(const void* x, const void* mods, const void* wq,
+// scale]; wt (N, D) int8, the weight K-major; ws, b (N,) fp32 -> out (M, N)
+// of x's type; xq, xs scratch as above. D % 64 == 0, D <= 2048, N % 128 ==
+// 0; stages the GEMM's ring depth (ops/quant_matmul.q8_plan).
+extern "C" int ln_qkv_q8(const void* x, const void* mods, const void* wt,
                          const void* ws, const void* b, void* xq, void* xs, void* out,
-                         int M, int D, int N, int f32, void* stream) {
+                         int M, int D, int N, int f32, int stages, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   RowArgs r = row_args(x, xq, xs, M, D);
   r.mods = (const float*)mods;
   r.mods_bstride = 0;
-  GemmArgs g = gemm_args(xq, xs, wq, ws, out, M, D, N);
+  WgArgs g{};
+  g.q = (const int8_t*)xq;
+  g.xs = (const float*)xs;
+  g.wt = (const int8_t*)wt;
+  g.ws = (const float*)ws;
   g.bias = (const float*)b;
-  return f32 ? ln_qkv<float>(r, g, s) : ln_qkv<tts::bf16>(r, g, s);
+  g.out = out;
+  g.M = M, g.K = D, g.N = N, g.T = 1;
+  return f32 ? ln_qkv<float>(r, g, stages, s) : ln_qkv<tts::bf16>(r, g, stages, s);
 }
 
 // o (M, HD) attention output, x_res (M, D) and out (M, D), all bf16 (f32 =

@@ -7,7 +7,9 @@ machine with the card, into `tts_tpu_torch/_build/<hash>/`, keyed by a hash
 of the sources and flags, so an edited source rebuilds and an unchanged one
 loads what is there. Importing this module builds nothing.
 
-Each kernel wrapper launches through `launch`, which checks the error code
+Each kernel wrapper launches through `launch`, which makes the tensors'
+card the current device for the call (the C entries cache per-device state
+by `cudaGetDevice`, and launch on the current device), checks the error code
 the C entry returns (`cudaGetLastError()` after the launch) and adds one to
 the wrapper's count in `LAUNCHES`.
 """
@@ -22,6 +24,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 __all__ = ["LAUNCHES", "build", "launch", "library"]
 
@@ -113,9 +117,10 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, argtypes: list, *args) -> None:
-    """Call C entry `name` (its last argument is the CUDA stream) and raise
-    if the launch failed; count the launch under `name`."""
+def launch(name: str, argtypes: list, *args, device: torch.device) -> None:
+    """Call C entry `name` (its last argument is a CUDA stream of `device`)
+    with `device` current, and raise if the launch failed; count the launch
+    under `name`."""
     lib = library()
     fn = getattr(lib, name)
     if name not in _declared:
@@ -124,7 +129,8 @@ def launch(name: str, argtypes: list, *args) -> None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _declared.add(name)
-    err = fn(*args)
+    with torch.cuda.device(device):
+        err = fn(*args)
     if err:
         msg = lib.tts_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

@@ -245,5 +245,5 @@ def amp_block_fused(x: torch.Tensor, w1, b1, w2, b2, a1, r1, a2, r2, *, k: int,
                   tmp.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                   a1.data_ptr(), r1.data_ptr(), a2.data_ptr(), r2.data_ptr(),
                   _kernel_taps(), (ctypes.c_int * len(dils))(*dils),
-                  len(dils), bsz, t, c, k, stream)
+                  len(dils), bsz, t, c, k, stream, device=x.device)
     return out

@@ -141,5 +141,5 @@ def decode_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     _build.launch("decode_gqa_attention", _ARGTYPES, q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), b, kvh, h // kvh, t, kv_len, ctas, rows, d,
-                  scale, torch.cuda.current_stream(q.device).cuda_stream)
+                  scale, torch.cuda.current_stream(q.device).cuda_stream, device=q.device)
     return out

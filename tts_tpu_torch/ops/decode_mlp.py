@@ -232,7 +232,7 @@ def fused_out_mlp(x: torch.Tensor, att: torch.Tensor, wo, w_gate_up, w_down, *,
                   *(t.data_ptr() for t in w), int(quant), *map(_ptr, scales),
                   scratch.data_ptr(), x2.data_ptr(), a.data_ptr(), out.data_ptr(), b,
                   att.shape[1], hd, f_dim, kslice, ks, eps,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+                  torch.cuda.current_stream(x.device).cuda_stream, device=x.device)
     return out
 
 
@@ -260,5 +260,6 @@ def fused_out_mlp_q8(x: torch.Tensor, att: torch.Tensor, wo, w_gate_up, w_down, 
                   wo.scale.data_ptr(), w_gate_up.scale.data_ptr(), w_down.scale.data_ptr(),
                   scratch.data_ptr(), ats.data_ptr(), x2.data_ptr(), a.data_ptr(),
                   out.data_ptr(), b, att.shape[1], hd, f_dim, kslice, ks,
-                  _pick_block(f_dim), eps, torch.cuda.current_stream(x.device).cuda_stream)
+                  _pick_block(f_dim), eps, torch.cuda.current_stream(x.device).cuda_stream,
+                  device=x.device)
     return out

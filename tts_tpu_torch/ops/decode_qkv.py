@@ -239,5 +239,5 @@ def fused_qkv_rope(x: torch.Tensor, wqkv, rope_cos=None, rope_sin=None, *,
     args, out = launch_args(x, wqkv, rope_cos, rope_sin, heads, kv_heads, head_dim,
                             q_norm, k_norm, bqkv, norm, ln_weight, ln_bias, eps)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.launch("fused_qkv_rope", _ARGTYPES, *args, stream)
+    _build.launch("fused_qkv_rope", _ARGTYPES, *args, stream, device=x.device)
     return out

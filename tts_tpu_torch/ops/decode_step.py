@@ -153,5 +153,5 @@ def fused_qkv_attn(x: torch.Tensor, wqkv, rope_cos=None, rope_sin=None,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.launch("fused_qkv_attn", _ARGTYPES, *args, k_cache[layer].data_ptr(),
                   v_cache[layer].data_ptr(), attn.data_ptr(), k_cache.shape[3], pos,
-                  stream)
+                  stream, device=x.device)
     return attn, k, v

@@ -160,7 +160,7 @@ def flash_attention_flat(qkv: torch.Tensor, rope_cos: torch.Tensor,
     out = torch.empty((b, t, heads * d), dtype=qkv.dtype, device=qkv.device)
     _build.launch("flash_attention_flat", _ARGTYPES, qkv.data_ptr(),
                   cos.data_ptr(), sin.data_ptr(), kv.data_ptr(), qk.data_ptr(),
-                  out.data_ptr(), b, t, heads, d, _stream(qkv))
+                  out.data_ptr(), b, t, heads, d, _stream(qkv), device=qkv.device)
     return out
 
 
@@ -300,5 +300,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = torch.empty_like(q)
     _build.launch(name, _MHA_ARGTYPES, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   kv.data_ptr(), out.data_ptr(), const, b, h, s, d,
-                  int(q.dtype == torch.float32), int(packed_out), _stream(q))
+                  int(q.dtype == torch.float32), int(packed_out), _stream(q),
+                  device=q.device)
     return out

@@ -96,5 +96,5 @@ def conv_pos_embed_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.launch("conv_pos_embed_fused", _ARGTYPES, x.data_ptr(),
                   w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                  scratch.data_ptr(), out.data_ptr(), bsz, t, c, k, stream)
+                  scratch.data_ptr(), out.data_ptr(), bsz, t, c, k, stream, device=x.device)
     return out

@@ -43,26 +43,39 @@ class F5Stats:
         return self.wall_s / max(self.audio_s, 1e-9)
 
 
+def _on_card(params: dict) -> bool:
+    """Whether the F5 params lie on a CUDA device."""
+    return params["blocks"][0]["ff1"]["w"].device.type == "cuda"
+
+
 def quantize_dit(params: dict, quantize) -> dict:
     """tts_tpu's F5Pipeline quantize modes over an F5 params dict: the DiT
     blocks' wqkv, wo, ff1 and ff2 weights become int8 QTensors (8 or
     "w8a8", the eager quantizer tts_tpu's pipeline calls) or int4 where the
     input dim is a multiple of 32 (4: the k_quant search, held in the
     unpacked QTensorG form, int8 for the rest). AdaLN, the convs and the
-    vocoder stay float. Returns a new dict sharing the other tensors."""
+    vocoder stay float. Returns a new dict sharing the other tensors.
+
+    On a card the int8 wqkv, ff1 and ff2 also keep a K-major copy
+    (`QTensor.q_t`, (out, in)), the layout kernels 7 and 6 read there: 7 MB
+    a block at F5TTS_v1_Base's widths, 161 MB for 22."""
     if quantize not in (8, "w8a8", 4):
         raise ValueError(f"quantize must be None, 8, 'w8a8' or 4, got {quantize!r}")
+    kmajor = _on_card(params)
 
-    def q(w):
+    def q(w, card: bool = False):
         if quantize == 4 and w.dim() == 2 and w.shape[0] % 32 == 0:
             return quantize_int4(w).unpack_runtime()
-        return quantize_int8_eager(w)
+        qt = quantize_int8_eager(w)
+        if card and kmajor:
+            qt.q_t = qt.q.t().contiguous()
+        return qt
 
     blocks = [{**blk,
-               "attn": {**blk["attn"], "wqkv": q(blk["attn"]["wqkv"]),
+               "attn": {**blk["attn"], "wqkv": q(blk["attn"]["wqkv"], True),
                         "wo": q(blk["attn"]["wo"])},
-               "ff1": {**blk["ff1"], "w": q(blk["ff1"]["w"])},
-               "ff2": {**blk["ff2"], "w": q(blk["ff2"]["w"])}}
+               "ff1": {**blk["ff1"], "w": q(blk["ff1"]["w"], True)},
+               "ff2": {**blk["ff2"], "w": q(blk["ff2"]["w"], True)}}
               for blk in params["blocks"]]
     return {**params, "blocks": blocks}
 
