@@ -3,25 +3,34 @@
 
     python3 chip_ab.py --a DIR_A --b DIR_B     # e.g. a parent commit's tree
                                                # (git archive) and this one
+    python3 chip_ab.py --a DIR_A --b DIR_B --rounds 3 --parts f5_bf16
 
 Each turn runs this script's `turn` in a fresh process from that tree's
-root, so it imports that tree's tts_tpu_torch and chip_smoke.py:
-  * the bf16 F5TTS_v1_Base bench request, float and quantize="w8a8", under
-    torch.profiler (device time, kernel 3's and the int8 kernels' (q8_*)
-    shares, the profiled wall and the card's idle share), then
-    F5Pipeline.benchmark (latency and sustained RTF, dispatch_ms: the host's
-    prep and enqueue, fence_ms: the wait for the card); a digest of the
-    W8A8 request's audio;
-  * a digest of kernels 1, 4 and 5's bf16 outputs on seeded inputs (the
-    flash core), and of kernels 6, 7 and 8's outputs on seeded inputs in
-    bf16 and fp32 activations, through the wrappers' signatures that both
-    trees share (two trees whose kernels compute the same bits give the
-    same digests, which the last line compares);
-  * after a warm-up, one Qwen3-TTS-0.6B request on fused_decode="all"
+root, so it imports that tree's tts_tpu_torch and chip_smoke.py, and runs
+the parts `--parts` names (all by default), `--rounds` times A, B, B, A:
+  * host: the host's time a call of kernel 3's and kernel 7's wrappers at a
+    small shape (enqueue only), with and without the C call, of reading
+    and of switching the current device, and a probe of the host's speed
+    before and after (see `_host`);
+  * f5_bf16: the bf16 F5TTS_v1_Base bench request, float and
+    quantize="w8a8", under torch.profiler (device time, kernel 3's and the
+    int8 kernels' (q8_*) shares, the profiled wall and the card's idle
+    share), then F5Pipeline.benchmark (latency and sustained RTF,
+    dispatch_ms: the host's prep and enqueue, fence_ms: the wait for the
+    card); a digest of the W8A8 request's audio; the kernel launches of one
+    request;
+  * digests: a digest of kernels 1, 4 and 5's bf16 outputs on seeded
+    inputs (the flash core), and of kernels 6, 7 and 8's outputs on seeded
+    inputs in bf16 and fp32 activations, through the wrappers' signatures
+    that both trees share, each weight in the layout the tree's pipeline
+    gives it (two trees whose kernels compute the same bits give the same
+    digests, which the last line compares);
+  * qwen: after a warm-up, one Qwen3-TTS-0.6B request on fused_decode="all"
     (bench ids, max_frames 128) under torch.profiler (device time a frame,
     kernel 13's share of it) and two timed;
-  * the fp32 F5TTS_v1_Base bench request (float and quantize="w8a8") under
-    the profiler (device time, kernels 4-5's share) and three timed.
+  * f5_fp32: the fp32 F5TTS_v1_Base bench request (float and
+    quantize="w8a8") under the profiler (device time, kernels 4-5's share)
+    and three timed.
 Random weights from chip_smoke.py's seeds. Both trees' kernels build
 first, at once. Each turn prints JSON lines; compare the trees only within
 one run of this script.
@@ -103,6 +112,7 @@ def _f5_bf16(tag: str, card: str) -> None:
     import torch
 
     import chip_smoke as cs
+    from tts_tpu_torch.ops._build import LAUNCHES
     from tts_tpu_torch.runtime.f5 import F5Pipeline
 
     f5, vocos, audio, text = _f5_models(torch.bfloat16)
@@ -119,6 +129,9 @@ def _f5_bf16(tag: str, card: str) -> None:
         q8 = sum(ms for k, ms in rows if "q8_" in k)
         busy = sum(ms for _, ms in rows)
         bench = pipe.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
+        before = sum(LAUNCHES.values())
+        request()
+        launches = sum(LAUNCHES.values()) - before
         extra = {"audio_digest": _digest(wav)} if quantize else {}
         print(json.dumps({"tree": tag, "card": card, "f5_bf16": quantize or "float",
                           "device_ms": busy, "kernel3_ms": k3, "kernel3_share": k3 / busy,
@@ -126,8 +139,75 @@ def _f5_bf16(tag: str, card: str) -> None:
                           "idle_share": 1 - busy / 1e3 / wall,
                           **{k: bench[k] for k in ("wall_s", "rtf", "sustained_rtf", "prep_ms",
                                                    "dispatch_ms", "fence_ms")},
-                          **extra}), flush=True)
+                          "launches_a_request": launches, **extra}), flush=True)
         del pipe
+
+
+def _host(tag: str, card: str) -> None:
+    """The host's time (us) a call of kernel 3's and kernel 7's wrappers at
+    a small shape whose kernels the card runs faster than the host enqueues
+    them (enqueue only: the wait for the card is after the clock stops),
+    and of the same wrappers with `_build.launch` stubbed out (their Python
+    alone); of reading the current device and of entering and leaving
+    torch.cuda.device; and of a 128 x 128 torch.empty on the card before
+    the port's library loads and after the rest, a probe of the host's
+    speed at the time (it drifts within a process, by 1.5x and more)."""
+    import torch
+
+    from tts_tpu_torch.ops import _build, quant_matmul
+    from tts_tpu_torch.ops.dit_mlp import mlp_block_fused
+    from tts_tpu_torch.quant.weight_only import quantize_int8_eager
+
+    def probe():
+        return _median_us(lambda: torch.empty((128, 128), device="cuda"), 4000)
+
+    torch.zeros(1, device="cuda")
+    rec = {"tree": tag, "card": card, "probe_us_before": probe()}
+    gen = torch.Generator("cuda").manual_seed(4330)
+
+    def rn(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+
+    d, f = 128, 256
+    x = rn(2, 64, d)
+    w = quantize_int8_eager(rn(d, 3 * d))
+    wq = getattr(quant_matmul, "to_kmajor", lambda q: q)(w.q)
+    calls = {"mlp_block_fused": (mlp_block_fused, (x, rn(3, d), rn(d, f), rn(f), rn(f, d),
+                                                   rn(d))),
+             "ln_qkv_q8": (quant_matmul.ln_qkv_q8, (x, rn(2, d), wq, w.scale, rn(3 * d)))}
+    launch = _build.launch
+    for key, stub in (("wrapper_us", launch), ("python_only_us", lambda *a, **k: None)):
+        _build.launch = stub
+        rec[key] = {name: _median_us(lambda: fn(*a), 2000) for name, (fn, a) in calls.items()}
+    _build.launch = launch
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def switch():
+        with torch.cuda.device(dev):
+            pass
+
+    rec["current_device_us"] = _median_us(torch.cuda.current_device, 20000)
+    rec["device_switch_us"] = _median_us(switch, 20000)
+    rec["probe_us_after"] = probe()
+    print(json.dumps(rec), flush=True)
+
+
+def _median_us(fn, n: int, batches: int = 5) -> float:
+    """Host time (us) a call of fn(): the median over `batches` of n calls
+    (after one more that warms up), the card's queue drained between."""
+    import statistics
+
+    import torch
+
+    times = []
+    for _ in range(batches + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times[1:])
 
 
 def _q8_digest(tag: str) -> None:
@@ -135,6 +215,7 @@ def _q8_digest(tag: str) -> None:
     bench shapes, bf16 and fp32 activations."""
     import torch
 
+    from tts_tpu_torch.ops import quant_matmul
     from tts_tpu_torch.ops.dit_mlp import mlp_block_fused_q8
     from tts_tpu_torch.ops.quant_matmul import ln_qkv_q8, out_proj_residual_q8
     from tts_tpu_torch.quant.weight_only import quantize_int8_eager
@@ -144,13 +225,18 @@ def _q8_digest(tag: str) -> None:
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
-    def qw(*shape):
+    # kernels 7 and 6 read their weights K-major where the tree has
+    # to_kmajor (its quantize_dit lays them out so), else row-major
+    lay = getattr(quant_matmul, "to_kmajor", lambda q: q)
+
+    def qw(*shape, kmajor=False):
         w = quantize_int8_eager(rn(*shape, scale=0.02))
-        return w.q, w.scale
+        return (lay(w.q) if kmajor else w.q), w.scale
 
     d, n, f = 1024, 3072, 2048
     x, o = rn(2, 1408, d), rn(2, 1408, d)
-    wqkv, wo, w1, w2 = qw(d, n), qw(d, d), qw(d, f), qw(f, d)
+    wqkv, wo, w1, w2 = (qw(d, n, kmajor=True), qw(d, d), qw(d, f, kmajor=True),
+                        qw(f, d, kmajor=True))
     mods2, mods3 = rn(2, d, scale=0.5), rn(2, 3, d, scale=0.5)
     bq, bo, gate, b1, b2 = (rn(k, scale=0.1) for k in (n, d, d, f, d))
     outs = {}
@@ -191,21 +277,35 @@ def _flash_digest(tag: str) -> None:
         name: _digest(o) for name, o in outs.items()}}), flush=True)
 
 
-def turn(tag: str) -> None:
-    """One turn, from the root of the tree under test."""
+PARTS = ("host", "f5_bf16", "digests", "qwen", "f5_fp32")
+
+
+def turn(tag: str, parts: tuple) -> None:
+    """One turn of `parts`, from the root of the tree under test."""
     sys.path.insert(0, os.getcwd())
     import torch
 
     import chip_smoke as cs
-    from tts_tpu_torch.runtime.f5 import F5Pipeline
-    from tts_tpu_torch.runtime.qwen import QwenDecodeConfig, QwenTTSPipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card()
-    _f5_bf16(tag, card)
-    _flash_digest(tag)
-    _q8_digest(tag)
+    if "host" in parts:
+        _host(tag, card)
+    if "f5_bf16" in parts:
+        _f5_bf16(tag, card)
+    if "digests" in parts:
+        _flash_digest(tag)
+        _q8_digest(tag)
+    if "qwen" in parts:
+        _qwen(tag, card)
+    if "f5_fp32" in parts:
+        _f5_fp32(tag, card)
+
+
+def _qwen(tag: str, card: str) -> None:
+    import chip_smoke as cs
+    from tts_tpu_torch.runtime.qwen import QwenDecodeConfig, QwenTTSPipeline
 
     cfg, ccfg, params, cparams = cs.qwen_models()
     qp = QwenTTSPipeline(params, cfg, cparams, ccfg,
@@ -223,6 +323,13 @@ def turn(tag: str) -> None:
                       "device_ms_a_frame": sum(ms for _, ms in rows) / frames,
                       "kernel13_ms_a_frame": k13 / frames}), flush=True)
     del qp, params, cparams
+
+
+def _f5_fp32(tag: str, card: str) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from tts_tpu_torch.runtime.f5 import F5Pipeline
 
     f5, vocos, audio, text = _f5_models(torch.float32)
     for quantize in (None, "w8a8"):
@@ -245,10 +352,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--a", help="root of tree A")
     ap.add_argument("--b", help="root of tree B")
+    ap.add_argument("--rounds", type=int, default=1, help="turns A, B, B, A this many times")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated parts of a turn, of {', '.join(PARTS)}")
     ap.add_argument("--turn", metavar="TAG", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    parts = tuple(args.parts.split(","))
+    if not set(parts) <= set(PARTS):
+        ap.error(f"--parts: unknown {sorted(set(parts) - set(PARTS))}")
     if args.turn:
-        turn(args.turn)
+        turn(args.turn, parts)
         return
     if not args.a or not args.b:
         ap.error("--a and --b are required")
@@ -260,9 +373,10 @@ def main() -> None:
         raise SystemExit("chip_ab: a build failed")
     me = os.path.abspath(__file__)
     digests: dict = {}
-    for tag in ("A", "B", "B", "A"):
-        out = subprocess.run([sys.executable, me, "--turn", tag], cwd=trees[tag], check=True,
-                             stdout=subprocess.PIPE, text=True).stdout
+    for tag in ("A", "B", "B", "A") * args.rounds:
+        out = subprocess.run([sys.executable, me, "--turn", tag, "--parts", args.parts],
+                             cwd=trees[tag], check=True, stdout=subprocess.PIPE,
+                             text=True).stdout
         print(out, end="", flush=True)
         for line in out.splitlines():
             rec = json.loads(line) if line.startswith("{") else {}
@@ -274,7 +388,7 @@ def main() -> None:
                     rec["audio_digest"])
 
     def same(key):
-        runs = digests[key]
+        runs = digests.get(key, {})
         return all(d == runs["A"][0] for tree in runs.values() for d in tree)
 
     flash, q8 = same("flash_digest"), same("q8_digest") and same("w8a8_audio")

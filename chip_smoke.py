@@ -172,10 +172,6 @@ Q8_KERNELS = ("mlp_block_fused_q8", "ln_qkv_q8", "out_proj_residual_q8")
 QWEN_KERNELS = ("fused_qkv_rope", "fused_qkv_attn", "decode_gqa_attention",
                 "fused_out_mlp", "fused_out_mlp_q8")
 
-# the s8 wgmma GEMM's forms with a bias or residual epilogue (ring depth,
-# CTAs an SM)
-FORMS_Q8 = ((4, 1), (3, 2))
-
 # the least time the card could take (H100 SXM datasheet: dense tensor-core
 # peaks, HBM rate, at the full 700 W)
 HBM_BYTES_S = 3.35e12
@@ -1224,15 +1220,16 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
     a value on a tie of v / xs takes the other int8 step, which moves one
     output by one step of x times one weight, under 2^-10 of max |ref| (so
     max |err| is held to TOL), and the rel L2 by far less. Kernels 7 and 6
-    get their weights' K-major copies, as the pipeline hands them; their
+    get their weights stored K-major, as the pipeline lays them out; their
     yardstick is torch._int_mm at their GEMMs' shapes; check_q8_shapes
-    takes them past the bench shape, time_q8_forms through every form of
-    their GEMMs."""
+    takes them past the bench shape, time_q8_forms through both forms of
+    their GEMMs where the plan picks either."""
     from tts_tpu_torch.ops.dit_mlp import mlp_block_fused_q8, mlp_block_q8_plain
     from tts_tpu_torch.ops.quant_matmul import (ln_qkv_q8, ln_qkv_q8_plain,
                                                 out_proj_residual_q8,
                                                 out_proj_residual_q8_plain, q8_plan,
-                                                quantized_matmul, quantized_matmul_plain)
+                                                quantized_matmul, quantized_matmul_plain,
+                                                to_kmajor)
     from tts_tpu_torch.quant.weight_only import quantize_int8_eager
 
     def rn(*shape, scale=1.0):
@@ -1245,17 +1242,16 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
     m, d, n, f = 2816, 1024, 3072, 2048
     x = rn(2, 1408, d)
     wqkv, wo, w1, w2 = qw(d, n), qw(d, d), qw(d, f), qw(f, d)
-    # the K-major copies of kernels 7 and 6's weights, as quantize_dit makes
-    # them once for the pipeline
-    k7 = {"w_qt": wqkv[0].t().contiguous()}
-    k6 = {"w1_qt": w1[0].t().contiguous(), "w2_qt": w2[0].t().contiguous()}
+    # kernels 7 and 6 read their weights K-major, as quantize_dit lays them
+    # out for the pipeline (kernel 9 takes wqkv row-major)
+    wqkv7, w1, w2 = (to_kmajor(wqkv[0]), wqkv[1]), (to_kmajor(w1[0]), w1[1]), \
+        (to_kmajor(w2[0]), w2[1])
 
-    def run(name, label, kernel, plain, args, ops, kw=None):
-        """Check kernel(*args, **kw) against plain on fp32 copies; time both
-        at the first call."""
-        kw = kw or {}
+    def run(name, label, kernel, plain, args, ops):
+        """Check kernel(*args) against plain on fp32 copies; time both at
+        the first call."""
         f32 = [a.float() if a.is_floating_point() else a for a in args]
-        got = kernel(*args, **kw)
+        got = kernel(*args)
         ref = plain(*f32)
         r = res[name]
         r["max_abs_err"] = max(r["max_abs_err"], check(f"{name} {label}", got, ref))
@@ -1263,32 +1259,30 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
             # device time of the int8 kernels (q8_rows, q8_gemm, q8_wgmma*)
             # alone: the wrapper's host work and its fp32 copies of biases
             # and mods are not the kernel's; the twin's is all its kernels' time
-            r["ms"] = device_ms(lambda: kernel(*args, **kw), only="q8_")
+            r["ms"] = device_ms(lambda: kernel(*args), only="q8_")
             r["plain_ms"] = device_ms(lambda: plain(*args))
-            print(f"  {name}: one call's wall {time_ms(lambda: kernel(*args, **kw)):.4f} ms "
+            print(f"  {name}: one call's wall {time_ms(lambda: kernel(*args)):.4f} ms "
                   f"(median of 10)", flush=True)
             set_bound(r, nbytes(*args, got), ops, "int8")
         del got, ref
 
     calls = [("ln_qkv_q8", "x=(2, 1408, 1024) N=3072", ln_qkv_q8, ln_qkv_q8_plain,
-              (x, rn(2, d, scale=0.5), *wqkv, rn(n, scale=0.1)), 2 * m * d * n, k7),
+              (x, rn(2, d, scale=0.5), *wqkv7, rn(n, scale=0.1)), 2 * m * d * n),
              ("out_proj_residual_q8", "o=(2, 1408, 1024) D=1024", out_proj_residual_q8,
               out_proj_residual_q8_plain,
-              (rn(2, 1408, d), *wo, rn(d, scale=0.1), rn(d, scale=0.5), x), 2 * m * d * d,
-              {})]
+              (rn(2, 1408, d), *wo, rn(d, scale=0.1), rn(d, scale=0.5), x), 2 * m * d * d)]
     for mods, label in ((rn(3, d, scale=0.5), "shared (3, D)"),
                         (rn(2, 3, d, scale=0.5), "per-row (B, 3, D)")):
         calls.append(("mlp_block_fused_q8", f"x=(2, 1408, 1024) F=2048 mods {label}",
                       mlp_block_fused_q8, mlp_block_q8_plain,
                       (x, mods, *w1, rn(f, scale=0.1), *w2, rn(d, scale=0.1)),
-                      4 * m * d * f, k6))
+                      4 * m * d * f))
     for call in calls:
         run(*call)
-    for name, label, kernel, plain, args, _, kw in calls:
+    for name, label, kernel, plain, args, _ in calls:
         a32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], check(
-            f"{name} {label}, fp32 activations", kernel(*a32, **kw), plain(*a32), TOL32,
-            TOL))
+            f"{name} {label}, fp32 activations", kernel(*a32), plain(*a32), TOL32, TOL))
     x2 = x.reshape(m, d)
     run("quantized_matmul", "x=(2816, 1024) N=3072", quantized_matmul,
         quantized_matmul_plain, (x2, *wqkv), 2 * m * d * n)
@@ -1302,7 +1296,7 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
           f"{res['ln_qkv_q8']['ms']:.4f} ms, bound {res['ln_qkv_q8']['bound_ms']:.4f} ms; "
           f"yardstick torch._int_mm ({m}x{d} @ {d}x{n}) {ym[(m, d, n)]:.4f} ms device time",
           flush=True)
-    k6_split = device_split(lambda: mlp_block_fused_q8(*calls[2][4], **k6))
+    k6_split = device_split(lambda: mlp_block_fused_q8(*calls[2][4]))
     print(f"  {card()}: mlp_block_fused_q8 bench shape (plans ff1 "
           f"{q8_plan(m, f, d, sms, whole_rows=True)}, ff2 {q8_plan(m, d, f, sms)}): device "
           f"time {res['mlp_block_fused_q8']['ms']:.4f} ms ("
@@ -1311,7 +1305,7 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
           f"({m}x{d} @ {d}x{f} and {m}x{f} @ {f}x{d}) {ym[(m, d, f)]:.4f} + "
           f"{ym[(m, f, d)]:.4f} = {ym[(m, d, f)] + ym[(m, f, d)]:.4f} ms device time",
           flush=True)
-    time_q8_forms((ln_qkv_q8, calls[0][4], k7), (mlp_block_fused_q8, calls[2][4], k6))
+    time_q8_forms(torch.Generator("cuda").manual_seed(4329))
     check_q8_shapes(torch.Generator("cuda").manual_seed(4327), res)
 
 
@@ -1336,29 +1330,50 @@ def device_split(fn, parts=Q8_SPLIT, iters: int = 10) -> dict:
     return {label: sum(ms for k, ms in rows if pat in k) for label, pat in parts}
 
 
-def time_q8_forms(k7: tuple, k6: tuple) -> None:
-    """Kernel 7 and kernel 6 (its ff2; ff1 keeps its one cluster form) at
-    the bench shape in each form of the bias / residual GEMM (q8_plan's
-    choice swapped for the call): device time a call by kernel, and the
-    output bitwise equal to the planned form's (a form changes no
-    rounding)."""
+def time_q8_forms(gen: torch.Generator) -> None:
+    """Kernel 7 and kernel 6 (its ff2; ff1 keeps its one cluster form) in
+    each form of the bias / residual GEMM, q8_plan's choice swapped for the
+    call, at the bench shape (where the plan takes 3 stages, 2 CTAs an SM)
+    and at grids that fit one CTA an SM (where it takes 4 stages, 1 CTA an
+    SM): kernel 6 at B 2 T 1024 (the bucket-1024 request: ff2 128 CTAs), B
+    1 T 1088 (72) and B 2 T 512 (64), kernel 7 at B 2 T 256 (96). Device
+    time a call by kernel, and the output bitwise equal to the planned
+    form's (a form changes no rounding)."""
     from tts_tpu_torch.ops import dit_mlp, quant_matmul
+    from tts_tpu_torch.quant.weight_only import quantize_int8_eager
 
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def qw(*shape):
+        w = quantize_int8_eager(rn(*shape, scale=0.02))
+        return quant_matmul.to_kmajor(w.q), w.scale
+
+    d, n, f = 1024, 3072, 2048
+    wqkv, w1, w2 = qw(d, n), qw(d, f), qw(f, d)
+    cases = []
+    for b, t in ((2, 1408), (2, 256)):
+        cases.append(("ln_qkv_q8", quant_matmul, quant_matmul.ln_qkv_q8, b, t,
+                      (rn(b, t, d), rn(2, d, scale=0.5), *wqkv, rn(n, scale=0.1))))
+    for b, t in ((2, 1408), (2, 1024), (1, 1088), (2, 512)):
+        cases.append(("mlp_block_fused_q8", dit_mlp, dit_mlp.mlp_block_fused_q8, b, t,
+                      (rn(b, t, d), rn(b, 3, d, scale=0.5), *w1, rn(f, scale=0.1), *w2,
+                       rn(d, scale=0.1))))
     plan = quant_matmul.q8_plan
-    for name, module, (kernel, args, kw) in (("ln_qkv_q8", quant_matmul, k7),
-                                             ("mlp_block_fused_q8", dit_mlp, k6)):
-        want = kernel(*args, **kw)
-        for stages, per_sm in FORMS_Q8:
-            def forced(rows, n, k, sms, whole_rows=False, _f=(stages, per_sm)):
+    for name, module, kernel, b, t, args in cases:
+        want = kernel(*args)
+        for stages in (4, 3):
+            def forced(rows, n, k, sms, whole_rows=False, _s=stages):
                 p = plan(rows, n, k, sms, whole_rows)
-                return p if whole_rows else p._replace(stages=_f[0], ctas_per_sm=_f[1])
+                return p if whole_rows else p._replace(stages=_s)
 
             with swapped(module, {"q8_plan": forced}):
-                same = torch.equal(kernel(*args, **kw), want)
-                split = device_split(lambda: kernel(*args, **kw))
-            print(f"  {name} bench shape, {'ff2 ' if module is dit_mlp else ''}form ({stages} "
-                  f"stages, {per_sm} CTA(s) an SM): device time {sum(split.values()):.4f} ms a "
-                  f"call (" + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v) +
+                same = torch.equal(kernel(*args), want)
+                split = device_split(lambda: kernel(*args))
+            print(f"  {card()}: {name} B {b} T {t}, {'ff2 ' if module is dit_mlp else ''}"
+                  f"form ({stages} stages, {1 if stages == 4 else 2} CTA(s) an SM): device "
+                  f"time {sum(split.values()):.4f} ms a call (" + ", ".join(
+                      f"{k} {v:.4f}" for k, v in split.items() if v) +
                   f"), output {'bitwise equal to' if same else 'DIFFERENT from'} the planned "
                   f"form's", flush=True)
             if not same:
@@ -1388,7 +1403,7 @@ def check_q8_shapes(gen: torch.Generator, res: dict) -> None:
     the 128-column cluster form (9 CTAs, past the portable 8). Device time
     by kernel and bound at each, with the plans."""
     from tts_tpu_torch.ops.dit_mlp import mlp_block_fused_q8, mlp_block_q8_plain
-    from tts_tpu_torch.ops.quant_matmul import ln_qkv_q8, ln_qkv_q8_plain, q8_plan
+    from tts_tpu_torch.ops.quant_matmul import ln_qkv_q8, ln_qkv_q8_plain, q8_plan, to_kmajor
     from tts_tpu_torch.quant.weight_only import quantize_int8_eager
 
     def rn(*shape, scale=1.0):
@@ -1396,7 +1411,7 @@ def check_q8_shapes(gen: torch.Generator, res: dict) -> None:
 
     def qw(*shape):
         w = quantize_int8_eager(rn(*shape, scale=0.02))
-        return w.q, w.scale
+        return to_kmajor(w.q), w.scale
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # (B, T, kernel 7's D and N, kernel 6's D and F)
@@ -1408,26 +1423,24 @@ def check_q8_shapes(gen: torch.Generator, res: dict) -> None:
         wqkv, w1, w2 = qw(d7, n), qw(d, f), qw(f, d)
         k7 = (x7, rn(2, d7, scale=0.5), *wqkv, rn(n, scale=0.1))
         k6 = (x, rn(b, 3, d, scale=0.5), *w1, rn(f, scale=0.1), *w2, rn(d, scale=0.1))
-        for name, kernel, plain, args, kw, label, ops in (
+        for name, kernel, plain, args, label, ops in (
                 ("ln_qkv_q8", ln_qkv_q8, ln_qkv_q8_plain, k7,
-                 {"w_qt": wqkv[0].t().contiguous()},
                  f"x=({b}, {t}, {d7}) N={n} (plan {q8_plan(m, n, d7, sms)})", 2 * m * d7 * n),
                 ("mlp_block_fused_q8", mlp_block_fused_q8, mlp_block_q8_plain, k6,
-                 {"w1_qt": w1[0].t().contiguous(), "w2_qt": w2[0].t().contiguous()},
                  f"x=({b}, {t}, {d}) F={f} mods per-row (plans ff1 "
                  f"{q8_plan(m, f, d, sms, whole_rows=True)}, ff2 {q8_plan(m, d, f, sms)})",
                  4 * m * d * f)):
-            got = kernel(*args, **kw)
+            got = kernel(*args)
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], check(
                 f"{name} {label}", got, plain(*(a.float() if a.is_floating_point() else a
                                                 for a in args))))
             a32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], check(
-                f"{name} {label}, fp32 activations", kernel(*a32, **kw), plain(*a32), TOL32,
+                f"{name} {label}, fp32 activations", kernel(*a32), plain(*a32), TOL32,
                 TOL))
             r = {}
             set_bound(r, nbytes(*args, got), ops, "int8")
-            split = device_split(lambda: kernel(*args, **kw))
+            split = device_split(lambda: kernel(*args))
             print(f"  {name} x={tuple(args[0].shape)}: device time {sum(split.values()):.4f} "
                   f"ms a call (profiler over 10 calls: "
                   + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v) +

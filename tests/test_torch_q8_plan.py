@@ -1,8 +1,8 @@
 """Host-side parts of the W8A8 kernels 6 and 7 on the card, on the CPU:
-the s8 wgmma GEMM's plan (`ops/quant_matmul.q8_plan`: form, tiles, cluster,
-K steps) at the F5 bench shapes and over every weight shape `q8_fits`
-admits, the K-major weight copies that `runtime/f5.quantize_dit` makes for
-the card route and that `models/f5._dit_block` hands the wrappers, and
+the s8 wgmma GEMM's plan (`ops/quant_matmul.q8_plan`: ring depth and
+cluster) at the F5 bench shapes and over every weight shape `q8_fits`
+admits, the K-major weight layout that `runtime/f5.quantize_dit` gives the
+card route and that `models/f5._dit_block` hands the wrappers, and
 `ops/_build.launch` making the tensors' device current around a launch,
 with every per-device kernel attribute set through `raise_attr` in the
 CUDA sources."""
@@ -15,32 +15,38 @@ import torch
 
 from tts_tpu_torch.models import f5 as tf5
 from tts_tpu_torch.ops import _build
-from tts_tpu_torch.ops.quant_matmul import Q8Plan, kmajor, q8_fits, q8_plan
+from tts_tpu_torch.ops.quant_matmul import Q8Plan, kmajor, q8_fits, q8_plan, to_kmajor
 from tts_tpu_torch.quant.weight_only import QTensor, QTensorG
 from tts_tpu_torch.runtime import f5 as rf5
 from tts_tpu_torch.runtime.f5 import quantize_dit
 
 H100_SMS = 132
-# the two forms of a bias or residual epilogue (stages, CTAs an SM)
-FORMS = {(4, 1), (3, 2)}
 CSRC = Path(__file__).resolve().parent.parent / "tts_tpu_torch" / "csrc"
 
 
+def _tiles(rows, n):
+    """(row tiles, column tiles, CTAs) of a GEMM in 128 x 128 CTAs."""
+    rt, ct = -(-rows // 128), n // 128
+    return rt, ct, rt * ct
+
+
 @pytest.mark.parametrize("rows,n,k,whole,want", [
-    # kernel 7: (2816 x 1024) . (1024 x 3072), two full waves of 2 CTAs an SM
-    (2816, 3072, 1024, False, Q8Plan(3, 2, 1, 22, 24, 528, 2.0, 0, 8, False)),
+    # kernel 7: (2816 x 1024) . (1024 x 3072): 528 CTAs, two full waves of 2 an SM
+    (2816, 3072, 1024, False, Q8Plan(3, 1)),
     # kernel 6's ff1: clusters of 16 x 128 columns span F 2048
-    (2816, 2048, 1024, True, Q8Plan(3, 2, 16, 22, 16, 352, 352 / 264, 0, 8, False)),
-    # kernel 6's ff2: (2816 x 2048) . (2048 x 1024)
-    (2816, 1024, 2048, False, Q8Plan(3, 2, 1, 22, 8, 176, 176 / 264, 0, 16, False)),
+    (2816, 2048, 1024, True, Q8Plan(3, 16)),
+    # kernel 6's ff2: (2816 x 2048) . (2048 x 1024), 176 CTAs
+    (2816, 1024, 2048, False, Q8Plan(3, 1)),
     # ragged M (B 2, T 1400) and a half-empty last row tile (B 1, T 1088),
-    # whose ff2 grid fits one CTA an SM
-    (2800, 2048, 1024, True, Q8Plan(3, 2, 16, 22, 16, 352, 352 / 264, 16, 8, False)),
-    (1088, 1024, 2048, False, Q8Plan(4, 1, 1, 9, 8, 72, 72 / 132, 64, 16, False)),
+    # whose ff2 grid (72 CTAs) fits one CTA an SM
+    (2800, 2048, 1024, True, Q8Plan(3, 16)),
+    (1088, 1024, 2048, False, Q8Plan(4, 1)),
+    # the bucket-1024 request's ff2 (B 2, T 1024): 128 CTAs, one wave
+    (2048, 1024, 2048, False, Q8Plan(4, 1)),
     # D 640, F 1152: a cluster of 9 (non-portable); kernel 7 at D 576: a
     # last K step of 64
-    (2816, 1152, 640, True, Q8Plan(3, 2, 9, 22, 9, 198, 0.75, 0, 5, False)),
-    (2816, 1152, 576, False, Q8Plan(3, 2, 1, 22, 9, 198, 0.75, 0, 5, True)),
+    (2816, 1152, 640, True, Q8Plan(3, 9)),
+    (2816, 1152, 576, False, Q8Plan(3, 1)),
 ])
 def test_q8_plan_at_the_smoke_shapes(rows, n, k, whole, want):
     assert q8_plan(rows, n, k, H100_SMS, whole_rows=whole) == want
@@ -50,28 +56,19 @@ def test_q8_plan_at_the_smoke_shapes(rows, n, k, whole, want):
 @pytest.mark.parametrize("rows", [1, 64, 127, 1088, 2800, 2816, 9216])
 def test_q8_plan_covers_every_admitted_shape(sms, rows):
     """Every (K, N) q8_fits admits (K % 64 up to 2048, N % 128), at any row
-    count: 128-column tiles cover N exactly, the ragged rows are the last
-    tile's, the K steps cover K with a half step where K % 128 == 64; a
-    bias or residual GEMM takes 4 stages, one CTA an SM, exactly where its
-    grid fits the card, else 3 stages, two CTAs an SM; a whole-row GEMM
-    one cluster of N / 128 <= 16 CTAs, 3 stages, two CTAs an SM."""
+    count: a bias or residual GEMM takes 4 stages (one CTA an SM) exactly
+    where its grid of 128 x 128 CTAs fits the card, else 3 stages (two an
+    SM), and no cluster; a whole-row GEMM one cluster of N / 128 <= 16 CTAs
+    that covers N exactly, 3 stages."""
     for k in range(64, 2049, 64):
         for n in range(128, 6145, 128):
             assert q8_fits(k, n)
             p = q8_plan(rows, n, k, sms)
-            assert (p.stages, p.ctas_per_sm) in FORMS and p.cluster == 1
-            assert ((p.stages, p.ctas_per_sm) == (4, 1)) == (p.ctas <= sms)
-            assert 128 * p.col_tiles == n
-            assert p.ctas == p.row_tiles * p.col_tiles
-            assert 0 <= p.masked_rows < 128 and p.row_tiles * 128 - p.masked_rows == rows
-            assert (p.k_steps - 1) * 128 < k <= p.k_steps * 128
-            assert p.half_step == (k % 128 == 64)
+            assert p.cluster == 1 and p.stages == (4 if _tiles(rows, n)[2] <= sms else 3)
             if n > 2048:
                 continue
             w = q8_plan(rows, n, k, sms, whole_rows=True)
-            assert w.cluster * 128 == n == w.col_tiles * 128 and 1 <= w.cluster <= 16
-            assert (w.stages, w.ctas_per_sm) == (3, 2)
-            assert w.masked_rows == p.masked_rows and w.k_steps == p.k_steps
+            assert w.cluster * 128 == n and 1 <= w.cluster <= 16 and w.stages == 3
 
 
 @pytest.mark.parametrize("rows,n,k,whole", [
@@ -80,20 +77,33 @@ def test_q8_plan_covers_every_admitted_shape(sms, rows):
     (2816, 1088, 1024, False),      # width not a multiple of 128
     (2816, 2176, 1024, True),       # a cluster of 17
     (0, 1024, 1024, False),
+    (1 << 21, 1024, 2048, False),   # 2^32 values of A: past the copies' 32-bit offsets
+    (1 << 22, 2048, 1024, True),
+    (2816, 1 << 21, 2048, False),   # 2^32 values of B
 ])
 def test_q8_plan_refuses_what_the_kernels_do_not_take(rows, n, k, whole):
     with pytest.raises(ValueError):
         q8_plan(rows, n, k, H100_SMS, whole_rows=whole)
 
 
+def test_q8_plan_takes_operands_just_under_2_32_values():
+    assert q8_plan((1 << 21) - 1, 1024, 2048, H100_SMS) == Q8Plan(3, 1)
+    assert q8_plan(2816, (1 << 21) - 128, 2048, H100_SMS) == Q8Plan(3, 1)
+
+
 def test_kmajor_is_the_transpose():
+    """to_kmajor keeps the (K, N) weight and its values and stores it
+    K-major; kmajor gives the (N, K) storage under it, without a copy, and
+    refuses a row-major weight rather than transpose it."""
     w = torch.from_numpy(np.random.default_rng(0).integers(-127, 128, (192, 384),
                                                            dtype=np.int8))
-    t = kmajor(w, None)
+    km = to_kmajor(w)
+    assert km.shape == w.shape and torch.equal(km, w) and km.t().is_contiguous()
+    t = kmajor(km)
     assert t.shape == (384, 192) and t.is_contiguous() and torch.equal(t, w.t())
-    assert kmajor(w, t) is t
-    with pytest.raises(ValueError):
-        kmajor(w, w)
+    assert t.data_ptr() == km.data_ptr()
+    with pytest.raises(ValueError, match="K-major"):
+        kmajor(w)
 
 
 SMALL = dict(dim=128, depth=2, heads=2, head_dim=64, ff_mult=2, text_dim=32,
@@ -114,39 +124,44 @@ def _card_params(tp, quantize):
         return quantize_dit(tp, quantize)
 
 
+def _kmajor(w) -> bool:
+    return not w.q.is_contiguous() and w.q.t().is_contiguous()
+
+
 @pytest.mark.parametrize("quantize", [8, "w8a8"])
 def test_quantize_dit_makes_kmajor_copies_for_the_card_only(params, quantize):
-    """The params lie on the CPU: no copies. For params on a card, wqkv,
-    ff1 and ff2 carry q.t() contiguous; wo (kernel 8 reads (K, N) as it
-    lies) carries none."""
+    """The params lie on the CPU: every int8 q row-major. For params on a
+    card, the q of wqkv, ff1 and ff2 is stored K-major with the same shape
+    and values; wo (kernel 8 reads (K, N) as it lies) stays row-major."""
     _, tp = params
     assert not rf5._on_card(tp)
-    for blk in quantize_dit(tp, quantize)["blocks"]:
-        assert all(w.q_t is None for w in (blk["attn"]["wqkv"], blk["attn"]["wo"],
-                                          blk["ff1"]["w"], blk["ff2"]["w"]))
-    for blk in _card_params(tp, quantize)["blocks"]:
-        for w in (blk["attn"]["wqkv"], blk["ff1"]["w"], blk["ff2"]["w"]):
-            assert isinstance(w, QTensor) and w.q_t.is_contiguous()
-            assert w.q_t.dtype == torch.int8 and torch.equal(w.q_t, w.q.t())
-        assert blk["attn"]["wo"].q_t is None
+    cpu, card = quantize_dit(tp, quantize), _card_params(tp, quantize)
+    for blk, kblk in zip(cpu["blocks"], card["blocks"]):
+        for w in (blk["attn"]["wqkv"], blk["attn"]["wo"], blk["ff1"]["w"], blk["ff2"]["w"]):
+            assert w.q.is_contiguous()
+        for key in (("attn", "wqkv"), ("attn", "wo"), ("ff1", "w"), ("ff2", "w")):
+            w, kw = blk[key[0]][key[1]], kblk[key[0]][key[1]]
+            assert isinstance(kw, QTensor) and kw.q.dtype == torch.int8
+            assert torch.equal(kw.q, w.q) and torch.equal(kw.scale, w.scale)
+            assert _kmajor(kw) == (key != ("attn", "wo"))
 
 
 def test_quantize_dit_int4_has_no_kmajor_copy(params):
     _, tp = params
     blk = _card_params(tp, 4)["blocks"][0]
-    assert isinstance(blk["ff1"]["w"], QTensorG) and not hasattr(blk["ff1"]["w"], "q_t")
+    assert isinstance(blk["ff1"]["w"], QTensorG) and blk["ff1"]["w"].q.is_contiguous()
 
 
 def test_dit_block_hands_the_kmajor_copies_to_kernels_7_and_6(params, monkeypatch):
-    """_dit_block passes QTensor.q_t to ln_qkv_q8 and mlp_block_fused_q8
-    (the twins ignore it: the block's output is the same with and without
-    the copies)."""
+    """_dit_block hands ln_qkv_q8 and mlp_block_fused_q8 the QTensors' q as
+    they lie, K-major in the card's tree; the wrappers' CPU twins take
+    either layout, so the block's output is the same bits in both trees."""
     cfg, tp = params
     seen = {}
-    for name, keys in (("ln_qkv_q8", ("w_qt",)), ("mlp_block_fused_q8", ("w1_qt", "w2_qt"))):
+    for name, pos in (("ln_qkv_q8", (2,)), ("mlp_block_fused_q8", (2, 5))):
         fn = getattr(tf5, name)
-        monkeypatch.setattr(tf5, name, lambda *a, _f=fn, _n=name, _k=keys, **kw:
-                            (seen.__setitem__(_n, [kw.get(k) for k in _k]), _f(*a, **kw))[1])
+        monkeypatch.setattr(tf5, name, lambda *a, _f=fn, _n=name, _p=pos, **kw:
+                            (seen.__setitem__(_n, [a[i] for i in _p]), _f(*a, **kw))[1])
     t = 128
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((2, t, cfg.dim)).astype(np.float32))
@@ -159,18 +174,17 @@ def test_dit_block_hands_the_kmajor_copies_to_kernels_7_and_6(params, monkeypatc
         seen.clear()
         outs.append(tf5._dit_block(blk, x, mod, *rope, cfg, t - 8))
         assert set(seen) == {"ln_qkv_q8", "mlp_block_fused_q8"}
-        if km:
-            assert seen["ln_qkv_q8"][0] is blk["attn"]["wqkv"].q_t
-            assert seen["mlp_block_fused_q8"] == [blk["ff1"]["w"].q_t, blk["ff2"]["w"].q_t]
-        else:
-            assert seen["ln_qkv_q8"] == [None] and seen["mlp_block_fused_q8"] == [None, None]
+        assert seen["ln_qkv_q8"][0] is blk["attn"]["wqkv"].q
+        assert seen["mlp_block_fused_q8"] == [blk["ff1"]["w"].q, blk["ff2"]["w"].q]
+        assert all(q.t().is_contiguous() == km for v in seen.values() for q in v)
     assert torch.equal(outs[0], outs[1])
 
 
 def test_launch_runs_under_the_tensors_device(monkeypatch):
-    """_build.launch makes the given device current around the C call (the
-    C entries cache per-device state by cudaGetDevice and launch on the
-    current device), raises on an error code, and counts the launch."""
+    """_build.launch makes the given device current around the C call where
+    another is current (the C entries cache per-device state by
+    cudaGetDevice and launch on the current device) and leaves it alone
+    where it is, raises on an error code, and counts the launch."""
     events = []
 
     class Device:
@@ -195,15 +209,19 @@ def test_launch_runs_under_the_tensors_device(monkeypatch):
     Lib.fake_entry = staticmethod(entry)
     monkeypatch.setattr(_build, "library", lambda: Lib)
     monkeypatch.setattr(_build.torch.cuda, "device", Device)
+    monkeypatch.setattr(_build.torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(_build, "_declared", {"fake_entry"})
     dev = torch.device("cuda", 3)
     before = _build.LAUNCHES["fake_entry"]
     _build.launch("fake_entry", [], 0, 7, device=dev)
     assert events == [("enter", dev), ("call", (0, 7)), ("exit", dev)]
-    assert _build.LAUNCHES["fake_entry"] == before + 1
+    events.clear()
+    _build.launch("fake_entry", [], 0, 8, device=torch.device("cuda", 0))
+    assert events == [("call", (0, 8))]
+    assert _build.LAUNCHES["fake_entry"] == before + 2
     with pytest.raises(RuntimeError, match="bad"):
         _build.launch("fake_entry", [], 5, device=dev)
-    assert _build.LAUNCHES["fake_entry"] == before + 1
+    assert _build.LAUNCHES["fake_entry"] == before + 2
     _build.LAUNCHES.pop("fake_entry")
 
 

@@ -36,12 +36,11 @@ namespace {
 
 // The WEPI_HIDDEN GEMM in its one form (ops/quant_matmul.q8_plan with
 // whole rows): one cluster of N / 128 <= 16 CTAs across the row (past 8
-// with the non-portable size allowed), 3 stages, 2 CTAs an SM. K % 64 == 0
-// up to 2048.
-int launch_hidden(int stages, int cluster, const WgArgs& g, cudaStream_t s) {
+// with the non-portable size allowed), 3 stages, 2 CTAs an SM.
+int launch_hidden(int stages, const WgArgs& g, cudaStream_t s) {
   static int smem_set[tts::MAX_DEVICES], wide_set[tts::MAX_DEVICES];
-  if (g.K % 64 || g.K > 2048 || g.M < 1 || stages != 3 || cluster < 1 ||
-      cluster > MAX_CLUSTER || cluster * WN != g.N)
+  const int cluster = g.N / WN;
+  if (!wgemm_shape_ok(g) || stages != 3 || cluster > MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
   constexpr size_t smem = wgemm_smem<3>();
   const auto kernel = q8_wgmma_hidden_kernel<3, 2>;
@@ -57,7 +56,7 @@ int launch_hidden(int stages, int cluster, const WgArgs& g, cudaStream_t s) {
 template <typename Act>
 int mlp(const void* x, const float* mods, int mstride, const void* w1t, const void* s1,
         const void* b1, const void* w2t, const void* s2, const void* b2, void* xq, void* xs,
-        void* hq, void* hs, void* out, int M, int T, int D, int F, int st1, int cl1, int st2,
+        void* hq, void* hs, void* out, int M, int T, int D, int F, int st1, int st2,
         cudaStream_t s) {
   RowArgs r{};
   r.a = x;
@@ -78,7 +77,7 @@ int mlp(const void* x, const float* mods, int mstride, const void* w1t, const vo
   g.out = hq;
   g.out_xs = (float*)hs;
   g.M = M, g.K = D, g.N = F, g.T = T;
-  if ((err = launch_hidden(st1, cl1, g, s))) return err;
+  if ((err = launch_hidden(st1, g, s))) return err;
 
   g.q = (const int8_t*)hq;
   g.xs = (const float*)hs;
@@ -100,20 +99,21 @@ int mlp(const void* x, const float* mods, int mstride, const void* w1t, const vo
 // 3, D) fp32 rows [shift, scale, gate] (values of the activation dtype), Bm
 // in {1, B}; w1t (F, D), w2t (D, F) int8, the weights K-major; s1, b1 (F,),
 // s2, b2 (D,) fp32. Scratch: xq (M, D) and hq (M, F) int8, xs and hs (M,)
-// fp32. D % 128 == 0, F % 128 == 0, both <= 2048. (st1, cl1): ff1's ring
-// depth and cluster size; st2: ff2's ring depth (ops/quant_matmul.q8_plan).
+// fp32. D % 128 == 0, F % 128 == 0, both <= 2048; ff1 runs in clusters of
+// F / 128 CTAs. st1, st2: ff1's and ff2's ring depths
+// (ops/quant_matmul.q8_plan).
 extern "C" int mlp_block_fused_q8(const void* x, const void* mods, int mods_rows,
                                   const void* w1t, const void* s1, const void* b1,
                                   const void* w2t, const void* s2, const void* b2,
                                   void* xq, void* xs, void* hq, void* hs, void* out, int M,
-                                  int T, int D, int F, int f32, int st1, int cl1, int st2,
+                                  int T, int D, int F, int f32, int st1, int st2,
                                   void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int mstride = mods_rows == 1 ? 0 : 3 * D;
   const float* m = (const float*)mods;
   if (f32)
     return mlp<float>(x, m, mstride, w1t, s1, b1, w2t, s2, b2, xq, xs, hq, hs, out, M, T, D, F,
-                      st1, cl1, st2, s);
+                      st1, st2, s);
   return mlp<tts::bf16>(x, m, mstride, w1t, s1, b1, w2t, s2, b2, xq, xs, hq, hs, out, M, T, D,
-                        F, st1, cl1, st2, s);
+                        F, st1, st2, s);
 }

@@ -26,9 +26,9 @@
 // columns; every k32 step a warpgroup issues one wgmma m64n128k32
 // s32.s8.s8 with A and B read from shared memory by descriptor and s32
 // accumulators in registers. 8-bit wgmma takes K-major operands only (the
-// transpose bits are for 16-bit types), so B is the weight's (N, K) copy,
-// made once when the weights are quantized (runtime/f5.quantize_dit). A K
-// step is 128 int8 values, one 128-byte row of the sw128 layout: a k32
+// transpose bits are for 16-bit types), so B is the weight stored K-major,
+// (N, K), as runtime/f5.quantize_dit lays the weights out once. A K step
+// is 128 int8 values, one 128-byte row of the sw128 layout: a k32
 // slice of int8 is 32 bytes, as a k16 slice of bf16 is, so kernel 3's
 // swizzle and descriptors carry over byte for byte (gdesc(base + 32 kk,
 // 16, 1024), 4 products a step). A K that is an odd number of 64s ends in a
@@ -156,7 +156,7 @@ __device__ __forceinline__ void cp_async16_or_zero(uint32_t dst, const void* src
 // the sw128 layout, 8 chunks of 16 bytes a row; a last half step (64 values)
 // fills chunks 4-7 with zeros, which add nothing to the sums. Thread t
 // copies chunk t % 8 of rows t / 8 + 32 i, which share one swizzle phase,
-// with 32-bit offsets (M K < 2^32).
+// with 32-bit offsets (M K, N K < 2^32: wgemm_shape_ok).
 __device__ __forceinline__ void wload_stage(uint32_t sa, uint32_t sb, const WgArgs& g, int m0,
                                             int n0, int k0) {
   const int ch = threadIdx.x & 7, r0 = threadIdx.x >> 3;
@@ -348,6 +348,13 @@ __global__ void __launch_bounds__(WNT, CTAS) q8_wgmma_hidden_kernel(const WgArgs
 
 // ---------------------------------------------------------------- host side
 
+// The shapes every form takes: K % 64 == 0 up to 2048, N % 128 == 0, M >= 1,
+// and operands of fewer than 2^32 values (wload_stage's 32-bit offsets)
+inline bool wgemm_shape_ok(const WgArgs& g) {
+  return g.K % 64 == 0 && g.K <= 2048 && g.N % WN == 0 && g.N > 0 && g.M >= 1 &&
+         (uint64_t)g.M * g.K < (1ull << 32) && (uint64_t)g.N * g.K < (1ull << 32);
+}
+
 template <int STAGES, int CTAS, WEpi EPI, typename T>
 int launch_wgemm(const WgArgs& g, cudaStream_t s) {
   static int smem_set[MAX_DEVICES];
@@ -364,10 +371,10 @@ int launch_wgemm(const WgArgs& g, cudaStream_t s) {
 // (ring depth, CTAs an SM), as ops/quant_matmul.q8_plan picks it from the
 // grid and the SM count: 4 stages, 1 CTA an SM, for a grid of at most one
 // CTA an SM; else 3 stages, 2 CTAs an SM (97 KB of shared memory each).
-// K % 64 == 0 up to 2048, N % 128 == 0.
+// Shapes as wgemm_shape_ok admits.
 template <WEpi EPI, typename T>
 int launch_wgemm_form(int stages, const WgArgs& g, cudaStream_t s) {
-  if (g.K % 64 || g.K > 2048 || g.N % WN || g.M < 1) return (int)cudaErrorInvalidValue;
+  if (!wgemm_shape_ok(g)) return (int)cudaErrorInvalidValue;
   if (stages == 4) return launch_wgemm<4, 1, EPI, T>(g, s);
   if (stages == 3) return launch_wgemm<3, 2, EPI, T>(g, s);
   return (int)cudaErrorInvalidValue;

@@ -19,8 +19,8 @@
 // (5.5 us at 3.35 TB/s). Each TPU kernel was one program that held the
 // weight in VMEM; here each is two launches, the row quantization and the
 // GEMM, with the int8 rows (2.9 MB) between them in device memory.
-// ln_qkv_q8's GEMM is the s8 wgmma GEMM of q8_wgmma.cuh (on the weight's
-// K-major copy); the other two still run q8_gemm, WMMA (mma.sync) from a
+// ln_qkv_q8's GEMM is the s8 wgmma GEMM of q8_wgmma.cuh (on the weight
+// stored K-major); the other two still run q8_gemm, WMMA (mma.sync) from a
 // two-stage cp.async ring, well below either bound.
 #include "q8_wgmma.cuh"
 

@@ -363,8 +363,7 @@ def _dit_block(p: dict, x: torch.Tensor, mod: torch.Tensor, rope_cos, rope_sin,
             and isinstance(a["wqkv"], QTensor) and isinstance(a["wo"], QTensor)
             and q8_fits(*a["wqkv"].shape) and q8_fits(*a["wo"].shape)):
         mods_a = torch.cat([shift_msa[0], scale_msa[0]], dim=0)        # (2, D)
-        qkv = ln_qkv_q8(x, mods_a, a["wqkv"].q, a["wqkv"].scale, a["bqkv"],
-                        w_qt=a["wqkv"].q_t)                              # kernel 7
+        qkv = ln_qkv_q8(x, mods_a, a["wqkv"].q, a["wqkv"].scale, a["bqkv"])  # kernel 7
         route = attention_route(qkv.dtype, cfg.head_dim, cfg.heads, t, qkv.device)
         o = _attend(qkv, rope_cos, rope_sin, cfg.heads, cfg.head_dim, kv_len, route)
         x = out_proj_residual_q8(o, a["wo"].q, a["wo"].scale, a["bo"],
@@ -377,8 +376,7 @@ def _dit_block(p: dict, x: torch.Tensor, mod: torch.Tensor, rope_cos, rope_sin,
     if (t % 32 == 0 and isinstance(f1["w"], QTensor) and isinstance(f2["w"], QTensor)
             and q8_fits(*f1["w"].shape) and q8_fits(*f2["w"].shape)):
         return mlp_block_fused_q8(x, mods, f1["w"].q, f1["w"].scale, f1["b"],
-                                  f2["w"].q, f2["w"].scale, f2["b"],
-                                  w1_qt=f1["w"].q_t, w2_qt=f2["w"].q_t)  # kernel 6
+                                  f2["w"].q, f2["w"].scale, f2["b"])    # kernel 6
     if (isinstance(f1["w"], torch.Tensor) and isinstance(f2["w"], torch.Tensor)
             and mlp_fits(x.dtype, b * t, d, f1["w"].shape[1], t, x.device)):
         return mlp_block_fused(x, mods, f1["w"], f1["b"], f2["w"], f2["b"])  # kernel 3

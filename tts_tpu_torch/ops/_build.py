@@ -8,15 +8,16 @@ of the sources and flags, so an edited source rebuilds and an unchanged one
 loads what is there. Importing this module builds nothing.
 
 Each kernel wrapper launches through `launch`, which makes the tensors'
-card the current device for the call (the C entries cache per-device state
-by `cudaGetDevice`, and launch on the current device), checks the error code
-the C entry returns (`cudaGetLastError()` after the launch) and adds one to
-the wrapper's count in `LAUNCHES`.
+card the current device for the call where it is not (the C entries cache
+per-device state by `cudaGetDevice`, and launch on the current device),
+checks the error code the C entry returns (`cudaGetLastError()` after the
+launch) and adds one to the wrapper's count in `LAUNCHES`.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -27,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "build", "launch", "library"]
+__all__ = ["LAUNCHES", "build", "launch", "library", "sm_count"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -120,7 +121,7 @@ def library() -> ctypes.CDLL:
 def launch(name: str, argtypes: list, *args, device: torch.device) -> None:
     """Call C entry `name` (its last argument is a CUDA stream of `device`)
     with `device` current, and raise if the launch failed; count the launch
-    under `name`."""
+    under `name`. The device is switched only where another is current."""
     lib = library()
     fn = getattr(lib, name)
     if name not in _declared:
@@ -129,9 +130,18 @@ def launch(name: str, argtypes: list, *args, device: torch.device) -> None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _declared.add(name)
-    with torch.cuda.device(device):
+    if device.index == torch.cuda.current_device():
         err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
     if err:
         msg = lib.tts_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
     LAUNCHES[name] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SM count of a card, as the kernels' host-side plans take it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

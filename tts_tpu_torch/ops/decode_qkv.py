@@ -139,18 +139,13 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 @functools.lru_cache(maxsize=64)
 def _k_split(device: torch.device, hin: int, n: int) -> tuple[int, int]:
     """(blocks along the input dim, input rows per block): about two blocks
     per SM over the whole matvec, each taking a multiple of 8 rows (one per
     warp) of the input dim."""
     tiles = _cdiv(n, _COLS_PER_BLOCK)
-    want = max(1, min(_cdiv(2 * _sm_count(device.index or 0), tiles), hin // 8))
+    want = max(1, min(_cdiv(2 * _build.sm_count(device), tiles), hin // 8))
     kslice = _cdiv(_cdiv(hin, want), 8) * 8
     return _cdiv(hin, kslice), kslice
 

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .quant_matmul import (activation_dtype, check_cuda_args, int_dot, kmajor, q8_plan,
-                           quantize_rows, row_scratch, sm_count)
+                           quantize_rows, row_scratch)
 
 __all__ = ["GemmPlan", "gemm_plan", "kernel_fits", "mlp_block_fused", "mlp_block_plain",
            "mlp_block_fused_q8", "mlp_block_q8_plain"]
@@ -140,7 +140,7 @@ def mlp_block_fused(x: torch.Tensor, mods: torch.Tensor, w1: torch.Tensor,
                             f" {name} is {a.dtype} on {a.device}")
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    m, sms = bsz * t, sm_count(x.device)
+    m, sms = bsz * t, _build.sm_count(x.device)
     normed = torch.empty((m, d), dtype=x.dtype, device=x.device)
     hidden = torch.empty((m, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
@@ -159,10 +159,8 @@ def _gelu_tanh(h: torch.Tensor) -> torch.Tensor:
     return h * (0.5 * (1.0 + torch.tanh(c * (h + 0.044715 * (h * h * h)))))
 
 
-def mlp_block_q8_plain(x, mods, w1_q, w1_scale, b1, w2_q, w2_scale, b2, w1_qt=None,
-                       w2_qt=None) -> torch.Tensor:
-    """Plain PyTorch twin of the W8A8 kernel (w1_qt, w2_qt, the card's
-    K-major copies, unused)."""
+def mlp_block_q8_plain(x, mods, w1_q, w1_scale, b1, w2_q, w2_scale, b2) -> torch.Tensor:
+    """Plain PyTorch twin of the W8A8 kernel."""
     dt = x.dtype
     mods = _mods3(mods, x.shape[0], x.shape[-1]).to(dt).float()
     shift, scale, gate = mods[:, 0:1], mods[:, 1:2], mods[:, 2:3]
@@ -179,13 +177,11 @@ def mlp_block_q8_plain(x, mods, w1_q, w1_scale, b1, w2_q, w2_scale, b2, w1_qt=No
 
 def mlp_block_fused_q8(x: torch.Tensor, mods: torch.Tensor, w1_q: torch.Tensor,
                        w1_scale: torch.Tensor, b1: torch.Tensor, w2_q: torch.Tensor,
-                       w2_scale: torch.Tensor, b2: torch.Tensor,
-                       w1_qt: torch.Tensor | None = None,
-                       w2_qt: torch.Tensor | None = None) -> torch.Tensor:
+                       w2_scale: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """x (B, T, D); mods (3, D) shared or (B, 3, D) per batch row, rows
     [shift, scale, gate]; w1_q (D, F) int8 with per-column fp32 w1_scale
-    (F,), b1 (F,); likewise w2_q (F, D), w2_scale (D,), b2 (D,); w1_qt,
-    w2_qt the same weights K-major ((F, D), (D, F)), or None."""
+    (F,), b1 (F,); likewise w2_q (F, D), w2_scale (D,), b2 (D,). On a card
+    both weights are K-major (`quant_matmul.to_kmajor`)."""
     bsz, t, d = x.shape
     f = w1_q.shape[1]
     if w1_q.shape != (d, f) or w2_q.shape != (f, d) or w1_scale.shape != (f,) \
@@ -201,21 +197,21 @@ def mlp_block_fused_q8(x: torch.Tensor, mods: torch.Tensor, w1_q: torch.Tensor,
     # fp32 for the kernel: exact
     mods = mods.to(x.dtype).float().contiguous()
     s1, b1, s2, b2 = (a.to(torch.float32).contiguous() for a in (w1_scale, b1, w2_scale, b2))
-    w1t, w2t = kmajor(w1_q, w1_qt), kmajor(w2_q, w2_qt)
+    w1t, w2t = kmajor(w1_q), kmajor(w2_q)
     fp32, i8, dt = torch.float32, torch.int8, activation_dtype(x=x)
     check_cuda_args(x, d, f, x=(x, dt), mods=(mods, fp32), w1_qt=(w1t, i8),
                     w1_scale=(s1, fp32), b1=(b1, fp32))
     check_cuda_args(x, f, d, w2_qt=(w2t, i8), w2_scale=(s2, fp32), b2=(b2, fp32))
-    m, sms = bsz * t, sm_count(x.device)
+    m, sms = bsz * t, _build.sm_count(x.device)
     p1, p2 = q8_plan(m, f, d, sms, whole_rows=True), q8_plan(m, d, f, sms)
     xq, xs = row_scratch(x, m, d)        # the int8 LN rows
     hq, hs = row_scratch(x, m, f)        # the int8 hidden rows, written by ff1
     out = torch.empty_like(x)
-    _build.launch("mlp_block_fused_q8", [_P, _P, _I] + [_P] * 11 + [_I] * 8 + [_P],
+    _build.launch("mlp_block_fused_q8", [_P, _P, _I] + [_P] * 11 + [_I] * 7 + [_P],
                   x.data_ptr(), mods.data_ptr(), mods.shape[0], w1t.data_ptr(),
                   s1.data_ptr(), b1.data_ptr(), w2t.data_ptr(), s2.data_ptr(),
                   b2.data_ptr(), xq.data_ptr(), xs.data_ptr(), hq.data_ptr(), hs.data_ptr(),
-                  out.data_ptr(), m, t, d, f, int(dt == fp32), p1.stages, p1.cluster,
-                  p2.stages, torch.cuda.current_stream(x.device).cuda_stream,
+                  out.data_ptr(), m, t, d, f, int(dt == fp32), p1.stages, p2.stages,
+                  torch.cuda.current_stream(x.device).cuda_stream,
                   device=x.device)
     return out

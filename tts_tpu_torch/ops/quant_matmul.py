@@ -13,10 +13,10 @@ product summed exactly in integers and converted to fp32; the rescale
 integer product as a float64 matmul of the int8 values, exact below 2^53.
 
 The weights are tts_tpu's int8 QTensor parts: q (K, N) int8, scale (N,)
-fp32, per output channel. The s8 wgmma GEMM reads its weight K-major, as
-(N, K): the caller passes that copy (`QTensor.q_t`, made once by
-runtime/f5.quantize_dit for weights on a card), else the wrapper makes it
-for the call. Kernels 7 and 8 take bf16 or fp32 activations
+fp32, per output channel. The s8 wgmma GEMM reads its weight K-major: on a
+card, kernel 7's q is the (K, N) view of (N, K) storage (`to_kmajor`, which
+runtime/f5.quantize_dit applies once), and the wrapper refuses any other
+layout rather than transpose the weight for a call. Kernels 7 and 8 take bf16 or fp32 activations
 (`activation_dtype`) and write their dtype, as tts_tpu's kernels do;
 kernel 9 takes bf16.
 """
@@ -33,7 +33,7 @@ from . import _build
 __all__ = ["quantized_matmul", "quantized_matmul_plain", "ln_qkv_q8",
            "ln_qkv_q8_plain", "out_proj_residual_q8", "out_proj_residual_q8_plain",
            "quantize_rows", "int_dot", "q8_fits", "activation_dtype", "check_cuda_args",
-           "row_scratch", "kmajor", "Q8Plan", "q8_plan", "sm_count"]
+           "row_scratch", "kmajor", "to_kmajor", "Q8Plan", "q8_plan"]
 
 _INV_127 = 1.0 / 127.0     # taken to fp32 where it multiplies: float32(1/127)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -42,6 +42,7 @@ _K_TILE, _N_TILE, _K_MAX = 64, 128, 2048   # the CUDA kernels' depth step, colum
 _ACT_DTYPES = (torch.bfloat16, torch.float32)   # what the W8A8 kernels read and write
 _WM, _WN, _WK = 128, 128, 128   # the s8 wgmma GEMM's CTA rows and columns, K step
 _MAX_CLUSTER = 16     # the H100's non-portable thread-block cluster limit
+_MAX_OFFSET = 1 << 32   # the s8 wgmma GEMM's copies index its operands in 32 bits
 
 
 def quantize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -71,8 +72,8 @@ def quantized_matmul_plain(x, w_q, w_scale) -> torch.Tensor:
     return (int_dot(q, w_q) * xs * w_scale.float()).to(x.dtype)
 
 
-def ln_qkv_q8_plain(x, mods, w_q, w_scale, b, w_qt=None) -> torch.Tensor:
-    """Plain PyTorch twin of kernel 7 (w_qt, the card's K-major copy, unused)."""
+def ln_qkv_q8_plain(x, mods, w_q, w_scale, b) -> torch.Tensor:
+    """Plain PyTorch twin of kernel 7."""
     q, xs = quantize_rows(_layer_norm_mod(x, mods[0], mods[1]))
     return (int_dot(q, w_q) * xs * w_scale.float() + b.float()).to(x.dtype)
 
@@ -92,48 +93,33 @@ def q8_fits(k: int, n: int) -> bool:
 
 
 class Q8Plan(NamedTuple):
-    """The form and tiling of one s8 wgmma GEMM (csrc/q8_wgmma.cuh) with
-    rows x n outputs over depth k, in CTAs of 128 x 128."""
-    stages: int        # K steps in the shared-memory ring
-    ctas_per_sm: int   # CTAs of this form that share an SM
-    cluster: int       # CTAs a thread-block cluster across the columns (1: none)
-    row_tiles: int     # CTAs down the rows, 128 rows each
-    col_tiles: int     # CTAs across the columns
-    ctas: int
-    waves: float       # CTAs over the card's CTA slots (sms * ctas_per_sm)
-    masked_rows: int   # rows of the last row tile past the end (0 .. 127)
-    k_steps: int       # K steps of 128 int8 values
-    half_step: bool    # the last K step holds 64 values (k % 128 == 64)
+    """The form of one s8 wgmma GEMM (csrc/q8_wgmma.cuh), in CTAs of 128 x
+    128 outputs."""
+    stages: int    # K steps in the shared-memory ring: 4 (1 CTA an SM) or 3 (2 an SM)
+    cluster: int   # CTAs of a thread-block cluster across the columns (1: none)
 
 
 @functools.lru_cache(maxsize=None)     # a request repeats a few shapes 682 times
 def q8_plan(rows: int, n: int, k: int, sms: int, whole_rows: bool = False) -> Q8Plan:
     """The form of the s8 wgmma GEMM with `rows` x `n` outputs over depth
-    `k` on a card of `sms` SMs, for a weight `q8_fits` admits (ValueError
-    otherwise). A GEMM with a bias or residual
-    epilogue (kernel 7, kernel 6's ff2) whose grid fits one CTA an SM takes
-    a 4-stage ring, one CTA an SM; a larger grid 3 stages, two CTAs an SM,
-    so that one CTA's epilogue and copies overlap the other's products.
+    `k` on a card of `sms` SMs, for a weight `q8_fits` admits and operands
+    of fewer than 2^32 values (ValueError otherwise). A GEMM with a bias or
+    residual epilogue (kernel 7, kernel 6's ff2) whose grid fits one CTA an
+    SM takes a 4-stage ring, one CTA an SM; a larger grid 3 stages, two
+    CTAs an SM, so that one CTA's epilogue and copies overlap the other's
+    products (on an H100 each form is the faster on its side: PERF.md §6).
     With `whole_rows` (kernel 6's ff1, whose epilogue quantizes each output
     row whole) one thread-block cluster spans the n columns: n / 128 <= 16
     CTAs (past 8 the non-portable size the H100 allows), 3 stages, two CTAs
-    an SM. On an H100 at the F5 bench shapes these beat 64-column tiles,
-    one CTA an SM, and 256-column CTAs in clusters of 8 for ff1, or tied
-    (PERF.md, PR 11)."""
-    if not q8_fits(k, n) or rows < 1:
+    an SM."""
+    if not q8_fits(k, n) or rows < 1 or rows * k >= _MAX_OFFSET or n * k >= _MAX_OFFSET:
         raise ValueError(f"no s8 wgmma GEMM form for rows {rows}, depth {k}, width {n}")
-    row_tiles, col_tiles = -(-rows // _WM), n // _WN
-    if whole_rows and col_tiles > _MAX_CLUSTER:
-        raise ValueError(f"a cluster of {col_tiles} CTAs exceeds {_MAX_CLUSTER}")
-    ctas = row_tiles * col_tiles
-    stages, per_sm = (4, 1) if ctas <= sms and not whole_rows else (3, 2)
-    return Q8Plan(stages, per_sm, col_tiles if whole_rows else 1, row_tiles, col_tiles, ctas,
-                  ctas / (sms * per_sm), row_tiles * _WM - rows, -(-k // _WK), k % _WK != 0)
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    col_tiles = n // _WN
+    if whole_rows:
+        if col_tiles > _MAX_CLUSTER:
+            raise ValueError(f"a cluster of {col_tiles} CTAs exceeds {_MAX_CLUSTER}")
+        return Q8Plan(3, col_tiles)
+    return Q8Plan(4 if -(-rows // _WM) * col_tiles <= sms else 3, 1)
 
 
 def activation_dtype(**acts: torch.Tensor) -> torch.dtype:
@@ -177,15 +163,21 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def kmajor(w_q: torch.Tensor, w_qt: torch.Tensor | None) -> torch.Tensor:
-    """The (N, K) K-major int8 weight the s8 wgmma GEMM reads: w_qt as
-    given, else w_q (K, N) transposed for this call."""
-    if w_qt is None:
-        return w_q.t().contiguous()
-    if w_qt.shape != w_q.shape[::-1]:
-        raise ValueError(f"w_qt {tuple(w_qt.shape)} is not the transpose of w_q "
-                         f"{tuple(w_q.shape)}")
-    return w_qt
+def to_kmajor(w_q: torch.Tensor) -> torch.Tensor:
+    """The same (K, N) int8 weight, stored K-major: the (K, N) view of an
+    (N, K) contiguous copy, the layout kernels 7 and 6 read on a card."""
+    return w_q.t().contiguous().t()
+
+
+def kmajor(w_q: torch.Tensor) -> torch.Tensor:
+    """The (N, K) storage under a K-major (K, N) weight, as the s8 wgmma
+    GEMM reads it; ValueError for any other layout."""
+    wt = w_q.t()
+    if not wt.is_contiguous():
+        raise ValueError(f"the s8 wgmma GEMM reads its int8 weight K-major; got w_q "
+                         f"{tuple(w_q.shape)} with strides {w_q.stride()} (lay it out "
+                         f"once with to_kmajor, as runtime/f5.quantize_dit does)")
+    return wt
 
 
 def row_scratch(x: torch.Tensor, m: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -217,12 +209,11 @@ def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
 
 
 def ln_qkv_q8(x: torch.Tensor, mods: torch.Tensor, w_q: torch.Tensor,
-              w_scale: torch.Tensor, b: torch.Tensor,
-              w_qt: torch.Tensor | None = None) -> torch.Tensor:
-    """x (B, T, D); mods (2, D) = [shift, scale]; w_q (D, N) int8 with
-    per-column fp32 w_scale (N,); b (N,); w_qt the same weight K-major
-    (N, D), or None. Returns dense(LN(x) * (1 + scale) + shift) + b as
-    (B, T, N) in x's dtype."""
+              w_scale: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x (B, T, D); mods (2, D) = [shift, scale]; w_q (D, N) int8, K-major
+    on a card (`to_kmajor`), with per-column fp32 w_scale (N,); b (N,).
+    Returns dense(LN(x) * (1 + scale) + shift) + b as (B, T, N) in x's
+    dtype."""
     bsz, t, d = x.shape
     n = w_q.shape[1]
     if mods.shape != (2, d) or w_q.shape != (d, n) or w_scale.shape != (n,) \
@@ -233,12 +224,12 @@ def ln_qkv_q8(x: torch.Tensor, mods: torch.Tensor, w_q: torch.Tensor,
     if _device_of(x) == "cpu":
         return ln_qkv_q8_plain(x, mods, w_q, w_scale, b)
     dt = activation_dtype(x=x)
-    mods, ws, bias, wt = _fp32(mods), _fp32(w_scale), _fp32(b), kmajor(w_q, w_qt)
+    mods, ws, bias, wt = _fp32(mods), _fp32(w_scale), _fp32(b), kmajor(w_q)
     check_cuda_args(x, d, n, x=(x, dt), w_qt=(wt, torch.int8),
                     mods=(mods, torch.float32), w_scale=(ws, torch.float32),
                     b=(bias, torch.float32))
     m = bsz * t
-    plan = q8_plan(m, n, d, sm_count(x.device))
+    plan = q8_plan(m, n, d, _build.sm_count(x.device))
     xq, xs = row_scratch(x, m, d)
     out = torch.empty((bsz, t, n), dtype=x.dtype, device=x.device)
     _build.launch("ln_qkv_q8", [_P] * 8 + [_I] * 5 + [_P],

@@ -36,13 +36,10 @@ _INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)   # XLA's constant
 
 @dataclasses.dataclass
 class QTensor:
-    """q: (..., in, out) int8; scale: (out,) float32; q_t: None, or q of a
-    2-D weight as a contiguous (out, in) copy, the K-major layout the card's
-    s8 wgmma GEMMs read (F5's W8A8 kernels 6 and 7; runtime/f5.quantize_dit)."""
+    """q: (..., in, out) int8; scale: (out,) float32."""
 
     q: torch.Tensor
     scale: torch.Tensor
-    q_t: torch.Tensor | None = None
 
     @property
     def shape(self):

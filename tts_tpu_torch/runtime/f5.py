@@ -22,7 +22,8 @@ from ..audio.mel import MelSpectrogram
 from ..frontend.f5_text import convert_char_to_pinyin, f5_duration, text_to_ids
 from ..models.f5 import F5Model, dit_forward, text_embedding
 from ..models.vocos import VocosModel, vocos_decode
-from ..quant.weight_only import quantize_int4, quantize_int8_eager
+from ..ops.quant_matmul import to_kmajor
+from ..quant.weight_only import QTensor, quantize_int4, quantize_int8_eager
 
 __all__ = ["F5Pipeline", "F5Stats", "quantize_dit"]
 
@@ -56,20 +57,18 @@ def quantize_dit(params: dict, quantize) -> dict:
     unpacked QTensorG form, int8 for the rest). AdaLN, the convs and the
     vocoder stay float. Returns a new dict sharing the other tensors.
 
-    On a card the int8 wqkv, ff1 and ff2 also keep a K-major copy
-    (`QTensor.q_t`, (out, in)), the layout kernels 7 and 6 read there: 7 MB
-    a block at F5TTS_v1_Base's widths, 161 MB for 22."""
+    On a card the int8 q of wqkv, ff1 and ff2 is stored K-major (still the
+    (in, out) shape: `quant_matmul.to_kmajor`), the layout kernels 7 and 6
+    read there; wo stays row-major for kernel 8."""
     if quantize not in (8, "w8a8", 4):
         raise ValueError(f"quantize must be None, 8, 'w8a8' or 4, got {quantize!r}")
-    kmajor = _on_card(params)
+    on_card = _on_card(params)
 
-    def q(w, card: bool = False):
+    def q(w, k_major: bool = False):
         if quantize == 4 and w.dim() == 2 and w.shape[0] % 32 == 0:
             return quantize_int4(w).unpack_runtime()
         qt = quantize_int8_eager(w)
-        if card and kmajor:
-            qt.q_t = qt.q.t().contiguous()
-        return qt
+        return QTensor(to_kmajor(qt.q), qt.scale) if k_major and on_card else qt
 
     blocks = [{**blk,
                "attn": {**blk["attn"], "wqkv": q(blk["attn"]["wqkv"], True),
