@@ -13,8 +13,8 @@ the parts `--parts` names (all by default), `--rounds` times A, B, B, A:
     and of switching the current device, and a probe of the host's speed
     before and after (see `_host`);
   * f5_bf16: the bf16 F5TTS_v1_Base bench request, float and
-    quantize="w8a8", under torch.profiler (device time, kernel 3's and the
-    int8 kernels' (q8_*) shares, the profiled wall and the card's idle
+    quantize="w8a8", under torch.profiler (device time, kernel 2's, kernel
+    3's and the int8 kernels' (q8_*) shares, the profiled wall and the card's idle
     share), then F5Pipeline.benchmark (latency and sustained RTF,
     dispatch_ms: the host's prep and enqueue, fence_ms: the wait for the
     card); a digest of the W8A8 request's audio; the kernel launches of one
@@ -23,8 +23,9 @@ the parts `--parts` names (all by default), `--rounds` times A, B, B, A:
     inputs (the flash core), and of kernels 6, 7 and 8's outputs on seeded
     inputs in bf16 and fp32 activations, through the wrappers' signatures
     that both trees share, each weight in the layout the tree's pipeline
-    gives it (two trees whose kernels compute the same bits give the same
-    digests, which the last line compares);
+    gives it (`_card_layout`: what its quantize_dit does on the card), so
+    two trees whose kernels compute the same bits give the same digests,
+    which the last line compares;
   * qwen: after a warm-up, one Qwen3-TTS-0.6B request on fused_decode="all"
     (bench ids, max_frames 128) under torch.profiler (device time a frame,
     kernel 13's share of it) and two timed;
@@ -126,6 +127,8 @@ def _f5_bf16(tag: str, card: str) -> None:
         # kernel 3 in either tree: the older ff1/ff2_kernel, or the row pass and GEMMs
         k3 = sum(ms for k, ms in rows if any(
             p in k for p in ("ff1_kernel", "ff2_kernel", "ln_mod_kernel", "dit_gemm_kernel")))
+        # kernel 2 in either tree: the WMMA conv_mish_kernel or the wgmma pos_embed_mish_kernel
+        k2 = sum(ms for k, ms in rows if any(p in k for p in ("conv_mish", "pos_embed_mish")))
         q8 = sum(ms for k, ms in rows if "q8_" in k)
         busy = sum(ms for _, ms in rows)
         bench = pipe.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
@@ -134,7 +137,8 @@ def _f5_bf16(tag: str, card: str) -> None:
         launches = sum(LAUNCHES.values()) - before
         extra = {"audio_digest": _digest(wav)} if quantize else {}
         print(json.dumps({"tree": tag, "card": card, "f5_bf16": quantize or "float",
-                          "device_ms": busy, "kernel3_ms": k3, "kernel3_share": k3 / busy,
+                          "device_ms": busy, "kernel2_ms": k2, "kernel2_share": k2 / busy,
+                          "kernel3_ms": k3, "kernel3_share": k3 / busy,
                           "q8_ms": q8, "q8_share": q8 / busy, "profiled_wall_s": wall,
                           "idle_share": 1 - busy / 1e3 / wall,
                           **{k: bench[k] for k in ("wall_s", "rtf", "sustained_rtf", "prep_ms",
@@ -225,18 +229,17 @@ def _q8_digest(tag: str) -> None:
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
-    # kernels 7 and 6 read their weights K-major where the tree has
-    # to_kmajor (its quantize_dit lays them out so), else row-major
+    # each weight in the layout the tree's quantize_dit gives it on a card
+    kmajor = _card_layout()
     lay = getattr(quant_matmul, "to_kmajor", lambda q: q)
 
-    def qw(*shape, kmajor=False):
+    def qw(name, *shape):
         w = quantize_int8_eager(rn(*shape, scale=0.02))
-        return (lay(w.q) if kmajor else w.q), w.scale
+        return (lay(w.q) if kmajor[name] else w.q), w.scale
 
     d, n, f = 1024, 3072, 2048
     x, o = rn(2, 1408, d), rn(2, 1408, d)
-    wqkv, wo, w1, w2 = (qw(d, n, kmajor=True), qw(d, d), qw(d, f, kmajor=True),
-                        qw(f, d, kmajor=True))
+    wqkv, wo, w1, w2 = qw("wqkv", d, n), qw("wo", d, d), qw("ff1", d, f), qw("ff2", f, d)
     mods2, mods3 = rn(2, d, scale=0.5), rn(2, 3, d, scale=0.5)
     bq, bo, gate, b1, b2 = (rn(k, scale=0.1) for k in (n, d, d, f, d))
     outs = {}
@@ -247,8 +250,26 @@ def _q8_digest(tag: str) -> None:
         outs[f"kernel8_{key}"] = out_proj_residual_q8(od, *wo, bo, gate, xd)
         outs[f"kernel6_{key}"] = mlp_block_fused_q8(xd, mods3, *w1, b1, *w2, b2)
     torch.cuda.synchronize()
-    print(json.dumps({"tree": tag, "q8_digest": {k: _digest(v) for k, v in outs.items()}}),
-          flush=True)
+    print(json.dumps({"tree": tag, "kmajor": kmajor,
+                      "q8_digest": {k: _digest(v) for k, v in outs.items()}}), flush=True)
+
+
+def _card_layout() -> dict:
+    """{weight: whether the tree's runtime/f5.quantize_dit stores its int8
+    q K-major} for wqkv, wo, ff1 and ff2 of a block on the card."""
+    import torch
+
+    from tts_tpu_torch.runtime.f5 import quantize_dit
+
+    def w(*shape):
+        return torch.randn(shape, device="cuda")
+
+    blk = {"attn": {"wqkv": w(128, 384), "wo": w(128, 128)}, "ff1": {"w": w(128, 256)},
+           "ff2": {"w": w(256, 128)}}
+    q = quantize_dit({"blocks": [blk]}, "w8a8")["blocks"][0]
+    return {name: not t.q.is_contiguous() for name, t in (
+        ("wqkv", q["attn"]["wqkv"]), ("wo", q["attn"]["wo"]), ("ff1", q["ff1"]["w"]),
+        ("ff2", q["ff2"]["w"]))}
 
 
 def _flash_digest(tag: str) -> None:

@@ -18,12 +18,16 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      reports them; turn TF32 off for matmuls and cuDNN;
   1. build the hand-written kernels from tts_tpu_torch/csrc with nvcc;
   2. each kernel against its plain PyTorch twin in fp32 on the same inputs,
-     at the F5 bench shapes (kernel 1 also at head dim 128; kernel 3 also
+     at the F5 bench shapes (kernel 1 also at head dim 128; kernel 2 also
+     at B 2 T 4096, B 1 T 1088 and B 2 T 192 at K 7 and K 33, each row tile
+     form at B 2 T 1408, B 2 T 4096 and B 1 T 1088, beside a cuDNN
+     yardstick of its two convs; kernel 3 also
      at B 1 T 1088, B 2 T 4608, D 512 F 1536 and rows offset by +100, and
      beside a cuBLAS yardstick of its two GEMMs; kernel 4 in
      bf16 at head dims 64, 128 and 192 and in fp32; kernel 5 at T 8192 in
-     bf16 and T 2048 in fp32; kernels 6-8 also on fp32 activations;
-     kernels 6 and 7 also at B 2 T 1400 and B 1 T 1088, kernel 7 at D 576
+     bf16 and T 2048 in fp32; kernels 6-8 also on fp32 activations and at
+     B 2 T 1400 and B 1 T 1088, kernel 8 at B 2 T 1024 (its 4-stage form),
+     kernel 7 at D 576
      (a half K step), kernel 6 at D 640 F 1152 (ff1 a cluster of 9), each
      GEMM form at the bench shape, torch._int_mm at their GEMMs' shapes as
      a yardstick), the
@@ -47,7 +51,9 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      twins;
   5. F5Pipeline(quantize="w8a8") over the same models: the three requests
      through kernels 6-8 (W8A8), one DiT forward against the twins in bf16
-     and fp32, latency and sustained RTF; one quantize=4 request;
+     and fp32, latency and sustained RTF; one quantize=4 request (with
+     --profile, one bf16 and one W8A8 request under torch.profiler, the s8
+     GEMMs split by kernel in launch order, no launch of kernel 9's q8_gemm);
   5c. F5Pipeline in fp32 at full F5TTS_v1_Base width: the bench request
      through kernel 4 (682 launches, none of kernel 1), one fp32 DiT
      forward against the twins at the bench bucket and one at T 4608
@@ -569,12 +575,9 @@ def check_kernels(gen: torch.Generator) -> dict:
         r["max_abs_err"] = max(r["max_abs_err"], check(
             f"conv_pos_embed_fused x=(2, {t}, 1024) K=31 groups=16", got, ref))
         if t == 1408:
-            r["ms"] = time_ms(lambda: conv_pos_embed_fused(x, w1, b1, w2, b2))
-            r["plain_ms"] = time_ms(lambda: conv_pos_embed_plain(x, w1, b1, w2, b2))
-            # two grouped convs: 2 * rows * C_out * (K * C_in / groups) each
-            set_bound(r, nbytes(x, w1, b1, w2, b2, got),
-                      2 * 2 * (2 * t) * 1024 * 31 * 64, "bf16")
+            time_conv(r, x, w1, b1, w2, b2, got)
         del got, ref
+    check_conv_shapes(torch.Generator("cuda").manual_seed(4331), res)
 
     r = res["mlp_block_fused"]
     x = rn(2, 1408, 1024)
@@ -598,7 +601,8 @@ def check_kernels(gen: torch.Generator) -> dict:
         lib = res[name]["library_ms"]
         how = ("device time a call of its q8_* kernels (twin: all its "
                "kernels), profiler over 10 calls" if name not in F5_KERNELS
-               else "CUDA events, median of 10")
+               else "device time a call, profiler over 10 calls"
+               if name == "conv_pos_embed_fused" else "CUDA events, median of 10")
         print(f"  {name}: kernel {res[name]['ms']:.4f} ms, plain twin "
               f"{res[name]['plain_ms']:.4f} ms, bound {res[name]['bound_ms']:.4f} ms "
               f"({res[name]['bound_by']}), library call "
@@ -615,6 +619,95 @@ def check_kernels(gen: torch.Generator) -> dict:
     check_bigvgan_kernel(gen, res)
     check_bigvgan_kernel_f32(gen, res)
     return res
+
+
+def conv_ops(b: int, t: int, c: int, k: int) -> int:
+    """Kernel 2's operations: two grouped convs, 2 * rows * C_out * (K *
+    64) each."""
+    return 2 * 2 * (b * t) * c * k * 64
+
+
+def time_conv(r: dict, x, w1, b1, w2, b2, got) -> None:
+    """Kernel 2 at the bench shape: device time a call from a profiler
+    trace of 10 calls (r["ms"]; its two launches) and by CUDA events, the
+    twin's device time, the bound, and the cuDNN yardstick: the two grouped
+    convs alone as bf16 F.conv1d(groups=16) on (B, C, T) copies (no bias
+    rounding, mish or residual; TF32 is off), a measure of what a library
+    conv gives here, not a call for the same function (library_ms stays
+    None); the port never calls it. Then each form of the kernel
+    (conv_plan's row tile swapped for the call) at the bench shape, T 4096
+    and B 1 T 1088: device time, and the output bitwise equal to the
+    planned form's (the row tile changes no sum's order)."""
+    import torch.nn.functional as F
+
+    from tts_tpu_torch.ops import grouped_conv
+
+    b, t, c = x.shape
+    k = w1.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def kernel():
+        return grouped_conv.conv_pos_embed_fused(x, w1, b1, w2, b2)
+
+    r["ms"] = device_ms(kernel)
+    r["plain_ms"] = device_ms(lambda: grouped_conv.conv_pos_embed_plain(x, w1, b1, w2, b2))
+    set_bound(r, nbytes(x, w1, b1, w2, b2, got), conv_ops(b, t, c, k), "bf16")
+    xt = x.transpose(1, 2).contiguous()
+    # (K, 64, C) WIO -> (C_out, 64, K) as F.conv1d takes it
+    wt1, wt2 = (w.permute(2, 1, 0).contiguous() for w in (w1, w2))
+
+    def yardstick():
+        return (F.conv1d(xt, wt1, padding=k // 2, groups=c // 64),
+                F.conv1d(xt, wt2, padding=k // 2, groups=c // 64))
+
+    yard = device_ms(yardstick)
+    print(f"  {card()}: conv_pos_embed_fused bench shape (B {b}, T {t}, C {c}, K {k}; plan "
+          f"{grouped_conv.conv_plan(b, t, c // 64, sms)} on {sms} SMs): device time "
+          f"{r['ms']:.4f} ms a call (profiler over 10 calls, both launches), "
+          f"{time_ms(kernel):.4f} ms by CUDA events (median of 10); bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}); twin {r['plain_ms']:.4f} ms device "
+          f"time; cuDNN yardstick, two bf16 F.conv1d(groups={c // 64}) at its shapes: "
+          f"{yard:.4f} ms device time", flush=True)
+    gen = torch.Generator("cuda").manual_seed(4332)
+    plan = grouped_conv.conv_plan
+    for bb, tt in ((b, t), (2, 4096), (1, 1088)):
+        xx = (torch.randn((bb, tt, c), generator=gen, device="cuda")).to(torch.bfloat16)
+        want = grouped_conv.conv_pos_embed_fused(xx, w1, b1, w2, b2)
+        for rows in (128, 256):
+            def forced(b_, t_, g_, sms_, _rows=rows):
+                return plan(b_, t_, g_, sms_)._replace(rows=_rows)
+
+            with swapped(grouped_conv, {"conv_plan": forced}):
+                same = torch.equal(grouped_conv.conv_pos_embed_fused(xx, w1, b1, w2, b2), want)
+                ms = device_ms(lambda: grouped_conv.conv_pos_embed_fused(xx, w1, b1, w2, b2))
+            print(f"  {card()}: conv_pos_embed_fused B {bb} T {tt}, form {rows} rows a CTA "
+                  f"(plan: {plan(bb, tt, c // 64, sms).rows}): device time {ms:.4f} ms a "
+                  f"call, bound {conv_ops(bb, tt, c, k) / PEAK_OPS_S['bf16'] * 1e3:.4f} ms "
+                  f"(ops), output {'bitwise equal to' if same else 'DIFFERENT from'} the "
+                  f"planned form's", flush=True)
+            if not same:
+                raise AssertionError("conv_pos_embed_fused: a row tile changed the output")
+        del xx, want
+
+
+def check_conv_shapes(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, kernel 2 past the bench shape against its fp32 twin on the
+    same bf16 inputs: B 1 T 1088 (the last 128-row tile half past T), and B
+    2 T 192 (a ragged last tile) at K 7 (a short halo) and K 33 (the widest
+    the halo buffer takes)."""
+    from tts_tpu_torch.ops.grouped_conv import conv_pos_embed_fused, conv_pos_embed_plain
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    r = res["conv_pos_embed_fused"]
+    for b, t, k in ((1, 1088, 31), (2, 192, 7), (2, 192, 33)):
+        x = rn(b, t, 1024)
+        args = (x, rn(k, 64, 1024, scale=0.02), rn(1024, scale=0.1),
+                rn(k, 64, 1024, scale=0.02), rn(1024, scale=0.1))
+        r["max_abs_err"] = max(r["max_abs_err"], check(
+            f"conv_pos_embed_fused x=({b}, {t}, 1024) K={k} groups=16",
+            conv_pos_embed_fused(*args), conv_pos_embed_plain(*(a.float() for a in args))))
 
 
 def time_dit_mlp(r: dict, x, mods, w1, b1, w2, b2) -> None:
@@ -1219,9 +1312,9 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
     the kernel's fp32 LayerNorm or gelu rounds otherwise than the twin's,
     a value on a tie of v / xs takes the other int8 step, which moves one
     output by one step of x times one weight, under 2^-10 of max |ref| (so
-    max |err| is held to TOL), and the rel L2 by far less. Kernels 7 and 6
-    get their weights stored K-major, as the pipeline lays them out; their
-    yardstick is torch._int_mm at their GEMMs' shapes; check_q8_shapes
+    max |err| is held to TOL), and the rel L2 by far less. Kernels 6, 7
+    and 8 get their weights stored K-major, as the pipeline lays them out;
+    their yardstick is torch._int_mm at their GEMMs' shapes; check_q8_shapes
     takes them past the bench shape, time_q8_forms through both forms of
     their GEMMs where the plan picks either."""
     from tts_tpu_torch.ops.dit_mlp import mlp_block_fused_q8, mlp_block_q8_plain
@@ -1242,10 +1335,9 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
     m, d, n, f = 2816, 1024, 3072, 2048
     x = rn(2, 1408, d)
     wqkv, wo, w1, w2 = qw(d, n), qw(d, d), qw(d, f), qw(f, d)
-    # kernels 7 and 6 read their weights K-major, as quantize_dit lays them
-    # out for the pipeline (kernel 9 takes wqkv row-major)
-    wqkv7, w1, w2 = (to_kmajor(wqkv[0]), wqkv[1]), (to_kmajor(w1[0]), w1[1]), \
-        (to_kmajor(w2[0]), w2[1])
+    # kernels 7, 8 and 6 read their weights K-major, as quantize_dit lays
+    # them out for the pipeline (kernel 9 takes wqkv row-major)
+    wqkv7, wo, w1, w2 = ((to_kmajor(q), s) for q, s in (wqkv, wo, w1, w2))
 
     def run(name, label, kernel, plain, args, ops):
         """Check kernel(*args) against plain on fp32 copies; time both at
@@ -1289,13 +1381,20 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
     # torch._int_mm at the GEMMs' shapes, the s8 products alone (no row
     # quantization, no rescale): kernel 9's library call, and a yardstick
     # beside kernels 7 and 6 (no call computes either's function)
-    ym = {shape: int_mm_ms(*shape) for shape in ((m, d, n), (m, d, f), (m, f, d))}
+    ym = {shape: int_mm_ms(*shape) for shape in ((m, d, n), (m, d, d), (m, d, f), (m, f, d))}
     res["quantized_matmul"]["library_ms"] = ym[(m, d, n)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"  {card()}: ln_qkv_q8 bench shape (plan {q8_plan(m, n, d, sms)}): device time "
           f"{res['ln_qkv_q8']['ms']:.4f} ms, bound {res['ln_qkv_q8']['bound_ms']:.4f} ms; "
           f"yardstick torch._int_mm ({m}x{d} @ {d}x{n}) {ym[(m, d, n)]:.4f} ms device time",
           flush=True)
+    k8_split = device_split(lambda: out_proj_residual_q8(*calls[1][4]))
+    print(f"  {card()}: out_proj_residual_q8 bench shape (plan {q8_plan(m, d, d, sms)}): "
+          f"device time {res['out_proj_residual_q8']['ms']:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in k8_split.items() if v) + "), bound "
+          f"{res['out_proj_residual_q8']['bound_ms']:.4f} ms "
+          f"({res['out_proj_residual_q8']['bound_by']}); yardstick torch._int_mm "
+          f"({m}x{d} @ {d}x{d}) {ym[(m, d, d)]:.4f} ms device time", flush=True)
     k6_split = device_split(lambda: mlp_block_fused_q8(*calls[2][4]))
     print(f"  {card()}: mlp_block_fused_q8 bench shape (plans ff1 "
           f"{q8_plan(m, f, d, sms, whole_rows=True)}, ff2 {q8_plan(m, d, f, sms)}): device "
@@ -1331,14 +1430,14 @@ def device_split(fn, parts=Q8_SPLIT, iters: int = 10) -> dict:
 
 
 def time_q8_forms(gen: torch.Generator) -> None:
-    """Kernel 7 and kernel 6 (its ff2; ff1 keeps its one cluster form) in
+    """Kernels 7, 8 and 6 (its ff2; ff1 keeps its one cluster form) in
     each form of the bias / residual GEMM, q8_plan's choice swapped for the
     call, at the bench shape (where the plan takes 3 stages, 2 CTAs an SM)
     and at grids that fit one CTA an SM (where it takes 4 stages, 1 CTA an
-    SM): kernel 6 at B 2 T 1024 (the bucket-1024 request: ff2 128 CTAs), B
-    1 T 1088 (72) and B 2 T 512 (64), kernel 7 at B 2 T 256 (96). Device
-    time a call by kernel, and the output bitwise equal to the planned
-    form's (a form changes no rounding)."""
+    SM): kernels 6 and 8 at B 2 T 1024 (the bucket-1024 request: 128
+    CTAs), kernel 6 at B 1 T 1088 (72) and B 2 T 512 (64), kernel 7 at B 2
+    T 256 (96). Device time a call by kernel, and the output bitwise equal
+    to the planned form's (a form changes no rounding)."""
     from tts_tpu_torch.ops import dit_mlp, quant_matmul
     from tts_tpu_torch.quant.weight_only import quantize_int8_eager
 
@@ -1350,11 +1449,15 @@ def time_q8_forms(gen: torch.Generator) -> None:
         return quant_matmul.to_kmajor(w.q), w.scale
 
     d, n, f = 1024, 3072, 2048
-    wqkv, w1, w2 = qw(d, n), qw(d, f), qw(f, d)
+    wqkv, w1, w2, wo = qw(d, n), qw(d, f), qw(f, d), qw(d, d)
     cases = []
     for b, t in ((2, 1408), (2, 256)):
         cases.append(("ln_qkv_q8", quant_matmul, quant_matmul.ln_qkv_q8, b, t,
                       (rn(b, t, d), rn(2, d, scale=0.5), *wqkv, rn(n, scale=0.1))))
+    for b, t in ((2, 1408), (2, 1024)):
+        cases.append(("out_proj_residual_q8", quant_matmul, quant_matmul.out_proj_residual_q8,
+                      b, t, (rn(b, t, d), *wo, rn(d, scale=0.1), rn(d, scale=0.5),
+                             rn(b, t, d))))
     for b, t in ((2, 1408), (2, 1024), (1, 1088), (2, 512)):
         cases.append(("mlp_block_fused_q8", dit_mlp, dit_mlp.mlp_block_fused_q8, b, t,
                       (rn(b, t, d), rn(b, 3, d, scale=0.5), *w1, rn(f, scale=0.1), *w2,
@@ -1395,15 +1498,19 @@ def int_mm_ms(m: int, k: int, n: int) -> float:
 
 
 def check_q8_shapes(gen: torch.Generator, res: dict) -> None:
-    """Phase 2, kernels 7 and 6 past the bench shape, in bf16 and fp32
+    """Phase 2, kernels 7, 8 and 6 past the bench shape, in bf16 and fp32
     activations against their fp32 twins (TOL; fp32 TOL32 rel L2 with max
     |err| TOL): a ragged M (B 2, T 1400: the last row tile 16 rows past the
-    end), a half-empty last row tile (B 1, T 1088), and D 576 (a last K step
-    of 64 values; N 1152) and kernel 6 at D 640, F 1152, whose ff1 takes
-    the 128-column cluster form (9 CTAs, past the portable 8). Device time
-    by kernel and bound at each, with the plans."""
+    end), a half-empty last row tile (B 1, T 1088), kernel 8 at B 2 T 1024
+    (128 CTAs: the 4-stage form), kernel 7 at D 576 (a last K step of 64
+    values; N 1152) and kernel 6 at D 640, F 1152, whose ff1 takes the
+    128-column cluster form (9 CTAs, past the portable 8). Device time by
+    kernel and bound at each, with the plans."""
     from tts_tpu_torch.ops.dit_mlp import mlp_block_fused_q8, mlp_block_q8_plain
-    from tts_tpu_torch.ops.quant_matmul import ln_qkv_q8, ln_qkv_q8_plain, q8_plan, to_kmajor
+    from tts_tpu_torch.ops.quant_matmul import (ln_qkv_q8, ln_qkv_q8_plain,
+                                                out_proj_residual_q8,
+                                                out_proj_residual_q8_plain, q8_plan,
+                                                to_kmajor)
     from tts_tpu_torch.quant.weight_only import quantize_int8_eager
 
     def rn(*shape, scale=1.0):
@@ -1430,22 +1537,37 @@ def check_q8_shapes(gen: torch.Generator, res: dict) -> None:
                  f"x=({b}, {t}, {d}) F={f} mods per-row (plans ff1 "
                  f"{q8_plan(m, f, d, sms, whole_rows=True)}, ff2 {q8_plan(m, d, f, sms)})",
                  4 * m * d * f)):
-            got = kernel(*args)
-            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], check(
-                f"{name} {label}", got, plain(*(a.float() if a.is_floating_point() else a
-                                                for a in args))))
-            a32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
-            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], check(
-                f"{name} {label}, fp32 activations", kernel(*a32), plain(*a32), TOL32,
-                TOL))
-            r = {}
-            set_bound(r, nbytes(*args, got), ops, "int8")
-            split = device_split(lambda: kernel(*args))
-            print(f"  {name} x={tuple(args[0].shape)}: device time {sum(split.values()):.4f} "
-                  f"ms a call (profiler over 10 calls: "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v) +
-                  f"), bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
-            del got
+            check_q8_call(res, name, kernel, plain, args, label, ops)
+    # kernel 8: (B, T), HD = D = 1024
+    for b, t in ((2, 1400), (1, 1088), (2, 1024)):
+        m, d = b * t, 1024
+        args = (rn(b, t, d), *qw(d, d), rn(d, scale=0.1), rn(d, scale=0.5), rn(b, t, d))
+        check_q8_call(res, "out_proj_residual_q8", out_proj_residual_q8,
+                      out_proj_residual_q8_plain, args,
+                      f"o=({b}, {t}, {d}) D={d} (plan {q8_plan(m, d, d, sms)})", 2 * m * d * d)
+
+
+def check_q8_call(res: dict, name: str, kernel, plain, args: tuple, label: str,
+                  ops: int) -> None:
+    """One W8A8 kernel call against its fp32 twin in bf16 and in fp32
+    activations (TOL; fp32 TOL32 rel L2 with max |err| TOL); device time by
+    kernel and the bound."""
+    got = kernel(*args)
+    res[name]["max_abs_err"] = max(res[name]["max_abs_err"], check(
+        f"{name} {label}", got, plain(*(a.float() if a.is_floating_point() else a
+                                        for a in args))))
+    a32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    res[name]["max_abs_err"] = max(res[name]["max_abs_err"], check(
+        f"{name} {label}, fp32 activations", kernel(*a32), plain(*a32), TOL32,
+        TOL))
+    r = {}
+    set_bound(r, nbytes(*args, got), ops, "int8")
+    split = device_split(lambda: kernel(*args))
+    print(f"  {name} {label}: device time {sum(split.values()):.4f} "
+          f"ms a call (profiler over 10 calls: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v) +
+          f"), bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    del got
 
 
 def run_pipeline() -> tuple:
@@ -1768,7 +1890,8 @@ def run_f5_fp32(name_limit: str, profile: bool = False) -> dict:
 def profile_f5(pipes: dict, name_limit: str) -> None:
     """torch.profiler over one bench request of each F5 pipeline: device
     kernel time by kernel, and the device's idle share (1 - kernel time /
-    wall)."""
+    wall); in a W8A8 request the s8 wgmma GEMMs split by kernel
+    (`q8_gemm_split`). No request may launch kernel 9's WMMA q8_gemm."""
     import gc
 
     from torch.profiler import ProfilerActivity, profile
@@ -1780,12 +1903,12 @@ def profile_f5(pipes: dict, name_limit: str) -> None:
                ("kernel 4 bf16 (mha_fixed_kernel)", ("mha_fixed",)),
                ("kernel 5 bf16 (mha_online_kernel)", ("mha_online",)),
                ("kernels 4-5 fp32 (mha_f32_kernel)", ("mha_f32",)),
-               ("kernel 2 (conv_mish_kernel)", ("conv_mish",)),
+               ("kernel 2 (pos_embed_mish_kernel)", ("pos_embed_mish",)),
                ("kernel 3 (ln_mod_kernel + dit_gemm_kernel)", ("ln_mod_kernel",
                                                                 "dit_gemm_kernel")),
                ("kernels 6-8: q8_rows", ("q8_rows",)),
-               ("kernels 6-7: q8_wgmma (s8 wgmma GEMMs)", ("q8_wgmma",)),
-               ("kernel 8: q8_gemm (WMMA)", ("q8_gemm",)),
+               ("kernels 6-8: q8_wgmma (s8 wgmma GEMMs)", ("q8_wgmma",)),
+               ("kernel 9: q8_gemm (WMMA)", ("q8_gemm",)),
                ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma")))
     for label, pipe in pipes.items():
         pipe.synthesize(audio, REF_TEXT, text)
@@ -1809,10 +1932,37 @@ def profile_f5(pipes: dict, name_limit: str) -> None:
               f"{sum(c for _, c, _ in rows)} kernel launches", flush=True)
         for name, ms in shares.items():
             print(f"    {name}: {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)")
+        split = q8_gemm_split(prof)
+        if split:
+            print("    s8 wgmma GEMMs by kernel (launch order): " + ", ".join(
+                f"{k} {ms:.3f} ms" for k, ms in split.items()))
         for key, count, ms in sorted(rows, key=lambda r: -r[2])[:12]:
             print(f"    kernel {ms:9.3f} ms {count:6d}x  {key[:110]}")
+        if shares["kernel 9: q8_gemm (WMMA)"]:
+            raise AssertionError(f"F5 {label}: the request launched q8_gemm")
         del prof, rows
         gc.collect()
+
+
+def q8_gemm_split(prof) -> dict:
+    """The device time of a W8A8 request's s8 wgmma GEMMs by kernel, from
+    their launch order in the trace: every DiT block launches
+    q8_wgmma_kernel for kernel 7, q8_wgmma_kernel for kernel 8, then
+    q8_wgmma_hidden_kernel (kernel 6's ff1) and q8_wgmma_kernel (kernel 6's
+    ff2), one template for three GEMMs. {} where the trace holds no such
+    launches; AssertionError where they break that order."""
+    parts = ("kernel 7", "kernel 8", "kernel 6 ff1", "kernel 6 ff2")
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and "q8_wgmma" in e.name),
+                 key=lambda e: e.time_range.start)
+    if not evs:
+        return {}
+    if len(evs) % 4 or any(("hidden" in e.name) != (i % 4 == 2) for i, e in enumerate(evs)):
+        raise AssertionError("the s8 wgmma GEMMs ran out of the block's order")
+    split = dict.fromkeys(parts, 0.0)
+    for i, e in enumerate(evs):
+        split[parts[i % 4]] += e.device_time_total / 1e3
+    return split
 
 
 def check_step(cfg, params: dict, ids: np.ndarray) -> None:

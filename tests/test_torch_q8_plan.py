@@ -1,4 +1,4 @@
-"""Host-side parts of the W8A8 kernels 6 and 7 on the card, on the CPU:
+"""Host-side parts of the W8A8 kernels 6, 7 and 8 on the card, on the CPU:
 the s8 wgmma GEMM's plan (`ops/quant_matmul.q8_plan`: ring depth and
 cluster) at the F5 bench shapes and over every weight shape `q8_fits`
 admits, the K-major weight layout that `runtime/f5.quantize_dit` gives the
@@ -47,6 +47,11 @@ def _tiles(rows, n):
     # last K step of 64
     (2816, 1152, 640, True, Q8Plan(3, 9)),
     (2816, 1152, 576, False, Q8Plan(3, 1)),
+    # kernel 8, (M x 1024) . (1024 x 1024): the bench shape's 176 CTAs, the
+    # bucket-1024 request's 128 and B 1 T 1088's 72
+    (2816, 1024, 1024, False, Q8Plan(3, 1)),
+    (2048, 1024, 1024, False, Q8Plan(4, 1)),
+    (1088, 1024, 1024, False, Q8Plan(4, 1)),
 ])
 def test_q8_plan_at_the_smoke_shapes(rows, n, k, whole, want):
     assert q8_plan(rows, n, k, H100_SMS, whole_rows=whole) == want
@@ -131,8 +136,9 @@ def _kmajor(w) -> bool:
 @pytest.mark.parametrize("quantize", [8, "w8a8"])
 def test_quantize_dit_makes_kmajor_copies_for_the_card_only(params, quantize):
     """The params lie on the CPU: every int8 q row-major. For params on a
-    card, the q of wqkv, ff1 and ff2 is stored K-major with the same shape
-    and values; wo (kernel 8 reads (K, N) as it lies) stays row-major."""
+    card, the q of wqkv, wo, ff1 and ff2 (the weights of kernels 7, 8 and
+    6, whose s8 wgmma GEMM reads B K-major) is stored K-major with the same
+    shape and values."""
     _, tp = params
     assert not rf5._on_card(tp)
     cpu, card = quantize_dit(tp, quantize), _card_params(tp, quantize)
@@ -143,7 +149,7 @@ def test_quantize_dit_makes_kmajor_copies_for_the_card_only(params, quantize):
             w, kw = blk[key[0]][key[1]], kblk[key[0]][key[1]]
             assert isinstance(kw, QTensor) and kw.q.dtype == torch.int8
             assert torch.equal(kw.q, w.q) and torch.equal(kw.scale, w.scale)
-            assert _kmajor(kw) == (key != ("attn", "wo"))
+            assert _kmajor(kw)
 
 
 def test_quantize_dit_int4_has_no_kmajor_copy(params):
@@ -153,12 +159,14 @@ def test_quantize_dit_int4_has_no_kmajor_copy(params):
 
 
 def test_dit_block_hands_the_kmajor_copies_to_kernels_7_and_6(params, monkeypatch):
-    """_dit_block hands ln_qkv_q8 and mlp_block_fused_q8 the QTensors' q as
-    they lie, K-major in the card's tree; the wrappers' CPU twins take
-    either layout, so the block's output is the same bits in both trees."""
+    """_dit_block hands ln_qkv_q8, out_proj_residual_q8 and
+    mlp_block_fused_q8 the QTensors' q as they lie, K-major in the card's
+    tree; the wrappers' CPU twins take either layout, so the block's output
+    is the same bits in both trees."""
     cfg, tp = params
     seen = {}
-    for name, pos in (("ln_qkv_q8", (2,)), ("mlp_block_fused_q8", (2, 5))):
+    for name, pos in (("ln_qkv_q8", (2,)), ("out_proj_residual_q8", (1,)),
+                      ("mlp_block_fused_q8", (2, 5))):
         fn = getattr(tf5, name)
         monkeypatch.setattr(tf5, name, lambda *a, _f=fn, _n=name, _p=pos, **kw:
                             (seen.__setitem__(_n, [a[i] for i in _p]), _f(*a, **kw))[1])
@@ -173,8 +181,9 @@ def test_dit_block_hands_the_kmajor_copies_to_kernels_7_and_6(params, monkeypatc
         blk = tree["blocks"][0]
         seen.clear()
         outs.append(tf5._dit_block(blk, x, mod, *rope, cfg, t - 8))
-        assert set(seen) == {"ln_qkv_q8", "mlp_block_fused_q8"}
+        assert set(seen) == {"ln_qkv_q8", "out_proj_residual_q8", "mlp_block_fused_q8"}
         assert seen["ln_qkv_q8"][0] is blk["attn"]["wqkv"].q
+        assert seen["out_proj_residual_q8"][0] is blk["attn"]["wo"].q
         assert seen["mlp_block_fused_q8"] == [blk["ff1"]["w"].q, blk["ff2"]["w"].q]
         assert all(q.t().is_contiguous() == km for v in seen.values() for q in v)
     assert torch.equal(outs[0], outs[1])

@@ -1,23 +1,18 @@
 // The W8A8 core shared by the port's int8 kernels (kernels 6-9 of the TPU
-// package): per-row symmetric int8 activations, an s8 x s8 -> s32 product
-// on the tensor cores, and an fp32 rescale epilogue. Two kernels, each
-// templated on the activation type it reads or writes (bf16 or fp32, as
-// the TPU kernels take either and write x.dtype):
+// package): per-row symmetric int8 activations for an s8 x s8 -> s32
+// product on the tensor cores and an fp32 rescale epilogue. Here the row
+// pass, templated on the activation type it reads (bf16 or fp32, as the
+// TPU kernels take either):
 //
 //   q8_rows   quantizes whole rows of A: one warp a row, the row staged in
 //             shared memory as fp32 (after the LayerNorm prologue where
 //             there is one), its amax, xs = max(amax, 1e-8) * f32(1/127),
 //             and q = clip(rint(v / xs), -127, 127) written as int8 (M, K)
-//             with xs (M,);
-//   q8_gemm   one block a 64 x 128 tile of f((acc * xs) * ws (+ b)): int8
-//             tiles of q(A) and Wq (K, N), row-major (in, out), 64 deep,
-//             brought in by cp.async into two stages of shared memory, WMMA
-//             16x16x16 s8 fragments with s32 accumulators, 2 x 2 warps of
-//             32 x 64; acc -> fp32 rounds to nearest, as the TPU's astype.
-//             Kernels 8 and 9 run it; kernels 6 and 7 run the s8 wgmma GEMM
-//             of q8_wgmma.cuh, with the same rounding.
+//             with xs (M,).
 //
-// Why two kernels: the row's amax needs the whole row before any of it can
+// The GEMMs run on the rows it writes: the s8 wgmma GEMM of q8_wgmma.cuh
+// (kernels 6, 7 and 8) and the WMMA q8_gemm of quant_matmul.cu (kernel 9).
+// Why a row pass before the GEMM: the row's amax needs the whole row before any of it can
 // be quantized, and the TPU kernel had it because a grid step held whole
 // rows in VMEM. A GEMM block holds 64 rows by 128 columns, so quantizing in
 // its prologue would repeat the work for every column tile (24 times for
@@ -31,11 +26,6 @@
 // explicit _rn intrinsic, so nvcc cannot contract a pair into an FMA (which
 // rounds once where the TPU rounds twice).
 //
-// Shared-memory layout: an int8 WMMA fragment is 16 bytes deep, so in a
-// row-major tile every other k-step would start 16 bytes off the 32-byte
-// alignment WMMA asks for. A and W tiles are therefore stored as 16 x 16
-// byte sub-tiles, each contiguous (ldm 16): every fragment pointer is
-// 256-byte aligned and a fragment load reads 256 contiguous bytes.
 #pragma once
 
 #include "common.cuh"
@@ -43,13 +33,8 @@
 namespace tts {
 namespace q8 {
 
-constexpr int BM = 64, BN = 128, BK = 64;  // GEMM block tile; BK bytes of depth a stage
-constexpr int NT = 128;                    // 4 warps
+constexpr int NT = 128;                    // the row pass: 4 warps
 constexpr float INV_127 = 0x1.020408p-7f;  // float32(1 / 127)
-
-using FragA8 = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>;
-using FragB8 = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major>;
-using FragI = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
 
 // what q8_rows quantizes, of rows of type T (bf16 or float)
 enum Rows {
@@ -57,14 +42,6 @@ enum Rows {
   ROWS_LN,    // LayerNorm (fp32, eps 1e-6, no affine) * (1 + scale) + shift,
               // in fp32 (kernels 6 ff1, 7)
 };
-// what q8_gemm writes, from y = (acc * xs) * ws (+ b), in type T: with T
-// bf16 each value below is rounded where the TPU kernel casts to bf16; with
-// T float those casts are no-ops and nothing is rounded past fp32
-enum Epi {
-  EPI_SCALE,     // T(y), no bias (kernel 9)
-  EPI_RESIDUAL,  // T(x + T(T(gate) * T(y + b))) (kernel 8)
-};
-
 struct RowArgs {
   const void* a;      // (M, K) of the row type
   const float* mods;  // ROWS_LN: [shift (K), scale (K), ...] fp32 for batch
@@ -72,19 +49,6 @@ struct RowArgs {
   int8_t* q;          // (M, K) int8 out
   float* xs;          // (M,) fp32 out
   int M, K, T;
-};
-
-struct GemmArgs {
-  const int8_t* q;     // (M, K) int8 rows of A
-  const float* xs;     // (M,) their scales
-  const int8_t* wq;    // (K, N) int8
-  const float* ws;     // (N,) fp32 per-column weight scale
-  const float* bias;   // (N,) fp32, unused by EPI_SCALE
-  const void* res;     // EPI_RESIDUAL: (M, N) residual input, of the output type
-  const float* gate;   // EPI_RESIDUAL: (N,) fp32 for batch row `row / T`,
-  int gate_bstride;    //   this far apart (0 = shared)
-  void* out;           // (M, N) of the output type
-  int M, K, N, T;
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -119,36 +83,6 @@ __device__ __forceinline__ void load8(const float* src, float (&v)[8]) {
   const float4 hi = *reinterpret_cast<const float4*>(src + 4);
   v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
   v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
-}
-
-// 4 consecutive values of a row of T, as fp32, and back
-__device__ __forceinline__ void load4(const bf16* src, float (&v)[4]) {
-  union {
-    uint2 u;
-    bf16 h[4];
-  } x;
-  x.u = *reinterpret_cast<const uint2*>(src);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = to_f(x.h[j]);
-}
-
-__device__ __forceinline__ void load4(const float* src, float (&v)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(src);
-  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-}
-
-__device__ __forceinline__ void store4(bf16* dst, const float (&v)[4]) {
-  union {
-    uint2 u;
-    bf16 h[4];
-  } o;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) o.h[j] = to_bf(v[j]);
-  *reinterpret_cast<uint2*>(dst) = o.u;
-}
-
-__device__ __forceinline__ void store4(float* dst, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
 // x rounded to T and back: a no-op for float
@@ -222,136 +156,12 @@ __global__ void __launch_bounds__(NT) q8_rows(const RowArgs p) {
   if (lane == 0) p.xs[row] = xs;
 }
 
-// byte offset of element (r, c) of a row-major tile stored as 16 x 16
-// sub-tiles, `across` sub-tiles a row
-__device__ __forceinline__ int tiled(int r, int c, int across) {
-  return ((r >> 4) * across + (c >> 4)) * 256 + (r & 15) * 16 + (c & 15);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-// stage layout: A tile (BM x BK) then W tile (BK x BN), both sub-tiled
-constexpr int A_BYTES = BM * BK, B_BYTES = BK * BN, STAGE = A_BYTES + B_BYTES;
-
-// queue the copies of depth k0's A and W tiles into stage `st`
-__device__ __forceinline__ void load_stage(unsigned char* st, const GemmArgs& p, int m0,
-                                           int n0, int k0) {
-  for (int i = threadIdx.x; i < BM * (BK / 16); i += NT) {
-    const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-    const int row = min(m0 + r, p.M - 1);  // the ragged edge reads a valid row, never stored
-    cp_async16(st + tiled(r, c, BK / 16), p.q + (size_t)row * p.K + k0 + c);
-  }
-  for (int i = threadIdx.x; i < BK * (BN / 16); i += NT) {
-    const int r = i / (BN / 16), c = (i % (BN / 16)) * 16;
-    cp_async16(st + A_BYTES + tiled(r, c, BN / 16), p.wq + (size_t)(k0 + r) * p.N + n0 + c);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <Epi EPI, typename T>
-__global__ void __launch_bounds__(NT) q8_gemm(const GemmArgs p) {
-  // two stages of 12 KB during the main loop; the epilogue's 32 KB int32
-  // tile reuses them
-  __shared__ __align__(256) unsigned char smem[BM * BN * 4];
-  static_assert(2 * STAGE <= BM * BN * 4, "stages must fit the epilogue tile");
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-
-  FragI acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  const int steps = p.K / BK;
-  load_stage(smem, p, m0, n0, 0);
-  for (int s = 0; s < steps; ++s) {
-    const signed char* st = reinterpret_cast<const signed char*>(smem + (s & 1) * STAGE);
-    if (s + 1 < steps) {
-      load_stage(smem + ((s + 1) & 1) * STAGE, p, m0, n0, (s + 1) * BK);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      FragA8 a[2];
-      FragB8 b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], st + ((wm * 2 + i) * (BK / 16) + kk) * 256, 16);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(b[j], st + A_BYTES + (kk * (BN / 16) + wn * 4 + j) * 256, 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // every warp is done with stage s before it is refilled
-  }
-
-  int* cs = reinterpret_cast<int*>(smem);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * BN + wn * 64 + j * 16,
-                              acc[i][j], BN, wmma::mem_row_major);
-  __syncthreads();
-
-  // one warp a row; lane l takes columns 4l..4l+3 of the tile
-  const int c = lane * 4, col = n0 + c;
-  float ws[4], b[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    ws[j] = p.ws[col + j];
-    b[j] = EPI == EPI_SCALE ? 0.f : p.bias[col + j];
-  }
-  for (int r = warp; r < BM; r += NT / 32) {
-    const int row = m0 + r;
-    if (row >= p.M) break;
-    const float xs = p.xs[row];
-    const int4 a4 = *reinterpret_cast<const int4*>(cs + r * BN + c);
-    const int av[4] = {a4.x, a4.y, a4.z, a4.w};
-    float y[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      y[j] = __fmul_rn(__fmul_rn(__int2float_rn(av[j]), xs), ws[j]);
-      if (EPI != EPI_SCALE) y[j] = __fadd_rn(y[j], b[j]);
-    }
-    const size_t o = (size_t)row * p.N + col;
-    T* out = static_cast<T*>(p.out) + o;
-    if (EPI == EPI_RESIDUAL) {
-      float x[4];
-      load4(static_cast<const T*>(p.res) + o, x);
-      const float* g = p.gate + (size_t)(row / p.T) * p.gate_bstride + col;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        y[j] = __fadd_rn(x[j], as_t(__fmul_rn(as_t(g[j], out), as_t(y[j], out)), out));
-    }
-    store4(out, y);
-  }
-}
-
 // quantize the M rows of p.a; K % 8 == 0 and K <= 2048 (the row buffers
 // stay under the 48 KB of shared memory a launch has without opting in)
 template <Rows ROWS, typename T>
 int launch_rows(const RowArgs& p, cudaStream_t s) {
   const int bytes = (NT / 32) * k256(p.K) * (int)sizeof(float);
   q8_rows<ROWS, T><<<(p.M + NT / 32 - 1) / (NT / 32), NT, bytes, s>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// the (N / BN, ceil(M / BM)) grid of q8_gemm; K % 64 == 0, N % 128 == 0
-template <Epi EPI, typename T>
-int launch_gemm(const GemmArgs& p, cudaStream_t s) {
-  q8_gemm<EPI, T><<<dim3(p.N / BN, (p.M + BM - 1) / BM), NT, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 

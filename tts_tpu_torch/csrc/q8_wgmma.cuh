@@ -1,4 +1,4 @@
-// The s8 wgmma GEMM of the port's W8A8 kernels 6 and 7 (sm_90a), over the
+// The s8 wgmma GEMM of the port's W8A8 kernels 6, 7 and 8 (sm_90a), over the
 // int8 rows that q8_rows makes (q8_core.cuh):
 //
 //   y = (acc * xs) * ws + b,   acc = q(A) Wq summed exactly in s32,
@@ -6,7 +6,8 @@
 // with one of three epilogues, run from the accumulator registers:
 //   WEPI_BIAS      T(y) (kernel 7, the qkv projection);
 //   WEPI_RESIDUAL  T(x + T(T(gate) * T(y))) with the gate of batch row
-//                  row / T (kernel 6's ff2);
+//                  row / T (kernel 6's ff2; kernel 8, the attention's
+//                  out-projection, with one gate for every row);
 //   WEPI_HIDDEN    the int8 rows of h = gelu(y) and their scales (kernel 6's
 //                  ff1, q8_wgmma_hidden_kernel): one thread-block cluster
 //                  spans a whole hidden row; each CTA puts its rows' partial
@@ -19,7 +20,7 @@
 // The rounding is q8_gemm's and q8_rows': __int2float_rn(acc), then _rn
 // multiplies and adds, gelu_q8, xs = max(amax, 1e-8) * f32(1/127) and
 // quant(). The s8 x s8 sums are exact in s32 at K <= 2048, so these kernels
-// give the WMMA kernels' bits.
+// give the bits of the WMMA q8_gemm that kernels 6-8 ran before them.
 //
 // The GEMM has the shape of kernel 3's bf16 one (dit_gemm_kernel in
 // dit_mlp.cu), in bytes: a CTA is 128 rows in two warpgroups of 64 by 128
@@ -142,13 +143,6 @@ __device__ __forceinline__ void store2(float* dst, const float (&v)[2]) {
 template <int STAGES>
 constexpr size_t wgemm_smem() {
   return 1024 + (size_t)STAGES * WSTAGE;  // align slack, the ring
-}
-
-// 16 bytes from global to shared memory, or 16 zero bytes where !valid
-__device__ __forceinline__ void cp_async16_or_zero(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
 }
 
 // queue the copies of the K step at k0: A rows m0 .. m0 + 127 (past M: the

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) primitives shared by the port's tensor-core kernels: the
 // flash core (flash_core.cuh: kernel 1 and the bf16 forms of kernels 4 and
-// 5) and the DiT MLP GEMMs (dit_mlp.cu: kernel 3).
+// 5), the DiT MLP GEMMs (dit_mlp.cu: kernel 3), the s8 GEMM (q8_wgmma.cuh:
+// kernels 6-8) and the grouped conv (grouped_conv.cu: kernel 2).
 //
 //   cp.async     16-byte global -> shared copies, in commit groups
-//                (cp_async16, cp_commit, cp_wait_all, cp_wait<N>);
+//                (cp_async16, cp_async16_or_zero, cp_commit, cp_wait_all,
+//                cp_wait<N>);
 //   wgmma        warpgroup products with fp32 accumulators in registers and
 //                their ordering (fence_async_smem, wg_fence, wg_commit,
 //                wg_wait0, wg_wait<N>, hold);
@@ -21,7 +23,8 @@
 //            slice kk starts 32 kk bytes into the row; descriptor
 //            gdesc(base + 32 kk, 16, 1024).
 //   MN-major (64 k, 64 n) blocks of 8192 bytes, k the row: V of O += P V and
-//            the (K, N) weights of the DiT MLP as they lie in device memory.
+//            the (K, N) weights of the DiT MLP as they lie in device memory
+//            (and the grouped conv's (64 in, 64 out) weight taps).
 //            The k16 slice kk of n-block j starts at j 8192 + kk 2048;
 //            descriptor gdesc(base + kk 2048, 8192, 1024), whose leading
 //            offset 8192 steps to the next 64 columns in an n128 product.
@@ -48,6 +51,14 @@ __device__ __forceinline__ void cp_commit() {
 
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes where !valid (src
+// is then not read)
+__device__ __forceinline__ void cp_async16_or_zero(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 
 // wait until at most N of this thread's committed groups are pending
@@ -125,10 +136,11 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d += A B over k16: A (64 x 16) from registers (a warp holds rows 16 w ..
+// d (+)= A B over k16: A (64 x 16) from registers (a warp holds rows 16 w ..
 // 16 w + 15 in the m16n8k16 A layout), B (16 x 64, MN-major) from shared
-// memory by descriptor
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+// memory by descriptor; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -144,7 +156,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // d (+)= A B over k16 with both operands from shared memory: A (64 x 16,

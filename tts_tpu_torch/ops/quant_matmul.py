@@ -3,8 +3,8 @@ int8 matmul `quantized_matmul` (kernel 9) and the F5 DiT attention's two
 projections, `ln_qkv_q8` (kernel 7) and `out_proj_residual_q8` (kernel 8).
 
 Each wrapper runs the hand-written CUDA kernel (csrc/quant_matmul.cu, on the
-int8 core of csrc/q8_core.cuh; kernel 7's GEMM on the s8 wgmma GEMM of
-csrc/q8_wgmma.cuh, in the form `q8_plan` picks) on a CUDA tensor and its
+int8 core of csrc/q8_core.cuh; kernels 7's and 8's GEMMs on the s8 wgmma
+GEMM of csrc/q8_wgmma.cuh, in the form `q8_plan` picks) on a CUDA tensor and its
 plain PyTorch twin on a CPU tensor. Both compute the TPU kernels' contract:
 each row of the activations quantized to int8 with xs = max(amax, 1e-8) *
 f32(1/127) and q = clip(round_half_even(v / xs), -127, 127); the s8 x s8
@@ -14,9 +14,9 @@ integer product as a float64 matmul of the int8 values, exact below 2^53.
 
 The weights are tts_tpu's int8 QTensor parts: q (K, N) int8, scale (N,)
 fp32, per output channel. The s8 wgmma GEMM reads its weight K-major: on a
-card, kernel 7's q is the (K, N) view of (N, K) storage (`to_kmajor`, which
-runtime/f5.quantize_dit applies once), and the wrapper refuses any other
-layout rather than transpose the weight for a call. Kernels 7 and 8 take bf16 or fp32 activations
+card, kernels 7's and 8's q is the (K, N) view of (N, K) storage
+(`to_kmajor`, which runtime/f5.quantize_dit applies once), and the wrappers
+refuse any other layout rather than transpose the weight for a call. Kernels 7 and 8 take bf16 or fp32 activations
 (`activation_dtype`) and write their dtype, as tts_tpu's kernels do;
 kernel 9 takes bf16.
 """
@@ -104,7 +104,7 @@ def q8_plan(rows: int, n: int, k: int, sms: int, whole_rows: bool = False) -> Q8
     """The form of the s8 wgmma GEMM with `rows` x `n` outputs over depth
     `k` on a card of `sms` SMs, for a weight `q8_fits` admits and operands
     of fewer than 2^32 values (ValueError otherwise). A GEMM with a bias or
-    residual epilogue (kernel 7, kernel 6's ff2) whose grid fits one CTA an
+    residual epilogue (kernels 7 and 8, kernel 6's ff2) whose grid fits one CTA an
     SM takes a 4-stage ring, one CTA an SM; a larger grid 3 stages, two
     CTAs an SM, so that one CTA's epilogue and copies overlap the other's
     products (on an H100 each form is the faster on its side: PERF.md §6).
@@ -165,7 +165,7 @@ def _stream(x: torch.Tensor) -> int:
 
 def to_kmajor(w_q: torch.Tensor) -> torch.Tensor:
     """The same (K, N) int8 weight, stored K-major: the (K, N) view of an
-    (N, K) contiguous copy, the layout kernels 7 and 6 read on a card."""
+    (N, K) contiguous copy, the layout kernels 6, 7 and 8 read on a card."""
     return w_q.t().contiguous().t()
 
 
@@ -243,9 +243,9 @@ def ln_qkv_q8(x: torch.Tensor, mods: torch.Tensor, w_q: torch.Tensor,
 def out_proj_residual_q8(o: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                          b: torch.Tensor, gate: torch.Tensor,
                          x_res: torch.Tensor) -> torch.Tensor:
-    """o (B, T, HD) attention output; w_q (HD, D) int8 + fp32 w_scale (D,);
-    b (D,); gate (D,); x_res (B, T, D). Returns x_res + gate * (o @ w + b)
-    in x_res's dtype."""
+    """o (B, T, HD) attention output; w_q (HD, D) int8, K-major on a card
+    (`to_kmajor`), with per-column fp32 w_scale (D,); b (D,); gate (D,);
+    x_res (B, T, D). Returns x_res + gate * (o @ w + b) in x_res's dtype."""
     bsz, t, hd = o.shape
     d = w_q.shape[1]
     if w_q.shape != (hd, d) or x_res.shape != (bsz, t, d) or w_scale.shape != (d,) \
@@ -256,15 +256,17 @@ def out_proj_residual_q8(o: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tens
     if _device_of(o) == "cpu":
         return out_proj_residual_q8_plain(o, w_q, w_scale, b, gate, x_res)
     dt = activation_dtype(o=o, x_res=x_res)
-    ws, bias, g = _fp32(w_scale), _fp32(b), _fp32(gate)
-    check_cuda_args(o, hd, d, o=(o, dt), w_q=(w_q, torch.int8),
+    ws, bias, g, wt = _fp32(w_scale), _fp32(b), _fp32(gate), kmajor(w_q)
+    check_cuda_args(o, hd, d, o=(o, dt), w_qt=(wt, torch.int8),
                     w_scale=(ws, torch.float32), b=(bias, torch.float32),
                     gate=(g, torch.float32), x_res=(x_res, dt))
-    xq, xs = row_scratch(o, bsz * t, hd)
+    m = bsz * t
+    plan = q8_plan(m, d, hd, _build.sm_count(o.device))
+    xq, xs = row_scratch(o, m, hd)
     out = torch.empty_like(x_res)
-    _build.launch("out_proj_residual_q8", [_P] * 9 + [_I] * 4 + [_P],
-                  o.data_ptr(), w_q.data_ptr(), ws.data_ptr(), bias.data_ptr(),
+    _build.launch("out_proj_residual_q8", [_P] * 9 + [_I] * 5 + [_P],
+                  o.data_ptr(), wt.data_ptr(), ws.data_ptr(), bias.data_ptr(),
                   g.data_ptr(), x_res.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-                  out.data_ptr(), bsz * t, hd, d, int(dt == torch.float32), _stream(o),
-                  device=o.device)
+                  out.data_ptr(), m, hd, d, int(dt == torch.float32), plan.stages,
+                  _stream(o), device=o.device)
     return out

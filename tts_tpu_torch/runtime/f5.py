@@ -57,9 +57,9 @@ def quantize_dit(params: dict, quantize) -> dict:
     unpacked QTensorG form, int8 for the rest). AdaLN, the convs and the
     vocoder stay float. Returns a new dict sharing the other tensors.
 
-    On a card the int8 q of wqkv, ff1 and ff2 is stored K-major (still the
-    (in, out) shape: `quant_matmul.to_kmajor`), the layout kernels 7 and 6
-    read there; wo stays row-major for kernel 8."""
+    On a card the int8 q of wqkv, wo, ff1 and ff2 is stored K-major (still
+    the (in, out) shape: `quant_matmul.to_kmajor`), the layout kernels 7, 8
+    and 6 read there."""
     if quantize not in (8, "w8a8", 4):
         raise ValueError(f"quantize must be None, 8, 'w8a8' or 4, got {quantize!r}")
     on_card = _on_card(params)
@@ -72,7 +72,7 @@ def quantize_dit(params: dict, quantize) -> dict:
 
     blocks = [{**blk,
                "attn": {**blk["attn"], "wqkv": q(blk["attn"]["wqkv"], True),
-                        "wo": q(blk["attn"]["wo"])},
+                        "wo": q(blk["attn"]["wo"], True)},
                "ff1": {**blk["ff1"], "w": q(blk["ff1"]["w"], True)},
                "ff2": {**blk["ff2"], "w": q(blk["ff2"]["w"], True)}}
               for blk in params["blocks"]]
