@@ -14,7 +14,7 @@ import torch
 
 from tts_tpu_torch.ops.dit_mlp import mlp_block_fused
 from tts_tpu_torch.ops.flash_attention import flash_attention_flat
-from tts_tpu_torch.ops.grouped_conv import ConvPlan, conv_plan, conv_pos_embed_fused
+from tts_tpu_torch.ops.grouped_conv import conv_pos_embed_fused
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -62,43 +62,6 @@ def test_conv_pos_embed_fused_matches_pallas(t, k):
     ref = pallas(*map(jnp.asarray, (x, w1, b1, w2, b2)), groups=g, interpret=True)
     out = conv_pos_embed_fused(*map(_t, (x, w1, b1, w2, b2)))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-5)
-
-
-@pytest.mark.parametrize("b,t,want", [
-    (2, 1408, ConvPlan(128, 2, 352, 352 / 264, 0)),    # the bench bucket
-    (2, 4096, ConvPlan(128, 2, 1024, 1024 / 264, 0)),
-    (1, 1088, ConvPlan(128, 2, 144, 144 / 264, 64)),   # a half-empty last tile
-    (2, 192, ConvPlan(128, 2, 64, 64 / 264, 64)),
-])
-def test_conv_plan_at_the_smoke_shapes(b, t, want):
-    assert conv_plan(b, t, 16, 132) == want
-
-
-@pytest.mark.parametrize("sms", [132, 114, 16])
-@pytest.mark.parametrize("b", [1, 2, 3])
-def test_conv_plan_covers_every_admitted_length(sms, b):
-    """Every T the route admits (multiples of 64) takes 128 or 256 rows a
-    CTA, at two or one CTAs an SM; the grid covers T once; the plan's
-    busiest SM computes no more rows than the other form's would."""
-    def busiest(p):
-        return -(-p.ctas // (sms * p.ctas_per_sm)) * 256
-
-    for t in range(64, 8193, 64):
-        p = conv_plan(b, t, 16, sms)
-        assert (p.rows, p.ctas_per_sm) in ((128, 2), (256, 1))
-        tiles = -(-t // p.rows)
-        assert p.ctas == tiles * 16 * b and 0 <= p.masked_rows == tiles * p.rows - t < p.rows
-        other = conv_plan.__wrapped__(b, t, 16, sms)._replace(rows=384 - p.rows)
-        other = other._replace(ctas_per_sm=3 - p.ctas_per_sm,
-                               ctas=-(-t // other.rows) * 16 * b)
-        assert busiest(p) <= busiest(other)
-
-
-@pytest.mark.parametrize("args", [(0, 64, 16, 132), (1, 0, 16, 132), (1, 64, 0, 132),
-                                  (1, 64, 16, 0)])
-def test_conv_plan_refuses_empty_shapes(args):
-    with pytest.raises(ValueError):
-        conv_plan(*args)
 
 
 @pytest.mark.parametrize("per_row", [False, True])

@@ -13,10 +13,9 @@
 // bf16, against about 31 MB moved (activations, the scratch, 8.1 MB of
 // weights: 9 us at 3.35 TB/s).
 //
-// Design: an implicit-im2col GEMM on wgmma, one CTA a (row tile, group,
-// batch row); the row tile is 128 MT rows, MT = 1 or 2 (ops/grouped_conv
-// .conv_plan picks it). Two warpgroups each own MT m64 tiles of the rows and
-// issue wgmma m64n64k16 f32.bf16.bf16: N 64 is exactly one group's output
+// Design: an implicit-im2col GEMM on wgmma, one CTA a (128-row tile, group,
+// batch row), two CTAs an SM. Its two warpgroups each own 64 rows and issue
+// wgmma m64n64k16 f32.bf16.bf16: N 64 is exactly one group's output
 // channels, and the fp32 accumulators stay in registers for all K taps.
 //   A (the im2col rows): the tile's rows + K - 1 input rows (zero outside
 //     [0, T), never across a batch row) are staged once in shared memory,
@@ -36,9 +35,11 @@
 //     128-byte rows in the sw128 layout (as kernel 3 reads its weights).
 //     The K slices stream through a ring of STAGES = 4 slots filled by
 //     cp.async; the copies of tap k + 2 are queued right after tap k's one
-//     barrier, while tap k - 1's products run. A CTA reads its group's 254 KB of weights
-//     (K 31) from L2 once a conv: 256-row tiles halve that traffic against
-//     128-row ones, at one CTA an SM instead of two.
+//     barrier, while tap k - 1's products run. A CTA reads its group's 254
+//     KB of weights (K 31) from L2 once a conv. 256-row CTAs (each
+//     warpgroup two m64 tiles, one CTA an SM) would halve that traffic; on
+//     an H100 they ran 18-44% slower than 128-row ones at T 1088, 1408 and
+//     4096 (PERF.md §6), so the tile is 128 rows.
 //   Epilogue from the accumulator registers: rnd(rnd(acc) + bias), mish,
 //   round, and for conv2 + x in bf16, bf16x2 stores; rows past T (a ragged
 //   last tile) store nothing.
@@ -53,15 +54,12 @@ namespace {
 
 constexpr int CPG = 64;                       // channels per group, in and out
 constexpr int MAXK = 33;                      // widest kernel the halo buffer takes
-constexpr int NT = 256;                       // two warpgroups
+constexpr int R = 128;                        // output rows a CTA: 2 warpgroups of 64
+constexpr int NT = 256;
 constexpr int STAGES = 4;                     // weight ring slots (taps)
 constexpr uint32_t TAP_BYTES = CPG * CPG * 2; // one tap's weight slice, 8 KB
-
-template <int MT>
-constexpr size_t conv_smem() {
-  // align slack, the weight ring, the halo of 128 MT + MAXK - 1 rows
-  return 1024 + STAGES * TAP_BYTES + (size_t)(128 * MT + MAXK - 1) * 128;
-}
+// dynamic shared memory: align slack, the weight ring, the halo of R + MAXK - 1 rows
+constexpr size_t SMEM = 1024 + STAGES * TAP_BYTES + (size_t)(R + MAXK - 1) * 128;
 
 // byte offset of 16-byte chunk ch of halo row r: 128-byte rows, chunks
 // XOR-swizzled by r % 8
@@ -96,11 +94,10 @@ struct Tile {
 };
 
 // Tap k: wait for its weight slot, queue tap k + STAGES - 2's copies, wait
-// for tap k - 1's products, load the warp's A fragments of every m64 tile
-// (rows shifted by k) and issue tap k's products, which are in flight on
-// return. The first product overwrites the accumulators (scale-d 0).
-template <int MT>
-__device__ __forceinline__ void conv_tap(float (&acc)[MT][32], const Tile& t, int k) {
+// for tap k - 1's products, load the warp's A fragments (its 16 rows
+// shifted by k) and issue tap k's products, which are in flight on return.
+// The first product overwrites the accumulators (scale-d 0).
+__device__ __forceinline__ void conv_tap(float (&acc)[32], const Tile& t, int k) {
   cp_wait<STAGES - 3>();  // this thread's copies of tap k (and the halo) have landed
   fence_async_smem();     // ... visible to the tensor cores' reads
   __syncthreads();        // tap k in for all; every product of tap k - 2 is done
@@ -108,37 +105,28 @@ __device__ __forceinline__ void conv_tap(float (&acc)[MT][32], const Tile& t, in
   if (nk < t.K) load_tap(t.ring + (nk % STAGES) * TAP_BYTES, t.wg, t.C, nk);
   cp_commit();  // (empty past the last tap: the group count stays uniform)
   wg_wait0();   // tap k - 1's products are done: A and the accumulators are free
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) hold(acc[mt]);
+  hold(acc);
 
-  const int lane = threadIdx.x & 31;
-  uint32_t a[MT][4][4];
+  const int lane = threadIdx.x & 31, r = t.row0 + k + (lane & 15);
+  uint32_t a[4][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int r = t.row0 + 64 * mt + k + (lane & 15);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      ldsm_x4(a[mt][kk], t.halo + halo_at(r, 2 * kk + (lane >> 4)));
-  }
+  for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[kk], t.halo + halo_at(r, 2 * kk + (lane >> 4)));
+  // the k16 slice kk of the tap's B starts 2048 kk bytes in: 128 kk in the
+  // descriptor's address field (bytes / 16)
   const uint64_t db = gdesc(t.ring + (k % STAGES) * TAP_BYTES, 8192, 1024);
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      wgmma_rs(acc[mt], a[mt][kk], db + kk * (2048 >> 4), k > 0 || kk > 0);
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], db + 128 * kk, k > 0 || kk > 0);
   wg_commit();
 }
 
-// One CTA: output rows t0 .. t0 + 128 MT - 1 (blockIdx.x) of group
-// blockIdx.y, batch row blockIdx.z; out = mish(conv(x) + bias) (+ resid).
-// Launch with NT threads and conv_smem<MT>() of dynamic shared memory.
-template <int MT>
-__global__ void __launch_bounds__(NT, MT == 1 ? 2 : 1)
+// One CTA: output rows t0 .. t0 + R - 1 (blockIdx.x) of group blockIdx.y,
+// batch row blockIdx.z; out = mish(conv(x) + bias) (+ resid). Launch with
+// NT threads and SMEM bytes of dynamic shared memory.
+__global__ void __launch_bounds__(NT, 2)
 pos_embed_mish_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                       const bf16* __restrict__ bias, const bf16* __restrict__ resid,
                       bf16* __restrict__ out, int T, int C, int K) {
-  constexpr int R = 128 * MT;
   extern __shared__ __align__(128) unsigned char smem[];
   const int wgi = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int t0 = blockIdx.x * R, g = blockIdx.y, b = blockIdx.z;
@@ -147,7 +135,7 @@ pos_embed_mish_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   tile.halo = tile.ring + STAGES * TAP_BYTES;
   tile.wg = w + g * CPG;
   tile.C = C, tile.K = K;
-  tile.row0 = wgi * 64 * MT + warp * 16;
+  tile.row0 = wgi * 64 + warp * 16;
 
   // group 0: the halo rows t0 - pad .. t0 + R + K - 2 - pad, zero outside [0, T)
   const int pad = (K - 1) / 2;
@@ -163,76 +151,62 @@ pos_embed_mish_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     cp_commit();
   }
 
-  float acc[MT][32];
-  for (int k = 0; k < K; ++k) conv_tap<MT>(acc, tile, k);
+  float acc[32];
+  for (int k = 0; k < K; ++k) conv_tap(acc, tile, k);
   wg_wait0();
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) hold(acc[mt]);
+  hold(acc);
 
-  // acc[mt][4 j + 2 r + e]: row tile.row0 + 64 mt + lane / 4 + 8 r, column
-  // 8 j + 2 (lane % 4) + e of the group
+  // acc[4 j + 2 r + e]: row tile.row0 + lane / 4 + 8 r, column 8 j + 2
+  // (lane % 4) + e of the group
   const int cb = g * CPG + 2 * (lane & 3);
   float2 bv[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
     bv[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + cb + 8 * j));
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int r = 0; r < 2; ++r) {
+    const int tt = t0 + tile.row0 + (lane >> 2) + 8 * r;
+    if (tt >= T) continue;
+    const size_t o = ((size_t)b * T + tt) * C + cb;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int tt = t0 + tile.row0 + 64 * mt + (lane >> 2) + 8 * r;
-      if (tt >= T) continue;
-      const size_t o = ((size_t)b * T + tt) * C + cb;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float h0 = mish(rnd(rnd(acc[mt][4 * j + 2 * r]) + bv[j].x));
-        float h1 = mish(rnd(rnd(acc[mt][4 * j + 2 * r + 1]) + bv[j].y));
-        if (resid) {
-          const float2 xr =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(resid + o + 8 * j));
-          h0 = rnd(h0) + xr.x;
-          h1 = rnd(h1) + xr.y;
-        }
-        *reinterpret_cast<uint32_t*>(out + o + 8 * j) = pack_bf16(h0, h1);
+    for (int j = 0; j < 8; ++j) {
+      float h0 = mish(rnd(rnd(acc[4 * j + 2 * r]) + bv[j].x));
+      float h1 = mish(rnd(rnd(acc[4 * j + 2 * r + 1]) + bv[j].y));
+      if (resid) {
+        const float2 xr =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(resid + o + 8 * j));
+        h0 = rnd(h0) + xr.x;
+        h1 = rnd(h1) + xr.y;
       }
+      *reinterpret_cast<uint32_t*>(out + o + 8 * j) = pack_bf16(h0, h1);
     }
-}
-
-// both convs: conv1 + mish into scratch, conv2 + mish + x into out
-template <int MT>
-int launch_pair(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2,
-                bf16* scratch, bf16* out, int B, int T, int C, int K, cudaStream_t s) {
-  static int smem_set[MAX_DEVICES];
-  constexpr size_t smem = conv_smem<MT>();
-  const auto kernel = pos_embed_mish_kernel<MT>;
-  cudaError_t err =
-      raise_attr(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + 128 * MT - 1) / (128 * MT), C / CPG, B);
-  kernel<<<grid, NT, smem, s>>>(x, w1, b1, nullptr, scratch, T, C, K);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  kernel<<<grid, NT, smem, s>>>(scratch, w2, b2, x, out, T, C, K);
-  return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace
 }  // namespace tts
 
 // x, scratch, out (B, T, C) bf16; w1, w2 (K, 64, C) bf16; b1, b2 (C,) bf16.
-// C = 64 * groups, T >= 1, K odd and at most 33; rows, the row tile a CTA,
-// 128 or 256 (ops/grouped_conv.conv_plan).
+// C = 64 * groups, T >= 1, K odd and at most 33. Two launches: conv1 + mish
+// into scratch, conv2 + mish + x into out.
 extern "C" int conv_pos_embed_fused(const void* x, const void* w1, const void* b1,
                                     const void* w2, const void* b2, void* scratch, void* out,
-                                    int B, int T, int C, int K, int rows, void* stream) {
-  using tts::bf16;
-  if (B < 1 || T < 1 || C < tts::CPG || C % tts::CPG || K < 1 || K % 2 == 0 || K > tts::MAXK)
+                                    int B, int T, int C, int K, void* stream) {
+  using namespace tts;
+  static int smem_set[MAX_DEVICES];
+  if (B < 1 || T < 1 || C < CPG || C % CPG || K < 1 || K % 2 == 0 || K > MAXK)
     return (int)cudaErrorInvalidValue;
-  const bf16 *xp = (const bf16*)x, *w1p = (const bf16*)w1, *b1p = (const bf16*)b1;
-  const bf16 *w2p = (const bf16*)w2, *b2p = (const bf16*)b2;
+  cudaError_t err =
+      raise_attr(pos_embed_mish_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM,
+                 smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + R - 1) / R, C / CPG, B);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (rows == 128)
-    return tts::launch_pair<1>(xp, w1p, b1p, w2p, b2p, (bf16*)scratch, (bf16*)out, B, T, C, K, s);
-  if (rows == 256)
-    return tts::launch_pair<2>(xp, w1p, b1p, w2p, b2p, (bf16*)scratch, (bf16*)out, B, T, C, K, s);
-  return (int)cudaErrorInvalidValue;
+  pos_embed_mish_kernel<<<grid, NT, SMEM, s>>>((const bf16*)x, (const bf16*)w1,
+                                               (const bf16*)b1, nullptr, (bf16*)scratch, T, C, K);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  pos_embed_mish_kernel<<<grid, NT, SMEM, s>>>((const bf16*)scratch, (const bf16*)w2,
+                                               (const bf16*)b2, (const bf16*)x, (bf16*)out, T,
+                                               C, K);
+  return (int)cudaGetLastError();
 }

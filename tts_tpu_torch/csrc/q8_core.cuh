@@ -12,20 +12,19 @@
 //
 // The GEMMs run on the rows it writes: the s8 wgmma GEMM of q8_wgmma.cuh
 // (kernels 6, 7 and 8) and the WMMA q8_gemm of quant_matmul.cu (kernel 9).
-// Why a row pass before the GEMM: the row's amax needs the whole row before any of it can
-// be quantized, and the TPU kernel had it because a grid step held whole
-// rows in VMEM. A GEMM block holds 64 rows by 128 columns, so quantizing in
-// its prologue would repeat the work for every column tile (24 times for
-// the qkv projection); measured on the card, that prologue cost more than
-// the GEMM. Quantizing once is 1 B a value written and read back, against
-// the 2 B (bf16) or 4 B (fp32) the GEMM would otherwise read.
+// Why a row pass before the GEMM: the row's amax needs the whole row before
+// any of it can be quantized, and the TPU kernel had it because a grid step
+// held whole rows in VMEM. A GEMM block holds 64 rows by 128 columns, so
+// quantizing in its prologue would repeat the work for every column tile (24
+// times for the qkv projection); measured on the card, that prologue cost
+// more than the GEMM. Quantizing once is 1 B a value written and read back,
+// against the 2 B (bf16) or 4 B (fp32) the GEMM would otherwise read.
 //
 // Rounding follows the TPU kernels exactly where the inputs are equal: the
 // division is IEEE (__fdiv_rn), rint rounds half to even, and every
 // multiply and add of the rescale and of the LayerNorm prologue is an
 // explicit _rn intrinsic, so nvcc cannot contract a pair into an FMA (which
 // rounds once where the TPU rounds twice).
-//
 #pragma once
 
 #include "common.cuh"
@@ -33,7 +32,7 @@
 namespace tts {
 namespace q8 {
 
-constexpr int NT = 128;                    // the row pass: 4 warps
+constexpr int NT = 128;                    // 4 warps: q8_rows, and q8_gemm in quant_matmul.cu
 constexpr float INV_127 = 0x1.020408p-7f;  // float32(1 / 127)
 
 // what q8_rows quantizes, of rows of type T (bf16 or float)
@@ -42,6 +41,7 @@ enum Rows {
   ROWS_LN,    // LayerNorm (fp32, eps 1e-6, no affine) * (1 + scale) + shift,
               // in fp32 (kernels 6 ff1, 7)
 };
+
 struct RowArgs {
   const void* a;      // (M, K) of the row type
   const float* mods;  // ROWS_LN: [shift (K), scale (K), ...] fp32 for batch

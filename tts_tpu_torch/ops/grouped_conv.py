@@ -2,32 +2,28 @@
 (counterpart of tts_tpu/ops/grouped_conv.py:conv_pos_embed_fused).
 
 `conv_pos_embed_fused` runs the hand-written CUDA kernel
-(csrc/grouped_conv.cu: an implicit-im2col GEMM on wgmma, in the row tile
-`conv_plan` picks) on a CUDA tensor and its plain PyTorch twin
-`conv_pos_embed_plain` on a CPU tensor. Both compute
-mish(conv2(mish(conv1(x)))) + x with two "same"-padded grouped conv1d in
-WIO layout, with the TPU kernel's rounding points: each dot accumulates in
-fp32 and is rounded to the input dtype, then the bias is added; mish runs
-in fp32 and is rounded once.
+(csrc/grouped_conv.cu: an implicit-im2col GEMM on wgmma) on a CUDA tensor
+and its plain PyTorch twin `conv_pos_embed_plain` on a CPU tensor. Both
+compute mish(conv2(mish(conv1(x)))) + x with two "same"-padded grouped
+conv1d in WIO layout, with the TPU kernel's rounding points: each dot
+accumulates in fp32 and is rounded to the input dtype, then the bias is
+added; mish runs in fp32 and is rounded once.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["ConvPlan", "conv_plan", "conv_pos_embed_fused", "conv_pos_embed_plain",
-           "kernel_fits"]
+__all__ = ["conv_pos_embed_fused", "conv_pos_embed_plain", "kernel_fits"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _CPG = 64        # channels per group the kernel is built for
-_TILE = 64       # the T granularity the route admits (tts_tpu's kernel's)
+_T_STEP = 64     # the route admits T in multiples of this
 _MAX_TAPS = 33   # widest kernel its halo buffer takes
 
 
@@ -35,37 +31,7 @@ def kernel_fits(dtype, cin_pg: int, k: int, t: int) -> bool:
     """Whether the CUDA kernel takes this conv: bf16, 64 channels a group,
     an odd width of at most 33 taps, T a multiple of 64."""
     return (dtype == torch.bfloat16 and cin_pg == _CPG and k % 2 == 1 and k <= _MAX_TAPS
-            and t % _TILE == 0)
-
-
-class ConvPlan(NamedTuple):
-    """The form of the kernel's launches: CTAs of `rows` output rows of one
-    group and batch row."""
-    rows: int          # 128 (two CTAs an SM) or 256 (one)
-    ctas_per_sm: int
-    ctas: int          # a conv's grid: row tiles x groups x batch rows
-    waves: float       # CTAs over the card's CTA slots (sms * ctas_per_sm)
-    masked_rows: int   # rows of each batch row's last tile past T
-
-
-@functools.lru_cache(maxsize=None)     # a request repeats one shape
-def conv_plan(b: int, t: int, groups: int, sms: int) -> ConvPlan:
-    """The row tile of csrc/grouped_conv.cu's CTAs for B batch rows of T
-    frames and `groups` groups on a card of `sms` SMs. An SM runs two
-    128-row CTAs or one 256-row CTA, the same rows at a time, so the
-    estimate is the rows the busiest SM computes, ceil(ctas / slots) times
-    256; a tie goes to the form with fewer masked rows, then to 128 rows."""
-    if b < 1 or t < 1 or groups < 1 or sms < 1:
-        raise ValueError(f"no conv form for B {b}, T {t}, {groups} groups, {sms} SMs")
-
-    def form(rows, per_sm):
-        tiles = -(-t // rows)
-        ctas = tiles * groups * b
-        return ConvPlan(rows, per_sm, ctas, ctas / (sms * per_sm), tiles * rows - t)
-
-    forms = (form(128, 2), form(256, 1))
-    return min(forms, key=lambda p: (-(-p.ctas // (sms * p.ctas_per_sm)), p.masked_rows,
-                                     p.rows))
+            and t % _T_STEP == 0)
 
 
 def _grouped_conv_mm(x: torch.Tensor, w: torch.Tensor,
@@ -117,7 +83,7 @@ def conv_pos_embed_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"no kernel for device {x.device}")
     if not kernel_fits(x.dtype, cin, k, t):
         raise ValueError(f"the CUDA kernel takes bf16 x with {_CPG} channels a group, "
-                         f"an odd width <= {_MAX_TAPS} and T a multiple of {_TILE}; got "
+                         f"an odd width <= {_MAX_TAPS} and T a multiple of {_T_STEP}; got "
                          f"{x.dtype}, {cin} channels a group, width {k}, T {t}")
     for name, a in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
         if a.dtype != torch.bfloat16 or a.device != x.device:
@@ -125,12 +91,10 @@ def conv_pos_embed_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                             f" {name} is {a.dtype} on {a.device}")
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    plan = conv_plan(bsz, t, c // cin, _build.sm_count(x.device))
     scratch = torch.empty_like(x)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.launch("conv_pos_embed_fused", _ARGTYPES, x.data_ptr(),
                   w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                  scratch.data_ptr(), out.data_ptr(), bsz, t, c, k, plan.rows, stream,
-                  device=x.device)
+                  scratch.data_ptr(), out.data_ptr(), bsz, t, c, k, stream, device=x.device)
     return out

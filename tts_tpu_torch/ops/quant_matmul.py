@@ -4,8 +4,8 @@ projections, `ln_qkv_q8` (kernel 7) and `out_proj_residual_q8` (kernel 8).
 
 Each wrapper runs the hand-written CUDA kernel (csrc/quant_matmul.cu, on the
 int8 core of csrc/q8_core.cuh; kernels 7's and 8's GEMMs on the s8 wgmma
-GEMM of csrc/q8_wgmma.cuh, in the form `q8_plan` picks) on a CUDA tensor and its
-plain PyTorch twin on a CPU tensor. Both compute the TPU kernels' contract:
+GEMM of csrc/q8_wgmma.cuh, in the form `q8_plan` picks) on a CUDA tensor
+and its plain PyTorch twin on a CPU tensor. Both compute the TPU kernels' contract:
 each row of the activations quantized to int8 with xs = max(amax, 1e-8) *
 f32(1/127) and q = clip(round_half_even(v / xs), -127, 127); the s8 x s8
 product summed exactly in integers and converted to fp32; the rescale
@@ -16,9 +16,9 @@ The weights are tts_tpu's int8 QTensor parts: q (K, N) int8, scale (N,)
 fp32, per output channel. The s8 wgmma GEMM reads its weight K-major: on a
 card, kernels 7's and 8's q is the (K, N) view of (N, K) storage
 (`to_kmajor`, which runtime/f5.quantize_dit applies once), and the wrappers
-refuse any other layout rather than transpose the weight for a call. Kernels 7 and 8 take bf16 or fp32 activations
-(`activation_dtype`) and write their dtype, as tts_tpu's kernels do;
-kernel 9 takes bf16.
+refuse any other layout rather than transpose the weight for a call.
+Kernels 7 and 8 take bf16 or fp32 activations (`activation_dtype`) and
+write their dtype, as tts_tpu's kernels do; kernel 9 takes bf16.
 """
 from __future__ import annotations
 
@@ -104,9 +104,9 @@ def q8_plan(rows: int, n: int, k: int, sms: int, whole_rows: bool = False) -> Q8
     """The form of the s8 wgmma GEMM with `rows` x `n` outputs over depth
     `k` on a card of `sms` SMs, for a weight `q8_fits` admits and operands
     of fewer than 2^32 values (ValueError otherwise). A GEMM with a bias or
-    residual epilogue (kernels 7 and 8, kernel 6's ff2) whose grid fits one CTA an
-    SM takes a 4-stage ring, one CTA an SM; a larger grid 3 stages, two
-    CTAs an SM, so that one CTA's epilogue and copies overlap the other's
+    residual epilogue (kernels 7 and 8, kernel 6's ff2) whose grid fits one
+    CTA an SM takes a 4-stage ring, one CTA an SM; a larger grid 3 stages,
+    two CTAs an SM, so that one CTA's epilogue and copies overlap the other's
     products (on an H100 each form is the faster on its side: PERF.md §6).
     With `whole_rows` (kernel 6's ff1, whose epilogue quantizes each output
     row whole) one thread-block cluster spans the n columns: n / 128 <= 16

@@ -64,17 +64,17 @@ def quantize_dit(params: dict, quantize) -> dict:
         raise ValueError(f"quantize must be None, 8, 'w8a8' or 4, got {quantize!r}")
     on_card = _on_card(params)
 
-    def q(w, k_major: bool = False):
+    def q(w):
         if quantize == 4 and w.dim() == 2 and w.shape[0] % 32 == 0:
             return quantize_int4(w).unpack_runtime()
         qt = quantize_int8_eager(w)
-        return QTensor(to_kmajor(qt.q), qt.scale) if k_major and on_card else qt
+        return QTensor(to_kmajor(qt.q), qt.scale) if on_card else qt
 
     blocks = [{**blk,
-               "attn": {**blk["attn"], "wqkv": q(blk["attn"]["wqkv"], True),
-                        "wo": q(blk["attn"]["wo"], True)},
-               "ff1": {**blk["ff1"], "w": q(blk["ff1"]["w"], True)},
-               "ff2": {**blk["ff2"], "w": q(blk["ff2"]["w"], True)}}
+               "attn": {**blk["attn"], "wqkv": q(blk["attn"]["wqkv"]),
+                        "wo": q(blk["attn"]["wo"])},
+               "ff1": {**blk["ff1"], "w": q(blk["ff1"]["w"])},
+               "ff2": {**blk["ff2"], "w": q(blk["ff2"]["w"])}}
               for blk in params["blocks"]]
     return {**params, "blocks": blocks}
 
