@@ -31,7 +31,18 @@ the parts `--parts` names (all by default), `--rounds` times A, B, B, A:
     kernel 13's share of it) and two timed;
   * f5_fp32: the fp32 F5TTS_v1_Base bench request (float and
     quantize="w8a8") under the profiler (device time, kernels 4-5's share)
-    and three timed.
+    and three timed;
+  * decode: digests of kernel 15's outputs (B 1, 3, 8) and of kernel 14's
+    (bf16 and int8 weights) at the Qwen3-TTS talker shape on seeded inputs,
+    which the last line compares, and their device times at B 1; kernels
+    11 and 12 at the Qwen talker (head_dim 128, pos 126) and Kani
+    (head_dim 64, pos 700) shapes: rel L2
+    of each output against its fp32 twin and device time a call; one
+    Qwen3-TTS bench request on the default route (bf16, kernel 12) and on
+    "mlp_q8" (int8, kernels 11 and 15) under the profiler (device time a
+    frame, the kernels' share) and two timed (frames/s); the greedy Kani
+    bench request (device time a token, tokens/s of two); BigVGAN's bench
+    mel (samples/s of 10 calls).
 Random weights from chip_smoke.py's seeds. Both trees' kernels build
 first, at once. Each turn prints JSON lines; compare the trees only within
 one run of this script.
@@ -298,7 +309,7 @@ def _flash_digest(tag: str) -> None:
         name: _digest(o) for name, o in outs.items()}}), flush=True)
 
 
-PARTS = ("host", "f5_bf16", "digests", "qwen", "f5_fp32")
+PARTS = ("host", "f5_bf16", "digests", "qwen", "f5_fp32", "decode")
 
 
 def turn(tag: str, parts: tuple) -> None:
@@ -322,6 +333,10 @@ def turn(tag: str, parts: tuple) -> None:
         _qwen(tag, card)
     if "f5_fp32" in parts:
         _f5_fp32(tag, card)
+    if "decode" in parts:
+        _decode_digest(tag)
+        _decode_kernels(tag, card)
+        _decode_paths(tag, card)
 
 
 def _qwen(tag: str, card: str) -> None:
@@ -369,6 +384,155 @@ def _f5_fp32(tag: str, card: str) -> None:
               flush=True)
 
 
+def _decode_digest(tag: str) -> None:
+    """sha256 of kernel 15's outputs (B 1, 3, 8) and kernel 14's (bf16 and
+    int8 weights) at the Qwen talker shape (A 2048, H 1024, F 3072), and
+    each one's device time a call at B 1 (chip_smoke.device_ms)."""
+    import torch
+
+    import chip_smoke as cs
+
+    from tts_tpu_torch.ops.decode_mlp import fused_out_mlp, fused_out_mlp_q8
+    from tts_tpu_torch.quant.weight_only import quantize_int8_jit
+
+    gen = torch.Generator("cuda").manual_seed(4331)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    ws = [rn(2048, 1024, scale=0.02), rn(1024, 6144, scale=0.02), rn(3072, 1024, scale=0.02)]
+    wq = [quantize_int8_jit(w) for w in ws]
+    outs, ms = {}, {}
+    for b in (1, 3, 8):
+        x, att = rn(b, 1024), rn(b, 2048)
+        calls = {f"kernel15_b{b}": lambda: fused_out_mlp_q8(x, att, *wq),
+                 f"kernel14_bf16_b{b}": lambda: fused_out_mlp(x, att, *ws),
+                 f"kernel14_int8_b{b}": lambda: fused_out_mlp(x, att, *wq)}
+        for name, fn in calls.items():
+            outs[name] = fn()
+            if b == 1:
+                ms[name] = cs.device_ms(fn)
+    torch.cuda.synchronize()
+    print(json.dumps({"tree": tag, "decode_digest": {k: _digest(v) for k, v in outs.items()},
+                      "device_ms_b1": ms}), flush=True)
+
+
+def _decode_kernels(tag: str, card: str) -> None:
+    """Kernels 11 and 12 at the Qwen talker and Kani decode shapes: each
+    output's rel L2 against the fp32 twin on the same bf16 inputs, and the
+    device time a call (chip_smoke.device_ms: a profiler trace of 10)."""
+    import torch
+
+    import chip_smoke as cs
+    from tts_tpu_torch.nn.rope import rope_table
+    from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope, fused_qkv_rope_plain
+    from tts_tpu_torch.ops.decode_step import fused_qkv_attn, fused_qkv_attn_plain
+
+    gen = torch.Generator("cuda").manual_seed(4332)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def f32(a):
+        return a.float() if isinstance(a, torch.Tensor) else a
+
+    for shape, hd, eps, layers, t, pos in (("qwen talker", 128, 1e-6, 28, 640, 126),
+                                           ("kani", 64, 1e-5, 6, 2048, 700)):
+        heads, kvh = 16, 8
+        w = rn(1024, (heads + 2 * kvh) * hd, scale=0.02)
+        nw = torch.full((hd,), hd ** -0.25, device="cuda").to(torch.bfloat16)
+        cos, sin = (torch.as_tensor(a[pos:pos + 1], device="cuda").to(torch.bfloat16)
+                    for a in rope_table(2048, hd, 1e6))
+        kc = rn(layers, 1, kvh, t, hd, scale=hd ** -0.25)
+        vc = rn(layers, 1, kvh, t, hd)
+        x = rn(1, 1024)
+        kw = dict(heads=heads, kv_heads=kvh, head_dim=hd, q_norm=nw, k_norm=nw, eps=eps)
+        kw32 = {k: f32(v) for k, v in kw.items()}
+        calls = {
+            "kernel11": (lambda: fused_qkv_rope(x, w, cos, sin, **kw),
+                         lambda: fused_qkv_rope_plain(x.float(), w.float(), cos.float(),
+                                                      sin.float(), **kw32)),
+            "kernel12": (lambda: fused_qkv_attn(x, w, cos, sin, kc, vc, layers - 1, pos, **kw),
+                         lambda: fused_qkv_attn_plain(x.float(), w.float(), cos.float(),
+                                                      sin.float(), kc.float(), vc.float(),
+                                                      layers - 1, pos, **kw32))}
+        for name, (kernel, ref) in calls.items():
+            got, want = kernel(), ref()
+            rel = {part: cs.rel_l2(g.float(), r) for part, g, r in zip(("out", "k", "v"),
+                                                                          got, want)}
+            print(json.dumps({"tree": tag, "card": card, "decode_kernel": name,
+                              "shape": shape, "pos": pos if name == "kernel12" else None,
+                              "rel_l2_vs_fp32": rel, "device_ms": cs.device_ms(kernel)}),
+                  flush=True)
+
+
+def _decode_paths(tag: str, card: str) -> None:
+    """Qwen3-TTS bench requests on the default route (bf16) and "mlp_q8"
+    (int8): device time a frame and the share of kernel 12 (default) or 15
+    ("mlp_q8") under the profiler, frames/s of two; the greedy Kani bench
+    request: device time a token, tokens/s of two; BigVGAN's bench mel:
+    samples/s of 10 calls."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tts_tpu_torch.models.bigvgan import BigVGANConfig
+    from tts_tpu_torch.models.kani import KaniConfig
+    from tts_tpu_torch.models.kani import init_params as kani_init
+    from tts_tpu_torch.models.nanocodec import NanoCodecConfig
+    from tts_tpu_torch.models.nanocodec import init_params as codec_init
+    from tts_tpu_torch.runtime.kani import KaniDecodeConfig, KaniPipeline
+    from tts_tpu_torch.runtime.qwen import QwenDecodeConfig, QwenTTSPipeline
+    from tts_tpu_torch.runtime.vocoder import BigVGANVocoder
+
+    # kernel 12 in either tree (attn_kernel or step_attn_kernel) with its
+    # matvec and epilogue; kernel 15 in either (the earlier three kernels
+    # on the W8A8 route, or the q8_ ones)
+    k12 = ("attn_kernel", "qkv_matvec", "qkv_epilogue")
+    k15 = ("q8_", "oproj_kernel", "gateup_kernel", "down_kernel")
+    cfg, ccfg, params, cparams = cs.qwen_models()
+    dec = QwenDecodeConfig(max_frames=cs.QWEN_FRAMES)
+    bf = QwenTTSPipeline(params, cfg, cparams, ccfg, dec)
+    q8 = QwenTTSPipeline(params, cfg, cparams, ccfg, QwenDecodeConfig(
+        max_frames=cs.QWEN_FRAMES, fused_decode="mlp_q8"), quantize=8)
+    for route, pipe, pats in (("default bf16", bf, k12), ("mlp_q8 int8", q8, k15)):
+        def qwen():
+            return pipe.synthesize_ids(cs.QWEN_IDS, language_id=cs.QWEN_LANG)
+
+        (_, st), rows = _profile(qwen)
+        frames = st["frames"]
+        part = sum(ms for k, ms in rows if any(p in k for p in pats))
+        print(json.dumps({"tree": tag, "card": card, "qwen_route": route, "frames": frames,
+                          "frames_per_s": [frames / w for w in _walls(qwen, 2)],
+                          "device_ms_a_frame": sum(ms for _, ms in rows) / frames,
+                          "kernel_ms_a_frame": part / frames,
+                          "kernel": "12" if pats is k12 else "15"}), flush=True)
+    del bf, q8, params, cparams
+
+    kcfg, nccfg = KaniConfig(max_seq_len=2048, stop_token=-1), NanoCodecConfig()
+    kani = KaniPipeline(kani_init(kcfg, torch.Generator("cuda").manual_seed(2), torch.bfloat16),
+                        kcfg, codec_init(nccfg, torch.Generator("cuda").manual_seed(3),
+                                         torch.bfloat16), nccfg,
+                        KaniDecodeConfig(max_new_tokens=cs.KANI_NEW, repeat_penalty=1.0))
+    ids = np.array(cs.KANI_IDS, np.int32)
+    _, rows = _profile(lambda: kani.synthesize_ids(ids))
+    print(json.dumps({"tree": tag, "card": card, "kani": "greedy bf16",
+                      "tokens_per_s": [cs.KANI_NEW / w for w in _walls(
+                          lambda: kani.synthesize_ids(ids), 2)],
+                      "device_ms_a_token": sum(ms for _, ms in rows) / cs.KANI_NEW,
+                      "kernel12_ms_a_token": sum(ms for k, ms in rows
+                                                 if any(p in k for p in k12)) / cs.KANI_NEW}),
+          flush=True)
+    del kani
+
+    vcfg = BigVGANConfig()
+    voc = BigVGANVocoder(cs.bigvgan_weights(vcfg, 9), vcfg, dtype=torch.bfloat16)
+    bench = voc.benchmark(mel_frames=512, iters=10)
+    print(json.dumps({"tree": tag, "card": card, "bigvgan": "bf16",
+                      "samples_per_s": bench["samples_per_sec"], "rtf": bench["rtf"]}),
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--a", help="root of tree A")
@@ -401,7 +565,7 @@ def main() -> None:
         print(out, end="", flush=True)
         for line in out.splitlines():
             rec = json.loads(line) if line.startswith("{") else {}
-            for key in ("flash_digest", "q8_digest"):
+            for key in ("flash_digest", "q8_digest", "decode_digest"):
                 if key in rec:
                     digests.setdefault(key, {}).setdefault(tag, []).append(rec[key])
             if rec.get("f5_bf16") == "w8a8":
@@ -413,10 +577,12 @@ def main() -> None:
         return all(d == runs["A"][0] for tree in runs.values() for d in tree)
 
     flash, q8 = same("flash_digest"), same("q8_digest") and same("w8a8_audio")
+    decode = same("decode_digest")
     print(json.dumps({"kernels_1_4_5_bitwise_equal_across_trees": flash,
                       "kernels_6_7_8_and_w8a8_audio_bitwise_equal_across_trees": q8,
+                      "kernels_14_15_bitwise_equal_across_trees": decode,
                       "digests": digests}), flush=True)
-    if not (flash and q8):
+    if not (flash and q8 and decode):
         raise SystemExit("chip_ab: kernel outputs differ between the trees")
 
 if __name__ == "__main__":

@@ -352,28 +352,17 @@ def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
                 fused_qkv_attn, fused_qkv_attn_plain,
                 f"fused_qkv_attn L=6 T=2048 pos={pos} {wl}", x1, wt, cos, sin, kc, vc,
                 3, pos, **kani))
-            # beside it, the bf16 twin (its rounding points in bf16), and both
-            # against fp32 as check_step holds a route: the kernel no further
-            # from fp32 than STEP_SLACK times the bf16 twin. No new draws, so
-            # every later check keeps its inputs
-            ref32 = fused_qkv_attn_plain(
-                x1.float(), wt if isinstance(wt, QTensor) else wt.float(), cos.float(),
-                sin.float(), kc.float(), vc.float(), 3, pos,
-                **{k: f32(v) for k, v in kani.items()})
-            for part, g, r16, r32 in zip(
-                    ("out", "k", "v"),
-                    fused_qkv_attn(x1, wt, cos, sin, kc, vc, 3, pos, **kani),
-                    fused_qkv_attn_plain(x1, wt, cos, sin, kc, vc, 3, pos, **kani), ref32):
-                label = f"fused_qkv_attn L=6 T=2048 pos={pos} {wl} {part}"
-                check(f"{label} against the bf16 twin", g, r16)
-                e_kernel, e_twin = rel_l2(g, r32), rel_l2(r16, r32)
-                ok = e_kernel <= STEP_SLACK * e_twin
-                print(f"  {label}: rel L2 against fp32: kernel {e_kernel:.6g}, bf16 twin "
-                      f"{e_twin:.6g} (limit {STEP_SLACK} x) {'ok' if ok else 'FAIL'}",
-                      flush=True)
-                if not ok:
-                    raise AssertionError(f"{label}: the kernel is less accurate than its "
-                                         f"bf16 twin")
+            check_step_slack(f"fused_qkv_attn L=6 T=2048 pos={pos} {wl}", x1, wt, cos, sin,
+                             kc, vc, 3, pos, kani)
+    # a slice of more than one round of rows (256 at head_dim 64) a CTA
+    kc4, vc4 = rn(1, 1, kvh, 4608, hd), rn(1, 1, kvh, 4608, hd)
+    for wt, wl in ((w, "bf16"), (wq, "int8")):
+        r["max_abs_err"] = max(r["max_abs_err"], both(
+            fused_qkv_attn, fused_qkv_attn_plain, f"fused_qkv_attn L=1 T=4608 pos=4500 {wl}",
+            x1, wt, cos, sin, kc4, vc4, 0, 4500, **kani))
+        check_step_slack(f"fused_qkv_attn L=1 T=4608 pos=4500 {wl}", x1, wt, cos, sin,
+                         kc4, vc4, 0, 4500, kani)
+    del kc4, vc4
     timed["fused_qkv_attn"] = (
         lambda: fused_qkv_attn(x1, w, cos, sin, kc, vc, 3, 700, **kani),
         lambda: fused_qkv_attn_plain(x1, w, cos, sin, kc, vc, 3, 700, **kani))
@@ -390,6 +379,35 @@ def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
               f"of device time a call (B=1, pos=700, bf16, profiler over 10 calls); "
               f"one call's wall {time_ms(kernel):.4f} / {time_ms(plain):.4f} ms "
               f"(median of 10)", flush=True)
+        print_split(f"{name} (Kani, pos 700)", kernel)
+
+
+def check_step_slack(label: str, x, wt, cos, sin, kc, vc, layer: int, pos: int,
+                     kw: dict) -> None:
+    """Kernel 12 beside its bf16 twin (the twin's rounding points in bf16),
+    both against the fp32 twin as check_step holds a route: each output
+    within 2^-6 of the bf16 twin, and no further from fp32 than STEP_SLACK
+    times the bf16 twin. Draws nothing, so later checks keep their inputs."""
+    from tts_tpu_torch.ops.decode_step import fused_qkv_attn, fused_qkv_attn_plain
+    from tts_tpu_torch.quant.weight_only import QTensor
+
+    def f32(a):
+        return a.float() if isinstance(a, torch.Tensor) else a
+
+    ref32 = fused_qkv_attn_plain(
+        x.float(), wt if isinstance(wt, QTensor) else wt.float(), f32(cos), f32(sin),
+        kc.float(), vc.float(), layer, pos, **{k: f32(v) for k, v in kw.items()})
+    for part, g, r16, r32 in zip(
+            ("out", "k", "v"), fused_qkv_attn(x, wt, cos, sin, kc, vc, layer, pos, **kw),
+            fused_qkv_attn_plain(x, wt, cos, sin, kc, vc, layer, pos, **kw), ref32):
+        check(f"{label} {part} against the bf16 twin", g, r16)
+        e_kernel, e_twin = rel_l2(g, r32), rel_l2(r16, r32)
+        ok = e_kernel <= STEP_SLACK * e_twin
+        print(f"  {label} {part}: rel L2 against fp32: kernel {e_kernel:.6g}, bf16 twin "
+              f"{e_twin:.6g} (limit {STEP_SLACK} x) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{label} {part}: the kernel is less accurate than its "
+                                 f"bf16 twin")
 
 
 def check_qwen_kernels(gen: torch.Generator, res: dict) -> None:
@@ -428,8 +446,8 @@ def check_qwen_kernels(gen: torch.Generator, res: dict) -> None:
                 eps=1e-6)
     x1 = rn(1, hs)
     r = res["fused_qkv_attn"]
-    for stack, layers, t, positions in (("talker", 28, 640, (6, 126, 639)),
-                                        ("predictor", 4, 32, (2, 17))):
+    for stack, layers, t, positions in (("talker", 28, 640, (6, 33, 126, 639)),
+                                        ("predictor", 4, 32, (0, 2, 17))):
         # cached keys at the scale the k norm (weight d^-0.25) gives them
         kc, vc = rn(layers, 1, kvh, t, hd, scale=hd ** -0.25), rn(layers, 1, kvh, t, hd)
         for pos in positions:
@@ -443,6 +461,8 @@ def check_qwen_kernels(gen: torch.Generator, res: dict) -> None:
                 r["max_abs_err"] = max(r["max_abs_err"], *(
                     check(f"fused_qkv_attn hd128 {stack} L={layers} T={t} pos={pos} {wl} "
                           f"{part}", g, rf) for part, g, rf in zip(("out", "k", "v"), got, ref)))
+                check_step_slack(f"fused_qkv_attn hd128 {stack} L={layers} T={t} pos={pos} "
+                                 f"{wl}", x1, wt, cos, sin, kc, vc, layers - 1, pos, qwen)
         if stack == "talker":
             cos, sin = table[0][126:127], table[1][126:127]
             timed = {"fused_qkv_attn hd128 (talker, pos 126)": (
@@ -511,6 +531,8 @@ def check_qwen_kernels(gen: torch.Generator, res: dict) -> None:
               f"{ops / 1e9:.4f} G {kind} ops), library {lib_txt} (Qwen talker shape, "
               f"B=1, device time a call, profiler over 10 calls); one call's wall "
               f"{time_ms(kernel):.4f} / {time_ms(plain):.4f} ms (median of 10)", flush=True)
+        print_split(name, kernel)
+    time_decode_forms(gen)
 
 
 def check_kernels(gen: torch.Generator) -> dict:
@@ -1412,6 +1434,43 @@ def device_split(fn, parts=Q8_SPLIT, iters: int = 10) -> dict:
     return {label: sum(ms for k, ms in rows if pat in k) for label, pat in parts}
 
 
+def kernel_split(fn, iters: int = 10) -> list:
+    """Device time a call of fn() by CUDA kernel, from a torch.profiler trace
+    of `iters` calls: [(kernel name without namespace, template arguments
+    and parameters, launches a call, ms a call)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("<")[0].split("::")[-1].split(" ")[-1] or e.key
+        n, ms = split.get(name, (0, 0.0))
+        split[name] = (n + e.count, ms + e.device_time_total / 1e3)
+    return [(name, n / iters, ms / iters) for name, (n, ms) in split.items()]
+
+
+def print_split(label: str, fn) -> None:
+    """One line: fn()'s device time a call, by CUDA kernel, beside the sum (a
+    trace that holds no kernel is taken again, up to three in all, as in
+    device_ms)."""
+    for _ in range(3):
+        split = kernel_split(fn)
+        if split:
+            break
+    parts = ", ".join(f"{name} {ms:.4f}" + (f" ({n:g}x)" if n != 1 else "")
+                      for name, n, ms in split)
+    print(f"  {label}: by launch {parts}; sum {sum(ms for _, _, ms in split):.4f} ms "
+          f"(device time a call, profiler over 10 calls)", flush=True)
+
+
 def time_q8_forms(gen: torch.Generator) -> None:
     """Kernels 7, 8 and 6 (its ff2; ff1 keeps its one cluster form) in
     each form of the bias / residual GEMM, q8_plan's choice swapped for the
@@ -1464,6 +1523,62 @@ def time_q8_forms(gen: torch.Generator) -> None:
                   f"form's", flush=True)
             if not same:
                 raise AssertionError(f"{name}: a GEMM form changed the output")
+
+
+def time_decode_forms(gen: torch.Generator) -> None:
+    """Kernels 15 and 12 in other forms than their plans', the plan swapped
+    for the call: kernel 15 at the Qwen talker shape (B 1 and 8) with its
+    clusters (c1, c2, c3) at two CTAs an SM where 16 a cluster allow (16,
+    6, 12) and at slices of 256 rows (8, 4, 6), where the plan's are 512
+    (4, 2, 6), each output bitwise equal to the planned form's (a form
+    changes no rounding); kernel 12 at the Qwen talker
+    (pos 126) and Kani (pos 700) shapes at 1, 2, 4 and 8 CTAs a kv head,
+    each within TOL of the fp32 twin. Device time a call by launch."""
+    from tts_tpu_torch.nn.rope import rope_table
+    from tts_tpu_torch.ops import decode_mlp, decode_step
+    from tts_tpu_torch.ops.decode_mlp import Q8TailPlan
+    from tts_tpu_torch.quant.weight_only import quantize_int8_jit
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    name_limit = card()
+    wq = [quantize_int8_jit(rn(*s, scale=0.02)) for s in ((2048, 1024), (1024, 6144),
+                                                          (3072, 1024))]
+    forms = {"two CTAs an SM where 16 a cluster allow": Q8TailPlan(16, 128, 6, 176, 12, 256),
+             "slices of 256 rows": Q8TailPlan(8, 256, 4, 256, 6, 512)}
+    for b in (1, 8):
+        x, att = rn(b, 1024), rn(b, 2048)
+        want = decode_mlp.fused_out_mlp_q8(x, att, *wq)
+        for label, form in forms.items():
+            with swapped(decode_mlp, {"q8_tail_plan": lambda *a, _f=form: _f}):
+                same = torch.equal(decode_mlp.fused_out_mlp_q8(x, att, *wq), want)
+                print_split(f"{name_limit}: fused_out_mlp_q8 B {b}, {label} {tuple(form)}, "
+                            f"output {'bitwise equal to' if same else 'DIFFERENT from'} the "
+                            f"planned form's", lambda: decode_mlp.fused_out_mlp_q8(x, att, *wq))
+            if not same:
+                raise AssertionError("fused_out_mlp_q8: a form changed the output")
+
+    for shape, hd, eps, t, pos in (("Qwen talker", 128, 1e-6, 640, 126),
+                                   ("Kani", 64, 1e-5, 2048, 700)):
+        w = rn(1024, 32 * hd, scale=0.02)
+        nw = torch.full((hd,), hd ** -0.25, device="cuda").to(torch.bfloat16)
+        cos, sin = (torch.as_tensor(a[pos:pos + 1], device="cuda").to(torch.bfloat16)
+                    for a in rope_table(2048, hd, 1e6))
+        kc, vc = rn(2, 1, 8, t, hd, scale=hd ** -0.25), rn(2, 1, 8, t, hd)
+        x1 = rn(1, 1024)
+        kw = dict(heads=16, kv_heads=8, head_dim=hd, q_norm=nw, k_norm=nw, eps=eps)
+        ref = decode_step.fused_qkv_attn_plain(
+            x1.float(), w.float(), cos.float(), sin.float(), kc.float(), vc.float(), 1, pos,
+            **{k: v.float() if isinstance(v, torch.Tensor) else v for k, v in kw.items()})[0]
+        for ctas in (1, 2, 4, 8):
+            rows = -(-pos // ctas)
+            with swapped(decode_step, {"step_plan": lambda p, d, _c=ctas, _r=rows: (_c, _r)}):
+                check(f"fused_qkv_attn {shape} pos {pos}, {ctas} CTA(s) a kv head",
+                      decode_step.fused_qkv_attn(x1, w, cos, sin, kc, vc, 1, pos, **kw)[0], ref)
+                print_split(f"{name_limit}: fused_qkv_attn {shape} pos {pos}, {ctas} CTA(s) a "
+                            f"kv head", lambda: decode_step.fused_qkv_attn(
+                                x1, w, cos, sin, kc, vc, 1, pos, **kw))
 
 
 def int_mm_ms(m: int, k: int, n: int) -> float:
@@ -2096,8 +2211,9 @@ def profile_kani(out_dir: str, name_limit: str) -> None:
     cparams = codec_init(ccfg, torch.Generator("cuda").manual_seed(3), torch.bfloat16)
     ids = np.array(KANI_IDS, np.int32)
     dec = KaniDecodeConfig(max_new_tokens=KANI_NEW, repeat_penalty=1.0)
-    classes = (("kernel 12 (fused_qkv_attn)", ("attn_kernel",)),
-               ("kernel 11 (fused_qkv_rope)", ("qkv_matvec", "qkv_epilogue")),
+    classes = (("kernel 12 attention (step_attn_kernel)", ("attn_kernel",)),
+               ("qkv matvec (kernels 11, 12) + kernel 11's epilogue",
+                ("qkv_matvec", "qkv_epilogue")),
                ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma", "cublas")),
                ("casts / copies", ("copy", "convert")),
                ("conv (codec)", ("conv", "cudnn", "implicit", "winograd", "fft")))
@@ -2240,7 +2356,7 @@ def check_qwen_step(cfg, params: dict, q8_params: dict) -> None:
 def run_qwen(name_limit: str) -> tuple:
     """Phase 7: QwenTTSPipeline at full Qwen3-TTS-0.6B width. Returns the
     launch counts of the "all" and "mlp_q8" runs (kernels 13-15) and the
-    bf16, int8 and bf16 "all" pipelines."""
+    bf16, int8, bf16 "all" and int8 "mlp_q8" pipelines."""
     from tts_tpu_torch.ops._build import LAUNCHES
     from tts_tpu_torch.runtime.qwen import QwenDecodeConfig, QwenTTSPipeline
 
@@ -2321,12 +2437,12 @@ def run_qwen(name_limit: str) -> tuple:
     q8 = pipes["int8"].params
     fused_all = QwenTTSPipeline(params, cfg, cparams, ccfg,
                                 dec(max_frames=128, fused_decode="all"))
+    mlp_q8 = QwenTTSPipeline(q8, cfg, cparams, ccfg, dec(fused_decode="mlp_q8"))
     for label, pipe, cap, per in (
             ('fused_decode="all" bf16, max_frames 128', fused_all,
              128, {"fused_qkv_rope": per_iter, "decode_gqa_attention": per_iter,
                    "fused_out_mlp": per_iter}),
-            ('fused_decode="mlp_q8" int8',
-             QwenTTSPipeline(q8, cfg, cparams, ccfg, dec(fused_decode="mlp_q8")),
+            ('fused_decode="mlp_q8" int8', mlp_q8,
              QWEN_FRAMES, {"fused_qkv_rope": per_iter, "fused_out_mlp_q8": per_iter})):
         st, wall, grew = checked(label, single(pipe), cap, per)
         print(f"  {name_limit}: Qwen {label}: {st['frames'] / wall:.2f} frames/s, RTF "
@@ -2334,12 +2450,14 @@ def run_qwen(name_limit: str) -> tuple:
         launches.update({k: grew[k] for k in ("decode_gqa_attention", "fused_out_mlp",
                                                "fused_out_mlp_q8") if grew[k]})
     check_qwen_step(cfg, params, {"talker": q8["talker"]})
-    return launches, {**pipes, "bf16 fused_decode=all (max_frames 128)": fused_all}
+    return launches, {**pipes, "bf16 fused_decode=all (max_frames 128)": fused_all,
+                      "int8 fused_decode=mlp_q8": mlp_q8}
 
 
 def profile_qwen(pipes: dict, out_dir: str, name_limit: str) -> None:
     """torch.profiler over one bench request of each pipeline (bf16 and int8
-    on the default route, bf16 on "all"): device time by kernel class, the
+    on the default route, bf16 on "all", int8 on "mlp_q8"): device time by
+    kernel class, the
     device's idle share (1 - kernel time / wall), launches a frame, host
     time by op; tables into out_dir."""
     import gc
@@ -2348,10 +2466,12 @@ def profile_qwen(pipes: dict, out_dir: str, name_limit: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
-    classes = (("kernel 12 attention (attn_kernel)", ("attn_kernel",)),
-               ("kernel 11 / 12 qkv head", ("qkv_matvec", "qkv_epilogue")),
+    classes = (("kernel 12 attention (step_attn_kernel)", ("attn_kernel",)),
+               ("qkv matvec (kernels 11, 12) + kernel 11's epilogue",
+                ("qkv_matvec", "qkv_epilogue")),
                ("kernel 13", ("cluster_kernel",)),
-               ("kernels 14 / 15", ("oproj_kernel", "gateup_kernel", "down_kernel")),
+               ("kernel 15 (q8_oproj / q8_gateup / q8_down)", ("q8_",)),
+               ("kernel 14", ("oproj_kernel", "gateup_kernel", "down_kernel")),
                ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma", "cublas")),
                ("casts / copies", ("copy", "convert")),
                ("conv (codec)", ("conv", "cudnn", "implicit", "winograd", "fft")))
@@ -2390,7 +2510,8 @@ def profile_qwen(pipes: dict, out_dir: str, name_limit: str) -> None:
                       key=lambda r: -r[2])
         for key, count, ms in host[:8]:
             print(f"    host {ms:9.3f} ms self {count:7d}x  {key[:80]}")
-        name = tag.split()[0] + ("_all" if "all" in tag else "")
+        name = tag.split()[0] + ("_all" if "=all" in tag else "_mlp_q8" if "mlp_q8" in tag
+                                 else "")
         with open(os.path.join(out_dir, f"qwen_profile_{name}.txt"), "w") as f:
             f.write(events.table(sort_by="device_time_total", row_limit=60))
             f.write(events.table(sort_by="self_cpu_time_total", row_limit=40))

@@ -85,6 +85,17 @@ inline int sm_count() {
   return sms[dev];
 }
 
+// A thread-block cluster's barrier in two halves: every thread of the CTA
+// arrives (relaxed: it orders nothing), and waits before its first access to
+// another CTA's shared memory, which must not come before every CTA of the
+// cluster has started. Between the two a CTA can issue its loads.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // Launch `kernel` in thread-block clusters of `cx` CTAs along x (grid.x a
 // multiple of cx); returns the launch's error.
 template <typename Arg>

@@ -26,7 +26,7 @@
 //  2. qkv_epilogue_kernel: one block per (head, row) of head_dim threads
 //     sums the slices' partials in a fixed order and runs the epilogue,
 //     which needs whole heads (the norm's statistic, the rotation's pairs).
-#include "common.cuh"
+#include "qkv_epilogue.cuh"
 
 namespace tts {
 namespace {
@@ -134,18 +134,6 @@ qkv_matvec_kernel(const bf16* __restrict__ x, const W* __restrict__ w,
 }
 
 template <int HD>
-__device__ __forceinline__ float head_sum(float v, float* scratch) {
-  constexpr int NW = HD / 32;
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) s += scratch[i];
-  return s;
-}
-
-template <int HD>
 __global__ void __launch_bounds__(HD)
 qkv_epilogue_kernel(const float* __restrict__ partial, int ksplit, int B, int N,
                     const float* __restrict__ scale, const bf16* __restrict__ bias,
@@ -156,28 +144,16 @@ qkv_epilogue_kernel(const float* __restrict__ partial, int ksplit, int B, int N,
   __shared__ float scratch[HD / 32];
   __shared__ float row[HD];
   const int head = blockIdx.x, b = blockIdx.y, i = threadIdx.x;
-  const int col = head * HD + i;
-  float acc = 0.f;
-  for (int s = 0; s < ksplit; ++s) acc += partial[((size_t)s * B + b) * N + col];
-  float val = rnd(acc);
-  if (scale) val = rnd(val * rnd(scale[col]));
-  if (bias) val = rnd(val + to_f(bias[col]));
+  const bool is_q = head < heads;
+  const bf16* nw = is_q ? qn : kn;
+  const float nw_i = nw ? to_f(nw[i]) : 0.f;
+  const float cos_i = cosr ? to_f(cosr[i]) : 0.f, sin_i = cosr ? to_f(sinr[i]) : 0.f;
+  float val = qkv_column(partial, ksplit, B, N, b, head * HD + i, scale, bias);
   if (head >= heads + kv_heads) {            // v: no norm, no rotation
     v[(size_t)b * kv_heads * HD + (head - heads - kv_heads) * HD + i] = to_bf(val);
     return;
   }
-  const bool is_q = head < heads;
-  const bf16* nw = is_q ? qn : kn;
-  if (nw) {
-    const float ms = head_sum<HD>(val * val, scratch) / (float)HD;
-    val = rnd(__fmul_rn(val * rsqrtf(ms + eps), to_f(nw[i])));
-  }
-  if (cosr) {
-    row[i] = val;
-    __syncthreads();
-    const float rot = i < HD / 2 ? -row[i + HD / 2] : row[i - HD / 2];
-    val = rnd(rnd(val * to_f(cosr[i])) + rnd(rot * to_f(sinr[i])));
-  }
+  val = norm_rope<HD>(val, false, nw, nw_i, cosr, cos_i, sin_i, eps, scratch, row);
   if (is_q)
     q[(size_t)b * heads * HD + head * HD + i] = to_bf(val);
   else
@@ -220,6 +196,24 @@ cudaError_t dispatch_matvec(int B, const bf16* x, const W* w, const bf16* lnw,
 }  // namespace
 }  // namespace tts
 
+// The qkv head's first launch: x (B, H) bf16; w (H, N) bf16, or int8 when
+// w_int8; ln_w/ln_b (H,) bf16 or null (LayerNorm when given, else the
+// weightless RMSNorm); partial (ksplit, B, N) fp32; B 1..8, ksplit *
+// kslice >= H with kslice a multiple of 8. Kernel 12 (decode_step.cu) runs
+// it ahead of its attention launch, which takes the epilogue.
+extern "C" int qkv_matvec(const void* x, const void* w, int w_int8, const void* lnw,
+                          const void* lnb, void* partial, int B, int H, int N, int ksplit,
+                          int kslice, float eps, void* stream) {
+  using tts::bf16;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(w_int8 ? tts::dispatch_matvec(B, (const bf16*)x, (const int8_t*)w,
+                                             (const bf16*)lnw, (const bf16*)lnb,
+                                             (float*)partial, H, N, ksplit, kslice, eps, s)
+                      : tts::dispatch_matvec(B, (const bf16*)x, (const bf16*)w,
+                                             (const bf16*)lnw, (const bf16*)lnb,
+                                             (float*)partial, H, N, ksplit, kslice, eps, s));
+}
+
 // x (B, H) bf16; w (H, N) bf16, or int8 when w_int8 with scale (N,) fp32;
 // bias (N,), q_norm/k_norm (hd,), cos/sin (hd,), ln_w/ln_b (H,) bf16, each
 // optional (null); partial (ksplit, B, N) fp32 scratch; q (B, heads*hd),
@@ -235,14 +229,10 @@ extern "C" int fused_qkv_rope(const void* x, const void* w, int w_int8,
   using tts::bf16;
   cudaStream_t s = (cudaStream_t)stream;
   const int N = (heads + 2 * kv_heads) * hd;
-  cudaError_t err =
-      w_int8 ? tts::dispatch_matvec(B, (const bf16*)x, (const int8_t*)w, (const bf16*)lnw,
-                                    (const bf16*)lnb, (float*)partial, H, N, ksplit,
-                                    kslice, eps, s)
-             : tts::dispatch_matvec(B, (const bf16*)x, (const bf16*)w, (const bf16*)lnw,
-                                    (const bf16*)lnb, (float*)partial, H, N, ksplit,
-                                    kslice, eps, s);
-  if (err != cudaSuccess) return (int)err;
+  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+  const int err = qkv_matvec(x, w, w_int8, lnw, lnb, partial, B, H, N, ksplit, kslice, eps,
+                             stream);
+  if (err) return err;
   const dim3 grid(heads + 2 * kv_heads, B);
 #define TTS_EPI_ARGS                                                                  \
   (const float*)partial, ksplit, B, N, (const float*)scale, (const bf16*)bias,        \
@@ -250,10 +240,8 @@ extern "C" int fused_qkv_rope(const void* x, const void* w, int w_int8,
       kv_heads, eps, (bf16*)q, (bf16*)k, (bf16*)v
   if (hd == 64)
     tts::qkv_epilogue_kernel<64><<<grid, 64, 0, s>>>(TTS_EPI_ARGS);
-  else if (hd == 128)
-    tts::qkv_epilogue_kernel<128><<<grid, 128, 0, s>>>(TTS_EPI_ARGS);
   else
-    return (int)cudaErrorInvalidValue;
+    tts::qkv_epilogue_kernel<128><<<grid, 128, 0, s>>>(TTS_EPI_ARGS);
 #undef TTS_EPI_ARGS
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,7 @@
 // Fused decode step head for the M = 1 AR decode row: the qkv head of
 // decode_qkv.cu, then GQA attention of one layer of the stacked KV cache
 // over the rows < pos plus the step's own k/v row, which the kernel takes
-// from registers and shared memory (the caller appends it to the cache
-// after).
+// from shared memory (the caller appends it to the cache after).
 //
 // Replaces tts_tpu/ops/decode_step.py:fused_qkv_attn (Pallas body _kernel).
 // Same softmax: fp32 scores, one-shot max-then-exp (not the online form),
@@ -13,32 +12,85 @@
 // other branch (p_new / denom rounded to bf16).
 //
 // What bounds it on an H100: the qkv head's weight stream (see
-// decode_qkv.cu), then the cache rows: 2 x pos x head_dim x 2 bytes per kv
-// head, 512 KB a layer at pos 2048 for Kani. Design: three launches (the
-// qkv head's two, then attn_kernel); the TPU kernel was one program only
-// because the TPU grid runs its steps in order. attn_kernel is one block
-// per kv head: it reads only the rows < pos (masked rows add exactly 0),
-// keeps the G score rows in shared memory (G x pos x 4 bytes, 16 KB at
-// G = 2, pos = 2048), takes each row's max and sum with block reductions,
-// and sums P.V with 8 bf16 values per thread per row and row groups
-// reduced through warp shuffles and shared memory in a fixed order. With
-// one block per kv head it uses 8 of the 132 SMs at Kani's geometry; a
-// split over the rows (flash decoding) is the next step if it shows.
-#include "common.cuh"
+// decode_qkv.cu; 8.4 MB of bf16 at Qwen3-TTS width, 2.5 us at 3.35 TB/s),
+// then the live cache rows, 2 x pos x head_dim x 2 bytes a kv head (1.4 MB a
+// layer at Kani's pos 700). Both are far below the tensor cores' line, and
+// at decode sizes the attention is bound by latency: the chain from the
+// partial sums to the output. Design: two launches.
+//  1. qkv_matvec_kernel (decode_qkv.cu, shared with kernel 11): fp32
+//     partial sums of the qkv matvec over slices of the input dim.
+//  2. step_attn_kernel: one thread-block cluster a kv head, its CTAs
+//     splitting the live rows (ops/decode_step.step_plan, up to 8 CTAs,
+//     the portable cluster size). Each CTA first issues its rows' K loads
+//     (and V's, when the slice fits one round) in 16-byte loads, a group of
+//     head_dim / 8 lanes
+//     a row (decode_rows.cuh, kernel 13's score pass), and copies the
+//     matvec's partial sums of the kv head's G q heads, k head and v head
+//     into shared memory (cp.async, all in flight; at most 48 KB, which
+//     caps the matvec's split), then runs the qkv epilogue from there
+//     (qkv_epilogue.cuh, kernel 11's rounding points; the first CTA writes
+//     the k and v rows). Then the scores of its rows into shared memory and
+//     the softmax, a warp for each q head (no block barrier inside): the
+//     new row's own score, the slice's max, sent to every CTA through
+//     distributed shared memory so each takes one max over all rows and
+//     s_new before any exp; p = exp(s - m) and the slice's sum, the sums
+//     sent likewise and added in rank order, plus p_new; p / denom rounded
+//     to bf16 in place. Then P.V of its rows with fp32 accumulation, the
+//     lane groups by shuffles and the warps in order; each output's sum
+//     sent to the CTA that owns it, which adds the CTAs' sums in rank order
+//     plus p_new / denom times v_new. Three cluster barriers; one CTA alone
+//     (the plan's choice up to 128 rows at head_dim 128, 64 at 64) has
+//     none.
+//     No atomics (bitwise reproducible runs); rows >= pos are never read.
+#include <cooperative_groups.h>
 
-extern "C" int fused_qkv_rope(const void* x, const void* w, int w_int8,
-                              const void* scale, const void* bias, const void* qn,
-                              const void* kn, const void* cosr, const void* sinr,
-                              const void* lnw, const void* lnb, void* partial, void* q,
-                              void* k, void* v, int B, int H, int heads, int kv_heads,
-                              int hd, int ksplit, int kslice, float eps, void* stream);
+#include "decode_rows.cuh"
+#include "qkv_epilogue.cuh"
+#include "wgmma.cuh"
+
+extern "C" int qkv_matvec(const void* x, const void* w, int w_int8, const void* lnw,
+                          const void* lnb, void* partial, int B, int H, int N, int ksplit,
+                          int kslice, float eps, void* stream);
 
 namespace tts {
 namespace {
 
-constexpr int AT_THREADS = 256;
-constexpr int AT_WARPS = AT_THREADS / 32;
+namespace cg = cooperative_groups;
+
+constexpr int ST_THREADS = 256;
+constexpr int ST_WARPS = ST_THREADS / 32;
 constexpr int MAX_G = 8;
+constexpr int ST_MAX_CTAS = 8;  // the portable cluster size
+constexpr int ST_SMEM_MAX = 232448;
+constexpr int ST_STAGE_MAX = 48 * 1024;  // the staged partial sums of a kv head's heads
+
+struct StepArgs {
+  const float* partial;  // (ksplit, 1, N) fp32 partial sums of the qkv matvec
+  const float* scale;    // (N,) int8 scales, or null
+  const bf16* bias;      // (N,) or null
+  const bf16* qn;        // (HD,) q/k norm weights, or null
+  const bf16* kn;
+  const bf16* cosr;      // (HD,) RoPE row, or null
+  const bf16* sinr;
+  bf16* k_out;           // (KVH * HD,) the step's k and v rows
+  bf16* v_out;
+  const bf16* kc;        // the layer's (KVH, T, HD) cache slices
+  const bf16* vc;
+  bf16* out;             // (heads * HD,)
+  int ksplit, N, heads, kv_heads, T, pos, rows;  // rows: a CTA's slice (the last fewer)
+  float eps;
+};
+
+// shared memory, in floats: the partial sums of the kv head's G + 2 heads
+// [ksplit][G + 2][HD], q [G][HD], k_new and v_new [HD] each, the
+// rotation's rows [HPP][HD], the warps' P.V sums [ST_WARPS][G][HD], the
+// cluster's [ctas][G][HD] (each CTA's sums of the outputs this CTA owns),
+// and the slice's scores [G][rows]
+template <int HD, int G>
+constexpr size_t st_smem_floats(int ksplit, int ctas, int rows) {
+  return (size_t)ksplit * (G + 2) * HD + (size_t)(1 + ST_WARPS + ctas) * G * HD + 2 * HD +
+         ST_THREADS + (size_t)G * rows;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -46,204 +98,342 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// block-wide reductions over AT_THREADS threads; scratch holds AT_WARPS
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < AT_WARPS; ++i) s += scratch[i];
-  return s;
-}
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  v = warp_max(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = scratch[0];
-#pragma unroll
-  for (int i = 1; i < AT_WARPS; ++i) m = fmaxf(m, scratch[i]);
-  return m;
+__device__ __forceinline__ void cta_or_cluster_sync(int nct) {
+  if (nct > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
 }
 
-// q (heads*HD), knew/vnew (KVH*HD), kc/vc the layer's (KVH, T, HD) cache,
-// out (heads*HD); G q heads per kv head, kv-head-major as gqa_attention.
-template <int HD>
-__global__ void __launch_bounds__(AT_THREADS)
-attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ knew,
-            const bf16* __restrict__ vnew, const bf16* __restrict__ kc,
-            const bf16* __restrict__ vc, bf16* __restrict__ out, int T, int pos, int G) {
-  extern __shared__ float sm[];
-  float* qs = sm;                      // [G][HD]
-  float* red = qs + G * HD;            // [AT_WARPS][G][HD] P.V partials
-  float* s = red + AT_WARPS * G * HD;  // [G][pos] scores, then probabilities
-  __shared__ float kn[HD], vn[HD], snew[MAX_G], mx[MAX_G], den[MAX_G];
-  __shared__ float scratch[AT_WARPS];
-  const int j = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const bf16* kj = kc + (size_t)j * T * HD;
-  const bf16* vj = vc + (size_t)j * T * HD;
+// v into *p of CTA `to` of the cluster (this CTA's own shared memory when
+// the launch has no cluster)
+__device__ __forceinline__ void send(float* p, int to, float v, int nct) {
+  if (nct > 1)
+    *cg::this_cluster().map_shared_rank(p, to) = v;
+  else
+    *p = v;
+}
 
-  for (int i = tid; i < G * HD; i += AT_THREADS) qs[i] = to_f(q[(size_t)j * G * HD + i]);
-  for (int i = tid; i < HD; i += AT_THREADS) {
-    kn[i] = to_f(knew[j * HD + i]);
-    vn[i] = to_f(vnew[j * HD + i]);
+template <int HD, int G>
+__global__ void __launch_bounds__(ST_THREADS) step_attn_kernel(const StepArgs a) {
+  constexpr int LG = HD / 8;           // lanes a row
+  constexpr int NG = ST_THREADS / LG;  // lane groups
+  constexpr int U = G <= 4 ? 8 : 4;    // rows a group loads at once (registers)
+  constexpr int GP = G <= 2 ? G : G <= 4 ? 4 : 8;  // G padded to a power of two
+  constexpr int RR = NG * U;           // rows a round: 128 at D 128, 256 at D 64
+  constexpr int HPP = ST_THREADS / HD; // heads an epilogue pass
+  constexpr int PASSES = (G + 2 + HPP - 1) / HPP;
+  constexpr int SEG = (G + 2) * HD;    // a slice's partial sums of the kv head's heads
+  extern __shared__ __align__(16) float sm[];
+  const int nct = gridDim.x;
+  float* stg = sm;
+  float* qs = stg + a.ksplit * SEG;
+  float* kn = qs + G * HD;
+  float* vn = kn + HD;
+  float* row = vn + HD;
+  float* wacc = row + ST_THREADS;
+  float* recv = wacc + ST_WARPS * G * HD;
+  float* sc = recv + nct * G * HD;
+  __shared__ float scratch[ST_WARPS];
+  __shared__ float m_recv[ST_MAX_CTAS][G], l_recv[ST_MAX_CTAS][G];
+  __shared__ float snew[G], mx[G], den[G];
+
+  const int rank = nct > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int j = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, li = tid % LG, grp = tid / LG;
+  const int r0 = rank * a.rows;
+  const int n = max(0, min(a.pos - r0, a.rows));  // >= 1 when pos >= 1 (the plan)
+  const bf16* kj = a.kc + ((size_t)j * a.T + r0) * HD + li * 8;
+  const bf16* vj = a.vc + ((size_t)j * a.T + r0) * HD + li * 8;
+  const int rounds = (n + RR - 1) / RR;
+
+  // the first round's K rows (and V rows when one round takes the slice)
+  uint4 kr[U], vr[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int t = u * NG + grp;
+    kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (t < n) {
+      kr[u] = *reinterpret_cast<const uint4*>(kj + (size_t)t * HD);
+      if (rounds == 1) vr[u] = *reinterpret_cast<const uint4*>(vj + (size_t)t * HD);
+    }
   }
+  // the partial sums of the kv head's G q heads (contiguous), k head and v
+  // head from every slice, 16 bytes a copy, all in flight
+  for (int c = tid; c < a.ksplit * SEG / 4; c += ST_THREADS) {
+    const int s = c / (SEG / 4), e = c % (SEG / 4) * 4;
+    const int col = e < G * HD ? j * G * HD + e
+                    : e < (G + 1) * HD ? (a.heads + j) * HD + e - G * HD
+                                        : (a.heads + a.kv_heads + j) * HD + e - (G + 1) * HD;
+    cp_async16(smem_u32(stg + s * SEG + e), a.partial + (size_t)s * a.N + col);
+  }
+  cp_commit();
+  // the epilogue's operands of this thread's column in each pass
+  float e_scale[PASSES], e_bias[PASSES], e_nw[PASSES];
+  const int i = tid % HD;
+#pragma unroll
+  for (int ps = 0; ps < PASSES; ++ps) {
+    const int hh = ps * HPP + tid / HD;
+    const int head = hh < G ? j * G + hh : hh == G ? a.heads + j : a.heads + a.kv_heads + j;
+    const bool live = hh < G + 2;
+    e_scale[ps] = live && a.scale ? a.scale[head * HD + i] : 0.f;
+    e_bias[ps] = live && a.bias ? to_f(a.bias[head * HD + i]) : 0.f;
+    e_nw[ps] = a.qn ? to_f((hh < G ? a.qn : a.kn)[i]) : 0.f;
+  }
+  const float cos_i = a.cosr ? to_f(a.cosr[i]) : 0.f, sin_i = a.cosr ? to_f(a.sinr[i]) : 0.f;
+  if (nct > 1) cluster_arrive_relaxed();
+  cp_wait_all();
   __syncthreads();
 
-  // scores of the cache rows < pos: one row per thread
-  for (int t = tid; t < pos; t += AT_THREADS) {
-    float a[MAX_G];
+  // the epilogue of the kv head's G + 2 heads, HPP a pass: q heads j G ..,
+  // then k head j, then v head j; each column the slices' sum in order
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) a[g] = 0.f;
-    const bf16* kr = kj + (size_t)t * HD;
-#pragma unroll 2
-    for (int d = 0; d < HD; d += 8) {
-      Vec8 kv;
-      kv.u = *reinterpret_cast<const uint4*>(kr + d);
+  for (int ps = 0; ps < PASSES; ++ps) {
+    const int hh = ps * HPP + tid / HD;
+    const bool live = hh < G + 2, is_v = hh == G + 1;
+    float acc = 0.f;
+    if (live) {
+#pragma unroll 4
+      for (int s = 0; s < a.ksplit; ++s) acc += stg[s * SEG + hh * HD + i];
+    }
+    float val = qkv_finish(acc, a.scale, e_scale[ps], a.bias, e_bias[ps]);
+    val = norm_rope<HD>(val, !live || is_v, a.qn, e_nw[ps], a.cosr, cos_i, sin_i, a.eps,
+                        scratch, row);
+    if (hh < G) {
+      qs[hh * HD + i] = val;
+    } else if (hh == G) {
+      kn[i] = val;
+      if (rank == 0) a.k_out[j * HD + i] = to_bf(val);
+    } else if (is_v) {
+      vn[i] = val;
+      if (rank == 0) a.v_out[j * HD + i] = to_bf(val);
+    }
+    __syncthreads();
+  }
+
+  float qf[G][8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float kf = to_f(kv.h[e]);
+  for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int g = 0; g < MAX_G; ++g)
-          if (g < G) a[g] = fmaf(qs[g * HD + d + e], kf, a[g]);
+    for (int e = 0; e < 8; ++e) qf[g][e] = qs[g * HD + li * 8 + e];
+
+  // the slice's scores into shared memory, round by round
+  for (int rd = 0; rd < rounds; ++rd) {
+    if (rd > 0) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = rd * RR + u * NG + grp;
+        kr[u] = t < n ? *reinterpret_cast<const uint4*>(kj + (size_t)t * HD)
+                      : make_uint4(0u, 0u, 0u, 0u);
       }
     }
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g)
-      if (g < G) s[g * pos + t] = a[g];
+    const int t0 = rd * RR, need = min(U, (n - t0 + NG - 1) / NG);
+    if (need > U / 2)
+      round_scores<LG, NG, G, GP, U>(kr, qf, li, grp, t0, n, sc, a.rows, 1.f);
+    else if (need > U / 4)
+      round_scores<LG, NG, G, GP, U / 2>(kr, qf, li, grp, t0, n, sc, a.rows, 1.f);
+    else
+      round_scores<LG, NG, G, GP, U / 4>(kr, qf, li, grp, t0, n, sc, a.rows, 1.f);
   }
-  // the step's own row, an fp32 sum of q * k_new
-  if (warp < G) {
-    float a = 0.f;
-    for (int d = lane; d < HD; d += 32) a = fmaf(qs[warp * HD + d], kn[d], a);
-    a = warp_sum(a);
-    if (lane == 0) snew[warp] = a;
-  }
-  __syncthreads();
+  __syncthreads();  // the slice's scores are in
 
-  // one-shot softmax per q head: max, then exp and sum
-  for (int g = 0; g < G; ++g) {
-    float* sg = s + g * pos;
-    float m = __int_as_float(static_cast<int>(0xff800000u));   // -inf
-    for (int t = tid; t < pos; t += AT_THREADS) m = fmaxf(m, sg[t]);
-    m = fmaxf(block_max(m, scratch), snew[g]);
-    float sum = 0.f;
-    for (int t = tid; t < pos; t += AT_THREADS) {
+  // the softmax, warp g for q head g (no block barrier): the step's own
+  // row's score, an fp32 sum of q * k_new; the slice's max, sent to every
+  // CTA of the cluster, and one max m over the cluster's slices and s_new;
+  // p = exp(s - m) over the slice and its sum, sent likewise; denom = the
+  // slices' sums in rank order plus p_new; then p / denom rounded to bf16
+  // in place for P.V
+  if (nct > 1) cluster_wait();  // every CTA started: its shared memory is there
+  float sn = 0.f, m = 0.f, l = 0.f;
+  float* sg = sc + warp * a.rows;
+  if (warp < G) {
+    for (int d = lane; d < HD; d += 32) sn = fmaf(qs[warp * HD + d], kn[d], sn);
+    sn = warp_sum(sn);
+    m = __int_as_float(static_cast<int>(0xff800000u));  // -inf
+    for (int t = lane; t < n; t += 32) m = fmaxf(m, sg[t]);
+    m = warp_max(m);
+    if (nct > 1 && lane < nct) send(&m_recv[rank][warp], lane, m, nct);
+  }
+  if (nct > 1) cg::this_cluster().sync();
+  if (warp < G) {
+    m = fmaxf(m, sn);
+    for (int r = 0; r < nct && nct > 1; ++r) m = fmaxf(m, m_recv[r][warp]);
+    for (int t = lane; t < n; t += 32) {
       const float p = expf(sg[t] - m);
       sg[t] = p;
-      sum += p;
+      l += p;
     }
-    sum = block_sum(sum, scratch);
-    if (tid == 0) {
-      mx[g] = m;
-      den[g] = sum + expf(snew[g] - m);
+    l = warp_sum(l);
+    if (nct > 1 && lane < nct) send(&l_recv[rank][warp], lane, l, nct);
+  }
+  if (nct > 1) cg::this_cluster().sync();
+  if (warp < G) {
+    if (nct > 1) {
+      l = 0.f;
+      for (int r = 0; r < nct; ++r) l += l_recv[r][warp];
+    }
+    const float dn = l + expf(sn - m);
+    for (int t = lane; t < n; t += 32) sg[t] = rnd(sg[t] / dn);
+    if (lane == 0) {
+      snew[warp] = sn;
+      mx[warp] = m;
+      den[warp] = dn;
     }
   }
   __syncthreads();
-  for (int i = tid; i < G * pos; i += AT_THREADS) s[i] = rnd(s[i] / den[i / pos]);
-  __syncthreads();
 
-  // P.V over the cache rows: VT threads cover a row (8 values each), RG
-  // row groups take every RG-th row
-  constexpr int VT = HD / 8;
-  constexpr int RG = AT_THREADS / VT;
-  const int dv = tid % VT, rg = tid / VT;
-  float acc[MAX_G][8];
+  // P.V over the slice's rows with bf16(p / denom), fp32 accumulation
+  float acc[G][8];
 #pragma unroll
-  for (int g = 0; g < MAX_G; ++g)
+  for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
-  for (int t = rg; t < pos; t += RG) {
-    Vec8 vv;
-    vv.u = *reinterpret_cast<const uint4*>(vj + (size_t)t * HD + dv * 8);
-    float vf[8];
+  for (int rd = 0; rd < rounds; ++rd) {
+    if (rounds > 1) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) vf[e] = to_f(vv.h[e]);
+      for (int u = 0; u < U; ++u) {
+        const int t = rd * RR + u * NG + grp;
+        if (t < n) vr[u] = *reinterpret_cast<const uint4*>(vj + (size_t)t * HD);
+      }
+    }
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g < G) {
-        const float p = s[g * pos + t];
+    for (int u = 0; u < U; ++u) {
+      const int t = rd * RR + u * NG + grp;
+      if (t >= n) break;
+      Vec8 vx;
+      vx.u = vr[u];
+      float vf[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+      for (int e = 0; e < 8; ++e) vf[e] = to_f(vx.h[e]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float pr = sc[g * a.rows + t];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
       }
     }
   }
-  // lanes dv, dv + VT, ... of a warp hold the same columns
+  // the CTA's sums: over the lane groups of a warp by shuffles (lanes li,
+  // li + LG, ... hold the same columns), then over the warps in order
 #pragma unroll
-  for (int g = 0; g < MAX_G; ++g)
+  for (int off = LG; off < 32; off <<= 1)
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int off = VT; off < 32; off <<= 1)
-        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
-  if (lane < VT) {
+      for (int e = 0; e < 8; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+  if (lane < LG) {
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g)
-      if (g < G)
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) red[(warp * G + g) * HD + dv * 8 + e] = acc[g][e];
+      for (int e = 0; e < 8; ++e) wacc[(warp * G + g) * HD + li * 8 + e] = acc[g][e];
   }
   __syncthreads();
-  for (int i = tid; i < G * HD; i += AT_THREADS) {
-    const int g = i / HD, d = i % HD;
-    float o = 0.f;
+  // the CTA's sum of output k to its owner, CTA k % nct
+  for (int k = tid; k < G * HD; k += ST_THREADS) {
+    float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < AT_WARPS; ++w) o += red[(w * G + g) * HD + d];
+    for (int w = 0; w < ST_WARPS; ++w) s += wacc[w * G * HD + k];
+    send(recv + rank * G * HD + k, k % nct, s, nct);
+  }
+  cta_or_cluster_sync(nct);
+
+  // the output, its G x HD elements spread over the ranks: the CTAs' sums
+  // in rank order, plus p_new / denom times v_new
+  for (int k = rank + tid * nct; k < G * HD; k += nct * ST_THREADS) {
+    const int g = k / HD, d = k % HD;
+    float o = 0.f;
+    for (int r = 0; r < nct; ++r) o += recv[r * G * HD + k];
     float pn = expf(snew[g] - mx[g]) / den[g];
     if (HD >= 128) pn = rnd(pn);
     o = fmaf(pn, vn[d], o);
-    out[(size_t)(j * G + g) * HD + d] = to_bf(o);
+    a.out[(size_t)(j * G + g) * HD + d] = to_bf(o);
   }
 }
 
-template <int HD>
-cudaError_t launch_attn(const bf16* q, const bf16* knew, const bf16* vnew, const bf16* kc,
-                        const bf16* vc, bf16* out, int kv_heads, int T, int pos, int G,
-                        cudaStream_t s) {
-  const size_t smem = sizeof(float) * ((size_t)(1 + AT_WARPS) * G * HD + (size_t)G * pos);
+template <int HD, int G>
+int launch(const StepArgs& a, int ctas, cudaStream_t st) {
+  const size_t smem = sizeof(float) * st_smem_floats<HD, G>(a.ksplit, ctas, a.rows);
+  if (smem > (size_t)ST_SMEM_MAX) return (int)cudaErrorInvalidValue;
   static int allowed[MAX_DEVICES];
   if (smem > 48 * 1024) {
-    const cudaError_t err = raise_attr(attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem, allowed);
-    if (err != cudaSuccess) return err;
+    const cudaError_t err = raise_attr(step_attn_kernel<HD, G>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem,
+                                       allowed);
+    if (err != cudaSuccess) return (int)err;
   }
-  attn_kernel<HD><<<kv_heads, AT_THREADS, smem, s>>>(q, knew, vnew, kc, vc, out, T, pos, G);
-  return cudaGetLastError();
+  if (ctas == 1) {
+    step_attn_kernel<HD, G><<<dim3(1, a.kv_heads), ST_THREADS, smem, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  return (int)launch_cluster(step_attn_kernel<HD, G>, dim3(ctas, a.kv_heads), ST_THREADS,
+                             smem, st, ctas, a);
+}
+
+template <int HD>
+int launch_hd(const StepArgs& a, int G, int ctas, cudaStream_t st) {
+  switch (G) {
+    case 1: return launch<HD, 1>(a, ctas, st);
+    case 2: return launch<HD, 2>(a, ctas, st);
+    case 3: return launch<HD, 3>(a, ctas, st);
+    case 4: return launch<HD, 4>(a, ctas, st);
+    case 5: return launch<HD, 5>(a, ctas, st);
+    case 6: return launch<HD, 6>(a, ctas, st);
+    case 7: return launch<HD, 7>(a, ctas, st);
+    case 8: return launch<HD, 8>(a, ctas, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 }  // namespace tts
 
-// The qkv head's arguments at B = 1 (see decode_qkv.cu), then kc/vc the
-// layer's (KVH, T, hd) bf16 cache slices, attn (heads*hd) bf16, T the
-// cache length and pos the valid rows (0 <= pos < T). heads / kv_heads <= 8
-// and 4 * (9 * G * hd + G * pos) bytes of shared memory.
+// x (1, H) bf16; w (H, N) bf16, or int8 when w_int8 with scale (N,) fp32;
+// bias (N,), q_norm/k_norm (hd,), cos/sin (hd,), ln_w/ln_b (H,) bf16, each
+// optional (null); partial (ksplit, 1, N) fp32 scratch; k/v (kv_heads*hd)
+// bf16, the step's rows; N = (heads + 2*kv_heads) * hd, hd 64 or 128,
+// heads / kv_heads <= 8, ksplit * kslice >= H with kslice a multiple of 8;
+// kc/vc the layer's (KVH, T, hd) bf16 cache slices, attn (heads*hd) bf16,
+// T the cache length and pos the valid rows (0 <= pos < T). The rows split
+// into `ctas` (1 to 8) slices of `rows`, the last shorter and none empty
+// (ops/decode_step.step_plan; pos 0: one CTA of 0 rows), and the matvec's
+// ksplit slices of one kv head's G + 2 heads fit ST_STAGE_MAX bytes of
+// shared memory; any other form is refused.
 extern "C" int fused_qkv_attn(const void* x, const void* w, int w_int8,
                               const void* scale, const void* bias, const void* qn,
                               const void* kn, const void* cosr, const void* sinr,
-                              const void* lnw, const void* lnb, void* partial, void* q,
-                              void* k, void* v, int B, int H, int heads, int kv_heads,
-                              int hd, int ksplit, int kslice, float eps, const void* kc,
-                              const void* vc, void* attn, int T, int pos, void* stream) {
+                              const void* lnw, const void* lnb, void* partial, void* k,
+                              void* v, int H, int heads, int kv_heads, int hd, int ksplit,
+                              int kslice, float eps, const void* kc, const void* vc,
+                              void* attn, int T, int pos, int ctas, int rows, void* stream) {
   using tts::bf16;
-  if (B != 1 || heads % kv_heads || heads / kv_heads > tts::MAX_G || pos < 0 || pos >= T)
+  const bool split = pos == 0 ? ctas == 1 && rows == 0
+                              : ctas >= 1 && ctas <= tts::ST_MAX_CTAS && rows >= 1 &&
+                                    (long long)ctas * rows >= pos &&
+                                    (long long)(ctas - 1) * rows < pos;
+  if (kv_heads < 1 || heads % kv_heads || heads / kv_heads > tts::MAX_G || pos < 0 ||
+      pos >= T || (hd != 64 && hd != 128) || !split || ksplit < 1 ||
+      (long long)ksplit * (heads / kv_heads + 2) * hd * sizeof(float) > tts::ST_STAGE_MAX)
     return (int)cudaErrorInvalidValue;
-  int err = fused_qkv_rope(x, w, w_int8, scale, bias, qn, kn, cosr, sinr, lnw, lnb,
-                           partial, q, k, v, B, H, heads, kv_heads, hd, ksplit, kslice,
-                           eps, stream);
+  const int N = (heads + 2 * kv_heads) * hd;
+  int err = qkv_matvec(x, w, w_int8, lnw, lnb, partial, 1, H, N, ksplit, kslice, eps, stream);
   if (err) return err;
+  tts::StepArgs a;
+  a.partial = (const float*)partial;
+  a.scale = (const float*)scale;
+  a.bias = (const bf16*)bias;
+  a.qn = (const bf16*)qn;
+  a.kn = (const bf16*)kn;
+  a.cosr = (const bf16*)cosr;
+  a.sinr = (const bf16*)sinr;
+  a.k_out = (bf16*)k;
+  a.v_out = (bf16*)v;
+  a.kc = (const bf16*)kc;
+  a.vc = (const bf16*)vc;
+  a.out = (bf16*)attn;
+  a.ksplit = ksplit, a.N = N, a.heads = heads, a.kv_heads = kv_heads, a.T = T, a.pos = pos;
+  a.rows = rows;
+  a.eps = eps;
   cudaStream_t s = (cudaStream_t)stream;
   const int G = heads / kv_heads;
-  if (hd == 64)
-    return (int)tts::launch_attn<64>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                     (const bf16*)kc, (const bf16*)vc, (bf16*)attn,
-                                     kv_heads, T, pos, G, s);
-  if (hd == 128)
-    return (int)tts::launch_attn<128>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                      (const bf16*)kc, (const bf16*)vc, (bf16*)attn,
-                                      kv_heads, T, pos, G, s);
-  return (int)cudaErrorInvalidValue;
+  return hd == 64 ? tts::launch_hd<64>(a, G, ctas, s) : tts::launch_hd<128>(a, G, ctas, s);
 }

@@ -8,10 +8,10 @@ RMSNorm -> SwiGLU MLP -> residual,
 `fused_out_mlp` (kernel 14) takes bf16 weights or int8 weight-only
 QTensors, all three of one kind; `fused_out_mlp_q8` (kernel 15) is the W8A8
 form over int8 QTensors. Each runs the hand-written CUDA kernel
-(csrc/decode_mlp.cu, csrc/decode_mlp_q8.cu, on the kernels of
-csrc/decode_mlp.cuh) on a CUDA tensor and its plain PyTorch twin on a CPU
-tensor; `out_mlp_reference` is the plain chain (dense, rms_norm, silu in
-the activation dtype) the kernels replace.
+(csrc/decode_mlp.cu, csrc/decode_mlp_q8.cu) on a CUDA tensor and its plain
+PyTorch twin on a CPU tensor; `out_mlp_reference` is the plain chain
+(dense, rms_norm, silu in the activation dtype) the kernels replace.
+`q8_tail_plan` cuts kernel 15's three weight streams over the card.
 
 Kernel 14's rounding points, in the activation dtype: each dot accumulates
 in fp32 and is rounded, then (int8) times the scale rounded to the dtype;
@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -43,7 +44,8 @@ from .decode_qkv import _ptr
 from .quant_matmul import int_dot, quantize_rows
 
 __all__ = ["fused_out_mlp", "fused_out_mlp_plain", "fused_out_mlp_q8",
-           "fused_out_mlp_q8_plain", "out_mlp_reference", "out_mlp_fits"]
+           "fused_out_mlp_q8_plain", "out_mlp_reference", "out_mlp_fits", "q8_tail_plan",
+           "Q8TailPlan"]
 
 MAX_ROWS = 8                 # decode rows the CUDA kernels take
 _H_MAX, _F_MAX = 4096, 4096  # widest hidden and FFN they hold on chip
@@ -52,9 +54,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # x, att, wo, wgu, wd, w_int8, so, sgu, sd, partial, x2, a, out, B, A, H, F,
 # kslice, ks, eps, stream
 _ARGTYPES = [_P] * 5 + [_I] + [_P] * 7 + [_I] * 6 + [_F, _P]
-# x, att, wo, wgu, wd, so, sgu, sd, partial, ats, x2, a, out, B, A, H, F,
-# kslice, ks, fb, eps, stream
-_ARGTYPES_Q8 = [_P] * 13 + [_I] * 7 + [_F, _P]
+# x, att, wo, wgu, wd, so, sgu, sd, x2, a, out, B, A, H, F, fb, c1, k1, c2,
+# k2, c3, k3, eps, stream
+_ARGTYPES_Q8 = [_P] * 11 + [_I] * 11 + [_F, _P]
+_MAX_PASSES = 2              # sub-blocks of the down product one CTA takes
+_MIN_ROWS = 512              # input rows a CTA of kernel 15 takes at least
+_CLUSTER = 8                 # CTAs a kernel-15 cluster (the portable size)
 
 
 def _pick_block(dim: int, target: int = 512, mult: int = 128) -> int:
@@ -193,8 +198,8 @@ def _operands(x, att, ws) -> None:
 
 
 def _prepare(x, att, wo, w_gate_up, w_down):
-    """Device checks, the kernels' limits and the out-projection split.
-    Returns (f_dim, quant, ks, kslice) or None for a CPU tensor."""
+    """Device checks and the kernels' limits. Returns (f_dim, quant), or
+    None for a CPU tensor."""
     quant, f_dim = _parts(wo, w_gate_up, w_down, x, att)
     if x.device.type == "cpu":
         return None
@@ -206,8 +211,7 @@ def _prepare(x, att, wo, w_gate_up, w_down):
                          f"a multiple of 8, hidden and FFN multiples of 32 up to "
                          f"{_H_MAX}; got B={b}, A={att.shape[1]}, H={hd}, F={f_dim}")
     _operands(x, att, (("wo", wo), ("w_gate_up", w_gate_up), ("w_down", w_down)))
-    ks, kslice = _k_split(x.device, att.shape[1], hd)
-    return f_dim, quant, ks, kslice
+    return f_dim, quant
 
 
 def fused_out_mlp(x: torch.Tensor, att: torch.Tensor, wo, w_gate_up, w_down, *,
@@ -218,8 +222,9 @@ def fused_out_mlp(x: torch.Tensor, att: torch.Tensor, wo, w_gate_up, w_down, *,
     prep = _prepare(x, att, wo, w_gate_up, w_down)
     if prep is None:
         return fused_out_mlp_plain(x, att, wo, w_gate_up, w_down, eps=eps)
-    f_dim, quant, ks, kslice = prep
+    f_dim, quant = prep
     b, hd = x.shape
+    ks, kslice = _k_split(x.device, att.shape[1], hd)
     # fp32 scratch: out-projection partials, then x2 and a as bf16
     scratch = torch.empty((ks * b * hd + (b * hd + b * f_dim) // 2 + 8,),
                           dtype=torch.float32, device=x.device)
@@ -236,6 +241,59 @@ def fused_out_mlp(x: torch.Tensor, att: torch.Tensor, wo, w_gate_up, w_down, *,
     return out
 
 
+class Q8TailPlan(NamedTuple):
+    """Kernel 15's cut of its three weight streams (csrc/decode_mlp_q8.cu):
+    launch 1 cuts the attention width into c1 slices of k1 rows, launch 2
+    the hidden width into c2 slices of k2 rows (each a cluster of the CTAs
+    of one column tile), launch 3 the FFN width into sub-blocks of k3 rows,
+    which divide the F-block, over a cluster of c3 CTAs (sub-block s on CTA
+    s % c3, at most two a CTA)."""
+    c1: int
+    k1: int
+    c2: int
+    k2: int
+    c3: int
+    k3: int
+
+
+def _cut(dim: int) -> tuple[int, int]:
+    """(CTAs, rows) over `dim` input rows: slices of at least 512 rows, at
+    most 8 a cluster (the portable size), each a multiple of 8 rows (a
+    thread's row quads, and 16-byte loads of bf16 activations), in order,
+    none empty."""
+    want = max(1, min(_CLUSTER, dim // _MIN_ROWS))
+    k = -(-dim // want)
+    k = -(-k // 8) * 8
+    return -(-dim // k), k
+
+
+@functools.lru_cache(maxsize=64)
+def q8_tail_plan(a_dim: int, hidden: int, ffn: int) -> Q8TailPlan:
+    """Kernel 15's form (the C entry refuses any other): column tiles of 128
+    (launches 1 and 3: 128 contiguous bytes of each weight row) and of 64
+    gate + 64 up columns (launch 2), each tile's input dim cut over a
+    cluster of at most 8 CTAs with slices of at least 512 rows. On the card
+    (NVIDIA H100, `chip_smoke.py`'s forms at the Qwen3-TTS width) larger
+    clusters and shorter slices lost: a cluster's barrier grows with its
+    CTAs, and a CTA with more rows keeps more loads in flight. Launch 3's
+    sub-blocks are the smallest divisor of the F-block (a multiple of 4, at
+    least 512 rows where the F-block has them) that leaves at most 8; where
+    even the F-block leaves more (F-blocks of 128 at F 2176 and more), the
+    F-block, two a CTA."""
+    c1, k1 = _cut(a_dim)
+    c2, k2 = _cut(hidden)
+    fb = _pick_block(ffn)
+    fit = [d for d in range(min(_MIN_ROWS, fb), fb + 1, 4)
+           if fb % d == 0 and ffn // d <= _CLUSTER]
+    if fit:
+        k3 = fit[0]
+        c3 = ffn // k3
+    else:
+        k3 = fb
+        c3 = -(-(ffn // fb) // _MAX_PASSES)
+    return Q8TailPlan(c1, k1, c2, k2, c3, k3)
+
+
 def fused_out_mlp_q8(x: torch.Tensor, att: torch.Tensor, wo, w_gate_up, w_down, *,
                      eps: float = 1e-6) -> torch.Tensor:
     """The W8A8 tail: as fused_out_mlp, all three weights int8 QTensors with
@@ -245,21 +303,18 @@ def fused_out_mlp_q8(x: torch.Tensor, att: torch.Tensor, wo, w_gate_up, w_down, 
     prep = _prepare(x, att, wo, w_gate_up, w_down)
     if prep is None:
         return fused_out_mlp_q8_plain(x, att, wo, w_gate_up, w_down, eps=eps)
-    f_dim, _, ks, kslice = prep
+    f_dim = prep[0]
     b, hd = x.shape
-    # int32 partials, the att row scales, x2 (bf16) and a (fp32)
-    n_part, n_x2 = ks * b * hd, (b * hd + 1) // 2
-    scratch = torch.empty((n_part + 8 + n_x2 + b * f_dim,), dtype=torch.float32,
-                          device=x.device)
-    ats = scratch[n_part:n_part + 8]
-    x2 = scratch[n_part + 8:n_part + 8 + n_x2]
-    a = scratch[n_part + 8 + n_x2:]
+    a_dim = att.shape[1]
+    plan = q8_tail_plan(a_dim, hd, f_dim)
+    # x2 (bf16) and a (fp32)
+    n_x2 = (b * hd + 1) // 2
+    scratch = torch.empty((n_x2 + b * f_dim,), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     _build.launch("fused_out_mlp_q8", _ARGTYPES_Q8, x.data_ptr(), att.data_ptr(),
                   wo.q.data_ptr(), w_gate_up.q.data_ptr(), w_down.q.data_ptr(),
                   wo.scale.data_ptr(), w_gate_up.scale.data_ptr(), w_down.scale.data_ptr(),
-                  scratch.data_ptr(), ats.data_ptr(), x2.data_ptr(), a.data_ptr(),
-                  out.data_ptr(), b, att.shape[1], hd, f_dim, kslice, ks,
-                  _pick_block(f_dim), eps, torch.cuda.current_stream(x.device).cuda_stream,
-                  device=x.device)
+                  scratch.data_ptr(), scratch[n_x2:].data_ptr(), out.data_ptr(), b, a_dim,
+                  hd, f_dim, _pick_block(f_dim), *plan, eps,
+                  torch.cuda.current_stream(x.device).cuda_stream, device=x.device)
     return out

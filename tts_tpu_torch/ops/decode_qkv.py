@@ -38,6 +38,7 @@ __all__ = ["MAX_ROWS", "fusable_layout", "fusable_weight", "fused_qkv_rope",
 MAX_ROWS = 8                # decode rows the CUDA kernel takes
 _HEAD_DIMS = (64, 128)      # head widths the CUDA kernel is built for
 _COLS_PER_BLOCK = 256       # wqkv columns one matvec block covers
+_STEP_STAGE = 48 * 1024     # bytes of partial sums kernel 12 stages a kv head
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # x, w, w_int8, scale, bias, q_norm, k_norm, cos, sin, ln_w, ln_b, partial,
 # q, k, v, B, H, heads, kv_heads, head_dim, ksplit, kslice, eps, stream
@@ -140,12 +141,14 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _k_split(device: torch.device, hin: int, n: int) -> tuple[int, int]:
+def _k_split(device: torch.device, hin: int, n: int,
+             max_split: int | None = None) -> tuple[int, int]:
     """(blocks along the input dim, input rows per block): about two blocks
-    per SM over the whole matvec, each taking a multiple of 8 rows (one per
-    warp) of the input dim."""
+    per SM over the whole matvec, at most `max_split` (where given), each
+    taking a multiple of 8 rows (one per warp) of the input dim."""
     tiles = _cdiv(n, _COLS_PER_BLOCK)
-    want = max(1, min(_cdiv(2 * _build.sm_count(device), tiles), hin // 8))
+    want = max(1, min(_cdiv(2 * _build.sm_count(device), tiles), hin // 8,
+                      max_split or hin))
     kslice = _cdiv(_cdiv(hin, want), 8) * 8
     return _cdiv(hin, kslice), kslice
 
@@ -169,9 +172,11 @@ def _ptr(t) -> int | None:
 
 def launch_args(x: torch.Tensor, wqkv, rope_cos, rope_sin, heads: int,
                 kv_heads: int, head_dim: int, q_norm, k_norm, bqkv, norm: str,
-                ln_weight, ln_bias, eps: float):
+                ln_weight, ln_bias, eps: float, step: bool = False):
     """Check the CUDA kernel's operands and allocate its outputs. Returns
-    (argument list of the C entry without its stream, (q, k, v))."""
+    (argument list of the C entry without its stream, (q, k, v)). With
+    `step` (kernel 12's head, one row) q stays on chip: no q is allocated
+    (None) and the list has neither q nor the row count."""
     b, hin = x.shape
     dev = x.device
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
@@ -201,14 +206,18 @@ def launch_args(x: torch.Tensor, wqkv, rope_cos, rope_sin, heads: int,
         (rope_cos, "rope_cos", head_dim), (rope_sin, "rope_sin", head_dim),
         (ln_weight if norm == "ln" else None, "ln_weight", hin),
         (ln_bias if norm == "ln" else None, "ln_bias", hin))]
-    ksplit, kslice = _k_split(dev, hin, n)
+    # kernel 12 stages one kv head's heads of every slice in shared memory
+    stage = _STEP_STAGE // (4 * (heads // kv_heads + 2) * head_dim) if step else None
+    ksplit, kslice = _k_split(dev, hin, n, stage)
     partial = torch.empty((ksplit, b, n), dtype=torch.float32, device=dev)
-    q = torch.empty((b, heads * head_dim), dtype=x.dtype, device=dev)
+    q = None if step else torch.empty((b, heads * head_dim), dtype=x.dtype, device=dev)
     k = torch.empty((b, kv_heads * head_dim), dtype=x.dtype, device=dev)
     v = torch.empty((b, kv_heads * head_dim), dtype=x.dtype, device=dev)
+    outs = [k.data_ptr(), v.data_ptr()] if step else [q.data_ptr(), k.data_ptr(),
+                                                      v.data_ptr(), b]
     args = [x.data_ptr(), w.data_ptr(), int(quant), _ptr(scale),
-            *map(_ptr, vecs), partial.data_ptr(), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), b, hin, heads, kv_heads, head_dim, ksplit, kslice, eps]
+            *map(_ptr, vecs), partial.data_ptr(), *outs, hin, heads, kv_heads,
+            head_dim, ksplit, kslice, eps]
     return args, (q, k, v)
 
 

@@ -4,8 +4,10 @@ ops/decode_qkv.py, then GQA attention of layer `layer` of the stacked
 (L, 1, KVH, T, D) cache over the rows < pos plus the step's own k/v row.
 It does not write the cache: the caller's `update_layer` appends after.
 
-`fused_qkv_attn` runs the hand-written CUDA kernel (csrc/decode_step.cu) on
-a CUDA tensor and its plain PyTorch twin `fused_qkv_attn_plain` on a CPU
+`fused_qkv_attn` runs the hand-written CUDA kernel (csrc/decode_step.cu:
+kernel 11's qkv matvec, then one launch with the qkv epilogue and the
+attention in a cluster of CTAs a kv head, split as `step_plan` says) on a
+CUDA tensor and its plain PyTorch twin `fused_qkv_attn_plain` on a CPU
 tensor. Both keep the TPU kernel's softmax: fp32 scores, one-shot
 max-then-exp (not the online form), m = max(max_t s, s_new), denom =
 sum p + p_new, probabilities rounded to the activation dtype before a P.V
@@ -30,19 +32,26 @@ import torch
 from . import _build
 from .decode_qkv import check_contract, fused_qkv_rope_plain, launch_args
 
-__all__ = ["fused_qkv_attn", "fused_qkv_attn_plain", "MAX_GROUP", "step_fits"]
+__all__ = ["fused_qkv_attn", "fused_qkv_attn_plain", "MAX_GROUP", "step_fits",
+           "step_plan"]
 
 MAX_GROUP = 8                     # q heads per kv head the CUDA kernel takes
-_MAX_SMEM = 200 * 1024            # dynamic shared memory it may ask for
+_MAX_SMEM = 200 * 1024            # the route gate's shared-memory budget
+_MAX_CTAS = 8                     # CTAs a kv head's cluster (the portable size)
+_CTA_ROWS = {64: 64, 128: 128}    # live rows a CTA takes before the cluster grows
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the qkv head's arguments (decode_qkv._ARGTYPES without the stream), then
-# k_cache, v_cache (the layer's (KVH, T, D) slices), attn, T, pos, stream
-_ARGTYPES = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-             _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _I, _I, _P]
+# x, w, w_int8, scale, bias, q_norm, k_norm, cos, sin, ln_w, ln_b, partial,
+# k, v, H, heads, kv_heads, head_dim, ksplit, kslice, eps, k_cache, v_cache
+# (the layer's (KVH, T, D) slices), attn, T, pos, ctas, rows, stream
+_ARGTYPES = [_P, _P, _I] + [_P] * 11 + [_I] * 6 + [_F, _P, _P, _P] + [_I] * 4 + [_P]
 
 
 def _smem_bytes(group: int, head_dim: int, pos: int) -> int:
-    """Dynamic shared memory the CUDA kernel asks for at `pos` rows."""
+    """The route gate's measure of the shared memory `pos` rows need (the
+    earlier one-CTA form's: q, the warps' P.V sums, the scores). The cluster
+    form splits the scores over its CTAs and, with at most 48 KB of staged
+    partial sums, needs at most 140 KB, within the card's 227 KB wherever
+    this is within 200 KB."""
     return 4 * (9 * group * head_dim + group * pos)
 
 
@@ -50,6 +59,23 @@ def step_fits(group: int, head_dim: int, pos: int) -> bool:
     """Whether the CUDA kernel takes `group` q heads per kv head and `pos`
     cache rows in its shared memory (the model gates add this)."""
     return group <= MAX_GROUP and _smem_bytes(group, head_dim, pos) <= _MAX_SMEM
+
+
+def step_plan(pos: int, head_dim: int) -> tuple[int, int]:
+    """The attention launch's split of the live rows 0 .. pos - 1 over the
+    CTAs of a kv head's cluster: (ctas, rows). CTA r takes rows r * rows ..
+    min((r + 1) * rows, pos) - 1: in order, each row in one slice, none
+    empty. Up to 128 rows at head_dim 128 (64 at 64) one CTA takes them
+    all (a cluster's three barriers cost more than the split saves there);
+    past that one CTA for each such share, at most 8 (the slices then
+    grow). pos 0 (no cache row, the new row alone): one CTA of 0 rows."""
+    if pos < 0:
+        raise ValueError(f"pos {pos} < 0")
+    if pos == 0:
+        return 1, 0
+    ctas = min(_MAX_CTAS, -(-pos // _CTA_ROWS[head_dim]))
+    rows = -(-pos // ctas)
+    return -(-pos // rows), rows
 
 
 def _attend(q, k_row, v_row, kc, vc, pos: int, heads: int, kv_heads: int,
@@ -137,21 +163,21 @@ def fused_qkv_attn(x: torch.Tensor, wqkv, rope_cos=None, rope_sin=None,
     if g > MAX_GROUP:
         raise ValueError(f"the CUDA kernel takes at most {MAX_GROUP} q heads per "
                          f"kv head, got {g}")
-    smem = _smem_bytes(g, head_dim, pos)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"pos {pos} needs {smem} bytes of shared memory, over "
-                         f"the kernel's {_MAX_SMEM}")
+    if not step_fits(g, head_dim, pos):
+        raise ValueError(f"pos {pos} needs {_smem_bytes(g, head_dim, pos)} bytes of "
+                         f"shared memory, over the kernel's {_MAX_SMEM}")
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
         if c.dtype != torch.bfloat16 or c.device != x.device \
                 or not c.is_contiguous() or c.data_ptr() % 16:
             raise TypeError(f"{name} must be a contiguous, 16-byte aligned bf16 "
                             f"tensor on {x.device}")
-    args, (q, k, v) = launch_args(x, wqkv, rope_cos, rope_sin, heads, kv_heads,
+    args, (_, k, v) = launch_args(x, wqkv, rope_cos, rope_sin, heads, kv_heads,
                                   head_dim, q_norm, k_norm, bqkv, norm, ln_weight,
-                                  ln_bias, eps)
-    attn = torch.empty_like(q)
+                                  ln_bias, eps, step=True)
+    attn = torch.empty((1, heads * head_dim), dtype=x.dtype, device=x.device)
+    ctas, rows = step_plan(pos, head_dim)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.launch("fused_qkv_attn", _ARGTYPES, *args, k_cache[layer].data_ptr(),
                   v_cache[layer].data_ptr(), attn.data_ptr(), k_cache.shape[3], pos,
-                  stream, device=x.device)
+                  ctas, rows, stream, device=x.device)
     return attn, k, v
