@@ -28,21 +28,28 @@ the parts `--parts` names (all by default), `--rounds` times A, B, B, A:
     which the last line compares;
   * qwen: after a warm-up, one Qwen3-TTS-0.6B request on fused_decode="all"
     (bench ids, max_frames 128) under torch.profiler (device time a frame,
-    kernel 13's share of it) and two timed;
+    the card's busy time a frame (the union of the kernels' intervals:
+    kernel 14's launches overlap), kernel 13's and kernel 14's share of it)
+    and two timed;
   * f5_fp32: the fp32 F5TTS_v1_Base bench request (float and
     quantize="w8a8") under the profiler (device time, kernels 4-5's share)
     and three timed;
-  * decode: digests of kernel 15's outputs (B 1, 3, 8) and of kernel 14's
-    (bf16 and int8 weights) at the Qwen3-TTS talker shape on seeded inputs,
-    which the last line compares, and their device times at B 1; kernels
-    11 and 12 at the Qwen talker (head_dim 128, pos 126) and Kani
-    (head_dim 64, pos 700) shapes: rel L2
-    of each output against its fp32 twin and device time a call; one
-    Qwen3-TTS bench request on the default route (bf16, kernel 12) and on
-    "mlp_q8" (int8, kernels 11 and 15) under the profiler (device time a
-    frame, the kernels' share) and two timed (frames/s); the greedy Kani
-    bench request (device time a token, tokens/s of two); BigVGAN's bench
-    mel (samples/s of 10 calls).
+  * decode: at the Qwen3-TTS talker shape, digests of kernel 15's outputs
+    (B 1, 3, 8), which the last line compares across the trees, and of
+    kernel 14's (bf16 and int8 weights), which must repeat bitwise within
+    each tree (its split over the input dim is an fp32 order of its own),
+    with each output's rel L2 against the fp32 twin, which must stay within
+    1.25x of tree A's; their device times at B 1 and kernel 14's chained
+    time (CUDA events over 10 calls) at B 1 and 8; kernels 11 and 12 at the
+    Qwen talker (head_dim 128, pos 126) and Kani (head_dim 64, pos 700)
+    shapes: rel L2 of each output against its fp32 twin and device time a
+    call; one Qwen3-TTS bench request on the default route (bf16, kernel
+    12) and on "mlp_q8" (int8, kernels 11 and 15) under the profiler
+    (device time a frame, the kernels' share) and two timed (frames/s); the
+    greedy Kani bench request (device time a token, tokens/s of two);
+    BigVGAN's bench mel in bf16 and fp32: one call's device time and
+    kernel 10's share under the profiler, samples/s of 10 (bf16) or 5
+    (fp32) calls.
 Random weights from chip_smoke.py's seeds. Both trees' kernels build
 first, at once. Each turn prints JSON lines; compare the trees only within
 one run of this script.
@@ -58,9 +65,28 @@ import sys
 import time
 
 
-def _profile(fn, walled: bool = False):
+def _busy_ms(prof, pats=None) -> float:
+    """The card's busy time in a trace: the union of the intervals of its
+    kernels (those whose names hold one of `pats`, or all), ms. Kernels
+    launched with programmatic dependent launch overlap, and a sum of their
+    times counts the overlap twice."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (pats is None or any(p in e.name for p in pats)))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def _profile(fn, walled: bool = False, busy=None):
     """fn() once to warm up, then once under torch.profiler: its output,
-    (kernel, device ms) rows and, if walled, the profiled call's wall (s)."""
+    (kernel, device ms) rows and, if walled, the profiled call's wall (s);
+    with `busy` ({label: patterns or None}) also {label: busy ms}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -73,7 +99,10 @@ def _profile(fn, walled: bool = False):
         wall = time.perf_counter() - t0
     rows = [(e.key, e.device_time_total / 1e3) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (out, rows, wall) if walled else (out, rows)
+    res = (out, rows, wall) if walled else (out, rows)
+    if busy is not None:
+        res += ({label: _busy_ms(prof, pats) for label, pats in busy.items()},)
+    return res
 
 
 def _walls(fn, n: int) -> list:
@@ -339,6 +368,10 @@ def turn(tag: str, parts: tuple) -> None:
         _decode_paths(tag, card)
 
 
+# kernel 14's launches (the same names in both trees; kernel 15's are q8_*)
+K14 = ("oproj_kernel", "gateup_kernel", "down_kernel")
+
+
 def _qwen(tag: str, card: str) -> None:
     import chip_smoke as cs
     from tts_tpu_torch.runtime.qwen import QwenDecodeConfig, QwenTTSPipeline
@@ -350,14 +383,16 @@ def _qwen(tag: str, card: str) -> None:
     def qwen():
         return qp.synthesize_ids(cs.QWEN_IDS, language_id=cs.QWEN_LANG)
 
-    (_, st), rows = _profile(qwen)
+    (_, st), rows, busy = _profile(qwen, busy={"all": None, "k14": K14})
     frames = st["frames"]
     k13 = sum(ms for k, ms in rows
               if any(p in k for p in ("block_kernel", "merge_kernel", "cluster_kernel")))
     print(json.dumps({"tree": tag, "card": card, "qwen_all_frames": frames,
                       "frames_per_s": [frames / w for w in _walls(qwen, 2)],
                       "device_ms_a_frame": sum(ms for _, ms in rows) / frames,
-                      "kernel13_ms_a_frame": k13 / frames}), flush=True)
+                      "device_busy_ms_a_frame": busy["all"] / frames,
+                      "kernel13_ms_a_frame": k13 / frames,
+                      "kernel14_busy_ms_a_frame": busy["k14"] / frames}), flush=True)
     del qp, params, cparams
 
 
@@ -384,15 +419,46 @@ def _f5_fp32(tag: str, card: str) -> None:
               flush=True)
 
 
+def _chain_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device time a call over chains of `calls` calls (chip_smoke.chain_ms,
+    which the parent tree may lack): CUDA events behind a spinning kernel,
+    the median of `reps`."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def _decode_digest(tag: str) -> None:
-    """sha256 of kernel 15's outputs (B 1, 3, 8) and kernel 14's (bf16 and
-    int8 weights) at the Qwen talker shape (A 2048, H 1024, F 3072), and
-    each one's device time a call at B 1 (chip_smoke.device_ms)."""
+    """At the Qwen talker shape (A 2048, H 1024, F 3072), B 1, 3, 8: sha256
+    of kernel 15's outputs ("decode_digest", which must be equal across the
+    trees) and of kernel 14's, bf16 and int8 weights ("k14_digest", which
+    must be equal across each tree's own turns: kernel 14's split over the
+    input dim is an fp32 order the contract allows, not the parent's), and
+    each kernel 14 output's rel L2 against its fp32 twin (the trees' must
+    be within 1.25x of tree A's); each one's device time a call at B 1
+    (chip_smoke.device_ms, a profiler trace of 10) and kernel 14's at B 1
+    and 8 as CUDA events over a chain of 10 calls."""
     import torch
 
     import chip_smoke as cs
 
-    from tts_tpu_torch.ops.decode_mlp import fused_out_mlp, fused_out_mlp_q8
+    from tts_tpu_torch.ops.decode_mlp import (fused_out_mlp, fused_out_mlp_plain,
+                                              fused_out_mlp_q8)
     from tts_tpu_torch.quant.weight_only import quantize_int8_jit
 
     gen = torch.Generator("cuda").manual_seed(4331)
@@ -402,19 +468,28 @@ def _decode_digest(tag: str) -> None:
 
     ws = [rn(2048, 1024, scale=0.02), rn(1024, 6144, scale=0.02), rn(3072, 1024, scale=0.02)]
     wq = [quantize_int8_jit(w) for w in ws]
-    outs, ms = {}, {}
+    outs, k14, rel, ms, chain = {}, {}, {}, {}, {}
     for b in (1, 3, 8):
         x, att = rn(b, 1024), rn(b, 2048)
         calls = {f"kernel15_b{b}": lambda: fused_out_mlp_q8(x, att, *wq),
                  f"kernel14_bf16_b{b}": lambda: fused_out_mlp(x, att, *ws),
                  f"kernel14_int8_b{b}": lambda: fused_out_mlp(x, att, *wq)}
         for name, fn in calls.items():
-            outs[name] = fn()
+            (k14 if name.startswith("kernel14") else outs)[name] = fn()
             if b == 1:
                 ms[name] = cs.device_ms(fn)
+            if name.startswith("kernel14") and b in (1, 8):
+                chain[name] = _chain_ms(fn)
+        for name, w32 in ((f"kernel14_bf16_b{b}", [w.float() for w in ws]),
+                          (f"kernel14_int8_b{b}", wq)):
+            ref = fused_out_mlp_plain(x.float(), att.float(), *w32)
+            rel[name] = (torch.linalg.vector_norm(k14[name].float() - ref)
+                         / torch.linalg.vector_norm(ref)).item()
     torch.cuda.synchronize()
     print(json.dumps({"tree": tag, "decode_digest": {k: _digest(v) for k, v in outs.items()},
-                      "device_ms_b1": ms}), flush=True)
+                      "k14_digest": {k: _digest(v) for k, v in k14.items()},
+                      "k14_rel_l2": rel, "device_ms_b1": ms, "k14_chain_ms": chain}),
+          flush=True)
 
 
 def _decode_kernels(tag: str, card: str) -> None:
@@ -526,11 +601,18 @@ def _decode_paths(tag: str, card: str) -> None:
     del kani
 
     vcfg = BigVGANConfig()
-    voc = BigVGANVocoder(cs.bigvgan_weights(vcfg, 9), vcfg, dtype=torch.bfloat16)
-    bench = voc.benchmark(mel_frames=512, iters=10)
-    print(json.dumps({"tree": tag, "card": card, "bigvgan": "bf16",
-                      "samples_per_s": bench["samples_per_sec"], "rtf": bench["rtf"]}),
-          flush=True)
+    mel = np.random.default_rng(9).standard_normal((1, 512, vcfg.num_mels)).astype(np.float32)
+    for dt in (torch.bfloat16, torch.float32):
+        voc = BigVGANVocoder(cs.bigvgan_weights(vcfg, 9, dt), vcfg, dtype=dt)
+        _, rows = _profile(lambda: voc(mel))
+        k10 = sum(ms for k, ms in rows if "amp_branch_kernel" in k)
+        bench = voc.benchmark(mel_frames=512, iters=10 if dt == torch.bfloat16 else 5)
+        print(json.dumps({"tree": tag, "card": card, "bigvgan": str(dt).split(".")[-1],
+                          "device_ms_a_call": sum(ms for _, ms in rows),
+                          "kernel10_ms_a_call": k10,
+                          "samples_per_s": bench["samples_per_sec"], "rtf": bench["rtf"]}),
+              flush=True)
+        del voc
 
 
 def main() -> None:
@@ -565,7 +647,8 @@ def main() -> None:
         print(out, end="", flush=True)
         for line in out.splitlines():
             rec = json.loads(line) if line.startswith("{") else {}
-            for key in ("flash_digest", "q8_digest", "decode_digest"):
+            for key in ("flash_digest", "q8_digest", "decode_digest", "k14_digest",
+                        "k14_rel_l2"):
                 if key in rec:
                     digests.setdefault(key, {}).setdefault(tag, []).append(rec[key])
             if rec.get("f5_bf16") == "w8a8":
@@ -578,11 +661,20 @@ def main() -> None:
 
     flash, q8 = same("flash_digest"), same("q8_digest") and same("w8a8_audio")
     decode = same("decode_digest")
+    # kernel 14: bitwise within each tree's turns; across the trees within
+    # 1.25x (chip_smoke.STEP_SLACK) of tree A's rel L2 against the fp32 twin
+    k14_runs = digests.get("k14_digest", {})
+    k14_same = all(d == runs[0] for runs in k14_runs.values() for d in runs)
+    rels = digests.get("k14_rel_l2", {})
+    k14_close = all(r[name] <= 1.25 * rels["A"][0][name] for runs in rels.values()
+                    for r in runs for name in r) if "A" in rels else True
     print(json.dumps({"kernels_1_4_5_bitwise_equal_across_trees": flash,
                       "kernels_6_7_8_and_w8a8_audio_bitwise_equal_across_trees": q8,
-                      "kernels_14_15_bitwise_equal_across_trees": decode,
+                      "kernel_15_bitwise_equal_across_trees": decode,
+                      "kernel_14_bitwise_repeatable_in_each_tree": k14_same,
+                      "kernel_14_rel_l2_within_1.25x_tree_a": k14_close,
                       "digests": digests}), flush=True)
-    if not (flash and q8 and decode):
+    if not (flash and q8 and decode and k14_same and k14_close):
         raise SystemExit("chip_ab: kernel outputs differ between the trees")
 
 if __name__ == "__main__":

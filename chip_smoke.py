@@ -9,8 +9,9 @@
                                              # fp32, fp32 W8A8),
                                              # one greedy Kani run, one
                                              # Qwen3-TTS request (bf16, int8),
-                                             # one BigVGAN call and one
-                                             # IndexTTS request
+                                             # one BigVGAN call, one
+                                             # IndexTTS request and its
+                                             # vocoder call alone
     python3 chip_smoke.py --families bigvgan,indextts   # phases 0-2, 8, 8c, 9
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
@@ -37,11 +38,15 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      call at kv_len 2047, the kani-tts-370m decode shapes (kernel 12 also
      against its bf16 twin, and no further from fp32 than 1.25x that
      twin), the Qwen3-TTS-0.6B talker and predictor shapes (kernel 12 at
-     head_dim 128, kernels 13-15, kernel 13 timed at both) and the BigVGAN
-     bench stages (kernel 10 in bf16 at
-     stages 2 and 5, in fp32 at stages 3 and 5), with its error, its time
-     beside the twin's and a library call's where one exists, and its
-     bound (and the flash kernels' exp floor);
+     head_dim 128, kernels 13-15, kernel 13 timed at both; kernel 14 in
+     each of its plan's forms, with programmatic dependent launch and
+     without, at B 1, 3 and 8, timed as CUDA events over a chain of 10
+     calls beside the profiler's split) and the BigVGAN bench stages
+     (kernel 10 in bf16 at stages 2-5, in fp32 at stages 3-5, k 3, 7, 11,
+     at 4 batch rows and at T 16484, a ragged last row tile; the row tiles
+     its plan does not pick), with its error, its time beside the twin's
+     and a library call's where one exists, and its bound (and the flash
+     kernels' exp floor);
   3. F5Pipeline.synthesize at full F5TTS_v1_Base width (random weights made
      from a seed) on three requests, checking the audio and that every DiT
      block went through the kernels;
@@ -520,16 +525,25 @@ def check_qwen_kernels(gen: torch.Generator, res: dict) -> None:
     for name, (kernel, plain, nb, ops, kind, lib) in timed.items():
         r = res[name] if name in res else {}
         r["ms"], r["plain_ms"] = device_ms(kernel), device_ms(plain)
+        if name.startswith("fused_out_mlp") and "q8" not in name:
+            # kernel 14's launches overlap (programmatic dependent launch):
+            # the profiler's sum counts the overlap twice
+            summed, r["ms"] = r["ms"], chain_ms(kernel)
+            print(f"  {name_limit}: {name}: profiler sum {summed:.4f} ms a call, CUDA events "
+                  f"over a chain of 10 calls {r['ms']:.4f} ms a call, trace span "
+                  f"{trace_span_ms(kernel):.4f} ms a call", flush=True)
         set_bound(r, nb, ops, kind)
         lib_txt = "none"
         if lib is not None:
             r["library_ms"] = device_ms(lib)
             lib_txt = f"{r['library_ms']:.4f} ms (SDPA, enable_gqa)"
+        how = ("CUDA events over a chain of 10 calls" if name.startswith("fused_out_mlp")
+               and "q8" not in name else "profiler over 10 calls")
         print(f"  {name_limit}: {name}: kernel {r['ms']:.4f} ms, plain twin "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
               f"{nb / 1e6:.3f} MB, "
               f"{ops / 1e9:.4f} G {kind} ops), library {lib_txt} (Qwen talker shape, "
-              f"B=1, device time a call, profiler over 10 calls); one call's wall "
+              f"B=1, device time a call, {how}; twin: profiler); one call's wall "
               f"{time_ms(kernel):.4f} / {time_ms(plain):.4f} ms (median of 10)", flush=True)
         print_split(name, kernel)
     time_decode_forms(gen)
@@ -638,7 +652,8 @@ def check_kernels(gen: torch.Generator) -> dict:
     check_decode_kernels(gen, res)
     check_qwen_kernels(gen, res)
     check_bigvgan_kernel(gen, res)
-    check_bigvgan_kernel_f32(gen, res)
+    check_bigvgan_kernel(gen, res, f32=True)
+    time_amp_forms()
     return res
 
 
@@ -1191,98 +1206,119 @@ def amp_block_bound(r: dict, b: int, t: int, c: int, k: int, dt=torch.bfloat16) 
               2 * j * ACT_OPS * b * t * c)
 
 
-def check_bigvgan_kernel(gen: torch.Generator, res: dict) -> None:
-    """Phase 2, kernel 10 at the BigVGAN bench stages 2 (C 192, T 16384) and
-    5 (C 24, T 131072) for k = 3, 7, 11 against its fp32 twin on the same
-    bf16 inputs, and at both stages' C with 4 batch rows of T / 4 (k = 11);
-    then CUDA-event times (median of 10) of the kernel and its
-    bf16 twin at all four stages the bench call runs it at, with bounds.
-    The kernels' row is stage 2 at k = 11, the heaviest resblock."""
+def check_bigvgan_kernel(gen: torch.Generator, res: dict, f32: bool = False) -> None:
+    """Phase 2, kernel 10 against its fp32 twin on the same inputs at the
+    BigVGAN bench stages it runs (bf16: stages 2-5, C 192, 96, 48, 24;
+    fp32 (`f32`, TF32 off): stages 3-5, C <= 128) for k = 3, 7, 11, within
+    TOL (bf16) or TOL32 (fp32); with 4 batch rows of T / 4 at its first and
+    last stage (k 11) and, on inputs of their own, at T = 16384 + 100 (a
+    ragged last row tile) at every stage (k 11) and with x scaled by 8192
+    at the last stage (the act's sine arguments past its fast path's
+    range: the sinf path). CUDA-event times (median of
+    10) of the kernel and of its twin at each stage and k, the kernel's
+    device time by launch (a profiler trace of 10 calls), the bounds, and
+    the sums over the resblocks of a bench call (12 in bf16, 9 in fp32).
+    The kernels' row is stage 2 at k 11 (bf16), stage 3 at k 11 (fp32)."""
     from tts_tpu_torch.ops.bigvgan_stage import amp_block_fused, amp_block_fused_plain
 
-    r = res["amp_block_fused"]
+    dt, tol = (torch.float32, TOL32) if f32 else (torch.bfloat16, TOL)
+    name = "amp_block_fused_f32" if f32 else "amp_block_fused"
+    label = "amp_block_fused fp32" if f32 else "amp_block_fused"
+    stages = BV_STAGES[1:] if f32 else BV_STAGES
+    r = res[name]
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     name_limit = card()
-    for stage, c, t in BV_STAGES:
+    for stage, c, t in stages:
         for k in BV_KS:
-            args = amp_block_inputs(gen, 1, t, c, k)
+            args = amp_block_inputs(gen, 1, t, c, k, dt)
             kern = lambda: amp_block_fused(*args, k=k, dils=BV_DILS)
             plain = lambda: amp_block_fused_plain(*args, k=k, dils=BV_DILS)
-            if stage in (2, 5):
-                got = kern()
-                ref = amp_block_fused_plain(*[a.float() for a in args], k=k, dils=BV_DILS)
-                r["max_abs_err"] = max(r["max_abs_err"], check(
-                    f"amp_block_fused stage {stage} x=(1, {t}, {c}) k={k} dils={BV_DILS}",
-                    got, ref))
-                del got, ref
-            one = {}
-            one["ms"], one["plain_ms"] = time_ms(kern), time_ms(plain)
-            amp_block_bound(one, 1, t, c, k)
-            for key in tot:
-                tot[key] += one[key]
-            print(f"  {name_limit}: amp_block_fused stage {stage} (C {c}, T {t}) k={k}: "
-                  f"kernel {one['ms']:.4f} ms, bf16 twin {one['plain_ms']:.4f} ms, bound "
-                  f"{one['bound_ms']:.4f} ms ({one['bound_by']}) (CUDA events, median of 10)",
-                  flush=True)
-            if (stage, k) == (2, 11):
-                r.update(one)
-            del args
-    for stage, c, t in (BV_STAGES[0], BV_STAGES[-1]):   # batch rows: a grid dimension
-        args = amp_block_inputs(gen, 4, t // 4, c, 11)
-        got = amp_block_fused(*args, k=11, dils=BV_DILS)
-        ref = amp_block_fused_plain(*[a.float() for a in args], k=11, dils=BV_DILS)
-        r["max_abs_err"] = max(r["max_abs_err"], check(
-            f"amp_block_fused stage {stage} x=(4, {t // 4}, {c}) k=11 dils={BV_DILS}", got, ref))
-        del got, ref, args
-    print(f"  {name_limit}: amp_block_fused over the 12 resblocks of a bench call: kernel "
-          f"{tot['ms']:.4f} ms, bf16 twin {tot['plain_ms']:.4f} ms, bound "
-          f"{tot['bound_ms']:.4f} ms (sum of each resblock's); library call: none",
-          flush=True)
-
-
-def check_bigvgan_kernel_f32(gen: torch.Generator, res: dict) -> None:
-    """Phase 2, kernel 10's fp32 form at the BigVGAN bench stages 3 (C 96,
-    T 32768) and 5 (C 24, T 131072) for k = 3, 7, 11, and at 4 batch rows of
-    T / 4 (k = 11), against its fp32 twin on the same inputs (within TOL32;
-    TF32 is off); then CUDA-event times (median of 10) of the kernel and
-    the twin at stages 3-5, the ones an fp32 bench call runs it at (C <=
-    128), with bounds. The kernels' row is stage 3 at k = 11."""
-    from tts_tpu_torch.ops.bigvgan_stage import amp_block_fused, amp_block_fused_plain
-
-    f32 = torch.float32
-    r = res["amp_block_fused_f32"]
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    name_limit = card()
-    for stage, c, t in BV_STAGES[1:]:
-        for k in BV_KS:
-            args = amp_block_inputs(gen, 1, t, c, k, f32)
-            kern = lambda: amp_block_fused(*args, k=k, dils=BV_DILS)
-            plain = lambda: amp_block_fused_plain(*args, k=k, dils=BV_DILS)
-            if stage in (3, 5):
-                r["max_abs_err"] = max(r["max_abs_err"], check(
-                    f"amp_block_fused fp32 stage {stage} x=(1, {t}, {c}) k={k} "
-                    f"dils={BV_DILS}", kern(), plain(), TOL32))
+            got = kern()
+            ref = amp_block_fused_plain(*[a.float() for a in args], k=k, dils=BV_DILS)
+            r["max_abs_err"] = max(r["max_abs_err"], check(
+                f"{label} stage {stage} x=(1, {t}, {c}) k={k} dils={BV_DILS}", got, ref, tol))
+            del got, ref
             one = {"ms": time_ms(kern), "plain_ms": time_ms(plain)}
-            amp_block_bound(one, 1, t, c, k, f32)
+            amp_block_bound(one, 1, t, c, k, dt)
             for key in tot:
                 tot[key] += one[key]
-            print(f"  {name_limit}: amp_block_fused fp32 stage {stage} (C {c}, T {t}) k={k}: "
-                  f"kernel {one['ms']:.4f} ms, fp32 twin {one['plain_ms']:.4f} ms, bound "
-                  f"{one['bound_ms']:.4f} ms ({one['bound_by']}) (CUDA events, median of 10)",
-                  flush=True)
-            if (stage, k) == (3, 11):
+            print(f"  {name_limit}: {label} stage {stage} (C {c}, T {t}) k={k}: kernel "
+                  f"{one['ms']:.4f} ms, {'fp32' if f32 else 'bf16'} twin {one['plain_ms']:.4f} "
+                  f"ms, bound {one['bound_ms']:.4f} ms ({one['bound_by']}) (CUDA events, median "
+                  f"of 10)", flush=True)
+            print_split(f"  {label} stage {stage} k={k}", kern)
+            if (stage, k) == ((3, 11) if f32 else (2, 11)):
                 r.update(one)
             del args
-    for stage, c, t in (BV_STAGES[1], BV_STAGES[-1]):
-        args = amp_block_inputs(gen, 4, t // 4, c, 11, f32)
+    for stage, c, t in (stages[0], stages[-1]):   # batch rows: a grid dimension
+        args = amp_block_inputs(gen, 4, t // 4, c, 11, dt)
         r["max_abs_err"] = max(r["max_abs_err"], check(
-            f"amp_block_fused fp32 stage {stage} x=(4, {t // 4}, {c}) k=11 dils={BV_DILS}",
+            f"{label} stage {stage} x=(4, {t // 4}, {c}) k=11 dils={BV_DILS}",
             amp_block_fused(*args, k=11, dils=BV_DILS),
-            amp_block_fused_plain(*args, k=11, dils=BV_DILS), TOL32))
+            amp_block_fused_plain(*[a.float() for a in args], k=11, dils=BV_DILS), tol))
         del args
-    print(f"  {name_limit}: amp_block_fused fp32 over the 9 resblocks of an fp32 bench call "
-          f"(stages 3-5): kernel {tot['ms']:.4f} ms, fp32 twin {tot['plain_ms']:.4f} ms, bound "
-          f"{tot['bound_ms']:.4f} ms (sum of each resblock's); library call: none", flush=True)
+    # its own generator: the checks above keep the inputs they had
+    ragged = torch.Generator("cuda").manual_seed(1010 + f32)
+    for stage, c, _ in stages:
+        args = amp_block_inputs(ragged, 1, 16384 + 100, c, 11, dt)
+        r["max_abs_err"] = max(r["max_abs_err"], check(
+            f"{label} stage {stage} x=(1, {16384 + 100}, {c}) k=11 dils={BV_DILS} (ragged last "
+            f"tile)", amp_block_fused(*args, k=11, dils=BV_DILS),
+            amp_block_fused_plain(*[a.float() for a in args], k=11, dils=BV_DILS), tol))
+        del args
+    # x scaled so that the act's sine arguments pass SIN_MAX (8192): the
+    # strips fall back to sinf
+    big = torch.Generator("cuda").manual_seed(1012 + f32)
+    stage, c, _ = stages[-1]
+    args = amp_block_inputs(big, 1, 4096, c, 11, dt)
+    args = ((args[0].float() * 8192).to(dt),) + args[1:]
+    # (its absolute error scales with x: held to the same relative limits,
+    # and left out of the kernel's max_abs_err)
+    check(f"{label} stage {stage} x=(1, 4096, {c}) * 8192 k=11 dils={BV_DILS} (the act's sinf "
+          f"path)", amp_block_fused(*args, k=11, dils=BV_DILS),
+          amp_block_fused_plain(*[a.float() for a in args], k=11, dils=BV_DILS), tol)
+    del args
+    print(f"  {name_limit}: {label} over the {len(stages) * 3} resblocks of "
+          f"{'an fp32' if f32 else 'a'} bench call: kernel {tot['ms']:.4f} ms, twin "
+          f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms (sum of each "
+          f"resblock's); library call: none", flush=True)
+
+
+def time_amp_forms() -> None:
+    """Kernel 10 in the row tiles its plan does not pick (every other one
+    the C entry takes), the plan swapped for the call, at bf16 stage 2 (C
+    192) and stage 5 (C 24) and fp32 stages 3 (C 96) and 5, k 11 and (stage
+    5) k 3: each within TOL (bf16) or TOL32 (fp32) of the fp32 twin, CUDA
+    events (median of 10) beside the plan's tile. Inputs from a generator of
+    its own."""
+    from tts_tpu_torch.ops import bigvgan_stage as k10
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1011)
+    name_limit = card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dt, (stage, c, t), k in ((torch.bfloat16, BV_STAGES[0], 11),
+                                 (torch.bfloat16, BV_STAGES[3], 11),
+                                 (torch.bfloat16, BV_STAGES[3], 3),
+                                 (torch.float32, BV_STAGES[1], 11),
+                                 (torch.float32, BV_STAGES[3], 11)):
+        tol = TOL32 if dt == torch.float32 else TOL
+        args = amp_block_inputs(gen, 1, t, c, k, dt)
+        ref = k10.amp_block_fused_plain(*[a.float() for a in args], k=k, dils=BV_DILS)
+        plan = k10.amp_plan(c, k, BV_DILS, dt, t, 1, sms)
+        times = []
+        for tb in range(64, k10._MAX_TB + 1, 64):
+            if not all(k10.amp_geometry(c, k, d, tb, dt).ok for d in BV_DILS):
+                continue
+            form = plan._replace(tb=tb)
+            with swapped(k10, {"amp_plan": lambda *a, _f=form: _f}):
+                check(f"amp_block_fused {dt} stage {stage} k={k}, row tile {tb}",
+                      k10.amp_block_fused(*args, k=k, dils=BV_DILS), ref, tol)
+                ms = time_ms(lambda: k10.amp_block_fused(*args, k=k, dils=BV_DILS))
+                times.append(f"{tb}{' (plan)' if tb == plan.tb else ''} {ms:.4f}")
+        print(f"  {name_limit}: amp_block_fused {dt} stage {stage} (C {c}, T {t}) k={k} by row "
+              f"tile: " + ", ".join(times) + " ms (CUDA events, median of 10)", flush=True)
+        del args, ref
 
 
 def sdpa_ms(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, kv: int,
@@ -1471,6 +1507,49 @@ def print_split(label: str, fn) -> None:
           f"(device time a call, profiler over 10 calls)", flush=True)
 
 
+def chain_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device time a call over a chain of `calls` calls of fn(): CUDA events
+    around the chain, enqueued behind a kernel that spins for a few ms so
+    the host's enqueue runs ahead of the card and the calls run back to
+    back (with programmatic dependent launch a profiler's sum of kernel
+    times counts their overlap twice); the median of `reps` chains."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def trace_span_ms(fn, calls: int = 10) -> float:
+    """Device time a call as a trace's span: from the first kernel's start
+    to the last one's end over a chain of `calls` calls of fn() (behind a
+    spinning kernel, as in chain_ms), over `calls`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(40_000_000)     # the profiler slows the host's enqueue
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA and "spin" not in e.name]
+    if not evs:
+        return float("nan")
+    return (max(e.time_range.end for e in evs) - min(e.time_range.start for e in evs)) \
+        / 1e3 / calls
+
+
 def time_q8_forms(gen: torch.Generator) -> None:
     """Kernels 7, 8 and 6 (its ff2; ff1 keeps its one cluster form) in
     each form of the bias / residual GEMM, q8_plan's choice swapped for the
@@ -1579,6 +1658,73 @@ def time_decode_forms(gen: torch.Generator) -> None:
                 print_split(f"{name_limit}: fused_qkv_attn {shape} pos {pos}, {ctas} CTA(s) a "
                             f"kv head", lambda: decode_step.fused_qkv_attn(
                                 x1, w, cos, sin, kc, vc, 1, pos, **kw))
+    time_out_mlp_forms()
+
+
+def time_out_mlp_forms() -> None:
+    """Kernel 14 at the Qwen3-TTS talker shape (A 2048, H 1024, F 3072), B 1,
+    3 and 8, bf16 and int8 weights, in its plan's form and in forms the
+    plan does not pick, the plan swapped for the call: with programmatic
+    dependent launch where the plan goes without and the other way round,
+    and with slices short enough to give every SM a CTA (at least 64 rows),
+    with and without it. Each within TOL of the
+    fp32 twin, at most STEP_SLACK times the bf16 twin's rel L2 against fp32
+    and bitwise equal over two calls; device time a call as CUDA events over
+    a chain of 10 calls, as a trace's span, and by launch (the profiler's
+    sum counts the launches' overlap twice). Inputs from a generator of its
+    own."""
+    from tts_tpu_torch.ops import _build, decode_mlp
+    from tts_tpu_torch.ops.decode_mlp import OutMlpPlan
+    from tts_tpu_torch.quant.weight_only import quantize_int8_jit
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1414)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    name_limit = card()
+    a_dim, hs, ffn = 2048, 1024, 3072
+    wb = (rn(a_dim, hs, scale=0.02), rn(hs, 2 * ffn, scale=0.02), rn(ffn, hs, scale=0.02))
+    weights = {"bf16": wb, "int8": [quantize_int8_jit(m) for m in wb]}
+    sms = _build.sm_count(torch.device("cuda", torch.cuda.current_device()))
+    for wl, ws in weights.items():
+        cols = 64 if wl == "bf16" else 128
+        fill = [decode_mlp._fill(dim, tiles, sms, 64) for dim, tiles in (
+            (a_dim, hs // cols), (hs, ffn // (cols // 2)), (ffn, hs // cols))]
+        ws32 = ws if wl == "int8" else [m.float() for m in ws]
+        for b in (1, 3, 8):
+            plan = decode_mlp.out_mlp_plan(a_dim, hs, ffn, 1 if wl == "int8" else 2, sms, b)
+            forms = {"the plan's": plan,
+                     "with PDL" if not plan.pdl else "without PDL": plan._replace(
+                         pdl=not plan.pdl),
+                     "a CTA on every SM": OutMlpPlan(*fill[0], *fill[1], *fill[2], True),
+                     "a CTA on every SM without PDL": OutMlpPlan(*fill[0], *fill[1],
+                                                                 *fill[2], False)}
+            x, att = rn(b, hs), rn(b, a_dim)
+            ref = decode_mlp.fused_out_mlp_plain(x.float(), att.float(), *ws32, eps=1e-6)
+            twin = decode_mlp.fused_out_mlp_plain(x, att, *ws, eps=1e-6)
+            twin_rel = rel_l2(twin, ref)
+            for label, form in forms.items():
+                def call(_f=form):
+                    with swapped(decode_mlp, {"out_mlp_plan": lambda *a, **k: _f}):
+                        return decode_mlp.fused_out_mlp(x, att, *ws, eps=1e-6)
+
+                got = call()
+                check(f"fused_out_mlp B {b} {wl} weights, {label} form {tuple(form)}", got, ref)
+                rel = rel_l2(got, ref)
+                same = torch.equal(call(), got)
+                print(f"  fused_out_mlp B {b} {wl}, {label}: rel L2 against fp32 {rel:.6g}, "
+                      f"the bf16 twin's {twin_rel:.6g} (ratio {rel / twin_rel:.4f}, limit "
+                      f"{STEP_SLACK}), a second call {'bitwise equal' if same else 'DIFFERENT'}",
+                      flush=True)
+                if rel > STEP_SLACK * twin_rel or not same:
+                    raise AssertionError(f"fused_out_mlp {label}: error {rel} against the bf16 "
+                                         f"twin's {twin_rel}, repeatable {same}")
+                print(f"  {name_limit}: fused_out_mlp B {b} {wl} weights, {label} form: "
+                      f"{chain_ms(call):.4f} ms a call (CUDA events over a chain of 10), trace "
+                      f"span {trace_span_ms(call):.4f} ms a call", flush=True)
+                print_split(f"  fused_out_mlp B {b} {wl}, {label}", call)
 
 
 def int_mm_ms(m: int, k: int, n: int) -> float:
@@ -2816,7 +2962,8 @@ def check_index_vocode(pipe, args: tuple, label: str) -> None:
 
 def run_indextts(name_limit: str) -> tuple:
     """Phase 9: IndexTTSPipeline at full IndexTTS-1.5 width. Returns the
-    launch counts of the bf16 request and the bf16 pipeline and reference."""
+    launch counts of the bf16 request, the bf16 pipeline and reference, and
+    the arguments the bf16 request's vocoder call took."""
     from tts_tpu_torch.ops._build import LAUNCHES
     from tts_tpu_torch.runtime.indextts import IndexTTSPipeline
 
@@ -2897,7 +3044,7 @@ def run_indextts(name_limit: str) -> tuple:
     for args, label in zip(vocoded, ("bf16 request", "batch of 4")):
         check_index_vocode(pipes["bf16"], args, label)
     check_index_step(pipes["bf16"], ref)
-    return launches, pipes["bf16"], ref
+    return launches, pipes["bf16"], ref, vocoded[0]
 
 
 def profile_one(label: str, fn, classes, name_limit: str, per: tuple | None = None,
@@ -3061,7 +3208,7 @@ def main() -> None:
 
     if "indextts" in fams:
         phase("phase 9: IndexTTSPipeline")
-        _, index_pipe, index_ref = run_indextts(name_limit)
+        _, index_pipe, index_ref, index_voc = run_indextts(name_limit)
         if args.profile:
             phase("phase 9b: torch.profiler over one IndexTTS request (bf16)")
             profile_one(
@@ -3071,7 +3218,15 @@ def main() -> None:
                  K10_CLASS, CONV_CLASS, GEMM_CLASS, ("casts / copies", ("copy", "convert"))),
                 name_limit, per=(INDEX_GEN, "token"),
                 out_path=os.path.join(args.profile, "indextts_profile.txt"))
-        del index_pipe
+            # the request's vocoder call alone: its arguments as the request
+            # gave them, so its device time, wall and kernel 10's part show
+            # apart from the decode's
+            profile_one(
+                "IndexTTS bf16 request's vocoder call (BigVGAN, 1,024x)",
+                lambda: index_pipe._vocode(*index_voc),
+                (K10_CLASS, CONV_CLASS, GEMM_CLASS, ("casts / copies", ("copy", "convert"))),
+                name_limit, out_path=os.path.join(args.profile, "indextts_vocoder_profile.txt"))
+        del index_pipe, index_voc
 
     phase("done")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

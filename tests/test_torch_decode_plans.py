@@ -1,19 +1,22 @@
-"""The host-side plans of kernels 12 and 15 (ops/decode_step.step_plan,
-ops/decode_mlp.q8_tail_plan) against the forms their C entries accept
-(csrc/decode_step.cu `fused_qkv_attn`, csrc/decode_mlp_q8.cu
-`fused_out_mlp_q8`), and a plain model of kernel 12's split over a kv
-head's cluster held against tts_tpu's Pallas kernel in interpret mode and
-against the port's twin.
+"""The host-side plans of kernels 12, 14 and 15 (ops/decode_step.step_plan,
+ops/decode_mlp.out_mlp_plan, ops/decode_mlp.q8_tail_plan) against the forms
+their C entries accept (csrc/decode_step.cu `fused_qkv_attn`,
+csrc/decode_mlp.cu `fused_out_mlp`, csrc/decode_mlp_q8.cu
+`fused_out_mlp_q8`), and plain models of kernel 12's split over a kv
+head's cluster and of kernel 14's split of each dot over its input dim,
+held against tts_tpu's Pallas kernels in interpret mode and against the
+port's twins.
 
-The C entries refuse any form but the plan's; `_step_accepts` and
-`_q8_accepts` below restate their checks, and
+The C entries refuse any form but the plan's; `_step_accepts`,
+`_out_mlp_accepts` and `_q8_accepts` below restate their checks, and
 `test_c_entries_check_what_the_mirrors_state` reads the checks and the
 limits they use from the sources, so the two cannot drift apart unseen.
 
-Tolerance of the split model: the card's 2^-6 of max |ref| and of the rel
+Tolerance of the split models: the card's 2^-6 of max |ref| and of the rel
 L2 (chip_smoke.py's TOL), in bf16. Against the twin only the order of the
-fp32 sums differs (slices, then ranks), so a few bf16 roundings of p move;
-against tts_tpu's kernel its own bf16 roundings of the qkv head move too.
+fp32 sums differs (slices, then ranks), so a few bf16 roundings move (of p
+in kernel 12; of x2, h, g, u, a and the output in kernel 14); against
+tts_tpu's kernels their own bf16 roundings move too.
 """
 import re
 from pathlib import Path
@@ -23,8 +26,10 @@ import numpy as np
 import pytest
 import torch
 
-from tts_tpu_torch.ops.decode_mlp import (Q8TailPlan, _pick_block, out_mlp_fits,
+from tts_tpu_torch.ops.decode_mlp import (OutMlpPlan, Q8TailPlan, _pick_block,
+                                          fused_out_mlp_plain, out_mlp_fits, out_mlp_plan,
                                           q8_tail_plan)
+from tts_tpu_torch.quant.weight_only import QTensor
 from tts_tpu_torch.ops import decode_qkv
 from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope_plain
 from tts_tpu_torch.ops.decode_step import fused_qkv_attn, step_fits, step_plan
@@ -56,7 +61,44 @@ def _q8_accepts(a_dim: int, hidden: int, ffn: int, plan) -> bool:
             and fb % k3 == 0 and 1 <= c3 <= 16 and c3 <= nsub and -(-nsub // c3) <= 2)
 
 
+def _cut8_ok(dim: int, ctas: int, k: int) -> bool:
+    """csrc/decode_mlp.cu's cut_ok."""
+    return 1 <= ctas <= 8 and k >= 8 and k % 8 == 0 and ctas * k >= dim \
+        and (ctas - 1) * k < dim
+
+
+def _out_mlp_accepts(a_dim: int, hidden: int, ffn: int, plan) -> bool:
+    """csrc/decode_mlp.cu's form check."""
+    c1, k1, c2, k2, c3, k3, pdl = plan
+    return (_cut8_ok(a_dim, c1, k1) and _cut8_ok(hidden, c2, k2) and _cut8_ok(ffn, c3, k3)
+            and int(pdl) in (0, 1))
+
+
+def _out_mlp_smem(launch: int, b: int, hidden: int, plan, w_bytes: int) -> int:
+    """csrc/decode_mlp.cu's smem_bytes: launch 2's x2 rows, the bf16
+    activations of a slice in whole chunks of 32 row lanes x NR rows (NR 8
+    for int8 at B > 4, else 16), the warps' and the cluster's fp32 sums
+    (B x 128 bytes of columns each)."""
+    k, ctas = (plan.k1, plan.c1) if launch == 1 else \
+        (plan.k2, plan.c2) if launch == 2 else (plan.k3, plan.c3)
+    chunk = 32 * (8 if w_bytes == 1 and b > 4 else 16)
+    sums = 4 * b * 128 // w_bytes
+    return (2 * b * hidden if launch == 2 else 0) + 2 * b * -(-k // chunk) * chunk \
+        + (8 + ctas) * sums
+
+
 def test_c_entries_check_what_the_mirrors_state():
+    k14 = " ".join((CSRC / "decode_mlp.cu").read_text().split())
+    for part in ("constexpr int MAX_CTAS = 8;", "constexpr int NT = 256, NW = NT / 32;",
+                 "constexpr int CG = 8;", "constexpr int QL = NT / CG;",
+                 "return sizeof(W) == 1 && NB > 4 ? 8 : 16;",
+                 "ctas >= 1 && ctas <= MAX_CTAS && k >= 8 && k % 8 == 0 && "
+                 "(long long)ctas * k >= dim && (long long)(ctas - 1) * k < dim;",
+                 "const bool form = tts::cut_ok(A, c1, k1) && tts::cut_ok(H, c2, k2) && "
+                 "tts::cut_ok(F, c3, k3) && (pdl == 0 || pdl == 1);",
+                 "return x2s + sizeof(bf16) * NB * padded<W, NB>(k) + (NW + ctas) * N;",
+                 "if (s1 > 227 * 1024 || s2 > 227 * 1024 || s3 > 227 * 1024)"):
+        assert part in k14, part
     q8 = (CSRC / "decode_mlp_q8.cu").read_text()
     assert re.search(r"constexpr int MAX_CTAS = 16;", q8)
     assert re.search(r"constexpr int MAX_PASSES = 2;", q8)
@@ -79,6 +121,124 @@ def test_c_entries_check_what_the_mirrors_state():
     assert ("pos == 0 ? ctas == 1 && rows == 0 : ctas >= 1 && ctas <= tts::ST_MAX_CTAS && "
             "rows >= 1 && (long long)ctas * rows >= pos && (long long)(ctas - 1) * rows < pos"
             ) in step
+
+
+# ---------------------------------------------------------------- kernel 14
+
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("w_bytes", [2, 1])
+def test_out_mlp_plan_at_the_qwen_shape(w_bytes, rows):
+    """A 2048, H 1024, F 3072 on an H100 (132 SMs): slices of 512 rows, 4 x
+    16, 2 x 96 and 6 x 16 CTAs in bf16 (64-column tiles), 4 x 8, 2 x 48 and
+    6 x 8 in int8 (128-column tiles); programmatic dependent launch in bf16
+    and in int8 at one row: the forms that won on the card. Kani's FFN
+    (4608) is past the kernels' 4096: no form there."""
+    plan = out_mlp_plan(2048, 1024, 3072, w_bytes, 132, rows)
+    assert plan == OutMlpPlan(4, 512, 2, 512, 6, 512, w_bytes == 2 or rows == 1)
+    assert _out_mlp_accepts(2048, 1024, 3072, plan)
+    assert not out_mlp_fits(1, 1024, 1024, 4608)
+
+
+@pytest.mark.parametrize("sms", [16, 132])
+@pytest.mark.parametrize("w_bytes", [2, 1])
+@pytest.mark.parametrize("a_dim", [8, 256, 1000, 2048, 4096, 8192])
+def test_out_mlp_plan_covers_every_admitted_shape(a_dim, w_bytes, sms):
+    """Every (H, F) out_mlp_fits admits: the plan is a form the C entry
+    takes, at most 8 CTAs a cluster, slices of at least 512 rows where the
+    dim has them, no more CTAs than it takes to give every SM one, and each
+    launch's shared memory within an H100 CTA's at B 1 and 8."""
+    for hidden in range(32, 4097, 224):
+        for ffn in range(32, 4097, 96):
+            if not out_mlp_fits(1, a_dim, hidden, ffn):
+                continue
+            plan = out_mlp_plan(a_dim, hidden, ffn, w_bytes, sms)
+            assert _out_mlp_accepts(a_dim, hidden, ffn, plan), (a_dim, hidden, ffn, plan)
+            cols = 128 // w_bytes
+            for dim, ctas, k, tiles in ((a_dim, plan.c1, plan.k1, -(-hidden // cols)),
+                                        (hidden, plan.c2, plan.k2, -(-ffn // (cols // 2))),
+                                        (ffn, plan.c3, plan.k3, -(-hidden // cols))):
+                assert k >= min(512, dim) or ctas == 1
+                assert ctas == 1 or (ctas - 1) * tiles < sms
+            for b in (1, 8):
+                for launch in (1, 2, 3):
+                    assert _out_mlp_smem(launch, b, hidden, plan, w_bytes) <= CARD_SMEM
+
+
+@pytest.mark.parametrize("plan", [
+    OutMlpPlan(9, 256, 2, 512, 6, 512, True),      # a cluster of 9
+    OutMlpPlan(5, 512, 2, 512, 6, 512, True),      # the fifth slice empty
+    OutMlpPlan(4, 516, 2, 512, 6, 512, True),      # rows not a multiple of 8
+    OutMlpPlan(4, 512, 2, 256, 6, 512, True),      # the hidden dim not covered
+    OutMlpPlan(4, 512, 2, 512, 6, 512, 2),         # no such PDL mode
+])
+def test_out_mlp_form_check_refuses_other_forms(plan):
+    assert not _out_mlp_accepts(2048, 1024, 3072, plan)
+
+
+def _out_mlp_model(x, att, wo, wgu, wd, plan, eps=1e-6):
+    """Kernel 14's CUDA form in plain torch on bf16 values: each dot's fp32
+    sum taken over the plan's slices of its input dim (a CTA each), the
+    slices added in rank order, then the twin's rounding points: rounded to
+    bf16, (int8) times the bf16-rounded scale in bf16; x2 = x + y; h =
+    bf16(x2 rsqrt(mean(x2^2) + eps)); a = bf16(silu(g) u); out = x2 + y."""
+    f = wd.shape[0]
+
+    def dot(a, w, k, cols=slice(None)):
+        wq = (w.q if isinstance(w, QTensor) else w)[:, cols].float()
+        acc = torch.zeros(a.shape[0], wq.shape[1])
+        for s0 in range(0, a.shape[1], k):
+            acc = acc + a[:, s0:s0 + k].float() @ wq[s0:s0 + k]
+        y = acc.to(torch.bfloat16)
+        if isinstance(w, QTensor):
+            y = y * w.scale[cols].to(torch.bfloat16)
+        return y
+
+    x2 = x + dot(att, wo, plan.k1)
+    xf = x2.float()
+    h = (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)).to(torch.bfloat16)
+    g = dot(h, wgu, plan.k2, slice(0, f))
+    u = dot(h, wgu, plan.k2, slice(f, 2 * f))
+    a = (torch.nn.functional.silu(g.float()) * u.float()).to(torch.bfloat16)
+    return x2 + dot(a, wd, plan.k3)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_out_mlp_split_matches_pallas_and_twin(quant, b):
+    """The model of kernel 14's split (the plan at A 1024, H 256, F 1024 on
+    132 SMs: 2 slices of 512 of att, one of h, 2 of a) against tts_tpu's
+    fused_out_mlp in interpret mode and the port's twin, bf16 activations,
+    bf16 or int8 weights (tts_tpu's eager quantizer, the same q and scales
+    on both sides)."""
+    from tts_tpu.ops.decode_mlp import fused_out_mlp as pallas
+    from tts_tpu.quant.weight_only import quantize_int8
+
+    a_dim, hid, ffn = 1024, 256, 1024
+    rng = np.random.default_rng(140 + b + 10 * quant)
+    plan = out_mlp_plan(a_dim, hid, ffn, 1 if quant else 2, 132)
+    assert (plan.c1, plan.c2, plan.c3) == (2, 1, 2)
+
+    def bf(*shape, scale=1.0):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(torch.bfloat16)
+
+    jb = lambda a: jnp.asarray(a.float().numpy(), jnp.bfloat16)   # noqa: E731
+    x, att = bf(b, hid), bf(b, a_dim)
+    ws = [bf(*s, scale=0.03) for s in ((a_dim, hid), (hid, 2 * ffn), (ffn, hid))]
+    if quant:
+        qs = [quantize_int8(jnp.asarray(w.float().numpy())) for w in ws]
+        wj = qs
+        ws = [QTensor(q=torch.from_numpy(np.array(q.q)),
+                      scale=torch.from_numpy(np.array(q.scale))) for q in qs]
+    else:
+        wj = [jb(w) for w in ws]
+    model = _out_mlp_model(x, att, *ws, plan)
+    twin = fused_out_mlp_plain(x, att, *ws, eps=1e-6)
+    ref = pallas(jb(x), jb(att), *wj, eps=1e-6, interpret=True)
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    assert model.shape == twin.shape == (b, hid) and model.dtype == torch.bfloat16
+    _within_bf16_tol(model, twin)
+    _within_bf16_tol(model, ref)
 
 
 # ---------------------------------------------------------------- kernel 15

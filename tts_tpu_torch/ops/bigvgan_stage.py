@@ -19,12 +19,14 @@ and snake parameters as the kernel sees them), rounded to the dtype once;
 each conv accumulated in fp32, rounded, then the bias added in the dtype;
 the residual added in the dtype. The CUDA kernel takes bf16 at C <= 256
 and fp32 at C <= 128 (`kernel_fits`), launched as "amp_block_fused" and
-"amp_block_fused_f32" (each counted under its name).
+"amp_block_fused_f32" (each counted under its name), in row tiles that
+`amp_plan` picks and the C entry checks.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,8 +35,8 @@ import torch.nn.functional as F
 from ..audio.filters import AliasFreeResample
 from . import _build
 
-__all__ = ["LAUNCHES", "amp_block_fused", "amp_block_fused_plain", "fusable_stage",
-           "kernel_fits", "act_plan"]
+__all__ = ["LAUNCHES", "AmpPlan", "act_plan", "amp_block_fused", "amp_block_fused_plain",
+           "amp_geometry", "amp_plan", "fusable_stage", "kernel_fits"]
 
 LAUNCHES = _build.LAUNCHES     # counted under "amp_block_fused" / "amp_block_fused_f32"
 
@@ -46,8 +48,14 @@ _ENTRY = {torch.bfloat16: "amp_block_fused", torch.float32: "amp_block_fused_f32
 _MAX_TAPS = 11    # conv width it is built for (odd)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, out, tmp, w1, b1, w2, b2, a1, r1, a2, r2, taps (24 host floats), dils
-# (J host ints), J, B, T, C, K, stream
-_ARGTYPES = [_P] * 13 + [_I] * 5 + [_P]
+# (J host ints), J, B, T, C, K, tb, stream
+_ARGTYPES = [_P] * 13 + [_I] * 6 + [_P]
+# the CUDA kernel's shape (csrc/amp_block.cu): threads a CTA (three
+# warpgroups), rows an act strip, input channels a weight stage, ring slots,
+# the largest row tile, shared memory a CTA may take
+_NT, _NWG, _STRIP, _KB = 384, 3, 16, 32
+_SLOTS = {torch.bfloat16: 4, torch.float32: 3}
+_MAX_TB, _MAX_SMEM = 1024, 227 * 1024
 
 
 @functools.lru_cache(maxsize=1)
@@ -95,6 +103,98 @@ def kernel_fits(c: int, dtype) -> bool:
     (16-byte row loads), at most 256 in bf16 and 128 in fp32 (its
     shared-memory tiles)."""
     return dtype in _MAX_C and c <= _MAX_C[dtype] and c % 8 == 0
+
+
+def _up(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+class AmpGeometry(NamedTuple):
+    """One branch of kernel 10 at row tile tb (csrc/amp_block.cu's
+    `geometry`): the receptive radius, conv 1's output rows (bf16: whole
+    64-row tiles), the rows of buffer 1 (T1, then T3) and buffer 2 (T2),
+    the 64-row tiles a warpgroup holds (bf16), the shared memory in bytes,
+    and whether the C entry takes it."""
+    radius: int
+    conv1_rows: int
+    rows1: int
+    rows2: int
+    mt: int
+    smem: int
+    ok: bool
+
+
+def amp_geometry(c: int, k: int, d: int, tb: int, dtype) -> AmpGeometry:
+    """Kernel 10's buffers for one branch (C c, width k, dilation d) at row
+    tile tb, as the C entry computes them: act 1 writes tb + 2 (R - 6) rows
+    and act 2 tb + 2 mid (whole strips of 16); conv 1 writes tb + 2 (6 +
+    mid) rows and reads 2 mid d rows past them; act 2 reads 12 past its
+    strips. bf16 buffers are planes of 64 channels x 128 bytes a row, fp32
+    rows of C rounded up to 16, plus 4, floats; the weight ring takes 4
+    (bf16) or 3 (fp32)
+    stages of 32 input channels. A bf16 warpgroup holds MT 64-row tiles of
+    every 64-column block in registers: MT NB <= 3 or MT 1; conv 2's output
+    rows are staged in buffer 2 (rows of C + 8 bf16 values)."""
+    f32 = dtype == torch.float32
+    cp = _up(c, 16)
+    mid = (k - 1) // 2
+    radius = 12 + mid * d + mid
+    n1 = _up(tb + 2 * (radius - 6), _STRIP)
+    n3 = _up(tb + 2 * mid, _STRIP)
+    mr1 = tb + 2 * (6 + mid)
+    if not f32:
+        mr1 = _up(mr1, 64)
+    rows1 = max(n1, n3, mr1 + 2 * mid * d)
+    rows2 = max(mr1, n3 + 12)
+    nb = -(-cp // 64)
+    mt = -(-(max(mr1, tb) // 64) // _NWG)
+    if f32:
+        slot, row = _KB * cp * 4, (cp + 4) * 4
+    else:
+        slot, row = nb * 4096, nb * 128
+    smem = 1024 + _SLOTS[dtype] * slot + (rows1 + rows2) * row
+    stage = f32 or tb * (cp + 8) * 2 <= rows2 * row    # conv 2's output, staged
+    ok = (64 <= tb <= _MAX_TB and tb % 64 == 0 and (f32 or mt == 1 or mt * nb <= 3)
+          and stage and smem <= _MAX_SMEM)
+    return AmpGeometry(radius, mr1, rows1, rows2, mt, smem, ok)
+
+
+class AmpPlan(NamedTuple):
+    """Kernel 10's form for one resblock call: the row tile (output rows a
+    CTA), its CTAs and the card's waves of them."""
+    tb: int
+    ctas: int
+    waves: int
+
+
+@functools.lru_cache(maxsize=256)
+def amp_plan(c: int, k: int, dils: tuple, dtype, t: int, b: int, sms: int) -> AmpPlan:
+    """The row tile of kernel 10 (the C entry refuses one that a branch's
+    buffers do not fit): among the multiples of 64 every branch takes
+    (`amp_geometry`; in fp32 also one pass of conv 1's register tiles, 8
+    rows x 384 / (C / 8) threads), the one with the least waves x (tb + the
+    widest branch's halo rows), the larger on a tie. The halo, 2 R rows of
+    act 1 and 2 (6 + mid) of conv 1, is recomputed by both neighbours of a
+    tile, so the tile is as wide as the card's waves allow: 128 rows at C
+    192 (bf16) where the earlier form took 64, 512 at C 24 and 48."""
+    f32 = dtype == torch.float32
+    cp = _up(c, 16)
+    mid = (k - 1) // 2
+    best = None
+    for tb in range(64, _MAX_TB + 1, 64):
+        geo = [amp_geometry(c, k, d, tb, dtype) for d in dils]
+        if not all(g.ok for g in geo):
+            continue
+        if f32 and tb + 2 * (6 + mid) > 8 * (_NT // (cp // 8)):
+            continue
+        ctas = -(-t // tb) * b
+        waves = -(-ctas // sms)
+        cost = waves * (tb + 2 * max(g.radius for g in geo) + 2 * (6 + mid))
+        if best is None or cost <= best[0]:
+            best = (cost, AmpPlan(tb, ctas, waves))
+    if best is None:
+        raise ValueError(f"kernel 10 takes no row tile at C {c}, k {k}, dils {dils}, {dtype}")
+    return best[1]
 
 
 def _check(x, w1, b1, w2, b2, a1, r1, a2, r2, k: int, dils: tuple) -> None:
@@ -153,13 +253,17 @@ def _act(u: torch.Tensor, alpha: torch.Tensor, recip: torch.Tensor) -> torch.Ten
 
 
 def _conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int) -> torch.Tensor:
-    """'same' conv with taps d apart, w (k, C_in, C_out): fp32 accumulation,
-    rounded to u's dtype, then the bias added in that dtype."""
-    k = w.shape[0]
-    pad = (k - 1) // 2 * d
-    y = F.conv1d(F.pad(u.float().transpose(1, 2), (pad, pad)),
-                 w.to(u.dtype).float().permute(2, 1, 0), dilation=d)
-    return y.transpose(1, 2).to(u.dtype) + b.to(u.dtype)
+    """'same' conv with taps d apart, w (k, C_in, C_out): fp32 accumulation
+    (one matmul a tap, the taps added in order, so a row's sum does not
+    depend on the sequence's length), rounded to u's dtype, then the bias
+    added in that dtype."""
+    mid = (w.shape[0] - 1) // 2
+    uf, wf = u.float(), w.to(u.dtype).float()
+    y = None
+    for k in range(w.shape[0]):
+        term = _shift(uf, (k - mid) * d) @ wf[k]
+        y = term if y is None else y + term
+    return y.to(u.dtype) + b.to(u.dtype)
 
 
 def amp_block_fused_plain(x, w1, b1, w2, b2, a1, r1, a2, r2, *, k: int,
@@ -239,11 +343,12 @@ def amp_block_fused(x: torch.Tensor, w1, b1, w2, b2, a1, r1, a2, r2, *, k: int,
     # its neighbours write
     tmp = torch.empty_like(x) if len(dils) > 1 else out
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    plan = amp_plan(c, k, dils, x.dtype, t, bsz, _build.sm_count(x.device))
     # the dilations go as a host array: the C entry sizes each branch's
-    # halo and shared memory from them
+    # halo and shared memory from them and checks the row tile
     _build.launch(_ENTRY[x.dtype], _ARGTYPES, x.data_ptr(), out.data_ptr(),
                   tmp.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                   a1.data_ptr(), r1.data_ptr(), a2.data_ptr(), r2.data_ptr(),
                   _kernel_taps(), (ctypes.c_int * len(dils))(*dils),
-                  len(dils), bsz, t, c, k, stream, device=x.device)
+                  len(dils), bsz, t, c, k, plan.tb, stream, device=x.device)
     return out

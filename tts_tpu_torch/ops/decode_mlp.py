@@ -11,12 +11,16 @@ form over int8 QTensors. Each runs the hand-written CUDA kernel
 (csrc/decode_mlp.cu, csrc/decode_mlp_q8.cu) on a CUDA tensor and its plain
 PyTorch twin on a CPU tensor; `out_mlp_reference` is the plain chain
 (dense, rms_norm, silu in the activation dtype) the kernels replace.
-`q8_tail_plan` cuts kernel 15's three weight streams over the card.
+`out_mlp_plan` and `q8_tail_plan` cut kernels 14's and 15's three weight
+streams over the card.
 
 Kernel 14's rounding points, in the activation dtype: each dot accumulates
 in fp32 and is rounded, then (int8) times the scale rounded to the dtype;
 x2 and the output are rounded sums; h is rounded once from fp32; a =
 silu(g) * u is computed in fp32 from the rounded g and u and rounded once.
+The card sums each dot over slices of its input dim (the plan's), then the
+slices in order: another fp32 order than the twin's one matmul, within
+the kernels' tolerance.
 
 Kernel 15's quantization (tts_tpu's _kernel_q8, with the att row
 quantization its wrapper ran ahead of it): att per row, xs = max(amax,
@@ -44,22 +48,22 @@ from .decode_qkv import _ptr
 from .quant_matmul import int_dot, quantize_rows
 
 __all__ = ["fused_out_mlp", "fused_out_mlp_plain", "fused_out_mlp_q8",
-           "fused_out_mlp_q8_plain", "out_mlp_reference", "out_mlp_fits", "q8_tail_plan",
-           "Q8TailPlan"]
+           "fused_out_mlp_q8_plain", "out_mlp_reference", "out_mlp_fits", "out_mlp_plan",
+           "OutMlpPlan", "q8_tail_plan", "Q8TailPlan"]
 
 MAX_ROWS = 8                 # decode rows the CUDA kernels take
 _H_MAX, _F_MAX = 4096, 4096  # widest hidden and FFN they hold on chip
-_OP_COLS = 32                # out-projection columns a CTA covers
+_TILE_BYTES = 128            # bytes of each weight row a CTA of kernel 14 takes
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# x, att, wo, wgu, wd, w_int8, so, sgu, sd, partial, x2, a, out, B, A, H, F,
-# kslice, ks, eps, stream
-_ARGTYPES = [_P] * 5 + [_I] + [_P] * 7 + [_I] * 6 + [_F, _P]
+# x, att, wo, wgu, wd, w_int8, so, sgu, sd, x2, a, out, B, A, H, F, c1, k1,
+# c2, k2, c3, k3, pdl, eps, stream
+_ARGTYPES = [_P] * 5 + [_I] + [_P] * 6 + [_I] * 11 + [_F, _P]
 # x, att, wo, wgu, wd, so, sgu, sd, x2, a, out, B, A, H, F, fb, c1, k1, c2,
 # k2, c3, k3, eps, stream
 _ARGTYPES_Q8 = [_P] * 11 + [_I] * 11 + [_F, _P]
 _MAX_PASSES = 2              # sub-blocks of the down product one CTA takes
-_MIN_ROWS = 512              # input rows a CTA of kernel 15 takes at least
-_CLUSTER = 8                 # CTAs a kernel-15 cluster (the portable size)
+_MIN_ROWS = 512              # input rows a CTA of kernels 14 and 15 takes at least
+_CLUSTER = 8                 # CTAs a cluster of kernels 14 and 15 (the portable size)
 
 
 def _pick_block(dim: int, target: int = 512, mult: int = 128) -> int:
@@ -166,17 +170,6 @@ def fused_out_mlp_q8_plain(x, att, wo, w_gate_up, w_down, *, eps: float = 1e-6):
 # --------------------------------------------------------------------------
 # CUDA kernels
 
-@functools.lru_cache(maxsize=64)
-def _k_split(device: torch.device, a_dim: int, hidden: int) -> tuple[int, int]:
-    """(slices of the attention width, rows per slice) of the out-projection:
-    about one CTA per SM over its column tiles."""
-    sms = torch.cuda.get_device_properties(device.index or 0).multi_processor_count
-    tiles = hidden // _OP_COLS
-    ks = max(1, min(8, sms // max(tiles, 1), a_dim // 64))
-    kslice = -(-a_dim // ks)
-    return -(-a_dim // kslice), kslice
-
-
 def _operands(x, att, ws) -> None:
     """The CUDA kernels' operand rules: contiguous 16-byte-aligned tensors on
     x's card, bf16 activations, bf16 or int8 weights, fp32 scales."""
@@ -214,6 +207,59 @@ def _prepare(x, att, wo, w_gate_up, w_down):
     return f_dim, quant
 
 
+class OutMlpPlan(NamedTuple):
+    """Kernel 14's cut of its three weight streams (csrc/decode_mlp.cu):
+    launch l cuts its input dim (the attention width, the hidden width, the
+    FFN width) into c_l slices of k_l rows, the c_l CTAs of a column tile
+    one cluster; `pdl` launches the three with programmatic stream
+    serialization (each issues its weight loads before it waits for the
+    previous launch)."""
+    c1: int
+    k1: int
+    c2: int
+    k2: int
+    c3: int
+    k3: int
+    pdl: bool
+
+
+def _fill(dim: int, tiles: int, sms: int, min_rows: int = _MIN_ROWS) -> tuple[int, int]:
+    """(CTAs, rows) over `dim` input rows for `tiles` column tiles: slices
+    of at least `min_rows` rows, no more than it takes for tiles x slices
+    to reach the SM count, at most 8 a cluster (the portable size), each a
+    multiple of 8 rows (16-byte copies of bf16 activations), in order, none
+    empty."""
+    want = max(1, min(_CLUSTER, -(-sms // tiles), dim // min_rows))
+    k = -(-dim // want)
+    k = -(-k // 8) * 8
+    return -(-dim // k), k
+
+
+@functools.lru_cache(maxsize=64)
+def out_mlp_plan(a_dim: int, hidden: int, ffn: int, w_bytes: int, sms: int,
+                 rows: int = 1) -> OutMlpPlan:
+    """Kernel 14's form (the C entry refuses any other) for weights of
+    `w_bytes` bytes a value (2 bf16, 1 int8) on a card of `sms` SMs:
+    column tiles of 128 bytes of each weight row (launches 1 and 3: 64 bf16
+    or 128 int8 columns; launch 2: half as many gate and as many up
+    columns), each tile's input dim cut over a cluster in slices of at
+    least 512 rows (`_fill`). At the Qwen3-TTS width (A 2048, H 1024, F
+    3072) on an H100: 4 x 16, 2 x 96 and 6 x 16 CTAs in bf16, 4 x 8, 2 x 48
+    and 6 x 8 in int8, all of 512 rows. Slices short enough to give every
+    SM a CTA (8 x 16, 2 x 96, 8 x 16 of 256, 512, 384 rows in bf16) ran
+    slower on the card at B 1, 3 and 8 (`chip_smoke.py`'s forms), as
+    kernel 15's did: a cluster's barrier grows with its CTAs. Programmatic
+    dependent launch for bf16 weights and for int8 at one row: it took
+    25% off a chained bf16 call at B 1, 14% at B 3, none at B 8, 14% in
+    int8 at B 1, and added 25% and 18% in int8 at B 3 and 8."""
+    cols = _TILE_BYTES // w_bytes
+    tiles = -(-hidden // cols)
+    c1, k1 = _fill(a_dim, tiles, sms)
+    c2, k2 = _fill(hidden, -(-ffn // (cols // 2)), sms)
+    c3, k3 = _fill(ffn, tiles, sms)
+    return OutMlpPlan(c1, k1, c2, k2, c3, k3, w_bytes == 2 or rows == 1)
+
+
 def fused_out_mlp(x: torch.Tensor, att: torch.Tensor, wo, w_gate_up, w_down, *,
                   eps: float = 1e-6) -> torch.Tensor:
     """x (B, H) residual input; att (B, A) attention rows; wo (A, H),
@@ -224,19 +270,17 @@ def fused_out_mlp(x: torch.Tensor, att: torch.Tensor, wo, w_gate_up, w_down, *,
         return fused_out_mlp_plain(x, att, wo, w_gate_up, w_down, eps=eps)
     f_dim, quant = prep
     b, hd = x.shape
-    ks, kslice = _k_split(x.device, att.shape[1], hd)
-    # fp32 scratch: out-projection partials, then x2 and a as bf16
-    scratch = torch.empty((ks * b * hd + (b * hd + b * f_dim) // 2 + 8,),
-                          dtype=torch.float32, device=x.device)
-    x2 = scratch[ks * b * hd:].view(torch.bfloat16)[:b * hd]
-    a = scratch[ks * b * hd:].view(torch.bfloat16)[b * hd:b * hd + b * f_dim]
+    a_dim = att.shape[1]
+    plan = out_mlp_plan(a_dim, hd, f_dim, 1 if quant else 2, _build.sm_count(x.device), b)
+    # bf16 scratch: x2 (B, H), then a (B, F)
+    scratch = torch.empty((b * (hd + f_dim),), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
     w = [t.q if quant else t for t in (wo, w_gate_up, w_down)]
     scales = [t.scale if quant else None for t in (wo, w_gate_up, w_down)]
     _build.launch("fused_out_mlp", _ARGTYPES, x.data_ptr(), att.data_ptr(),
                   *(t.data_ptr() for t in w), int(quant), *map(_ptr, scales),
-                  scratch.data_ptr(), x2.data_ptr(), a.data_ptr(), out.data_ptr(), b,
-                  att.shape[1], hd, f_dim, kslice, ks, eps,
+                  scratch.data_ptr(), scratch[b * hd:].data_ptr(), out.data_ptr(), b, a_dim,
+                  hd, f_dim, *plan[:6], int(plan.pdl), eps,
                   torch.cuda.current_stream(x.device).cuda_stream, device=x.device)
     return out
 
