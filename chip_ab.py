@@ -256,7 +256,7 @@ def _median_us(fn, n: int, batches: int = 5) -> float:
 
 def _q8_digest(tag: str) -> None:
     """sha256 of kernels 6, 7 and 8's outputs on seeded inputs at the F5
-    bench shapes, bf16 and fp32 activations."""
+    bench shapes, bf16 and fp32 activations, and of kernel 9's in bf16."""
     import torch
 
     from tts_tpu_torch.ops import quant_matmul
@@ -289,6 +289,17 @@ def _q8_digest(tag: str) -> None:
         outs[f"kernel7_{key}"] = ln_qkv_q8(xd, mods2, *wqkv, bq)
         outs[f"kernel8_{key}"] = out_proj_residual_q8(od, *wo, bo, gate, xd)
         outs[f"kernel6_{key}"] = mlp_block_fused_q8(xd, mods3, *w1, b1, *w2, b2)
+    # kernel 9 at its bench shape on bf16 activations (the one dtype both
+    # trees take), its weight in the layout the tree's wrapper takes on a
+    # card: K-major, or row-major where it refuses K-major (ValueError)
+    w9 = quantize_int8_eager(rn(d, n, scale=0.02))
+    for wq9 in (lay(w9.q), w9.q):
+        try:
+            outs["kernel9_bf16"] = quant_matmul.quantized_matmul(x.reshape(-1, d), wq9,
+                                                                 w9.scale)
+            break
+        except ValueError:
+            continue
     torch.cuda.synchronize()
     print(json.dumps({"tree": tag, "kmajor": kmajor,
                       "q8_digest": {k: _digest(v) for k, v in outs.items()}}), flush=True)
@@ -493,9 +504,15 @@ def _decode_digest(tag: str) -> None:
 
 
 def _decode_kernels(tag: str, card: str) -> None:
-    """Kernels 11 and 12 at the Qwen talker and Kani decode shapes: each
-    output's rel L2 against the fp32 twin on the same bf16 inputs, and the
-    device time a call (chip_smoke.device_ms: a profiler trace of 10)."""
+    """Kernels 11 and 12 at the Qwen talker (head_dim 128, pos 126) and Kani
+    (head_dim 64, pos 700) shapes, and kernel 11 at IndexTTS-1.5's (H 1280,
+    20 x 64 heads, LayerNorm, bias, no RoPE) at B 1 and 4: each output's rel
+    L2 against the fp32 twin on the same bf16 inputs ("k11_12_rel_l2",
+    within 1.25x of tree A's across the trees), a digest of two calls'
+    outputs ("k11_12_digest", which must repeat within each tree: the
+    fp32 order of the dot is each tree's own), the time a call as CUDA
+    events over a chain of 10 calls and the device time by launch
+    (chip_smoke.kernel_split, a profiler trace of 10)."""
     import torch
 
     import chip_smoke as cs
@@ -511,6 +528,7 @@ def _decode_kernels(tag: str, card: str) -> None:
     def f32(a):
         return a.float() if isinstance(a, torch.Tensor) else a
 
+    calls = {}
     for shape, hd, eps, layers, t, pos in (("qwen talker", 128, 1e-6, 28, 640, 126),
                                            ("kani", 64, 1e-5, 6, 2048, 700)):
         heads, kvh = 16, 8
@@ -523,30 +541,53 @@ def _decode_kernels(tag: str, card: str) -> None:
         x = rn(1, 1024)
         kw = dict(heads=heads, kv_heads=kvh, head_dim=hd, q_norm=nw, k_norm=nw, eps=eps)
         kw32 = {k: f32(v) for k, v in kw.items()}
-        calls = {
-            "kernel11": (lambda: fused_qkv_rope(x, w, cos, sin, **kw),
-                         lambda: fused_qkv_rope_plain(x.float(), w.float(), cos.float(),
-                                                      sin.float(), **kw32)),
-            "kernel12": (lambda: fused_qkv_attn(x, w, cos, sin, kc, vc, layers - 1, pos, **kw),
-                         lambda: fused_qkv_attn_plain(x.float(), w.float(), cos.float(),
-                                                      sin.float(), kc.float(), vc.float(),
-                                                      layers - 1, pos, **kw32))}
-        for name, (kernel, ref) in calls.items():
-            got, want = kernel(), ref()
-            rel = {part: cs.rel_l2(g.float(), r) for part, g, r in zip(("out", "k", "v"),
-                                                                          got, want)}
-            print(json.dumps({"tree": tag, "card": card, "decode_kernel": name,
-                              "shape": shape, "pos": pos if name == "kernel12" else None,
-                              "rel_l2_vs_fp32": rel, "device_ms": cs.device_ms(kernel)}),
-                  flush=True)
+        calls[f"kernel11 {shape}"] = (
+            lambda x=x, w=w, cos=cos, sin=sin, kw=kw: fused_qkv_rope(x, w, cos, sin, **kw),
+            lambda x=x, w=w, cos=cos, sin=sin, kw32=kw32: fused_qkv_rope_plain(
+                x.float(), w.float(), cos.float(), sin.float(), **kw32))
+        calls[f"kernel12 {shape} pos {pos}"] = (
+            lambda x=x, w=w, cos=cos, sin=sin, kc=kc, vc=vc, kw=kw, n=layers - 1, p=pos:
+            fused_qkv_attn(x, w, cos, sin, kc, vc, n, p, **kw),
+            lambda x=x, w=w, cos=cos, sin=sin, kc=kc, vc=vc, kw32=kw32, n=layers - 1, p=pos:
+            fused_qkv_attn_plain(x.float(), w.float(), cos.float(), sin.float(), kc.float(),
+                                 vc.float(), n, p, **kw32))
+    wi = rn(1280, 60 * 64, scale=0.02)
+    ki = dict(heads=20, kv_heads=20, head_dim=64, bqkv=rn(3840, scale=0.1), norm="ln",
+              ln_weight=rn(1280, scale=0.1) + 1, ln_bias=rn(1280, scale=0.1), eps=1e-5)
+    ki32 = {k: f32(v) for k, v in ki.items()}
+    for b in (1, 4):
+        xi = rn(b, 1280)
+        calls[f"kernel11 indextts B {b}"] = (
+            lambda xi=xi: fused_qkv_rope(xi, wi, **ki),
+            lambda xi=xi: fused_qkv_rope_plain(xi.float(), wi.float(), **ki32))
+    digests, rels = {}, {}
+    for name, (kernel, ref) in calls.items():
+        got, want = kernel(), ref()
+        again = kernel()
+        torch.cuda.synchronize()
+        digests[name] = [[_digest(g) for g in got], [_digest(g) for g in again]]
+        rel = {part: cs.rel_l2(g.float(), r) for part, g, r in zip(("out", "k", "v"),
+                                                                      got, want)}
+        rels.update({f"{name} {part}": e for part, e in rel.items()})
+        split = cs.kernel_split(kernel)
+        print(json.dumps({"tree": tag, "card": card, "decode_kernel": name,
+                          "rel_l2_vs_fp32": rel, "chain_ms": _chain_ms(kernel),
+                          "device_ms_by_launch": {k: ms for k, _, ms in split},
+                          "device_ms": sum(ms for _, _, ms in split)}), flush=True)
+    print(json.dumps({"tree": tag, "k11_12_digest": digests, "k11_12_rel_l2": rels}),
+          flush=True)
 
 
 def _decode_paths(tag: str, card: str) -> None:
-    """Qwen3-TTS bench requests on the default route (bf16) and "mlp_q8"
-    (int8): device time a frame and the share of kernel 12 (default) or 15
-    ("mlp_q8") under the profiler, frames/s of two; the greedy Kani bench
-    request: device time a token, tokens/s of two; BigVGAN's bench mel:
-    samples/s of 10 calls."""
+    """Qwen3-TTS beam 3 and a batch of 4 (8 frames, kernel 11): device and
+    busy time a frame under the profiler, frames/s of two; bench requests
+    on the default route (bf16) and "mlp_q8" (int8): device time a frame
+    and the share of kernel 12 (default) or 15 ("mlp_q8") under the
+    profiler, frames/s of two; the Kani bench request greedy (kernel 12)
+    and beam 5 (kernel 11): device time a token, tokens/s of two; one
+    IndexTTS-1.5 bf16 request (kernel 11): the card's busy time a token,
+    kernel 11's, and the idle share of the profiled wall, tokens/s of two;
+    BigVGAN's bench mel: samples/s of 10 calls."""
     import numpy as np
     import torch
 
@@ -560,16 +601,33 @@ def _decode_paths(tag: str, card: str) -> None:
     from tts_tpu_torch.runtime.qwen import QwenDecodeConfig, QwenTTSPipeline
     from tts_tpu_torch.runtime.vocoder import BigVGANVocoder
 
-    # kernel 12 in either tree (attn_kernel or step_attn_kernel) with its
-    # matvec and epilogue; kernel 15 in either (the earlier three kernels
-    # on the W8A8 route, or the q8_ ones)
-    k12 = ("attn_kernel", "qkv_matvec", "qkv_epilogue")
+    # kernel 12 in either tree: step_attn_kernel, and its first launch,
+    # qkv_matvec (and the epilogue, whose name kernel 11's second launch
+    # in the earlier tree has) or qkv_head_kernel; kernel 15 in either (the
+    # earlier three kernels on the W8A8 route, or the q8_ ones)
+    k12 = ("attn_kernel", "qkv_matvec", "qkv_epilogue", "qkv_head")
     k15 = ("q8_", "oproj_kernel", "gateup_kernel", "down_kernel")
     cfg, ccfg, params, cparams = cs.qwen_models()
     dec = QwenDecodeConfig(max_frames=cs.QWEN_FRAMES)
     bf = QwenTTSPipeline(params, cfg, cparams, ccfg, dec)
     q8 = QwenTTSPipeline(params, cfg, cparams, ccfg, QwenDecodeConfig(
         max_frames=cs.QWEN_FRAMES, fused_decode="mlp_q8"), quantize=8)
+    beam = QwenTTSPipeline(params, cfg, cparams, ccfg, QwenDecodeConfig(
+        max_frames=8, use_beam=True, beam_size=3, beam_top_k=3))
+    small = QwenTTSPipeline(params, cfg, cparams, ccfg, QwenDecodeConfig(max_frames=8))
+    prompts = [cs.QWEN_IDS, np.arange(5, 20, dtype=np.int32)[None],
+               np.arange(40, 90, dtype=np.int32)[None], np.array([[7, 1, 4]], np.int32)]
+    reqs = [small.build_prefill_embeds(i, cs.QWEN_LANG) for i in prompts]
+    for route, fn in (("beam 3, 8 frames", lambda: beam.synthesize_ids(
+            cs.QWEN_IDS, language_id=cs.QWEN_LANG)[1]["frames"]),
+                      ("batch of 4, 8 frames", lambda: (
+                          small.synthesize_from_prefill_batch(reqs), 8)[1])):
+        frames, rows, busy = _profile(fn, busy={"all": None})
+        print(json.dumps({"tree": tag, "card": card, "qwen_route": route, "frames": frames,
+                          "frames_per_s": [frames / w for w in _walls(fn, 2)],
+                          "device_ms_a_frame": sum(ms for _, ms in rows) / frames,
+                          "busy_ms_a_frame": busy["all"] / frames}), flush=True)
+    del beam, small, reqs
     for route, pipe, pats in (("default bf16", bf, k12), ("mlp_q8 int8", q8, k15)):
         def qwen():
             return pipe.synthesize_ids(cs.QWEN_IDS, language_id=cs.QWEN_LANG)
@@ -585,9 +643,9 @@ def _decode_paths(tag: str, card: str) -> None:
     del bf, q8, params, cparams
 
     kcfg, nccfg = KaniConfig(max_seq_len=2048, stop_token=-1), NanoCodecConfig()
-    kani = KaniPipeline(kani_init(kcfg, torch.Generator("cuda").manual_seed(2), torch.bfloat16),
-                        kcfg, codec_init(nccfg, torch.Generator("cuda").manual_seed(3),
-                                         torch.bfloat16), nccfg,
+    kparams = kani_init(kcfg, torch.Generator("cuda").manual_seed(2), torch.bfloat16)
+    kcparams = codec_init(nccfg, torch.Generator("cuda").manual_seed(3), torch.bfloat16)
+    kani = KaniPipeline(kparams, kcfg, kcparams, nccfg,
                         KaniDecodeConfig(max_new_tokens=cs.KANI_NEW, repeat_penalty=1.0))
     ids = np.array(cs.KANI_IDS, np.int32)
     _, rows = _profile(lambda: kani.synthesize_ids(ids))
@@ -598,7 +656,40 @@ def _decode_paths(tag: str, card: str) -> None:
                       "kernel12_ms_a_token": sum(ms for k, ms in rows
                                                  if any(p in k for p in k12)) / cs.KANI_NEW}),
           flush=True)
-    del kani
+    kani = KaniPipeline(kparams, kcfg, kcparams, nccfg, KaniDecodeConfig(
+        max_new_tokens=cs.KANI_NEW, repeat_penalty=1.0, use_beam=True, beam_size=5, top_k=5))
+    _, rows = _profile(lambda: kani.synthesize_ids(ids))
+    print(json.dumps({"tree": tag, "card": card, "kani": "beam 5 bf16",
+                      "tokens_per_s": [cs.KANI_NEW / w for w in _walls(
+                          lambda: kani.synthesize_ids(ids), 2)],
+                      "device_ms_a_token": sum(ms for _, ms in rows) / cs.KANI_NEW,
+                      "kernel11_ms_a_token": sum(ms for k, ms in rows
+                                                 if any(p in k for p in k12[1:]))
+                      / cs.KANI_NEW}), flush=True)
+    del kani, kparams, kcparams
+
+    from tts_tpu_torch.runtime.indextts import IndexTTSPipeline
+
+    icfg, ivcfg, iparams = cs.indextts_models()
+    index = IndexTTSPipeline(iparams, icfg, ivcfg)
+    tt = np.arange(6 * ivcfg.sample_rate) / ivcfg.sample_rate
+    sig = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
+           + 0.1 * np.sin(2 * np.pi * 330 * tt)
+           + 0.05 * np.random.default_rng(12).standard_normal(tt.size))
+    ref = index.encode_reference((sig * 12000).astype(np.int16))
+
+    def index_request():
+        return index.synthesize_ids(cs.INDEX_IDS, ref, max_gen=cs.INDEX_GEN)
+
+    _, rows, wall, busy = _profile(index_request, walled=True,
+                                   busy={"all": None, "kernel11": k12[1:]})
+    print(json.dumps({"tree": tag, "card": card, "indextts": "bf16 request",
+                      "tokens": cs.INDEX_GEN, "busy_ms_a_token": busy["all"] / cs.INDEX_GEN,
+                      "kernel11_busy_ms_a_token": busy["kernel11"] / cs.INDEX_GEN,
+                      "idle_share": 1 - busy["all"] / 1e3 / wall,
+                      "tokens_per_s": [cs.INDEX_GEN / w for w in _walls(index_request, 2)]}),
+          flush=True)
+    del index, iparams
 
     vcfg = BigVGANConfig()
     mel = np.random.default_rng(9).standard_normal((1, 512, vcfg.num_mels)).astype(np.float32)
@@ -648,7 +739,7 @@ def main() -> None:
         for line in out.splitlines():
             rec = json.loads(line) if line.startswith("{") else {}
             for key in ("flash_digest", "q8_digest", "decode_digest", "k14_digest",
-                        "k14_rel_l2"):
+                        "k14_rel_l2", "k11_12_digest", "k11_12_rel_l2"):
                 if key in rec:
                     digests.setdefault(key, {}).setdefault(tag, []).append(rec[key])
             if rec.get("f5_bf16") == "w8a8":
@@ -661,20 +752,34 @@ def main() -> None:
 
     flash, q8 = same("flash_digest"), same("q8_digest") and same("w8a8_audio")
     decode = same("decode_digest")
-    # kernel 14: bitwise within each tree's turns; across the trees within
-    # 1.25x (chip_smoke.STEP_SLACK) of tree A's rel L2 against the fp32 twin
-    k14_runs = digests.get("k14_digest", {})
-    k14_same = all(d == runs[0] for runs in k14_runs.values() for d in runs)
-    rels = digests.get("k14_rel_l2", {})
-    k14_close = all(r[name] <= 1.25 * rels["A"][0][name] for runs in rels.values()
-                    for r in runs for name in r) if "A" in rels else True
+    # kernels 14, 11 and 12: bitwise within each tree's turns (and over two
+    # calls in a turn); across the trees within 1.25x (chip_smoke.STEP_SLACK)
+    # of tree A's rel L2 against the fp32 twin
+
+    def repeat(key):
+        runs = digests.get(key, {})
+        return all(d == tree[0] for tree in runs.values() for d in tree)
+
+    def close(key):
+        rels = digests.get(key, {})
+        return all(r[name] <= 1.25 * rels["A"][0][name] for runs in rels.values()
+                   for r in runs for name in r) if "A" in rels else True
+
+    k14_same, k14_close = repeat("k14_digest"), close("k14_rel_l2")
+    k11_12_same = repeat("k11_12_digest") and all(
+        d[0] == d[1] for tree in digests.get("k11_12_digest", {}).values() for run in tree
+        for d in run.values())
+    k11_12_close = close("k11_12_rel_l2")
     print(json.dumps({"kernels_1_4_5_bitwise_equal_across_trees": flash,
                       "kernels_6_7_8_and_w8a8_audio_bitwise_equal_across_trees": q8,
                       "kernel_15_bitwise_equal_across_trees": decode,
                       "kernel_14_bitwise_repeatable_in_each_tree": k14_same,
                       "kernel_14_rel_l2_within_1.25x_tree_a": k14_close,
+                      "kernels_11_12_bitwise_repeatable_in_each_tree": k11_12_same,
+                      "kernels_11_12_rel_l2_within_1.25x_tree_a": k11_12_close,
                       "digests": digests}), flush=True)
-    if not (flash and q8 and decode and k14_same and k14_close):
+    if not (flash and q8 and decode and k14_same and k14_close and k11_12_same
+            and k11_12_close):
         raise SystemExit("chip_ab: kernel outputs differ between the trees")
 
 if __name__ == "__main__":

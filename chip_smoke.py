@@ -25,7 +25,8 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      at B 1 T 1088, B 2 T 4608, D 512 F 1536 and rows offset by +100, and
      beside a cuBLAS yardstick of its two GEMMs; kernel 4 in
      bf16 at head dims 64, 128 and 192 and in fp32; kernel 5 at T 8192 in
-     bf16 and T 2048 in fp32; kernels 6-8 also on fp32 activations and at
+     bf16 and T 2048 in fp32; kernels 6-9 also on fp32 activations
+     (kernel 9 on a K-major weight, as 6-8), kernels 6-8 at
      B 2 T 1400 and B 1 T 1088, kernel 8 at B 2 T 1024 (its 4-stage form),
      kernel 7 at D 576
      (a half K step), kernel 6 at D 640 F 1152 (ff1 a cluster of 9), each
@@ -35,9 +36,14 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      64, kernels 4 and 5 at D 256, kernel 5 at S 4224; kernel 1 with a row
      below -66, kernel 4 in fp32 with rows at -90 and -70), kernel 13 at
      its cluster slices' edges, head dim 64 and G 1 and 8, one launch a
-     call at kv_len 2047, the kani-tts-370m decode shapes (kernel 12 also
-     against its bf16 twin, and no further from fp32 than 1.25x that
-     twin), the Qwen3-TTS-0.6B talker and predictor shapes (kernel 12 at
+     call at kv_len 2047, the kani-tts-370m decode shapes (kernels 11 and
+     12 also against their bf16 twins, and no further from fp32 than 1.25x
+     those; kernel 11 also at the Qwen3-TTS and IndexTTS-1.5 shapes, B 1, 4
+     and 8, in every form of its plan, with programmatic dependent launch
+     and without, timed as CUDA events over a chain of 10 calls beside the
+     device time a launch and the bound; kernel 12 with its qkv launch's
+     PDL on and off, split by launch), the Qwen3-TTS-0.6B talker and
+     predictor shapes (kernel 12 at
      head_dim 128, kernels 13-15, kernel 13 timed at both; kernel 14 in
      each of its plan's forms, with programmatic dependent launch and
      without, at B 1, 3 and 8, timed as CUDA events over a chain of 10
@@ -57,7 +63,7 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      through kernels 6-8 (W8A8), one DiT forward against the twins in bf16
      and fp32, latency and sustained RTF; one quantize=4 request (with
      --profile, one bf16 and one W8A8 request under torch.profiler, the s8
-     GEMMs split by kernel in launch order, no launch of kernel 9's q8_gemm);
+     GEMMs split by kernel in launch order, no launch of kernel 9);
   5c. F5Pipeline in fp32 at full F5TTS_v1_Base width: the bench request
      through kernel 4 (682 launches, none of kernel 1), one fp32 DiT
      forward against the twins at the bench bucket and one at T 4608
@@ -297,24 +303,23 @@ def check(label: str, got: torch.Tensor, ref: torch.Tensor, tol: float = TOL,
 
 
 def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
-    """Phase 2, kernels 11 and 12 at the kani-tts-370m decode shapes
-    against their fp32 twins on the same bf16 inputs."""
+    """Phase 2, kernels 11 and 12 at the kani-tts-370m decode shapes (and
+    kernel 11 at the Qwen3-TTS and IndexTTS-1.5 ones) against their fp32
+    twins on the same bf16 inputs, each output also no further from fp32
+    than STEP_SLACK times the bf16 twin (check_slack); their time as CUDA
+    events over a chain of 10 calls (chain_ms: with programmatic dependent
+    launch a profiler's sum counts the launches' overlap twice) beside the
+    profiler's device time by launch; then every form of kernel 11's plan
+    (time_qkv_forms)."""
     from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope, fused_qkv_rope_plain
     from tts_tpu_torch.ops.decode_step import fused_qkv_attn, fused_qkv_attn_plain
-    from tts_tpu_torch.quant.weight_only import QTensor, quantize_int8_jit
+    from tts_tpu_torch.quant.weight_only import quantize_int8_jit
 
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
-    def f32(a):
-        return a.float() if isinstance(a, torch.Tensor) else a
-
-    def both(fn, plain, label, x, w, *args, **kw):
-        got = fn(x, w, *args, **kw)
-        ref = plain(x.float(), w if isinstance(w, QTensor) else w.float(),
-                    *map(f32, args), **{k: f32(v) for k, v in kw.items()})
-        return max(check(f"{label} {part}", g, r)
-                   for part, g, r in zip(("out", "k", "v"), got, ref))
+    def both(fn, plain, label, *args, **kw):
+        return check_slack(label, fn, plain, args, kw)
 
     hs, heads, kvh, hd = 1024, 16, 8, 64
     w = rn(hs, (heads + 2 * kvh) * hd, scale=0.02)
@@ -345,6 +350,24 @@ def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
         r["max_abs_err"] = max(r["max_abs_err"], both(
             fused_qkv_rope, fused_qkv_rope_plain, f"fused_qkv_rope {label}", x, wt,
             *args, **kw))
+    # IndexTTS-1.5's GPT head: H 1280, 20 x 64 heads, LayerNorm and bias, no
+    # RoPE, at one row and at the batch of 4 (inputs from a generator of
+    # their own: the checks after these keep their inputs)
+    gi = torch.Generator(device="cuda")
+    gi.manual_seed(1512)
+
+    def ri(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gi, device="cuda") * scale).to(torch.bfloat16)
+
+    wi = ri(1280, 60 * 64, scale=0.02)
+    index = dict(heads=20, kv_heads=20, head_dim=64, bqkv=ri(3840, scale=0.1), norm="ln",
+                 ln_weight=ri(1280, scale=0.1) + 1, ln_bias=ri(1280, scale=0.1), eps=1e-5)
+    for b in (1, 4):
+        xi = ri(b, 1280)
+        for wt, wl in ((wi, "bf16"), (quantize_int8_jit(wi), "int8")):
+            r["max_abs_err"] = max(r["max_abs_err"], both(
+                fused_qkv_rope, fused_qkv_rope_plain, f"fused_qkv_rope IndexTTS B={b} {wl}",
+                xi, wt, None, None, **index))
     x1 = rn(1, hs)
     timed = {"fused_qkv_rope": (lambda: fused_qkv_rope(x1, w, cos, sin, **kani),
                                 lambda: fused_qkv_rope_plain(x1, w, cos, sin, **kani))}
@@ -357,16 +380,12 @@ def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
                 fused_qkv_attn, fused_qkv_attn_plain,
                 f"fused_qkv_attn L=6 T=2048 pos={pos} {wl}", x1, wt, cos, sin, kc, vc,
                 3, pos, **kani))
-            check_step_slack(f"fused_qkv_attn L=6 T=2048 pos={pos} {wl}", x1, wt, cos, sin,
-                             kc, vc, 3, pos, kani)
     # a slice of more than one round of rows (256 at head_dim 64) a CTA
     kc4, vc4 = rn(1, 1, kvh, 4608, hd), rn(1, 1, kvh, 4608, hd)
     for wt, wl in ((w, "bf16"), (wq, "int8")):
         r["max_abs_err"] = max(r["max_abs_err"], both(
             fused_qkv_attn, fused_qkv_attn_plain, f"fused_qkv_attn L=1 T=4608 pos=4500 {wl}",
             x1, wt, cos, sin, kc4, vc4, 0, 4500, **kani))
-        check_step_slack(f"fused_qkv_attn L=1 T=4608 pos=4500 {wl}", x1, wt, cos, sin,
-                         kc4, vc4, 0, 4500, kani)
     del kc4, vc4
     timed["fused_qkv_attn"] = (
         lambda: fused_qkv_attn(x1, w, cos, sin, kc, vc, 3, 700, **kani),
@@ -377,35 +396,38 @@ def check_decode_kernels(gen: torch.Generator, res: dict) -> None:
     set_bound(res["fused_qkv_rope"], nbytes(w, x1) + 2 * w.shape[1], w_ops, "bf16")
     set_bound(res["fused_qkv_attn"], nbytes(w, x1) + 2 * w.shape[1]
               + 2 * kvh * 701 * hd * 2, w_ops + 4 * heads * 701 * hd, "bf16")
+    name_limit = card()
     for name, (kernel, plain) in timed.items():
         r = res[name]
-        r["ms"], r["plain_ms"] = device_ms(kernel), device_ms(plain)
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms "
-              f"of device time a call (B=1, pos=700, bf16, profiler over 10 calls); "
-              f"one call's wall {time_ms(kernel):.4f} / {time_ms(plain):.4f} ms "
-              f"(median of 10)", flush=True)
+        r["ms"], r["plain_ms"] = chain_ms(kernel), device_ms(plain)
+        print(f"  {name_limit}: {name}: kernel {r['ms']:.4f} ms a call (CUDA events over a "
+              f"chain of 10), profiler sum {device_ms(kernel):.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain twin {r['plain_ms']:.4f} ms "
+              f"of device time a call (B=1, pos=700, bf16, profiler over 10 calls); one call's "
+              f"wall {time_ms(kernel):.4f} / {time_ms(plain):.4f} ms (median of 10)",
+              flush=True)
         print_split(f"{name} (Kani, pos 700)", kernel)
+    time_qkv_forms()
 
 
-def check_step_slack(label: str, x, wt, cos, sin, kc, vc, layer: int, pos: int,
-                     kw: dict) -> None:
-    """Kernel 12 beside its bf16 twin (the twin's rounding points in bf16),
-    both against the fp32 twin as check_step holds a route: each output
-    within 2^-6 of the bf16 twin, and no further from fp32 than STEP_SLACK
-    times the bf16 twin. Draws nothing, so later checks keep their inputs."""
-    from tts_tpu_torch.ops.decode_step import fused_qkv_attn, fused_qkv_attn_plain
+def check_slack(label: str, kernel, plain, args: tuple, kw: dict) -> float:
+    """kernel(*args, **kw) (kernel 11 or 12) against its fp32 twin within TOL,
+    and beside its bf16 twin (the twin's rounding points in bf16): each
+    output no further from fp32 than STEP_SLACK times the bf16 twin, as
+    check_step holds a route. Draws nothing, so later checks keep their
+    inputs. Returns the largest max |err| against fp32."""
     from tts_tpu_torch.quant.weight_only import QTensor
 
     def f32(a):
-        return a.float() if isinstance(a, torch.Tensor) else a
+        return a.float() if isinstance(a, torch.Tensor) and not isinstance(a, QTensor) else a
 
-    ref32 = fused_qkv_attn_plain(
-        x.float(), wt if isinstance(wt, QTensor) else wt.float(), f32(cos), f32(sin),
-        kc.float(), vc.float(), layer, pos, **{k: f32(v) for k, v in kw.items()})
-    for part, g, r16, r32 in zip(
-            ("out", "k", "v"), fused_qkv_attn(x, wt, cos, sin, kc, vc, layer, pos, **kw),
-            fused_qkv_attn_plain(x, wt, cos, sin, kc, vc, layer, pos, **kw), ref32):
-        check(f"{label} {part} against the bf16 twin", g, r16)
+    ref32 = plain(*map(f32, args), **{k: f32(v) for k, v in kw.items()})
+    worst = 0.0
+    for part, g, r16, r32 in zip(("out", "k", "v"), kernel(*args, **kw), plain(*args, **kw),
+                                 ref32):
+        print(f"  {label} {part}: the bf16 twin's max |err| against fp32 "
+              f"{(r16.float() - r32.float()).abs().max().item():.6g}", flush=True)
+        worst = max(worst, check(f"{label} {part}", g, r32))
         e_kernel, e_twin = rel_l2(g, r32), rel_l2(r16, r32)
         ok = e_kernel <= STEP_SLACK * e_twin
         print(f"  {label} {part}: rel L2 against fp32: kernel {e_kernel:.6g}, bf16 twin "
@@ -413,6 +435,119 @@ def check_step_slack(label: str, x, wt, cos, sin, kc, vc, layer: int, pos: int,
         if not ok:
             raise AssertionError(f"{label} {part}: the kernel is less accurate than its "
                                  f"bf16 twin")
+    return worst
+
+
+def time_qkv_forms() -> None:
+    """Kernel 11 at the Kani (H 1024, 16/8 x 64, RMSNorm, q/k norms, RoPE),
+    Qwen3-TTS (16/8 x 128) and IndexTTS-1.5 (H 1280, 20 x 64, LayerNorm,
+    bias, no RoPE) shapes, B 1, 4 and 8, bf16 and int8 weights, in each
+    form of its plan, the plan swapped for the call: the plan's with and
+    without programmatic dependent launch, and every other cut of the
+    input dim (1 to 8 CTAs a tile), with the plan's PDL: the sweep the
+    plan's rule was read from. Each within TOL of the fp32 twin, at most
+    STEP_SLACK times the bf16 twin's rel L2 against fp32 and bitwise equal
+    over two calls; its time a call as CUDA events over a chain of 10
+    calls and as the profiler's device time a launch, beside the bound of
+    the shape (the weight, the input rows and the outputs). Then kernel 12
+    at the Qwen talker (pos 126) and Kani (pos 700) shapes with its qkv
+    launch's PDL on and off, split by launch. Inputs from a generator of
+    their own."""
+    from tts_tpu_torch.nn.rope import rope_table
+    from tts_tpu_torch.ops import _build, decode_qkv, decode_step
+    from tts_tpu_torch.quant.weight_only import quantize_int8_jit
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1511)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def f32(a):
+        return a.float() if isinstance(a, torch.Tensor) else a
+
+    name_limit = card()
+    sms = _build.sm_count(torch.device("cuda", torch.cuda.current_device()))
+    for shape, hs, heads, kvh, hd in (("Kani", 1024, 16, 8, 64), ("Qwen", 1024, 16, 8, 128),
+                                      ("IndexTTS", 1280, 20, 20, 64)):
+        n = (heads + 2 * kvh) * hd
+        wb = rn(hs, n, scale=0.02)
+        if shape == "IndexTTS":
+            args = (None, None)
+            kw = dict(heads=heads, kv_heads=kvh, head_dim=hd, bqkv=rn(n, scale=0.1), norm="ln",
+                      ln_weight=rn(hs, scale=0.1) + 1, ln_bias=rn(hs, scale=0.1), eps=1e-5)
+        else:
+            nw = torch.full((hd,), hd ** -0.25, device="cuda").to(torch.bfloat16)
+            args = tuple(torch.as_tensor(a[126:127], device="cuda").to(torch.bfloat16)
+                         for a in rope_table(2048, hd, 1e6))
+            kw = dict(heads=heads, kv_heads=kvh, head_dim=hd, q_norm=nw, k_norm=nw, eps=1e-6)
+        kw32 = {k: f32(v) for k, v in kw.items()}
+        for wl, wt in (("bf16", wb), ("int8", quantize_int8_jit(wb))):
+            w_bytes = 2 if wl == "bf16" else 1
+            tiles = -(-(heads + 2 * kvh) // decode_qkv.heads_a_tile(hd, w_bytes))
+            w32 = wt if wl == "int8" else wt.float()
+            for b in (1, 4, 8):
+                x = rn(b, hs)
+                plan = decode_qkv.qkv_plan(hs, heads + 2 * kvh, hd, w_bytes, sms, b)
+                forms = {"the plan's": plan,
+                         "with PDL" if not plan.pdl else "without PDL": plan._replace(
+                             pdl=not plan.pdl)}
+                for ctas in range(1, 9):      # every cut of the input dim
+                    k = -(-(-(-hs // ctas)) // 8) * 8
+                    form = decode_qkv.QkvPlan(-(-hs // k), k, plan.pdl)
+                    if form.ctas == ctas and form != plan:
+                        forms[f"{ctas} x {tiles} CTAs"] = form
+                ref = decode_qkv.fused_qkv_rope_plain(x.float(), w32, *map(f32, args), **kw32)
+                twin = decode_qkv.fused_qkv_rope_plain(x, wt, *args, **kw)
+                twin_rel = [rel_l2(t, r) for t, r in zip(twin, ref)]
+                nb = nbytes(wt.q if wl == "int8" else wt, x) + 2 * b * n \
+                    + (4 * n if wl == "int8" else 0)
+                bound = {}
+                set_bound(bound, nb, 2 * b * hs * n, "bf16")
+                for label, form in forms.items():
+                    def call(_f=form):
+                        with swapped(decode_qkv, {"qkv_plan": lambda *a, **k: _f}):
+                            return decode_qkv.fused_qkv_rope(x, wt, *args, **kw)
+
+                    got = call()
+                    tag = f"fused_qkv_rope {shape} B {b} {wl} weights, {label} form {tuple(form)}"
+                    for part, g, r in zip(("q", "k", "v"), got, ref):
+                        check(f"{tag} {part}", g, r)
+                    rels = [rel_l2(g, r) for g, r in zip(got, ref)]
+                    same = all(torch.equal(u, v) for u, v in zip(call(), got))
+                    ratio = max(e / t for e, t in zip(rels, twin_rel))
+                    print(f"  {tag}: rel L2 against fp32 at most {ratio:.4f} x the bf16 "
+                          f"twin's (limit {STEP_SLACK}), a second call "
+                          f"{'bitwise equal' if same else 'DIFFERENT'}", flush=True)
+                    if ratio > STEP_SLACK or not same:
+                        raise AssertionError(f"{tag}: error {ratio} x the bf16 twin's, "
+                                             f"repeatable {same}")
+                    print(f"  {name_limit}: {tag}: {chain_ms(call):.4f} ms a call (CUDA "
+                          f"events over a chain of 10), device time a launch "
+                          f"{device_ms(call):.4f} ms (profiler over 10 calls), bound "
+                          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+                          f"{nb / 1e6:.3f} MB)", flush=True)
+
+    for shape, hd, eps, t, pos in (("Qwen talker", 128, 1e-6, 640, 126),
+                                   ("Kani", 64, 1e-5, 2048, 700)):
+        w = rn(1024, 32 * hd, scale=0.02)
+        nw = torch.full((hd,), hd ** -0.25, device="cuda").to(torch.bfloat16)
+        cos, sin = (torch.as_tensor(a[pos:pos + 1], device="cuda").to(torch.bfloat16)
+                    for a in rope_table(2048, hd, 1e6))
+        kc, vc = rn(2, 1, 8, t, hd, scale=hd ** -0.25), rn(2, 1, 8, t, hd)
+        x1 = rn(1, 1024)
+        kw = dict(heads=16, kv_heads=8, head_dim=hd, q_norm=nw, k_norm=nw, eps=eps)
+        plan = decode_qkv.qkv_plan(1024, 32, hd, 2, sms)
+        for pdl in (plan.pdl, not plan.pdl):
+            def call(_p=plan._replace(pdl=pdl)):
+                with swapped(decode_qkv, {"qkv_plan": lambda *a, **k: _p}):
+                    return decode_step.fused_qkv_attn(x1, w, cos, sin, kc, vc, 1, pos, **kw)
+
+            label = (f"fused_qkv_attn {shape} pos {pos} bf16, the qkv launch "
+                     f"{'with' if pdl else 'without'} PDL")
+            print(f"  {name_limit}: {label}: {chain_ms(call):.4f} ms a call (CUDA events over "
+                  f"a chain of 10)", flush=True)
+            print_split(f"{name_limit}: {label}", call)
 
 
 def check_qwen_kernels(gen: torch.Generator, res: dict) -> None:
@@ -435,9 +570,6 @@ def check_qwen_kernels(gen: torch.Generator, res: dict) -> None:
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
-    def f32(a):
-        return a.float() if isinstance(a, torch.Tensor) else a
-
     hs, heads, kvh, hd, ffn = 1024, 16, 8, 128, 3072
     from tts_tpu_torch.nn.rope import rope_table
 
@@ -458,16 +590,10 @@ def check_qwen_kernels(gen: torch.Generator, res: dict) -> None:
         for pos in positions:
             cos, sin = table[0][pos:pos + 1], table[1][pos:pos + 1]
             for wt, wl in ((w, "bf16"), (wq, "int8")):
-                got = fused_qkv_attn(x1, wt, cos, sin, kc, vc, layers - 1, pos, **qwen)
-                ref = fused_qkv_attn_plain(
-                    x1.float(), wt if isinstance(wt, QTensor) else wt.float(), cos.float(),
-                    sin.float(), kc.float(), vc.float(), layers - 1, pos,
-                    **{k: f32(v) for k, v in qwen.items()})
-                r["max_abs_err"] = max(r["max_abs_err"], *(
-                    check(f"fused_qkv_attn hd128 {stack} L={layers} T={t} pos={pos} {wl} "
-                          f"{part}", g, rf) for part, g, rf in zip(("out", "k", "v"), got, ref)))
-                check_step_slack(f"fused_qkv_attn hd128 {stack} L={layers} T={t} pos={pos} "
-                                 f"{wl}", x1, wt, cos, sin, kc, vc, layers - 1, pos, qwen)
+                r["max_abs_err"] = max(r["max_abs_err"], check_slack(
+                    f"fused_qkv_attn hd128 {stack} L={layers} T={t} pos={pos} {wl}",
+                    fused_qkv_attn, fused_qkv_attn_plain,
+                    (x1, wt, cos, sin, kc, vc, layers - 1, pos), qwen))
         if stack == "talker":
             cos, sin = table[0][126:127], table[1][126:127]
             timed = {"fused_qkv_attn hd128 (talker, pos 126)": (
@@ -525,9 +651,10 @@ def check_qwen_kernels(gen: torch.Generator, res: dict) -> None:
     for name, (kernel, plain, nb, ops, kind, lib) in timed.items():
         r = res[name] if name in res else {}
         r["ms"], r["plain_ms"] = device_ms(kernel), device_ms(plain)
-        if name.startswith("fused_out_mlp") and "q8" not in name:
-            # kernel 14's launches overlap (programmatic dependent launch):
-            # the profiler's sum counts the overlap twice
+        chained = name.startswith(("fused_out_mlp", "fused_qkv")) and "q8" not in name
+        if chained:
+            # kernels 14's and 12's launches overlap (programmatic dependent
+            # launch): the profiler's sum counts the overlap twice
             summed, r["ms"] = r["ms"], chain_ms(kernel)
             print(f"  {name_limit}: {name}: profiler sum {summed:.4f} ms a call, CUDA events "
                   f"over a chain of 10 calls {r['ms']:.4f} ms a call, trace span "
@@ -537,8 +664,7 @@ def check_qwen_kernels(gen: torch.Generator, res: dict) -> None:
         if lib is not None:
             r["library_ms"] = device_ms(lib)
             lib_txt = f"{r['library_ms']:.4f} ms (SDPA, enable_gqa)"
-        how = ("CUDA events over a chain of 10 calls" if name.startswith("fused_out_mlp")
-               and "q8" not in name else "profiler over 10 calls")
+        how = "CUDA events over a chain of 10 calls" if chained else "profiler over 10 calls"
         print(f"  {name_limit}: {name}: kernel {r['ms']:.4f} ms, plain twin "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
               f"{nb / 1e6:.3f} MB, "
@@ -1348,14 +1474,14 @@ def sdpa_ms(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, kv: int,
 def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
     """Phase 2, kernels 6-9 at the F5 bench shapes (M = 2 x 1408 rows, D
     1024, qkv 3072, F 2048) against their fp32 twins on the same bf16
-    activations and int8 weights; then kernels 6-8 on the same activations
+    activations and int8 weights; then kernels 6-9 on the same activations
     in fp32 (no new draws) against the twins, rel L2 within TOL32: where
     the kernel's fp32 LayerNorm or gelu rounds otherwise than the twin's,
     a value on a tie of v / xs takes the other int8 step, which moves one
     output by one step of x times one weight, under 2^-10 of max |ref| (so
-    max |err| is held to TOL), and the rel L2 by far less. Kernels 6, 7
-    and 8 get their weights stored K-major, as the pipeline lays them out;
-    their yardstick is torch._int_mm at their GEMMs' shapes; check_q8_shapes
+    max |err| is held to TOL), and the rel L2 by far less. Kernels 6-9 get
+    their weights stored K-major, as the pipeline lays them out; their
+    yardstick is torch._int_mm at their GEMMs' shapes; check_q8_shapes
     takes them past the bench shape, time_q8_forms through both forms of
     their GEMMs where the plan picks either."""
     from tts_tpu_torch.ops.dit_mlp import mlp_block_fused_q8, mlp_block_q8_plain
@@ -1376,8 +1502,8 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
     m, d, n, f = 2816, 1024, 3072, 2048
     x = rn(2, 1408, d)
     wqkv, wo, w1, w2 = qw(d, n), qw(d, d), qw(d, f), qw(f, d)
-    # kernels 7, 8 and 6 read their weights K-major, as quantize_dit lays
-    # them out for the pipeline (kernel 9 takes wqkv row-major)
+    # kernels 6-9 read their weights K-major, as quantize_dit lays them out
+    # for the pipeline
     wqkv7, wo, w1, w2 = ((to_kmajor(q), s) for q, s in (wqkv, wo, w1, w2))
 
     def run(name, label, kernel, plain, args, ops):
@@ -1389,7 +1515,7 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
         r = res[name]
         r["max_abs_err"] = max(r["max_abs_err"], check(f"{name} {label}", got, ref))
         if "ms" not in r:
-            # device time of the int8 kernels (q8_rows, q8_gemm, q8_wgmma*)
+            # device time of the int8 kernels (q8_rows, q8_wgmma*)
             # alone: the wrapper's host work and its fp32 copies of biases
             # and mods are not the kernel's; the twin's is all its kernels' time
             r["ms"] = device_ms(lambda: kernel(*args), only="q8_")
@@ -1418,7 +1544,11 @@ def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
             f"{name} {label}, fp32 activations", kernel(*a32), plain(*a32), TOL32, TOL))
     x2 = x.reshape(m, d)
     run("quantized_matmul", "x=(2816, 1024) N=3072", quantized_matmul,
-        quantized_matmul_plain, (x2, *wqkv), 2 * m * d * n)
+        quantized_matmul_plain, (x2, *wqkv7), 2 * m * d * n)
+    res["quantized_matmul"]["max_abs_err"] = max(res["quantized_matmul"]["max_abs_err"], check(
+        "quantized_matmul x=(2816, 1024) N=3072, fp32 activations",
+        quantized_matmul(x2.float(), *wqkv7), quantized_matmul_plain(x2.float(), *wqkv7),
+        TOL32, TOL))
     # torch._int_mm at the GEMMs' shapes, the s8 products alone (no row
     # quantization, no rescale): kernel 9's library call, and a yardstick
     # beside kernels 7 and 6 (no call computes either's function)
@@ -2135,10 +2265,14 @@ def profile_f5(pipes: dict, name_limit: str) -> None:
     """torch.profiler over one bench request of each F5 pipeline: device
     kernel time by kernel, and the device's idle share (1 - kernel time /
     wall); in a W8A8 request the s8 wgmma GEMMs split by kernel
-    (`q8_gemm_split`). No request may launch kernel 9's WMMA q8_gemm."""
+    (`q8_gemm_split`). No request may launch kernel 9 (`quantized_matmul`,
+    whose GEMM is the same q8_wgmma_kernel as kernels 7's and 8's: its
+    wrapper's count in _build.LAUNCHES must not move over the request)."""
     import gc
 
     from torch.profiler import ProfilerActivity, profile
+
+    from tts_tpu_torch.ops import _build
 
     rate = next(iter(pipes.values())).cfg.sample_rate
     audio = (np.random.default_rng(0).standard_normal(int(6.0 * rate)) * 3000).astype(np.int16)
@@ -2152,16 +2286,17 @@ def profile_f5(pipes: dict, name_limit: str) -> None:
                                                                 "dit_gemm_kernel")),
                ("kernels 6-8: q8_rows", ("q8_rows",)),
                ("kernels 6-8: q8_wgmma (s8 wgmma GEMMs)", ("q8_wgmma",)),
-               ("kernel 9: q8_gemm (WMMA)", ("q8_gemm",)),
                ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma")))
     for label, pipe in pipes.items():
         pipe.synthesize(audio, REF_TEXT, text)
         torch.cuda.synchronize()
+        k9 = _build.LAUNCHES["quantized_matmul"]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             pipe.synthesize(audio, REF_TEXT, text)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        k9 = _build.LAUNCHES["quantized_matmul"] - k9
         rows = [(e.key, e.count, e.device_time_total / 1e3) for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(ms for _, _, ms in rows)
@@ -2182,8 +2317,8 @@ def profile_f5(pipes: dict, name_limit: str) -> None:
                 f"{k} {ms:.3f} ms" for k, ms in split.items()))
         for key, count, ms in sorted(rows, key=lambda r: -r[2])[:12]:
             print(f"    kernel {ms:9.3f} ms {count:6d}x  {key[:110]}")
-        if shares["kernel 9: q8_gemm (WMMA)"]:
-            raise AssertionError(f"F5 {label}: the request launched q8_gemm")
+        if k9:
+            raise AssertionError(f"F5 {label}: the request launched kernel 9 {k9} times")
         del prof, rows
         gc.collect()
 
@@ -2358,8 +2493,7 @@ def profile_kani(out_dir: str, name_limit: str) -> None:
     ids = np.array(KANI_IDS, np.int32)
     dec = KaniDecodeConfig(max_new_tokens=KANI_NEW, repeat_penalty=1.0)
     classes = (("kernel 12 attention (step_attn_kernel)", ("attn_kernel",)),
-               ("qkv matvec (kernels 11, 12) + kernel 11's epilogue",
-                ("qkv_matvec", "qkv_epilogue")),
+               ("qkv head (kernel 11; kernel 12's first launch)", ("qkv_head",)),
                ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma", "cublas")),
                ("casts / copies", ("copy", "convert")),
                ("conv (codec)", ("conv", "cudnn", "implicit", "winograd", "fft")))
@@ -2613,8 +2747,7 @@ def profile_qwen(pipes: dict, out_dir: str, name_limit: str) -> None:
 
     os.makedirs(out_dir, exist_ok=True)
     classes = (("kernel 12 attention (step_attn_kernel)", ("attn_kernel",)),
-               ("qkv matvec (kernels 11, 12) + kernel 11's epilogue",
-                ("qkv_matvec", "qkv_epilogue")),
+               ("qkv head (kernel 11; kernel 12's first launch)", ("qkv_head",)),
                ("kernel 13", ("cluster_kernel",)),
                ("kernel 15 (q8_oproj / q8_gateup / q8_down)", ("q8_",)),
                ("kernel 14", ("oproj_kernel", "gateup_kernel", "down_kernel")),
@@ -3214,7 +3347,7 @@ def main() -> None:
             profile_one(
                 "IndexTTS bf16 request (32 ids, 256 tokens)",
                 lambda: index_pipe.synthesize_ids(INDEX_IDS, index_ref, max_gen=INDEX_GEN),
-                (("kernel 11 (qkv_matvec / qkv_epilogue)", ("qkv_matvec", "qkv_epilogue")),
+                (("kernel 11 (qkv_head_kernel)", ("qkv_head",)),
                  K10_CLASS, CONV_CLASS, GEMM_CLASS, ("casts / copies", ("copy", "convert"))),
                 name_limit, per=(INDEX_GEN, "token"),
                 out_path=os.path.join(args.profile, "indextts_profile.txt"))

@@ -1,22 +1,25 @@
-"""The host-side plans of kernels 12, 14 and 15 (ops/decode_step.step_plan,
-ops/decode_mlp.out_mlp_plan, ops/decode_mlp.q8_tail_plan) against the forms
-their C entries accept (csrc/decode_step.cu `fused_qkv_attn`,
-csrc/decode_mlp.cu `fused_out_mlp`, csrc/decode_mlp_q8.cu
-`fused_out_mlp_q8`), and plain models of kernel 12's split over a kv
-head's cluster and of kernel 14's split of each dot over its input dim,
-held against tts_tpu's Pallas kernels in interpret mode and against the
-port's twins.
+"""The host-side plans of kernels 11, 12, 14 and 15 (ops/decode_qkv.qkv_plan,
+ops/decode_step.step_plan, ops/decode_mlp.out_mlp_plan,
+ops/decode_mlp.q8_tail_plan) against the forms their C entries accept
+(csrc/decode_qkv.cu `fused_qkv_rope`, csrc/decode_step.cu
+`fused_qkv_attn`, csrc/decode_mlp.cu `fused_out_mlp`, csrc/decode_mlp_q8.cu
+`fused_out_mlp_q8`), and plain models of kernel 11's split of the qkv dot
+over its input dim, of kernel 12's split over a kv head's cluster and of
+kernel 14's split of each dot over its input dim, held against tts_tpu's
+Pallas kernels in interpret mode and against the port's twins.
 
-The C entries refuse any form but the plan's; `_step_accepts`,
-`_out_mlp_accepts` and `_q8_accepts` below restate their checks, and
-`test_c_entries_check_what_the_mirrors_state` reads the checks and the
-limits they use from the sources, so the two cannot drift apart unseen.
+The C entries refuse any form but the plan's; `_qkv_accepts`,
+`_step_accepts`, `_out_mlp_accepts` and `_q8_accepts` below restate their
+checks, and `test_c_entries_check_what_the_mirrors_state` reads the checks
+and the limits they use from the sources, so the two cannot drift apart
+unseen.
 
 Tolerance of the split models: the card's 2^-6 of max |ref| and of the rel
 L2 (chip_smoke.py's TOL), in bf16. Against the twin only the order of the
-fp32 sums differs (slices, then ranks), so a few bf16 roundings move (of p
-in kernel 12; of x2, h, g, u, a and the output in kernel 14); against
-tts_tpu's kernels their own bf16 roundings move too.
+fp32 sums differs (slices, then ranks), so a few bf16 roundings move (of
+q, k and v in kernel 11; of p in kernel 12; of x2, h, g, u, a and the
+output in kernel 14); against tts_tpu's kernels their own bf16 roundings
+move too.
 """
 import re
 from pathlib import Path
@@ -31,11 +34,31 @@ from tts_tpu_torch.ops.decode_mlp import (OutMlpPlan, Q8TailPlan, _pick_block,
                                           q8_tail_plan)
 from tts_tpu_torch.quant.weight_only import QTensor
 from tts_tpu_torch.ops import decode_qkv
-from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope_plain
+from tts_tpu_torch.ops.decode_qkv import (QkvPlan, _norm_rope, fused_qkv_rope_plain,
+                                          heads_a_tile, qkv_fits, qkv_plan)
 from tts_tpu_torch.ops.decode_step import fused_qkv_attn, step_fits, step_plan
 
 CSRC = Path(__file__).resolve().parent.parent / "tts_tpu_torch" / "csrc"
 CARD_SMEM = 232448            # an H100 CTA's shared memory, bytes
+
+
+def _qkv_accepts(b: int, hidden: int, head_dim: int, plan) -> bool:
+    """csrc/decode_qkv.cu's shape and form checks (weight_stream.cuh's
+    cut_ok)."""
+    ctas, k, pdl = plan
+    return (1 <= b <= 8 and head_dim in (64, 128) and 8 <= hidden <= 8192
+            and hidden % 8 == 0 and _cut8_ok(hidden, ctas, k) and int(pdl) in (0, 1))
+
+
+def _qkv_smem(b: int, head_dim: int, w_bytes: int, plan) -> int:
+    """csrc/decode_qkv.cu's smem_bytes: the bf16 normed slice in whole
+    chunks (NT / CG row lanes x NR rows, CG = the tile's bytes a row / 16,
+    NR 8 for int8 at B > 4, else 16), the 8 warps' and the cluster's fp32
+    sums (B x the tile's columns each)."""
+    cols = heads_a_tile(head_dim, w_bytes) * head_dim
+    cg = cols * w_bytes // 16
+    chunk = 256 // cg * (8 if w_bytes == 1 and b > 4 else 16)
+    return 2 * b * -(-plan.rows // chunk) * chunk + 4 * (8 + plan.ctas) * b * cols
 
 
 def _step_accepts(pos: int, ctas: int, rows: int) -> bool:
@@ -88,15 +111,21 @@ def _out_mlp_smem(launch: int, b: int, hidden: int, plan, w_bytes: int) -> int:
 
 
 def test_c_entries_check_what_the_mirrors_state():
-    k14 = " ".join((CSRC / "decode_mlp.cu").read_text().split())
+    def flat(name):
+        return " ".join((CSRC / name).read_text().split())
+
+    stream = flat("weight_stream.cuh")
     for part in ("constexpr int MAX_CTAS = 8;", "constexpr int NT = 256, NW = NT / 32;",
-                 "constexpr int CG = 8;", "constexpr int QL = NT / CG;",
                  "return sizeof(W) == 1 && NB > 4 ? 8 : 16;",
+                 "constexpr int CH = NT / CG * rows_in_flight<W, NB>();",
                  "ctas >= 1 && ctas <= MAX_CTAS && k >= 8 && k % 8 == 0 && "
-                 "(long long)ctas * k >= dim && (long long)(ctas - 1) * k < dim;",
+                 "(long long)ctas * k >= dim && (long long)(ctas - 1) * k < dim;"):
+        assert part in stream, part
+    k14 = flat("decode_mlp.cu")
+    for part in ("constexpr int CG = 8;",
                  "const bool form = tts::cut_ok(A, c1, k1) && tts::cut_ok(H, c2, k2) && "
                  "tts::cut_ok(F, c3, k3) && (pdl == 0 || pdl == 1);",
-                 "return x2s + sizeof(bf16) * NB * padded<W, NB>(k) + (NW + ctas) * N;",
+                 "return x2s + sizeof(bf16) * NB * padded<W, CG, NB>(k) + (NW + ctas) * N;",
                  "if (s1 > 227 * 1024 || s2 > 227 * 1024 || s3 > 227 * 1024)"):
         assert part in k14, part
     q8 = (CSRC / "decode_mlp_q8.cu").read_text()
@@ -109,18 +138,208 @@ def test_c_entries_check_what_the_mirrors_state():
                  "k3 % 4 == 0 && fb % k3 == 0 && c3 >= 1 && c3 <= tts::MAX_CTAS &&",
                  "c3 <= nsub && (nsub + c3 - 1) / c3 <= tts::MAX_PASSES;"):
         assert part in " ".join(q8.split()), part
-    step = " ".join((CSRC / "decode_step.cu").read_text().split())
+    # kernel 11: the tile, the shapes, the form and the shared memory
+    k11 = flat("decode_qkv.cu")
+    for part in ("constexpr int MAX_H = 8192;", "constexpr int SMEM_MAX = 216 * 1024;",
+                 "static constexpr int HPT = HD * (int)sizeof(W) >= 128 ? 1 : 128 / (HD * "
+                 "(int)sizeof(W));",
+                 "static constexpr int COLS = HPT * HD, V = vals<W>(), CG = COLS / V, "
+                 "NP = NB * COLS;",
+                 "const bool shapes = B >= 1 && B <= 8 && (hd == 64 || hd == 128) && H >= 8 && "
+                 "H % 8 == 0 && H <= tts::MAX_H &&",
+                 "const bool form = tts::cut_ok(H, ctas, rows) && (pdl == 0 || pdl == 1);",
+                 "return sizeof(bf16) * NB * padded<W, T::CG, NB>(k) + sizeof(float) * (NW + "
+                 "ctas) * T::NP;",
+                 "if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;"):
+        assert part in k11, part
+    assert decode_qkv.MAX_HIDDEN == 8192 and decode_qkv.MAX_ROWS == 8
+    assert decode_qkv._TILE_BYTES == 128
+    # kernel 12: the attention launch's shared memory and split; its qkv
+    # launch is kernel 11's C entry, which checks the qkv plan's form
+    step = flat("decode_step.cu")
     assert "constexpr int ST_MAX_CTAS = 8;" in step
-    assert "constexpr int ST_STAGE_MAX = 48 * 1024;" in step
-    assert ("return (size_t)ksplit * (G + 2) * HD + (size_t)(1 + ST_WARPS + ctas) * G * HD + "
-            "2 * HD + ST_THREADS + (size_t)G * rows;") in step
     assert "constexpr int ST_THREADS = 256;" in step
-    assert ("(long long)ksplit * (heads / kv_heads + 2) * hd * sizeof(float) > "
-            "tts::ST_STAGE_MAX") in step
-    assert decode_qkv._STEP_STAGE == 48 * 1024
+    assert ("return (size_t)(1 + ST_WARPS + ctas) * G * HD + 2 * HD + (size_t)G * rows;"
+            in step)
+    assert ("const int err = fused_qkv_rope(x, w, w_int8, scale, bias, qn, kn, cosr, sinr, "
+            "lnw, lnb, q, k, v, 1, H, heads, kv_heads, hd, qctas, qrows, pdl, eps, stream);"
+            ) in step
     assert ("pos == 0 ? ctas == 1 && rows == 0 : ctas >= 1 && ctas <= tts::ST_MAX_CTAS && "
             "rows >= 1 && (long long)ctas * rows >= pos && (long long)(ctas - 1) * rows < pos"
             ) in step
+
+
+# ---------------------------------------------------------------- kernel 11
+
+# (H, q + k + v heads, head_dim): Kani, the Qwen talker and predictor, IndexTTS
+QKV_SHAPES = {"kani": (1024, 32, 64), "qwen": (1024, 32, 128), "indextts": (1280, 60, 64)}
+
+
+# the plan on an H100 (132 SMs) at B 1, 3 and 8: (CTAs a tile, rows a CTA)
+QKV_FORMS = {("kani", 2): [(2, 512)] * 3, ("kani", 1): [(2, 512), (2, 512), (4, 256)],
+             ("qwen", 2): [(4, 256), (4, 256), (3, 344)],
+             ("qwen", 1): [(2, 512), (2, 512), (3, 344)],
+             ("indextts", 2): [(3, 432), (3, 432), (2, 640)],
+             ("indextts", 1): [(3, 432), (3, 432), (4, 320)]}
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("w_bytes", [2, 1], ids=["bf16", "int8"])
+@pytest.mark.parametrize("shape", list(QKV_SHAPES))
+def test_qkv_plan_at_the_family_shapes(shape, w_bytes, rows):
+    """On an H100 (132 SMs): tiles of one head in bf16 (Kani 32 of 128
+    bytes a row, Qwen 32 of 256, IndexTTS 60 of 128) and of two heads at
+    head dim 64 in int8 (16, 30) or one at 128 (32); each tile's input dim
+    in slices of one chunk of loads in flight (512 rows of 128-byte tiles,
+    256 of 256-byte ones or of int8 past 4 rows), fewer where the grid
+    would pass what the card holds at once (Qwen and IndexTTS at B 8, whose
+    registers allow one CTA an SM); programmatic dependent launch. The
+    forms that were fastest, or within 7% of it, on the card."""
+    hidden, n_heads, hd = QKV_SHAPES[shape]
+    plan = qkv_plan(hidden, n_heads, hd, w_bytes, 132, rows)
+    assert plan == QkvPlan(*QKV_FORMS[shape, w_bytes][(1, 3, 8).index(rows)], True)
+    assert _qkv_accepts(rows, hidden, hd, plan)
+    assert heads_a_tile(hd, w_bytes) == (2 if (w_bytes, hd) == (1, 64) else 1)
+    assert _qkv_smem(rows, hd, w_bytes, plan) <= 216 * 1024
+
+
+@pytest.mark.parametrize("sms", [16, 132])
+@pytest.mark.parametrize("w_bytes", [2, 1], ids=["bf16", "int8"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_qkv_plan_covers_every_admitted_shape(head_dim, w_bytes, sms):
+    """Every (B, H) qkv_fits admits at this head dim, for 3 to 96 heads: the
+    plan is a form the C entry takes, at most 8 CTAs a cluster, a grid the
+    card holds at once (two CTAs an SM where the registers allow, less 4 a
+    CTA of a cluster past the first) unless one CTA a tile, slices of one
+    chunk of loads in flight unless the cluster or the grid stopped it, and
+    the shared memory within the C entry's 216 KB."""
+    for hidden in list(range(8, 8193, 168)) + [8192]:
+        for n_heads in (3, 4, 7, 32, 60, 96):
+            tiles = -(-n_heads // heads_a_tile(head_dim, w_bytes))
+            for b in range(1, 9):
+                assert qkv_fits(b, hidden, head_dim)
+                plan = qkv_plan(hidden, n_heads, head_dim, w_bytes, sms, b)
+                c = plan.ctas
+                assert _qkv_accepts(b, hidden, head_dim, plan), (hidden, n_heads, b, plan)
+                room = sms * (2 if b <= (5 if w_bytes == 2 else 2) else 1)
+                assert c == 1 or tiles * c <= room - 4 * (c - 1)
+                chunk = 256 // (128 // 16 if head_dim * w_bytes <= 128 else 16) \
+                    * (8 if w_bytes == 1 and b > 4 else 16)
+                assert -(-hidden // chunk) <= c or c == 8 \
+                    or tiles * (c + 1) > room - 4 * c, (hidden, n_heads, b, plan)
+                assert _qkv_smem(b, head_dim, w_bytes, plan) <= 216 * 1024
+    assert not qkv_fits(1, 8200, head_dim) and not qkv_fits(1, 1028, head_dim)
+    assert not qkv_fits(9, 1024, head_dim) and not qkv_fits(1, 1024, 96)
+
+
+@pytest.mark.parametrize("plan", [
+    QkvPlan(9, 128, True),      # a cluster of 9
+    QkvPlan(3, 512, True),      # the third slice empty
+    QkvPlan(2, 516, True),      # rows not a multiple of 8
+    QkvPlan(2, 256, True),      # the input not covered
+    QkvPlan(2, 512, 2),         # no such PDL mode
+])
+def test_qkv_form_check_refuses_other_forms(plan):
+    assert not _qkv_accepts(1, 1024, 64, plan)
+
+
+def _qkv_model(x, w, plan, heads, kvh, hd, cos=None, sin=None, qn=None, kn=None,
+               bqkv=None, norm="rms", lnw=None, lnb=None, eps=1e-6):
+    """Kernel 11's CUDA form in plain torch on bf16 values: the twin's
+    normed input in bf16; the dot's fp32 sum taken over the plan's slices
+    of the input dim (a CTA each), the slices added in rank order; then, on
+    whole heads, the twin's epilogue at its rounding points (rounded to
+    bf16, (int8) times the bf16-rounded scale, plus the bias, the per-head
+    norm and the rotation)."""
+    xf = x.float()
+    if norm == "ln":
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        h = (xf - mean) * torch.rsqrt(var + eps) * lnw.float() + lnb.float()
+    else:
+        h = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    h = h.to(torch.bfloat16).float()
+    wq = (w.q if isinstance(w, QTensor) else w).float()
+    acc = torch.zeros(x.shape[0], wq.shape[1])
+    for s0 in range(0, h.shape[1], plan.rows):
+        acc = acc + h[:, s0:s0 + plan.rows] @ wq[s0:s0 + plan.rows]
+    qkv = acc.to(torch.bfloat16)
+    if isinstance(w, QTensor):
+        qkv = qkv * w.scale.to(torch.bfloat16)
+    if bqkv is not None:
+        qkv = qkv + bqkv
+    q_sz, kv_sz = heads * hd, kvh * hd
+    q = _norm_rope(qkv[:, :q_sz], qn, cos, sin, heads, hd, eps)
+    k = _norm_rope(qkv[:, q_sz:q_sz + kv_sz], kn, cos, sin, kvh, hd, eps)
+    return q, k, qkv[:, q_sz + kv_sz:].contiguous()
+
+
+def _bf(rng, *shape, scale=1.0, shift=0.0):
+    a = (rng.standard_normal(shape) * scale + shift).astype(np.float32)
+    return torch.from_numpy(a).to(torch.bfloat16)
+
+
+def _jb(a):
+    return None if a is None else jnp.asarray(a.float().numpy(), jnp.bfloat16)
+
+
+def _qkv_weights(w, quant):
+    """(the port's weight, tts_tpu's): bf16, or tts_tpu's eager int8
+    quantizer's q and scales on both sides."""
+    if not quant:
+        return w, _jb(w)
+    from tts_tpu.quant.weight_only import quantize_int8
+
+    qt = quantize_int8(jnp.asarray(w.float().numpy()))
+    return QTensor(q=torch.from_numpy(np.array(qt.q)),
+                   scale=torch.from_numpy(np.array(qt.scale))), qt
+
+
+# (norm, q/k norms and RoPE, bias, hidden, heads, kv heads, head_dim)
+QKV_VARIANTS = {"rms-norms-rope": ("rms", True, False, 1024, 4, 2, 128),
+                "ln-bias": ("ln", False, True, 1280, 4, 4, 64)}
+
+
+@pytest.mark.parametrize("b", [1, 5, 8])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("variant", list(QKV_VARIANTS))
+def test_qkv_split_matches_pallas_and_twin(variant, quant, b):
+    """The model of kernel 11's split (the plan on 132 SMs: four slices of
+    256 rows at H 1024 and head dim 128 in bf16, two of 512 in int8; three
+    of 432 at H 1280 and head dim 64, four of 320 in int8 at B 8) against
+    tts_tpu's fused_qkv_rope in interpret mode and the port's twin, bf16
+    activations, bf16 or int8 weights: RMSNorm with q/k norms and RoPE, and
+    LayerNorm with a bias and no RoPE."""
+    from tts_tpu.nn.rope import rope_table
+    from tts_tpu.ops.decode_qkv import fused_qkv_rope as pallas
+
+    norm, normed, biased, hin, heads, kvh, hd = QKV_VARIANTS[variant]
+    n = (heads + 2 * kvh) * hd
+    rng = np.random.default_rng(150 + b + 10 * quant)
+    x = _bf(rng, b, hin)
+    w, wj = _qkv_weights(_bf(rng, hin, n, scale=0.03), quant)
+    qn = _bf(rng, hd, scale=0.1, shift=1.0) if normed else None
+    kn = _bf(rng, hd, scale=0.1, shift=1.0) if normed else None
+    cos = sin = None
+    if normed:
+        cos, sin = (torch.from_numpy(np.asarray(a[9:10])).to(torch.bfloat16)
+                    for a in rope_table(16, hd, 1e6))
+    bq = _bf(rng, n, scale=0.1) if biased else None
+    lnw = _bf(rng, hin, scale=0.1, shift=1.0) if norm == "ln" else None
+    lnb = _bf(rng, hin, scale=0.1) if norm == "ln" else None
+    eps = 1e-5 if norm == "ln" else 1e-6
+    plan = qkv_plan(hin, heads + 2 * kvh, hd, 1 if quant else 2, 132, b)
+    assert plan.ctas > 1
+    kw = dict(heads=heads, kv_heads=kvh, head_dim=hd, norm=norm, eps=eps)
+    model = _qkv_model(x, w, plan, heads, kvh, hd, cos, sin, qn, kn, bq, norm, lnw, lnb, eps)
+    twin = fused_qkv_rope_plain(x, w, cos, sin, q_norm=qn, k_norm=kn, bqkv=bq,
+                                ln_weight=lnw, ln_bias=lnb, **kw)
+    ref = pallas(_jb(x), wj, _jb(cos), _jb(sin), q_norm=_jb(qn), k_norm=_jb(kn), bqkv=_jb(bq),
+                 ln_weight=_jb(lnw), ln_bias=_jb(lnb), interpret=True, **kw)
+    for m, t, r, width in zip(model, twin, ref, (heads * hd, kvh * hd, kvh * hd)):
+        assert m.shape == t.shape == (b, width) and m.dtype == torch.bfloat16
+        _within_bf16_tol(m, t)
+        _within_bf16_tol(m, torch.from_numpy(np.array(r.astype(jnp.float32))))
 
 
 # ---------------------------------------------------------------- kernel 14
@@ -306,13 +525,11 @@ def test_step_plan_covers_live_rows(pos, head_dim):
     assert (ctas == 1) == (pos <= {64: 64, 128: 128}[head_dim])
 
 
-def _cluster_smem(group: int, head_dim: int, ksplit: int, ctas: int, rows: int) -> int:
+def _cluster_smem(group: int, head_dim: int, ctas: int, rows: int) -> int:
     """Dynamic shared memory of kernel 12's attention launch, bytes
-    (csrc/decode_step.cu's st_smem_floats): the staged partial sums of the
-    kv head's heads, q, k_new, v_new, the rotation's rows (256 threads), the
-    8 warps' P.V sums, the cluster's (one set a CTA), the slice's scores."""
-    return 4 * (ksplit * (group + 2) * head_dim + (9 + ctas) * group * head_dim
-                + 2 * head_dim + 256 + group * rows)
+    (csrc/decode_step.cu's st_smem_floats): q, k_new, v_new, the 8 warps'
+    P.V sums, the cluster's (one set a CTA), the slice's scores."""
+    return 4 * ((9 + ctas) * group * head_dim + 2 * head_dim + group * rows)
 
 
 @pytest.mark.parametrize("head_dim", [64, 128])
@@ -321,11 +538,10 @@ def test_step_plan_fits_the_card_wherever_the_gate_admits(group, head_dim):
     """step_fits (the route gate, unchanged) admits pos by the earlier
     one-CTA form's shared memory, up to 200 KB; the cluster form's
     attention launch fits the card's 227 KB at every admitted pos."""
-    ksplit = 48 * 1024 // (4 * (group + 2) * head_dim)     # the most it stages
     pos, worst = 0, 0
     while step_fits(group, head_dim, pos):
         ctas, rows = step_plan(pos, head_dim)
-        worst = max(worst, _cluster_smem(group, head_dim, ksplit, ctas, rows))
+        worst = max(worst, _cluster_smem(group, head_dim, ctas, rows))
         pos += 1 if pos < 300 else 61
     assert pos > 2048 and worst <= CARD_SMEM
 
@@ -405,6 +621,40 @@ def test_step_split_matches_pallas_and_twin(geom, pos):
     assert model.shape == twin.shape == (1, heads * hd) and twin.dtype == torch.bfloat16
     _within_bf16_tol(model, twin)
     _within_bf16_tol(model, ref)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("geom,pos", [((16, 8, 128), 126), ((16, 8, 64), 700)],
+                         ids=["qwen-126", "kani-700"])
+def test_step_split_on_the_qkv_split_matches_pallas(geom, pos, quant):
+    """Kernel 12 as the card runs it: the model of kernel 11's split at one
+    row (the plan at H 1024: slices of 256 or 512 rows) makes q, k and v, and
+    the model of the attention's cluster split reads them; against tts_tpu's
+    fused_qkv_attn in interpret mode and the port's twin, bf16 or int8
+    weights."""
+    from tts_tpu.ops.decode_step import fused_qkv_attn as pallas
+
+    heads, kvh, hd = geom
+    hin, t, layers, layer = 1024, 768, 2, 1
+    rng = np.random.default_rng(24 + quant)
+    x = _bf(rng, 1, hin)
+    w, wj = _qkv_weights(_bf(rng, hin, (heads + 2 * kvh) * hd, scale=0.03), quant)
+    kc = _bf(rng, layers, 1, kvh, t, hd, scale=hd ** -0.25)
+    vc = _bf(rng, layers, 1, kvh, t, hd)
+    qn = kn = torch.full((hd,), hd ** -0.25).to(torch.bfloat16)
+    cos, sin = (torch.from_numpy(np.asarray(a[pos:pos + 1])).to(torch.bfloat16)
+                for a in _rope(t, hd))
+    plan = qkv_plan(hin, heads + 2 * kvh, hd, 1 if quant else 2, 132)
+    assert plan.ctas > 1
+    q, k_new, v_new = _qkv_model(x, w, plan, heads, kvh, hd, cos, sin, qn, kn)
+    model = _step_model(q, k_new, v_new, kc[layer, 0], vc[layer, 0], pos, heads, kvh, hd)
+    kw = dict(heads=heads, kv_heads=kvh, head_dim=hd, eps=1e-6)
+    twin = fused_qkv_attn(x, w, cos, sin, kc, vc, layer, pos, q_norm=qn, k_norm=kn, **kw)
+    ref = pallas(_jb(x), wj, _jb(cos), _jb(sin), _jb(kc), _jb(vc), layer, jnp.int32(pos),
+                 q_norm=_jb(qn), k_norm=_jb(kn), interpret=True, **kw)
+    for m, tw, r in zip((model, k_new, v_new), twin, ref):
+        _within_bf16_tol(m, tw)
+        _within_bf16_tol(m, torch.from_numpy(np.array(r.astype(jnp.float32))))
 
 
 def _rope(t, hd):

@@ -105,7 +105,11 @@ def test_out_proj_residual_q8_matches_pallas():
     np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=RTOL)
 
 
-def test_quantized_matmul_matches_pallas():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantized_matmul_matches_pallas(dtype):
+    """fp32 and bf16 activations, each written back in its dtype. In bf16
+    both sides quantize the same bf16 rows and round the same fp32 rescale
+    once to bf16: within one bf16 step (2^-8 relative) of each other."""
     from jax.experimental.pallas import tpu as pltpu
 
     from tts_tpu.ops.quant_matmul import quantized_matmul as pallas
@@ -114,11 +118,16 @@ def test_quantized_matmul_matches_pallas():
     x = rng.standard_normal((256, 64)).astype(np.float32)
     w = (rng.standard_normal((64, 256)) * 0.1).astype(np.float32)
     wq, ws = _jq(w)
+    xj = jnp.asarray(x, dtype)
     with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(pallas(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(ws),
-                                block_m=128, block_n=256))
-    out = quantized_matmul(_t(x), _t(wq), _t(ws))
-    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=RTOL)
+        ref = pallas(xj, jnp.asarray(wq), jnp.asarray(ws), block_m=128, block_n=256)
+    assert ref.dtype == xj.dtype
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = quantized_matmul(_t(xj.astype(jnp.float32)).to(getattr(torch, dtype)), _t(wq),
+                           _t(ws))
+    assert out.dtype == getattr(torch, dtype)
+    tol = dict(atol=ATOL, rtol=RTOL) if dtype == "float32" else dict(atol=ATOL, rtol=2.0 ** -8)
+    np.testing.assert_allclose(out.float().numpy(), ref, **tol)
 
 
 @pytest.mark.parametrize("per_row", [False, True])

@@ -33,6 +33,8 @@ def _tiles(rows, n):
 @pytest.mark.parametrize("rows,n,k,whole,want", [
     # kernel 7: (2816 x 1024) . (1024 x 3072): 528 CTAs, two full waves of 2 an SM
     (2816, 3072, 1024, False, Q8Plan(3, 1)),
+    # kernel 9 at its bench shape, x (2816, 1024) @ (1024, 3072): kernel 7's GEMM
+    pytest.param(2816, 3072, 1024, False, Q8Plan(3, 1), id="kernel9-bench"),
     # kernel 6's ff1: clusters of 16 x 128 columns span F 2048
     (2816, 2048, 1024, True, Q8Plan(3, 16)),
     # kernel 6's ff2: (2816 x 2048) . (2048 x 1024), 176 CTAs

@@ -8,18 +8,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace tts {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-// 16x16x16 tensor-core fragments: bf16 operands, fp32 accumulator
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ bf16 to_bf(float x) { return __float2bfloat16(x); }
@@ -96,23 +89,34 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// Programmatic dependent launch: let the next grid in the stream start;
+// wait until the previous grid has completed and its writes are visible
+// (both return at once in a grid launched without the attribute)
+__device__ __forceinline__ void pdl_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
 // Launch `kernel` in thread-block clusters of `cx` CTAs along x (grid.x a
-// multiple of cx); returns the launch's error.
+// multiple of cx), with programmatic stream serialization when `pdl`;
+// returns the launch's error.
 template <typename Arg>
 cudaError_t launch_cluster(void (*kernel)(Arg), dim3 grid, int threads, size_t smem,
-                           cudaStream_t stream, int cx, Arg arg) {
-  cudaLaunchAttribute attr[1];
+                           cudaStream_t stream, int cx, Arg arg, bool pdl = false) {
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cx;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = pdl ? 2 : 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, arg);
   return err != cudaSuccess ? err : cudaGetLastError();
 }

@@ -15,30 +15,12 @@
 // at Qwen3-TTS width (wo 2048 x 1024, gate/up 1024 x 6144, down 3072 x
 // 1024), 23 MB in bf16 (6.9 us at 3.35 TB/s) or 11.5 MB in int8 (3.4 us).
 // At B <= 8 rows the products are far below the tensor cores' line, so the
-// kernels are matvecs on the CUDA cores. Design: three launches, each a
-// weight stream that fills the card (kernel 15's design, decode_mlp_q8.cu,
-// on fp32 sums):
-//  * every CTA takes a tile of 128 contiguous bytes of each weight row (64
-//    bf16 or 128 int8 columns; the card streamed 16- and 32-byte row
-//    pieces at a fraction of the rate) over a slice of the input dim; the
-//    CTAs of one tile form a thread-block cluster along that dim, cut by
-//    ops/decode_mlp.out_mlp_plan from the SM count (at most 8 CTAs a
-//    cluster, the portable size);
-//  * a thread issues its NR 16-byte row loads before anything else; int8
-//    values turn into fp32 by a byte permute into a float's mantissa and
-//    one exact subtraction (no conversion instruction), bf16 by a shift;
-//  * the lanes of a column meet by a transposing butterfly, the warps
-//    through shared memory in order; each CTA sends its fp32 sums through
-//    distributed shared memory to the CTA of the cluster that owns each
-//    output, one cluster barrier, and the owner adds them in rank order
-//    and runs the tile's last step;
-//  * programmatic dependent launch (when the plan says so): a launch
-//    issues its weight loads, lets the next launch start
-//    (griddepcontrol.launch_dependents) and only then waits for the
-//    previous one (griddepcontrol.wait) before it reads x, att, x2 or a;
-//    so each launch's weight loads run under the previous one's tail. The
-//    weights and scales are parameters, never written by the kernels
-//    before it in the stream.
+// kernels are matvecs on the CUDA cores. Design: three launches, each the
+// weight stream of weight_stream.cuh (kernel 15's design, decode_mlp_q8.cu,
+// on fp32 sums) over tiles of 128 contiguous bytes of each weight row (64
+// bf16 or 128 int8 columns), cut by ops/decode_mlp.out_mlp_plan, with
+// programmatic dependent launch where the plan says so (each launch waits
+// before it reads x, att, x2 or a):
 //  1. oproj_kernel: att @ wo over slices of A; x2 = x + y.
 //  2. gateup_kernel: 32 gate and 32 matching up columns a tile in bf16 (64
 //     and 64 in int8); each CTA copies the x2 rows into shared memory
@@ -46,20 +28,13 @@
 //     the cluster sums g and u and writes a = silu(g) u in bf16.
 //  3. down_kernel: a @ w_down over slices of F, then the residual.
 // No atomics: runs are bitwise reproducible.
-#include <cooperative_groups.h>
-
-#include "common.cuh"
 #include "wgmma.cuh"
+#include "weight_stream.cuh"
 
 namespace tts {
 namespace {
 
-namespace cg = cooperative_groups;
-
-constexpr int NT = 256, NW = NT / 32;
 constexpr int CG = 8;            // column groups of 16 bytes a CTA: 128 bytes a weight row
-constexpr int QL = NT / CG;      // row lanes
-constexpr int MAX_CTAS = 8;      // the portable cluster size
 constexpr int MAX_H = 4096;      // the RMSNorm's columns: 16 a thread
 
 struct Args {
@@ -79,173 +54,11 @@ struct Args {
   float eps;
 };
 
-// programmatic dependent launch: let the next grid in the stream start; wait
-// until the previous grid has completed and its writes are visible (both
-// return at once in a grid launched without the attribute)
-__device__ __forceinline__ void pdl_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
-
-// columns a 16-byte load holds, and the 16-byte row loads a thread keeps in
-// flight (int8 at B > 4: 8, or its 16 NB accumulators spill)
-template <typename W>
-__host__ __device__ constexpr int vals() { return 16 / (int)sizeof(W); }
-template <typename W, int NB>
-__host__ __device__ constexpr int rows_in_flight() { return sizeof(W) == 1 && NB > 4 ? 8 : 16; }
-
-// the 16-byte load's values in fp32: bf16 by a shift; int8 by a byte
-// permute into the mantissa of 2^23 (0x4B0000uu is 2^23 + uu, uu = v + 128)
-// and one exact subtraction
-__device__ __forceinline__ void unpack(const uint4& v, const bf16*, float (&f)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    f[2 * j] = __uint_as_float(w[j] << 16);
-    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void unpack(const uint4& v, const int8_t*, float (&f)[16]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t u = w[j] ^ 0x80808080u;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      f[4 * j + e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) - 8388736.f;
-  }
-}
-
-// rows + i QL (i < NR) of the slice of kn rows at row k0 of w (row stride
-// ldw, w already at the thread's column group); rows past kn, and every row
-// of a null w (a column group past the matrix's edge), read as 0
-template <typename W, int NR>
-__device__ __forceinline__ void load_rows(const W* __restrict__ w, size_t ldw, int k0, int kn,
-                                          int row0, uint4 (&wr)[NR]) {
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int r = row0 + i * QL;
-    wr[i] = r < kn && w ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * ldw))
-                        : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// acc[b][e] += act[b][r] * w[r][e] over the thread's NR rows, act the CTA's
-// bf16 activations [NB][kp] (zero past the slice)
-template <typename W, int NB, int NR>
-__device__ __forceinline__ void mac_rows(const uint4 (&wr)[NR], const bf16* act, int kp,
-                                         int row0, float (&acc)[NB][vals<W>()]) {
-  constexpr int V = vals<W>();
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int r = row0 + i * QL;
-    float f[V];
-    unpack(wr[i], (const W*)nullptr, f);
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const float av = to_f(act[b * kp + r]);
-#pragma unroll
-      for (int e = 0; e < V; ++e) acc[b][e] = fmaf(av, f[e], acc[b][e]);
-    }
-  }
-}
-
-// The weight stream of the thread's column group over the slice: chunks of
-// NR rows a row lane, the first of which the caller loaded (wr) before it
-// built act
-template <typename W, int NB, int NR>
-__device__ __forceinline__ void stream(const W* __restrict__ w, size_t ldw, int k0, int kn,
-                                       int kp, uint4 (&wr)[NR], const bf16* act,
-                                       float (&acc)[NB][vals<W>()]) {
-  const int ql = threadIdx.x / CG;
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int e = 0; e < vals<W>(); ++e) acc[b][e] = 0.f;
-  for (int c = 0; c * QL * NR < kp; ++c) {
-    if (c > 0) load_rows<W, NR>(w, ldw, k0, kn, ql + c * QL * NR, wr);
-    mac_rows<W, NB, NR>(wr, act, kp, ql + c * QL * NR, acc);
-  }
-}
-
-// One step of a transposing butterfly over the lanes OFF apart, on CNT
-// values a lane, then the next down to the offset STOP: each lane sends the
-// half it does not keep and adds the partner's copy of the half it keeps
-// (the upper lane keeps the upper half; `base` counts the values it passed
-// over). The order of each sum is fixed: runs repeat bitwise.
-template <int OFF, int CNT, int STOP>
-__device__ __forceinline__ void butterfly(float* val, int lane, int& base) {
-  if constexpr (OFF >= STOP) {
-    constexpr int HALF = CNT / 2;
-    const bool upper = (lane & OFF) != 0;
-#pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-      const float sent = upper ? val[i] : val[i + HALF];
-      const float kept = upper ? val[i + HALF] : val[i];
-      val[i] = kept + __shfl_xor_sync(0xffffffffu, sent, OFF);
-    }
-    base += upper ? HALF : 0;
-    butterfly<OFF / 2, HALF, STOP>(val, lane, base);
-  }
-}
-
-// The CTA's tile: the sums of its threads' acc over the row lanes, into out
-// [NB][COLS] (shared). Lanes of one column group meet in a butterfly, the
-// warps through red [NW][NB][COLS] in order.
-template <int NB, int V>
-__device__ __forceinline__ void tile_sums(float (&acc)[NB][V], float* red, float* out) {
-  constexpr int COLS = CG * V, N = NB * COLS;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, cgi = threadIdx.x % CG;
-  float val[NB * V];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int e = 0; e < V; ++e) val[b * V + e] = acc[b][e];
-  int base = 0;
-  butterfly<16, NB * V, CG>(val, lane, base);
-  constexpr int LEFT = NB * V * CG / 32;   // 32 / CG lanes a group: halved log2(32 / CG) times
-#pragma unroll
-  for (int i = 0; i < LEFT; ++i) {
-    const int v = base + i, b = v / V, e = v % V;
-    red[(warp * NB + b) * COLS + cgi * V + e] = val[i];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < N; i += NT) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) s += red[w * N + i];
-    out[i] = s;
-  }
-}
-
-// The cluster's sums: each CTA sends its value of output i (of n, in part)
-// to the CTA that owns i through distributed shared memory, into recv[its
-// rank][i]; after the cluster's barrier the owner adds them in rank order
-// (cluster_sum). Output i's owner is i % nct, or with `half` (gate-up:
-// columns c and c + half of a row meet in one a) that of the pair. The
-// caller arrived at the barrier (cluster_arrive_relaxed) before its loads
-// and waits here before the first send; one CTA alone only syncs.
+// the CTA of the cluster that sums output i (of a tile of `cols` columns) in
+// a cluster of nct: i % nct, or with `half` (gate-up: columns c and c + half
+// of a row meet in one a) that of the pair
 __device__ __forceinline__ int owner(int i, int nct, int cols, int half) {
   return (half ? i / cols * half + i % half : i) % nct;
-}
-__device__ __forceinline__ void send_parts(const float* part, int n, float* recv, int rank,
-                                           int nct, int cols, int half) {
-  if (nct == 1) {
-    __syncthreads();
-    return;
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster_wait();
-  for (int i = threadIdx.x; i < n; i += NT)
-    *cluster.map_shared_rank(recv + rank * n + i, owner(i, nct, cols, half)) = part[i];
-  cluster.sync();
-}
-__device__ __forceinline__ float cluster_sum(const float* part, const float* recv, int n,
-                                             int nct, int i) {
-  if (nct == 1) return part[i];
-  float s = 0.f;
-  for (int r = 0; r < nct; ++r) s += recv[r * n + i];
-  return s;
 }
 
 // act [NB][kp] <- bf16 rows src (NB rows of ld values) over k0 .. k0 + kn - 1,
@@ -259,18 +72,6 @@ __device__ __forceinline__ void stage_slice(const bf16* __restrict__ src, int ld
     if (k < kn) v = *reinterpret_cast<const uint4*>(src + (size_t)b * ld + k0 + k);
     *reinterpret_cast<uint4*>(act + b * kp + k) = v;
   }
-}
-
-// the rows a slice of k rows occupies in shared memory: whole chunks
-template <typename W, int NB>
-__host__ __device__ constexpr int padded(int k) {
-  constexpr int CH = QL * rows_in_flight<W, NB>();
-  return (k + CH - 1) / CH * CH;
-}
-
-// the rank of this CTA in its cluster along x (0 for one CTA)
-__device__ __forceinline__ int cluster_rank(int nct) {
-  return nct > 1 ? (int)cg::this_cluster().block_rank() : 0;
 }
 
 // a dot's epilogue: fp32 sum rounded to bf16, then (int8) times the scale
@@ -288,14 +89,14 @@ __global__ void __launch_bounds__(NT) oproj_kernel(const Args p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float part[N];
   const int nct = gridDim.x, rank = cluster_rank(nct), tid = threadIdx.x, ql = tid / CG;
-  const int k0 = rank * p.k1, kn = min(p.A - k0, p.k1), kp = padded<W, NB>(p.k1);
+  const int k0 = rank * p.k1, kn = min(p.A - k0, p.k1), kp = padded<W, CG, NB>(p.k1);
   bf16* act = reinterpret_cast<bf16*>(smem);            // [NB][kp]
   float* red = reinterpret_cast<float*>(act + NB * kp);  // [NW][N]
   float* recv = red + NW * N;                            // [nct][N]
   const int n0 = blockIdx.y * COLS, nw = n0 + (tid % CG) * V;
   const W* w = nw < p.H ? static_cast<const W*>(p.wo) + nw : nullptr;
   uint4 wr[NR];
-  load_rows<W, NR>(w, p.H, k0, kn, ql, wr);
+  load_rows<W, CG, NR>(w, p.H, k0, kn, ql, wr);
   if (nct > 1) cluster_arrive_relaxed();
   pdl_launch();
   pdl_wait();
@@ -303,9 +104,9 @@ __global__ void __launch_bounds__(NT) oproj_kernel(const Args p) {
   stage_slice<NB>(p.att, p.A, k0, kn, kp, act);
   __syncthreads();
   float acc[NB][V];
-  stream<W, NB, NR>(w, p.H, k0, kn, kp, wr, act, acc);
-  tile_sums<NB, V>(acc, red, part);
-  send_parts(part, N, recv, rank, nct, COLS, 0);
+  stream<W, CG, NB, NR>(w, p.H, k0, kn, kp, wr, act, acc);
+  tile_sums<CG, NB, V>(acc, red, part);
+  send_parts(part, N, recv, rank, nct, [=](int i) { return owner(i, nct, COLS, 0); });
 
   // x2 = x + y over the cluster's slices, on the owner rank
   for (int i = rank + tid * nct; i < N; i += NT * nct) {
@@ -326,7 +127,7 @@ __global__ void __launch_bounds__(NT) gateup_kernel(const Args p) {
   __shared__ float part[N];
   __shared__ float scratch[NW], rs_s[NB];
   const int nct = gridDim.x, rank = cluster_rank(nct), tid = threadIdx.x, ql = tid / CG;
-  const int H = p.H, k0 = rank * p.k2, kn = min(H - k0, p.k2), kp = padded<W, NB>(p.k2);
+  const int H = p.H, k0 = rank * p.k2, kn = min(H - k0, p.k2), kp = padded<W, CG, NB>(p.k2);
   bf16* x2s = reinterpret_cast<bf16*>(smem);             // [NB][H], the x2 rows
   bf16* act = x2s + NB * H;                              // [NB][kp]
   float* red = reinterpret_cast<float*>(act + NB * kp);  // [NW][N]
@@ -337,7 +138,7 @@ __global__ void __launch_bounds__(NT) gateup_kernel(const Args p) {
   const int fw = f0 + (cgi % (CG / 2)) * V;
   const W* w = fw < p.F ? static_cast<const W*>(p.wgu) + (cgi < CG / 2 ? 0 : p.F) + fw : nullptr;
   uint4 wr[NR];
-  load_rows<W, NR>(w, 2 * (size_t)p.F, k0, kn, ql, wr);
+  load_rows<W, CG, NR>(w, 2 * (size_t)p.F, k0, kn, ql, wr);
   if (nct > 1) cluster_arrive_relaxed();
   pdl_launch();
   pdl_wait();
@@ -377,9 +178,10 @@ __global__ void __launch_bounds__(NT) gateup_kernel(const Args p) {
   __syncthreads();
 
   float acc[NB][V];
-  stream<W, NB, NR>(w, 2 * (size_t)p.F, k0, kn, kp, wr, act, acc);
-  tile_sums<NB, V>(acc, red, part);
-  send_parts(part, N, recv, rank, nct, COLS, HALF);
+  stream<W, CG, NB, NR>(w, 2 * (size_t)p.F, k0, kn, kp, wr, act, acc);
+  tile_sums<CG, NB, V>(acc, red, part);
+  send_parts(part, N, recv, rank, nct,
+             [=](int i) { return owner(i, nct, COLS, HALF); });
 
   // a = silu(g) u over the cluster's slices, on the owner rank of the pair
   // of g's column (i, i % COLS < HALF) and u's (i + HALF)
@@ -401,14 +203,14 @@ __global__ void __launch_bounds__(NT) down_kernel(const Args p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float part[N];
   const int nct = gridDim.x, rank = cluster_rank(nct), tid = threadIdx.x, ql = tid / CG;
-  const int k0 = rank * p.k3, kn = min(p.F - k0, p.k3), kp = padded<W, NB>(p.k3);
+  const int k0 = rank * p.k3, kn = min(p.F - k0, p.k3), kp = padded<W, CG, NB>(p.k3);
   bf16* act = reinterpret_cast<bf16*>(smem);            // [NB][kp]
   float* red = reinterpret_cast<float*>(act + NB * kp);  // [NW][N]
   float* recv = red + NW * N;                            // [nct][N]
   const int n0 = blockIdx.y * COLS, nw = n0 + (tid % CG) * V;
   const W* w = nw < p.H ? static_cast<const W*>(p.wd) + nw : nullptr;
   uint4 wr[NR];
-  load_rows<W, NR>(w, p.H, k0, kn, ql, wr);
+  load_rows<W, CG, NR>(w, p.H, k0, kn, ql, wr);
   if (nct > 1) cluster_arrive_relaxed();
   pdl_launch();
   pdl_wait();
@@ -416,9 +218,9 @@ __global__ void __launch_bounds__(NT) down_kernel(const Args p) {
   stage_slice<NB>(p.a, p.F, k0, kn, kp, act);
   __syncthreads();
   float acc[NB][V];
-  stream<W, NB, NR>(w, p.H, k0, kn, kp, wr, act, acc);
-  tile_sums<NB, V>(acc, red, part);
-  send_parts(part, N, recv, rank, nct, COLS, 0);
+  stream<W, CG, NB, NR>(w, p.H, k0, kn, kp, wr, act, acc);
+  tile_sums<CG, NB, V>(acc, red, part);
+  send_parts(part, N, recv, rank, nct, [=](int i) { return owner(i, nct, COLS, 0); });
 
   // out = x2 + y, on the owner rank
   for (int i = rank + tid * nct; i < N; i += NT * nct) {
@@ -431,46 +233,13 @@ __global__ void __launch_bounds__(NT) down_kernel(const Args p) {
 
 // ---------------------------------------------------------------- host side
 
-// Launch one of the three kernels: grid (ctas, tiles), a cluster of the
-// ctas of a tile, with programmatic stream serialization when pdl
-template <typename K>
-cudaError_t launch_stream(K kernel, int ctas, int tiles, size_t smem, bool pdl, cudaStream_t st,
-                          const Args& p, int (&big)[MAX_DEVICES]) {
-  cudaError_t err = raise_attr(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem,
-                               big);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[2];
-  int n = 0;
-  if (ctas > 1) {
-    attr[n].id = cudaLaunchAttributeClusterDimension;
-    attr[n].val.clusterDim.x = ctas;
-    attr[n].val.clusterDim.y = 1;
-    attr[n].val.clusterDim.z = 1;
-    ++n;
-  }
-  if (pdl) {
-    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[n].val.programmaticStreamSerializationAllowed = 1;
-    ++n;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas, tiles);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = n;
-  err = cudaLaunchKernelEx(&cfg, kernel, p);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
 // dynamic shared memory of each launch, bytes
 template <typename W, int NB>
 size_t smem_bytes(int launch, const Args& p, int ctas) {
   constexpr size_t N = sizeof(float) * NB * CG * vals<W>();   // a CTA's sums
   const int k = launch == 1 ? p.k1 : launch == 2 ? p.k2 : p.k3;
   const size_t x2s = launch == 2 ? sizeof(bf16) * NB * p.H : 0;
-  return x2s + sizeof(bf16) * NB * padded<W, NB>(k) + (NW + ctas) * N;
+  return x2s + sizeof(bf16) * NB * padded<W, CG, NB>(k) + (NW + ctas) * N;
 }
 
 template <typename W, int NB>
@@ -501,14 +270,6 @@ int dispatch(int B, const Args& p, int c1, int c2, int c3, bool pdl, cudaStream_
     case 7: return run<W, 7>(p, c1, c2, c3, pdl, st);
     default: return run<W, 8>(p, c1, c2, c3, pdl, st);
   }
-}
-
-// a cut of `dim` input rows into `ctas` slices of `k` rows (multiples of 8:
-// 16-byte copies of bf16 activations; in order, none empty, the last the
-// shorter)
-bool cut_ok(int dim, int ctas, int k) {
-  return ctas >= 1 && ctas <= MAX_CTAS && k >= 8 && k % 8 == 0 && (long long)ctas * k >= dim &&
-         (long long)(ctas - 1) * k < dim;
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
-// Fused decode step head for the M = 1 AR decode row: the qkv head of
-// decode_qkv.cu, then GQA attention of one layer of the stacked KV cache
-// over the rows < pos plus the step's own k/v row, which the kernel takes
-// from shared memory (the caller appends it to the cache after).
+// Kernel 12: the fused decode step head for the M = 1 AR decode row: the
+// qkv head of decode_qkv.cu, then GQA attention of one layer of the stacked
+// KV cache over the rows < pos plus the step's own k/v row, which the
+// attention takes from the qkv launch's rows (the caller appends them to
+// the cache after).
 //
 // Replaces tts_tpu/ops/decode_step.py:fused_qkv_attn (Pallas body _kernel).
 // Same softmax: fp32 scores, one-shot max-then-exp (not the online form),
@@ -15,42 +16,41 @@
 // decode_qkv.cu; 8.4 MB of bf16 at Qwen3-TTS width, 2.5 us at 3.35 TB/s),
 // then the live cache rows, 2 x pos x head_dim x 2 bytes a kv head (1.4 MB a
 // layer at Kani's pos 700). Both are far below the tensor cores' line, and
-// at decode sizes the attention is bound by latency: the chain from the
-// partial sums to the output. Design: two launches.
-//  1. qkv_matvec_kernel (decode_qkv.cu, shared with kernel 11): fp32
-//     partial sums of the qkv matvec over slices of the input dim.
-//  2. step_attn_kernel: one thread-block cluster a kv head, its CTAs
-//     splitting the live rows (ops/decode_step.step_plan, up to 8 CTAs,
-//     the portable cluster size). Each CTA first issues its rows' K loads
-//     (and V's, when the slice fits one round) in 16-byte loads, a group of
-//     head_dim / 8 lanes
-//     a row (decode_rows.cuh, kernel 13's score pass), and copies the
-//     matvec's partial sums of the kv head's G q heads, k head and v head
-//     into shared memory (cp.async, all in flight; at most 48 KB, which
-//     caps the matvec's split), then runs the qkv epilogue from there
-//     (qkv_epilogue.cuh, kernel 11's rounding points; the first CTA writes
-//     the k and v rows). Then the scores of its rows into shared memory and
-//     the softmax, a warp for each q head (no block barrier inside): the
-//     new row's own score, the slice's max, sent to every CTA through
-//     distributed shared memory so each takes one max over all rows and
-//     s_new before any exp; p = exp(s - m) and the slice's sum, the sums
-//     sent likewise and added in rank order, plus p_new; p / denom rounded
-//     to bf16 in place. Then P.V of its rows with fp32 accumulation, the
-//     lane groups by shuffles and the warps in order; each output's sum
-//     sent to the CTA that owns it, which adds the CTAs' sums in rank order
-//     plus p_new / denom times v_new. Three cluster barriers; one CTA alone
-//     (the plan's choice up to 128 rows at head_dim 128, 64 at 64) has
-//     none.
+// at decode sizes the attention is bound by latency. Design: two launches.
+//  1. qkv_head_kernel (decode_qkv.cu, kernel 11 at one row, in the form
+//     ops/decode_qkv.qkv_plan gives it): q of every head into a bf16
+//     scratch row, the step's k and v rows; q is rounded to bf16 in the
+//     epilogue, so the scratch loses nothing.
+//  2. step_attn_kernel, launched with programmatic stream serialization
+//     when the plan's qkv launch is (it then starts under the qkv launch's
+//     tail): one thread-block cluster a kv head, its CTAs splitting the
+//     live rows (ops/decode_step.step_plan, up to 8 CTAs, the portable
+//     cluster size). Each CTA first issues its rows' K loads (and V's, when
+//     the slice fits one round) in 16-byte loads, a group of head_dim / 8
+//     lanes a row (decode_rows.cuh, kernel 13's score pass), then waits for
+//     the qkv launch and reads the kv head's G q heads, k_new and v_new.
+//     Then the scores of its rows into shared memory and the softmax, a
+//     warp for each q head (no block barrier inside): the new row's own
+//     score, the slice's max, sent to every CTA through distributed shared
+//     memory so each takes one max over all rows and s_new before any exp;
+//     p = exp(s - m) and the slice's sum, the sums sent likewise and added
+//     in rank order, plus p_new; p / denom rounded to bf16 in place. Then
+//     P.V of its rows with fp32 accumulation, the lane groups by shuffles
+//     and the warps in order; each output's sum sent to the CTA that owns
+//     it, which adds the CTAs' sums in rank order plus p_new / denom times
+//     v_new. Three cluster barriers; one CTA alone (the plan's choice up to
+//     128 rows at head_dim 128, 64 at 64) has none.
 //     No atomics (bitwise reproducible runs); rows >= pos are never read.
 #include <cooperative_groups.h>
 
 #include "decode_rows.cuh"
-#include "qkv_epilogue.cuh"
-#include "wgmma.cuh"
 
-extern "C" int qkv_matvec(const void* x, const void* w, int w_int8, const void* lnw,
-                          const void* lnb, void* partial, int B, int H, int N, int ksplit,
-                          int kslice, float eps, void* stream);
+extern "C" int fused_qkv_rope(const void* x, const void* w, int w_int8, const void* scale,
+                              const void* bias, const void* qn, const void* kn,
+                              const void* cosr, const void* sinr, const void* lnw,
+                              const void* lnb, void* q, void* k, void* v, int B, int H,
+                              int heads, int kv_heads, int hd, int ctas, int rows, int pdl,
+                              float eps, void* stream);
 
 namespace tts {
 namespace {
@@ -62,34 +62,23 @@ constexpr int ST_WARPS = ST_THREADS / 32;
 constexpr int MAX_G = 8;
 constexpr int ST_MAX_CTAS = 8;  // the portable cluster size
 constexpr int ST_SMEM_MAX = 232448;
-constexpr int ST_STAGE_MAX = 48 * 1024;  // the staged partial sums of a kv head's heads
 
 struct StepArgs {
-  const float* partial;  // (ksplit, 1, N) fp32 partial sums of the qkv matvec
-  const float* scale;    // (N,) int8 scales, or null
-  const bf16* bias;      // (N,) or null
-  const bf16* qn;        // (HD,) q/k norm weights, or null
-  const bf16* kn;
-  const bf16* cosr;      // (HD,) RoPE row, or null
-  const bf16* sinr;
-  bf16* k_out;           // (KVH * HD,) the step's k and v rows
-  bf16* v_out;
+  const bf16* q;         // (heads * HD,) the step's q, k and v rows (the qkv launch's)
+  const bf16* k_new;     // (KVH * HD,)
+  const bf16* v_new;
   const bf16* kc;        // the layer's (KVH, T, HD) cache slices
   const bf16* vc;
   bf16* out;             // (heads * HD,)
-  int ksplit, N, heads, kv_heads, T, pos, rows;  // rows: a CTA's slice (the last fewer)
-  float eps;
+  int kv_heads, T, pos, rows;  // rows: a CTA's slice (the last fewer)
 };
 
-// shared memory, in floats: the partial sums of the kv head's G + 2 heads
-// [ksplit][G + 2][HD], q [G][HD], k_new and v_new [HD] each, the
-// rotation's rows [HPP][HD], the warps' P.V sums [ST_WARPS][G][HD], the
-// cluster's [ctas][G][HD] (each CTA's sums of the outputs this CTA owns),
-// and the slice's scores [G][rows]
+// shared memory, in floats: q [G][HD], k_new and v_new [HD] each, the
+// warps' P.V sums [ST_WARPS][G][HD], the cluster's [ctas][G][HD] (each
+// CTA's sums of the outputs this CTA owns), and the slice's scores [G][rows]
 template <int HD, int G>
-constexpr size_t st_smem_floats(int ksplit, int ctas, int rows) {
-  return (size_t)ksplit * (G + 2) * HD + (size_t)(1 + ST_WARPS + ctas) * G * HD + 2 * HD +
-         ST_THREADS + (size_t)G * rows;
+constexpr size_t st_smem_floats(int ctas, int rows) {
+  return (size_t)(1 + ST_WARPS + ctas) * G * HD + 2 * HD + (size_t)G * rows;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -121,20 +110,14 @@ __global__ void __launch_bounds__(ST_THREADS) step_attn_kernel(const StepArgs a)
   constexpr int U = G <= 4 ? 8 : 4;    // rows a group loads at once (registers)
   constexpr int GP = G <= 2 ? G : G <= 4 ? 4 : 8;  // G padded to a power of two
   constexpr int RR = NG * U;           // rows a round: 128 at D 128, 256 at D 64
-  constexpr int HPP = ST_THREADS / HD; // heads an epilogue pass
-  constexpr int PASSES = (G + 2 + HPP - 1) / HPP;
-  constexpr int SEG = (G + 2) * HD;    // a slice's partial sums of the kv head's heads
   extern __shared__ __align__(16) float sm[];
   const int nct = gridDim.x;
-  float* stg = sm;
-  float* qs = stg + a.ksplit * SEG;
+  float* qs = sm;
   float* kn = qs + G * HD;
   float* vn = kn + HD;
-  float* row = vn + HD;
-  float* wacc = row + ST_THREADS;
+  float* wacc = vn + HD;
   float* recv = wacc + ST_WARPS * G * HD;
   float* sc = recv + nct * G * HD;
-  __shared__ float scratch[ST_WARPS];
   __shared__ float m_recv[ST_MAX_CTAS][G], l_recv[ST_MAX_CTAS][G];
   __shared__ float snew[G], mx[G], den[G];
 
@@ -147,7 +130,15 @@ __global__ void __launch_bounds__(ST_THREADS) step_attn_kernel(const StepArgs a)
   const bf16* vj = a.vc + ((size_t)j * a.T + r0) * HD + li * 8;
   const int rounds = (n + RR - 1) / RR;
 
-  // the first round's K rows (and V rows when one round takes the slice)
+  // the first round's K rows (and V rows when one round takes the slice),
+  // before the wait for the qkv launch. No grid that can still be running
+  // writes cache rows < pos: they were appended by the update_layer of
+  // earlier steps, an ordinary launch, which completes before the next
+  // launch in the stream starts (an ordinary grid triggers its dependents
+  // only at its end), so before this grid or any grid still running ahead
+  // of it could start; the launches of this step before this one (kernels
+  // 11-15 and plain ops) write no cache row, and this step's row pos is
+  // appended after it.
   uint4 kr[U], vr[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
@@ -158,58 +149,21 @@ __global__ void __launch_bounds__(ST_THREADS) step_attn_kernel(const StepArgs a)
       if (rounds == 1) vr[u] = *reinterpret_cast<const uint4*>(vj + (size_t)t * HD);
     }
   }
-  // the partial sums of the kv head's G q heads (contiguous), k head and v
-  // head from every slice, 16 bytes a copy, all in flight
-  for (int c = tid; c < a.ksplit * SEG / 4; c += ST_THREADS) {
-    const int s = c / (SEG / 4), e = c % (SEG / 4) * 4;
-    const int col = e < G * HD ? j * G * HD + e
-                    : e < (G + 1) * HD ? (a.heads + j) * HD + e - G * HD
-                                        : (a.heads + a.kv_heads + j) * HD + e - (G + 1) * HD;
-    cp_async16(smem_u32(stg + s * SEG + e), a.partial + (size_t)s * a.N + col);
-  }
-  cp_commit();
-  // the epilogue's operands of this thread's column in each pass
-  float e_scale[PASSES], e_bias[PASSES], e_nw[PASSES];
-  const int i = tid % HD;
-#pragma unroll
-  for (int ps = 0; ps < PASSES; ++ps) {
-    const int hh = ps * HPP + tid / HD;
-    const int head = hh < G ? j * G + hh : hh == G ? a.heads + j : a.heads + a.kv_heads + j;
-    const bool live = hh < G + 2;
-    e_scale[ps] = live && a.scale ? a.scale[head * HD + i] : 0.f;
-    e_bias[ps] = live && a.bias ? to_f(a.bias[head * HD + i]) : 0.f;
-    e_nw[ps] = a.qn ? to_f((hh < G ? a.qn : a.kn)[i]) : 0.f;
-  }
-  const float cos_i = a.cosr ? to_f(a.cosr[i]) : 0.f, sin_i = a.cosr ? to_f(a.sinr[i]) : 0.f;
   if (nct > 1) cluster_arrive_relaxed();
-  cp_wait_all();
-  __syncthreads();
-
-  // the epilogue of the kv head's G + 2 heads, HPP a pass: q heads j G ..,
-  // then k head j, then v head j; each column the slices' sum in order
+  pdl_launch();
+  pdl_wait();
+  // the kv head's G q heads (contiguous), k_new and v_new, 8 values a load
+  for (int c = tid; c < (G + 2) * HD / 8; c += ST_THREADS) {
+    const int e = c * 8;
+    const bf16* src = e < G * HD ? a.q + j * G * HD + e
+                      : e < (G + 1) * HD ? a.k_new + j * HD + e - G * HD
+                                         : a.v_new + j * HD + e - (G + 1) * HD;
+    Vec8 v;
+    v.u = *reinterpret_cast<const uint4*>(src);
 #pragma unroll
-  for (int ps = 0; ps < PASSES; ++ps) {
-    const int hh = ps * HPP + tid / HD;
-    const bool live = hh < G + 2, is_v = hh == G + 1;
-    float acc = 0.f;
-    if (live) {
-#pragma unroll 4
-      for (int s = 0; s < a.ksplit; ++s) acc += stg[s * SEG + hh * HD + i];
-    }
-    float val = qkv_finish(acc, a.scale, e_scale[ps], a.bias, e_bias[ps]);
-    val = norm_rope<HD>(val, !live || is_v, a.qn, e_nw[ps], a.cosr, cos_i, sin_i, a.eps,
-                        scratch, row);
-    if (hh < G) {
-      qs[hh * HD + i] = val;
-    } else if (hh == G) {
-      kn[i] = val;
-      if (rank == 0) a.k_out[j * HD + i] = to_bf(val);
-    } else if (is_v) {
-      vn[i] = val;
-      if (rank == 0) a.v_out[j * HD + i] = to_bf(val);
-    }
-    __syncthreads();
+    for (int i = 0; i < 8; ++i) qs[e + i] = to_f(v.h[i]);   // q, then k_new, then v_new
   }
+  __syncthreads();
 
   float qf[G][8];
 #pragma unroll
@@ -351,35 +305,33 @@ __global__ void __launch_bounds__(ST_THREADS) step_attn_kernel(const StepArgs a)
 }
 
 template <int HD, int G>
-int launch(const StepArgs& a, int ctas, cudaStream_t st) {
-  const size_t smem = sizeof(float) * st_smem_floats<HD, G>(a.ksplit, ctas, a.rows);
+int launch(const StepArgs& a, int ctas, bool pdl, cudaStream_t st) {
+  const size_t smem = sizeof(float) * st_smem_floats<HD, G>(ctas, a.rows);
   if (smem > (size_t)ST_SMEM_MAX) return (int)cudaErrorInvalidValue;
   static int allowed[MAX_DEVICES];
-  if (smem > 48 * 1024) {
-    const cudaError_t err = raise_attr(step_attn_kernel<HD, G>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem,
-                                       allowed);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (ctas == 1) {
+  const cudaError_t err = raise_attr(step_attn_kernel<HD, G>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem,
+                                     allowed);
+  if (err != cudaSuccess) return (int)err;
+  if (ctas == 1 && !pdl) {
     step_attn_kernel<HD, G><<<dim3(1, a.kv_heads), ST_THREADS, smem, st>>>(a);
     return (int)cudaGetLastError();
   }
   return (int)launch_cluster(step_attn_kernel<HD, G>, dim3(ctas, a.kv_heads), ST_THREADS,
-                             smem, st, ctas, a);
+                             smem, st, ctas, a, pdl);
 }
 
 template <int HD>
-int launch_hd(const StepArgs& a, int G, int ctas, cudaStream_t st) {
+int launch_hd(const StepArgs& a, int G, int ctas, bool pdl, cudaStream_t st) {
   switch (G) {
-    case 1: return launch<HD, 1>(a, ctas, st);
-    case 2: return launch<HD, 2>(a, ctas, st);
-    case 3: return launch<HD, 3>(a, ctas, st);
-    case 4: return launch<HD, 4>(a, ctas, st);
-    case 5: return launch<HD, 5>(a, ctas, st);
-    case 6: return launch<HD, 6>(a, ctas, st);
-    case 7: return launch<HD, 7>(a, ctas, st);
-    case 8: return launch<HD, 8>(a, ctas, st);
+    case 1: return launch<HD, 1>(a, ctas, pdl, st);
+    case 2: return launch<HD, 2>(a, ctas, pdl, st);
+    case 3: return launch<HD, 3>(a, ctas, pdl, st);
+    case 4: return launch<HD, 4>(a, ctas, pdl, st);
+    case 5: return launch<HD, 5>(a, ctas, pdl, st);
+    case 6: return launch<HD, 6>(a, ctas, pdl, st);
+    case 7: return launch<HD, 7>(a, ctas, pdl, st);
+    case 8: return launch<HD, 8>(a, ctas, pdl, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -389,51 +341,44 @@ int launch_hd(const StepArgs& a, int G, int ctas, cudaStream_t st) {
 
 // x (1, H) bf16; w (H, N) bf16, or int8 when w_int8 with scale (N,) fp32;
 // bias (N,), q_norm/k_norm (hd,), cos/sin (hd,), ln_w/ln_b (H,) bf16, each
-// optional (null); partial (ksplit, 1, N) fp32 scratch; k/v (kv_heads*hd)
-// bf16, the step's rows; N = (heads + 2*kv_heads) * hd, hd 64 or 128,
-// heads / kv_heads <= 8, ksplit * kslice >= H with kslice a multiple of 8;
-// kc/vc the layer's (KVH, T, hd) bf16 cache slices, attn (heads*hd) bf16,
-// T the cache length and pos the valid rows (0 <= pos < T). The rows split
-// into `ctas` (1 to 8) slices of `rows`, the last shorter and none empty
-// (ops/decode_step.step_plan; pos 0: one CTA of 0 rows), and the matvec's
-// ksplit slices of one kv head's G + 2 heads fit ST_STAGE_MAX bytes of
-// shared memory; any other form is refused.
-extern "C" int fused_qkv_attn(const void* x, const void* w, int w_int8,
-                              const void* scale, const void* bias, const void* qn,
-                              const void* kn, const void* cosr, const void* sinr,
-                              const void* lnw, const void* lnb, void* partial, void* k,
-                              void* v, int H, int heads, int kv_heads, int hd, int ksplit,
-                              int kslice, float eps, const void* kc, const void* vc,
-                              void* attn, int T, int pos, int ctas, int rows, void* stream) {
+// optional (null), as fused_qkv_rope (decode_qkv.cu) takes them; q
+// (heads*hd) bf16 scratch; k/v (kv_heads*hd) bf16, the step's rows; N =
+// (heads + 2*kv_heads) * hd, hd 64 or 128, heads / kv_heads <= 8; kc/vc the
+// layer's (KVH, T, hd) bf16 cache slices, attn (heads*hd) bf16, T the cache
+// length and pos the valid rows (0 <= pos < T). The qkv launch takes the
+// form (qctas, qrows, pdl) of ops/decode_qkv.qkv_plan, and fused_qkv_rope
+// refuses any other; the attention launch follows with programmatic stream
+// serialization when pdl is 1, its rows split into `ctas` (1 to 8) slices
+// of `rows`, the last shorter and none empty (ops/decode_step.step_plan;
+// pos 0: one CTA of 0 rows); any other split is refused.
+extern "C" int fused_qkv_attn(const void* x, const void* w, int w_int8, const void* scale,
+                              const void* bias, const void* qn, const void* kn,
+                              const void* cosr, const void* sinr, const void* lnw,
+                              const void* lnb, void* q, void* k, void* v, int H, int heads,
+                              int kv_heads, int hd, int qctas, int qrows, int pdl, float eps,
+                              const void* kc, const void* vc, void* attn, int T, int pos,
+                              int ctas, int rows, void* stream) {
   using tts::bf16;
   const bool split = pos == 0 ? ctas == 1 && rows == 0
                               : ctas >= 1 && ctas <= tts::ST_MAX_CTAS && rows >= 1 &&
                                     (long long)ctas * rows >= pos &&
                                     (long long)(ctas - 1) * rows < pos;
   if (kv_heads < 1 || heads % kv_heads || heads / kv_heads > tts::MAX_G || pos < 0 ||
-      pos >= T || (hd != 64 && hd != 128) || !split || ksplit < 1 ||
-      (long long)ksplit * (heads / kv_heads + 2) * hd * sizeof(float) > tts::ST_STAGE_MAX)
+      pos >= T || (hd != 64 && hd != 128) || !split)
     return (int)cudaErrorInvalidValue;
-  const int N = (heads + 2 * kv_heads) * hd;
-  int err = qkv_matvec(x, w, w_int8, lnw, lnb, partial, 1, H, N, ksplit, kslice, eps, stream);
+  const int err = fused_qkv_rope(x, w, w_int8, scale, bias, qn, kn, cosr, sinr, lnw, lnb, q, k,
+                                 v, 1, H, heads, kv_heads, hd, qctas, qrows, pdl, eps, stream);
   if (err) return err;
   tts::StepArgs a;
-  a.partial = (const float*)partial;
-  a.scale = (const float*)scale;
-  a.bias = (const bf16*)bias;
-  a.qn = (const bf16*)qn;
-  a.kn = (const bf16*)kn;
-  a.cosr = (const bf16*)cosr;
-  a.sinr = (const bf16*)sinr;
-  a.k_out = (bf16*)k;
-  a.v_out = (bf16*)v;
+  a.q = (const bf16*)q;
+  a.k_new = (const bf16*)k;
+  a.v_new = (const bf16*)v;
   a.kc = (const bf16*)kc;
   a.vc = (const bf16*)vc;
   a.out = (bf16*)attn;
-  a.ksplit = ksplit, a.N = N, a.heads = heads, a.kv_heads = kv_heads, a.T = T, a.pos = pos;
-  a.rows = rows;
-  a.eps = eps;
+  a.kv_heads = kv_heads, a.T = T, a.pos = pos, a.rows = rows;
   cudaStream_t s = (cudaStream_t)stream;
   const int G = heads / kv_heads;
-  return hd == 64 ? tts::launch_hd<64>(a, G, ctas, s) : tts::launch_hd<128>(a, G, ctas, s);
+  return hd == 64 ? tts::launch_hd<64>(a, G, ctas, pdl == 1, s)
+                  : tts::launch_hd<128>(a, G, ctas, pdl == 1, s);
 }

@@ -10,14 +10,14 @@
 //             and q = clip(rint(v / xs), -127, 127) written as int8 (M, K)
 //             with xs (M,).
 //
-// The GEMMs run on the rows it writes: the s8 wgmma GEMM of q8_wgmma.cuh
-// (kernels 6, 7 and 8) and the WMMA q8_gemm of quant_matmul.cu (kernel 9).
+// The GEMM runs on the rows it writes: the s8 wgmma GEMM of q8_wgmma.cuh
+// (kernels 6-9).
 // Why a row pass before the GEMM: the row's amax needs the whole row before
 // any of it can be quantized, and the TPU kernel had it because a grid step
-// held whole rows in VMEM. A GEMM block holds 64 rows by 128 columns, so
+// held whole rows in VMEM. A GEMM CTA holds 128 rows by 128 columns, so
 // quantizing in its prologue would repeat the work for every column tile (24
-// times for the qkv projection); measured on the card, that prologue cost
-// more than the GEMM. Quantizing once is 1 B a value written and read back,
+// times for the qkv projection); measured on the card (on the earlier WMMA
+// GEMM), that prologue cost more than the GEMM. Quantizing once is 1 B a value written and read back,
 // against the 2 B (bf16) or 4 B (fp32) the GEMM would otherwise read.
 //
 // Rounding follows the TPU kernels exactly where the inputs are equal: the
@@ -32,7 +32,7 @@
 namespace tts {
 namespace q8 {
 
-constexpr int NT = 128;                    // 4 warps: q8_rows, and q8_gemm in quant_matmul.cu
+constexpr int NT = 128;                    // 4 warps a q8_rows block
 constexpr float INV_127 = 0x1.020408p-7f;  // float32(1 / 127)
 
 // what q8_rows quantizes, of rows of type T (bf16 or float)

@@ -3,7 +3,9 @@
 //
 //   y = (acc * xs) * ws + b,   acc = q(A) Wq summed exactly in s32,
 //
-// with one of three epilogues, run from the accumulator registers:
+// with one of four epilogues, run from the accumulator registers:
+//   WEPI_SCALE     T((acc * xs) * ws), no bias (kernel 9, the bare int8
+//                  matmul: adding a zero bias would turn -0 into +0);
 //   WEPI_BIAS      T(y) (kernel 7, the qkv projection);
 //   WEPI_RESIDUAL  T(x + T(T(gate) * T(y))) with the gate of batch row
 //                  row / T (kernel 6's ff2; kernel 8, the attention's
@@ -17,10 +19,10 @@
 //                  the row's scale. The fp32 hidden never reaches device
 //                  memory, and its quantization is what the TPU kernel did
 //                  with whole rows in VMEM.
-// The rounding is q8_gemm's and q8_rows': __int2float_rn(acc), then _rn
-// multiplies and adds, gelu_q8, xs = max(amax, 1e-8) * f32(1/127) and
+// The rounding is q8_rows' and the TPU kernels': __int2float_rn(acc), then
+// _rn multiplies and adds, gelu_q8, xs = max(amax, 1e-8) * f32(1/127) and
 // quant(). The s8 x s8 sums are exact in s32 at K <= 2048, so these kernels
-// give the bits of the WMMA q8_gemm that kernels 6-8 ran before them.
+// give the bits of the WMMA GEMM that kernels 6-9 ran before them.
 //
 // The GEMM has the shape of kernel 3's bf16 one (dit_gemm_kernel in
 // dit_mlp.cu), in bytes: a CTA is 128 rows in two warpgroups of 64 by 128
@@ -62,14 +64,14 @@ constexpr uint32_t WA_BYTES = WM * WK;   // one A slot, 16 KB
 constexpr uint32_t WSTAGE = 2 * WA_BYTES; // a ring slot: A and B (WN x WK), 32 KB
 constexpr int MAX_CLUSTER = 16;          // the H100's non-portable cluster limit
 
-enum WEpi { WEPI_BIAS, WEPI_RESIDUAL, WEPI_HIDDEN };
+enum WEpi { WEPI_SCALE, WEPI_BIAS, WEPI_RESIDUAL, WEPI_HIDDEN };
 
 struct WgArgs {
   const int8_t* q;     // (M, K) int8 rows of A
   const float* xs;     // (M,) their scales
   const int8_t* wt;    // (N, K) int8: the weight, K-major
   const float* ws;     // (N,) fp32 per-column weight scale
-  const float* bias;   // (N,) fp32
+  const float* bias;   // (N,) fp32 (not read by WEPI_SCALE)
   const void* res;     // WEPI_RESIDUAL: (M, N) residual input, of the output type
   const float* gate;   // WEPI_RESIDUAL: (N,) fp32 for batch row `row / T`,
   int gate_bstride;    //   this far apart (0 = shared)
@@ -215,12 +217,12 @@ __device__ __forceinline__ void wgemm_mainloop(int (&acc)[WN / 2], const WgArgs&
 }
 
 // One CTA: the (128, 128) tile of the output at rows blockIdx.y * 128,
-// columns blockIdx.x * 128, with epilogue WEPI_BIAS or WEPI_RESIDUAL in T;
-// CTAS of them share an SM. Launch with WNT threads and wgemm_smem<STAGES>()
-// of dynamic shared memory.
+// columns blockIdx.x * 128, with epilogue WEPI_SCALE, WEPI_BIAS or
+// WEPI_RESIDUAL in T; CTAS of them share an SM. Launch with WNT threads and
+// wgemm_smem<STAGES>() of dynamic shared memory.
 template <int STAGES, int CTAS, WEpi EPI, typename T>
 __global__ void __launch_bounds__(WNT, CTAS) q8_wgmma_kernel(const WgArgs g) {
-  static_assert(EPI == WEPI_BIAS || EPI == WEPI_RESIDUAL, "epilogue");
+  static_assert(EPI != WEPI_HIDDEN, "epilogue");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
@@ -244,15 +246,18 @@ __global__ void __launch_bounds__(WNT, CTAS) q8_wgmma_kernel(const WgArgs g) {
   for (int j = 0; j < WN / 8; ++j) {
     const int col = cb + 8 * j;
     const float2 ws = *reinterpret_cast<const float2*>(g.ws + col);
-    const float2 b = *reinterpret_cast<const float2*>(g.bias + col);
+    const float2 b = EPI == WEPI_SCALE ? make_float2(0.f, 0.f)
+                                       : *reinterpret_cast<const float2*>(g.bias + col);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = rb + 8 * r;
       if (row >= g.M) continue;
-      float y[2] = {
-          __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * r]), xs[r]), ws.x), b.x),
-          __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * r + 1]), xs[r]), ws.y),
-                    b.y)};
+      float y[2] = {__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * r]), xs[r]), ws.x),
+                    __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * r + 1]), xs[r]), ws.y)};
+      if constexpr (EPI != WEPI_SCALE) {
+        y[0] = __fadd_rn(y[0], b.x);
+        y[1] = __fadd_rn(y[1], b.y);
+      }
       const size_t o = (size_t)row * g.N + col;
       if constexpr (EPI == WEPI_RESIDUAL) {
         float x[2];
@@ -361,7 +366,7 @@ int launch_wgemm(const WgArgs& g, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// The GEMM with epilogue WEPI_BIAS or WEPI_RESIDUAL in one of two forms
+// The GEMM with epilogue WEPI_SCALE, WEPI_BIAS or WEPI_RESIDUAL in one of two forms
 // (ring depth, CTAs an SM), as ops/quant_matmul.q8_plan picks it from the
 // grid and the SM count: 4 stages, 1 CTA an SM, for a grid of at most one
 // CTA an SM; else 3 stages, 2 CTAs an SM (97 KB of shared memory each).

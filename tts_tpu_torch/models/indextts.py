@@ -39,7 +39,7 @@ from ..kv.cache import KVCache
 from ..nn.attention import attention_mask, combine_kv_valid, gqa_attention
 from ..nn.norm import layer_norm
 from ..ops.conv import conv1d
-from ..ops.decode_qkv import MAX_ROWS, fusable_layout, fusable_weight, fused_qkv_rope
+from ..ops.decode_qkv import fusable_layout, fusable_weight, fused_qkv_rope, qkv_fits
 from ..ops.decode_step import fused_qkv_attn, step_fits
 from ..quant.weight_only import dense
 
@@ -271,7 +271,7 @@ def gpt_route(params: dict, cfg: IndexTTSConfig, batch: int, s: int, kv: KVCache
     heads, hd = cfg.gpt_heads, cfg.gpt_head_dim
     if not (fusable_layout(batch, heads, heads, hd)
             and all(fusable_weight(p["wqkv"]) for p in params["layers"])
-            and hd in (64, 128) and batch <= MAX_ROWS):
+            and qkv_fits(batch, cfg.gpt_dim, hd)):
         return False
     if fused == "step" and (batch != 1 or kv_valid is not None or (heads * hd) % 128
                             or kv.k.shape[1] != 1 or not step_fits(1, hd, kv.length)):

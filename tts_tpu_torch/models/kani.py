@@ -26,7 +26,7 @@ from ..nn.attention import attention_mask, combine_kv_valid, gqa_attention
 from ..nn.norm import rms_norm
 from ..nn.rope import apply_rope, rope_table
 from ..ops.conv import conv1d
-from ..ops.decode_qkv import MAX_ROWS, fusable_layout, fusable_weight, fused_qkv_rope
+from ..ops.decode_qkv import fusable_layout, fusable_weight, fused_qkv_rope, qkv_fits
 from ..ops.decode_step import fused_qkv_attn
 from ..quant.weight_only import dense
 
@@ -149,12 +149,12 @@ def _ffn(p: dict, x: torch.Tensor, cfg: KaniConfig) -> torch.Tensor:
 
 
 def _route(params: dict, cfg: KaniConfig, b: int, s: int, key_valid_from, fused):
-    """tts_tpu's gates for the fused routes, plus the CUDA kernels' row
-    limit: False when the layout, the weights or the rows do not fuse;
+    """tts_tpu's gates for the fused routes, plus the CUDA kernels' limits
+    (`qkv_fits`): False when the layout, the weights or the rows do not fuse;
     "step" degrades to True off the M=1 plain-causal geometry."""
     if fused:
         ok = (fusable_layout(b, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
-              and b <= MAX_ROWS
+              and qkv_fits(b, cfg.hidden_size, cfg.head_dim)
               and all(fusable_weight(p["wqkv"])
                       for lt, p in zip(cfg.layer_types, params["layers"]) if lt == "attn"))
         if not ok:

@@ -40,7 +40,7 @@ from ..nn.norm import rms_norm
 from ..nn.rope import apply_rope, rope_table
 from ..ops.decode_attention import attn_fits, decode_gqa_attention
 from ..ops.decode_mlp import fused_out_mlp, fused_out_mlp_q8, out_mlp_fits
-from ..ops.decode_qkv import MAX_ROWS, fusable_layout, fusable_weight, fused_qkv_rope
+from ..ops.decode_qkv import fusable_layout, fusable_weight, fused_qkv_rope, qkv_fits
 from ..ops.decode_step import fused_qkv_attn, step_fits
 from ..quant.weight_only import QTensor, dense
 
@@ -116,14 +116,14 @@ def stack_routes(params: dict, cfg: Qwen3StackConfig, batch: int, s: int, kv: KV
     layers = params["layers"]
     heads, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     wqkv_ok = all(fusable_weight(p["wqkv"]) for p in layers)
-    # kernels 11/12 are built for head dims 64 and 128 and <= 8 rows
-    qkv_fits = hd in (64, 128) and batch <= MAX_ROWS
+    # kernels 11/12: head dims 64 and 128, <= 8 rows, their input widths
+    qkv_ok = qkv_fits(batch, cfg.hidden_size, hd)
     step = (fused == "step" and batch == 1 and kv_valid is None and causal
-            and hd == 128 and kv.k.shape[1] == 1 and wqkv_ok and qkv_fits
+            and hd == 128 and kv.k.shape[1] == 1 and wqkv_ok and qkv_ok
             and heads % kvh == 0 and step_fits(heads // kvh, hd, kv.length))
     if fused == "step" and not step:
         fused = True                                  # degrade to the qkv head
-    qkv = (fused in (True, "all", "qkv", "mlp_q8") and qkv_fits and wqkv_ok
+    qkv = (fused in (True, "all", "qkv", "mlp_q8") and qkv_ok and wqkv_ok
            and fusable_layout(batch, heads, kvh, hd))
     a_dim, ffn = heads * hd, cfg.ffn_dim
     tail_fits = out_mlp_fits(batch, a_dim, cfg.hidden_size, ffn)

@@ -5,10 +5,12 @@ ops/decode_qkv.py, then GQA attention of layer `layer` of the stacked
 It does not write the cache: the caller's `update_layer` appends after.
 
 `fused_qkv_attn` runs the hand-written CUDA kernel (csrc/decode_step.cu:
-kernel 11's qkv matvec, then one launch with the qkv epilogue and the
-attention in a cluster of CTAs a kv head, split as `step_plan` says) on a
-CUDA tensor and its plain PyTorch twin `fused_qkv_attn_plain` on a CPU
-tensor. Both keep the TPU kernel's softmax: fp32 scores, one-shot
+kernel 11's launch at one row, in the form `decode_qkv.qkv_plan` gives it,
+writing q to a bf16 scratch row and the step's k and v rows; then the
+attention in a cluster of CTAs a kv head, split as `step_plan` says, which
+with the plan's programmatic dependent launch starts under the first
+launch's tail and loads its cache rows before it waits for q) on a CUDA
+tensor and its plain PyTorch twin `fused_qkv_attn_plain` on a CPU tensor. Both keep the TPU kernel's softmax: fp32 scores, one-shot
 max-then-exp (not the online form), m = max(max_t s, s_new), denom =
 sum p + p_new, probabilities rounded to the activation dtype before a P.V
 product with fp32 accumulation. The new row's terms follow the TPU kernel's
@@ -40,18 +42,17 @@ _MAX_SMEM = 200 * 1024            # the route gate's shared-memory budget
 _MAX_CTAS = 8                     # CTAs a kv head's cluster (the portable size)
 _CTA_ROWS = {64: 64, 128: 128}    # live rows a CTA takes before the cluster grows
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# x, w, w_int8, scale, bias, q_norm, k_norm, cos, sin, ln_w, ln_b, partial,
-# k, v, H, heads, kv_heads, head_dim, ksplit, kslice, eps, k_cache, v_cache
-# (the layer's (KVH, T, D) slices), attn, T, pos, ctas, rows, stream
-_ARGTYPES = [_P, _P, _I] + [_P] * 11 + [_I] * 6 + [_F, _P, _P, _P] + [_I] * 4 + [_P]
+# x, w, w_int8, scale, bias, q_norm, k_norm, cos, sin, ln_w, ln_b, q (scratch),
+# k, v, H, heads, kv_heads, head_dim, qkv ctas, qkv rows, pdl, eps, k_cache,
+# v_cache (the layer's (KVH, T, D) slices), attn, T, pos, ctas, rows, stream
+_ARGTYPES = [_P, _P, _I] + [_P] * 11 + [_I] * 7 + [_F, _P, _P, _P] + [_I] * 4 + [_P]
 
 
 def _smem_bytes(group: int, head_dim: int, pos: int) -> int:
     """The route gate's measure of the shared memory `pos` rows need (the
     earlier one-CTA form's: q, the warps' P.V sums, the scores). The cluster
-    form splits the scores over its CTAs and, with at most 48 KB of staged
-    partial sums, needs at most 140 KB, within the card's 227 KB wherever
-    this is within 200 KB."""
+    form splits the scores over its CTAs and needs at most 95 KB, within
+    the card's 227 KB wherever this is within 200 KB."""
     return 4 * (9 * group * head_dim + group * pos)
 
 
@@ -171,13 +172,13 @@ def fused_qkv_attn(x: torch.Tensor, wqkv, rope_cos=None, rope_sin=None,
                 or not c.is_contiguous() or c.data_ptr() % 16:
             raise TypeError(f"{name} must be a contiguous, 16-byte aligned bf16 "
                             f"tensor on {x.device}")
-    args, (_, k, v) = launch_args(x, wqkv, rope_cos, rope_sin, heads, kv_heads,
-                                  head_dim, q_norm, k_norm, bqkv, norm, ln_weight,
-                                  ln_bias, eps, step=True)
-    attn = torch.empty((1, heads * head_dim), dtype=x.dtype, device=x.device)
+    args, (_, k, v), attn, plan = launch_args(
+        x, wqkv, rope_cos, rope_sin, heads, kv_heads, head_dim, q_norm, k_norm, bqkv, norm,
+        ln_weight, ln_bias, extra=heads * head_dim)
     ctas, rows = step_plan(pos, head_dim)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.launch("fused_qkv_attn", _ARGTYPES, *args, k_cache[layer].data_ptr(),
-                  v_cache[layer].data_ptr(), attn.data_ptr(), k_cache.shape[3], pos,
-                  ctas, rows, stream, device=x.device)
-    return attn, k, v
+    _build.launch("fused_qkv_attn", _ARGTYPES, *args, x.shape[1], heads, kv_heads, head_dim,
+                  plan.ctas, plan.rows, int(plan.pdl), eps, k_cache[layer].data_ptr(),
+                  v_cache[layer].data_ptr(), attn.data_ptr(), k_cache.shape[3], pos, ctas,
+                  rows, stream, device=x.device)
+    return attn.view(1, heads * head_dim), k, v

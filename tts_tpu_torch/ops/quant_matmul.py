@@ -2,10 +2,10 @@
 int8 matmul `quantized_matmul` (kernel 9) and the F5 DiT attention's two
 projections, `ln_qkv_q8` (kernel 7) and `out_proj_residual_q8` (kernel 8).
 
-Each wrapper runs the hand-written CUDA kernel (csrc/quant_matmul.cu, on the
-int8 core of csrc/q8_core.cuh; kernels 7's and 8's GEMMs on the s8 wgmma
-GEMM of csrc/q8_wgmma.cuh, in the form `q8_plan` picks) on a CUDA tensor
-and its plain PyTorch twin on a CPU tensor. Both compute the TPU kernels' contract:
+Each wrapper runs the hand-written CUDA kernel (csrc/quant_matmul.cu: the
+row pass of csrc/q8_core.cuh, then the s8 wgmma GEMM of csrc/q8_wgmma.cuh,
+in the form `q8_plan` picks) on a CUDA tensor and its plain PyTorch twin on
+a CPU tensor. Both compute the TPU kernels' contract:
 each row of the activations quantized to int8 with xs = max(amax, 1e-8) *
 f32(1/127) and q = clip(round_half_even(v / xs), -127, 127); the s8 x s8
 product summed exactly in integers and converted to fp32; the rescale
@@ -14,11 +14,11 @@ integer product as a float64 matmul of the int8 values, exact below 2^53.
 
 The weights are tts_tpu's int8 QTensor parts: q (K, N) int8, scale (N,)
 fp32, per output channel. The s8 wgmma GEMM reads its weight K-major: on a
-card, kernels 7's and 8's q is the (K, N) view of (N, K) storage
-(`to_kmajor`, which runtime/f5.quantize_dit applies once), and the wrappers
-refuse any other layout rather than transpose the weight for a call.
-Kernels 7 and 8 take bf16 or fp32 activations (`activation_dtype`) and
-write their dtype, as tts_tpu's kernels do; kernel 9 takes bf16.
+card, each kernel's q is the (K, N) view of (N, K) storage (`to_kmajor`,
+which runtime/f5.quantize_dit applies once to kernels 7's and 8's), and the
+wrappers refuse any other layout rather than transpose the weight for a
+call; the twins take either. The three take bf16 or fp32 activations
+(`activation_dtype`) and write their dtype, as tts_tpu's kernels do.
 """
 from __future__ import annotations
 
@@ -103,11 +103,12 @@ class Q8Plan(NamedTuple):
 def q8_plan(rows: int, n: int, k: int, sms: int, whole_rows: bool = False) -> Q8Plan:
     """The form of the s8 wgmma GEMM with `rows` x `n` outputs over depth
     `k` on a card of `sms` SMs, for a weight `q8_fits` admits and operands
-    of fewer than 2^32 values (ValueError otherwise). A GEMM with a bias or
-    residual epilogue (kernels 7 and 8, kernel 6's ff2) whose grid fits one
-    CTA an SM takes a 4-stage ring, one CTA an SM; a larger grid 3 stages,
-    two CTAs an SM, so that one CTA's epilogue and copies overlap the other's
-    products (on an H100 each form is the faster on its side: PERF.md §6).
+    of fewer than 2^32 values (ValueError otherwise). A GEMM with a scale,
+    bias or residual epilogue (kernels 9, 7 and 8, kernel 6's ff2) whose
+    grid fits one CTA an SM takes a 4-stage ring, one CTA an SM; a larger
+    grid 3 stages, two CTAs an SM, so that one CTA's epilogue and copies
+    overlap the other's products (on an H100 each form is the faster on its
+    side: PERF.md §6).
     With `whole_rows` (kernel 6's ff1, whose epilogue quantizes each output
     row whole) one thread-block cluster spans the n columns: n / 128 <= 16
     CTAs (past 8 the non-portable size the H100 allows), 3 stages, two CTAs
@@ -189,7 +190,8 @@ def row_scratch(x: torch.Tensor, m: int, k: int) -> tuple[torch.Tensor, torch.Te
 def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
                      w_scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) float -> x @ (w_q * w_scale) through int8: w_q (K, N) int8,
-    w_scale (N,) fp32. Returns (M, N) in x's dtype."""
+    K-major on a card (`to_kmajor`), with per-column fp32 w_scale (N,).
+    Returns (M, N) in x's dtype."""
     m, k = x.shape
     n = w_q.shape[1]
     if w_q.shape != (k, n) or w_scale.shape != (n,):
@@ -197,14 +199,16 @@ def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
                          f"do not fit x {tuple(x.shape)}")
     if _device_of(x) == "cpu":
         return quantized_matmul_plain(x, w_q, w_scale)
-    ws = _fp32(w_scale)
-    check_cuda_args(x, k, n, x=(x, torch.bfloat16), w_q=(w_q, torch.int8),
-                    w_scale=(ws, torch.float32))
+    dt = activation_dtype(x=x)
+    ws, wt = _fp32(w_scale), kmajor(w_q)
+    check_cuda_args(x, k, n, x=(x, dt), w_qt=(wt, torch.int8), w_scale=(ws, torch.float32))
+    plan = q8_plan(m, n, k, _build.sm_count(x.device))
     xq, xs = row_scratch(x, m, k)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    _build.launch("quantized_matmul", [_P] * 6 + [_I] * 3 + [_P],
-                  x.data_ptr(), w_q.data_ptr(), ws.data_ptr(), xq.data_ptr(),
-                  xs.data_ptr(), out.data_ptr(), m, k, n, _stream(x), device=x.device)
+    _build.launch("quantized_matmul", [_P] * 6 + [_I] * 5 + [_P],
+                  x.data_ptr(), wt.data_ptr(), ws.data_ptr(), xq.data_ptr(),
+                  xs.data_ptr(), out.data_ptr(), m, k, n, int(dt == torch.float32),
+                  plan.stages, _stream(x), device=x.device)
     return out
 
 
