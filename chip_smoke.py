@@ -11,8 +11,10 @@
                                              # Qwen3-TTS request (bf16, int8),
                                              # one BigVGAN call, one
                                              # IndexTTS request and its
-                                             # vocoder call alone
+                                             # vocoder call alone, one
+                                             # VoxCPM-2 request
     python3 chip_smoke.py --families bigvgan,indextts   # phases 0-2, 8, 8c, 9
+    python3 chip_smoke.py --families voxcpm             # phases 0-2, 10
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
@@ -98,7 +100,21 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      reference, requests of 32 text ids x 256 tokens in bf16 and int8 and a
      batch of 4, 24 launches of kernel 11 a decode step, none of kernel 12,
      12 of kernel 10 a vocoder call, one GPT step's logits against fp32,
-     tokens/s and RTF.
+     tokens/s and RTF;
+  10. VoxCPMPipeline at full VoxCPM-2 width (voxcpm_v2_config(): base 24 x
+     1024 and residual 4 layers, 16/2 heads x 64; feature encoder 3 x 512;
+     estimator 6 x 512; VAE decoder 2048 channels, 48 kHz; random weights
+     from seeds): the bench request (16 prompt ids, 32 target ids, 48
+     latents) in bf16 and int8 and synthesize_v2("continuation") on a 6 s
+     prompt at 16 kHz, each 368,640 int16 samples and 1,344 launches of
+     kernel 12 (28 a latent), none of kernel 11; VoxCPM-1.5 (1536 decoder
+     channels) synthesize_ids_batch over 8 requests, 1,344 launches of
+     kernel 11 and none of kernel 12; one dual-LM step against the fp32
+     twins; latents/s and RTF.
+Phase 2 also runs kernels 11 and 12 at the VoxCPM base-LM shape (B 1, 4, 8;
+pos 49, 64, 96 of a 128-row cache and 1000 of 2048; bf16 and int8; timed
+beside their bounds), and the Kani and VoxCPM checks over four seeds, each
+seed's errors printed beside the bf16 twin's.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -436,6 +452,160 @@ def check_slack(label: str, kernel, plain, args: tuple, kw: dict) -> float:
             raise AssertionError(f"{label} {part}: the kernel is less accurate than its "
                                  f"bf16 twin")
     return worst
+
+
+# VoxCPM's base-LM decode shape (tts_tpu/models/voxcpm.py:112-117): hidden
+# 1024, 16 q heads over 2 kv heads of 64 (8 a kv head), RMSNorm folded into
+# wqkv, RoPE, no q/k norms; kernel 12 at the positions of the bench
+# request's 128-row cache (its 49-row prompt, then 48 latents) and at pos
+# 1000 of a 2048-row cache, 24 layers
+VOX_QKV = dict(heads=16, kv_heads=2, head_dim=64, eps=1e-5)
+VOX_STEP_POS = ((128, 49), (128, 64), (128, 96), (2048, 1000))
+# the seeds of phase 2's sweep of kernels 11 and 12 (check_decode_seeds)
+DECODE_SEEDS = (1601, 1602, 1603, 1604)
+
+
+def decode_cases(gen: torch.Generator, shape: str) -> list:
+    """Phase 2's kernel-11 and kernel-12 cases at the kani-tts-370m (B 1, 5,
+    8; pos 5, 700 and 2047 of a 6-layer 2048-row cache, q/k norms, random
+    RoPE rows) or the VoxCPM base-LM decode shape (B 1, 4, 8; VOX_STEP_POS
+    in 24-layer caches, the RoPE rows of position 49 and of each pos; the
+    q and k columns and the cache rows at the model's scales), bf16 and
+    int8 weights, inputs drawn from gen in a fixed order:
+    [(label, kernel, plain twin, args, kw)]."""
+    from tts_tpu_torch.nn.rope import rope_table
+    from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope, fused_qkv_rope_plain
+    from tts_tpu_torch.ops.decode_step import fused_qkv_attn, fused_qkv_attn_plain
+    from tts_tpu_torch.quant.weight_only import quantize_int8_jit
+
+    def rn(*shape_, scale=1.0):
+        return (torch.randn(shape_, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    hs = 1024
+    if shape == "Kani":
+        kvh, hd, layers, rows, steps = 8, 64, 6, (1, 5, 8), ((2048, 5), (2048, 700),
+                                                          (2048, 2047))
+        w = rn(hs, 32 * hd, scale=0.02)
+        norm_w = torch.full((hd,), hd ** -0.25, device="cuda").to(torch.bfloat16)
+        kw = dict(heads=16, kv_heads=kvh, head_dim=hd, q_norm=norm_w, k_norm=norm_w,
+                  eps=1e-5)
+        cos, sin = rn(1, hd), rn(1, hd)
+        rope = lambda pos: (cos, sin)              # noqa: E731
+    else:
+        # tts_tpu's init and loader fold d^-0.25 into the q and k columns;
+        # the cache rows at the scale of the step's own k and v rows
+        kvh, hd, layers, rows, steps = 2, 64, 24, (1, 4, 8), VOX_STEP_POS
+        fold = torch.ones(20 * hd, device="cuda")
+        fold[:18 * hd] = hd ** -0.25
+        w = (rn(hs, 20 * hd, scale=0.02) * fold).to(torch.bfloat16)
+        kw = VOX_QKV
+        tab = [torch.as_tensor(a, device="cuda").to(torch.bfloat16)
+               for a in rope_table(2048, hd, 10000.0)]
+        rope = lambda pos: (tab[0][pos:pos + 1], tab[1][pos:pos + 1])   # noqa: E731
+    weights = ((w, "bf16"), (quantize_int8_jit(w), "int8"))
+    cases = []
+    for b in rows:
+        x = rn(b, hs)
+        for wt, wl in weights:
+            cases.append((f"fused_qkv_rope {shape} B={b} {wl}", fused_qkv_rope,
+                          fused_qkv_rope_plain, (x, wt, *rope(49)), kw))
+    k_scale, v_scale = (1.0, 1.0) if shape == "Kani" else (0.64 * hd ** -0.25, 0.64)
+    for t, pos in steps:
+        kc, vc = rn(layers, 1, kvh, t, hd, scale=k_scale), rn(layers, 1, kvh, t, hd,
+                                                               scale=v_scale)
+        x1 = rn(1, hs)
+        for wt, wl in weights:
+            cases.append((f"fused_qkv_attn {shape} L={layers} T={t} pos={pos} {wl}",
+                          fused_qkv_attn, fused_qkv_attn_plain,
+                          (x1, wt, *rope(pos), kc, vc, layers // 2, pos), kw))
+    return cases
+
+
+def check_voxcpm_kernels(res: dict) -> None:
+    """Phase 2 at the VoxCPM base-LM decode shape (decode_cases, inputs from
+    a generator of their own): kernels 11 and 12 against their fp32 twins
+    within TOL and no further from fp32 than STEP_SLACK times their bf16
+    twins (check_slack); then each case's time a call as CUDA events over a
+    chain of 10 calls, its device time a call (profiler over 10 calls), the
+    twin's, and the bound: the weight (bf16 2.62 MB, int8 1.31 MB and its
+    scales), the input rows and the outputs at 3.35 TB/s, and kernel 12's
+    cache rows 0..pos of its layer, k and v."""
+    from tts_tpu_torch.quant.weight_only import QTensor
+
+    name_limit = card()
+    for label, kernel, plain, args, kw in decode_cases(
+            torch.Generator("cuda").manual_seed(1616), "VoxCPM"):
+        name = "fused_qkv_attn" if "attn" in label else "fused_qkv_rope"
+        r = res[name]
+        r["max_abs_err"] = max(r["max_abs_err"], check_slack(label, kernel, plain, args, kw))
+        x, wt = args[0], args[1]
+        w = wt.q if isinstance(wt, QTensor) else wt
+        n = w.shape[1]
+        nb = nbytes(w, x) + 2 * x.shape[0] * n + (4 * n if isinstance(wt, QTensor) else 0)
+        ops = 2 * x.shape[0] * x.shape[1] * n
+        if name == "fused_qkv_attn":
+            pos = args[7]
+            nb += 2 * VOX_QKV["kv_heads"] * pos * 64 * 2 + 2 * 16 * 64
+            ops += 4 * 16 * (pos + 1) * 64
+        bound = {}
+        set_bound(bound, nb, ops, "bf16")
+        call = lambda: kernel(*args, **kw)          # noqa: E731
+        print(f"  {name_limit}: {label}: {chain_ms(call):.4f} ms a call (CUDA events over a "
+              f"chain of 10), device time {device_ms(call):.4f} ms a call, plain twin "
+              f"{device_ms(lambda: plain(*args, **kw)):.4f} ms (profiler over 10 calls), "
+              f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}, {nb / 1e6:.3f} MB)",
+              flush=True)
+        if name == "fused_qkv_attn" and label.endswith("bf16"):
+            print_split(f"{name_limit}: {label}", call)
+
+
+def check_decode_seeds() -> None:
+    """Kernels 11 and 12 at the Kani and VoxCPM decode shapes (decode_cases)
+    over each of DECODE_SEEDS, every seed's inputs from a generator of its
+    own. For each output: the kernel's and the bf16 twin's max |err| (over
+    max |ref|) and rel L2 against the fp32 twin. The kernel passes where it
+    is within TOL on both, as check() holds it. Where it is not, the seed
+    fails unless the bf16 twin misses TOL on that output too: the contract's
+    own bf16 rounding then exceeds the limit (counted, and printed at the
+    end). Every output is held, on every seed, to rel L2 at most STEP_SLACK
+    times the twin's."""
+    from tts_tpu_torch.quant.weight_only import QTensor
+
+    def f32(a):
+        return a.float() if isinstance(a, torch.Tensor) and not isinstance(a, QTensor) else a
+
+    def errs(got, ref):
+        err = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+        return err, rel_l2(got, ref), bool(torch.isfinite(got).all())
+
+    twin_misses, n = [], 0
+    for seed in DECODE_SEEDS:
+        gen = torch.Generator("cuda").manual_seed(seed)
+        for label, kernel, plain, args, kw in (decode_cases(gen, "Kani")
+                                               + decode_cases(gen, "VoxCPM")):
+            ref32 = plain(*map(f32, args), **{k: f32(v) for k, v in kw.items()})
+            parts = ("out", "k", "v") if "attn" in label else ("q", "k", "v")
+            for part, g, t, r in zip(parts, kernel(*args, **kw), plain(*args, **kw), ref32):
+                n += 1
+                (km, kr, kf), (tm, tr, _) = errs(g, r), errs(t, r)
+                k_ok, t_ok = kf and km <= TOL and kr <= TOL, tm <= TOL and tr <= TOL
+                slack = kr <= STEP_SLACK * tr
+                verdict = ("ok" if k_ok and slack else
+                           "ok (the bf16 twin misses the limit too)" if not t_ok and kf
+                           and slack else "FAIL")
+                print(f"  seed {seed} {label} {part}: kernel max|err| {km:.6g} rel L2 "
+                      f"{kr:.6g}; bf16 twin max|err| {tm:.6g} rel L2 {tr:.6g} (of max|ref|; limit "
+                      f"{TOL:.6g}, rel L2 at most {STEP_SLACK} x the twin's) {verdict}",
+                      flush=True)
+                if verdict == "FAIL":
+                    raise AssertionError(f"seed {seed} {label} {part}: the kernel misses a "
+                                         f"limit its bf16 twin meets")
+                if not k_ok:
+                    twin_misses.append(f"seed {seed} {label} {part}")
+    listed = ": " + "; ".join(twin_misses) if twin_misses else ""
+    print(f"  kernels 11 and 12 over seeds {DECODE_SEEDS}: {n} outputs, the kernel within "
+          f"{TOL:.6g} of the fp32 twin on {n - len(twin_misses)}; on {len(twin_misses)} "
+          f"the bf16 twin misses it as well{listed}", flush=True)
 
 
 def time_qkv_forms() -> None:
@@ -777,6 +947,8 @@ def check_kernels(gen: torch.Generator) -> dict:
     check_decode_attention_edges(torch.Generator("cuda").manual_seed(4324), res)
     check_decode_kernels(gen, res)
     check_qwen_kernels(gen, res)
+    check_voxcpm_kernels(res)
+    check_decode_seeds()
     check_bigvgan_kernel(gen, res)
     check_bigvgan_kernel(gen, res, f32=True)
     time_amp_forms()
@@ -3180,6 +3352,205 @@ def run_indextts(name_limit: str) -> tuple:
     return launches, pipes["bf16"], ref, vocoded[0]
 
 
+# the JAX benchmark's VoxCPM request (benchmarks/families.py:264-291): 16
+# prompt ids, 32 target ids, 48 latents (min_latents = max_latents, so a
+# random stop head cannot end it early)
+VOX_PROMPT = np.arange(5, 21, dtype=np.int32)[None]
+VOX_TARGET = np.arange(21, 53, dtype=np.int32)[None]
+VOX_LATENTS = 48
+
+
+def voxcpm_models(cfg, seed: int) -> tuple:
+    """VoxCPM params and VAE at full width in bf16, random from `seed` (the
+    LM, feature encoder and estimator at tts_tpu's init scales), each VAE
+    conv rescaled from N(0, 0.1^2) to gain / sqrt(k C_in) as bigvgan_weights
+    does: 1 (sqrt(rate) for the transposed convs), 0.5 in the residual
+    units, 0.3 for the last, so the waveform stays off zero and mostly off
+    tanh's rails."""
+    from tts_tpu_torch.models.voxcpm import init_params, init_vae_params
+
+    bf = torch.bfloat16
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(seed), bf)
+    vae = init_vae_params(cfg.vae, torch.Generator("cuda").manual_seed(seed + 1), bf)
+
+    def rescale(conv, gain):
+        k, cin, _ = conv["w"].shape
+        conv["w"].mul_(gain / (0.1 * math.sqrt(k * cin)))
+
+    def units(blk):
+        for u in blk["units"]:
+            rescale(u["c1"], 0.5)
+            rescale(u["c2"], 0.5)
+
+    for key in ("pre", "fc_mu"):
+        rescale(vae[key], 1.0)
+    for blk in vae["enc_blocks"]:
+        units(blk)
+        rescale(blk["down"], 1.0)
+    dec = vae["dec"]
+    for key in ("pre_dw", "pre"):
+        if key in dec:
+            rescale(dec[key], 1.0)
+    rates = cfg.vae.decoder_rates or tuple(reversed(cfg.vae.strides))
+    for blk, rate in zip(dec["dec_blocks"], rates):
+        rescale(blk["up"], math.sqrt(rate))
+        units(blk)
+    rescale(dec["post"], 0.3)
+    return params, vae
+
+
+def check_voxcpm_step(pipe) -> None:
+    """One dual-LM decode step (24 base and 4 residual layers) after the
+    bench request's prefill, at full width in bf16: the "step" route
+    through kernel 12 (28 launches) against the same route through the
+    kernels' twins in bf16 and in fp32 (params and caches cast). The
+    kernel's dit_hidden is no further from the fp32 twins' than
+    STEP_SLACK times the bf16 twins', as check_index_step holds IndexTTS's;
+    the plain route's error is printed beside them."""
+    import tts_tpu_torch.models.voxcpm as vm
+    from tts_tpu_torch.kv.cache import KVCache
+    from tts_tpu_torch.ops import _build
+    from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope_plain
+    from tts_tpu_torch.ops.decode_step import fused_qkv_attn_plain
+
+    cfg, p = pipe.cfg, pipe.params
+    ids = np.concatenate([VOX_PROMPT[0], VOX_TARGET[0], [cfg.audio_start_id]])
+    n = len(ids)
+    text = torch.zeros((1, 64), dtype=torch.long, device="cuda")
+    text[0, :n] = torch.as_tensor(ids, device="cuda")
+    is_audio = torch.zeros((64,), dtype=torch.bool, device="cuda")
+    fe = torch.zeros((1, 64, cfg.base.hidden_size), dtype=torch.bfloat16, device="cuda")
+    bk, rk = pipe._caches(1, 128)
+    dit, _, bk, rk = vm.voxcpm_main_step(p, p["embed"][text], fe, is_audio, bk, rk, cfg,
+                                         valid_len=n)
+    bk, rk = bk.rewind(n), rk.rewind(n)
+    noise = torch.randn((1, cfg.patch_size, cfg.vae.latent_dim),
+                        generator=torch.Generator("cuda").manual_seed(7), device="cuda")
+    latent = vm.cfm_feat_decoder(p, noise, dit, pipe._zero_cond(), cfg)
+    h = vm.feat_encoder_cond(p, latent.to(torch.bfloat16), cfg)[0]
+
+    def step(params, dt, route):
+        def c(kv):
+            return KVCache(kv.k.to(dt).clone(), kv.v.to(dt).clone(), kv.length)
+        return vm.voxcpm_main_step(params, h.to(dt), h.to(dt), 0, c(bk), c(rk), cfg,
+                                   fused=route)[0].float()
+
+    before = _build.LAUNCHES["fused_qkv_attn"]
+    kern = step(p, torch.bfloat16, "step")
+    k12 = _build.LAUNCHES["fused_qkv_attn"] - before
+    twins = {"fused_qkv_attn": fused_qkv_attn_plain, "fused_qkv_rope": fused_qkv_rope_plain}
+    with swapped(vm, twins):
+        twin = step(p, torch.bfloat16, "step")
+        ref = step(cast_tree(p, torch.float32), torch.float32, "step")
+    plain = step(p, torch.bfloat16, False)
+    e_k, e_t, e_p = rel_l2(kern, ref), rel_l2(twin, ref), rel_l2(plain, ref)
+    layers = cfg.base.num_layers + cfg.residual.num_layers
+    ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_t and k12 == layers
+    print(f"  VoxCPM dual-LM step dit_hidden ({layers} layers, pos {n}), rel L2 against the "
+          f"fp32 twins: kernel 12 {e_k:.6g} ({k12} launches), the bf16 twins {e_t:.6g} (limit "
+          f"{STEP_SLACK} x), the plain route {e_p:.6g}; kernel against bf16 twins "
+          f"{rel_l2(kern, twin):.6g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the kernel-12 VoxCPM step is less accurate than its twins' "
+                             "or did not run through kernel 12")
+
+
+def run_voxcpm(name_limit: str) -> tuple:
+    """Phase 10: VoxCPMPipeline at full width. VoxCPM-2 (voxcpm_v2_config():
+    LM 24 + 4 layers x 1024, 16/2 heads x 64; feature encoder 3 x 512;
+    estimator 6 x 512; VAE decoder 2048 channels at rates (8, 8, 6, 5), 48
+    kHz) bf16 and int8 on the bench request, and synthesize_v2
+    "continuation" on a 6 s synthetic prompt at 16 kHz: 1,344 launches of
+    kernel 12 a request, none of kernel 11; VoxCPM-1.5 (VoxCPMConfig(),
+    1536 decoder channels, 44.1 kHz) synthesize_ids_batch over 8 requests:
+    1,344 of kernel 11, none of kernel 12; one decode step against fp32.
+    Returns (the launch counts of the phase, the bf16 VoxCPM-2 pipeline)."""
+    from tts_tpu_torch.models.voxcpm import VoxCPMConfig, voxcpm_v2_config
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.voxcpm import VoxCPMDecodeConfig, VoxCPMPipeline
+
+    cfg2, cfg15 = voxcpm_v2_config(), VoxCPMConfig()
+    dec = VoxCPMDecodeConfig(max_latents=VOX_LATENTS, min_latents=VOX_LATENTS)
+    t0 = time.perf_counter()
+    params2, vae2 = voxcpm_models(cfg2, 30)
+    params15, vae15 = voxcpm_models(cfg15, 40)
+    torch.cuda.synchronize()
+    b, est = cfg2.base, cfg2.estimator
+    print(f"  models: base {b.num_layers} x {b.hidden_size}, residual "
+          f"{cfg2.residual.num_layers}, {b.num_heads}/{b.num_kv_heads} heads x {b.head_dim}, "
+          f"ffn {b.ffn_dim}; feature encoder {cfg2.feat_encoder.num_layers} x "
+          f"{cfg2.feat_encoder.hidden_size}; estimator {est.num_layers} x {est.hidden_size}, "
+          f"{cfg2.cfm_steps} CFM steps; VAE decoder {cfg2.vae.decoder_channels} (v2, "
+          f"{cfg2.output_sample_rate} Hz) and {cfg15.vae.decoder_channels} (1.5, "
+          f"{cfg15.output_sample_rate} Hz) channels; bf16, random init in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    pipes = {"VoxCPM-2 bf16": VoxCPMPipeline(params2, cfg2, vae2, dec),
+             "VoxCPM-2 int8": VoxCPMPipeline(params2, cfg2, vae2, dec, quantize=8)}
+    pipe15 = VoxCPMPipeline(params15, cfg15, vae15, dec)
+    rate = cfg2.sample_rate
+    tt = np.arange(6 * rate) / rate
+    rng = np.random.default_rng(16)
+    sig = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
+           + 0.1 * np.sin(2 * np.pi * 330 * tt) + 0.05 * rng.standard_normal(tt.size))
+    prompt_audio = (sig * 12000).astype(np.int16)
+    layers = b.num_layers + cfg2.residual.num_layers
+    names = ("fused_qkv_rope", "fused_qkv_attn")
+    batch = [(VOX_PROMPT, np.arange(21, 53 + 2 * i, dtype=np.int32)[None]) for i in range(8)]
+
+    def checked(label, fn, cfg, rows, kernel):
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        wavs = fn()
+        wall = time.perf_counter() - t
+        grew = {k: LAUNCHES[k] - before.get(k, 0) for k in names}
+        spl = cfg.samples_per_latent
+        audio_s = sum(len(w) for w in wavs) / cfg.output_sample_rate
+        latents = VOX_LATENTS * rows
+        print(f"  {name_limit}: {label}: {latents} latents, {[len(w) for w in wavs]} int16 "
+              f"samples, wall {wall:.4f} s, {latents / wall:.2f} latents/s, RTF "
+              f"{wall / audio_s:.6f}, launches {grew}", flush=True)
+        print("  " + json.dumps({"voxcpm": label, "latents": latents, "wall_s": wall,
+                                 "latents_per_s": latents / wall, "rtf": wall / audio_s}),
+              flush=True)
+        want = {k: layers * VOX_LATENTS if k == kernel else 0 for k in names}
+        if grew != want:
+            raise AssertionError(f"{label}: launches {grew}, expected {want}")
+        for w in wavs:
+            if w.dtype != np.int16 or len(w) != VOX_LATENTS * spl or not w.any():
+                raise AssertionError(f"{label}: {len(w)} {w.dtype} samples, expected "
+                                     f"{VOX_LATENTS * spl} int16, not all zero")
+        return grew
+
+    def single(pipe):
+        return lambda: [pipe.synthesize_ids(VOX_PROMPT, VOX_TARGET)[0]]
+
+    def continuation():
+        return [pipes["VoxCPM-2 bf16"].synthesize_v2(
+            "continuation", VOX_TARGET, prompt_audio=prompt_audio, prompt_ids=VOX_PROMPT)[0]]
+
+    for pipe in pipes.values():                     # warm-up
+        pipe.synthesize_ids(VOX_PROMPT, VOX_TARGET)
+    pipe15.synthesize_ids_batch(batch)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    launches = dict.fromkeys(names, 0)
+    runs = [("VoxCPM-2 bf16 request", single(pipes["VoxCPM-2 bf16"]), cfg2, 1,
+             "fused_qkv_attn"),
+            ("VoxCPM-2 int8 request", single(pipes["VoxCPM-2 int8"]), cfg2, 1,
+             "fused_qkv_attn"),
+            ('VoxCPM-2 synthesize_v2("continuation"), 6 s prompt at 16 kHz', continuation,
+             cfg2, 1, "fused_qkv_attn"),
+            ("VoxCPM-1.5 batch of 8 (bf16)", lambda: pipe15.synthesize_ids_batch(batch)[0],
+             cfg15, 8, "fused_qkv_rope")]
+    for run in runs:
+        for k, v in checked(*run).items():
+            launches[k] += v
+    del pipe15, params15, vae15
+    check_voxcpm_step(pipes["VoxCPM-2 bf16"])
+    return launches, pipes["VoxCPM-2 bf16"]
+
+
 def profile_one(label: str, fn, classes, name_limit: str, per: tuple | None = None,
                 out_path: str | None = None) -> None:
     """torch.profiler over one fn() after a warm-up: device kernel time by
@@ -3209,8 +3580,10 @@ def profile_one(label: str, fn, classes, name_limit: str, per: tuple | None = No
     n_launch = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     unit = f" ({n_launch / per[0]:.1f} a {per[1]})" if per else ""
+    busy_unit = f" ({busy / per[0]:.4f} ms a {per[1]})" if per else ""
     print(f"  {name_limit}: profile {label}: wall {wall:.4f} s profiled, device kernel time "
-          f"{busy:.3f} ms, idle {100 * (1 - busy / 1e3 / wall):.1f}% of the profiled wall, "
+          f"{busy:.3f} ms{busy_unit}, idle {100 * (1 - busy / 1e3 / wall):.1f}% of the "
+          f"profiled wall, "
           f"{n_launch} launches{unit}", flush=True)
     for name, ms in shares.items():
         print(f"    {name}: {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)")
@@ -3236,12 +3609,13 @@ def main() -> None:
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one F5 request (bf16 and W8A8), one "
                          "greedy Kani run, one Qwen3-TTS request (bf16 and "
-                         "int8), one BigVGAN call and one IndexTTS request, "
-                         "the Kani, Qwen, BigVGAN and IndexTTS tables into DIR")
-    ap.add_argument("--families", default="f5,kani,qwen,bigvgan,indextts",
+                         "int8), one BigVGAN call, one IndexTTS request and one "
+                         "VoxCPM-2 request, the Kani, Qwen, BigVGAN, IndexTTS "
+                         "and VoxCPM tables into DIR")
+    ap.add_argument("--families", default="f5,kani,qwen,bigvgan,indextts,voxcpm",
                     help="the pipeline phases to run after phase 2, by family: "
-                         "f5 (3-5c), kani (6), qwen (7), bigvgan (8, 8c), indextts (9); "
-                         "default all (the smoke run's contract)")
+                         "f5 (3-5c), kani (6), qwen (7), bigvgan (8, 8c), indextts (9), "
+                         "voxcpm (10); default all (the smoke run's contract)")
     args = ap.parse_args()
     fams = set(args.families.split(","))
     if args.profile:
@@ -3360,6 +3734,22 @@ def main() -> None:
                 (K10_CLASS, CONV_CLASS, GEMM_CLASS, ("casts / copies", ("copy", "convert"))),
                 name_limit, out_path=os.path.join(args.profile, "indextts_vocoder_profile.txt"))
         del index_pipe, index_voc
+
+    if "voxcpm" in fams:
+        phase("phase 10: VoxCPMPipeline")
+        vox, vox_pipe = run_voxcpm(name_limit)
+        for k, n in vox.items():
+            launches[k] = launches.get(k, 0) + n
+        if args.profile:
+            phase("phase 10b: torch.profiler over one VoxCPM-2 request (bf16)")
+            profile_one(
+                f"VoxCPM-2 bf16 request ({VOX_LATENTS} latents)",
+                lambda: vox_pipe.synthesize_ids(VOX_PROMPT, VOX_TARGET),
+                (("kernel 12 (qkv_head_kernel + step_attn_kernel)", ("qkv_head", "step_attn")),
+                 GEMM_CLASS, ("casts / copies", ("copy", "convert")), CONV_CLASS),
+                name_limit, per=(VOX_LATENTS, "latent"),
+                out_path=os.path.join(args.profile, "voxcpm_profile.txt"))
+        del vox_pipe
 
     phase("done")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

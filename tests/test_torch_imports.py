@@ -41,11 +41,11 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # every module of the F5, Kani, F5 W8A8, Qwen3-TTS, BigVGAN and IndexTTS
-    # slices: audio (filters among them), nn, kv, decoding, ops (+ the
-    # kernels' modules, quant_matmul, decode_attention, decode_mlp and
+    # every module of the F5, Kani, F5 W8A8, Qwen3-TTS, BigVGAN, IndexTTS
+    # and VoxCPM slices: audio (filters among them), nn, kv, decoding, ops
+    # (+ the kernels' modules, quant_matmul, decode_attention, decode_mlp and
     # bigvgan_stage among them), quant, models (qwen_tts, qwen_codec,
-    # bigvgan and indextts among them), weights, frontend, runtime (qwen,
-    # vocoder and indextts among them) and their packages; kernels 4 and 5
-    # live in ops/flash_attention, beside kernel 1
-    assert int(proc.stdout.split()[-1]) >= 49
+    # bigvgan, indextts and voxcpm among them), weights, frontend, runtime
+    # (qwen, vocoder, indextts and voxcpm among them) and their packages;
+    # kernels 4 and 5 live in ops/flash_attention, beside kernel 1
+    assert int(proc.stdout.split()[-1]) >= 51

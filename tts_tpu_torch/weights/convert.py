@@ -2,8 +2,9 @@
 
 `params_from_jax` takes tts_tpu's F5, Vocos, Kani LM, NanoCodec, Qwen3-TTS
 (the merged talker + predictor tree), Qwen codec decoder, BigVGAN (either
-resblock kind) or IndexTTS (conformer, perceiver, ECAPA, GPT, speaker-
-conditioned BigVGAN) tree as
+resblock kind), IndexTTS (conformer, perceiver, ECAPA, GPT, speaker-
+conditioned BigVGAN), VoxCPM (the dual LM, feature encoder and estimator)
+or VoxCPM audio VAE (encoder and "dec" decoder) tree as
 nested dicts and lists of numpy arrays (`jax.tree.map(np.asarray, params)`
 on the JAX side) and returns the same tree of torch tensors, key for key;
 the family is told by the tree's keys. Each tree is checked against a
@@ -264,6 +265,64 @@ _INDEXTTS = {
     "conds": [{"w": ("spk", None), "b": (None,)}],
 }
 
+
+def _llama_stack(hs: str, p: str) -> dict:
+    """A VoxCPM Llama stack of width hs; its other dims bind under prefix p."""
+    return {"layers": [{
+        "wqkv": (hs, f"{p}qkv"), "bqkv": _Opt((f"{p}qkv",)), "wo": (f"{p}q_sz", hs),
+        "w_gate_up": (hs, f"{p}ff2"), "w_down": (f"{p}ff", hs)}]}
+
+
+_VOXCPM = {
+    "embed": ("vocab", "hs"),
+    "base": _llama_stack("hs", "b_"),
+    "base_norm": ("hs",),
+    "residual": _llama_stack("hs", "r_"),
+    "fsq_down": _lin("hs", "fsq"),
+    "fsq_up": _lin("fsq", "hs"),
+    "dit_stop": {"w": ("hs", "dit_stop"), "b": _Opt(("dit_stop",))},
+    "res_to_dit": {"w": ("hs", "est_hs")},
+    "stop_head": _lin("stop_in", "stop_out"),
+    "fe": _llama_stack("fe_hs", "fe_"),
+    "fe_in_proj": _lin("latent", "fe_hs"),
+    "fe_special": (1, "fe_hs"),
+    "enc_to_lm": {"w": ("fe_hs", "hs"), "b": _Opt(("hs",))},
+    "cond_proj": _lin("latent", "est_hs"),
+    "est": _llama_stack("est_hs", "est_"),
+    "est_in_proj": _lin("latent", "est_hs"),
+    "est_out_proj": {"w": ("est_hs", "latent"), "b": _Opt(("latent",))},
+    "cfm_t_table": ("cfm_steps", "est_hs"),
+    "cfm_dt": ("cfm_steps",),
+    "rope_cos": ("max_len", "hd"),
+    "rope_sin": ("max_len", "hd"),
+    "fe_rope_cos": ("fe_max_len", "fe_hd"),
+    "fe_rope_sin": ("fe_max_len", "fe_hd"),
+    "est_rope_cos": ("est_max_len", "est_hd"),
+    "est_rope_sin": ("est_max_len", "est_hd"),
+}
+
+# channel counts double (encoder) and halve (decoder) block by block, so
+# the VAE's dims stay unbound but the latent width and the rate bins
+_VAE_CONV = {"w": (None, None, None), "b": _Opt((None,))}
+_VAE_SNAKE = {"alpha": (None,), "alpha_recip": (None,)}
+_VAE_UNIT = {"s1": _VAE_SNAKE, "c1": _VAE_CONV, "s2": _VAE_SNAKE, "c2": _VAE_CONV}
+_VOXCPM_VAE = {
+    "pre": {"w": (None, 1, None), "b": _Opt((None,))},
+    "enc_blocks": [{"units": [_VAE_UNIT], "snake": _VAE_SNAKE, "down": _VAE_CONV}],
+    "fc_mu": {"w": (None, None, "latent"), "b": _Opt(("latent",))},
+    "dec": {
+        "pre_dw": _Opt({"w": (None, 1, "latent"), "b": _Opt(("latent",))}),
+        "pre": {"w": (None, "latent", None), "b": _Opt((None,))},
+        "dec_blocks": [{
+            "snake": _VAE_SNAKE, "up": _VAE_CONV, "units": [_VAE_UNIT],
+            "noise": _Opt({"w": (1, None, None)}),
+            "sr_scale": _Opt(("sr_bins", None)), "sr_bias": _Opt(("sr_bins", None)),
+            "sr_out_snake": _Opt(_VAE_SNAKE), "sr_out_conv": _Opt(_VAE_CONV)}],
+        "post_snake": _VAE_SNAKE,
+        "post": {"w": (None, None, 1), "b": _Opt((1,))},
+    },
+}
+
 # keys that keep fp32 whatever dtype the weights take (tts_tpu's Euler steps)
 _KEEP_FP32 = {"delta_t"}
 
@@ -339,20 +398,22 @@ def _quantized(tree, schema, where: str, dims: dict, device):
 
 
 def _schema_of(tree: dict) -> dict:
-    for key, schema in (("gpt", _INDEXTTS), ("conv_pre", _BIGVGAN),
+    for key, schema in (("fsq_down", _VOXCPM), ("enc_blocks", _VOXCPM_VAE),
+                        ("gpt", _INDEXTTS), ("conv_pre", _BIGVGAN),
                         ("talker", _QWEN), ("sem_codebook", _QWEN_CODEC),
                         ("text_embed", _F5), ("lm_head", _KANI),
                         ("pre_conv", _NANOCODEC), ("head", _VOCOS)):
         if key in tree:
             return schema
     raise KeyError(f"keys {sorted(tree)} are none of F5, Vocos, Kani, NanoCodec, "
-                   f"Qwen3-TTS, the Qwen codec, BigVGAN or IndexTTS")
+                   f"Qwen3-TTS, the Qwen codec, BigVGAN, IndexTTS, VoxCPM or its VAE")
 
 
 def params_from_jax(tree: dict, device, dtype: torch.dtype) -> dict:
-    """tts_tpu F5, Vocos, Kani, NanoCodec, Qwen3-TTS, Qwen codec, BigVGAN or
-    IndexTTS params (nested dicts/lists of numpy arrays) -> the same tree of
-    torch tensors on `device`, floats cast to `dtype`."""
+    """tts_tpu F5, Vocos, Kani, NanoCodec, Qwen3-TTS, Qwen codec, BigVGAN,
+    IndexTTS, VoxCPM or VoxCPM VAE params (nested dicts/lists of numpy
+    arrays) -> the same tree of torch tensors on `device`, floats cast to
+    `dtype`."""
     if not isinstance(tree, dict):
         raise TypeError(f"expected a params dict, got {type(tree).__name__}")
     return _convert(tree, _schema_of(tree), (), {}, torch.device(device), dtype)
