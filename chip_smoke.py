@@ -15,6 +15,7 @@
                                              # VoxCPM-2 request
     python3 chip_smoke.py --families bigvgan,indextts   # phases 0-2, 8, 8c, 9
     python3 chip_smoke.py --families voxcpm             # phases 0-2, 10
+    python3 chip_smoke.py --families serving            # phases 0-2, 11
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
@@ -110,7 +111,24 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      kernel 12 (28 a latent), none of kernel 11; VoxCPM-1.5 (1536 decoder
      channels) synthesize_ids_batch over 8 requests, 1,344 launches of
      kernel 11 and none of kernel 12; one dual-LM step against the fp32
-     twins; latents/s and RTF.
+     twins; latents/s and RTF;
+  11. the serving layer (tts_tpu_torch/serving) at the full widths of
+     phases 6, 7, 9 and 10, every chunk under torch's sync debug mode
+     "error" (a chunk reads nothing from the card): KaniSlotServer(slots=4,
+     chunk=32) over 6 requests of 48-160 tokens, two admitted mid-decode,
+     the short one finishing before an earlier long one, 6 kernel-11
+     launches a step and none of kernel 12; TTSServer.continuous +
+     serve_http on 127.0.0.1 (3 POSTs, a stream, /stats); a SlotRouter
+     over two Kani slot servers on the card (two worker threads launching
+     at once, counts exact); QwenSlotServer
+     over 4 requests of 24-40 frames on the default route (kernel 11), on
+     "all" (11, 13 in the predictor, 14) and int8 "mlp_q8" (11, 15);
+     IndexTTSSlotServer over 4 requests of 48-96 tokens (kernel 11 a layer
+     step, kernel 10 a vocoder call; a cap past the mel positions refused);
+     VoxCPMSlotServer (VoxCPM-2) over 3 requests of 12-20 latents (kernel
+     11); for each, one decode step of a spliced, masked batch against the
+     twins, the aggregate rate with all 4 rows busy beside the solo
+     pipeline's, and p50/p99 latency.
 Phase 2 also runs kernels 11 and 12 at the VoxCPM base-LM shape (B 1, 4, 8;
 pos 49, 64, 96 of a 128-row cache and 1000 of 2048; bf16 and int8; timed
 beside their bounds), and the Kani and VoxCPM checks over four seeds, each
@@ -3551,6 +3569,681 @@ def run_voxcpm(name_limit: str) -> tuple:
     return launches, pipes["VoxCPM-2 bf16"]
 
 
+# ----------------------------------------------------------------------------
+# Phase 11: the serving layer (tts_tpu_torch/serving), continuous batching
+
+SERVE_SLOTS = 4
+SERVE_WAIT_S = 600        # every Future.result bound of phase 11
+
+
+def sync_free(srv) -> None:
+    """Run every chunk of `srv` under torch's sync debug mode "error": a
+    host read of the card inside a chunk (an .item(), a host copy, a
+    blocking copy to the card) raises on the worker thread, which fails the
+    server's requests and so the phase."""
+    real = srv._step_chunk
+
+    def chunk(s):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real(s)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    srv._step_chunk = chunk
+
+
+def time_parts(srv) -> dict:
+    """Host seconds the worker spends in each part, summed into the dict
+    returned: "chunk" (enqueueing a chunk's steps), "wait" (the boundary's
+    read of the flags: the card finishing the chunk), "admit" (a row's
+    prefill and splice), "finalize" (a row's vocoder call and copy)."""
+    parts: dict = {}
+    for name, attr in (("chunk", "_step_chunk"), ("wait", "_fin_done"),
+                       ("admit", "_admit_row"), ("finalize", "_finalize")):
+        real = getattr(srv, attr)
+
+        def timed(*a, real=real, name=name):
+            t0 = time.perf_counter()
+            try:
+                return real(*a)
+            finally:
+                parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+                parts[name + "_n"] = parts.get(name + "_n", 0) + 1
+
+        setattr(srv, attr, timed)
+    return parts
+
+
+def parts_line(parts: dict, wall: float) -> str:
+    return ", ".join(f"{k} {parts.get(k, 0.0):.3f} s ({parts.get(k + '_n', 0)}x)"
+                     for k in ("chunk", "wait", "admit", "finalize")) + \
+        f" of {wall:.3f} s"
+
+
+def codes_by_future(srv, key: str) -> dict:
+    """Record each finished row's codes (s[key][row, :n], on the host) by
+    its future."""
+    got = {}
+    real = srv._finalize
+
+    def finalize(s, b, n):
+        got[s["reqs"][b].fut] = s[key][b, :n].cpu()
+        return real(s, b, n)
+
+    srv._finalize = finalize
+    return got
+
+
+def serve_staggered(srv, first: list, later: list) -> tuple:
+    """Submit `first` (callables returning futures), wait for the first
+    chunk, submit `later`: they queue behind busy rows and are admitted
+    mid-decode. Returns (futures, completion times, results)."""
+    futs, done = [], {}
+
+    def track(f):
+        i = len(futs)
+        f.add_done_callback(lambda _f: done.__setitem__(i, time.perf_counter()))
+        futs.append(f)
+
+    for sub in first:
+        track(sub())
+    t0 = time.perf_counter()
+    while srv.stats.chunks < 1:
+        if futs[0].done() or time.perf_counter() - t0 > SERVE_WAIT_S:
+            futs[0].result(timeout=0)
+            raise AssertionError("the slot server never finished a chunk")
+        time.sleep(0.002)
+    for sub in later:
+        track(sub())
+    return futs, done, [f.result(timeout=SERVE_WAIT_S) for f in futs]
+
+
+def serve_rate(subs: list, parts: dict) -> tuple:
+    """Submit every request at once (all rows busy). Returns (results, wall
+    s, the worker's time by part in this run)."""
+    torch.cuda.synchronize()
+    parts.clear()
+    t0 = time.perf_counter()
+    futs = [sub() for sub in subs]
+    out = [f.result(timeout=SERVE_WAIT_S) for f in futs]
+    return out, time.perf_counter() - t0, dict(parts)
+
+
+def serve_grew(before: dict, names) -> dict:
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    return {k: LAUNCHES[k] - before.get(k, 0) for k in names}
+
+
+def serve_expect(label: str, grew: dict, want: dict) -> None:
+    full = {k: want.get(k, 0) for k in grew}
+    if grew != full:
+        raise AssertionError(f"{label}: launches {grew}, expected {full}")
+
+
+def serve_step_check(label: str, step, module, swap: dict, params, rows: int) -> None:
+    """One decode step of a spliced, masked batch (rows admitted at
+    different shared positions): `step(p, dt)` through the kernels in bf16,
+    through their twins in bf16 and in fp32 (params and state cast). The
+    kernels' rel L2 against the fp32 twins is at most STEP_SLACK times the
+    bf16 twins' (check_step's rule)."""
+    kern = step(params, torch.bfloat16)[:rows].float()
+    with swapped(module, swap):
+        twin = step(params, torch.bfloat16)[:rows].float()
+        ref = step(cast_tree(params, torch.float32), torch.float32)[:rows].float()
+    e_k, e_t = rel_l2(kern, ref), rel_l2(twin, ref)
+    ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_t
+    print(f"  {label}: spliced masked batch of {rows} live rows, rel L2 against the fp32 "
+          f"twins: kernels {e_k:.6g}, bf16 twins {e_t:.6g} (limit {STEP_SLACK} x); kernels "
+          f"against bf16 twins {rel_l2(kern, twin):.6g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the kernels are less accurate than their twins")
+
+
+@contextlib.contextmanager
+def short_chunks(srv, steps: int = 4):
+    """Run `srv`'s chunks `steps` steps long for the block (its worker is
+    closed: the caller's own steps)."""
+    chunk, srv.chunk = srv.chunk, steps
+    try:
+        yield
+    finally:
+        srv.chunk = chunk
+
+
+def spliced_state(srv, payloads: list, caps: list) -> dict:
+    """A batch state built on the calling thread with the server's own
+    steps: payload i admitted into row i after i chunks of 4 steps (so each
+    row sits at another shared position, spliced in while the others
+    decode)."""
+    s = srv._fresh_base()
+    with short_chunks(srv):
+        for b, (payload, cap) in enumerate(zip(payloads, caps)):
+            if b:
+                srv._step_chunk(s)
+                s["pos"] += srv.chunk
+            srv._admit_row(s, b, payload, cap)
+    return s
+
+
+def serve_report(name_limit: str, family: str, unit: str, agg: tuple, solo: tuple,
+                 srv, grew: dict, extra: dict, parts: dict | None = None) -> None:
+    snap = srv.stats.snapshot()
+    if parts is not None:
+        print(f"  {family}, all rows busy: worker time in {parts_line(parts, agg[1])}",
+              flush=True)
+        extra = {**extra, "worker_s": {k: v for k, v in parts.items()}}
+    chunks = max(snap["chunks"], 1)
+    agg_rate, solo_rate = agg[0] / agg[1], solo[0] / solo[1]
+    per_chunk = {k: round(v / chunks, 2) for k, v in grew.items() if v}
+    print(f"  {name_limit}: {family} slot server, {SERVE_SLOTS} slots all busy: "
+          f"{agg_rate:.2f} {unit}/s ({agg[0]} {unit} in {agg[1]:.4f} s); solo pipeline "
+          f"{solo_rate:.2f} {unit}/s ({solo[0]} in {solo[1]:.4f} s), "
+          f"{agg_rate / solo_rate:.2f}x; latency p50 {snap['p50_ms']} ms p99 "
+          f"{snap['p99_ms']} ms over {snap['completed']} requests; {snap['chunks']} chunks "
+          f"of {srv.chunk} steps; launches a chunk {per_chunk}", flush=True)
+    print("  " + json.dumps({"serving": family, "card": name_limit, "slots": SERVE_SLOTS,
+                             f"{unit}_per_s": agg_rate, f"solo_{unit}_per_s": solo_rate,
+                             "p50_ms": snap["p50_ms"], "p99_ms": snap["p99_ms"],
+                             "requests": snap["completed"], "chunks": snap["chunks"],
+                             "chunk": srv.chunk, "admissions_mid_decode":
+                                 snap["admissions_mid_decode"], "launches": grew,
+                             "launches_per_chunk": per_chunk, **extra}), flush=True)
+
+
+def profile_chunk(label: str, srv, s: dict, name_limit: str) -> None:
+    """torch.profiler over one chunk of 4 steps of `s` (after one more as
+    warm-up): launches and device time a step of 4 busy rows, the card's
+    idle share."""
+    with short_chunks(srv):
+        profile_one(f"{label} slot-server chunk ({srv.chunk} steps, {SERVE_SLOTS} rows)",
+                    lambda: type(srv)._step_chunk(srv, s), (GEMM_CLASS,), name_limit,
+                    per=(srv.chunk, "step"))
+
+
+def http_post(url: str, body: dict, timeout: float = SERVE_WAIT_S) -> tuple:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, dict(resp.headers), resp.read()
+
+
+@torch.no_grad()
+def serve_kani(name_limit: str, launches: dict) -> None:
+    """Kani (kani-tts-370m + NanoCodec, the models of phase 6; the default
+    repetition penalty): KaniSlotServer(slots=4, chunk=32, prompt_bucket=64)
+    over 6 requests of 48-160 tokens, the last two admitted mid-decode;
+    then all rows busy against the solo pipeline; then TTSServer.continuous
+    + serve_http on 127.0.0.1:0 (3 POSTs and a stream)."""
+    import io
+    import threading
+    import wave
+
+    import tts_tpu_torch.models.kani as mk
+    from tts_tpu_torch.models.kani import KaniConfig, KaniState, embed_tokens, init_params
+    from tts_tpu_torch.models.kani import kani_step
+    from tts_tpu_torch.models.nanocodec import NanoCodecConfig
+    from tts_tpu_torch.models.nanocodec import init_params as codec_init
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope_plain
+    from tts_tpu_torch.runtime.kani import KaniDecodeConfig, KaniPipeline
+    from tts_tpu_torch.serving.continuous import KaniSlotServer
+    from tts_tpu_torch.serving.devices import pipelines_for_devices
+    from tts_tpu_torch.serving.families import continuous_server
+    from tts_tpu_torch.serving.server import serve_http
+
+    cfg, ccfg = KaniConfig(max_seq_len=2048, stop_token=-1), NanoCodecConfig()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(2), torch.bfloat16)
+    cparams = codec_init(ccfg, torch.Generator("cuda").manual_seed(3), torch.bfloat16)
+    pipe = KaniPipeline(params, cfg, cparams, ccfg, KaniDecodeConfig(max_new_tokens=160))
+    prompts = [np.array(p, np.int32) for p in (KANI_IDS, [[3, 9, 4]], [[5, 8, 13, 21, 34, 55]],
+                                               [[7, 1, 4, 2]], [[11, 12]], [[6, 6, 6, 9]])]
+    caps = [160, 160, 144, 64, 48, 56]
+    names = ("fused_qkv_rope", "fused_qkv_attn")
+    layers, up = cfg.num_attn_layers, ccfg.total_upsample
+
+    def solo_tokens(ids, cap, p=pipe):
+        c, buf, _ = p._buf_for(cap)
+        ids_buf = np.zeros((1, p._bucket(ids.shape[1])), np.int64)
+        ids_buf[0, :ids.shape[1]] = ids[0]
+        save, n = p._greedy_run(torch.from_numpy(ids_buf).cuda(), ids.shape[1],
+                                min(c, buf), buf)
+        return save[0, :n].cpu()
+
+    def same(a, b):
+        return round(float((a[:len(b)] == b[:len(a)]).float().mean()), 3)
+
+    pipe.synthesize_ids(prompts[0], max_new_tokens=16)              # warm-up
+    torch.cuda.synchronize()
+    srv = KaniSlotServer(pipe, slots=SERVE_SLOTS, chunk=32, prompt_bucket=64)
+    sync_free(srv)
+    codes = codes_by_future(srv, "save")
+    parts = time_parts(srv)
+    LAUNCHES.clear()
+    try:
+        futs, done, outs = serve_staggered(
+            srv, [lambda i=i: srv.submit(prompts[i], max_new_tokens=caps[i]) for i in range(4)],
+            [lambda i=i: srv.submit(prompts[i], max_new_tokens=caps[i]) for i in (4, 5)])
+        chunks1 = srv.stats.chunks
+        agg_out, agg_wall, parts = serve_rate(
+            [lambda i=i: srv.submit(prompts[i], max_new_tokens=160) for i in range(SERVE_SLOTS)],
+            parts)
+    finally:
+        srv.close()
+    grew = serve_grew({}, names)
+    for i, ((wav, n), cap) in enumerate(zip(outs + agg_out, caps + [160] * SERVE_SLOTS)):
+        frames = (n - 2) // ccfg.num_groups
+        if n != cap or wav.dtype != np.int16 or len(wav) != frames * up or not wav.any():
+            raise AssertionError(f"Kani request {i}: {n} tokens, {len(wav)} {wav.dtype} samples; "
+                                 f"expected {cap} tokens, {frames * up} int16 samples")
+    snap = srv.stats.snapshot()
+    if snap["admissions_mid_decode"] < 1:
+        raise AssertionError("Kani: no request was admitted mid-decode")
+    if not done[4] < done[0]:
+        raise AssertionError("Kani: the short request admitted mid-decode did not finish "
+                             "before the earlier long one")
+    steps = srv.stats.chunks * srv.chunk
+    serve_expect("Kani slot server", grew, {"fused_qkv_rope": layers * steps})
+    # the share of a request's tokens equal to the solo pipeline's (kernel
+    # 12's route), beside the same share between two solo routes (kernel 12
+    # against kernel 11): bf16 rounding on random weights, not required
+    kv11 = KaniPipeline(params, cfg, cparams, ccfg,
+                        KaniDecodeConfig(max_new_tokens=160, fused_decode=True))
+    agree, routes = [], []
+    for i in (0, 4):                     # a long request, one admitted mid-decode
+        solo12 = solo_tokens(prompts[i], caps[i])
+        agree.append(same(codes[futs[i]], solo12))
+        routes.append(same(solo_tokens(prompts[i], caps[i], kv11), solo12))
+    print(f"  Kani staggered run: {len(futs)} requests (caps {caps}), {chunks1} chunks, "
+          f"{snap['admissions_mid_decode']} admitted mid-decode, the cap-{caps[4]} request "
+          f"done {done[0] - done[4]:.3f} s before the cap-{caps[0]} one; requests 0 and 4: "
+          f"share of tokens equal to solo synthesize_ids (bf16, reported, not required) "
+          f"{agree}; solo kernel-11 route against solo kernel-12 route {routes}", flush=True)
+
+    # one step of a spliced, masked batch through kernel 11 against the twins
+    s = spliced_state(srv, [(p, None) for p in prompts[:SERVE_SLOTS]], [160] * SERVE_SLOTS)
+
+    def step(p, dt):
+        st = s["state"]
+        state = KaniState(type(st.kv)(st.kv.k.to(dt).clone(), st.kv.v.to(dt).clone(),
+                                      st.kv.length), st.conv.to(dt).clone())
+        h = embed_tokens(p, s["last"][:, None])
+        return kani_step(p, h, state, cfg, key_valid_from=s["kvf"], fused="step")[0]
+
+    before = dict(LAUNCHES)
+    serve_step_check("Kani step", step, mk, {"fused_qkv_rope": fused_qkv_rope_plain},
+                     params, SERVE_SLOTS)
+    serve_expect("Kani step check", serve_grew(before, names), {"fused_qkv_rope": layers})
+    profile_chunk("Kani", srv, s, name_limit)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st = pipe.synthesize_ids(prompts[0], max_new_tokens=160)
+    solo = (st["tokens"], time.perf_counter() - t0)
+    serve_report(name_limit, "kani", "tokens", (sum(n for _, n in agg_out), agg_wall), solo,
+                 srv, grew, {"tokens_equal_to_solo": agree, "solo_routes_equal": routes},
+                 parts)
+    for k, n in grew.items():
+        launches[k] = launches.get(k, 0) + n
+
+    # the HTTP front-end over a continuous server
+    tts = continuous_server("kani", pipe, slots=SERVE_SLOTS, max_tokens=96, chunk=32,
+                            prompt_bucket=64, stream_kw={"window": 96})
+    sync_free(tts.batcher)
+    tts.batcher._receptive_frames()     # the stream's probe decode, before traffic
+    httpd = serve_http(tts, "127.0.0.1", 0)
+    url = "http://%s:%d" % httpd.server_address
+    frames = (96 - 2) // ccfg.num_groups
+    try:
+        before = dict(LAUNCHES)
+        res = [None] * 3
+        threads = [threading.Thread(target=lambda i=i: res.__setitem__(
+            i, http_post(f"{url}/synthesize", {"ids": prompts[i].tolist()}))) for i in range(3)]
+        for th in threads:
+            th.start()
+        status, headers, body = http_post(f"{url}/stream", {"ids": prompts[0].tolist()})
+        for th in threads:
+            th.join(SERVE_WAIT_S)
+        if status != 200 or "X-TTFA-MS" not in headers:
+            raise AssertionError(f"HTTP /stream: status {status}, headers {headers}")
+        stream = np.frombuffer(body, np.int16)
+        wavs = []
+        for r in res:
+            if r is None or r[0] != 200 or r[1].get("Content-Type") != "audio/wav":
+                raise AssertionError(f"HTTP /synthesize failed: {r and r[:2]}")
+            with wave.open(io.BytesIO(r[2])) as w:
+                if (w.getframerate(), w.getsampwidth(), w.getnchannels()) != \
+                        (ccfg.sample_rate, 2, 1) or r[2][:4] != b"RIFF":
+                    raise AssertionError("HTTP /synthesize: not a 16-bit mono WAV at the "
+                                         "codec's rate")
+                wavs.append(np.frombuffer(w.readframes(w.getnframes()), np.int16))
+        if any(len(w) != frames * up for w in wavs) or len(stream) != frames * up:
+            raise AssertionError(f"HTTP: {[len(w) for w in wavs]} and stream {len(stream)} "
+                                 f"samples, expected {frames * up}")
+        with urllib_open(f"{url}/stats") as resp:
+            stats = json.loads(resp.read())
+        if stats.get("completed") != 4 or stats.get("streams") != 1:
+            raise AssertionError(f"HTTP /stats: {stats}")
+        grew_http = serve_grew(before, names)
+        serve_expect("Kani HTTP", grew_http, {
+            "fused_qkv_rope": layers * tts.batcher.stats.chunks * tts.batcher.chunk})
+        diff = int(np.abs(stream.astype(np.int32) - wavs[0].astype(np.int32)).max())
+        print(f"  Kani over HTTP (127.0.0.1): 3 concurrent POST /synthesize of {len(wavs[0])} "
+              f"samples (16-bit mono WAV at {ccfg.sample_rate} Hz) and one /stream "
+              f"(TTFA {headers['X-TTFA-MS']} ms, {len(stream)} samples, max |stream - "
+              f"WAV| {diff} LSB); /stats {stats}", flush=True)
+        for k, n in grew_http.items():
+            launches[k] = launches.get(k, 0) + n
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        tts.close()
+
+    # two slot servers in one process behind a SlotRouter (one card here):
+    # two worker threads launching kernels at once, their counts exact.
+    # The sync debug mode is process-wide, so this run goes without it.
+    router = continuous_server("kani", pipelines_for_devices(pipe, ["cuda:0", "cuda:0"]),
+                               slots=SERVE_SLOTS, max_tokens=64, chunk=32, prompt_bucket=64)
+    try:
+        before = dict(LAUNCHES)
+        futs = [router.submit(prompts[i % len(prompts)], deadline_s=SERVE_WAIT_S)
+                for i in range(2 * SERVE_SLOTS)]
+        outs = [f.result(timeout=SERVE_WAIT_S) for f in futs]
+        st = router.stats()
+        grew_r = serve_grew(before, names)
+        chunks = [p["chunks"] for p in st["per_server"]]
+        if any(n != 64 for _, n in outs) or min(chunks) < 1 or st["completed"] != len(futs):
+            raise AssertionError(f"router: counts {[n for _, n in outs]}, stats {st}")
+        serve_expect("Kani router", grew_r, {"fused_qkv_rope": layers * 32 * sum(chunks)})
+        print(f"  Kani SlotRouter over two slot servers on one card: {len(futs)} requests of "
+              f"64 tokens, chunks by server {chunks}, launches {grew_r} (exact across two "
+              f"worker threads)", flush=True)
+        for k, n in grew_r.items():
+            launches[k] = launches.get(k, 0) + n
+    finally:
+        router.close()
+
+
+def urllib_open(url: str):
+    import urllib.request
+
+    return urllib.request.urlopen(url, timeout=SERVE_WAIT_S)
+
+
+@torch.no_grad()
+def serve_qwen(name_limit: str, launches: dict) -> None:
+    """Qwen3-TTS-0.6B (phase 7's models): QwenSlotServer(slots=4) over 4
+    requests of 24-40 frames, two admitted mid-decode, on the default route
+    (kernel 11), on "all" (kernels 11, 13 in the predictor, 14) and int8
+    "mlp_q8" (11, 15); all rows busy against the solo pipeline; one talker
+    step of a spliced masked batch per route against the twins."""
+    import tts_tpu_torch.models.qwen_tts as mq
+    from tts_tpu_torch.models.qwen_tts import qwen3_stack_step
+    from tts_tpu_torch.ops import decode_mlp, decode_qkv
+    from tts_tpu_torch.runtime.qwen import QwenDecodeConfig, QwenTTSPipeline
+    from tts_tpu_torch.serving.continuous_qwen import QwenSlotServer
+
+    cfg, ccfg, params, cparams = qwen_models()
+    t = cfg.talker
+    talker, pred = t.num_layers, (cfg.num_code_groups - 1) * cfg.predictor.num_layers
+    prompts = [QWEN_IDS, np.arange(5, 20, dtype=np.int32)[None],
+               np.arange(40, 90, dtype=np.int32)[None], np.array([[7, 1, 4]], np.int32)]
+    caps = [40, 32, 24, 36]
+
+    def pipe_for(route, quantize=None, frames=48):
+        return QwenTTSPipeline(params, cfg, cparams, ccfg,
+                               QwenDecodeConfig(max_frames=frames, fused_decode=route),
+                               quantize=quantize)
+
+    base = pipe_for(None)
+    reqs = [base.build_prefill_embeds(p, QWEN_LANG) for p in prompts]
+    per_step = {
+        "default": {"fused_qkv_rope": talker + pred},
+        "all": {"fused_qkv_rope": talker + pred, "decode_gqa_attention": pred,
+                "fused_out_mlp": talker + pred},
+        "mlp_q8": {"fused_qkv_rope": talker + pred, "fused_out_mlp_q8": talker + pred}}
+    base.synthesize_from_prefill(*reqs[3])                          # warm-up
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    for route, pipe in (("default", base), ("all", pipe_for("all")),
+                        ("mlp_q8", pipe_for("mlp_q8", quantize=8, frames=16))):
+        # int8 "mlp_q8": shorter requests in chunks of 4 steps
+        rcaps = caps if route != "mlp_q8" else [16, 12, 16, 12]
+        srv = QwenSlotServer(pipe, slots=SERVE_SLOTS, chunk=16 if route != "mlp_q8" else 4)
+        sync_free(srv)
+        parts = time_parts(srv)
+        LAUNCHES.clear()
+        try:
+            futs, done, outs = serve_staggered(
+                srv, [lambda i=i: srv.submit(*reqs[i], max_frames=rcaps[i]) for i in (0, 1)],
+                [lambda i=i: srv.submit(*reqs[i], max_frames=rcaps[i]) for i in (2, 3)])
+            agg_out, agg_wall = ([], 1.0)
+            if route == "default":
+                # 48 frames: 3 whole chunks (a request's frames are its steps)
+                agg_out, agg_wall, parts = serve_rate(
+                    [lambda i=i: srv.submit(*reqs[i], max_frames=48) for i in range(SERVE_SLOTS)],
+                    parts)
+        finally:
+            srv.close()
+        grew = serve_grew({}, QWEN_KERNELS)
+        for i, ((wav, n), cap) in enumerate(zip(outs + agg_out, rcaps + [48] * len(agg_out))):
+            if n != cap or wav.dtype != np.int16 or len(wav) != n * ccfg.total_upsample \
+                    or not wav.any():
+                raise AssertionError(f"Qwen {route} request {i}: {n} frames, {len(wav)} "
+                                     f"{wav.dtype} samples; expected {cap} frames")
+        if srv.stats.admissions_mid_decode < 1:
+            raise AssertionError(f"Qwen {route}: no request was admitted mid-decode")
+        steps = srv.stats.chunks * srv.chunk
+        serve_expect(f"Qwen slot server {route!r}", grew,
+                     {k: v * steps for k, v in per_step[route].items()})
+        print(f"  Qwen {route!r}: {len(outs)} requests (caps {rcaps}), "
+              f"{srv.stats.admissions_mid_decode} admitted mid-decode, {srv.stats.chunks} "
+              f"chunks, launches {grew}", flush=True)
+        for k, n in grew.items():
+            launches[k] = launches.get(k, 0) + n
+        if route == "default":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, st = base.synthesize_from_prefill(*reqs[0])
+            serve_report(name_limit, "qwen", "frames", (sum(n for _, n in agg_out), agg_wall),
+                         (st["frames"], time.perf_counter() - t0), srv, grew, {"route": route},
+                         parts)
+        if route in ("default", "all"):
+            s = spliced_state(srv, [(*reqs[i], None) for i in range(SERVE_SLOTS)],
+                              [48] * SERVE_SLOTS)
+            kv_valid = torch.arange(srv.kv_max, device="cuda")[None, :] >= s["kvf"][:, None]
+            x = params["talker_codec_embed"][torch.tensor([5, 9, 17, 3], device="cuda")][:, None]
+            pos = s["kv"].length
+
+            def step(p, dt, route=route, s=s, kv_valid=kv_valid, x=x, pos=pos):
+                kv = type(s["kv"])(s["kv"].k.to(dt).clone(), s["kv"].v.to(dt).clone(), pos)
+                return qwen3_stack_step(p["talker"], x.to(dt), kv, t,
+                                        p["rope_cos"][pos:pos + 1].to(dt),
+                                        p["rope_sin"][pos:pos + 1].to(dt), kv_valid=kv_valid,
+                                        fused="step" if route == "default" else route)[0]
+
+            serve_step_check(f"Qwen talker step {route!r}", step, mq, {
+                "fused_qkv_rope": decode_qkv.fused_qkv_rope_plain,
+                "fused_out_mlp": decode_mlp.fused_out_mlp_plain}, params, SERVE_SLOTS)
+            if route == "default":
+                profile_chunk("Qwen", srv, s, name_limit)
+        del pipe
+
+
+@torch.no_grad()
+def serve_indextts(name_limit: str, launches: dict) -> None:
+    """IndexTTS-1.5 (phase 9's models and reference): IndexTTSSlotServer(
+    slots=4) over 4 requests of 48-96 tokens, two admitted mid-decode, each
+    finished row vocoded through kernel 10; one refused submit past the mel
+    positions; all rows busy against the solo pipeline; one GPT step of a
+    spliced masked batch against the twins."""
+    import tts_tpu_torch.models.indextts as mi
+    from tts_tpu_torch.models.indextts import gpt_step
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope_plain
+    from tts_tpu_torch.runtime.indextts import IndexTTSPipeline
+    from tts_tpu_torch.serving.continuous_indextts import IndexTTSSlotServer
+
+    cfg, vcfg, params = indextts_models()
+    pipe = IndexTTSPipeline(params, cfg, vcfg)
+    rate = vcfg.sample_rate
+    tt = np.arange(6 * rate) / rate
+    sig = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
+           + 0.05 * np.random.default_rng(12).standard_normal(tt.size))
+    ref = pipe.encode_reference((sig * 12000).astype(np.int16))
+    prompts = [INDEX_IDS, np.arange(5, 20, dtype=np.int32)[None],
+               np.arange(40, 60, dtype=np.int32)[None], np.array([[7, 1, 4]], np.int32)]
+    caps = [96, 80, 48, 64]
+    names = ("fused_qkv_rope", "fused_qkv_attn", "amp_block_fused")
+    pipe.synthesize_ids(prompts[3], ref, max_gen=16)                 # warm-up
+    torch.cuda.synchronize()
+    srv = IndexTTSSlotServer(pipe, slots=SERVE_SLOTS, max_gen=96, ref=ref)
+    sync_free(srv)
+    parts = time_parts(srv)
+    table = int(params["gpt"]["mel_pos"].shape[0])
+    try:
+        srv.submit(prompts[0], max_gen=table + 1)
+        raise AssertionError("IndexTTS: a cap past the mel positions was admitted")
+    except ValueError as e:
+        print(f"  IndexTTS: max_gen {table + 1} refused: {e}", flush=True)
+    LAUNCHES.clear()
+    try:
+        futs, done, outs = serve_staggered(
+            srv, [lambda i=i: srv.submit(prompts[i], max_gen=caps[i]) for i in (0, 1)],
+            [lambda i=i: srv.submit(prompts[i], max_gen=caps[i]) for i in (2, 3)])
+        agg_out, agg_wall, parts = serve_rate(
+            [lambda i=i: srv.submit(prompts[i], max_gen=96) for i in range(SERVE_SLOTS)], parts)
+    finally:
+        srv.close()
+    grew = serve_grew({}, names)
+    all_caps = caps + [96] * SERVE_SLOTS
+    k10 = 0
+    for i, ((wav, n), cap) in enumerate(zip(outs + agg_out, all_caps)):
+        nf = cap - 2
+        k10 += kernel10_per_call(vcfg, min(max(8, -(-nf // 8) * 8), srv.gbuf))
+        if n != cap or wav.dtype != np.int16 or len(wav) != nf * vcfg.total_upsample \
+                or not wav.any():
+            raise AssertionError(f"IndexTTS request {i}: {n} tokens, {len(wav)} {wav.dtype} "
+                                 f"samples; expected {cap} tokens")
+    if srv.stats.admissions_mid_decode < 1:
+        raise AssertionError("IndexTTS: no request was admitted mid-decode")
+    steps = srv.stats.chunks * srv.chunk
+    serve_expect("IndexTTS slot server", grew, {"fused_qkv_rope": cfg.gpt_layers * steps,
+                                                "amp_block_fused": k10})
+    for k, n in grew.items():
+        launches[k] = launches.get(k, 0) + n
+
+    s = spliced_state(srv, [(prompts[i], ref) for i in range(SERVE_SLOTS)], [96] * SERVE_SLOTS)
+    kv_valid = srv._row_valid(s["kvf"], s["tlen"])
+
+    def step(p, dt):
+        gpt = p["gpt"]
+        kv = type(s["kv"])(s["kv"].k.to(dt).clone(), s["kv"].v.to(dt).clone(), s["kv"].length)
+        h = (gpt["mel_embed"][s["tok"]] + gpt["mel_pos"][s["cnt"]])[:, None]
+        return gpt_step(gpt, h, kv, s["vec"], cfg, kv_valid, fused=True)[0]
+
+    serve_step_check("IndexTTS GPT step", step, mi, {"fused_qkv_rope": fused_qkv_rope_plain},
+                     {"gpt": params["gpt"]}, SERVE_SLOTS)
+    profile_chunk("IndexTTS", srv, s, name_limit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st = pipe.synthesize_ids(prompts[0], ref, max_gen=96)
+    serve_report(name_limit, "indextts", "tokens", (sum(n for _, n in agg_out), agg_wall),
+                 (st.tokens, time.perf_counter() - t0), srv, grew,
+                 {"kernel10_per_vocoder_call": k10 / len(all_caps)}, parts)
+
+
+@torch.no_grad()
+def serve_voxcpm(name_limit: str, launches: dict) -> None:
+    """VoxCPM-2 (phase 10's models): VoxCPMSlotServer(slots=4) over 3
+    requests of 12-20 latents (min_latents = max_latents: the random stop
+    head cannot end a row), one admitted mid-decode, each row's noise from
+    its own generator; all rows busy against the solo pipeline; one dual-LM
+    step of a spliced masked batch against the twins."""
+    import tts_tpu_torch.models.voxcpm as vm
+    from tts_tpu_torch.models.voxcpm import voxcpm_main_step, voxcpm_v2_config
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope_plain
+    from tts_tpu_torch.runtime.voxcpm import VoxCPMDecodeConfig, VoxCPMPipeline
+    from tts_tpu_torch.serving.continuous_voxcpm import VoxCPMSlotServer
+
+    cfg = voxcpm_v2_config()
+    params, vae = voxcpm_models(cfg, 30)
+    pipe = VoxCPMPipeline(params, cfg, vae, VoxCPMDecodeConfig(max_latents=VOX_LATENTS,
+                                                               min_latents=VOX_LATENTS))
+    layers = cfg.base.num_layers + cfg.residual.num_layers
+
+    def seg(i):
+        flat = np.concatenate([VOX_PROMPT[0], VOX_TARGET[0][:24 + i], [cfg.audio_start_id]])
+        return [("text", flat.astype(np.int32))]
+
+    caps = [20, 16, 12]
+    names = ("fused_qkv_rope", "fused_qkv_attn")
+    pipe.synthesize_ids(VOX_PROMPT, VOX_TARGET[:, :2])              # warm-up
+    torch.cuda.synchronize()
+    srv = VoxCPMSlotServer(pipe, slots=SERVE_SLOTS)
+    sync_free(srv)
+    parts = time_parts(srv)
+    LAUNCHES.clear()
+    try:
+        futs, done, outs = serve_staggered(
+            srv, [lambda i=i: srv.submit_segments(seg(i), None, caps[i], seed=i) for i in (0, 1)],
+            [lambda: srv.submit_segments(seg(2), None, caps[2], seed=2)])
+        agg_out, agg_wall, parts = serve_rate(
+            [lambda i=i: srv.submit_segments(seg(i), None, 16, seed=i)
+             for i in range(SERVE_SLOTS)], parts)
+    finally:
+        srv.close()
+    grew = serve_grew({}, names)
+    spl = cfg.samples_per_latent
+    for i, ((wav, n), cap) in enumerate(zip(outs + agg_out, caps + [16] * SERVE_SLOTS)):
+        if n != cap or wav.dtype != np.int16 or len(wav) != n * spl or not wav.any():
+            raise AssertionError(f"VoxCPM request {i}: {n} latents, {len(wav)} {wav.dtype} "
+                                 f"samples; expected {cap} latents")
+    if srv.stats.admissions_mid_decode < 1:
+        raise AssertionError("VoxCPM: no request was admitted mid-decode")
+    steps = srv.stats.chunks * srv.chunk
+    serve_expect("VoxCPM slot server", grew, {"fused_qkv_rope": layers * steps})
+    for k, n in grew.items():
+        launches[k] = launches.get(k, 0) + n
+
+    payloads = [(srv._payload(seg(i), seed=i), None) for i in range(SERVE_SLOTS)]
+    s = spliced_state(srv, payloads, [40] * SERVE_SLOTS)
+    kv_valid = torch.arange(srv.kv_max, device="cuda")[None, :] >= s["kvf"][:, None]
+    ids = torch.tensor([5, 9, 17, 3], device="cuda")
+
+    def step(p, dt):
+        def c(kv):
+            return type(kv)(kv.k.to(dt).clone(), kv.v.to(dt).clone(), kv.length)
+        h = p["embed"][ids][:, None].to(dt)
+        return voxcpm_main_step(p, h, h, 0, c(s["base_kv"]), c(s["res_kv"]), cfg,
+                                kv_valid=kv_valid, fused="step")[0]
+
+    serve_step_check("VoxCPM dual-LM step", step, vm, {"fused_qkv_rope": fused_qkv_rope_plain},
+                     params, SERVE_SLOTS)
+    profile_chunk("VoxCPM-2", srv, s, name_limit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st = pipe.synthesize_ids(VOX_PROMPT, VOX_TARGET)
+    serve_report(name_limit, "voxcpm", "latents", (sum(n for _, n in agg_out), agg_wall),
+                 (st["latents"], time.perf_counter() - t0), srv, grew, {}, parts)
+
+
+def run_serving(name_limit: str) -> dict:
+    """Phase 11: the four slot servers at full width, and the HTTP front-end
+    over Kani's. Returns the launch counts of their serving runs."""
+    launches: dict = {}
+    for fn in (serve_kani, serve_qwen, serve_indextts, serve_voxcpm):
+        t0 = time.perf_counter()
+        fn(name_limit, launches)
+        torch.cuda.synchronize()
+        print(f"  ({fn.__name__} {time.perf_counter() - t0:.1f} s)", flush=True)
+    return launches
+
+
 def profile_one(label: str, fn, classes, name_limit: str, per: tuple | None = None,
                 out_path: str | None = None) -> None:
     """torch.profiler over one fn() after a warm-up: device kernel time by
@@ -3612,10 +4305,11 @@ def main() -> None:
                          "int8), one BigVGAN call, one IndexTTS request and one "
                          "VoxCPM-2 request, the Kani, Qwen, BigVGAN, IndexTTS "
                          "and VoxCPM tables into DIR")
-    ap.add_argument("--families", default="f5,kani,qwen,bigvgan,indextts,voxcpm",
+    ap.add_argument("--families", default="f5,kani,qwen,bigvgan,indextts,voxcpm,serving",
                     help="the pipeline phases to run after phase 2, by family: "
                          "f5 (3-5c), kani (6), qwen (7), bigvgan (8, 8c), indextts (9), "
-                         "voxcpm (10); default all (the smoke run's contract)")
+                         "voxcpm (10), serving (11); default all (the smoke run's "
+                         "contract)")
     args = ap.parse_args()
     fams = set(args.families.split(","))
     if args.profile:
@@ -3750,6 +4444,11 @@ def main() -> None:
                 name_limit, per=(VOX_LATENTS, "latent"),
                 out_path=os.path.join(args.profile, "voxcpm_profile.txt"))
         del vox_pipe
+
+    if "serving" in fams:
+        phase("phase 11: serving (continuous-batching slot servers, HTTP)")
+        for k, n in run_serving(name_limit).items():
+            launches[k] = launches.get(k, 0) + n
 
     phase("done")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

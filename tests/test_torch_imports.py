@@ -23,6 +23,10 @@ for name in names:
 from tts_tpu_torch.models.f5 import attention_route, conv_fits, mlp_fits
 from tts_tpu_torch.ops.flash_attention import (flash_attention, flash_onepass_plain,
                                                flash_online_plain)
+# the serving layer's lazy names resolve without JAX too
+import tts_tpu_torch.serving as serving
+for name in serving.__all__:
+    getattr(serving, name)
 assert not any(m.split(".")[0] in ("jax", "tts_tpu") for m, v in sys.modules.items()
                if v is not None), "a jax or tts_tpu module was imported"
 print(len(names))
@@ -46,6 +50,8 @@ def test_port_imports_without_jax():
     # (+ the kernels' modules, quant_matmul, decode_attention, decode_mlp and
     # bigvgan_stage among them), quant, models (qwen_tts, qwen_codec,
     # bigvgan, indextts and voxcpm among them), weights, frontend, runtime
-    # (qwen, vocoder, indextts and voxcpm among them) and their packages;
-    # kernels 4 and 5 live in ops/flash_attention, beside kernel 1
-    assert int(proc.stdout.split()[-1]) >= 51
+    # (qwen, vocoder, indextts, voxcpm and streaming among them), serving
+    # (slots, batcher, server, router, devices, families and the Kani, Qwen,
+    # IndexTTS and VoxCPM slot servers) and their packages; kernels 4 and 5
+    # live in ops/flash_attention, beside kernel 1
+    assert int(proc.stdout.split()[-1]) >= 63

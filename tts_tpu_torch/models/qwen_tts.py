@@ -381,14 +381,19 @@ def next_talker_input(params: dict, frame_ids: torch.Tensor, codec_embed0: torch
 
 def next_talker_input_batch(params: dict, frame_ids: torch.Tensor,
                             codec_embed0: torch.Tensor, trailing_text: torch.Tensor,
-                            gather_id: int, cfg: QwenTTSConfig) -> torch.Tensor:
+                            gather_id, cfg: QwenTTSConfig) -> torch.Tensor:
     """Batched next input: frame_ids (B, 16); codec_embed0 (B, 1, tH);
-    trailing_text (B, Tt, tH); the same gather_id for every row. Returns
-    (B, 1, tH)."""
+    trailing_text (B, Tt, tH); gather_id an int for every row or a (B,)
+    tensor, a row's own (the slot server's rows sit at their own frames).
+    Returns (B, 1, tH)."""
     groups = cfg.num_code_groups - 1
     picked = params["group_embeds"][torch.arange(groups, device=frame_ids.device)[None],
                                     frame_ids[:, 1:].long()]                    # (B, 15, tH)
-    emb = codec_embed0 + trailing_text[:, gather_id:gather_id + 1]
+    if isinstance(gather_id, torch.Tensor):
+        idx = gather_id.long()[:, None, None].expand(-1, 1, trailing_text.shape[2])
+        emb = codec_embed0 + trailing_text.gather(1, idx)
+    else:
+        emb = codec_embed0 + trailing_text[:, gather_id:gather_id + 1]
     for g in range(groups):
         emb = emb + picked[:, g:g + 1]
     return emb

@@ -28,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "build", "launch", "library", "sm_count"]
+__all__ = ["LAUNCHES", "build", "count_launch", "launch", "library", "sm_count"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -37,8 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _LIB_NAME = "libtts_tpu_torch_kernels.so"
 
-# kernel name -> number of wrapper calls that launched it
+# kernel name -> number of wrapper calls that launched it; the slot servers
+# launch from their worker threads, so a count is added under a lock
 LAUNCHES: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -138,7 +140,13 @@ def launch(name: str, argtypes: list, *args, device: torch.device) -> None:
     if err:
         msg = lib.tts_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
-    LAUNCHES[name] += 1
+    count_launch(name)
+
+
+def count_launch(name: str) -> None:
+    """Add one to `name`'s count in LAUNCHES (from any thread)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,6 @@
 """Qwen3-TTS synthesis: the two-level talker / code-predictor decode and the
 12 Hz codec (counterpart of tts_tpu/runtime/qwen.py:QwenTTSPipeline,
-without `synthesize_streaming`, voice clone, the slot server, int4 and
+without `synthesize_streaming`, voice clone, int4 and
 `mesh`, which are not ported yet).
 
 A frame step, as in tts_tpu's while-loop body: talker logits (codec head,
@@ -101,6 +101,10 @@ class QwenTTSPipeline:
     codec decoder's (tts_tpu's layouts, e.g. from
     `weights.convert.params_from_jax` or the models' init functions). Runs
     on the device the params are on."""
+
+    # the 12 Hz codec's native rate (tts_tpu's default; resampling to another
+    # rate is not ported)
+    output_sample_rate = 24000
 
     def __init__(self, params: dict, cfg: QwenTTSConfig, codec_params: dict,
                  codec_cfg: QwenCodecDecoderConfig,

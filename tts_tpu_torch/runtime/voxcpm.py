@@ -1,6 +1,6 @@
 """VoxCPM-1.5 / VoxCPM-2 synthesis: prompt audio + text ids -> speech
 (counterpart of tts_tpu/runtime/voxcpm.py:VoxCPMPipeline, without
-`synthesize_streaming`, the slot server, int4, `mesh` and resampling to
+`synthesize_streaming`, int4, `mesh` and resampling to
 another output rate, which are not ported yet).
 
 A request: one dual-LM prefill over the prompt bucket (64 positions at a
@@ -131,6 +131,19 @@ class VoxCPMPipeline:
         return torch.randn((bsz, cfg.patch_size, cfg.vae.latent_dim), generator=gen,
                            device=self.device)
 
+    def _get_key(self, seed: int) -> torch.Generator:
+        """A request's CFM noise source: a fresh generator seeded from
+        `seed` on the params' device, the one the decode loops draw from."""
+        return torch.Generator(self.device).manual_seed(seed)
+
+    def _vae_dec_fn(self, latents: np.ndarray) -> torch.Tensor:
+        """A streaming window of latents (1, W, patch, latent) -> int16 (1,
+        W * samples_per_latent) on the device (its host copy comes later)."""
+        flat = torch.as_tensor(latents, dtype=torch.float32, device=self.device)
+        flat = flat.reshape(1, -1, self.cfg.vae.latent_dim)
+        wav = vae_decode(self.vae_params["dec"], flat, self.cfg.vae, sr_idx=self._sr_idx)
+        return (wav * 32767.0).to(torch.int16)
+
     def _vocode(self, latents: torch.Tensor) -> np.ndarray:
         """(B, buf, patch, latent) -> int16 (B, buf * samples_per_latent)."""
         cfg = self.cfg
@@ -155,7 +168,7 @@ class VoxCPMPipeline:
             params, h, fe_buf, is_audio, base_kv, res_kv, cfg, valid_len=prefill_len)
         base_kv, res_kv = base_kv.rewind(prefill_len), res_kv.rewind(prefill_len)
 
-        gen = torch.Generator(self.device).manual_seed(seed)
+        gen = self._get_key(seed)
         latents = torch.zeros((1, buf, cfg.patch_size, cfg.vae.latent_dim),
                               device=self.device)
         num, fin = 0, False
@@ -297,7 +310,7 @@ class VoxCPMPipeline:
         dit, _, base_kv, res_kv = voxcpm_main_step(params, h, fe_buf, is_audio, base_kv,
                                                    res_kv, cfg, kv_valid=kv_valid)
 
-        gen = torch.Generator(dev).manual_seed(seed)
+        gen = self._get_key(seed)
         latents = torch.zeros((bsz, buf, cfg.patch_size, cfg.vae.latent_dim), device=dev)
         fin = torch.zeros((bsz,), dtype=torch.bool, device=dev)
         done = torch.full((bsz,), buf, dtype=torch.int32, device=dev)
