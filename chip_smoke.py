@@ -16,6 +16,7 @@
     python3 chip_smoke.py --families bigvgan,indextts   # phases 0-2, 8, 8c, 9
     python3 chip_smoke.py --families voxcpm             # phases 0-2, 10
     python3 chip_smoke.py --families serving            # phases 0-2, 11
+    python3 chip_smoke.py --families serving --servers f5   # phase 11's F5 only
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
@@ -55,7 +56,11 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      at 4 batch rows and at T 16484, a ragged last row tile; the row tiles
      its plan does not pick), with its error, its time beside the twin's
      and a library call's where one exists, and its bound (and the flash
-     kernels' exp floor);
+     kernels' exp floor); last, kernels 1, 2, 3 and 6 at F5's many-request
+     shape, 8 rows of T 1408 (M 11,264): kernel 1 with a kv_len a row, one
+     of them 0 (its rows all zeros), kernels 3 and 6 with a mod vector a
+     row, kernels 7 and 8 with a shared one, kernel 3 beside its cuBLAS
+     yardstick, kernels 6-8 beside torch._int_mm (`check_batch_rows`);
   3. F5Pipeline.synthesize at full F5TTS_v1_Base width (random weights made
      from a seed) on three requests, checking the audio and that every DiT
      block went through the kernels;
@@ -74,6 +79,16 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      quantize="w8a8": the bench request and one DiT forward against the
      twins through kernels 7, 4, 8 and 6 in fp32 (with --profile, one
      request of each under torch.profiler);
+  5d. F5's many-request paths over the bf16 and W8A8 pipelines of phases
+     3 and 5: synthesize_batch of 4 requests (a CFG batch of 8 rows) with
+     682 launches each of kernels 1 and 3 (W8A8: 1, 6, 7, 8) and 31 of
+     kernel 2, each row against its solo run on the row's draw, no further
+     than ROW_SLACK times the twins' rows, aggregate RTF beside the solo
+     runs'; DiT forwards of the 4 requests with a step vector (bf16:
+     kernels 1-3; W8A8: 1, 2, 6, none of 7 and 8) and at one step (W8A8:
+     7, 1, 8, 6) against the fp32 twins; the bench request at
+     layer_cache_interval=2 (352 launches of kernel 1, none of kernel 3),
+     device time beside the exact request's;
   6. KaniPipeline.synthesize_ids at full kani-tts-370m width (random
      weights from a seed, the bench config: 256 new tokens, no stop token):
      greedy bf16 and int8, beam and a batch of 4, checking the audio, that
@@ -128,7 +143,11 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      VoxCPMSlotServer (VoxCPM-2) over 3 requests of 12-20 latents (kernel
      11); for each, one decode step of a spliced, masked batch against the
      twins, the aggregate rate with all 4 rows busy beside the solo
-     pipeline's, and p50/p99 latency.
+     pipeline's, and p50/p99 latency; F5SlotServer(slots=4,
+     chunk_steps=4) over 6 requests, two admitted mid-flight, 22 launches
+     of kernels 1 and 3 and one of 2 a step, each request against its
+     solo run (within ROW_SLACK of a twin server's rows), a W8A8 server
+     (kernel 6, none of 7 and 8), one request over HTTP.
 Phase 2 also runs kernels 11 and 12 at the VoxCPM base-LM shape (B 1, 4, 8;
 pos 49, 64, 96 of a 128-row cache and 1000 of 2048; bf16 and int8; timed
 beside their bounds), and the Kani and VoxCPM checks over four seeds, each
@@ -970,7 +989,144 @@ def check_kernels(gen: torch.Generator) -> dict:
     check_bigvgan_kernel(gen, res)
     check_bigvgan_kernel(gen, res, f32=True)
     time_amp_forms()
+    check_batch_rows(torch.Generator("cuda").manual_seed(4333), res)
     return res
+
+
+def check_batch_rows(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, kernels 1, 2, 3 and 6-8 at the shapes of F5's many-request
+    paths: 4 requests' CFG batch of 8 rows at the bench bucket (T 1408, M
+    11,264), as synthesize_batch and a 4-slot F5SlotServer give them.
+    Kernel 1 with a kv_len a row, one of them 0 (an idle slot: its rows
+    all zeros), kernels 3 and 6 with a mod vector a row (8, 3, D), each
+    against its fp32 twin on the same bf16 inputs (kernel 6 also on fp32
+    activations); device time a call (profiler over 10 calls) beside the
+    twin's and the bound over this run's work (kernel 1: the keys each row
+    keeps); kernel 3 beside its cuBLAS yardstick, kernels 6-8 beside
+    torch._int_mm at their GEMMs' shapes (7 and 8 with one shared mod
+    vector, as a synthesize_batch step gives them)."""
+    from tts_tpu_torch.models.f5 import f5_rope_tables
+    from tts_tpu_torch.ops.dit_mlp import (gemm_plan, mlp_block_fused, mlp_block_fused_q8,
+                                           mlp_block_plain, mlp_block_q8_plain)
+    from tts_tpu_torch.ops.flash_attention import (flash_attention_flat,
+                                                   flash_attention_flat_plain)
+    from tts_tpu_torch.ops.grouped_conv import conv_pos_embed_fused, conv_pos_embed_plain
+    from tts_tpu_torch.ops.quant_matmul import (ln_qkv_q8, ln_qkv_q8_plain,
+                                                out_proj_residual_q8,
+                                                out_proj_residual_q8_plain, q8_plan,
+                                                to_kmajor)
+    from tts_tpu_torch.quant.weight_only import quantize_int8_eager
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    name_limit = card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b, t, d, f, h = 8, 1408, 1024, 2048, 16
+    m = b * t
+
+    # kernel 1: a kv_len a row, one idle row at 0
+    cos, sin = (torch.tensor(a, device="cuda").to(torch.bfloat16).float()
+                for a in f5_rope_tables(t, 64))
+    lens = [1396, 700, 0, 1408, 1200, 64, 1, 1000]
+    kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    qkv = rn(b, t, 3 * h * 64, scale=0.5)
+    got = flash_attention_flat(qkv, cos, sin, kv, heads=h)
+    r = res["flash_attention_flat"]
+    r["max_abs_err"] = max(r["max_abs_err"], check(
+        f"flash_attention_flat B=8 H=16 D=64 T={t} kv_len per row {tuple(lens)}", got,
+        flash_attention_flat_plain(qkv.float(), cos, sin, kv, heads=h)))
+    torch.cuda.synchronize()
+    if got[2].any():
+        raise AssertionError("flash_attention_flat B=8: the kv_len 0 row is not all zeros")
+    one = {}
+    set_bound(one, nbytes(qkv, cos, sin, got), 4 * h * t * sum(lens) * 64, "bf16")
+    print(f"  {name_limit}: flash_attention_flat B 8 (kv_len per row, row 2 at 0: all zeros "
+          f"ok): device time "
+          f"{device_ms(lambda: flash_attention_flat(qkv, cos, sin, kv, heads=h)):.4f} ms a "
+          f"call (profiler over 10 calls, pre-pass and core), twin "
+          f"{device_ms(lambda: flash_attention_flat_plain(qkv, cos, sin, kv, heads=h)):.4f} "
+          f"ms, bound {one['bound_ms']:.4f} ms ({one['bound_by']}, the {sum(lens)} keys kept), "
+          f"exp floor {exp_floor_ms(h * t * sum(lens)):.4f} ms", flush=True)
+    del qkv, got
+
+    # kernel 2
+    x = rn(b, t, d)
+    w1, w2 = rn(31, 64, d, scale=0.02), rn(31, 64, d, scale=0.02)
+    b1, b2 = rn(d, scale=0.1), rn(d, scale=0.1)
+    got = conv_pos_embed_fused(x, w1, b1, w2, b2)
+    r = res["conv_pos_embed_fused"]
+    r["max_abs_err"] = max(r["max_abs_err"], check(
+        f"conv_pos_embed_fused x=(8, {t}, {d}) K=31 groups=16", got,
+        conv_pos_embed_plain(*(a.float() for a in (x, w1, b1, w2, b2)))))
+    one = {}
+    set_bound(one, nbytes(x, w1, b1, w2, b2, got), conv_ops(b, t, d, 31), "bf16")
+    print(f"  {name_limit}: conv_pos_embed_fused B 8 T {t}: device time "
+          f"{device_ms(lambda: conv_pos_embed_fused(x, w1, b1, w2, b2)):.4f} ms a call "
+          f"(profiler over 10 calls, both launches), twin "
+          f"{device_ms(lambda: conv_pos_embed_plain(x, w1, b1, w2, b2)):.4f} ms, bound "
+          f"{one['bound_ms']:.4f} ms ({one['bound_by']})", flush=True)
+    del got
+
+    # kernel 3: a mod vector a row
+    w1, w2 = rn(d, f, scale=0.02), rn(f, d, scale=0.02)
+    b1, b2 = rn(f, scale=0.1), rn(d, scale=0.1)
+    mods = rn(b, 3, d, scale=0.5)
+    args = (x, mods, w1, b1, w2, b2)
+    p1, p2 = gemm_plan(m, f, sms), gemm_plan(m, d, sms)
+    got = mlp_block_fused(*args)
+    r = res["mlp_block_fused"]
+    r["max_abs_err"] = max(r["max_abs_err"], check(
+        f"mlp_block_fused x=(8, {t}, {d}) F={f} mods per-row (8, 3, D) (ff1 bn {p1.bn} x "
+        f"{p1.stages} stages, ff2 bn {p2.bn} x {p2.stages})", got,
+        mlp_block_plain(*(a.float() for a in args))))
+    a1 = x.reshape(m, d)
+    a2 = torch.empty((m, f), dtype=x.dtype, device="cuda").normal_()
+    one = {}
+    set_bound(one, nbytes(*args, got), 4 * m * d * f, "bf16")
+
+    def yardstick():
+        return torch.matmul(a1, w1), torch.matmul(a2, w2)
+
+    print(f"  {name_limit}: mlp_block_fused x=(8, {t}, {d}) per-row mods (M {m}; plans ff1 "
+          f"{p1}, ff2 {p2}): {time_ms(lambda: mlp_block_fused(*args)):.4f} ms by CUDA events "
+          f"(median of 10), device time {device_ms(lambda: mlp_block_fused(*args)):.4f} ms a "
+          f"call (profiler over 10 calls); twin {time_ms(lambda: mlp_block_plain(*args)):.4f} "
+          f"ms by events; bound {one['bound_ms']:.4f} ms ({one['bound_by']}); cuBLAS "
+          f"yardstick, two bf16 torch.matmul at its GEMMs' shapes: "
+          f"{time_ms(yardstick):.4f} ms by events, {device_ms(yardstick):.4f} ms device time",
+          flush=True)
+    del got, a2
+
+    # kernel 6: a mod vector a row, int8 weights K-major
+    q1, q2 = quantize_int8_eager(rn(d, f, scale=0.02)), quantize_int8_eager(rn(f, d, scale=0.02))
+    args = (x, mods, to_kmajor(q1.q), q1.scale, b1, to_kmajor(q2.q), q2.scale, b2)
+    check_q8_call(res, "mlp_block_fused_q8", mlp_block_fused_q8, mlp_block_q8_plain, args,
+                  f"x=(8, {t}, {d}) F={f} mods per-row (8, 3, D) (plans ff1 "
+                  f"{q8_plan(m, f, d, sms, whole_rows=True)}, ff2 {q8_plan(m, d, f, sms)})",
+                  4 * m * d * f)
+    print(f"  {name_limit}: mlp_block_fused_q8 x=(8, {t}, {d}): twin "
+          f"{device_ms(lambda: mlp_block_q8_plain(*args)):.4f} ms device time; yardstick "
+          f"torch._int_mm ({m}x{d} @ {d}x{f} and {m}x{f} @ {f}x{d}) "
+          f"{int_mm_ms(m, d, f):.4f} + {int_mm_ms(m, f, d):.4f} ms device time", flush=True)
+
+    # kernels 7 and 8 at the batch's 8 rows (one shared mod vector: a
+    # synthesize_batch step; a slot server's per-row mods keep them off)
+    n = 3 * d
+    qkv_w, wo = quantize_int8_eager(rn(d, n, scale=0.02)), quantize_int8_eager(rn(d, d, scale=0.02))
+    for name, kernel, plain, args, label, ops, shape in (
+            ("ln_qkv_q8", ln_qkv_q8, ln_qkv_q8_plain,
+             (x, rn(2, d, scale=0.5), to_kmajor(qkv_w.q), qkv_w.scale, rn(n, scale=0.1)),
+             f"x=(8, {t}, {d}) N={n} (plan {q8_plan(m, n, d, sms)})", 2 * m * d * n, (m, d, n)),
+            ("out_proj_residual_q8", out_proj_residual_q8, out_proj_residual_q8_plain,
+             (rn(b, t, d), to_kmajor(wo.q), wo.scale, rn(d, scale=0.1), rn(d, scale=0.5), x),
+             f"o=(8, {t}, {d}) D={d} (plan {q8_plan(m, d, d, sms)})", 2 * m * d * d,
+             (m, d, d))):
+        check_q8_call(res, name, kernel, plain, args, label, ops)
+        print(f"  {name_limit}: {name} 8 rows: twin "
+              f"{device_ms(lambda: plain(*args)):.4f} ms device time; yardstick "
+              f"torch._int_mm ({shape[0]}x{shape[1]} @ {shape[1]}x{shape[2]}) "
+              f"{int_mm_ms(*shape):.4f} ms device time", flush=True)
 
 
 def conv_ops(b: int, t: int, c: int, k: int) -> int:
@@ -2251,7 +2407,7 @@ def twins_in_dit():
         "flash_attention": flash_attention.flash_attention_plain})
 
 
-def check_bf16_forward(pipe, t: int, kv, label: str) -> dict:
+def check_bf16_forward(pipe, t: int, kv, label: str, rows: int = 1, step=3) -> dict:
     """One bf16 DiT forward at T frames through the kernels the routes pick
     on the card, and through their twins in bf16 and in fp32, on the same
     weights (int8 where the pipeline quantized them). As check_step for
@@ -2259,16 +2415,18 @@ def check_bf16_forward(pipe, t: int, kv, label: str) -> dict:
     the bf16 twin route's (22 blocks of bf16 rounding move the output by
     more than 2^-6 on either route). Returns the launches of the kernel
     run. The W8A8 bench bucket (1408 frames, keys masked at 1396) runs
-    kernels 1, 2, 6, 7 and 8; bf16 at T 4608 runs kernel 5."""
+    kernels 1, 2, 6, 7 and 8; bf16 at T 4608 runs kernel 5. `rows`
+    requests make a CFG batch of 2 x rows (kv a (2 x rows,) tensor);
+    `step` an int or a (rows,) step vector on the card."""
     from tts_tpu_torch.models.f5 import dit_forward, f5_rope_tables
     from tts_tpu_torch.ops._build import LAUNCHES
 
     cfg, params = pipe.cfg, pipe.params
 
     gen = torch.Generator("cuda").manual_seed(5)
-    noise = torch.randn((1, t, cfg.n_mels), generator=gen, device="cuda")
-    cond = torch.randn((1, t, cfg.n_mels + cfg.text_dim), generator=gen, device="cuda")
-    drop = torch.randn((1, t, cfg.n_mels + cfg.text_dim), generator=gen, device="cuda")
+    noise = torch.randn((rows, t, cfg.n_mels), generator=gen, device="cuda")
+    cond = torch.randn((rows, t, cfg.n_mels + cfg.text_dim), generator=gen, device="cuda")
+    drop = torch.randn((rows, t, cfg.n_mels + cfg.text_dim), generator=gen, device="cuda")
     if t <= params["rope_cos"].shape[0]:
         cos, sin = params["rope_cos"][:t].float(), params["rope_sin"][:t].float()
     else:   # past the pipeline's tables: the same tables, as long as T
@@ -2277,7 +2435,7 @@ def check_bf16_forward(pipe, t: int, kv, label: str) -> dict:
 
     def fwd(p, dt):
         a, b = dit_forward(p, noise.to(dt), cond.to(dt), drop.to(dt), cos, sin, cfg,
-                           kv_len=kv, step_idx=3)
+                           kv_len=kv, step_idx=step)
         return torch.cat([a, b]).float()
 
     before = dict(LAUNCHES)
@@ -2294,9 +2452,10 @@ def check_bf16_forward(pipe, t: int, kv, label: str) -> dict:
     e_k, e_p = rel(kern), rel(plain)
     ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_p
     kv_l = kv if isinstance(kv, int) else "per row"
-    print(f"  {label} dit_forward ({t} frames, kv_len {kv_l}, step 3), rel L2 against the "
-          f"fp32 twin route: kernels {e_k:.6g}, bf16 twins {e_p:.6g} (limit {STEP_SLACK} "
-          f"x); kernels against bf16 twins {rel(kern, plain):.6g}, launches "
+    step_l = step if isinstance(step, int) else tuple(step.tolist())
+    print(f"  {label} dit_forward ({rows} x {t} frames, kv_len {kv_l}, step {step_l}), rel "
+          f"L2 against the fp32 twin route: kernels {e_k:.6g}, bf16 twins {e_p:.6g} (limit "
+          f"{STEP_SLACK} x); kernels against bf16 twins {rel(kern, plain):.6g}, launches "
           f"{ {k: n for k, n in grew.items() if n} } {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"the {label} kernel route is less accurate than its twins")
@@ -2384,6 +2543,177 @@ def check_f32_forward(pipe, t: int, kv, tol: float = FWD32_TOL,
     return grew
 
 
+# phase 5d's requests and the F5 slot server's: the bench reference (6 s,
+# REF_TEXT) with generated texts of 69-74 bytes, each in the bench request's
+# frame bucket (1408), text bucket (128) and generated-span bucket (832), so
+# a request's solo run takes the buckets of its batch row or slot
+F5_TEXTS = ("word " * 13 + "word", "word " * 13 + "words", "word " * 14 + "wo",
+            " ".join(["word"] * 15), "word " * 14 + "w", "word " * 13 + "wordiest")
+F5_SEED = 17
+# the generated-span bucket of every F5_TEXTS request
+F5_GEN = 832
+
+
+def bench_audio(rate: int) -> np.ndarray:
+    """The bench request's reference: 6 s of noise as int16 PCM."""
+    return (np.random.default_rng(0).standard_normal(int(6.0 * rate)) * 3000).astype(np.int16)
+
+
+def wav_diff(got: np.ndarray, ref: np.ndarray) -> tuple:
+    """(rel L2 of got - ref over ref, max |got - ref| in int16 LSB) of two
+    waveforms of one length."""
+    if got.shape != ref.shape:
+        raise AssertionError(f"waveforms of {got.shape} and {ref.shape} samples")
+    a, b = got.astype(np.float64), ref.astype(np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b)), int(np.abs(a - b).max())
+
+
+def rows_against_solo(pipe, reqs: list, outs: list, noise: np.ndarray) -> tuple:
+    """Each request's solo synthesize with its row of `noise` (the draw its
+    batch row or slot took), against that row's output `outs[b]`. Returns
+    ([(rel L2, max LSB)], solo walls s, solo samples)."""
+    diffs, walls, n = [], [], 0
+    for b, r in enumerate(reqs):
+        torch.cuda.synchronize()
+        solo, st = pipe.synthesize(*r, noise=noise[b:b + 1])
+        diffs.append(wav_diff(outs[b], solo))
+        walls.append(st.wall_s)
+        n += len(solo)
+    return diffs, walls, n
+
+
+def f5_draw(seed: int, rows: int, frames: int, n_mels: int) -> np.ndarray:
+    """The pipeline's start noise for `seed`: one (rows, frames, n_mels)
+    draw from a generator on the card."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return torch.randn((rows, frames, n_mels), generator=gen, device="cuda").cpu().numpy()
+
+
+# a row's difference from its solo run (rel L2 of the int16 waveforms)
+# through the kernels may be this much larger than through the twins on the
+# same requests: bf16 rounding at other points, as STEP_SLACK
+ROW_SLACK = STEP_SLACK
+
+
+def check_rows(label: str, diffs: list, twin: list) -> None:
+    """The kernels' row-vs-solo differences against the twins' on the same
+    requests: the largest at most ROW_SLACK times the twins' largest."""
+    worst, bound = max(d[0] for d in diffs), ROW_SLACK * max(d[0] for d in twin)
+    ok = worst <= bound
+    print(f"  {label}: each row against its solo run (rel L2, max LSB): kernels "
+          f"{[(round(r, 6), n) for r, n in diffs]}, twins "
+          f"{[(round(r, 6), n) for r, n in twin]}; bound {ROW_SLACK} x the twins' largest "
+          f"= {bound:.6g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: a row differs from its solo run by more than the "
+                             f"twins' rows do")
+
+
+@torch.no_grad()
+def run_f5_many(pipe, q8, name_limit: str) -> dict:
+    """Phase 5d: F5's many-request paths at full F5TTS_v1_Base width over
+    phase 3's bf16 and phase 5's W8A8 pipelines. synthesize_batch of 4
+    requests (a CFG batch of 8 rows, M 11,264) in bf16 (682 launches each of
+    kernels 1 and 3, 31 of kernel 2) and W8A8 (682 each of kernels 1, 6, 7,
+    8; 31 of 2); each row against its solo synthesize with the row's draw,
+    beside the same through the twins (`check_rows`); aggregate RTF beside
+    the solo runs'. One DiT forward of the 4 requests with a step vector
+    (bf16: kernels 1, 2, 3; W8A8: 1, 2, 6, none of 7 and 8) and one W8A8
+    forward at one step (7, 1, 8, 6) against the fp32 twins. The bench
+    request at layer_cache_interval=2 (352 launches of kernel 1, 31 of 2,
+    none of 3), device time beside the exact request's. Returns the
+    launches."""
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.f5 import F5Pipeline
+
+    cfg = pipe.cfg
+    depth, steps = cfg.depth, cfg.nfe_steps - 1
+    audio = bench_audio(cfg.sample_rate)
+    reqs = [(audio, REF_TEXT, t) for t in F5_TEXTS[:4]]
+    launches: dict = {}
+
+    def count(grew):
+        for k, n in grew.items():
+            launches[k] = launches.get(k, 0) + n
+
+    frames = pipe._prepare_batch(reqs)[5]
+    noise = f5_draw(F5_SEED, len(reqs), frames, cfg.n_mels)
+    for label, p, want in (
+            ("bf16", pipe, {"flash_attention_flat": depth * steps, "conv_pos_embed_fused": steps,
+                            "mlp_block_fused": depth * steps}),
+            ("W8A8", q8, {"flash_attention_flat": depth * steps, "conv_pos_embed_fused": steps,
+                          **dict.fromkeys(Q8_KERNELS, depth * steps)})):
+        p.synthesize_batch(reqs, seed=1)                  # warm-up
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        outs, st = p.synthesize_batch(reqs, seed=F5_SEED)
+        grew = serve_grew(before, KERNELS)
+        serve_expect(f"{label} synthesize_batch of 4", grew, want)
+        count(grew)
+        lens = [min(g, F5_GEN - 1) * cfg.hop for g in p._prepare_batch(reqs)[4]]
+        if [len(o) for o in outs] != lens or not math.isfinite(st.peak) or \
+                not all(o.any() for o in outs):
+            raise AssertionError(f"{label} batch: {[len(o) for o in outs]} samples (expected "
+                                 f"{lens}), peak {st.peak}")
+        diffs, walls, n_solo = rows_against_solo(p, reqs, outs, noise)
+        with twins_in_dit():
+            touts, _ = p.synthesize_batch(reqs, seed=F5_SEED)
+            tdiffs = rows_against_solo(p, reqs, touts, noise)[0]
+        check_rows(f"{label} synthesize_batch of 4", diffs, tdiffs)
+        rtf_b, rtf_s = st.wall_s / st.audio_s, sum(walls) / (n_solo / cfg.sample_rate)
+        print(f"  {name_limit}: {label} synthesize_batch of 4 (M {2 * len(reqs) * frames}): "
+              f"wall {st.wall_s:.4f} s for {st.audio_s:.3f} s of audio, aggregate RTF "
+              f"{rtf_b:.6f}; the 4 solo runs {sum(walls):.4f} s in all, RTF {rtf_s:.6f}; "
+              f"{rtf_s / rtf_b:.2f}x the solo rate; each row's wait {st.wall_s:.4f} s "
+              f"against a solo run's {statistics.mean(walls):.4f} s "
+              f"({st.wall_s / statistics.mean(walls):.2f}x); peak |wav| {st.peak:.6g}; "
+              f"launches {grew}", flush=True)
+        print("  " + json.dumps({"f5_batch": label, "card": name_limit, "rows": len(reqs),
+                                 "wall_s": st.wall_s, "audio_s": st.audio_s,
+                                 "rtf": rtf_b, "solo_rtf": rtf_s,
+                                 "solo_wall_s": walls, "row_vs_solo": diffs,
+                                 "twin_row_vs_solo": tdiffs}), flush=True)
+
+    durs = pipe._prepare_batch(reqs)[3]
+    kv = torch.tensor(durs * 2, dtype=torch.int32, device="cuda")
+    # the 4 requests at steps 0, 10, 20, 30 (each at its own)
+    tvec = torch.tensor([i * (steps - 1) // 3 for i in range(4)], dtype=torch.int32,
+                        device="cuda")
+    for label, p, step, want in (
+            ("bf16 step vector", pipe, tvec, ("flash_attention_flat", "mlp_block_fused")),
+            ("W8A8 step vector", q8, tvec, ("flash_attention_flat", "mlp_block_fused_q8")),
+            ("W8A8 batch", q8, 3, ("flash_attention_flat",) + Q8_KERNELS)):
+        grew = check_bf16_forward(p, frames, kv, label, rows=len(reqs), step=step)
+        serve_expect(f"{label} dit_forward", grew,
+                     {**dict.fromkeys(want, depth), "conv_pos_embed_fused": 1})
+        count(grew)
+
+    fora = F5Pipeline(pipe.f5, pipe.vocab, pipe.vocos, layer_cache_interval=2)
+    fora.synthesize(audio, REF_TEXT, "word word")         # warm-up
+    torch.cuda.synchronize()
+    before = dict(LAUNCHES)
+    wav, st = fora.synthesize(audio, REF_TEXT, F5_TEXTS[3])
+    grew = serve_grew(before, KERNELS)
+    full = len(range(0, steps, 2))
+    serve_expect("layer_cache_interval=2 bench request", grew,
+                 {"flash_attention_flat": depth * full, "conv_pos_embed_fused": steps})
+    count(grew)
+    if len(wav) != BENCH_SAMPLES or not math.isfinite(st.peak) or not wav.any():
+        raise AssertionError(f"layer_cache_interval=2: {len(wav)} samples, peak {st.peak}")
+    exact, st_e = pipe.synthesize(audio, REF_TEXT, F5_TEXTS[3])
+    rel, lsb = wav_diff(wav, exact)
+    print(f"  {name_limit}: layer_cache_interval=2 bench request: {full} full steps of "
+          f"{steps}, launches {grew}; wall {st.wall_s:.4f} s (RTF {st.rtf:.6f}) against the "
+          f"exact request's {st_e.wall_s:.4f} s (RTF {st_e.rtf:.6f}); its audio against the "
+          f"exact request's: rel L2 {rel:.6g}, max {lsb} LSB (the cache's approximation, "
+          f"reported)", flush=True)
+    for label, p in (("exact", pipe), ("layer_cache_interval=2", fora)):
+        profile_one(f"F5 bf16 bench request, {label}",
+                    lambda p=p: p.synthesize(audio, REF_TEXT, F5_TEXTS[3]), F5_CLASSES,
+                    name_limit)
+    return launches
+
+
 def run_f5_fp32(name_limit: str, profile: bool = False) -> dict:
     """Phase 5c: F5Pipeline in fp32 at full F5TTS_v1_Base width (random
     weights from the bf16 phases' seeds): the bench request through kernel
@@ -2451,6 +2781,19 @@ def run_f5_fp32(name_limit: str, profile: bool = False) -> dict:
     return launches
 
 
+# the F5 kernels' device-time classes (kernel name patterns)
+F5_CLASSES = (("kernel 1 (rope_qk_kernel + flash_flat_kernel)", ("rope_qk", "flash_flat")),
+              ("kernel 4 bf16 (mha_fixed_kernel)", ("mha_fixed",)),
+              ("kernel 5 bf16 (mha_online_kernel)", ("mha_online",)),
+              ("kernels 4-5 fp32 (mha_f32_kernel)", ("mha_f32",)),
+              ("kernel 2 (pos_embed_mish_kernel)", ("pos_embed_mish",)),
+              ("kernel 3 (ln_mod_kernel + dit_gemm_kernel)", ("ln_mod_kernel",
+                                                               "dit_gemm_kernel")),
+              ("kernels 6-8: q8_rows", ("q8_rows",)),
+              ("kernels 6-8: q8_wgmma (s8 wgmma GEMMs)", ("q8_wgmma",)),
+              ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma")))
+
+
 def profile_f5(pipes: dict, name_limit: str) -> None:
     """torch.profiler over one bench request of each F5 pipeline: device
     kernel time by kernel, and the device's idle share (1 - kernel time /
@@ -2467,16 +2810,7 @@ def profile_f5(pipes: dict, name_limit: str) -> None:
     rate = next(iter(pipes.values())).cfg.sample_rate
     audio = (np.random.default_rng(0).standard_normal(int(6.0 * rate)) * 3000).astype(np.int16)
     text = " ".join(["word"] * 15)
-    classes = (("kernel 1 (rope_qk_kernel + flash_flat_kernel)", ("rope_qk", "flash_flat")),
-               ("kernel 4 bf16 (mha_fixed_kernel)", ("mha_fixed",)),
-               ("kernel 5 bf16 (mha_online_kernel)", ("mha_online",)),
-               ("kernels 4-5 fp32 (mha_f32_kernel)", ("mha_f32",)),
-               ("kernel 2 (pos_embed_mish_kernel)", ("pos_embed_mish",)),
-               ("kernel 3 (ln_mod_kernel + dit_gemm_kernel)", ("ln_mod_kernel",
-                                                                "dit_gemm_kernel")),
-               ("kernels 6-8: q8_rows", ("q8_rows",)),
-               ("kernels 6-8: q8_wgmma (s8 wgmma GEMMs)", ("q8_wgmma",)),
-               ("cuBLAS / GEMM", ("nvjet", "gemv", "gemm", "cutlass", "sm90_xmma")))
+    classes = F5_CLASSES
     for label, pipe in pipes.items():
         pipe.synthesize(audio, REF_TEXT, text)
         torch.cuda.synchronize()
@@ -3752,14 +4086,15 @@ def serve_report(name_limit: str, family: str, unit: str, agg: tuple, solo: tupl
                              "launches_per_chunk": per_chunk, **extra}), flush=True)
 
 
-def profile_chunk(label: str, srv, s: dict, name_limit: str) -> None:
+def profile_chunk(label: str, srv, s: dict, name_limit: str,
+                  classes: tuple | None = None) -> None:
     """torch.profiler over one chunk of 4 steps of `s` (after one more as
-    warm-up): launches and device time a step of 4 busy rows, the card's
-    idle share."""
+    warm-up): launches and device time a step of 4 busy rows by `classes`,
+    the card's idle share."""
     with short_chunks(srv):
         profile_one(f"{label} slot-server chunk ({srv.chunk} steps, {SERVE_SLOTS} rows)",
-                    lambda: type(srv)._step_chunk(srv, s), (GEMM_CLASS,), name_limit,
-                    per=(srv.chunk, "step"))
+                    lambda: type(srv)._step_chunk(srv, s), classes or (GEMM_CLASS,),
+                    name_limit, per=(srv.chunk, "step"))
 
 
 def http_post(url: str, body: dict, timeout: float = SERVE_WAIT_S) -> tuple:
@@ -4232,11 +4567,195 @@ def serve_voxcpm(name_limit: str, launches: dict) -> None:
                  (st["latents"], time.perf_counter() - t0), srv, grew, {}, parts)
 
 
-def run_serving(name_limit: str) -> dict:
-    """Phase 11: the four slot servers at full width, and the HTTP front-end
-    over Kani's. Returns the launch counts of their serving runs."""
+@torch.no_grad()
+def serve_f5(name_limit: str, launches: dict) -> None:
+    """F5TTS_v1_Base + Vocos (phase 3's models: bf16, and their W8A8 form):
+    F5SlotServer(slots=4, chunk_steps=4, gen_frames=832) over the six
+    F5_TEXTS requests on the bench reference, the last two admitted
+    mid-flight; each request against its solo synthesize at its seed (the
+    same draw and buckets), beside four requests through a twin server
+    against their twin solo runs (`check_rows`); 22 launches of kernels 1
+    and 3 and one of kernel 2 a step; every chunk under the sync debug mode
+    "error"; each finished row's latent finite; all 4 rows busy against the
+    solo pipeline, p50/p99; one chunk profiled. Then a W8A8 server over 4
+    requests (22 launches of kernels 1 and 6 and one of 2 a step, none of 7
+    and 8: per-row mods) and one request over HTTP through
+    continuous_server("f5")."""
+    import io
+    import wave
+
+    from tts_tpu_torch.models.f5 import F5Config, F5Model
+    from tts_tpu_torch.models.f5 import init_params as f5_init
+    from tts_tpu_torch.models.vocos import VocosConfig, VocosModel
+    from tts_tpu_torch.models.vocos import init_params as vocos_init
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.f5 import F5Pipeline
+    from tts_tpu_torch.serving.continuous_f5 import F5SlotServer
+    from tts_tpu_torch.serving.families import continuous_server
+    from tts_tpu_torch.serving.server import serve_http
+
+    cfg, vcfg = F5Config(), VocosConfig()
+    f5 = F5Model(cfg, f5_init(cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16))
+    vocos = VocosModel(vcfg, vocos_init(vcfg, torch.Generator("cuda").manual_seed(1),
+                                        torch.bfloat16))
+    pipe = F5Pipeline(f5, {" ": 0}, vocos)
+    audio = bench_audio(cfg.sample_rate)
+    names = ("flash_attention_flat", "conv_pos_embed_fused", "mlp_block_fused") + Q8_KERNELS
+    depth = cfg.depth
+    seeds = [F5_SEED + i for i in range(len(F5_TEXTS))]
+    reqs = [(audio, REF_TEXT, t) for t in F5_TEXTS]
+    noise = np.concatenate([f5_draw(sd, 1, 1408, cfg.n_mels) for sd in seeds])
+    lens = [min(g, F5_GEN - 1) * cfg.hop for g in pipe._prepare_batch(reqs)[4]]
+    pipe.synthesize(audio, REF_TEXT, "word word")                    # warm-up
+    torch.cuda.synchronize()
+
+    def server(p, checked=True):
+        srv = F5SlotServer(p, slots=SERVE_SLOTS, chunk_steps=4, gen_frames=F5_GEN)
+        if checked:
+            sync_free(srv)
+            real = srv._finalize
+
+            def finalize(s, b, n):
+                # at the boundary, outside a chunk: the row's latent finite
+                if not bool(torch.isfinite(s["x"][b]).all()):
+                    raise AssertionError(f"F5 slot row {b}: its latent is not finite")
+                return real(s, b, n)
+
+            srv._finalize = finalize
+        return srv
+
+    def sub(srv, i):
+        return lambda: srv.submit(audio, REF_TEXT, F5_TEXTS[i], seed=seeds[i])
+
+    def expect_lens(label, outs, idx):
+        got = [(n, len(w)) for w, n in outs]
+        if got != [(lens[i], lens[i]) for i in idx] or not all(w.any() for w, _ in outs):
+            raise AssertionError(f"{label}: (n, samples) {got}, expected "
+                                 f"{[lens[i] for i in idx]}")
+
+    srv = server(pipe)
+    parts = time_parts(srv)
+    before = dict(LAUNCHES)
+    try:
+        futs, done, outs = serve_staggered(srv, [sub(srv, i) for i in range(4)],
+                                           [sub(srv, 4), sub(srv, 5)])
+        chunks1, mid1 = srv.stats.chunks, srv.stats.admissions_mid_decode
+        agg_out, agg_wall, parts = serve_rate([sub(srv, i) for i in range(SERVE_SLOTS)],
+                                              parts)
+    finally:
+        srv.close()
+    grew = serve_grew(before, names)
+    steps = srv.stats.chunks * srv.chunk
+    serve_expect("F5 slot server", grew, {"flash_attention_flat": depth * steps,
+                                          "conv_pos_embed_fused": steps,
+                                          "mlp_block_fused": depth * steps})
+    expect_lens("F5 slot server", outs, range(6))
+    expect_lens("F5 slot server, all rows busy", agg_out, range(SERVE_SLOTS))
+    if mid1 < 1:
+        raise AssertionError("F5: no request was admitted mid-flight")
+    diffs, walls, _ = rows_against_solo(pipe, reqs, [w for w, _ in outs], noise)
+    with twins_in_dit():
+        tsrv = server(pipe, checked=False)
+        try:
+            tfuts = [sub(tsrv, i)() for i in range(SERVE_SLOTS)]
+            touts = [f.result(timeout=SERVE_WAIT_S)[0] for f in tfuts]
+        finally:
+            tsrv.close()
+        tdiffs = rows_against_solo(pipe, reqs[:SERVE_SLOTS], touts, noise)[0]
+    print(f"  F5 staggered run: {len(futs)} requests, {chunks1} chunks, {mid1} admitted "
+          f"mid-flight, done {[round(done[i] - min(done.values()), 3) for i in range(6)]} s",
+          flush=True)
+    check_rows("F5 slot server (bf16)", diffs, tdiffs)
+
+    s = spliced_state(srv, [srv._payload(audio, REF_TEXT, F5_TEXTS[i], seed=seeds[i])
+                            for i in range(SERVE_SLOTS)], [cfg.nfe_steps] * SERVE_SLOTS)
+    profile_chunk("F5", srv, s, name_limit, F5_CLASSES)
+    del s
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav, _ = pipe.synthesize(audio, REF_TEXT, F5_TEXTS[3])
+    solo = (len(wav) / cfg.sample_rate, time.perf_counter() - t0)
+    agg_audio = sum(len(w) for w, _ in agg_out) / cfg.sample_rate
+    serve_report(name_limit, "f5", "audio_s", (agg_audio, agg_wall), solo, srv, grew,
+                 {"row_vs_solo": diffs, "twin_row_vs_solo": tdiffs,
+                  "solo_wall_s": walls}, parts)
+    for k, n in grew.items():
+        launches[k] = launches.get(k, 0) + n
+
+    # W8A8: the per-row mods keep kernels 7 and 8 off; kernel 6 takes them
+    q8 = F5Pipeline(f5, {" ": 0}, vocos, quantize="w8a8")
+    srv = server(q8)
+    before = dict(LAUNCHES)
+    try:
+        outs = [f.result(timeout=SERVE_WAIT_S)
+                for f in [sub(srv, i)() for i in range(SERVE_SLOTS)]]
+    finally:
+        srv.close()
+    grew = serve_grew(before, names)
+    steps = srv.stats.chunks * srv.chunk
+    serve_expect("F5 W8A8 slot server", grew, {"flash_attention_flat": depth * steps,
+                                               "conv_pos_embed_fused": steps,
+                                               "mlp_block_fused_q8": depth * steps})
+    expect_lens("F5 W8A8 slot server", outs, range(SERVE_SLOTS))
+    qdiffs = rows_against_solo(q8, reqs[:SERVE_SLOTS], [w for w, _ in outs], noise)[0]
+    print(f"  F5 W8A8 slot server: {SERVE_SLOTS} requests, {srv.stats.chunks} chunks, "
+          f"launches {grew}; each row against its solo W8A8 run (rel L2, max LSB; the solo "
+          f"route quantizes the attention input through kernels 7 and 8, the slot rows "
+          f"take the int8-weight projections: reported, not bounded) "
+          f"{[(round(r, 6), n) for r, n in qdiffs]}", flush=True)
+    for k, n in grew.items():
+        launches[k] = launches.get(k, 0) + n
+    del q8
+
+    # the HTTP front-end over an F5 slot server
+    tts = continuous_server("f5", pipe, ref_audio=audio, ref_text=REF_TEXT,
+                            slots=SERVE_SLOTS, chunk_steps=4, gen_frames=F5_GEN)
+    sync_free(tts.batcher)
+    httpd = serve_http(tts, "127.0.0.1", 0)
+    url = "http://%s:%d" % httpd.server_address
+    try:
+        before = dict(LAUNCHES)
+        status, headers, body = http_post(f"{url}/synthesize", {"gen_text": F5_TEXTS[3]})
+        if status != 200 or headers.get("Content-Type") != "audio/wav" or body[:4] != b"RIFF":
+            raise AssertionError(f"F5 HTTP /synthesize: status {status}, headers {headers}")
+        with wave.open(io.BytesIO(body)) as w:
+            if (w.getframerate(), w.getsampwidth(), w.getnchannels()) != \
+                    (cfg.sample_rate, 2, 1):
+                raise AssertionError("F5 HTTP: not a 16-bit mono WAV at 24 kHz")
+            pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        with urllib_open(f"{url}/stats") as resp:
+            stats = json.loads(resp.read())
+        if len(pcm) != BENCH_SAMPLES or stats.get("completed") != 1:
+            raise AssertionError(f"F5 HTTP: {len(pcm)} samples, /stats {stats}")
+        grew = serve_grew(before, names)
+        steps = tts.batcher.stats.chunks * tts.batcher.chunk
+        serve_expect("F5 HTTP", grew, {"flash_attention_flat": depth * steps,
+                                       "conv_pos_embed_fused": steps,
+                                       "mlp_block_fused": depth * steps})
+        rel, lsb = wav_diff(pcm, pipe.synthesize(audio, REF_TEXT, F5_TEXTS[3])[0])
+        print(f"  F5 over HTTP (127.0.0.1): POST /synthesize {{\"gen_text\": ...}} gave "
+              f"{len(pcm)} samples (16-bit mono WAV at {cfg.sample_rate} Hz); against the "
+              f"solo request at the pipeline's seed: rel L2 {rel:.6g}, max {lsb} LSB; /stats "
+              f"{stats}", flush=True)
+        for k, n in grew.items():
+            launches[k] = launches.get(k, 0) + n
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        tts.close()
+
+
+SERVERS = {"kani": serve_kani, "qwen": serve_qwen, "indextts": serve_indextts,
+           "voxcpm": serve_voxcpm, "f5": serve_f5}
+
+
+def run_serving(name_limit: str, servers) -> dict:
+    """Phase 11: the five slot servers at full width (`servers`: the names
+    of SERVERS to run), and the HTTP front-end over Kani's and F5's.
+    Returns the launch counts of their serving runs."""
     launches: dict = {}
-    for fn in (serve_kani, serve_qwen, serve_indextts, serve_voxcpm):
+    for fn in (SERVERS[k] for k in SERVERS if k in servers):
         t0 = time.perf_counter()
         fn(name_limit, launches)
         torch.cuda.synchronize()
@@ -4307,9 +4826,12 @@ def main() -> None:
                          "and VoxCPM tables into DIR")
     ap.add_argument("--families", default="f5,kani,qwen,bigvgan,indextts,voxcpm,serving",
                     help="the pipeline phases to run after phase 2, by family: "
-                         "f5 (3-5c), kani (6), qwen (7), bigvgan (8, 8c), indextts (9), "
+                         "f5 (3-5d), kani (6), qwen (7), bigvgan (8, 8c), indextts (9), "
                          "voxcpm (10), serving (11); default all (the smoke run's "
                          "contract)")
+    ap.add_argument("--servers", default=",".join(SERVERS),
+                    help="the slot servers phase 11 runs: " + ", ".join(SERVERS) +
+                         "; default all")
     args = ap.parse_args()
     fams = set(args.families.split(","))
     if args.profile:
@@ -4369,11 +4891,15 @@ def main() -> None:
         if args.profile:
             phase("phase 5b: torch.profiler over one F5 request, bf16 and W8A8")
             profile_f5({"bf16": pipe, "w8a8": q8_pipe}, name_limit)
-        del q8_pipe, pipe
 
         phase("phase 5c: F5Pipeline in fp32")
         launches.update(run_f5_fp32(name_limit, profile=bool(args.profile)))
         launches["flash_attention_online"] += k5
+
+        phase("phase 5d: F5's many requests: synthesize_batch, step vectors, the layer cache")
+        for k, n in run_f5_many(pipe, q8_pipe, name_limit).items():
+            launches[k] = launches.get(k, 0) + n
+        del q8_pipe, pipe
 
     if "kani" in fams:
         phase("phase 6: KaniPipeline.synthesize_ids")
@@ -4447,7 +4973,7 @@ def main() -> None:
 
     if "serving" in fams:
         phase("phase 11: serving (continuous-batching slot servers, HTTP)")
-        for k, n in run_serving(name_limit).items():
+        for k, n in run_serving(name_limit, set(args.servers.split(","))).items():
             launches[k] = launches.get(k, 0) + n
 
     phase("done")

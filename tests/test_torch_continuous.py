@@ -13,8 +13,13 @@ params_from_jax, then
     under the masked, spliced batch;
   * streams, `continuous_server` behind `serve_http`, a router over two
     Kani servers;
-  * the IndexTTS mel-position refusal, `continuous_server("f5")` raising,
-    and `pipelines_for_devices` on explicit CPU devices.
+  * the IndexTTS mel-position refusal, `continuous_server("f5")` without
+    its reference refused, and `pipelines_for_devices` on explicit CPU
+    devices;
+  * F5's slot server (a diffusion decode: each row at its own NFE step)
+    against tts_tpu's slot server and the port's solo `synthesize` within
+    F5_LSB, a mid-flight admission, a queue past the slots, the bucket
+    refusals, and `continuous_server("f5")` over HTTP and over a router.
 
 Audio: the same codes go through the codec in both packages, which agree
 to ~1e-6 in float; int16 truncation may put a sample on an integer
@@ -34,6 +39,7 @@ import torch
 from tts_tpu_torch.weights.convert import params_from_jax
 
 AUDIO_LSB = 1
+F5_LSB = 2                # F5 audio: float waveforms through another route
 LAT_TOL = 1e-4            # VoxCPM latents, rel L2
 RESULT_S = 120            # every Future.result bound
 
@@ -642,9 +648,11 @@ def test_indextts_refuses_positions_past_the_table():
 
 
 def test_continuous_server_f5_raises():
+    """F5 without its reference audio and text is refused, as in tts_tpu;
+    an unknown family too."""
     from tts_tpu_torch.serving.families import continuous_server
 
-    with pytest.raises(NotImplementedError, match="1.7"):
+    with pytest.raises(ValueError, match="ref_audio"):
         continuous_server("f5", object())
     with pytest.raises(ValueError, match="unknown family"):
         continuous_server("nope", object())
@@ -697,3 +705,191 @@ def test_kani_router_over_two_servers():
     for wav, n in outs:
         assert n == ref[1]
         assert np.abs(wav.astype(np.int32) - ref[0].astype(np.int32)).max() <= AUDIO_LSB
+
+
+# ------------------------------------------------------------ F5
+
+class F5:
+    """tests/test_continuous_f5.py's setup at head dim 64 (kernel 1's route,
+    its twin here, T 128) with the vocoder louder (magnitude bias e^3):
+    frames=128 is the bucket _prepare picks solo, so a slot request's audio
+    is its solo synthesize's. tts_tpu's per-request jax.random draw goes to
+    the port as noise=."""
+
+    CFG = dict(dim=128, depth=2, heads=2, head_dim=64, ff_mult=2, text_dim=32,
+               conv_layers=1, conv_mult=2, n_mels=16, vocab_size=20, nfe_steps=8,
+               n_fft=256, hop=64, win_length=256, max_signal_len=128, freq_embed_dim=16)
+    VOC = dict(input_channels=16, dim=32, intermediate_dim=64, num_layers=2, n_fft=256,
+               hop=64)
+    VOCAB = {c: i for i, c in enumerate("abcdefghij ")}
+    slot_kw = dict(chunk_steps=2, frames=128, audio_bucket=32768, text_bucket=64)
+    REF = "abc def"
+
+    def __init__(self):
+        from tts_tpu.models import f5 as jf5
+        from tts_tpu.models import vocos as jvo
+        from tts_tpu.runtime.f5 import F5Pipeline as JP
+        from tts_tpu_torch.models import f5 as tf5
+        from tts_tpu_torch.models import vocos as tvo
+        from tts_tpu_torch.runtime.f5 import F5Pipeline
+
+        self.jc, tc = jf5.F5Config(**self.CFG), tf5.F5Config(**self.CFG)
+        jvc, tvc = jvo.VocosConfig(**self.VOC), tvo.VocosConfig(**self.VOC)
+        jp = jf5.init_params(self.jc, jax.random.key(0))
+        jvp = jvo.init_params(jvc, jax.random.key(1))
+        jvp["head"]["b"] = jvp["head"]["b"].at[:jvc.n_fft // 2 + 1].set(3.0)
+        self.jpipe = JP(jp, self.jc, self.VOCAB, jvp, jvc)
+        self.tpipe = F5Pipeline(tf5.F5Model(tc, _conv(jp)), self.VOCAB,
+                                tvo.VocosModel(tvc, _conv(jvp)))
+        self.audio = (np.random.default_rng(0).standard_normal(2000) * 3000).astype(np.int16)
+
+    def noise(self, seed: int) -> np.ndarray:
+        return np.asarray(jax.random.normal(jax.random.key(seed),
+                                            (1, 128, self.jc.n_mels)))
+
+    def solo(self, gen_text: str, seed: int) -> np.ndarray:
+        """The port's solo synthesize with tts_tpu's draw for `seed`."""
+        return self.tpipe.synthesize(self.audio, self.REF, gen_text, noise=self.noise(seed))[0]
+
+    def server(self, slots: int = 2, **kw):
+        from tts_tpu_torch.serving.continuous_f5 import F5SlotServer
+
+        return F5SlotServer(self.tpipe, slots=slots, **{**self.slot_kw, **kw})
+
+    def submit(self, srv, gen_text: str, seed: int):
+        return srv.submit(self.audio, self.REF, gen_text, noise=self.noise(seed))
+
+
+@pytest.fixture(scope="module")
+def f5():
+    return F5()
+
+
+def test_f5_slot_server_matches_jax_slot_server_and_solo(f5):
+    """One request through tts_tpu's slot server and the port's, beside the
+    port's solo synthesize."""
+    from tts_tpu.serving.continuous_f5 import F5SlotServer as JaxServer
+
+    jsrv = JaxServer(f5.jpipe, slots=2, **f5.slot_kw)
+    try:
+        jwav, jn = jsrv.submit(f5.audio, f5.REF, "hij abc", seed=7).result(timeout=RESULT_S)
+    finally:
+        jsrv.close()
+    srv = f5.server()
+    try:
+        wav, n = f5.submit(srv, "hij abc", 7).result(timeout=RESULT_S)
+    finally:
+        srv.close()
+    solo = f5.solo("hij abc", 7)
+    assert n == jn == len(wav) == len(solo)
+    _same_audio(wav, np.asarray(jwav), F5_LSB)
+    _same_audio(wav, solo, F5_LSB)
+
+
+def test_f5_mid_flight_admission_matches_solo(f5):
+    """B admitted while A is mid-integration (the worker held after its
+    first chunk): each integrates its own step schedule and gives its solo
+    audio."""
+    srv = f5.server(chunk_steps=1)
+    try:
+        first, go = _hold_after_first_chunk(srv)
+        fut_a = f5.submit(srv, "hij abc", 7)
+        _wait_first_chunk(first, fut_a)
+        fut_b = f5.submit(srv, "gij fab", 11)
+        go.set()
+        outs = [fut_a.result(timeout=RESULT_S), fut_b.result(timeout=RESULT_S)]
+        assert srv.stats.admissions_mid_decode == 1
+    finally:
+        go.set()
+        srv.close()
+    for (wav, n), (text, seed) in zip(outs, (("hij abc", 7), ("gij fab", 11))):
+        solo = f5.solo(text, seed)
+        assert n == len(solo)
+        _same_audio(wav, solo, F5_LSB)
+
+
+def test_f5_queue_past_slots_all_complete(f5):
+    srv = f5.server(chunk_steps=2)
+    texts = ["hij abc", "gij fab", "abc fgh", "jih cba", "bca hij"]
+    try:
+        futs = [srv.submit(f5.audio, f5.REF, t, seed=3 + i) for i, t in enumerate(texts)]
+        outs = [f.result(timeout=RESULT_S) for f in futs]
+    finally:
+        srv.close()
+    assert all(n == len(wav) > 0 and wav.dtype == np.int16 for wav, n in outs)
+    assert srv.stats.snapshot()["completed"] == len(texts)
+
+
+def test_f5_submit_refuses_past_its_buckets(f5):
+    """tts_tpu's refusals: audio, text, frame and generated-span buckets; a
+    noise of another shape too. Nothing is queued."""
+    for kw, args, match in (
+            ({}, (np.zeros(40000, np.int16), f5.REF, "hij abc"), "audio"),
+            ({}, (f5.audio, f5.REF, "hij abc " * 12), "text"),
+            ({"frames": 64}, (f5.audio, f5.REF, "hij abcde"), "frame bucket"),
+            ({"gen_frames": 16}, (f5.audio, f5.REF, "hij abc"), "gen_frames")):
+        srv = f5.server(**kw)
+        try:
+            with pytest.raises(ValueError, match=match):
+                srv.submit(*args)
+            with pytest.raises(ValueError, match="noise"):
+                srv.submit(f5.audio, f5.REF, "a", noise=np.zeros((1, 32, 16), np.float32))
+            assert srv.stats.requests == 0
+        finally:
+            srv.close()
+
+
+@pytest.mark.parametrize("devices", [None, ["cpu", "cpu"]])
+def test_f5_server_over_http(f5, devices):
+    """continuous_server("f5") behind serve_http (one pipeline, or two
+    behind a SlotRouter): a POST {"gen_text"} returns the WAV of the solo
+    request at the pipeline's seed."""
+    import http.client
+    import io
+    import json
+    import wave
+
+    from tts_tpu_torch.serving.devices import pipelines_for_devices
+    from tts_tpu_torch.serving.families import continuous_server
+    from tts_tpu_torch.serving.server import serve_http
+
+    pipe = f5.tpipe if devices is None else pipelines_for_devices(f5.tpipe, devices)
+    tts = continuous_server("f5", pipe, ref_audio=f5.audio, ref_text=f5.REF, slots=2,
+                            **f5.slot_kw)
+    httpd = serve_http(tts, port=0)
+    try:
+        conn = http.client.HTTPConnection(*httpd.server_address, timeout=RESULT_S)
+        conn.request("POST", "/synthesize", json.dumps({"gen_text": "hij abc"}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200
+        with wave.open(io.BytesIO(resp.read())) as w:
+            assert w.getframerate() == tts.sample_rate == 24000
+            pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        conn.close()
+        st = tts.stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        tts.close()
+    solo, _ = f5.tpipe.synthesize(f5.audio, f5.REF, "hij abc")
+    _same_audio(pcm, solo, F5_LSB)
+    assert st["completed"] == 1 and st.get("servers", 1) == (1 if devices is None else 2)
+
+
+def test_f5_killed_row_stays_finished(f5):
+    """A row killed mid-integration (deadline or cancel) stays finished
+    through later chunks: its step and latent freeze, where tts_tpu's
+    chunk would set it running again."""
+    srv = f5.server(chunk_steps=2)
+    srv.close()
+    s = srv._fresh_base()
+    srv._admit_row(s, 0, srv._payload(f5.audio, f5.REF, "hij abc", seed=7), 8)
+    srv._admit_row(s, 1, srv._payload(f5.audio, f5.REF, "gij fab", seed=11), 8)
+    srv._step_chunk(s)
+    srv._kill_row(s, 0)
+    x0, t0 = s["x"][0].clone(), s["tvec"].clone()
+    srv._step_chunk(s)
+    assert s["fin"][0] and not s["fin"][1]
+    assert s["tvec"][0] == t0[0] == 2 and s["tvec"][1] == t0[1] + 2
+    torch.testing.assert_close(s["x"][0], x0, atol=0, rtol=0)

@@ -26,6 +26,13 @@ attention as above, kernel 8 (out-proj + gated residual), then kernel 6
 (the MLP). The gates add the CUDA kernels' own weight-shape limits
 (`q8_fits`), as tts_tpu's encode its VMEM limits; F5TTS_v1_Base is within
 them. int4 weights take the plain chain with a quantized `dense`.
+
+Many requests (tts_tpu's step-vector mode): `dit_forward` takes B requests
+as a CFG batch of 2B rows with a (2B,) kv_len, and a (B,) step vector on
+the device where each request sits at its own NFE step; the per-row AdaLN
+vectors keep kernels 7 and 8 (one shared vector) off and go into kernels 3
+and 6 as (2B, 3, D) mods. `dit_forward_cached` is tts_tpu's FORA layer
+cache (attention and FF outputs kept across steps).
 """
 from __future__ import annotations
 
@@ -63,6 +70,7 @@ __all__ = [
     "text_embedding",
     "input_embedding",
     "dit_forward",
+    "dit_forward_cached",
     "init_params",
 ]
 
@@ -385,27 +393,115 @@ def _dit_block(p: dict, x: torch.Tensor, mod: torch.Tensor, rope_cos, rope_sin,
     return x + gate_mlp * (dense(h, f2["w"]) + f2["b"])
 
 
-def dit_forward(params: dict, noise: torch.Tensor, cond: torch.Tensor,
-                cond_drop: torch.Tensor, rope_cos: torch.Tensor,
-                rope_sin: torch.Tensor, cfg: F5Config, kv_len=None,
-                step_idx: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """One CFG-paired DiT pass at NFE step `step_idx`. noise (1, T, n_mels);
-    cond/cond_drop (1, T, n_mels + text_dim). Returns (pred_cond,
-    pred_uncond), each (1, T, n_mels) in noise's dtype. kv_len masks keys
-    of the batch-2 pair: an int or a (2,) tensor."""
-    x = input_embedding(params, torch.cat([noise, noise], dim=0),
-                        torch.cat([cond, cond_drop], dim=0))         # (2, T, dim)
-    for li, p in enumerate(params["blocks"]):
-        mod = params["ada_table"][step_idx, li].reshape(1, 1, -1)
-        x = _dit_block(p, x, mod, rope_cos, rope_sin, cfg, kv_len)
-    scale, shift = torch.chunk(params["norm_out_table"][step_idx].reshape(1, 1, -1),
-                               2, dim=-1)
+def _pair(v: torch.Tensor) -> torch.Tensor:
+    """(·,) or (B, ·) modulation rows -> (1, 1, ·) or (2B, 1, ·): per-row
+    vectors double for the CFG pair, cond rows 0..B-1 then uncond rows
+    B..2B-1 (tts_tpu's `_pair`; the rows of cat([noise, noise]))."""
+    v = v.reshape(-1, 1, v.shape[-1])
+    return torch.cat([v, v], dim=0) if v.shape[0] > 1 else v
+
+
+def _step_mods(params: dict, step_idx) -> tuple[list, torch.Tensor]:
+    """The AdaLN vectors of NFE step `step_idx` from the precomputed
+    tables: ([each block's (Bm, 1, 6*dim)], the final norm's (Bm, 1,
+    2*dim)). An int step gives Bm = 1. A (B,) integer tensor on the device
+    (each row at its own step) is gathered on the device, never read back,
+    and paired for the CFG batch (Bm = 2B; 1 where B = 1)."""
+    if not isinstance(step_idx, torch.Tensor):
+        mods = [params["ada_table"][step_idx, li].reshape(1, 1, -1)
+                for li in range(len(params["blocks"]))]
+        return mods, params["norm_out_table"][step_idx].reshape(1, 1, -1)
+    idx = step_idx.reshape(-1).long()
+    ada = params["ada_table"].index_select(0, idx)                 # (B, depth, 6*dim)
+    mods = [_pair(ada[:, li]) for li in range(len(params["blocks"]))]
+    return mods, _pair(params["norm_out_table"].index_select(0, idx))
+
+
+def _dit_out(params: dict, x: torch.Tensor, mod: torch.Tensor,
+             noise: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Final modulated LayerNorm and output projection of the CFG batch:
+    (pred_cond, pred_uncond) in noise's dtype."""
+    scale, shift = torch.chunk(mod, 2, dim=-1)
     x = layer_norm(x, eps=1e-6) * (1 + scale) + shift
     # the output projection accumulates and returns fp32, as tts_tpu's
     # preferred_element_type=float32
     x = torch.matmul(x.float(), params["proj_out"]["w"].float()) + params["proj_out"]["b"]
     nb = noise.shape[0]
     return x[:nb].to(noise.dtype), x[nb:].to(noise.dtype)
+
+
+def dit_forward(params: dict, noise: torch.Tensor, cond: torch.Tensor,
+                cond_drop: torch.Tensor, rope_cos: torch.Tensor,
+                rope_sin: torch.Tensor, cfg: F5Config, kv_len=None,
+                step_idx: int | torch.Tensor = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """One CFG-paired DiT pass at NFE step `step_idx`. noise (B, T, n_mels);
+    cond/cond_drop (B, T, n_mels + text_dim). Returns (pred_cond,
+    pred_uncond), each (B, T, n_mels) in noise's dtype. kv_len masks keys
+    of the batch-2B pair: an int or a (2B,) tensor (each row's length, cond
+    half then uncond half).
+
+    step_idx: an int, or a (B,) integer tensor on the device with each
+    request at its own step (continuous serving). Per-row AdaLN vectors
+    then ride as (2B, 1, ·): kernels 7 and 8, which take one shared vector,
+    give way to the plain attention projections, and kernels 3 and 6 take
+    the (2B, 3, D) mods (`_dit_block`)."""
+    x = input_embedding(params, torch.cat([noise, noise], dim=0),
+                        torch.cat([cond, cond_drop], dim=0))         # (2B, T, dim)
+    mods, out_mod = _step_mods(params, step_idx)
+    for p, mod in zip(params["blocks"], mods):
+        x = _dit_block(p, x, mod, rope_cos, rope_sin, cfg, kv_len)
+    return _dit_out(params, x, out_mod, noise)
+
+
+def _dit_block_cached(p: dict, x: torch.Tensor, mod: torch.Tensor, rope_cos, rope_sin,
+                      cfg: F5Config, kv_len, cached_attn, cached_ff, use_cache: bool):
+    """`_dit_block` with the attention and FF sub-module outputs exposed
+    for cross-step caching (tts_tpu's `_dit_block_cached`). With use_cache
+    the sub-modules are skipped and the previous full step's outputs are
+    re-modulated by this step's AdaLN gates (the FORA-style layer cache,
+    arXiv:2509.08696). The outputs must stay apart, so attention takes
+    `_dit_attention` (kernel 1 where `attention_route` says "flat") and the
+    MLP the plain chain: kernel 3 folds its output into the gated residual.
+    Returns (x, attn_out, ff_out)."""
+    s1, c1, g1, s2, c2, g2 = torch.chunk(mod, 6, dim=-1)
+    if use_cache:
+        attn_out, ff_out = cached_attn, cached_ff
+    else:
+        norm = layer_norm(x, eps=1e-6) * (1 + c1) + s1
+        attn_out = _dit_attention(p["attn"], norm, rope_cos, rope_sin, cfg.heads,
+                                  cfg.head_dim, kv_len)
+    x = x + g1 * attn_out
+    if not use_cache:
+        norm = layer_norm(x, eps=1e-6) * (1 + c2) + s2
+        h = F.gelu(dense(norm, p["ff1"]["w"]) + p["ff1"]["b"], approximate="tanh")
+        ff_out = dense(h, p["ff2"]["w"]) + p["ff2"]["b"]
+    return x + g2 * ff_out, attn_out, ff_out
+
+
+def dit_forward_cached(params: dict, noise: torch.Tensor, cond: torch.Tensor,
+                       cond_drop: torch.Tensor, rope_cos: torch.Tensor,
+                       rope_sin: torch.Tensor, cfg: F5Config, kv_len, cache,
+                       use_cache: bool, step_idx: int = 0):
+    """`dit_forward` carrying each block's (attention, FF) outputs across
+    NFE steps (tts_tpu's `dit_forward_cached`). cache: ((depth, 2B, T, dim)
+    attention, (depth, 2B, T, dim) FF) in the compute dtype, read only
+    where use_cache (a Python bool; None is taken on a full step). Returns
+    (pred, pred_uncond, cache): the new cache on a full step, the same
+    tensors on a cached one."""
+    x = input_embedding(params, torch.cat([noise, noise], dim=0),
+                        torch.cat([cond, cond_drop], dim=0))
+    mods, out_mod = _step_mods(params, step_idx)
+    new_attn, new_ff = [], []
+    for i, (p, mod) in enumerate(zip(params["blocks"], mods)):
+        x, a, f = _dit_block_cached(p, x, mod, rope_cos, rope_sin, cfg, kv_len,
+                                    cache[0][i] if use_cache else None,
+                                    cache[1][i] if use_cache else None, use_cache)
+        new_attn.append(a)
+        new_ff.append(f)
+    if not use_cache:
+        cache = (torch.stack(new_attn), torch.stack(new_ff))
+    pred, pred1 = _dit_out(params, x, out_mod, noise)
+    return pred, pred1, cache
 
 
 # --------------------------------------------------------------------------

@@ -15,6 +15,8 @@ import dataclasses
 
 import torch
 
+from ..models._params import ParamTree
+
 __all__ = ["pipeline_device", "replicate_pipeline", "pipelines_for_devices"]
 
 
@@ -56,8 +58,9 @@ def pipeline_device(pipe) -> torch.device:
 
 def replicate_pipeline(pipe, device):
     """A shallow copy of `pipe` with every attribute that contains tensors
-    moved to `device` (nested dicts, lists and quantized leaves included),
-    and its `device` attribute, where it has one, set to it. Other
+    moved to `device` (nested dicts, lists and quantized leaves included;
+    a model module, as F5's `F5Model`, rebuilt over its moved tree), and
+    its `device` attribute, where it has one, set to it. Other
     attributes (configs, caches of host values) are shared with the
     original."""
     device = torch.device(device)
@@ -65,6 +68,8 @@ def replicate_pipeline(pipe, device):
     for name, val in list(vars(clone).items()):
         if isinstance(val, torch.device):
             setattr(clone, name, device)
+        elif isinstance(val, ParamTree):
+            setattr(clone, name, type(val)(val.cfg, _to(val.params, device)))
         elif any(True for _ in _leaves(val)):
             setattr(clone, name, _to(val, device))
     return clone

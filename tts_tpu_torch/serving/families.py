@@ -13,9 +13,9 @@ Request bodies (POST /synthesize and /stream):
   voxcpm    {"ids": [[...]], "prompt_ids": [[...]]?}
   indextts  {"ids": [[...]]} (the reference conditioning fixed at server
              construction; no /stream: BigVGAN is not causal)
-
-F5 is not served here yet: its slot server needs a DiT forward with a
-per-row step and kv length (ROADMAP 1.7).
+  f5        {"gen_text": "...", "speed": 1.0?} (the reference audio and text
+             fixed at server construction; no /stream: the DiT denoises
+             the whole utterance at once)
 """
 from __future__ import annotations
 
@@ -32,11 +32,13 @@ def default_request_body(family: str) -> dict:
 
 
 def continuous_server(family: str, pipe, *, slots: int = 4,
-                      max_tokens: int | None = None, ref=None,
-                      stream_kw: dict | None = None, **slot_kw) -> TTSServer:
+                      max_tokens: int | None = None, ref=None, ref_audio=None,
+                      ref_text: str | None = None, stream_kw: dict | None = None,
+                      **slot_kw) -> TTSServer:
     """Build a continuous-batching TTSServer over `pipe` for `family`.
 
-    indextts needs `ref`, the encode_reference(...) tuple. Extra `slot_kw`
+    indextts needs `ref`, the encode_reference(...) tuple; f5 needs
+    `ref_audio` (mono int16 or float) and `ref_text`. Extra `slot_kw`
     pass through to the family's slot server (chunk, buckets, max_seq_len,
     queue_limit, ...); `stream_kw` to its submit_stream (window,
     left_context).
@@ -121,9 +123,19 @@ def continuous_server(family: str, pipe, *, slots: int = 4,
                 ids, max_gen=max_tokens, deadline_s=deadline_s))
 
     if family == "f5":
-        raise NotImplementedError(
-            "continuous serving of F5 is not ported: F5SlotServer needs dit_forward with a "
-            "(B,) step vector and per-row kv_len, which lands with F5's synthesize_batch "
-            "(ROADMAP 1.7)")
+        from .continuous_f5 import F5SlotServer
+
+        if ref_audio is None or ref_text is None:
+            raise ValueError("f5 serving needs ref_audio= and ref_text=")
+        slot = _route(lambda p: F5SlotServer(p, slots=slots, **slot_kw))
+
+        def from_json(body):
+            return body["gen_text"], float(body.get("speed", 1.0))
+
+        return TTSServer.continuous(
+            slot, sample_rate=pipe.cfg.sample_rate,
+            submit=lambda req, deadline_s=None: slot.submit(
+                ref_audio, ref_text, req[0], speed=req[1], deadline_s=deadline_s),
+            request_from_json=from_json)
 
     raise ValueError(f"unknown family {family!r}")
