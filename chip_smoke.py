@@ -61,6 +61,13 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      of them 0 (its rows all zeros), kernels 3 and 6 with a mod vector a
      row, kernels 7 and 8 with a shared one, kernel 3 beside its cuBLAS
      yardstick, kernels 6-8 beside torch._int_mm (`check_batch_rows`);
+     then kernels 16 and 17, the ablation sets, at their scripts' shapes:
+     kernel 16's four epilogue variants and its base over clusters of 2 and
+     4 CTAs, kernel 17's twelve variants, each against its fp32 twin, base
+     at scale 1 bitwise kernel 1, kvsplit1 bitwise base, the splits
+     bitwise over two calls, full bitwise kernel 6, each timed beside its
+     twin, its bound and SDPA or torch._int_mm (no later phase may launch
+     either);
   3. F5Pipeline.synthesize at full F5TTS_v1_Base width (random weights made
      from a seed) on three requests, checking the audio and that every DiT
      block went through the kernels;
@@ -163,12 +170,16 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+# the card's yardstick (peak rates, bounds, timers), shared with the
+# ablation entry points
+from tts_tpu_torch.ablations import (PEAK_OPS_S, card, chain_ms, device_ms, exp_floor_ms,
+                                     nbytes, set_bound)
 
 # kernel error tolerance, relative to max |reference|, and on the relative
 # L2 error: the reference is the twin in fp32 on the same bf16 inputs, so
@@ -235,32 +246,17 @@ KERNELS = {
                                "tts_tpu/ops/flash_attention.py:384"),
     "amp_block_fused_f32": ("tts_tpu_torch/csrc/amp_block.cu",
                             "tts_tpu/ops/bigvgan_stage.py:202"),
+    "flash_variant": ("tts_tpu_torch/csrc/flash_variants.cu",
+                      "benchmarks/flash_ablation.py:159"),
+    "mlp_block_q8_variant": ("tts_tpu_torch/csrc/dit_mlp_q8_variants.cu",
+                             "benchmarks/q8_kernel_profile.py:56"),
 }
 F5_KERNELS = ("flash_attention_flat", "conv_pos_embed_fused", "mlp_block_fused")
 Q8_KERNELS = ("mlp_block_fused_q8", "ln_qkv_q8", "out_proj_residual_q8")
 QWEN_KERNELS = ("fused_qkv_rope", "fused_qkv_attn", "decode_gqa_attention",
                 "fused_out_mlp", "fused_out_mlp_q8")
-
-# the least time the card could take (H100 SXM datasheet: dense tensor-core
-# peaks, HBM rate, at the full 700 W)
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
-
-
-def set_bound(r: dict, nbytes: float, ops: float, kind: str, ops2: float = 0.0,
-              kind2: str = "fp32") -> None:
-    """r["bound_ms"]: the larger of the bytes moved (each input read once,
-    each output written once) over the memory rate and the operations over
-    the peak rate of their type (`ops2` a second kind of operations, as
-    kernel 10's fp32 activation work beside its bf16 tensor-core work)."""
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = max(ops / PEAK_OPS_S[kind], ops2 / PEAK_OPS_S[kind2])
-    r["bound_ms"] = max(t_bytes, t_ops) * 1e3
-    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+# kernels 16 and 17, the ablation sets: on no pipeline's path
+ABLATION_KERNELS = ("flash_variant", "mlp_block_q8_variant")
 
 # the Kani bench request (bench.py:258-264): 5 prompt ids, 256 new tokens
 KANI_IDS = [[3, 9, 4, 17, 2]]
@@ -270,14 +266,6 @@ KANI_NEW = 256
 QWEN_IDS = np.arange(5, 37, dtype=np.int32)[None]
 QWEN_LANG = 3
 QWEN_FRAMES = 120
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0].strip()
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
@@ -295,43 +283,6 @@ def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def device_ms(fn, iters: int = 10, only: str | None = None) -> float:
-    """Device time of one call: the kernels' time in a torch.profiler trace
-    of `iters` calls, over iters. A decode kernel's single-call event time
-    is mostly the host's enqueue, the card waiting on it. `only` keeps the
-    kernels whose name holds it (a wrapper's own kernels, without the casts
-    it issues around them). A trace that holds none of those kernels is
-    taken again, up to three in all (on the card a trace has come back
-    without them, once in several runs); then CUDA events around the
-    `iters` calls give the time (enqueue and every kernel of the call
-    included), and the line says so."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        ms = sum(e.device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and (only is None or only in e.key)) / 1e3 / iters
-        if ms > 0:
-            return ms
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / iters
-    what = "device time" if only is None else f"a {only!r} kernel"
-    print(f"  (three profiler traces held no {what}: CUDA events over {iters} calls, "
-          f"{ms:.4f} ms a call)", flush=True)
-    return ms
 
 
 def check(label: str, got: torch.Tensor, ref: torch.Tensor, tol: float = TOL,
@@ -990,7 +941,204 @@ def check_kernels(gen: torch.Generator) -> dict:
     check_bigvgan_kernel(gen, res, f32=True)
     time_amp_forms()
     check_batch_rows(torch.Generator("cuda").manual_seed(4333), res)
+    check_flash_variants(torch.Generator("cuda").manual_seed(4335), res)
+    check_mlp_variants(torch.Generator("cuda").manual_seed(4337), res)
     return res
+
+
+def bitwise(label: str, got: torch.Tensor, ref: torch.Tensor) -> None:
+    """got equal to ref bit for bit."""
+    torch.cuda.synchronize()
+    ok = torch.equal(got, ref)
+    print(f"  {label}: {'bitwise equal' if ok else 'DIFFERS'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: not bitwise equal")
+
+
+def check_flash_variants(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, kernel 16 at benchmarks/flash_ablation.py's shape (B 2, T
+    1408, H 16, D 64, scale 1/8, every key kept; qkv ~ N(0, 0.25), its
+    RoPE tables): each epilogue variant and base over 2 and 4 CTAs against
+    its fp32 twin on the same bf16 inputs (TOL); base at scale 1 bitwise
+    kernel 1 with kv_len T, kvsplit1 bitwise base, kvsplit2 and 4 bitwise
+    the same over two calls; device time a call (profiler over 10 calls,
+    its two launches, the RoPE pre-pass and the core, as the entry point
+    times them) beside the twin's, CUDA events over a chain of 10, the
+    bound and the exp floor, and SDPA's device time with the same scale."""
+    from tts_tpu_torch.ops.flash_attention import flash_attention_flat
+    from tts_tpu_torch.ops.flash_variants import VARIANTS, flash_variant, flash_variant_plain
+
+    name_limit = card()
+    b, t, h, d, scale = 2, 1408, 16, 64, 0.125
+    qkv = (torch.randn((b, t, 3 * h * d), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    ang = torch.arange(t, device="cuda")[:, None] \
+        * torch.exp(-torch.arange(d, device="cuda")[None, :] / 10.0)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    r = res["flash_variant"]
+    one = {}
+    # qkv, the tables and the (B, T, H*D) bf16 output; QK^T and PV over every key
+    set_bound(one, nbytes(qkv, cos, sin) + b * t * h * d * 2, 4 * b * h * t * t * d, "bf16")
+
+    def call(variant, split=1, s=scale):
+        return flash_variant(qkv, cos, sin, heads=h, scale=s, variant=variant, kv_split=split)
+
+    for variant, split in [(v, 1) for v in VARIANTS] + [("base", 2), ("base", 4)]:
+        label = f"flash_variant {variant} kv_split {split} B={b} T={t} H={h} D={d}"
+        got = call(variant, split)
+        r["max_abs_err"] = max(r["max_abs_err"], check(label, got, flash_variant_plain(
+            qkv.float(), cos, sin, heads=h, scale=scale, variant=variant)))
+        if split > 1:
+            bitwise(f"{label}, two calls", got, call(variant, split))
+        ms = device_ms(lambda: call(variant, split), only=("rope_qk", "flash_variant"))
+        plain = device_ms(lambda: flash_variant_plain(qkv, cos, sin, heads=h, scale=scale,
+                                                      variant=variant))
+        print(f"  {name_limit}: {label}: device time {ms:.4f} ms a call (profiler over 10 "
+              f"calls, both launches), chained {chain_ms(lambda: call(variant, split)):.4f} ms "
+              f"(CUDA events over a chain of 10), twin {plain:.4f} ms, bound "
+              f"{one['bound_ms']:.4f} ms ({one['bound_by']}), exp floor "
+              f"{exp_floor_ms(b * h * t * t):.4f} ms", flush=True)
+        if (variant, split) == ("base", 1):
+            r.update(ms=ms, plain_ms=plain, **one)
+            r["library_ms"] = sdpa_ms(qkv, cos, sin, t, device=True, scale=scale)
+            print(f"  {name_limit}: flash_variant library call, SDPA at scale {scale}: device "
+                  f"time {r['library_ms']:.4f} ms", flush=True)
+            bitwise("flash_variant kvsplit1 against base", call("base", 1), got)
+            bitwise("flash_variant base at scale 1 against flash_attention_flat, kv_len T",
+                    call("base", 1, 1.0), flash_attention_flat(qkv, cos, sin, heads=h))
+        del got
+
+
+# kernel 17's variants by the function they compute: within a class only
+# fp32 rounding differs (a one-pass LN, tanh through exp2, sigmoid through
+# exp2), across classes the function itself
+MLP_CLASSES = (("full", "ln_one_pass", "gelu_tanh_exp2"), ("no_ln",), ("fixed_scale",),
+               ("gelu_bf16", "lean"), ("gelu_relu",), ("no_gelu",),
+               ("gelu_sig", "gelu_sig_exp2"))
+# the pairs of one class whose kernels must still differ in at least one
+# bit of their output (their row pass or tanh rounds otherwise); gelu_sig's
+# expf and gelu_sig_exp2's exp2f may round alike, and are only printed
+MLP_ROUNDING_PAIRS = (("ln_one_pass", "full"), ("gelu_tanh_exp2", "full"),
+                      ("lean", "gelu_bf16"))
+# a variant's MLP term (out - x) against the twins on the same bf16
+# arguments, which round where the kernels do: of what separates its own
+# twin's term V from the twin's term U of each variant of another class,
+# the kernel must reproduce at least this share, <g - U, V - U> / |V - U|^2
+# (1 for its own twin, 0 for U's; above 1/2 is nearer V than U). A kernel
+# that ran another class's hooks scores about 0 against that class; the
+# right ones score 0.79 (gelu_bf16 and lean, whose tanh.approx.bf16x2 is
+# not the twin's correctly rounded bf16 tanh) to 1.0 on the card.
+MLP_DISPATCH_SHARE = 0.5
+
+
+def check_mlp_variants(gen: torch.Generator, res: dict) -> None:
+    """Phase 2, kernel 17 at benchmarks/q8_kernel_profile.py's shape (B 2, T
+    1408, D 1024, F 2048) and inputs (x ~ N(0, 1) and mods ~ N(0, 0.01) in
+    bf16, int8 weights uniform in [-127, 127] stored K-major, scales 1e-3,
+    zero biases): each variant but dots_only against its fp32 twin on the
+    same inputs, out and out - x (the MLP term) within TOL, and told apart
+    from the other variants (MLP_DISPATCH_SHARE, MLP_ROUNDING_PAIRS);
+    dots_only, integer work, bitwise its twin rounded to bf16, on x spread
+    x20 so that ff1's acc >> 8 wraps (a share of its values, printed);
+    full bitwise kernel 6; device time a
+    call of its int8 kernels (profiler over 10 calls) beside the twin's,
+    full's less it (the marginal), the bound, and torch._int_mm at the two
+    GEMMs' shapes. max_abs_err leaves dots_only out."""
+    from tts_tpu_torch.ops.dit_mlp import mlp_block_fused_q8
+    from tts_tpu_torch.ops.dit_mlp_q8_variants import (VARIANTS, mlp_block_q8_variant,
+                                                       mlp_block_q8_variant_plain)
+    from tts_tpu_torch.ops.quant_matmul import to_kmajor
+
+    name_limit = card()
+    b, t, d, f = 2, 1408, 1024, 2048
+    m = b * t
+    x = torch.randn((b, t, d), generator=gen, device="cuda").to(torch.bfloat16)
+    mods = (torch.randn((1, 3, d), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    w1, w2 = (to_kmajor(torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                      dtype=torch.int8)) for shape in ((d, f), (f, d)))
+    s1, s2 = torch.full((f,), 1e-3, device="cuda"), torch.full((d,), 1e-3, device="cuda")
+    args = (x, mods, w1, s1, torch.zeros_like(s1), w2, s2, torch.zeros_like(s2))
+    a32 = [a.float() if a.is_floating_point() else a for a in args]
+    r = res["mlp_block_q8_variant"]
+    one = {}
+    set_bound(one, nbytes(*args, x), 4 * m * d * f, "int8")
+    full_ms = None
+    outs, twins = {}, {}
+    for variant in VARIANTS:
+        label = f"mlp_block_q8_variant {variant} x=({b}, {t}, {d}) F={f}"
+        if VARIANTS[variant] is None:
+            xd = (x.float() * 20.0).to(torch.bfloat16)
+            targs = (xd, *args[1:])
+            got = mlp_block_q8_variant(*targs, variant=variant)
+            acc = torch.trunc(xd.float()).clamp(-128, 127).reshape(m, d).double() @ w1.double()
+            wraps = ((acc.long() >> 8).abs() > 127).float().mean().item()
+            print(f"  {label}, x spread x20: {wraps:.3f} of ff1's acc >> 8 wrap", flush=True)
+            if wraps == 0:
+                raise AssertionError(f"{label}: no acc >> 8 wraps; the check cannot see it")
+            bitwise(f"{label}, x spread x20, against its twin in bf16", got,
+                    mlp_block_q8_variant_plain(*targs, variant=variant))
+            del acc
+        else:
+            targs = args
+            got = mlp_block_q8_variant(*args, variant=variant)
+            ref = mlp_block_q8_variant_plain(*a32, variant=variant)
+            r["max_abs_err"] = max(r["max_abs_err"], check(label, got, ref))
+            check(f"{label}, out - x", got.float() - x.float(), ref - x.float())
+            outs[variant] = got
+            twins[variant] = mlp_block_q8_variant_plain(*args, variant=variant)
+            del ref
+        call = lambda v=variant, a=targs: mlp_block_q8_variant(*a, variant=v)  # noqa: E731
+        ms, plain = device_ms(call, only="q8_"), device_ms(lambda: mlp_block_q8_variant_plain(
+            *targs, variant=variant))
+        if variant == "full":
+            full_ms = ms
+            r.update(ms=ms, plain_ms=plain, **one)
+            bitwise("mlp_block_q8_variant full against mlp_block_fused_q8", got,
+                    mlp_block_fused_q8(*args))
+        split = device_split(call, parts=Q8_SPLIT + (("dots_only's conversion", "q8_trunc"),
+                                                     ("dots_only's GEMMs", "q8_dots")))
+        print(f"  {name_limit}: {label}: device time {ms:.4f} ms a call (profiler over 10 "
+              f"calls: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v) +
+              f"), full less it {full_ms - ms:+.4f} ms, twin {plain:.4f} ms, bound "
+              f"{one['bound_ms']:.4f} ms ({one['bound_by']})", flush=True)
+        del got
+    check_mlp_dispatch(x, outs, twins)
+    print(f"  {name_limit}: mlp_block_q8_variant yardstick, torch._int_mm ({m}x{d} @ {d}x{f} "
+          f"and {m}x{f} @ {f}x{d}): {int_mm_ms(m, d, f):.4f} + {int_mm_ms(m, f, d):.4f} ms "
+          f"device time", flush=True)
+
+
+def check_mlp_dispatch(x: torch.Tensor, outs: dict, twins: dict) -> None:
+    """Each kernel-17 variant ran its own hooks: against every variant of
+    another class its MLP term reproduces MLP_DISPATCH_SHARE or more of
+    what separates the two bf16 twins, and the rounding pairs are not
+    bitwise equal."""
+    cls = {v: c for c in MLP_CLASSES for v in c}
+    xf = x.float()
+    terms = {v: (twin.float() - xf).flatten().double() for v, twin in twins.items()}
+    for v, got in outs.items():
+        g, own = (got.float() - xf).flatten().double(), terms[v]
+        share = {}
+        for u, other in terms.items():
+            if u not in cls[v]:
+                sep = own - other
+                share[u] = (torch.dot(g - other, sep) / torch.dot(sep, sep)).item()
+        low = min(share, key=share.get)
+        ok = share[low] >= MLP_DISPATCH_SHARE
+        print(f"  mlp_block_q8_variant {v}: out - x against its bf16 twin rel_l2 "
+              f"{rel_l2(g, own):.6g}; share of its separation from each other class's "
+              f"twin reproduced: least {share[low]:.4f} ({low}; limit {MLP_DISPATCH_SHARE}), "
+              f"most {max(share.values()):.4f} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"mlp_block_q8_variant {v}: not told apart from {low}")
+    for v, u in MLP_ROUNDING_PAIRS:
+        same = torch.equal(outs[v], outs[u])
+        print(f"  mlp_block_q8_variant {v} against {u}: "
+              f"{'bitwise EQUAL' if same else 'differs'}", flush=True)
+        if same:
+            raise AssertionError(f"mlp_block_q8_variant {v}: bitwise {u}'s output")
+    same = torch.equal(outs["gelu_sig_exp2"], outs["gelu_sig"])
+    print(f"  mlp_block_q8_variant gelu_sig_exp2 against gelu_sig: "
+          f"{'bitwise equal' if same else 'differs'} (one function, not checked)", flush=True)
 
 
 def check_batch_rows(gen: torch.Generator, res: dict) -> None:
@@ -1047,7 +1195,9 @@ def check_batch_rows(gen: torch.Generator, res: dict) -> None:
           f"call (profiler over 10 calls, pre-pass and core), twin "
           f"{device_ms(lambda: flash_attention_flat_plain(qkv, cos, sin, kv, heads=h)):.4f} "
           f"ms, bound {one['bound_ms']:.4f} ms ({one['bound_by']}, the {sum(lens)} keys kept), "
-          f"exp floor {exp_floor_ms(h * t * sum(lens)):.4f} ms", flush=True)
+          f"exp floor {exp_floor_ms(h * t * sum(lens)):.4f} ms; library call, SDPA with the "
+          f"rows' key masks: device time {sdpa_ms(qkv, cos, sin, kv, device=True):.4f} ms",
+          flush=True)
     del qkv, got
 
     # kernel 2
@@ -1402,16 +1552,6 @@ def check_attention_kernels(gen: torch.Generator, res: dict) -> None:
                 flash_attention(q, k, v, 2000, **blocks),
                 flash_attention_plain(q.float(), k.float(), v.float(), 2000, **blocks), tol))
             del q, k, v
-
-
-# the card's exp rate: 132 SMs x 16 SFU results a clock at 1.83 GHz (boost)
-EXP_S = 132 * 16 * 1.83e9
-
-
-def exp_floor_ms(n_scores: float) -> float:
-    """The least time the SFUs take for one exp2 a score, beside a flash
-    kernel's tensor-core bound (not part of bound_ms)."""
-    return n_scores / EXP_S * 1e3
 
 
 def check_flash_edges(gen: torch.Generator, res: dict) -> None:
@@ -1793,12 +1933,13 @@ def time_amp_forms() -> None:
         del args, ref
 
 
-def sdpa_ms(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, kv: int,
-            heads: int = 16, device: bool = False) -> float:
+def sdpa_ms(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, kv,
+            heads: int = 16, device: bool = False, scale: float = 1.0) -> float:
     """Kernel 1's library yardstick: scaled_dot_product_attention on q, k
-    roped ahead (as the twin ropes them) and v, keys >= kv masked, scale 1
-    (F5 folds it into wqkv); CUDA events around one call, or with `device`
-    its kernels' device time a call. The port never calls it."""
+    roped ahead (as the twin ropes them) and v, keys >= kv masked (an int,
+    or a (B,) tensor: a length a batch row), scale 1 (F5 folds it into
+    wqkv) unless given; CUDA events around one call, or with `device` its
+    kernels' device time a call. The port never calls it."""
     import torch.nn.functional as F
 
     b, t, n3 = qkv.shape
@@ -1812,9 +1953,10 @@ def sdpa_ms(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, kv: int,
 
     q, k = rope(x[:, :, 0]).transpose(1, 2), rope(x[:, :, 1]).transpose(1, 2)
     v = x[:, :, 2].to(qkv.dtype).transpose(1, 2)
-    mask = (torch.arange(t, device=qkv.device) < kv)[None, None, None, :]
+    lens = torch.as_tensor(kv, device=qkv.device).reshape(-1, 1)
+    mask = (torch.arange(t, device=qkv.device)[None, :] < lens)[:, None, None, :]
     timer = device_ms if device else time_ms
-    return timer(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0))
+    return timer(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
 
 
 def check_q8_kernels(gen: torch.Generator, res: dict) -> None:
@@ -1981,28 +2123,6 @@ def print_split(label: str, fn) -> None:
                       for name, n, ms in split)
     print(f"  {label}: by launch {parts}; sum {sum(ms for _, _, ms in split):.4f} ms "
           f"(device time a call, profiler over 10 calls)", flush=True)
-
-
-def chain_ms(fn, calls: int = 10, reps: int = 10) -> float:
-    """Device time a call over a chain of `calls` calls of fn(): CUDA events
-    around the chain, enqueued behind a kernel that spins for a few ms so
-    the host's enqueue runs ahead of the card and the calls run back to
-    back (with programmatic dependent launch a profiler's sum of kernel
-    times counts their overlap twice); the median of `reps` chains."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(4_000_000)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
 
 
 def trace_span_ms(fn, calls: int = 10) -> float:
@@ -4866,6 +4986,17 @@ def main() -> None:
     res = check_kernels(torch.Generator("cuda").manual_seed(1234))
     if args.kernels_only:
         return
+    # kernels 16 and 17 are on no pipeline's path: from here on a launch of
+    # either fails the run (the phases clear LAUNCHES, so the check is at the
+    # count itself)
+    count_launch = _build.count_launch
+
+    def no_ablation(name: str) -> None:
+        if name in ABLATION_KERNELS:
+            raise AssertionError(f"a pipeline launched {name}")
+        count_launch(name)
+
+    _build.count_launch = no_ablation
 
     launches: dict = {}
     if "f5" in fams:

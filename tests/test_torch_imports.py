@@ -23,6 +23,8 @@ for name in names:
 from tts_tpu_torch.models.f5 import attention_route, conv_fits, mlp_fits
 from tts_tpu_torch.ops.flash_attention import (flash_attention, flash_onepass_plain,
                                                flash_online_plain)
+# the ablation entry points
+from tts_tpu_torch.ablations import flash_ablation, q8_kernel_profile
 # the serving layer's lazy names resolve without JAX too
 import tts_tpu_torch.serving as serving
 for name in serving.__all__:
@@ -52,6 +54,8 @@ def test_port_imports_without_jax():
     # bigvgan, indextts and voxcpm among them), weights, frontend, runtime
     # (qwen, vocoder, indextts, voxcpm and streaming among them), serving
     # (slots, batcher, server, router, devices, families and the Kani, Qwen,
-    # IndexTTS, VoxCPM and F5 slot servers) and their packages; kernels 4
-    # and 5 live in ops/flash_attention, beside kernel 1
-    assert int(proc.stdout.split()[-1]) >= 64
+    # IndexTTS, VoxCPM and F5 slot servers), the ablation sets of kernels 16
+    # and 17 (ops/flash_variants, ops/dit_mlp_q8_variants) and their entry
+    # points (ablations) and their packages; kernels 4 and 5 live in
+    # ops/flash_attention, beside kernel 1
+    assert int(proc.stdout.split()[-1]) >= 69

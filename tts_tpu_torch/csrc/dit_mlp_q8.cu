@@ -15,7 +15,8 @@
 //
 // Design: the TPU kernel held both int8 weights and a row block's whole
 // (rows, F) hidden layer in VMEM, so the second quantization saw each
-// hidden row whole. Here the block is three launches:
+// hidden row whole. Here the block is three launches (q8_wgmma.cuh's
+// mlp_block, which kernel 17's ablations share):
 //   q8_rows<ROWS_LN>        the modulated LN rows, int8 (M, D) and xs (M,);
 //   q8_wgmma_hidden_kernel  ff1 over clusters that span whole hidden rows:
 //                           gelu in registers, the row's amax across the
@@ -32,69 +33,6 @@
 
 using namespace tts::q8;
 
-namespace {
-
-// The WEPI_HIDDEN GEMM in its one form (ops/quant_matmul.q8_plan with
-// whole rows): one cluster of N / 128 <= 16 CTAs across the row (past 8
-// with the non-portable size allowed), 3 stages, 2 CTAs an SM.
-int launch_hidden(int stages, const WgArgs& g, cudaStream_t s) {
-  static int smem_set[tts::MAX_DEVICES], wide_set[tts::MAX_DEVICES];
-  const int cluster = g.N / WN;
-  if (!wgemm_shape_ok(g) || stages != 3 || cluster > MAX_CLUSTER)
-    return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = wgemm_smem<3>();
-  const auto kernel = q8_wgmma_hidden_kernel<3, 2>;
-  cudaError_t err =
-      tts::raise_attr(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem, smem_set);
-  if (err == cudaSuccess && cluster > 8)  // past the portable cluster size
-    err = tts::raise_attr(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1, wide_set);
-  if (err != cudaSuccess) return (int)err;
-  return (int)tts::launch_cluster(kernel, dim3(cluster, (g.M + WM - 1) / WM), WNT, smem, s,
-                                  cluster, g);
-}
-
-template <typename Act>
-int mlp(const void* x, const float* mods, int mstride, const void* w1t, const void* s1,
-        const void* b1, const void* w2t, const void* s2, const void* b2, void* xq, void* xs,
-        void* hq, void* hs, void* out, int M, int T, int D, int F, int st1, int st2,
-        cudaStream_t s) {
-  RowArgs r{};
-  r.a = x;
-  r.mods = mods;
-  r.mods_bstride = mstride;
-  r.q = (int8_t*)xq;
-  r.xs = (float*)xs;
-  r.M = M, r.K = D, r.T = T;
-  int err = launch_rows<ROWS_LN, Act>(r, s);
-  if (err) return err;
-
-  WgArgs g{};
-  g.q = (const int8_t*)xq;
-  g.xs = (const float*)xs;
-  g.wt = (const int8_t*)w1t;
-  g.ws = (const float*)s1;
-  g.bias = (const float*)b1;
-  g.out = hq;
-  g.out_xs = (float*)hs;
-  g.M = M, g.K = D, g.N = F, g.T = T;
-  if ((err = launch_hidden(st1, g, s))) return err;
-
-  g.q = (const int8_t*)hq;
-  g.xs = (const float*)hs;
-  g.wt = (const int8_t*)w2t;
-  g.ws = (const float*)s2;
-  g.bias = (const float*)b2;
-  g.res = x;
-  g.gate = mods + 2 * D;
-  g.gate_bstride = mstride;
-  g.out = out;
-  g.out_xs = nullptr;
-  g.K = F, g.N = D;
-  return launch_wgemm_form<WEPI_RESIDUAL, Act>(st2, g, s);
-}
-
-}  // namespace
-
 // x, out (M, D) with M = B * T, bf16 (f32 = 0) or fp32 (f32 = 1); mods (Bm,
 // 3, D) fp32 rows [shift, scale, gate] (values of the activation dtype), Bm
 // in {1, B}; w1t (F, D), w2t (D, F) int8, the weights K-major; s1, b1 (F,),
@@ -108,12 +46,8 @@ extern "C" int mlp_block_fused_q8(const void* x, const void* mods, int mods_rows
                                   void* xq, void* xs, void* hq, void* hs, void* out, int M,
                                   int T, int D, int F, int f32, int st1, int st2,
                                   void* stream) {
+  const MlpArgs p = mlp_args(x, mods, mods_rows, w1t, s1, b1, w2t, s2, b2, xq, xs, hq, hs, out,
+                             M, T, D, F, st1, st2);
   const cudaStream_t s = (cudaStream_t)stream;
-  const int mstride = mods_rows == 1 ? 0 : 3 * D;
-  const float* m = (const float*)mods;
-  if (f32)
-    return mlp<float>(x, m, mstride, w1t, s1, b1, w2t, s2, b2, xq, xs, hq, hs, out, M, T, D, F,
-                      st1, st2, s);
-  return mlp<tts::bf16>(x, m, mstride, w1t, s1, b1, w2t, s2, b2, xq, xs, hq, hs, out, M, T, D,
-                        F, st1, st2, s);
+  return f32 ? mlp_block<float>(p, s) : mlp_block<tts::bf16>(p, s);
 }

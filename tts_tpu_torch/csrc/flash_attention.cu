@@ -13,11 +13,11 @@
 // That is the FIXED contract of the flash core (flash_core.cuh), which
 // streams 64-key tiles with S, P and O in registers.
 //
-// Two launches a call, counted as one (the wrapper's): a pre-pass ropes q
-// and k once into a bf16 (2, B, H, T, D) scratch the wrapper allocates,
-// computing x * cos + rot_half(x) * sin in fp32 with rot_half = [-x[D/2:],
-// x[:D/2]], each product and the sum rounded once (no FMA), then rounding
-// to bf16: tts_tpu's rounding point. The TPU kernel ropes k once per (b,
+// Two launches a call, counted as one (the wrapper's): a pre-pass
+// (flash::rope_qk_kernel) ropes q and k once into a bf16 (2, B, H, T, D)
+// scratch the wrapper allocates, computing x * cos + rot_half(x) * sin in
+// fp32 with rot_half = [-x[D/2:], x[:D/2]], each product and the sum
+// rounded once (no FMA), then rounding to bf16: tts_tpu's rounding point. The TPU kernel ropes k once per (b,
 // head pair) into VMEM scratch; a CUDA block cannot share that with the
 // other query tiles of its head, and roping k in every query tile would
 // read k twice plus fp32 cos and sin rows for every key tile, 12 bytes of
@@ -38,39 +38,6 @@ namespace {
 
 using flash::Args;
 
-constexpr int ROPE_NT = 256;
-
-// one thread: 8 columns of q or k of one (b, t, head)
-template <int D>
-__global__ void __launch_bounds__(ROPE_NT)
-rope_qk_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cos_t,
-               const float* __restrict__ sin_t, bf16* __restrict__ qk, int B, int T, int H) {
-  const long long i = (long long)blockIdx.x * ROPE_NT + threadIdx.x;
-  if (i >= (long long)B * T * 2 * H * (D / 8)) return;
-  const int c = (int)(i % (D / 8)) * 8;
-  const long long rest = i / (D / 8);
-  const int hh = (int)(rest % (2 * H));  // q heads, then k heads
-  const long long bt = rest / (2 * H);
-  const int t = (int)(bt % T), b = (int)(bt / T);
-  const int pc = c < D / 2 ? c + D / 2 : c - D / 2;
-  const float sign = c < D / 2 ? -1.f : 1.f;
-  const bf16* row = qkv + bt * 3 * H * D + (long long)hh * D;
-  Vec8 xv, pv, ov;
-  xv.u = *reinterpret_cast<const uint4*>(row + c);
-  pv.u = *reinterpret_cast<const uint4*>(row + pc);
-  const float* cr = cos_t + (long long)t * D + c;
-  const float* sr = sin_t + (long long)t * D + c;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float x = __fmul_rn(to_f(xv.h[j]), cr[j]);
-    const float y = __fmul_rn(sign * to_f(pv.h[j]), sr[j]);
-    ov.h[j] = to_bf(__fadd_rn(x, y));
-  }
-  const int which = hh / H, h = hh % H;
-  bf16* dst = qk + ((((long long)which * B + b) * H + h) * T + t) * D + c;
-  *reinterpret_cast<uint4*>(dst) = ov.u;
-}
-
 template <int D>
 __global__ void __launch_bounds__(flash::CTA_THREADS) flash_flat_kernel(const Args a) {
   flash::attend<D, flash::FIXED>(a);
@@ -85,23 +52,13 @@ int launch_flat(const bf16* qkv, const float* cos_t, const float* sin_t, const i
                                (int)smem, smem_set);
   if (err != cudaSuccess) return (int)err;
   const long long n = (long long)B * T * 2 * H * (D / 8);
-  rope_qk_kernel<D><<<(unsigned)((n + ROPE_NT - 1) / ROPE_NT), ROPE_NT, 0, stream>>>(
-      qkv, cos_t, sin_t, qk, B, T, H);
+  flash::rope_qk_kernel<D><<<(unsigned)((n + flash::ROPE_NT - 1) / flash::ROPE_NT),
+                             flash::ROPE_NT, 0, stream>>>(qkv, cos_t, sin_t, qk, B, T, H, 1.f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const long long head = (long long)T * D, stride = 3LL * H * D;
-  Args a;
-  a.q = qk;
-  a.k = qk + (long long)B * H * head;
-  a.q_b = a.k_b = H * head, a.q_h = a.k_h = head, a.q_r = a.k_r = D;
-  a.v = qkv + 2LL * H * D;
-  a.v_b = T * stride, a.v_h = D, a.v_r = stride;
-  a.out = out;
-  a.o_b = (long long)T * H * D, a.o_h = D, a.o_r = (long long)H * D;
-  a.kv_len = kv_len;
-  a.c = 1.4426950408889634f;  // log2e: the 1/sqrt(D) scale is folded into wqkv
-  a.S = T;
+  // log2e: the 1/sqrt(D) scale is folded into wqkv
+  const Args a = flash::flat_args<D>(qkv, qk, kv_len, out, B, T, H, 1.4426950408889634f);
   const int tiles = (T + flash::CTA_ROWS - 1) / flash::CTA_ROWS;
   flash_flat_kernel<D><<<dim3(tiles, H, B), flash::CTA_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();

@@ -10,6 +10,12 @@
 //             and q = clip(rint(v / xs), -127, 127) written as int8 (M, K)
 //             with xs (M,).
 //
+// Kernel 17's ablations (dit_mlp_q8_variants.cu) swap pieces of the row
+// pass through two compile-time hooks whose defaults are kernels 6-9's
+// code: the Rows modes ROWS_LN1 and ROWS_MOD, and the quantizer Quant
+// (QUANT_ROW, the per-row scale above, or QUANT_FIXED: one scale 0.05 and
+// q = clip(rint(v * 20), -127, 127), no amax).
+//
 // The GEMM runs on the rows it writes: the s8 wgmma GEMM of q8_wgmma.cuh
 // (kernels 6-9).
 // Why a row pass before the GEMM: the row's amax needs the whole row before
@@ -40,7 +46,13 @@ enum Rows {
   ROWS_RAW,   // the rows as they are (kernels 8, 9)
   ROWS_LN,    // LayerNorm (fp32, eps 1e-6, no affine) * (1 + scale) + shift,
               // in fp32 (kernels 6 ff1, 7)
+  ROWS_LN1,   // the same with var = mean(x^2) - mean^2 (kernel 17)
+  ROWS_MOD,   // x * (1 + scale) + shift, no LayerNorm (kernel 17)
 };
+
+// how a row is quantized
+enum Quant { QUANT_ROW, QUANT_FIXED };
+constexpr float FIXED_XS = 0.05f;  // QUANT_FIXED's scale: q = rint(v * 20)
 
 struct RowArgs {
   const void* a;      // (M, K) of the row type
@@ -62,12 +74,70 @@ __device__ __forceinline__ signed char quant(float v, float xs) {
   return (signed char)fminf(fmaxf(rintf(__fdiv_rn(v, xs)), -127.f), 127.f);
 }
 
+// QUANT_FIXED: clip(rint(v * 20), -127, 127)
+__device__ __forceinline__ signed char quant_fixed(float v) {
+  return (signed char)fminf(fmaxf(rintf(__fmul_rn(v, 20.f)), -127.f), 127.f);
+}
+
 // gelu, tanh form, in jax.nn.gelu's order: x * (0.5 * (1 + tanh(c * (x + 0.044715 * x^3))))
 __device__ __forceinline__ float gelu_q8(float x) {
   const float c = 0x1.988454p-1f;  // float32(sqrt(2 / pi))
   const float x3 = __fmul_rn(__fmul_rn(x, x), x);
   const float u = __fmul_rn(c, __fadd_rn(x, __fmul_rn(0.044715f, x3)));
   return __fmul_rn(x, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(u))));
+}
+
+// the hidden layer's activation (kernel 6's GELU_TANH; the others are
+// kernel 17's, each in the order of operations of
+// benchmarks/q8_kernel_profile.py's _body)
+enum Gelu {
+  GELU_TANH,       // gelu_q8
+  GELU_TANH_BF16,  // the same on h rounded to bf16, in bf16 (gelu_bf16x2)
+  GELU_RELU,       // max(x, 0)
+  GELU_NONE,       // x
+  GELU_SIG,        // x * sigmoid(1.702 x)
+  GELU_SIG_EXP2,   // x / (1 + exp2(f32(-1.702 log2e) x))
+  GELU_TANH_EXP2,  // 0.5 x (2 - 2 / (exp2(f32(2 log2e) u) + 1)), u as in gelu_q8
+};
+
+template <Gelu G>
+__device__ __forceinline__ float act(float x) {
+  static_assert(G != GELU_TANH_BF16, "gelu_bf16x2 takes pairs");
+  if constexpr (G == GELU_TANH) {
+    return gelu_q8(x);
+  } else if constexpr (G == GELU_RELU) {
+    return fmaxf(x, 0.f);
+  } else if constexpr (G == GELU_NONE) {
+    return x;
+  } else if constexpr (G == GELU_SIG) {
+    return __fmul_rn(x, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(1.702f, x)))));
+  } else if constexpr (G == GELU_SIG_EXP2) {
+    const float k = (float)(-1.702 * 1.4426950408889634);
+    return __fdiv_rn(x, __fadd_rn(1.f, exp2f(__fmul_rn(k, x))));
+  } else {
+    const float c = 0x1.988454p-1f;  // float32(sqrt(2 / pi))
+    const float x3 = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, x), x), x);
+    const float u = __fmul_rn(c, __fadd_rn(x, x3));
+    const float t = exp2f(__fmul_rn((float)(2 * 1.4426950408889634), u));
+    return __fmul_rn(__fmul_rn(0.5f, x), __fsub_rn(2.f, __fdiv_rn(2.f, __fadd_rn(t, 1.f))));
+  }
+}
+
+// GELU_TANH_BF16 on two values: rounded to bf16, then jax.nn.gelu's ops in
+// bf16 pairs (its constants rounded to bf16), tanh by tanh.approx.bf16x2
+__device__ __forceinline__ void gelu_bf16x2(float (&h)[2]) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(h[0], h[1]);
+  const __nv_bfloat162 c = __float2bfloat162_rn(0x1.988454p-1f);
+  const __nv_bfloat162 k = __float2bfloat162_rn(0.044715f);
+  const __nv_bfloat162 u = __hmul2(c, __hadd2(x, __hmul2(k, __hmul2(__hmul2(x, x), x))));
+  __nv_bfloat162 t;
+  asm("tanh.approx.bf16x2 %0, %1;\n"
+      : "=r"(*reinterpret_cast<uint32_t*>(&t))
+      : "r"(*reinterpret_cast<const uint32_t*>(&u)));
+  const __nv_bfloat162 y = __hmul2(
+      x, __hmul2(__float2bfloat162_rn(0.5f), __hadd2(__float2bfloat162_rn(1.f), t)));
+  h[0] = __low2float(y);
+  h[1] = __high2float(y);
 }
 
 // 8 consecutive values of a row, as fp32
@@ -95,7 +165,7 @@ __host__ __device__ __forceinline__ int k256(int K) { return (K + 255) / 256 * 2
 // One warp a row, rows blockIdx.x * 4 + warp. Lane l takes columns
 // c = l*8 + 256*i and keeps value j of them at float 256*i + 32*j + l of its
 // warp's k256(K) of shared memory, so a warp's accesses hit 32 banks.
-template <Rows ROWS, typename T>
+template <Rows ROWS, typename T, Quant QUANT = QUANT_ROW>
 __global__ void __launch_bounds__(NT) q8_rows(const RowArgs p) {
   extern __shared__ float rowbuf[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -103,7 +173,7 @@ __global__ void __launch_bounds__(NT) q8_rows(const RowArgs p) {
   if (row >= p.M) return;
   const int K = p.K;
   float* buf = rowbuf + warp * k256(K) + lane;
-  float amax = 0.f, sum = 0.f;
+  float amax = 0.f, sum = 0.f, sq = 0.f;
   for (int c = lane * 8; c < K; c += 256) {
     float v[8];
     load8(static_cast<const T*>(p.a) + (size_t)row * K + c, v);
@@ -111,20 +181,27 @@ __global__ void __launch_bounds__(NT) q8_rows(const RowArgs p) {
     for (int j = 0; j < 8; ++j) {
       buf[(c & ~255) + j * 32] = v[j];
       sum += v[j];
+      if constexpr (ROWS == ROWS_LN1) sq = __fadd_rn(sq, __fmul_rn(v[j], v[j]));
       amax = fmaxf(amax, fabsf(v[j]));
     }
   }
-  if (ROWS == ROWS_LN) {
-    const float mean = __fdiv_rn(warp_sum(sum), (float)K);
-    float var = 0.f;
-    for (int c = lane * 8; c < K; c += 256)
+  if constexpr (ROWS != ROWS_RAW) {
+    float mean = 0.f, rstd = 1.f;
+    if constexpr (ROWS == ROWS_LN) {
+      mean = __fdiv_rn(warp_sum(sum), (float)K);
+      float var = 0.f;
+      for (int c = lane * 8; c < K; c += 256)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float d = __fsub_rn(buf[(c & ~255) + j * 32], mean);
-        var = __fadd_rn(var, __fmul_rn(d, d));
-      }
-    const float rstd =
-        __fdiv_rn(1.f, sqrtf(__fadd_rn(__fdiv_rn(warp_sum(var), (float)K), 1e-6f)));
+        for (int j = 0; j < 8; ++j) {
+          const float d = __fsub_rn(buf[(c & ~255) + j * 32], mean);
+          var = __fadd_rn(var, __fmul_rn(d, d));
+        }
+      rstd = __fdiv_rn(1.f, sqrtf(__fadd_rn(__fdiv_rn(warp_sum(var), (float)K), 1e-6f)));
+    } else if constexpr (ROWS == ROWS_LN1) {
+      mean = __fdiv_rn(warp_sum(sum), (float)K);
+      const float var = __fsub_rn(__fdiv_rn(warp_sum(sq), (float)K), __fmul_rn(mean, mean));
+      rstd = __fdiv_rn(1.f, sqrtf(__fadd_rn(var, 1e-6f)));
+    }
     const float* m = p.mods + (size_t)(row / p.T) * p.mods_bstride;
     amax = 0.f;
     for (int c = lane * 8; c < K; c += 256) {
@@ -136,21 +213,25 @@ __global__ void __launch_bounds__(NT) q8_rows(const RowArgs p) {
       *reinterpret_cast<float4*>(scale + 4) = *reinterpret_cast<const float4*>(m + K + c + 4);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float ln = __fmul_rn(__fsub_rn(buf[(c & ~255) + j * 32], mean), rstd);
+        const float xv = buf[(c & ~255) + j * 32];
+        const float ln = ROWS == ROWS_MOD ? xv : __fmul_rn(__fsub_rn(xv, mean), rstd);
         const float n = __fadd_rn(__fmul_rn(ln, __fadd_rn(1.f, scale[j])), shift[j]);
         buf[(c & ~255) + j * 32] = n;
         amax = fmaxf(amax, fabsf(n));
       }
     }
   }
-  const float xs = __fmul_rn(fmaxf(warp_max(amax), 1e-8f), INV_127);
+  const float xs =
+      QUANT == QUANT_FIXED ? FIXED_XS : __fmul_rn(fmaxf(warp_max(amax), 1e-8f), INV_127);
   for (int c = lane * 8; c < K; c += 256) {
     union {
       uint2 u;
       signed char b[8];
     } o;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o.b[j] = quant(buf[(c & ~255) + j * 32], xs);
+    for (int j = 0; j < 8; ++j)
+      o.b[j] = QUANT == QUANT_FIXED ? quant_fixed(buf[(c & ~255) + j * 32])
+                                    : quant(buf[(c & ~255) + j * 32], xs);
     *reinterpret_cast<uint2*>(p.q + (size_t)row * K + c) = o.u;
   }
   if (lane == 0) p.xs[row] = xs;
@@ -158,10 +239,10 @@ __global__ void __launch_bounds__(NT) q8_rows(const RowArgs p) {
 
 // quantize the M rows of p.a; K % 8 == 0 and K <= 2048 (the row buffers
 // stay under the 48 KB of shared memory a launch has without opting in)
-template <Rows ROWS, typename T>
+template <Rows ROWS, typename T, Quant QUANT = QUANT_ROW>
 int launch_rows(const RowArgs& p, cudaStream_t s) {
   const int bytes = (NT / 32) * k256(p.K) * (int)sizeof(float);
-  q8_rows<ROWS, T><<<(p.M + NT / 32 - 1) / (NT / 32), NT, bytes, s>>>(p);
+  q8_rows<ROWS, T, QUANT><<<(p.M + NT / 32 - 1) / (NT / 32), NT, bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -19,6 +19,10 @@
 //                  the row's scale. The fp32 hidden never reaches device
 //                  memory, and its quantization is what the TPU kernel did
 //                  with whole rows in VMEM.
+//                  Kernel 17's ablations swap its activation (the Gelu
+//                  hook of q8_core.cuh) or its quantizer (QUANT_FIXED: one
+//                  scale, no amax and no exchange across the cluster);
+//                  the defaults are kernel 6's code.
 // The rounding is q8_rows' and the TPU kernels': __int2float_rn(acc), then
 // _rn multiplies and adds, gelu_q8, xs = max(amax, 1e-8) * f32(1/127) and
 // quant(). The s8 x s8 sums are exact in s32 at K <= 2048, so these kernels
@@ -43,8 +47,8 @@
 // bits from run to run.
 //
 // Every GEMM's form (ring depth, CTAs an SM, cluster size) is chosen on the
-// host by ops/quant_matmul.q8_plan; the launchers (launch_wgemm_form below,
-// kernel 6's launch_hidden in dit_mlp_q8.cu) refuse others.
+// host by ops/quant_matmul.q8_plan; the launchers (launch_wgemm_form and
+// launch_hidden below) refuse others.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -274,8 +278,8 @@ __global__ void __launch_bounds__(WNT, CTAS) q8_wgmma_kernel(const WgArgs g) {
 // WEPI_HIDDEN (kernel 6's ff1): a cluster of N / 128 CTAs along x covers the
 // whole hidden row; each CTA writes its (128, 128) tile of int8 h and rank 0
 // the rows' scales; CTAS of them share an SM. Launch as q8_wgmma_kernel, in
-// clusters of gridDim.x.
-template <int STAGES, int CTAS>
+// clusters of gridDim.x (launch_hidden).
+template <int STAGES, int CTAS, Gelu G = GELU_TANH, Quant QUANT = QUANT_ROW>
 __global__ void __launch_bounds__(WNT, CTAS) q8_wgmma_hidden_kernel(const WgArgs g) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float part[WM];  // this CTA's amax of each of its rows over its 128 columns
@@ -298,32 +302,50 @@ __global__ void __launch_bounds__(WNT, CTAS) q8_wgmma_hidden_kernel(const WgArgs
     const float2 b = *reinterpret_cast<const float2*>(g.bias + col);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
+      if constexpr (G == GELU_TANH_BF16) {
+        float h[2];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        int& a = acc[4 * j + 2 * r + e];
-        const float h = gelu_q8(__fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(a), xs[r]), e ? ws.y : ws.x), e ? b.y : b.x));
-        a = __float_as_int(h);
-        amax[r] = fmaxf(amax[r], fabsf(h));
+        for (int e = 0; e < 2; ++e)
+          h[e] = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * r + e]), xs[r]),
+                                     e ? ws.y : ws.x),
+                           e ? b.y : b.x);
+        gelu_bf16x2(h);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          acc[4 * j + 2 * r + e] = __float_as_int(h[e]);
+          amax[r] = fmaxf(amax[r], fabsf(h[e]));
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          int& a = acc[4 * j + 2 * r + e];
+          const float h = act<G>(__fadd_rn(
+              __fmul_rn(__fmul_rn(__int2float_rn(a), xs[r]), e ? ws.y : ws.x), e ? b.y : b.x));
+          a = __float_as_int(h);
+          amax[r] = fmaxf(amax[r], fabsf(h));
+        }
       }
     }
   }
-  // a row lives in the 4 lanes of a quad
+  float hs[2] = {FIXED_XS, FIXED_XS};
+  if constexpr (QUANT == QUANT_ROW) {
+    // a row lives in the 4 lanes of a quad
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    amax[r] = fmaxf(amax[r], __shfl_xor_sync(0xffffffffu, amax[r], 1));
-    amax[r] = fmaxf(amax[r], __shfl_xor_sync(0xffffffffu, amax[r], 2));
-    if ((lane & 3) == 0) part[lr + 8 * r] = amax[r];
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();  // every CTA's partials are in
-  const int ranks = (int)cluster.num_blocks();
-  float hs[2];
+    for (int r = 0; r < 2; ++r) {
+      amax[r] = fmaxf(amax[r], __shfl_xor_sync(0xffffffffu, amax[r], 1));
+      amax[r] = fmaxf(amax[r], __shfl_xor_sync(0xffffffffu, amax[r], 2));
+      if ((lane & 3) == 0) part[lr + 8 * r] = amax[r];
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every CTA's partials are in
+    const int ranks = (int)cluster.num_blocks();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float m = 0.f;
-    for (int c = 0; c < ranks; ++c) m = fmaxf(m, *cluster.map_shared_rank(part + lr + 8 * r, c));
-    hs[r] = __fmul_rn(fmaxf(m, 1e-8f), INV_127);
+    for (int r = 0; r < 2; ++r) {
+      float m = 0.f;
+      for (int c = 0; c < ranks; ++c)
+        m = fmaxf(m, *cluster.map_shared_rank(part + lr + 8 * r, c));
+      hs[r] = __fmul_rn(fmaxf(m, 1e-8f), INV_127);
+    }
   }
   int8_t* hq = static_cast<int8_t*>(g.out);
 #pragma unroll
@@ -336,13 +358,16 @@ __global__ void __launch_bounds__(WNT, CTAS) q8_wgmma_hidden_kernel(const WgArgs
         uint16_t u;
         signed char b[2];
       } o;
-      o.b[0] = quant(__int_as_float(acc[4 * j + 2 * r]), hs[r]);
-      o.b[1] = quant(__int_as_float(acc[4 * j + 2 * r + 1]), hs[r]);
+      const float h0 = __int_as_float(acc[4 * j + 2 * r]);
+      const float h1 = __int_as_float(acc[4 * j + 2 * r + 1]);
+      o.b[0] = QUANT == QUANT_FIXED ? quant_fixed(h0) : quant(h0, hs[r]);
+      o.b[1] = QUANT == QUANT_FIXED ? quant_fixed(h1) : quant(h1, hs[r]);
       *reinterpret_cast<uint16_t*>(hq + (size_t)row * g.N + cb + 8 * j) = o.u;
     }
     if (blockIdx.x == 0 && (lane & 3) == 0) g.out_xs[row] = hs[r];
   }
-  cluster.sync();  // no CTA's partials go before every CTA has read them
+  // no CTA's partials go before every CTA has read them
+  if constexpr (QUANT == QUANT_ROW) cg::this_cluster().sync();
 }
 
 // ---------------------------------------------------------------- host side
@@ -366,6 +391,26 @@ int launch_wgemm(const WgArgs& g, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// The WEPI_HIDDEN GEMM in its one form (ops/quant_matmul.q8_plan with
+// whole rows): one cluster of N / 128 <= 16 CTAs across the row (past 8
+// with the non-portable size allowed), 3 stages, 2 CTAs an SM.
+template <Gelu G = GELU_TANH, Quant QUANT = QUANT_ROW>
+int launch_hidden(int stages, const WgArgs& g, cudaStream_t s) {
+  static int smem_set[MAX_DEVICES], wide_set[MAX_DEVICES];
+  const int cluster = g.N / WN;
+  if (!wgemm_shape_ok(g) || stages != 3 || cluster > MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = wgemm_smem<3>();
+  const auto kernel = q8_wgmma_hidden_kernel<3, 2, G, QUANT>;
+  cudaError_t err =
+      raise_attr(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem, smem_set);
+  if (err == cudaSuccess && cluster > 8)  // past the portable cluster size
+    err = raise_attr(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1, wide_set);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_cluster(kernel, dim3(cluster, (g.M + WM - 1) / WM), WNT, smem, s, cluster,
+                             g);
+}
+
 // The GEMM with epilogue WEPI_SCALE, WEPI_BIAS or WEPI_RESIDUAL in one of two forms
 // (ring depth, CTAs an SM), as ops/quant_matmul.q8_plan picks it from the
 // grid and the SM count: 4 stages, 1 CTA an SM, for a grid of at most one
@@ -377,6 +422,77 @@ int launch_wgemm_form(int stages, const WgArgs& g, cudaStream_t s) {
   if (stages == 4) return launch_wgemm<4, 1, EPI, T>(g, s);
   if (stages == 3) return launch_wgemm<3, 2, EPI, T>(g, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Kernel 6's block (dit_mlp_q8.cu) as its three launches: the row pass,
+// ff1 (launch_hidden), ff2 with the gated residual. Kernel 17's ablations
+// (dit_mlp_q8_variants.cu) pick the row pass's ROWS, the quantizer QUANT of
+// both quantizations and ff1's activation G; the defaults are kernel 6.
+struct MlpArgs {
+  const void* x;       // (M, D) of the activation type, and the output's
+  const float* mods;   // [shift, scale, gate] (D each) for batch row `row / T`,
+  int mods_bstride;    //   this far apart (0 = shared)
+  const void* w1t;     // (F, D) int8, K-major
+  const float* s1;     // (F,)
+  const float* b1;     // (F,)
+  const void* w2t;     // (D, F) int8, K-major
+  const float* s2;     // (D,)
+  const float* b2;     // (D,)
+  void* xq;            // scratch: (M, D) int8 and (M,) fp32
+  float* xs;
+  void* hq;            // scratch: (M, F) int8 and (M,) fp32
+  float* hs;
+  void* out;           // (M, D)
+  int M, T, D, F;
+  int st1, st2;        // ff1's and ff2's ring depths (ops/quant_matmul.q8_plan)
+};
+
+// The C entries' arguments as MlpArgs; mods (mods_rows, 3, D), mods_rows 1
+// (shared) or B
+inline MlpArgs mlp_args(const void* x, const void* mods, int mods_rows, const void* w1t,
+                        const void* s1, const void* b1, const void* w2t, const void* s2,
+                        const void* b2, void* xq, void* xs, void* hq, void* hs, void* out,
+                        int M, int T, int D, int F, int st1, int st2) {
+  return MlpArgs{x, (const float*)mods, mods_rows == 1 ? 0 : 3 * D, w1t, (const float*)s1,
+                 (const float*)b1, w2t, (const float*)s2, (const float*)b2, xq, (float*)xs,
+                 hq, (float*)hs, out, M, T, D, F, st1, st2};
+}
+
+template <typename Act, Rows ROWS = ROWS_LN, Quant QUANT = QUANT_ROW, Gelu G = GELU_TANH>
+int mlp_block(const MlpArgs& p, cudaStream_t s) {
+  RowArgs r{};
+  r.a = p.x;
+  r.mods = p.mods;
+  r.mods_bstride = p.mods_bstride;
+  r.q = (int8_t*)p.xq;
+  r.xs = p.xs;
+  r.M = p.M, r.K = p.D, r.T = p.T;
+  int err = launch_rows<ROWS, Act, QUANT>(r, s);
+  if (err) return err;
+
+  WgArgs g{};
+  g.q = (const int8_t*)p.xq;
+  g.xs = p.xs;
+  g.wt = (const int8_t*)p.w1t;
+  g.ws = p.s1;
+  g.bias = p.b1;
+  g.out = p.hq;
+  g.out_xs = p.hs;
+  g.M = p.M, g.K = p.D, g.N = p.F, g.T = p.T;
+  if ((err = launch_hidden<G, QUANT>(p.st1, g, s))) return err;
+
+  g.q = (const int8_t*)p.hq;
+  g.xs = p.hs;
+  g.wt = (const int8_t*)p.w2t;
+  g.ws = p.s2;
+  g.bias = p.b2;
+  g.res = p.x;
+  g.gate = p.mods + 2 * p.D;
+  g.gate_bstride = p.mods_bstride;
+  g.out = p.out;
+  g.out_xs = nullptr;
+  g.K = p.F, g.N = p.D;
+  return launch_wgemm_form<WEPI_RESIDUAL, Act>(p.st2, g, s);
 }
 
 }  // namespace q8
