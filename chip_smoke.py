@@ -17,6 +17,7 @@
     python3 chip_smoke.py --families voxcpm             # phases 0-2, 10
     python3 chip_smoke.py --families serving            # phases 0-2, 11
     python3 chip_smoke.py --families serving --servers f5   # phase 11's F5 only
+    python3 chip_smoke.py --families checkpoints        # phases 0-2, 12
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
@@ -154,7 +155,19 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      chunk_steps=4) over 6 requests, two admitted mid-flight, 22 launches
      of kernels 1 and 3 and one of 2 a step, each request against its
      solo run (within ROW_SLACK of a twin server's rows), a W8A8 server
-     (kernel 6, none of 7 and 8), one request over HTTP.
+     (kernel 6, none of 7 and 8), one request over HTTP;
+  12. the README's F5 usage from checkpoint files: an upstream-key
+     F5TTS_v1_Base checkpoint (fp32 .safetensors, full width and depth,
+     ~1.35 GB, written from a seed with numpy and the port's writer), its
+     vocab.txt and a Vocos pytorch_model.bin; a 6 s 16-bit stereo reference
+     at 44.1 kHz read back with read_wav(target_rate=24000) (downmix and the
+     kaiser resample; the native helpers against their numpy twins);
+     load_f5 and load_vocos straight to the card in bf16 (seconds, peak
+     device memory, every leaf bf16 but delta_t, bitwise the CPU load cast
+     and moved); the bench request from the loaded weights (212,736
+     samples, 682 launches of kernels 1 and 3, 31 of kernel 2), its audio
+     through write_wav and read_wav bit for bit, one DiT forward against the
+     twins; a W8A8 request (682 each of kernels 1, 6, 7 and 8).
 Phase 2 also runs kernels 11 and 12 at the VoxCPM base-LM shape (B 1, 4, 8;
 pos 49, 64, 96 of a 128-row cache and 1000 of 2048; bf16 and int8; timed
 beside their bounds), and the Kani and VoxCPM checks over four seeds, each
@@ -4883,6 +4896,325 @@ def run_serving(name_limit: str, servers) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the README's F5 usage from checkpoint files
+
+# F5TTS_v1_Base's vocab.txt has 2,545 lines (F5Config's vocab_size)
+F5_VOCAB_LINES = 2545
+REF_RATE = 44100
+
+
+def _f5_upstream_keys(cfg) -> list:
+    """(key, shape, init) of an upstream F5TTS_v1_Base DiT under
+    ema_model.transformer.*: "w" a N(0, 0.02) weight, "0" zeros, "1" ones."""
+    d, td, tm, inner = cfg.dim, cfg.text_dim, cfg.text_dim * cfg.conv_mult, cfg.inner_dim
+    t = "transformer"
+    keys = [(f"{t}.text_embed.text_embed.weight", (cfg.vocab_size + 1, td), "w")]
+    for i in range(cfg.conv_layers):
+        p = f"{t}.text_embed.text_blocks.{i}"
+        keys += [(f"{p}.dwconv.weight", (td, 1, 7), "w"), (f"{p}.dwconv.bias", (td,), "0"),
+                 (f"{p}.norm.weight", (td,), "1"), (f"{p}.norm.bias", (td,), "0"),
+                 (f"{p}.pwconv1.weight", (tm, td), "w"), (f"{p}.pwconv1.bias", (tm,), "0"),
+                 (f"{p}.grn.gamma", (1, 1, tm), "0"), (f"{p}.grn.beta", (1, 1, tm), "0"),
+                 (f"{p}.pwconv2.weight", (td, tm), "w"), (f"{p}.pwconv2.bias", (td,), "0")]
+    keys += [(f"{t}.input_embed.proj.weight", (d, 2 * cfg.n_mels + td), "w"),
+             (f"{t}.input_embed.proj.bias", (d,), "0")]
+    for j in (0, 2):
+        keys += [(f"{t}.input_embed.conv_pos_embed.conv1d.{j}.weight", (d, d // 16, 31), "w"),
+                 (f"{t}.input_embed.conv_pos_embed.conv1d.{j}.bias", (d,), "0")]
+    for i in range(cfg.depth):
+        p = f"{t}.transformer_blocks.{i}"
+        keys += [(f"{p}.attn_norm.linear.weight", (6 * d, d), "w"),
+                 (f"{p}.attn_norm.linear.bias", (6 * d,), "0")]
+        for nm in ("to_q", "to_k", "to_v"):
+            keys += [(f"{p}.attn.{nm}.weight", (inner, d), "w"),
+                     (f"{p}.attn.{nm}.bias", (inner,), "0")]
+        keys += [(f"{p}.attn.to_out.0.weight", (d, inner), "w"),
+                 (f"{p}.attn.to_out.0.bias", (d,), "0"),
+                 (f"{p}.ff.ff.0.0.weight", (cfg.ff_mult * d, d), "w"),
+                 (f"{p}.ff.ff.0.0.bias", (cfg.ff_mult * d,), "0"),
+                 (f"{p}.ff.ff.2.weight", (d, cfg.ff_mult * d), "w"),
+                 (f"{p}.ff.ff.2.bias", (d,), "0")]
+    keys += [(f"{t}.norm_out.linear.weight", (2 * d, d), "w"),
+             (f"{t}.norm_out.linear.bias", (2 * d,), "0"),
+             (f"{t}.proj_out.weight", (cfg.n_mels, d), "w"), (f"{t}.proj_out.bias", (cfg.n_mels,), "0"),
+             (f"{t}.time_embed.time_mlp.0.weight", (d, cfg.freq_embed_dim), "w"),
+             (f"{t}.time_embed.time_mlp.0.bias", (d,), "0"),
+             (f"{t}.time_embed.time_mlp.2.weight", (d, d), "w"),
+             (f"{t}.time_embed.time_mlp.2.bias", (d,), "0")]
+    return keys
+
+
+def _init(rng, shape, kind) -> np.ndarray:
+    if kind == "w":
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= np.float32(0.02)
+        return a
+    return (np.zeros if kind == "0" else np.ones)(shape, np.float32)
+
+
+def write_f5_checkpoint(dirname: str, cfg, seed: int) -> tuple:
+    """An upstream-key F5TTS_v1_Base checkpoint from a seed, numpy only:
+    `model_1250000.safetensors` (fp32 ema_model.transformer.* with
+    ema_model.initted / step and the mel_spec buffers, through the port's
+    writer) and a vocab.txt of cfg.vocab_size lines (" ", printable ASCII,
+    then filler tokens). Returns (checkpoint, vocab, bytes)."""
+    from tts_tpu_torch.weights import write_safetensors
+
+    rng = np.random.default_rng(seed)
+    sd = {f"ema_model.{k}": _init(rng, shape, kind) for k, shape, kind in _f5_upstream_keys(cfg)}
+    sd["ema_model.initted"] = np.asarray(True)
+    sd["ema_model.step"] = np.asarray(1250000, np.int64)
+    sd["ema_model.mel_spec.mel_stft.mel_scale.fb"] = np.zeros((cfg.n_fft // 2 + 1, cfg.n_mels),
+                                                             np.float32)
+    sd["ema_model.mel_spec.mel_stft.spectrogram.window"] = np.hanning(cfg.win_length).astype(
+        np.float32)
+    ckpt = os.path.join(dirname, "model_1250000.safetensors")
+    write_safetensors(ckpt, sd)
+    chars = [" "] + [chr(c) for c in range(33, 127)]
+    chars += [f"<f{i}>" for i in range(cfg.vocab_size - len(chars))]
+    vocab = os.path.join(dirname, "vocab.txt")
+    with open(vocab, "w", encoding="utf-8") as f:
+        f.write("".join(c + "\n" for c in chars))
+    return ckpt, vocab, os.path.getsize(ckpt)
+
+
+def write_vocos_checkpoint(dirname: str, vcfg, seed: int) -> str:
+    """A charactr/vocos-mel-24khz style dir from a seed: pytorch_model.bin
+    (torch.save) in the upstream keys, layer-scale gammas and the
+    feature_extractor buffers included."""
+    rng = np.random.default_rng(seed)
+    d, inter = vcfg.dim, vcfg.intermediate_dim
+    keys = [("backbone.embed.weight", (d, vcfg.input_channels, 7), "w"),
+            ("backbone.embed.bias", (d,), "0"), ("backbone.norm.weight", (d,), "1"),
+            ("backbone.norm.bias", (d,), "0")]
+    for i in range(vcfg.num_layers):
+        p = f"backbone.convnext.{i}"
+        keys += [(f"{p}.dwconv.weight", (d, 1, 7), "w"), (f"{p}.dwconv.bias", (d,), "0"),
+                 (f"{p}.norm.weight", (d,), "1"), (f"{p}.norm.bias", (d,), "0"),
+                 (f"{p}.pwconv1.weight", (inter, d), "w"), (f"{p}.pwconv1.bias", (inter,), "0"),
+                 (f"{p}.pwconv2.weight", (d, inter), "w"), (f"{p}.pwconv2.bias", (d,), "0")]
+    keys += [("backbone.final_layer_norm.weight", (d,), "1"),
+             ("backbone.final_layer_norm.bias", (d,), "0"),
+             ("head.out.weight", (vcfg.n_fft + 2, d), "w"), ("head.out.bias", (vcfg.n_fft + 2,), "0"),
+             ("feature_extractor.mel_spec.spectrogram.window", (vcfg.n_fft,), "1"),
+             ("feature_extractor.mel_spec.mel_scale.fb", (vcfg.n_fft // 2 + 1, vcfg.input_channels),
+              "0")]
+    sd = {k: torch.from_numpy(_init(rng, shape, kind)) for k, shape, kind in keys}
+    for i in range(vcfg.num_layers):
+        sd[f"backbone.convnext.{i}.gamma"] = torch.from_numpy(
+            (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32))
+    path = os.path.join(dirname, "vocos")
+    os.makedirs(path, exist_ok=True)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    return path
+
+
+def write_stereo_reference(path: str, seconds: float, seed: int) -> np.ndarray:
+    """A 16-bit stereo WAV at 44.1 kHz of noise (each channel its own).
+    Returns its (frames, 2) samples."""
+    import wave
+
+    frames = (np.random.default_rng(seed).standard_normal((int(seconds * REF_RATE), 2))
+              * 3000).astype(np.int16)
+    with wave.open(path, "wb") as f:
+        f.setnchannels(2)
+        f.setsampwidth(2)
+        f.setframerate(REF_RATE)
+        f.writeframes(frames.tobytes())
+    return frames
+
+
+def check_native(frames: np.ndarray, audio: np.ndarray) -> None:
+    """The native host helpers against their numpy twins on the reference's
+    samples, and read_wav's 24 kHz audio against the twins' composition."""
+    from tts_tpu_torch import native
+    from tts_tpu_torch.audio.wav import resample_kaiser
+
+    if not native.native_available():
+        raise AssertionError("the native audio helpers did not build (cc)")
+    mono = native.downmix_to_mono(frames)
+    if not np.array_equal(mono, native.downmix_to_mono_plain(frames)):
+        raise AssertionError("native downmix differs from its twin")
+    if not np.array_equal(audio, resample_kaiser(native.downmix_to_mono_plain(frames),
+                                                 REF_RATE, 24000)):
+        raise AssertionError("read_wav(target_rate=24000) differs from the twins' composition")
+    x = native.pcm16_to_f32(mono)
+    errs = {
+        "pcm16_to_f32": float(np.abs(x - native.pcm16_to_f32_plain(mono)).max()),
+        "f32_to_pcm16": int(np.abs(native.f32_to_pcm16(x).astype(np.int32)
+                                   - native.f32_to_pcm16_plain(x)).max()),
+        "resample_linear": float(np.abs(native.resample_linear(x, REF_RATE, 24000)
+                                        - native.resample_linear_plain(x, REF_RATE, 24000)).max()),
+        "rms_normalize": float(np.abs(native.rms_normalize(x) - native.rms_normalize_plain(x)).max()),
+    }
+    # conversions and downmix bit for bit; the resample interpolates in
+    # float64 (C) or from linspace positions (numpy), the RMS sums in float64
+    # or fp32: a few fp32 ulps of |x| < 1
+    limits = {"pcm16_to_f32": 0.0, "f32_to_pcm16": 0, "resample_linear": 1e-6,
+              "rms_normalize": 1e-6}
+    print(f"  native helpers against their numpy twins (max |diff|): {errs}, downmix and "
+          f"read_wav's kaiser resample bitwise", flush=True)
+    bad = {k: v for k, v in errs.items() if v > limits[k]}
+    if bad:
+        raise AssertionError(f"native helpers off their twins: {bad}")
+    # host ms of each helper and its twin on the reference's samples (best of 7)
+    calls = {"downmix_to_mono": (frames,), "pcm16_to_f32": (mono,), "f32_to_pcm16": (x,),
+             "resample_linear": (x, REF_RATE, 24000), "rms_normalize": (x,)}
+    times = {}
+    for name, a in calls.items():
+        pair = (getattr(native, name), getattr(native, name + "_plain"))
+        times[name] = [round(min(_host_ms(fn, *a) for _ in range(7)), 4) for fn in pair]
+    print(f"  native helpers' host ms against their twins' ([native, numpy], best of 7, "
+          f"{len(frames)} stereo frames): {times}", flush=True)
+
+
+def _host_ms(fn, *args) -> float:
+    t0 = time.perf_counter()
+    fn(*args)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def check_loaded(label: str, tree: dict, ref: dict, keep_fp32=()) -> int:
+    """Every leaf of a loaded tree on the card, bf16 but the keep_fp32 keys,
+    and bitwise the same as `ref`. Returns the tree's bytes."""
+    from tts_tpu_torch.models._params import tree_map
+
+    leaves = {}
+    tree_map(lambda path, t: leaves.setdefault("/".join(path), t), tree)
+    refs = {}
+    tree_map(lambda path, t: refs.setdefault("/".join(path), t), ref)
+    if set(leaves) != set(refs):
+        raise AssertionError(f"{label}: the trees' keys differ")
+    for k, t in leaves.items():
+        want = torch.float32 if k.split("/")[-1] in keep_fp32 else torch.bfloat16
+        if t.device.type != "cuda" or t.dtype != want:
+            raise AssertionError(f"{label}: {k} is {t.dtype} on {t.device}")
+        if not torch.equal(t, refs[k]):
+            raise AssertionError(f"{label}: {k} differs from the CPU load moved")
+    return sum(nbytes(t) for t in leaves.values())
+
+
+def run_checkpoints(name_limit: str) -> dict:
+    """Phase 12: write an upstream F5TTS_v1_Base checkpoint, a Vocos one and
+    a stereo 44.1 kHz reference; read the reference at 24 kHz; load both
+    checkpoints straight to the card in bf16; run the bench request and a
+    W8A8 request from the loaded weights; write the audio and read it back.
+    Returns the launches of the two requests."""
+    import tempfile
+
+    from tts_tpu_torch.audio.wav import read_wav, write_wav
+    from tts_tpu_torch.models.f5 import F5Config, F5Model
+    from tts_tpu_torch.models.vocos import VocosConfig, VocosModel
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.f5 import F5Pipeline
+    from tts_tpu_torch.weights import load_f5, load_vocos
+
+    cfg, vcfg = F5Config(vocab_size=F5_VOCAB_LINES), VocosConfig()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        t0 = time.perf_counter()
+        ckpt, vocab_path, size = write_f5_checkpoint(tmp, cfg, seed=20)
+        vdir = write_vocos_checkpoint(tmp, vcfg, seed=21)
+        ref_path = os.path.join(tmp, "ref.wav")
+        frames = write_stereo_reference(ref_path, 6.0, seed=22)
+        print(f"  wrote {ckpt.split(os.sep)[-1]} ({size / 2**30:.3f} GiB fp32, F5 dim "
+              f"{cfg.dim} depth {cfg.depth} heads {cfg.heads}x{cfg.head_dim}), vocab.txt "
+              f"({cfg.vocab_size} lines), vocos/pytorch_model.bin and a 6 s stereo "
+              f"{REF_RATE} Hz reference in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        t0 = time.perf_counter()
+        audio, rate = read_wav(ref_path, target_rate=24000)
+        print(f"  read_wav(target_rate=24000): {len(audio)} int16 samples at {rate} Hz in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        if rate != 24000 or audio.dtype != np.int16 or len(audio) != 6 * 24000:
+            raise AssertionError(f"read_wav gave {len(audio)} {audio.dtype} samples at {rate}")
+        check_native(frames, audio)
+
+        loads = {}
+        for name, fn in (("load_f5", lambda: load_f5(ckpt, vocab_path, dtype=torch.bfloat16,
+                                                     device="cuda")),
+                         ("load_vocos", lambda: load_vocos(vdir, dtype=torch.bfloat16,
+                                                           device="cuda"))):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            loads[name] = (out, seconds, torch.cuda.max_memory_allocated() - base)
+        (params, lcfg, vocab), f5_s, f5_peak = loads["load_f5"]
+        (vparams, lvcfg), vocos_s, vocos_peak = loads["load_vocos"]
+        if lcfg != cfg or len(vocab) != cfg.vocab_size:
+            raise AssertionError(f"load_f5 gave {lcfg} and {len(vocab)} vocab entries")
+
+        # the same files loaded on the CPU in bf16 (delta_t kept fp32) and moved
+        t0 = time.perf_counter()
+        cpu, _, _ = load_f5(ckpt, vocab_path, dtype=torch.bfloat16, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        f5_bytes = check_loaded("load_f5", params, F5Model(cfg, cpu).to("cuda").params,
+                                keep_fp32=F5Model.keep_fp32)
+        vcpu, _ = load_vocos(vdir, dtype=torch.bfloat16, device="cpu")
+        vocos_bytes = check_loaded("load_vocos", vparams, VocosModel(vcfg, vcpu).to("cuda").params)
+        del cpu, vcpu
+        print(f"  {name_limit}: load_f5 to the card in bf16 {f5_s:.3f} s (bf16 to the CPU "
+              f"{cpu_s:.3f} s), peak device memory during the load {f5_peak / 2**20:.1f} MiB "
+              f"for a {f5_bytes / 2**20:.1f} MiB tree; load_vocos {vocos_s:.3f} s, peak "
+              f"{vocos_peak / 2**20:.1f} MiB for {vocos_bytes / 2**20:.1f} MiB; every leaf on "
+              f"the card in bf16 (delta_t fp32), bitwise the CPU load moved", flush=True)
+        # an fp32 copy on the card would double the peak
+        for name, peak, tree in (("load_f5", f5_peak, f5_bytes),
+                                 ("load_vocos", vocos_peak, vocos_bytes)):
+            if peak > 1.25 * tree:
+                raise AssertionError(f"{name}: peak {peak} bytes for a {tree}-byte tree")
+
+        pipe = F5Pipeline(F5Model(cfg, params), vocab, VocosModel(lvcfg, vparams))
+        out_path = os.path.join(tmp, "out.wav")
+        gen_text = " ".join(["word"] * 15)
+        launches: dict = {}
+        for label, p, per_step in (
+                ("bf16", pipe, {"flash_attention_flat": cfg.depth, "mlp_block_fused": cfg.depth,
+                                "conv_pos_embed_fused": 1}),
+                ("w8a8", F5Pipeline(pipe.f5, vocab, pipe.vocos, quantize="w8a8"),
+                 {"flash_attention_flat": cfg.depth, "conv_pos_embed_fused": 1,
+                  **dict.fromkeys(Q8_KERNELS, cfg.depth)})):
+            p.synthesize(audio, REF_TEXT, "word word")              # warm-up
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            wav, stats = p.synthesize(audio, REF_TEXT, gen_text)
+            grew = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+            print(f"  {name_limit}: {label} bench request (15 words) from the loaded weights: "
+                  f"{len(wav)} int16 samples, wall {stats.wall_s:.4f} s, RTF {stats.rtf:.6f}, "
+                  f"peak |wav| {stats.peak:.6g}, launches "
+                  f"{ {k: n for k, n in grew.items() if n} }", flush=True)
+            if wav.dtype != np.int16 or len(wav) != BENCH_SAMPLES:
+                raise AssertionError(f"{label}: {len(wav)} {wav.dtype} samples, expected "
+                                     f"{BENCH_SAMPLES} int16")
+            if not math.isfinite(stats.peak) or not wav.any():
+                raise AssertionError(f"{label}: the waveform is not finite or all zeros")
+            for k in KERNELS:
+                want = per_step.get(k, 0) * (cfg.nfe_steps - 1)
+                if grew[k] != want:
+                    raise AssertionError(f"{label}: {k} launched {grew[k]} times, expected "
+                                         f"{want}")
+            for k, n in grew.items():
+                launches[k] = launches.get(k, 0) + n
+            bench = p.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
+            print(f"  {name_limit}: {label} from the loaded weights, F5Pipeline.benchmark: "
+                  f"latency RTF {bench['rtf']:.6f} ({bench['wall_s']:.4f} s for "
+                  f"{bench['audio_s']:.3f} s of audio), sustained RTF "
+                  f"{bench['sustained_rtf']:.6f}", flush=True)
+            if label == "bf16":
+                write_wav(out_path, wav, cfg.sample_rate)
+                back, rate = read_wav(out_path)
+                if rate != cfg.sample_rate or not np.array_equal(back, wav):
+                    raise AssertionError("write_wav -> read_wav did not give the audio back")
+                print("  write_wav -> read_wav: the bench request's audio back bit for bit",
+                      flush=True)
+                check_bf16_forward(pipe, 1408, 1396, "loaded bf16")
+    return launches
+
+
 def profile_one(label: str, fn, classes, name_limit: str, per: tuple | None = None,
                 out_path: str | None = None) -> None:
     """torch.profiler over one fn() after a warm-up: device kernel time by
@@ -4944,11 +5276,12 @@ def main() -> None:
                          "int8), one BigVGAN call, one IndexTTS request and one "
                          "VoxCPM-2 request, the Kani, Qwen, BigVGAN, IndexTTS "
                          "and VoxCPM tables into DIR")
-    ap.add_argument("--families", default="f5,kani,qwen,bigvgan,indextts,voxcpm,serving",
+    ap.add_argument("--families",
+                    default="f5,kani,qwen,bigvgan,indextts,voxcpm,serving,checkpoints",
                     help="the pipeline phases to run after phase 2, by family: "
                          "f5 (3-5d), kani (6), qwen (7), bigvgan (8, 8c), indextts (9), "
-                         "voxcpm (10), serving (11); default all (the smoke run's "
-                         "contract)")
+                         "voxcpm (10), serving (11), checkpoints (12); default all (the "
+                         "smoke run's contract)")
     ap.add_argument("--servers", default=",".join(SERVERS),
                     help="the slot servers phase 11 runs: " + ", ".join(SERVERS) +
                          "; default all")
@@ -5107,7 +5440,19 @@ def main() -> None:
         for k, n in run_serving(name_limit, set(args.servers.split(","))).items():
             launches[k] = launches.get(k, 0) + n
 
+    if "checkpoints" in fams:
+        phase("phase 12: the README's F5 usage from checkpoint files (load_f5, load_vocos, "
+              "read_wav, write_wav)")
+        for k, n in run_checkpoints(name_limit).items():
+            launches[k] = launches.get(k, 0) + n
+
     phase("done")
+    # JAX may be installed where the port runs: nothing of the run may have
+    # imported it, nor the JAX package, not even inside a function
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "tts_tpu"))
+    if leaked:
+        raise AssertionError(f"the run imported {leaked[:8]}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches.get(name, 0), **{k: res[name][k] for k in keys}}
