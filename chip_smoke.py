@@ -18,6 +18,7 @@
     python3 chip_smoke.py --families serving            # phases 0-2, 11
     python3 chip_smoke.py --families serving --servers f5   # phase 11's F5 only
     python3 chip_smoke.py --families checkpoints        # phases 0-2, 12
+    python3 chip_smoke.py --families cli                # phases 0-2, 13
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
@@ -167,7 +168,22 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      and moved); the bench request from the loaded weights (212,736
      samples, 682 launches of kernels 1 and 3, 31 of kernel 2), its audio
      through write_wav and read_wav bit for bit, one DiT forward against the
-     twins; a W8A8 request (682 each of kernels 1, 6, 7 and 8).
+     twins; a W8A8 request (682 each of kernels 1, 6, 7 and 8);
+  13. text in, speech out through the CLI: upstream-key checkpoints at full
+     width written from seeds in bf16 (kani-tts-370m with a NanoCodec
+     .nemo, Qwen3-TTS-0.6B with its codec, IndexTTS-1.5 with a config.yaml
+     at phase 9's rates and a hand-built bpe.model, VoxCPM-2), the
+     tokenizer.json files from tests/fixtures, phase 12's F5 files; then
+     tts_tpu_torch.cli.main in process for f5, kani, qwen, indextts and
+     voxcpm --v2 with an English --text, each checked for its WAV's rate
+     and length, each kernel's launches per token, frame or latent it
+     generated (f5 682 each of kernels 1 and 3; kani 6 of kernel 12 a
+     decode step; qwen 88 of kernel 12 a frame; indextts 24 of kernel 11
+     a decode step and 12 of kernel 10 a vocoder call; voxcpm 28 of kernel
+     12 a latent), the WAV bit for bit the loaded pipeline's direct call,
+     and the tokenizer's ids with `regex` importable and blocked; the load
+     seconds, the tokenize ms and the synthesis wall of each, beside the
+     card's name and power limit.
 Phase 2 also runs kernels 11 and 12 at the VoxCPM base-LM shape (B 1, 4, 8;
 pos 49, 64, 96 of a 128-row cache and 1000 of 2048; bf16 and int8; timed
 beside their bounds), and the Kani and VoxCPM checks over four seeds, each
@@ -179,6 +195,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -5095,14 +5112,13 @@ def check_loaded(label: str, tree: dict, ref: dict, keep_fp32=()) -> int:
     return sum(nbytes(t) for t in leaves.values())
 
 
-def run_checkpoints(name_limit: str) -> dict:
+def run_checkpoints(name_limit: str, tmp: str) -> tuple:
     """Phase 12: write an upstream F5TTS_v1_Base checkpoint, a Vocos one and
-    a stereo 44.1 kHz reference; read the reference at 24 kHz; load both
-    checkpoints straight to the card in bf16; run the bench request and a
-    W8A8 request from the loaded weights; write the audio and read it back.
-    Returns the launches of the two requests."""
-    import tempfile
-
+    a stereo 44.1 kHz reference into `tmp`; read the reference at 24 kHz;
+    load both checkpoints straight to the card in bf16; run the bench
+    request and a W8A8 request from the loaded weights; write the audio and
+    read it back. Returns the launches of the two requests and the files
+    (phase 13 reads them)."""
     from tts_tpu_torch.audio.wav import read_wav, write_wav
     from tts_tpu_torch.models.f5 import F5Config, F5Model
     from tts_tpu_torch.models.vocos import VocosConfig, VocosModel
@@ -5111,107 +5127,1044 @@ def run_checkpoints(name_limit: str) -> dict:
     from tts_tpu_torch.weights import load_f5, load_vocos
 
     cfg, vcfg = F5Config(vocab_size=F5_VOCAB_LINES), VocosConfig()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
-        t0 = time.perf_counter()
-        ckpt, vocab_path, size = write_f5_checkpoint(tmp, cfg, seed=20)
-        vdir = write_vocos_checkpoint(tmp, vcfg, seed=21)
-        ref_path = os.path.join(tmp, "ref.wav")
-        frames = write_stereo_reference(ref_path, 6.0, seed=22)
-        print(f"  wrote {ckpt.split(os.sep)[-1]} ({size / 2**30:.3f} GiB fp32, F5 dim "
-              f"{cfg.dim} depth {cfg.depth} heads {cfg.heads}x{cfg.head_dim}), vocab.txt "
-              f"({cfg.vocab_size} lines), vocos/pytorch_model.bin and a 6 s stereo "
-              f"{REF_RATE} Hz reference in {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    ckpt, vocab_path, size = write_f5_checkpoint(tmp, cfg, seed=20)
+    vdir = write_vocos_checkpoint(tmp, vcfg, seed=21)
+    ref_path = os.path.join(tmp, "ref.wav")
+    frames = write_stereo_reference(ref_path, 6.0, seed=22)
+    print(f"  wrote {ckpt.split(os.sep)[-1]} ({size / 2**30:.3f} GiB fp32, F5 dim "
+          f"{cfg.dim} depth {cfg.depth} heads {cfg.heads}x{cfg.head_dim}), vocab.txt "
+          f"({cfg.vocab_size} lines), vocos/pytorch_model.bin and a 6 s stereo "
+          f"{REF_RATE} Hz reference in {time.perf_counter() - t0:.2f} s", flush=True)
 
-        t0 = time.perf_counter()
-        audio, rate = read_wav(ref_path, target_rate=24000)
-        print(f"  read_wav(target_rate=24000): {len(audio)} int16 samples at {rate} Hz in "
-              f"{time.perf_counter() - t0:.3f} s", flush=True)
-        if rate != 24000 or audio.dtype != np.int16 or len(audio) != 6 * 24000:
-            raise AssertionError(f"read_wav gave {len(audio)} {audio.dtype} samples at {rate}")
-        check_native(frames, audio)
+    t0 = time.perf_counter()
+    audio, rate = read_wav(ref_path, target_rate=24000)
+    print(f"  read_wav(target_rate=24000): {len(audio)} int16 samples at {rate} Hz in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if rate != 24000 or audio.dtype != np.int16 or len(audio) != 6 * 24000:
+        raise AssertionError(f"read_wav gave {len(audio)} {audio.dtype} samples at {rate}")
+    check_native(frames, audio)
 
-        loads = {}
-        for name, fn in (("load_f5", lambda: load_f5(ckpt, vocab_path, dtype=torch.bfloat16,
-                                                     device="cuda")),
-                         ("load_vocos", lambda: load_vocos(vdir, dtype=torch.bfloat16,
-                                                           device="cuda"))):
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
+    loads = {}
+    for name, fn in (("load_f5", lambda: load_f5(ckpt, vocab_path, dtype=torch.bfloat16,
+                                                 device="cuda")),
+                     ("load_vocos", lambda: load_vocos(vdir, dtype=torch.bfloat16,
+                                                       device="cuda"))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        loads[name] = (out, seconds, torch.cuda.max_memory_allocated() - base)
+    (params, lcfg, vocab), f5_s, f5_peak = loads["load_f5"]
+    (vparams, lvcfg), vocos_s, vocos_peak = loads["load_vocos"]
+    if lcfg != cfg or len(vocab) != cfg.vocab_size:
+        raise AssertionError(f"load_f5 gave {lcfg} and {len(vocab)} vocab entries")
+
+    # the same files loaded on the CPU in bf16 (delta_t kept fp32) and moved
+    t0 = time.perf_counter()
+    cpu, _, _ = load_f5(ckpt, vocab_path, dtype=torch.bfloat16, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    f5_bytes = check_loaded("load_f5", params, F5Model(cfg, cpu).to("cuda").params,
+                            keep_fp32=F5Model.keep_fp32)
+    vcpu, _ = load_vocos(vdir, dtype=torch.bfloat16, device="cpu")
+    vocos_bytes = check_loaded("load_vocos", vparams, VocosModel(vcfg, vcpu).to("cuda").params)
+    del cpu, vcpu
+    print(f"  {name_limit}: load_f5 to the card in bf16 {f5_s:.3f} s (bf16 to the CPU "
+          f"{cpu_s:.3f} s), peak device memory during the load {f5_peak / 2**20:.1f} MiB "
+          f"for a {f5_bytes / 2**20:.1f} MiB tree; load_vocos {vocos_s:.3f} s, peak "
+          f"{vocos_peak / 2**20:.1f} MiB for {vocos_bytes / 2**20:.1f} MiB; every leaf on "
+          f"the card in bf16 (delta_t fp32), bitwise the CPU load moved", flush=True)
+    # an fp32 copy on the card would double the peak
+    for name, peak, tree in (("load_f5", f5_peak, f5_bytes),
+                             ("load_vocos", vocos_peak, vocos_bytes)):
+        if peak > 1.25 * tree:
+            raise AssertionError(f"{name}: peak {peak} bytes for a {tree}-byte tree")
+
+    pipe = F5Pipeline(F5Model(cfg, params), vocab, VocosModel(lvcfg, vparams))
+    out_path = os.path.join(tmp, "out.wav")
+    gen_text = " ".join(["word"] * 15)
+    launches: dict = {}
+    for label, p, per_step in (
+            ("bf16", pipe, {"flash_attention_flat": cfg.depth, "mlp_block_fused": cfg.depth,
+                            "conv_pos_embed_fused": 1}),
+            ("w8a8", F5Pipeline(pipe.f5, vocab, pipe.vocos, quantize="w8a8"),
+             {"flash_attention_flat": cfg.depth, "conv_pos_embed_fused": 1,
+              **dict.fromkeys(Q8_KERNELS, cfg.depth)})):
+        p.synthesize(audio, REF_TEXT, "word word")              # warm-up
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        wav, stats = p.synthesize(audio, REF_TEXT, gen_text)
+        grew = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+        print(f"  {name_limit}: {label} bench request (15 words) from the loaded weights: "
+              f"{len(wav)} int16 samples, wall {stats.wall_s:.4f} s, RTF {stats.rtf:.6f}, "
+              f"peak |wav| {stats.peak:.6g}, launches "
+              f"{ {k: n for k, n in grew.items() if n} }", flush=True)
+        if wav.dtype != np.int16 or len(wav) != BENCH_SAMPLES:
+            raise AssertionError(f"{label}: {len(wav)} {wav.dtype} samples, expected "
+                                 f"{BENCH_SAMPLES} int16")
+        if not math.isfinite(stats.peak) or not wav.any():
+            raise AssertionError(f"{label}: the waveform is not finite or all zeros")
+        for k in KERNELS:
+            want = per_step.get(k, 0) * (cfg.nfe_steps - 1)
+            if grew[k] != want:
+                raise AssertionError(f"{label}: {k} launched {grew[k]} times, expected "
+                                     f"{want}")
+        for k, n in grew.items():
+            launches[k] = launches.get(k, 0) + n
+        bench = p.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
+        print(f"  {name_limit}: {label} from the loaded weights, F5Pipeline.benchmark: "
+              f"latency RTF {bench['rtf']:.6f} ({bench['wall_s']:.4f} s for "
+              f"{bench['audio_s']:.3f} s of audio), sustained RTF "
+              f"{bench['sustained_rtf']:.6f}", flush=True)
+        if label == "bf16":
+            write_wav(out_path, wav, cfg.sample_rate)
+            back, rate = read_wav(out_path)
+            if rate != cfg.sample_rate or not np.array_equal(back, wav):
+                raise AssertionError("write_wav -> read_wav did not give the audio back")
+            print("  write_wav -> read_wav: the bench request's audio back bit for bit",
+                  flush=True)
+            check_bf16_forward(pipe, 1408, 1396, "loaded bf16")
+    return launches, {"ckpt": ckpt, "vocab": vocab_path, "vocoder": vdir, "ref": ref_path}
+
+
+# --------------------------------------------------------------------------
+# Phase 13: text in, speech out through the CLI
+
+CLI_TEXT = "Hello from the card. The port turns text into speech."
+# the caps each command gets (random weights may stop earlier)
+CLI_CAPS = {"kani": 96, "qwen": 16, "indextts": 48, "voxcpm": 16}
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+
+
+class CkptWriter:
+    """An upstream-key state dict drawn on the card from one seeded
+    generator, each tensor kept on the host in bf16 (the loaders upcast bf16
+    exactly to fp32). `w` is N(0, (gain / sqrt(fan))^2), fan the product of
+    the dims past the first unless given; `one` 1 + N(0, 0.05^2); `zero`
+    N(0, 0.02^2); `pos` 0.5 + |N(0, 0.1^2)|."""
+
+    def __init__(self, seed: int):
+        self.g = torch.Generator("cuda").manual_seed(seed)
+        self.sd: dict = {}
+
+    def _randn(self, shape) -> torch.Tensor:
+        return torch.randn(shape, generator=self.g, device="cuda")
+
+    def _put(self, key: str, t: torch.Tensor) -> None:
+        self.sd[key] = t.to(torch.bfloat16).cpu()
+
+    def w(self, key, *shape, gain=1.0, fan=None) -> None:
+        fan = fan or math.prod(shape[1:]) or 1
+        self._put(key, self._randn(shape) * (gain / math.sqrt(fan)))
+
+    def one(self, key, *shape) -> None:
+        self._put(key, 1.0 + 0.05 * self._randn(shape))
+
+    def zero(self, key, *shape) -> None:
+        self._put(key, 0.02 * self._randn(shape))
+
+    def pos(self, key, *shape) -> None:
+        self._put(key, 0.5 + 0.1 * self._randn(shape).abs())
+
+    def lin(self, pre, cout, cin, bias=True, gain=1.0) -> None:
+        self.w(f"{pre}.weight", cout, cin, gain=gain)
+        if bias:
+            self.zero(f"{pre}.bias", cout)
+
+    def conv(self, pre, cin, cout, k, transposed=False, stride=1, gain=1.0, bias=True) -> None:
+        """A Conv1d (out, in, k) or ConvTranspose1d (in, out, k) plain weight;
+        a transposed output sums cin * k / stride taps."""
+        shape = (cin, cout, k) if transposed else (cout, cin, k)
+        self.w(f"{pre}.weight", *shape, gain=gain, fan=max(1, cin * k // stride))
+        if bias:
+            self.zero(f"{pre}.bias", cout)
+
+    def ln(self, pre, n) -> None:
+        self.one(f"{pre}.weight", n)
+        self.zero(f"{pre}.bias", n)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.sd.values())
+
+
+def _spm_model(pieces: list) -> bytes:
+    """A SentencePiece ModelProto (BPE, identity normalizer, dummy prefix)
+    from (piece, score, type) triples, in the protobuf wire format."""
+    import struct
+
+    def varint(v):
+        out = bytearray()
+        while True:
+            b, v = v & 0x7F, v >> 7
+            out.append(b | 0x80 if v else b)
+            if not v:
+                return bytes(out)
+
+    def field(num, wire, body):
+        return varint((num << 3) | wire) + body
+
+    def length(num, raw):
+        return field(num, 2, varint(len(raw)) + raw)
+
+    data = b""
+    for piece, score, typ in pieces:
+        body = length(1, piece.encode()) + field(2, 5, struct.pack("<f", score))
+        if typ != 1:
+            body += field(3, 0, varint(typ))
+        data += length(1, body)
+    data += length(2, field(3, 0, varint(2)) + field(40, 0, varint(0)))
+    data += length(3, length(1, b"identity") + field(3, 0, varint(1)))
+    return data
+
+
+def write_kani_checkpoint(dirname: str, cfg, ccfg, seed: int) -> tuple:
+    """kani-tts-370m in the LFM2 keys (tied embeddings, config.json,
+    `bf16 model.safetensors`), tests/fixtures/gpt2_style.json as its
+    tokenizer.json, and nemo-nano-codec-22khz-0.6kbps-12.5fps as a `.nemo`
+    tar (model_config.yaml + model_weights.ckpt; HalfSnake alphas of C / 2).
+    Returns (the LM dir, the .nemo path, bytes written)."""
+    import shutil
+    import tarfile
+
+    import yaml
+
+    from tts_tpu_torch.weights import write_safetensors
+
+    os.makedirs(dirname, exist_ok=True)
+    w = CkptWriter(seed)
+    hs, hd, ff = cfg.hidden_size, cfg.head_dim, cfg.ffn_dim
+    w.w("model.embed_tokens.weight", cfg.vocab_size, hs, fan=1)
+    w.one("model.embedding_norm.weight", hs)
+    for i, lt in enumerate(cfg.layer_types):
+        p = f"model.layers.{i}"
+        w.one(f"{p}.operator_norm.weight", hs)
+        w.one(f"{p}.ffn_norm.weight", hs)
+        w.lin(f"{p}.feed_forward.w1", ff, hs, bias=False)
+        w.lin(f"{p}.feed_forward.w3", ff, hs, bias=False)
+        w.lin(f"{p}.feed_forward.w2", hs, ff, bias=False, gain=0.5)
+        if lt == "attn":
+            a = f"{p}.self_attn"
+            w.lin(f"{a}.q_proj", cfg.num_heads * hd, hs, bias=False)
+            w.lin(f"{a}.k_proj", cfg.num_kv_heads * hd, hs, bias=False)
+            w.lin(f"{a}.v_proj", cfg.num_kv_heads * hd, hs, bias=False)
+            w.lin(f"{a}.out_proj", hs, cfg.num_heads * hd, bias=False, gain=0.5)
+            w.one(f"{a}.q_layernorm.weight", hd)
+            w.one(f"{a}.k_layernorm.weight", hd)
+        else:
+            w.lin(f"{p}.conv.in_proj", 3 * hs, hs, bias=False)
+            w.w(f"{p}.conv.conv.weight", hs, 1, cfg.conv_kernel)
+            w.lin(f"{p}.conv.out_proj", hs, hs, bias=False, gain=0.5)
+    write_safetensors(os.path.join(dirname, "model.safetensors"), w.sd)
+    config = {"layer_types": ["full_attention" if t == "attn" else "conv"
+                              for t in cfg.layer_types],
+              "hidden_size": hs, "num_attention_heads": cfg.num_heads,
+              "num_key_value_heads": cfg.num_kv_heads, "head_dim": hd, "block_ff_dim": ff,
+              "vocab_size": cfg.vocab_size, "conv_L_cache": cfg.conv_kernel,
+              "rope_theta": cfg.rope_base, "norm_eps": cfg.rms_eps}
+    with open(os.path.join(dirname, "config.json"), "w") as f:
+        json.dump(config, f)
+    shutil.copy(os.path.join(FIXTURES, "gpt2_style.json"), os.path.join(dirname, "tokenizer.json"))
+
+    c = CkptWriter(seed + 1)
+    d = "audio_decoder"
+    rates = ccfg.up_sample_rates
+    ch = [ccfg.base_channels // 2 ** i for i in range(len(rates) + 1)]
+
+    def act(pre, n):
+        c.pos(f"{pre}.snake_act.alpha", 1, n // 2, 1)
+
+    c.conv(f"{d}.pre_conv.conv", ccfg.input_dim, ch[0], ccfg.pre_kernel)
+    for i, r in enumerate(rates):
+        act(f"{d}.activations.{i}", ch[i])
+        c.conv(f"{d}.up_sample_conv_layers.{i}.conv", ch[i], ch[i + 1], 2 * r,
+               transposed=True, stride=r)
+        for j, k in enumerate(ccfg.kernel_sizes):
+            rb = f"{d}.res_layers.{i}.res_blocks.{j}.res_blocks"
+            for m, _ in enumerate(ccfg.dilations):
+                act(f"{rb}.{m}.input_activation", ch[i + 1])
+                c.conv(f"{rb}.{m}.input_conv.conv", ch[i + 1], ch[i + 1], k, gain=0.5)
+                act(f"{rb}.{m}.skip_activation", ch[i + 1])
+                c.conv(f"{rb}.{m}.skip_conv.conv", ch[i + 1], ch[i + 1], k, gain=0.5)
+    act(f"{d}.post_activation", ch[-1])
+    c.conv(f"{d}.post_conv.conv", ch[-1], 1, ccfg.post_kernel, gain=0.3)
+    ycfg = {"sample_rate": ccfg.sample_rate,
+            "audio_decoder": {"base_channels": ccfg.base_channels,
+                              "up_sample_rates": list(rates), "activation": ccfg.activation},
+            "vector_quantizer": {"num_groups": ccfg.num_groups,
+                                 "num_levels": list(ccfg.levels)}}
+    nemo = os.path.join(dirname, "nano_codec.nemo")
+    buf = io.BytesIO()
+    torch.save(c.sd, buf)
+    with tarfile.open(nemo, "w") as tar:
+        for name, blob in (("./model_config.yaml", yaml.safe_dump(ycfg).encode()),
+                           ("./model_weights.ckpt", buf.getvalue())):
+            info = tarfile.TarInfo(name)
+            info.size = len(blob)
+            tar.addfile(info, io.BytesIO(blob))
+    return dirname, nemo, w.nbytes + c.nbytes
+
+
+def write_qwen_checkpoint(dirname: str, cfg, ccfg, seed: int) -> tuple:
+    """Qwen3-TTS-0.6B: the talker and code predictor (model.safetensors,
+    config.json) and the tokenizer-v2 decoder (speech_tokenizer.safetensors)
+    in the upstream keys, bf16; tests/fixtures/qwen2_style.json as its
+    tokenizer.json. Returns (dir, bytes written)."""
+    import shutil
+
+    from tts_tpu_torch.weights import write_safetensors
+
+    os.makedirs(dirname, exist_ok=True)
+    w = CkptWriter(seed)
+
+    def stack(prefix, s):
+        for i in range(s.num_layers):
+            p = f"{prefix}.layers.{i}"
+            w.one(f"{p}.input_layernorm.weight", s.hidden_size)
+            w.one(f"{p}.post_attention_layernorm.weight", s.hidden_size)
+            for n, rows in (("q", s.num_heads), ("k", s.num_kv_heads), ("v", s.num_kv_heads)):
+                w.lin(f"{p}.self_attn.{n}_proj", rows * s.head_dim, s.hidden_size, bias=False)
+            w.lin(f"{p}.self_attn.o_proj", s.hidden_size, s.num_heads * s.head_dim, bias=False,
+                  gain=0.5)
+            w.one(f"{p}.self_attn.q_norm.weight", s.head_dim)
+            w.one(f"{p}.self_attn.k_norm.weight", s.head_dim)
+            w.lin(f"{p}.mlp.gate_proj", s.ffn_dim, s.hidden_size, bias=False)
+            w.lin(f"{p}.mlp.up_proj", s.ffn_dim, s.hidden_size, bias=False)
+            w.lin(f"{p}.mlp.down_proj", s.hidden_size, s.ffn_dim, bias=False, gain=0.5)
+
+    t, p = cfg.talker, cfg.predictor
+    stack("talker.model", t)
+    stack("talker.code_predictor.model", p)
+    w.one("talker.model.norm.weight", t.hidden_size)
+    w.one("talker.code_predictor.model.norm.weight", p.hidden_size)
+    for g in range(cfg.num_code_groups - 1):
+        w.lin(f"talker.code_predictor.lm_head.{g}", cfg.group_vocab, p.hidden_size, bias=False)
+        w.w(f"talker.code_predictor.model.codec_embedding.{g}.weight", cfg.group_vocab,
+            t.hidden_size, fan=1)
+    w.lin("talker.codec_head", cfg.codec_vocab, t.hidden_size, bias=False)
+    w.w("talker.model.codec_embedding.weight", cfg.codec_vocab, t.hidden_size, fan=1)
+    w.w("talker.model.text_embedding.weight", cfg.text_vocab, cfg.text_hidden, fan=1)
+    w.lin("talker.text_projection", t.hidden_size, cfg.text_hidden)
+    w.lin("talker.code_predictor.small_to_mtp_projection", p.hidden_size, t.hidden_size,
+          bias=False)
+    write_safetensors(os.path.join(dirname, "model.safetensors"), w.sd)
+
+    def stack_cfg(s):
+        return {"hidden_size": s.hidden_size, "num_attention_heads": s.num_heads,
+                "num_key_value_heads": s.num_kv_heads, "head_dim": s.head_dim,
+                "intermediate_size": s.ffn_dim, "num_hidden_layers": s.num_layers,
+                "rms_norm_eps": s.rms_eps, "rope_theta": s.rope_base}
+
+    config = {"tts_bos_token_id": cfg.tts_bos_token_id, "tts_eos_token_id": cfg.tts_eos_token_id,
+              "tts_pad_token_id": cfg.tts_pad_token_id, "text_vocab_size": cfg.text_vocab,
+              "text_hidden_size": cfg.text_hidden,
+              "talker_config": {**stack_cfg(t), "vocab_size": cfg.codec_vocab,
+                                "codec_eos_token_id": cfg.codec_eos_token_id,
+                                "codec_bos_id": cfg.codec_bos_id,
+                                "codec_pad_id": cfg.codec_pad_id,
+                                "codec_think_id": cfg.codec_think_id,
+                                "codec_think_bos_id": cfg.codec_think_bos_id,
+                                "codec_think_eos_id": cfg.codec_think_eos_id,
+                                "code_predictor_config": {
+                                    **stack_cfg(p), "vocab_size": cfg.group_vocab,
+                                    "num_code_groups": cfg.num_code_groups}}}
+    with open(os.path.join(dirname, "config.json"), "w") as f:
+        json.dump(config, f)
+
+    c = CkptWriter(seed + 1)
+    pre = "speech_tokenizer.model.decoder"
+
+    def snake(key, n):                   # SnakeBeta, log scale
+        c.zero(f"{key}.alpha", n)
+        c.zero(f"{key}.beta", n)
+
+    firsts = [f"{pre}.quantizer.rvq_first.vq.layers.0"]
+    rests = [f"{pre}.quantizer.rvq_rest.vq.layers.{g}" for g in range(ccfg.num_quantizers - 1)]
+    for base in firsts + rests:
+        c.w(f"{base}._codebook.embedding_sum", ccfg.codebook_size, ccfg.rvq_dim, fan=1)
+        c.pos(f"{base}._codebook.cluster_usage", ccfg.codebook_size)
+    for part in ("rvq_first", "rvq_rest"):
+        c.w(f"{pre}.quantizer.{part}.output_proj.weight", ccfg.codebook_dim, ccfg.rvq_dim, 1)
+    c.conv(f"{pre}.pre_conv.conv", ccfg.codebook_dim, ccfg.latent_dim, 3)
+    tp = f"{pre}.pre_transformer"
+    hs, hd = ccfg.hidden_size, ccfg.head_dim
+    c.lin(f"{tp}.input_proj", hs, ccfg.latent_dim)
+    for i in range(ccfg.num_layers):
+        lp = f"{tp}.layers.{i}"
+        c.lin(f"{lp}.self_attn.q_proj", ccfg.num_heads * hd, hs, bias=False)
+        c.lin(f"{lp}.self_attn.k_proj", ccfg.num_kv_heads * hd, hs, bias=False)
+        c.lin(f"{lp}.self_attn.v_proj", ccfg.num_kv_heads * hd, hs, bias=False)
+        c.lin(f"{lp}.self_attn.o_proj", hs, ccfg.num_heads * hd, bias=False)
+        c.lin(f"{lp}.mlp.gate_proj", ccfg.ffn_dim, hs, bias=False)
+        c.lin(f"{lp}.mlp.up_proj", ccfg.ffn_dim, hs, bias=False)
+        c.lin(f"{lp}.mlp.down_proj", hs, ccfg.ffn_dim, bias=False)
+        c.one(f"{lp}.input_layernorm.weight", hs)
+        c.one(f"{lp}.post_attention_layernorm.weight", hs)
+        c.zero(f"{lp}.self_attn_layer_scale.scale", hs)
+        c.zero(f"{lp}.mlp_layer_scale.scale", hs)
+    c.one(f"{tp}.norm.weight", hs)
+    c.lin(f"{tp}.output_proj", ccfg.latent_dim, hs)
+    lat = ccfg.latent_dim
+    for i, r in enumerate(ccfg.upsampling_ratios):
+        c.conv(f"{pre}.upsample.{i}.0.conv", lat, lat, r, transposed=True, stride=r)
+        cn = f"{pre}.upsample.{i}.1"
+        c.conv(f"{cn}.dwconv.conv", 1, lat, 7)
+        c.ln(f"{cn}.norm", lat)
+        c.lin(f"{cn}.pwconv1", 4 * lat, lat)
+        c.lin(f"{cn}.pwconv2", lat, 4 * lat)
+        c.zero(f"{cn}.gamma", lat)
+    c.conv(f"{pre}.decoder.0.conv", lat, ccfg.decoder_dim, 7)
+    for i, r in enumerate(ccfg.upsample_rates):
+        cin, cout = ccfg.decoder_dim // 2 ** i, ccfg.decoder_dim // 2 ** (i + 1)
+        b = f"{pre}.decoder.{i + 1}.block"
+        snake(f"{b}.0", cin)
+        c.conv(f"{b}.1.conv", cin, cout, 2 * r, transposed=True, stride=r)
+        for j in range(3):
+            snake(f"{b}.{2 + j}.act1", cout)
+            c.conv(f"{b}.{2 + j}.conv1.conv", cout, cout, 7, gain=0.5)
+            snake(f"{b}.{2 + j}.act2", cout)
+            c.conv(f"{b}.{2 + j}.conv2.conv", cout, cout, 1, gain=0.5)
+    n = len(ccfg.upsample_rates)
+    out = ccfg.decoder_dim // 2 ** n
+    snake(f"{pre}.decoder.{n + 1}", out)
+    c.conv(f"{pre}.decoder.{n + 2}.conv", out, 1, 7, gain=0.3)
+    write_safetensors(os.path.join(dirname, "speech_tokenizer.safetensors"), c.sd)
+    shutil.copy(os.path.join(FIXTURES, "qwen2_style.json"), os.path.join(dirname, "tokenizer.json"))
+    return dirname, w.nbytes + c.nbytes
+
+
+# the IndexTTS bpe.model: upper-case letters and punctuation, a few merges
+INDEX_PIECES = ([("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3), ("▁", -10.0, 1)]
+                + [(ch, -5.0, 1) for ch in "ABCDEFGHIJKLMNOPQRSTUVWXYZ.,!?'"]
+                + [("▁" + m, -1.0 - 0.1 * i, 1) for i, m in enumerate(
+                    ("THE", "HELLO", "FROM", "CARD", "PORT", "TEXT", "INTO", "SPEECH",
+                     "TURNS", "TH", "S", "T", "C", "P"))]
+                + [("ER", -2.0, 1), ("RO", -2.1, 1), ("AR", -2.2, 1), ("EE", -2.3, 1)])
+
+
+def write_indextts_checkpoint(dirname: str, cfg, vcfg, seed: int) -> tuple:
+    """IndexTTS-1.5: gpt.pth (UnifiedVoice: GPT-2 layers, embeddings, the
+    conformer and the perceiver) and bigvgan.pth (the generator, the ECAPA
+    speaker encoder with BatchNorm statistics, cond_layer and conds), both
+    torch.save'd in bf16; config.yaml with vcfg's rates (phase 9's); a
+    hand-built bpe.model. Returns (dir, bytes written)."""
+    import yaml
+
+    os.makedirs(dirname, exist_ok=True)
+    w = CkptWriter(seed)
+    d = cfg.gpt_dim
+    for i in range(cfg.gpt_layers):
+        p = f"gpt.h.{i}"
+        w.w(f"{p}.attn.c_attn.weight", d, 3 * d, fan=d)        # GPT-2 Conv1D (in, out)
+        w.zero(f"{p}.attn.c_attn.bias", 3 * d)
+        w.w(f"{p}.attn.c_proj.weight", d, d, fan=d, gain=0.5)
+        w.zero(f"{p}.attn.c_proj.bias", d)
+        w.w(f"{p}.mlp.c_fc.weight", d, 4 * d, fan=d)
+        w.zero(f"{p}.mlp.c_fc.bias", 4 * d)
+        w.w(f"{p}.mlp.c_proj.weight", 4 * d, d, fan=4 * d, gain=0.5)
+        w.zero(f"{p}.mlp.c_proj.bias", d)
+        w.ln(f"{p}.ln_1", d)
+        w.ln(f"{p}.ln_2", d)
+    w.ln("gpt.ln_f", d)
+    w.ln("final_norm", d)
+    for key, rows in (("text_embedding.weight", cfg.num_text_tokens + 2),
+                      ("text_pos_embedding.emb.weight", cfg.max_text_tokens + 2),
+                      ("mel_embedding.weight", cfg.num_mel_codes),
+                      ("mel_pos_embedding.emb.weight", cfg.max_mel_tokens + 2)):
+        w.w(key, rows, d, fan=1, gain=0.02)
+    w.lin("mel_head", cfg.num_mel_codes, d)
+    # the conditioning encoder (ESPnet conformer) and the perceiver
+    e, h = cfg.enc_dim, cfg.enc_heads
+    f_out = ((cfg.n_mels - 1) // 2 - 1) // 2
+    ce = "conditioning_encoder"
+    w.w(f"{ce}.embed.conv.0.weight", e, 1, 3, 3)
+    w.zero(f"{ce}.embed.conv.0.bias", e)
+    w.w(f"{ce}.embed.conv.2.weight", e, e, 3, 3)
+    w.zero(f"{ce}.embed.conv.2.bias", e)
+    w.lin(f"{ce}.embed.out.0", e, e * f_out)
+    for i in range(cfg.enc_layers):
+        p = f"{ce}.encoders.{i}"
+        a, cm = f"{p}.self_attn", f"{p}.conv_module"
+        for n in ("q", "k", "v"):
+            w.lin(f"{a}.linear_{n}", e, e)
+        w.lin(f"{a}.linear_pos", e, e, bias=False)
+        w.zero(f"{a}.pos_bias_u", h, e // h)
+        w.zero(f"{a}.pos_bias_v", h, e // h)
+        w.lin(f"{a}.linear_out", e, e, gain=0.5)
+        w.conv(f"{cm}.pointwise_conv1", e, 2 * e, 1)
+        w.conv(f"{cm}.depthwise_conv", 1, e, cfg.enc_conv_kernel)
+        w.conv(f"{cm}.pointwise_conv2", e, e, 1, gain=0.5)
+        w.lin(f"{p}.feed_forward.w_1", cfg.enc_ff_dim, e)
+        w.lin(f"{p}.feed_forward.w_2", e, cfg.enc_ff_dim, gain=0.5)
+        for n in ("norm_mha", "norm_conv", "conv_module.norm", "norm_ff", "norm_final"):
+            w.ln(f"{p}.{n}", e)
+    w.ln(f"{ce}.after_norm", e)
+    q = "perceiver_encoder"
+    inner = cfg.perceiver_heads * cfg.perceiver_dim_head
+    ff = d * cfg.perceiver_ff_mult
+    w.lin(f"{q}.proj_context", d, e)
+    w.w(f"{q}.latents", cfg.num_latents, d, fan=1)
+    for i in range(2):
+        p = f"{q}.layers.{i}"
+        w.lin(f"{p}.0.to_q", inner, d, bias=False)
+        w.lin(f"{p}.0.to_kv", 2 * inner, d, bias=False)
+        w.lin(f"{p}.0.to_out", d, inner, bias=False, gain=0.5)
+        w.ln(f"{p}.1.0", d)
+        w.lin(f"{p}.1.1", ff, d)
+        w.lin(f"{p}.1.3", d, ff, gain=0.5)
+    w.ln(f"{q}.norm", d)
+    torch.save(w.sd, os.path.join(dirname, "gpt.pth"))
+
+    b = CkptWriter(seed + 1)
+    c0 = vcfg.upsample_initial_channel
+    b.conv("conv_pre", vcfg.num_mels, c0, 7)
+    cin = c0
+    for i, (r, k) in enumerate(zip(vcfg.upsample_rates, vcfg.upsample_kernel_sizes)):
+        cout = vcfg.stage_channels[i]
+        b.conv(f"ups.{i}.0", cin, cout, k, transposed=True, stride=r)
+        for j, (ks, dil) in enumerate(zip(vcfg.resblock_kernel_sizes,
+                                          vcfg.resblock_dilation_sizes)):
+            n = i * vcfg.num_kernels + j
+            for m in range(len(dil)):
+                b.conv(f"resblocks.{n}.convs1.{m}", cout, cout, ks, gain=0.5)
+                b.conv(f"resblocks.{n}.convs2.{m}", cout, cout, ks, gain=0.5)
+            for m in range(2 * len(dil)):          # SnakeBeta, log scale
+                b.zero(f"resblocks.{n}.activations.{m}.act.alpha", cout)
+                b.zero(f"resblocks.{n}.activations.{m}.act.beta", cout)
+        cin = cout
+    b.zero("activation_post.act.alpha", cin)
+    b.zero("activation_post.act.beta", cin)
+    b.conv("conv_post", cin, 1, 7, gain=0.3)
+    ec, spk = cfg.ecapa_channels, cfg.speaker_embed_dim
+
+    def tdnn(pre, ci, co, k):
+        b.conv(f"{pre}.conv", ci, co, k)
+        b.one(f"{pre}.norm.norm.weight", co)
+        b.zero(f"{pre}.norm.norm.bias", co)
+        b.zero(f"{pre}.norm.norm.running_mean", co)
+        b.pos(f"{pre}.norm.norm.running_var", co)
+
+    se = "speaker_encoder"
+    sub = ec // cfg.res2net_scale
+    tdnn(f"{se}.blocks.0", cfg.n_mels, ec, 5)
+    for i in (1, 2, 3):
+        p = f"{se}.blocks.{i}"
+        tdnn(f"{p}.tdnn1", ec, ec, 1)
+        for j in range(cfg.res2net_scale - 1):
+            tdnn(f"{p}.res2net_block.blocks.{j}", sub, sub, 3)
+        tdnn(f"{p}.tdnn2", ec, ec, 1)
+        b.conv(f"{p}.se_block.conv1", ec, cfg.se_channels, 1)
+        b.conv(f"{p}.se_block.conv2", cfg.se_channels, ec, 1)
+    tdnn(f"{se}.mfa", 3 * ec, 3 * ec, 1)
+    tdnn(f"{se}.asp.tdnn", 9 * ec, cfg.ecapa_attn_channels, 1)
+    b.conv(f"{se}.asp.conv", cfg.ecapa_attn_channels, 3 * ec, 1)
+    b.one(f"{se}.asp_bn.weight", 6 * ec)
+    b.zero(f"{se}.asp_bn.bias", 6 * ec)
+    b.zero(f"{se}.asp_bn.running_mean", 6 * ec)
+    b.pos(f"{se}.asp_bn.running_var", 6 * ec)
+    b.conv(f"{se}.fc", 6 * ec, spk, 1)
+    b.conv("cond_layer", spk, c0, 1, gain=0.5)
+    for i, c in enumerate(vcfg.stage_channels):
+        b.conv(f"conds.{i}", spk, c, 1, gain=0.5)
+    torch.save(b.sd, os.path.join(dirname, "bigvgan.pth"))
+    section = {"upsample_initial_channel": c0, "upsample_rates": list(vcfg.upsample_rates),
+               "upsample_kernel_sizes": list(vcfg.upsample_kernel_sizes),
+               "resblock_kernel_sizes": list(vcfg.resblock_kernel_sizes),
+               "resblock_dilation_sizes": [list(x) for x in vcfg.resblock_dilation_sizes],
+               "activation": vcfg.activation, "snake_logscale": vcfg.snake_logscale,
+               "sampling_rate": vcfg.sample_rate, "resblock": vcfg.resblock,
+               "feat_upsample": vcfg.feat_upsample}
+    with open(os.path.join(dirname, "config.yaml"), "w") as f:
+        yaml.safe_dump({"gpt": {"model_dim": d}, "bigvgan": section}, f)
+    with open(os.path.join(dirname, "bpe.model"), "wb") as f:
+        f.write(_spm_model(INDEX_PIECES))
+    return dirname, w.nbytes + b.nbytes
+
+
+def write_voxcpm_checkpoint(dirname: str, cfg, seed: int) -> tuple:
+    """VoxCPM-2: base and residual LMs, the FSQ layer, the projections, the
+    feature encoder, the CFM estimator (time and delta-time MLPs) and the
+    audio VAE (depthwise units, rate-conditioning layers) in the upstream
+    keys, one bf16 model.safetensors; tests/fixtures/llama_style.json as its
+    tokenizer.json. Returns (dir, bytes written)."""
+    import shutil
+
+    from tts_tpu_torch.weights import write_safetensors
+
+    os.makedirs(dirname, exist_ok=True)
+    w = CkptWriter(seed)
+    b, est, fe = cfg.base, cfg.estimator, cfg.feat_encoder
+    hs, lat = b.hidden_size, cfg.vae.latent_dim
+    for prefix, s in (("base_lm", b), ("residual_lm", cfg.residual), ("feat_encoder.encoder", fe),
+                      ("feat_decoder.estimator.decoder", est)):
+        for i in range(s.num_layers):
+            p = f"{prefix}.layers.{i}"
+            w.one(f"{p}.input_layernorm.weight", s.hidden_size)
+            w.one(f"{p}.post_attention_layernorm.weight", s.hidden_size)
+            for n, rows in (("q", s.num_heads), ("k", s.num_kv_heads), ("v", s.num_kv_heads)):
+                w.lin(f"{p}.self_attn.{n}_proj", rows * s.head_dim, s.hidden_size, bias=False)
+            w.lin(f"{p}.self_attn.o_proj", s.hidden_size, s.num_heads * s.head_dim, bias=False,
+                  gain=0.5)
+            w.lin(f"{p}.mlp.gate_proj", s.ffn_dim, s.hidden_size, bias=False)
+            w.lin(f"{p}.mlp.up_proj", s.ffn_dim, s.hidden_size, bias=False)
+            w.lin(f"{p}.mlp.down_proj", s.hidden_size, s.ffn_dim, bias=False, gain=0.5)
+        w.one(f"{prefix}.norm.weight", s.hidden_size)
+    w.w("base_lm.embed_tokens.weight", cfg.vocab_size, hs, fan=1, gain=0.02)
+    w.lin("fsq_layer.in_proj", cfg.fsq_dim, hs)
+    w.lin("fsq_layer.out_proj", hs, cfg.fsq_dim, bias=False)
+    w.lin("lm_to_dit_proj", est.hidden_size, hs, bias=False)
+    w.lin("stop_proj", hs, hs, bias=False)
+    w.lin("stop_head", 2, hs, bias=False)
+    # a bias toward "go on" (class 0): a random stop head would end the
+    # request at its min_latents
+    w._put("stop_head.bias", torch.tensor([4.0, -4.0]))
+    w.lin("res_to_dit_proj", est.hidden_size, hs, bias=False)
+    w.lin("feat_encoder.in_proj", fe.hidden_size, lat)
+    w.w("feat_encoder.special_token", 1, 1, 1, fe.hidden_size, fan=1)
+    w.lin("enc_to_lm_proj", hs, fe.hidden_size, bias=False)
+    e = "feat_decoder.estimator"
+    w.lin(f"{e}.cond_proj", est.hidden_size, lat)
+    w.lin(f"{e}.in_proj", est.hidden_size, lat)
+    w.lin(f"{e}.out_proj", lat, est.hidden_size, bias=False)
+    for m in ("time_mlp", "delta_time_mlp"):
+        w.lin(f"{e}.{m}.0", est.hidden_size, est.hidden_size)
+        w.lin(f"{e}.{m}.2", est.hidden_size, est.hidden_size)
+    v = cfg.vae
+
+    def snake(pre, n):
+        w.pos(f"{pre}.alpha", 1, n, 1)
+
+    def unit(pre, n):
+        snake(f"{pre}.block.0", n)
+        w.conv(f"{pre}.block.1", 1 if v.depthwise else n, n, 7, gain=0.5)
+        snake(f"{pre}.block.2", n)
+        w.conv(f"{pre}.block.3", n, n, 1, gain=0.5)
+
+    enc = "audio_vae.encoder"
+    w.conv(f"{enc}.block.0", 1, v.d_model, 7)
+    ch = v.d_model
+    for i, stride in enumerate(v.strides):
+        blk = f"{enc}.block.{i + 1}.block"
+        for j in range(3):
+            unit(f"{blk}.{j}", ch)
+        snake(f"{blk}.3", ch)
+        w.conv(f"{blk}.4", ch, 2 * ch, 2 * stride)
+        ch *= 2
+    w.conv(f"{enc}.fc_mu", ch, lat, 3)
+    dec = "audio_vae.decoder.model"
+    rates = v.decoder_rates or tuple(reversed(v.strides))
+    dc = v.decoder_channels
+    w.conv(f"{dec}.0", 1, lat, 7)
+    w.conv(f"{dec}.1", lat, dc, 1)
+    for i, r in enumerate(rates):
+        cin, cout = dc // 2 ** i, dc // 2 ** (i + 1)
+        blk = f"{dec}.{i + 2}.block"
+        snake(f"{blk}.0", cin)
+        w.conv(f"{blk}.1", cin, cout, 2 * r, transposed=True, stride=r)
+        for j in range(3):
+            unit(f"{blk}.{2 + j}", cout)
+        sr = f"audio_vae.decoder.sr_cond_model.{i + 2}"
+        w.one(f"{sr}.scale_embed.weight", len(v.sr_bins) + 1, cin)
+        w.zero(f"{sr}.bias_embed.weight", len(v.sr_bins) + 1, cin)
+    out = dc // 2 ** len(rates)
+    snake(f"{dec}.{len(rates) + 2}", out)
+    w.conv(f"{dec}.{len(rates) + 3}", out, 1, 7, gain=0.3)
+    write_safetensors(os.path.join(dirname, "model.safetensors"), w.sd)
+    shutil.copy(os.path.join(FIXTURES, "llama_style.json"), os.path.join(dirname, "tokenizer.json"))
+    return dirname, w.nbytes
+
+
+@contextlib.contextmanager
+def _spied(cls, name: str):
+    """Wrap cls.name for the duration: each call's (self, args, kwargs,
+    result, start, seconds) is kept."""
+    calls = []
+    real = getattr(cls, name)
+
+    def rec(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = real(self, *a, **kw)
+        calls.append((self, a, kw, out, t0, time.perf_counter() - t0))
+        return out
+
+    setattr(cls, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, real)
+
+
+@contextlib.contextmanager
+def _timed(module, names):
+    """Wrap module-level functions (the loaders the CLI imports at call
+    time): their seconds, the card synchronized, summed into a dict."""
+    spent = {"s": 0.0}
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(fn):
+        def timed(*a, **kw):
             t0 = time.perf_counter()
-            out = fn()
+            out = fn(*a, **kw)
             torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            loads[name] = (out, seconds, torch.cuda.max_memory_allocated() - base)
-        (params, lcfg, vocab), f5_s, f5_peak = loads["load_f5"]
-        (vparams, lvcfg), vocos_s, vocos_peak = loads["load_vocos"]
-        if lcfg != cfg or len(vocab) != cfg.vocab_size:
-            raise AssertionError(f"load_f5 gave {lcfg} and {len(vocab)} vocab entries")
+            spent["s"] += time.perf_counter() - t0
+            return out
+        return timed
 
-        # the same files loaded on the CPU in bf16 (delta_t kept fp32) and moved
+    for n, fn in real.items():
+        setattr(module, n, wrap(fn))
+    try:
+        yield spent
+    finally:
+        for n, fn in real.items():
+            setattr(module, n, fn)
+
+
+@contextlib.contextmanager
+def _no_regex():
+    """`import regex` raises inside: the hand-rolled scanner's path."""
+    import builtins
+
+    real = builtins.__import__
+
+    def block(name, *a, **kw):
+        if name == "regex":
+            raise ImportError("regex blocked")
+        return real(name, *a, **kw)
+
+    builtins.__import__ = block
+    try:
+        yield
+    finally:
+        builtins.__import__ = real
+
+
+def _hf_ids(ckpt: str, fn) -> tuple:
+    """fn(tokenizer) with the checkpoint's tokenizer.json read as loaded,
+    and again with `regex` blocked; (ids, ids without regex, load ms,
+    tokenize ms)."""
+    from tts_tpu_torch.frontend.hf_tokenizer import HFTokenizer
+
+    t0 = time.perf_counter()
+    tok = HFTokenizer.from_pretrained(ckpt)
+    t1 = time.perf_counter()
+    ids = fn(tok)
+    t2 = time.perf_counter()
+    with _no_regex():
+        plain = fn(HFTokenizer.from_pretrained(ckpt))
+    return ids, plain, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def run_cli_command(name_limit: str, family: str, argv: list, cls, method: str, loaders,
+                    expect_fn, direct_fn) -> dict:
+    """One `tts_tpu_torch.cli.main(argv)` on the card: the loaders' seconds,
+    the pipeline's `method` calls, the launches (against expect_fn(calls)),
+    the WAV against direct_fn(calls) bit for bit. Returns the launches."""
+    from tts_tpu_torch import cli
+    from tts_tpu_torch.audio.wav import read_wav
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    out_path = argv[argv.index("--out") + 1]
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    printed = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        spents = [stack.enter_context(_timed(module, names)) for module, names in loaders]
+        calls = stack.enter_context(_spied(cls, method))
         t0 = time.perf_counter()
-        cpu, _, _ = load_f5(ckpt, vocab_path, dtype=torch.bfloat16, device="cpu")
-        cpu_s = time.perf_counter() - t0
-        f5_bytes = check_loaded("load_f5", params, F5Model(cfg, cpu).to("cuda").params,
-                                keep_fp32=F5Model.keep_fp32)
-        vcpu, _ = load_vocos(vdir, dtype=torch.bfloat16, device="cpu")
-        vocos_bytes = check_loaded("load_vocos", vparams, VocosModel(vcfg, vcpu).to("cuda").params)
-        del cpu, vcpu
-        print(f"  {name_limit}: load_f5 to the card in bf16 {f5_s:.3f} s (bf16 to the CPU "
-              f"{cpu_s:.3f} s), peak device memory during the load {f5_peak / 2**20:.1f} MiB "
-              f"for a {f5_bytes / 2**20:.1f} MiB tree; load_vocos {vocos_s:.3f} s, peak "
-              f"{vocos_peak / 2**20:.1f} MiB for {vocos_bytes / 2**20:.1f} MiB; every leaf on "
-              f"the card in bf16 (delta_t fp32), bitwise the CPU load moved", flush=True)
-        # an fp32 copy on the card would double the peak
-        for name, peak, tree in (("load_f5", f5_peak, f5_bytes),
-                                 ("load_vocos", vocos_peak, vocos_bytes)):
-            if peak > 1.25 * tree:
-                raise AssertionError(f"{name}: peak {peak} bytes for a {tree}-byte tree")
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    grew = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+    load = sum(s["s"] for s in spents)
+    if rc != 0 or not calls:
+        raise AssertionError(f"cli {family}: exit {rc}, {len(calls)} pipeline calls")
+    before = calls[0][4] - t0
+    synth = sum(c[5] for c in calls)
+    print(f"  {name_limit}: cli {family}: load {load:.3f} s, host before the first "
+          f"synthesis call {before:.3f} s (load included), synthesis wall {synth:.4f} s "
+          f"({len(calls)} {method} calls), main() {total:.3f} s; launches "
+          f"{ {k: n for k, n in grew.items() if n} }", flush=True)
+    for line in printed.getvalue().splitlines():
+        print(f"    | {line}")
+    want = expect_fn(calls)
+    for k in KERNELS:
+        if grew[k] != want.get(k, 0):
+            raise AssertionError(f"cli {family}: {k} launched {grew[k]} times, expected "
+                                 f"{want.get(k, 0)}")
+    wav, rate = read_wav(out_path)
+    ref, ref_rate, length = direct_fn(calls)
+    if rate != ref_rate or len(wav) != length or not np.array_equal(wav, ref):
+        raise AssertionError(f"cli {family}: {out_path} ({len(wav)} samples at {rate} Hz) is "
+                             f"not the direct call's {length} at {ref_rate} bit for bit")
+    print(f"  cli {family}: {len(wav)} int16 samples at {rate} Hz, peak |int16| "
+          f"{int(np.abs(wav.astype(np.int32)).max()) if len(wav) else 0}, bit for bit the "
+          f"loaded pipeline's direct call", flush=True)
+    return grew
 
-        pipe = F5Pipeline(F5Model(cfg, params), vocab, VocosModel(lvcfg, vparams))
-        out_path = os.path.join(tmp, "out.wav")
-        gen_text = " ".join(["word"] * 15)
-        launches: dict = {}
-        for label, p, per_step in (
-                ("bf16", pipe, {"flash_attention_flat": cfg.depth, "mlp_block_fused": cfg.depth,
-                                "conv_pos_embed_fused": 1}),
-                ("w8a8", F5Pipeline(pipe.f5, vocab, pipe.vocos, quantize="w8a8"),
-                 {"flash_attention_flat": cfg.depth, "conv_pos_embed_fused": 1,
-                  **dict.fromkeys(Q8_KERNELS, cfg.depth)})):
-            p.synthesize(audio, REF_TEXT, "word word")              # warm-up
-            torch.cuda.synchronize()
-            LAUNCHES.clear()
-            wav, stats = p.synthesize(audio, REF_TEXT, gen_text)
-            grew = {k: LAUNCHES.get(k, 0) for k in KERNELS}
-            print(f"  {name_limit}: {label} bench request (15 words) from the loaded weights: "
-                  f"{len(wav)} int16 samples, wall {stats.wall_s:.4f} s, RTF {stats.rtf:.6f}, "
-                  f"peak |wav| {stats.peak:.6g}, launches "
-                  f"{ {k: n for k, n in grew.items() if n} }", flush=True)
-            if wav.dtype != np.int16 or len(wav) != BENCH_SAMPLES:
-                raise AssertionError(f"{label}: {len(wav)} {wav.dtype} samples, expected "
-                                     f"{BENCH_SAMPLES} int16")
-            if not math.isfinite(stats.peak) or not wav.any():
-                raise AssertionError(f"{label}: the waveform is not finite or all zeros")
-            for k in KERNELS:
-                want = per_step.get(k, 0) * (cfg.nfe_steps - 1)
-                if grew[k] != want:
-                    raise AssertionError(f"{label}: {k} launched {grew[k]} times, expected "
-                                         f"{want}")
-            for k, n in grew.items():
-                launches[k] = launches.get(k, 0) + n
-            bench = p.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
-            print(f"  {name_limit}: {label} from the loaded weights, F5Pipeline.benchmark: "
-                  f"latency RTF {bench['rtf']:.6f} ({bench['wall_s']:.4f} s for "
-                  f"{bench['audio_s']:.3f} s of audio), sustained RTF "
-                  f"{bench['sustained_rtf']:.6f}", flush=True)
-            if label == "bf16":
-                write_wav(out_path, wav, cfg.sample_rate)
-                back, rate = read_wav(out_path)
-                if rate != cfg.sample_rate or not np.array_equal(back, wav):
-                    raise AssertionError("write_wav -> read_wav did not give the audio back")
-                print("  write_wav -> read_wav: the bench request's audio back bit for bit",
-                      flush=True)
-                check_bf16_forward(pipe, 1408, 1396, "loaded bf16")
+
+def run_cli(name_limit: str, ckpt_root: str, f5_files: dict | None) -> dict:
+    """Phase 13: full-width upstream-key checkpoints of kani-tts-370m (+
+    NanoCodec), Qwen3-TTS-0.6B (+ codec), IndexTTS-1.5 and VoxCPM-2 written
+    from seeds (bf16), the F5 files of phase 12 (written here when phase 12
+    did not run); each family through `tts_tpu_torch.cli.main` in process
+    with an English --text on the card. Returns the launches."""
+    import dataclasses
+    import importlib.util
+    import shutil
+
+    import tts_tpu_torch.weights.f5_loader as f5_loader
+    import tts_tpu_torch.weights.indextts_loader as index_loader
+    import tts_tpu_torch.weights.kani_loader as kani_loader
+    import tts_tpu_torch.weights.qwen_loader as qwen_loader
+    import tts_tpu_torch.weights.voxcpm_loader as vox_loader
+    from tts_tpu_torch.frontend.indextts_text import IndexTTSTokenizer, split_sentences
+    from tts_tpu_torch.frontend.voxcpm_text import (mask_multichar_chinese_tokens,
+                                                     normalize_voxcpm_text)
+    from tts_tpu_torch.models.bigvgan import BigVGANConfig
+    from tts_tpu_torch.models.f5 import F5Config
+    from tts_tpu_torch.models.indextts import IndexTTSConfig
+    from tts_tpu_torch.models.kani import KaniConfig
+    from tts_tpu_torch.models.nanocodec import NanoCodecConfig
+    from tts_tpu_torch.models.qwen_codec import QwenCodecDecoderConfig
+    from tts_tpu_torch.models.qwen_tts import QwenTTSConfig
+    from tts_tpu_torch.models.vocos import VocosConfig
+    from tts_tpu_torch.models.voxcpm import voxcpm_v2_config
+    from tts_tpu_torch.runtime.f5 import F5Pipeline
+    from tts_tpu_torch.runtime.indextts import IndexTTSPipeline
+    from tts_tpu_torch.runtime.kani import HEAD_IDS, TAIL_IDS, KaniPipeline
+    from tts_tpu_torch.runtime.qwen import QwenTTSPipeline
+    from tts_tpu_torch.runtime.voxcpm import VoxCPMPipeline
+
+    has_regex = importlib.util.find_spec("regex") is not None
+    print(f"  the `regex` wheel is {'' if has_regex else 'not '}importable here: "
+          f"{'both paths' if has_regex else 'the hand-rolled scanner'} tokenize", flush=True)
+    launches: dict = {}
+
+    def add(grew):
+        for k, n in grew.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def written(label, t0, nbytes):
+        print(f"  {name_limit}: wrote {label} ({nbytes / 2**30:.3f} GiB bf16) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def same_ids(family, got, ids, plain, load_ms, tok_ms):
+        if not (np.array_equal(got, ids) and np.array_equal(ids, plain)):
+            raise AssertionError(f"cli {family}: the pipeline's ids {got.tolist()} differ from "
+                                 f"the tokenizer's {ids.tolist()} or {plain.tolist()} (regex "
+                                 f"blocked)")
+        print(f"  {name_limit}: cli {family}: tokenizer.json read in {load_ms:.2f} ms, "
+              f"{CLI_TEXT!r} tokenized in {tok_ms:.3f} ms, {got.shape[1]} ids, the same with "
+              f"`regex` blocked", flush=True)
+
+    def free():
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # F5: phase 12's checkpoint files
+    if f5_files is None:
+        t0 = time.perf_counter()
+        cfg = F5Config(vocab_size=F5_VOCAB_LINES)
+        ckpt, vocab, size = write_f5_checkpoint(ckpt_root, cfg, seed=20)
+        vdir = write_vocos_checkpoint(ckpt_root, VocosConfig(), seed=21)
+        ref_path = os.path.join(ckpt_root, "ref.wav")
+        write_stereo_reference(ref_path, 6.0, seed=22)
+        f5_files = {"ckpt": ckpt, "vocab": vocab, "vocoder": vdir, "ref": ref_path}
+        print(f"  {name_limit}: wrote F5TTS_v1_Base + Vocos ({size / 2**30:.3f} GiB fp32) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    nfe = F5Config().nfe_steps
+    depth = F5Config().depth
+    f5_out = os.path.join(ckpt_root, "cli_f5.wav")
+
+    def f5_expect(calls):
+        return {"flash_attention_flat": depth * (nfe - 1),
+                "mlp_block_fused": depth * (nfe - 1), "conv_pos_embed_fused": nfe - 1}
+
+    def f5_direct(calls):
+        pipe, a, kw, (wav, _), _, _ = calls[0]
+        again = pipe.synthesize(*a, **kw)[0]
+        return again, pipe.cfg.sample_rate, len(wav)
+
+    add(run_cli_command(
+        name_limit, "f5", ["f5", "--ckpt", f5_files["ckpt"], "--vocab", f5_files["vocab"],
+                           "--vocoder", f5_files["vocoder"], "--ref-audio", f5_files["ref"],
+                           "--ref-text", REF_TEXT, "--gen-text", CLI_TEXT, "--out", f5_out],
+        F5Pipeline, "synthesize", [(f5_loader, ("load_f5", "load_vocos"))], f5_expect,
+        f5_direct))
+    free()
+
+    # Kani: kani-tts-370m + NanoCodec
+    kcfg, ccfg = KaniConfig(), NanoCodecConfig()
+    t0 = time.perf_counter()
+    kdir, nemo, size = write_kani_checkpoint(os.path.join(ckpt_root, "kani"), kcfg, ccfg, 40)
+    written("kani-tts-370m + nemo-nano-codec", t0, size)
+    if kani_loader.kani_config_from_json(os.path.join(kdir, "config.json")) != kcfg:
+        raise AssertionError("the written config.json is not kani-tts-370m's")
+    ids, plain, lms, tms = _hf_ids(kdir, lambda t: np.concatenate(
+        [[HEAD_IDS], t(f"jenny: {CLI_TEXT}", return_tensors="np")["input_ids"], [TAIL_IDS]],
+        axis=1).astype(np.int32))
+
+    def kani_expect(calls):
+        pipe, _, _, (_, st), _, _ = calls[0]
+        cap, buf, _ = pipe._buf_for(None)
+        n = st["tokens"]
+        steps = n if n < min(cap, buf) else n - 1
+        return {"fused_qkv_attn": kcfg.num_attn_layers * steps}
+
+    def kani_direct(calls):
+        pipe, a, kw, (wav, st), _, _ = calls[0]
+        same_ids("kani", a[0], ids, plain, lms, tms)
+        frames = max((st["tokens"] - 2) // ccfg.num_groups, 0)
+        return pipe.synthesize_ids(*a, **kw)[0], ccfg.sample_rate, frames * ccfg.total_upsample
+
+    add(run_cli_command(
+        name_limit, "kani", ["kani", "--ckpt", kdir, "--codec", nemo, "--text", CLI_TEXT,
+                             "--max-tokens", str(CLI_CAPS["kani"]),
+                             "--out", os.path.join(ckpt_root, "cli_kani.wav")],
+        KaniPipeline, "synthesize_ids", [(kani_loader, ("load_kani_lm", "load_nanocodec"))],
+        kani_expect, kani_direct))
+    shutil.rmtree(kdir)
+    free()
+
+    # Qwen3-TTS-0.6B + its codec
+    qcfg, qccfg = QwenTTSConfig(), QwenCodecDecoderConfig()
+    t0 = time.perf_counter()
+    qdir, size = write_qwen_checkpoint(os.path.join(ckpt_root, "qwen"), qcfg, qccfg, 50)
+    written("Qwen3-TTS-0.6B + tokenizer-v2 decoder", t0, size)
+    # the loader reads the predictor's cache as 40 rows (tts_tpu's), where
+    # QwenTTSConfig() has 32: every width and depth is Qwen3-TTS-0.6B's
+    got = qwen_loader.qwen_config_from_json(qdir)
+    if got != dataclasses.replace(qcfg, predictor=dataclasses.replace(
+            qcfg.predictor, max_seq_len=got.predictor.max_seq_len)):
+        raise AssertionError("the written config.json is not Qwen3-TTS-0.6B's")
+    ids, plain, lms, tms = _hf_ids(qdir, lambda t: t(CLI_TEXT, return_tensors="np")[
+        "input_ids"].astype(np.int32))
+    per_iter = qcfg.talker.num_layers + (qcfg.num_code_groups - 1) * qcfg.predictor.num_layers
+    up = qccfg.total_upsample
+    cap = CLI_CAPS["qwen"]
+
+    def qwen_frames(calls):
+        return len(calls[0][3][0]) // up
+
+    def qwen_expect(calls):
+        f = qwen_frames(calls)
+        return {"fused_qkv_attn": per_iter * (f if f == cap else f + 1)}
+
+    def qwen_direct(calls):
+        pipe, a, kw, (wav, _), _, _ = calls[0]
+        same_ids("qwen", a[0], ids, plain, lms, tms)
+        if not 1 <= qwen_frames(calls) <= cap or len(wav) % up:
+            raise AssertionError(f"cli qwen: {len(wav)} samples, not 1..{cap} frames of {up}")
+        return pipe.synthesize_ids(*a, **kw)[0], pipe.output_sample_rate, len(wav)
+
+    add(run_cli_command(
+        name_limit, "qwen", ["qwen", "--ckpt", qdir, "--text", CLI_TEXT, "--language",
+                             "english", "--max-frames", str(cap),
+                             "--out", os.path.join(ckpt_root, "cli_qwen.wav")],
+        QwenTTSPipeline, "synthesize_ids",
+        [(qwen_loader, ("load_qwen_tts", "load_qwen_codec"))], qwen_expect, qwen_direct))
+    shutil.rmtree(qdir)
+    free()
+
+    # IndexTTS-1.5 at phase 9's vocoder rates
+    icfg = IndexTTSConfig()
+    ivcfg = BigVGANConfig(num_mels=icfg.gpt_dim, upsample_rates=(4, 4, 4, 4, 2, 2),
+                          upsample_kernel_sizes=(8, 8, 4, 4, 4, 4),
+                          use_tanh_at_final=True, use_bias_at_final=True)
+    t0 = time.perf_counter()
+    idir, size = write_indextts_checkpoint(os.path.join(ckpt_root, "indextts"), icfg, ivcfg, 60)
+    written("IndexTTS-1.5 (gpt.pth, bigvgan.pth, config.yaml, bpe.model)", t0, size)
+    if index_loader._bigvgan_config_from_yaml(os.path.join(idir, "config.yaml"), icfg) != ivcfg:
+        raise AssertionError("the written config.yaml is not phase 9's vocoder")
+    rate = ivcfg.sample_rate
+    tt = np.arange(6 * rate) / rate
+    sig = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
+           + 0.1 * np.sin(2 * np.pi * 330 * tt)
+           + 0.05 * np.random.default_rng(12).standard_normal(tt.size))
+    from tts_tpu_torch.audio.wav import write_wav
+
+    iref = os.path.join(ckpt_root, "index_ref.wav")
+    write_wav(iref, (sig * 12000).astype(np.int16), rate)
+    t0 = time.perf_counter()
+    itok = IndexTTSTokenizer(os.path.join(idir, "bpe.model"))
+    sentences = split_sentences(itok.tokenize(CLI_TEXT))
+    sent_ids = [np.array([itok.convert_tokens_to_ids(s)], np.int32) for s in sentences]
+    print(f"  {name_limit}: cli indextts: bpe.model read and {CLI_TEXT!r} tokenized in "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms: {len(sentences)} sentences of "
+          f"{[s.shape[1] for s in sent_ids]} ids", flush=True)
+    igen = CLI_CAPS["indextts"]
+
+    def index_expect(calls):
+        _, _, _, (_, stats), _, _ = calls[0]
+        k10 = sum(kernel10_per_call(ivcfg, min(max(8, -(-(s.tokens - 2) // 8) * 8), igen))
+                  for s in stats if s.tokens > 2)
+        return {"fused_qkv_rope": icfg.gpt_layers * sum(s.tokens - 1 for s in stats),
+                "amp_block_fused": k10}
+
+    def index_direct(calls):
+        pipe, a, kw, (wav, stats), _, _ = calls[0]
+        got = [i for _, i, _ in id_calls]
+        if len(got) != len(sent_ids) or not all(np.array_equal(g, s)
+                                                for g, s in zip(got, sent_ids)):
+            raise AssertionError("cli indextts: the sentences' ids differ from bpe.model's")
+        length = sum(max(s.tokens - 2, 0) for s in stats) * ivcfg.total_upsample \
+            + len(stats) * int(rate * 0.2)
+        return pipe.synthesize(*a, **kw)[0], rate, length
+
+    id_calls = []
+    real_ids = IndexTTSPipeline.synthesize_ids
+
+    def record_ids(self, text_ids, *a, **kw):
+        id_calls.append((self, text_ids, kw))
+        return real_ids(self, text_ids, *a, **kw)
+
+    IndexTTSPipeline.synthesize_ids = record_ids
+    try:
+        add(run_cli_command(
+            name_limit, "indextts", ["indextts", "--ckpt", idir, "--ref-audio", iref,
+                                     "--text", CLI_TEXT, "--max-tokens", str(igen),
+                                     "--out", os.path.join(ckpt_root, "cli_indextts.wav")],
+            IndexTTSPipeline, "synthesize", [(index_loader, ("load_indextts",))],
+            index_expect, index_direct))
+    finally:
+        IndexTTSPipeline.synthesize_ids = real_ids
+    shutil.rmtree(idir)
+    free()
+
+    # VoxCPM-2
+    vcfg = voxcpm_v2_config()
+    t0 = time.perf_counter()
+    vdir2, size = write_voxcpm_checkpoint(os.path.join(ckpt_root, "voxcpm"), vcfg, 70)
+    written("VoxCPM-2", t0, size)
+    ids, plain, lms, tms = _hf_ids(vdir2, lambda t: np.asarray(
+        [mask_multichar_chinese_tokens(t)(normalize_voxcpm_text(CLI_TEXT))], np.int32))
+    layers = vcfg.base.num_layers + vcfg.residual.num_layers
+
+    def vox_expect(calls):
+        return {"fused_qkv_attn": layers * calls[0][3][1]["latents"]}
+
+    def vox_direct(calls):
+        pipe, a, kw, (wav, st), _, _ = calls[0]
+        same_ids("voxcpm", a[1], ids, plain, lms, tms)
+        if a[0].shape != (1, 0) or a[2] is not None:
+            raise AssertionError("cli voxcpm: a prompt was passed")
+        return (pipe.synthesize_ids(*a, **kw)[0], pipe.output_sample_rate,
+                st["latents"] * vcfg.samples_per_latent)
+
+    add(run_cli_command(
+        name_limit, "voxcpm --v2", ["voxcpm", "--v2", "--ckpt", vdir2, "--text", CLI_TEXT,
+                                    "--max-latents", str(CLI_CAPS["voxcpm"]),
+                                    "--out", os.path.join(ckpt_root, "cli_voxcpm.wav")],
+        VoxCPMPipeline, "synthesize_ids", [(vox_loader, ("load_voxcpm",))], vox_expect,
+        vox_direct))
+    shutil.rmtree(vdir2)
+    free()
     return launches
 
 
@@ -5277,11 +6230,11 @@ def main() -> None:
                          "VoxCPM-2 request, the Kani, Qwen, BigVGAN, IndexTTS "
                          "and VoxCPM tables into DIR")
     ap.add_argument("--families",
-                    default="f5,kani,qwen,bigvgan,indextts,voxcpm,serving,checkpoints",
+                    default="f5,kani,qwen,bigvgan,indextts,voxcpm,serving,checkpoints,cli",
                     help="the pipeline phases to run after phase 2, by family: "
                          "f5 (3-5d), kani (6), qwen (7), bigvgan (8, 8c), indextts (9), "
-                         "voxcpm (10), serving (11), checkpoints (12); default all (the "
-                         "smoke run's contract)")
+                         "voxcpm (10), serving (11), checkpoints (12), cli (13); default "
+                         "all (the smoke run's contract)")
     ap.add_argument("--servers", default=",".join(SERVERS),
                     help="the slot servers phase 11 runs: " + ", ".join(SERVERS) +
                          "; default all")
@@ -5440,10 +6393,27 @@ def main() -> None:
         for k, n in run_serving(name_limit, set(args.servers.split(","))).items():
             launches[k] = launches.get(k, 0) + n
 
+    # phases 12 and 13 write checkpoint files: one directory, removed at exit
+    ckpt_root, f5_files = None, None
+    if fams & {"checkpoints", "cli"}:
+        import atexit
+        import shutil
+        import tempfile
+
+        ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        atexit.register(shutil.rmtree, ckpt_root, True)
+
     if "checkpoints" in fams:
         phase("phase 12: the README's F5 usage from checkpoint files (load_f5, load_vocos, "
               "read_wav, write_wav)")
-        for k, n in run_checkpoints(name_limit).items():
+        grew, f5_files = run_checkpoints(name_limit, ckpt_root)
+        for k, n in grew.items():
+            launches[k] = launches.get(k, 0) + n
+
+    if "cli" in fams:
+        phase("phase 13: text in, speech out through the CLI (tts_tpu_torch.cli.main, five "
+              "families from checkpoint files)")
+        for k, n in run_cli(name_limit, ckpt_root, f5_files).items():
             launches[k] = launches.get(k, 0) + n
 
     phase("done")

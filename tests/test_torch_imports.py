@@ -1,6 +1,7 @@
 """The PyTorch port imports no JAX and nothing of the JAX package:
 tts_tpu_torch and every submodule import in a fresh interpreter where
-`import jax` and `import tts_tpu` fail."""
+`import jax`, `import tts_tpu` and `import bench` fail, and no import
+statement of the port or of chip_smoke.py names them."""
 import subprocess
 import sys
 from pathlib import Path
@@ -14,6 +15,7 @@ _SCRIPT = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["tts_tpu"] = None      # and so does any import of the JAX package
+sys.modules["bench"] = None        # and of the JAX benchmark script
 import tts_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(tts_tpu_torch.__path__,
                                                 "tts_tpu_torch.")]
@@ -33,8 +35,11 @@ for name in serving.__all__:
 import tts_tpu_torch.weights as weights
 for name in weights.__all__:
     getattr(weights, name)
-assert not any(m.split(".")[0] in ("jax", "tts_tpu") for m, v in sys.modules.items()
-               if v is not None), "a jax or tts_tpu module was imported"
+# the command line's entry and its timing records
+from tts_tpu_torch.cli import main
+from tts_tpu_torch.utils import StageTimer, SynthesisReport, trace_profile
+assert not any(m.split(".")[0] in ("jax", "tts_tpu", "bench") for m, v in sys.modules.items()
+               if v is not None), "a jax, tts_tpu or bench module was imported"
 print(len(names))
 """
 
@@ -63,5 +68,32 @@ def test_port_imports_without_jax():
     # points (ablations) and their packages; kernels 4 and 5 live in
     # ops/flash_attention, beside kernel 1; and the checkpoint layer: audio/wav,
     # native, and weights/loaders, f5_loader, kani_loader, qwen_loader,
-    # indextts_loader, voxcpm_loader and save
-    assert int(proc.stdout.split()[-1]) >= 78
+    # indextts_loader, voxcpm_loader and save; the text path: cli, utils (and
+    # utils/timing) and the frontends normalize, spm, hf_tokenizer,
+    # indextts_text and voxcpm_text
+    assert int(proc.stdout.split()[-1]) >= 86
+
+
+# what no module of the port, nor chip_smoke.py, may import, even inside a
+# function (tts_tpu's cli imports `bench` in its bench command)
+FORBIDDEN = ("jax", "jaxlib", "flax", "tts_tpu", "bench")
+
+
+def _imports(path: Path) -> list[str]:
+    import ast
+
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+def test_no_import_of_jax_or_bench_anywhere():
+    files = sorted((ROOT / "tts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert ROOT / "tts_tpu_torch" / "cli.py" in files
+    bad = {str(p.relative_to(ROOT)): n for p in files for n in _imports(p)
+           if n.split(".")[0] in FORBIDDEN}
+    assert not bad, bad

@@ -2,9 +2,11 @@
 
 It mirrors tts_tpu's module paths and function names (tts_tpu is the
 reference it is tested against) and imports neither JAX nor anything of
-tts_tpu: what it needs of that package is copied. So far it holds F5-TTS
-synthesis (float, W8A8 int8 and int4 DiT weights), KaniTTS, Qwen3-TTS and
-IndexTTS-1.5 synthesis from token ids, and the BigVGAN vocoder:
+tts_tpu: what it needs of that package is copied. It turns text into
+speech for F5-TTS (float, W8A8 int8 and int4 DiT weights), KaniTTS,
+Qwen3-TTS, IndexTTS-1.5 and VoxCPM from checkpoint files, through the
+pipelines or the command line (`python -m tts_tpu_torch.cli`), and holds
+the BigVGAN vocoder and the serving layer:
   audio/     - windows, STFT/ISTFT as framed matmuls, log-mel (tts_tpu's
                options), snake and snake_beta, kaiser-sinc filters and the
                anti-aliased 2x resampling
@@ -28,7 +30,12 @@ IndexTTS-1.5 synthesis from token ids, and the BigVGAN vocoder:
                (indextts), as functions over params dicts (+ modules for
                F5 and Vocos)
   weights/   - conversion of tts_tpu parameter trees, quantized leaves too
-  frontend/  - F5 text frontend (tts_tpu's, with a jieba-free ASCII path)
+  frontend/  - the text frontends (copies of tts_tpu's): F5's (with a
+               jieba-free ASCII path), the tokenizer.json and
+               SentencePiece readers, the normalizers, IndexTTS's and
+               VoxCPM's text functions
+  utils/     - stage timers, the synthesis report, a torch.profiler trace
+  cli.py     - the command line: f5, kani, indextts, qwen, voxcpm, serve
   runtime/   - F5Pipeline (quantize None / 8 / "w8a8" / 4) and KaniPipeline:
                synthesis and benchmark; QwenTTSPipeline (quantize None /
                8, every decode route): synthesis, single and batched;

@@ -21,9 +21,10 @@ import math
 import struct
 
 import numpy as np
+import torch
 
 __all__ = ["read_audio", "read_wav", "write_wav", "resample_linear",
-           "resample_kaiser"]
+           "resample_kaiser", "to_pcm16"]
 
 _WAVE_FORMAT_PCM = 0x0001
 _WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -223,6 +224,15 @@ def resample_kaiser(x: np.ndarray, src_rate: int, dst_rate: int,
         idx = base[s:e, None] + np.arange(taps)[None, :] + 1
         y[s:e] = np.einsum("nk,nk->n", xpad[idx], bank[p[s:e]])
     return (np.clip(y, -1.0, 1.0) * 32767.0).astype(np.int16)
+
+
+def to_pcm16(scaled: torch.Tensor) -> torch.Tensor:
+    """int16 of a waveform tensor already scaled by 32767: truncated toward
+    zero and saturated at the int16 range, as XLA's convert (tts_tpu's
+    `.astype(jnp.int16)`) does. In bf16, 32767 rounds to 32768, which a
+    plain `.to(torch.int16)` wraps to -32768; the clamp runs in fp32, where
+    every bf16 value is exact."""
+    return scaled.float().clamp(-32768.0, 32767.0).to(torch.int16)
 
 
 def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:

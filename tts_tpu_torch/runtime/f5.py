@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..audio.mel import MelSpectrogram
+from ..audio.wav import to_pcm16
 from ..frontend.f5_text import convert_char_to_pinyin, f5_duration, text_to_ids
 from ..models.f5 import F5Model, dit_forward, dit_forward_cached, text_embedding
 from ..models.vocos import VocosModel, vocos_decode
@@ -227,7 +228,7 @@ class F5Pipeline:
         """Vocos over (B, frames, n_mels) -> (int16 waveforms (B, samples),
         peak |float waveform|), both on the device."""
         wav = vocos_decode(self.vocos.params, gen, self.vcfg)
-        pcm = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+        pcm = to_pcm16(torch.clamp(wav, -1.0, 1.0) * 32767.0)
         return pcm, wav.abs().amax()
 
     @torch.no_grad()

@@ -1,6 +1,7 @@
 """IndexTTS synthesis from token ids: reference audio + text ids -> cloned
 speech (counterpart of tts_tpu/runtime/indextts.py:IndexTTSPipeline,
-without the text tokenizer and `mesh`).
+without `mesh`). `synthesize` is the text entry: frontend/indextts_text.py's
+tokenizer and sentence split, one `synthesize_ids` a sentence.
 
 Three stages, as tts_tpu's three programs:
   1. encode_reference: a 100 ms noise pad (numpy, from `seed`) in front of
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ..audio.mel import MelSpectrogram
+from ..audio.wav import to_pcm16
 from ..kv.cache import KVCache
 from ..models.bigvgan import BigVGANConfig, bigvgan_apply
 from ..models.indextts import (IndexTTSConfig, conformer_encoder, ecapa_speaker_encoder,
@@ -218,7 +220,7 @@ class IndexTTSPipeline:
         latent = gpt_final_norm(self.params["gpt"], h)
         wav = bigvgan_apply(self.params["bigvgan"], latent, self.vcfg, conds=conds,
                             cond_embed=cond_embed)
-        return (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+        return to_pcm16(torch.clamp(wav, -1.0, 1.0) * 32767.0)
 
     # ------------------------------------------------------------- public
 
@@ -279,3 +281,21 @@ class IndexTTSPipeline:
         total = int(done.sum())
         return wavs, {"tokens": total, "wall_s": wall,
                       "tokens_per_s": total / max(wall, 1e-9)}
+
+    def synthesize(self, text: str, ref, tokenizer=None, max_gen: int | None = None,
+                   separator_ms: float = 200.0) -> tuple[np.ndarray, list[IndexTTSStats]]:
+        """Text path: normalize, tokenize, split into sentences, one
+        `synthesize_ids` a sentence, each followed by separator_ms of silence
+        (200 ms, as the reference's Export_IndexTTS.py:1127-1216)."""
+        from ..frontend.indextts_text import IndexTTSTokenizer, split_sentences
+
+        tok = tokenizer or IndexTTSTokenizer()
+        sentences = split_sentences(tok.tokenize(text))
+        blank = np.zeros(int(self.sample_rate * separator_ms / 1000), np.int16)
+        wavs, stats = [], []
+        for sent in sentences:
+            ids = np.array([tok.convert_tokens_to_ids(sent)], np.int32)
+            wav, st = self.synthesize_ids(ids, ref, max_gen=max_gen)
+            wavs.extend([wav, blank])
+            stats.append(st)
+        return (np.concatenate(wavs) if wavs else np.zeros(0, np.int16), stats)

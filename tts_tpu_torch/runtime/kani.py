@@ -1,6 +1,9 @@
-"""KaniTTS synthesis from token ids: prompt -> codec tokens -> waveform
-(counterpart of tts_tpu/runtime/kani.py:KaniPipeline, without the text
-tokenizer, `mesh` and int4, which are not ported yet).
+"""KaniTTS synthesis: text -> prompt ids -> codec tokens -> waveform
+(counterpart of tts_tpu/runtime/kani.py:KaniPipeline, without `mesh` and
+int4, which are not ported yet). The tokenizer is the caller's: an
+`HFTokenizer` (frontend/hf_tokenizer.py) over the checkpoint's
+tokenizer.json, or any callable with transformers' `return_tensors="np"`
+surface.
 
 One batched prefill over the padded prompt bucket, then a Python loop of
 decode steps (LM step, repetition penalty, greedy or beam selection) that
@@ -23,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..audio.wav import to_pcm16
 from ..decoding.beam import beam_init, beam_step
 from ..decoding.sampling import apply_repetition_penalty, greedy
 from ..models.kani import KaniConfig, KaniState, embed_tokens, init_state, kani_step
@@ -31,6 +35,8 @@ from ..models.nanocodec import (NanoCodecConfig, fsq_dequantize, hifigan_decode,
 
 __all__ = ["KaniPipeline", "KaniDecodeConfig"]
 
+HEAD_IDS = (64403,)
+TAIL_IDS = (2, 64404)
 MAX_PROMPT = 256
 
 
@@ -66,7 +72,8 @@ class KaniPipeline:
 
     def __init__(self, params: dict, cfg: KaniConfig, codec_params: dict,
                  codec_cfg: NanoCodecConfig, decode_cfg: KaniDecodeConfig | None = None,
-                 audio_tokens_start: int | None = None, quantize: int | None = None):
+                 tokenizer=None, audio_tokens_start: int | None = None,
+                 quantize: int | None = None):
         if quantize not in (None, 8):
             raise ValueError(f"quantize must be None or 8, got {quantize!r}")
         if quantize:
@@ -81,6 +88,7 @@ class KaniPipeline:
         self.dcfg = decode_cfg or KaniDecodeConfig()
         fd = self.dcfg.fused_decode
         self._fused = "step" if fd is None else fd
+        self.tokenizer = tokenizer
         self.audio_tokens_start = (audio_tokens_start if audio_tokens_start is not None
                                    else cfg.vocab_size - 4 * codec_cfg.codebook_size)
         self.device = params["embed"].device
@@ -103,7 +111,7 @@ class KaniPipeline:
         flat = torch.where(valid, flat, self.audio_tokens_start)
         feats = fsq_dequantize(tokens_to_codes(flat, ccfg, self.audio_tokens_start), ccfg)
         wav = hifigan_decode(self.codec_params, feats, ccfg)   # conv1d casts to w.dtype
-        return (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16), wav.abs().amax()
+        return to_pcm16(torch.clamp(wav, -1.0, 1.0) * 32767.0), wav.abs().amax()
 
     # ------------------------------------------------------------------ LM
 
@@ -197,6 +205,16 @@ class KaniPipeline:
 
     # ---------------------------------------------------------------- public
 
+    def tokenize(self, text: str, speaker: str = "jenny") -> np.ndarray:
+        """(1, P) prompt ids: HEAD_IDS + tokenizer("speaker: text") + TAIL_IDS."""
+        if self.tokenizer is None:
+            raise ValueError("no tokenizer configured; pass ids to synthesize_ids")
+        ids = self.tokenizer(f"{speaker}: {text}", return_tensors="np")[
+            "input_ids"].astype(np.int32)
+        return np.concatenate(
+            [np.array([HEAD_IDS], np.int32), ids, np.array([TAIL_IDS], np.int32)],
+            axis=1)
+
     @torch.no_grad()
     def synthesize_ids(self, ids: np.ndarray, max_new_tokens: int | None = None
                        ) -> tuple[np.ndarray, dict]:
@@ -253,6 +271,21 @@ class KaniPipeline:
         total = int(done.sum())
         return wavs, {"tokens": total, "wall_s": wall,
                       "tokens_per_s": total / max(wall, 1e-9), "peak": float(peak)}
+
+    def synthesize(self, text: str, speaker: str = "jenny") -> tuple[np.ndarray, dict]:
+        return self.synthesize_ids(self.tokenize(text, speaker))
+
+    def synthesize_long(self, texts: list[str], speaker: str = "jenny",
+                        separator_ms: float = 300.0) -> tuple[np.ndarray, list[dict]]:
+        """One `synthesize` a sentence, each followed by separator_ms of
+        silence (300 ms, as the reference's Export_Kani_TTS.py:1064)."""
+        blank = np.zeros(int(self.codec_cfg.sample_rate * separator_ms / 1000), np.int16)
+        wavs, stats = [], []
+        for text in texts:
+            wav, st = self.synthesize(text, speaker)
+            wavs.extend([wav, blank])
+            stats.append(st)
+        return (np.concatenate(wavs) if wavs else np.zeros(0, np.int16), stats)
 
     def benchmark(self, ids: np.ndarray | None = None, iters: int = 2) -> dict:
         """Greedy (or beam, as configured) `synthesize_ids` on the bench

@@ -29,6 +29,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..audio.wav import to_pcm16
 from ..decoding.sampling import apply_repetition_penalty
 from ..kv.cache import KVCache
 from ..models.qwen_codec import QwenCodecDecoderConfig, codec_decode
@@ -306,7 +307,7 @@ class QwenTTSPipeline:
         live = torch.arange(fb, device=frames.device)[None, :] < nfr[:, None]
         codes = frames[:, :fb] * live[..., None]
         wav = codec_decode(self.codec_params, codes, self.codec_cfg)
-        return (wav * 32767.0).to(torch.int16), wav.abs().amax()
+        return to_pcm16(wav * 32767.0), wav.abs().amax()
 
     # -------------------------------------------------------------- public
 

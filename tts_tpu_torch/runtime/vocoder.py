@@ -3,7 +3,7 @@ benchmark (counterpart of tts_tpu/runtime/vocoder.py:BigVGANVocoder).
 
 The generator runs eagerly on the device its params are on; AMPBlock1
 stages take kernel 10 where its gate admits them. The int16 conversion
-(x 32767, truncation) happens on the device, as in tts_tpu. tts_tpu's
+(x 32767, truncation, saturation) happens on the device, as in tts_tpu. tts_tpu's
 staged half-programs are not ported: they split one XLA compile in two,
 and eager PyTorch compiles nothing.
 """
@@ -14,6 +14,7 @@ import time
 import numpy as np
 import torch
 
+from ..audio.wav import to_pcm16
 from ..models.bigvgan import BigVGANConfig, bigvgan_apply
 
 __all__ = ["BigVGANVocoder"]
@@ -37,7 +38,7 @@ class BigVGANVocoder:
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, T, num_mels) on the device -> int16 (B, T * total_upsample)."""
         wav = bigvgan_apply(self.params, mel.to(self.dtype), self.cfg)
-        return (wav.float() * 32767.0).to(torch.int16)
+        return to_pcm16(wav.float() * 32767.0)
 
     def __call__(self, mel: np.ndarray) -> np.ndarray:
         """mel: (B, T, num_mels) or (T, num_mels) -> int16 (B, T*up)."""

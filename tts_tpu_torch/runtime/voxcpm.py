@@ -30,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..audio.wav import to_pcm16
 from ..kv.cache import KVCache
 from ..models.voxcpm import (VoxCPMConfig, cfm_feat_decoder, cfm_feat_decoder_batch,
                              feat_encoder_cond, feat_encoder_cond_batch, vae_decode,
@@ -142,14 +143,14 @@ class VoxCPMPipeline:
         flat = torch.as_tensor(latents, dtype=torch.float32, device=self.device)
         flat = flat.reshape(1, -1, self.cfg.vae.latent_dim)
         wav = vae_decode(self.vae_params["dec"], flat, self.cfg.vae, sr_idx=self._sr_idx)
-        return (wav * 32767.0).to(torch.int16)
+        return to_pcm16(wav * 32767.0)
 
     def _vocode(self, latents: torch.Tensor) -> np.ndarray:
         """(B, buf, patch, latent) -> int16 (B, buf * samples_per_latent)."""
         cfg = self.cfg
         flat = latents.reshape(latents.shape[0], -1, cfg.vae.latent_dim)
         wav = vae_decode(self.vae_params["dec"], flat, cfg.vae, sr_idx=self._sr_idx)
-        return (wav * 32767.0).to(torch.int16).cpu().numpy()
+        return to_pcm16(wav * 32767.0).cpu().numpy()
 
     # ------------------------------------------------------------- decode
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..audio.wav import to_pcm16
 from ..decoding.sampling import greedy
 from ..kv.cache import KVCache
 from ..models.kani import KaniState, embed_tokens, init_state, kani_step
@@ -122,7 +123,7 @@ class KaniSlotServer(SlotEngine):
         flat = torch.from_numpy(tokens.reshape(1, -1).astype(np.int64)).to(pipe.device)
         codes = tokens_to_codes(flat, self.ccfg, pipe.audio_tokens_start)
         wav = hifigan_decode(pipe.codec_params, fsq_dequantize(codes, self.ccfg), self.ccfg)
-        return (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+        return to_pcm16(torch.clamp(wav, -1.0, 1.0) * 32767.0)
 
     # ------------------------------------------------------ engine hooks
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..audio.wav import to_pcm16
 from ..kv.cache import KVCache
 from ..models.qwen_codec import codec_decode
 from ..models.qwen_tts import next_talker_input_batch, qwen3_stack_step, talker_logits
@@ -101,7 +102,7 @@ class QwenSlotServer(SlotEngine):
         device."""
         c = torch.from_numpy(codes.astype(np.int64)).to(self.pipe.device)
         wav = codec_decode(self.pipe.codec_params, c, self.ccfg)
-        return (wav * 32767.0).to(torch.int16)
+        return to_pcm16(wav * 32767.0)
 
     # ------------------------------------------------------ engine hooks
 
