@@ -19,6 +19,7 @@
     python3 chip_smoke.py --families serving --servers f5   # phase 11's F5 only
     python3 chip_smoke.py --families checkpoints        # phases 0-2, 12
     python3 chip_smoke.py --families cli                # phases 0-2, 13
+    python3 chip_smoke.py --families clone              # phases 0-2, 14
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
@@ -183,7 +184,22 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      12 a latent), the WAV bit for bit the loaded pipeline's direct call,
      and the tokenizer's ids with `regex` importable and blocked; the load
      seconds, the tokenize ms and the synthesis wall of each, beside the
-     card's name and power limit.
+     card's name and power limit;
+  14. voice clone, streaming, int4 and VoxCPM's output rate: a Qwen3-TTS-0.6B
+     checkpoint written from seeds (bf16) with its Mimi prompt encoder and
+     speaker encoder; load_qwen_encoder and the speaker encoder to the card
+     in fp32 (the talker and codec phase 7's, from seeds); encode_reference on
+     phase 5d's 6 s bench reference on the card and on the CPU (codes equal
+     but at near ties, the speaker embedding within 1e-4 rel L2); a
+     voice-clone request from build_prefill_voice_clone (16 frames, 88
+     kernel-12 launches a frame) and one talker step of its prefill against the
+     twins; the Qwen bench request streamed (chunk 24, window 72, left 24)
+     and VoxCPM-2's (chunk 4, draws injected), each bitwise the window
+     assembly over the non-streaming decode, first-chunk time and wall
+     beside the non-streaming request's; VoxCPM-2 at output_sample_rate
+     24000 bitwise resample_linear of the native request; kani-tts-370m,
+     Qwen3-TTS-0.6B and VoxCPM-2 at quantize=4 (no launch of kernel 11 or
+     12: every wqkv is int4), device time a token, frame or latent.
 Phase 2 also runs kernels 11 and 12 at the VoxCPM base-LM shape (B 1, 4, 8;
 pos 49, 64, 96 of a 128-row cache and 1000 of 2048; bf16 and int8; timed
 beside their bounds), and the Kani and VoxCPM checks over four seeds, each
@@ -5408,11 +5424,15 @@ def write_kani_checkpoint(dirname: str, cfg, ccfg, seed: int) -> tuple:
     return dirname, nemo, w.nbytes + c.nbytes
 
 
-def write_qwen_checkpoint(dirname: str, cfg, ccfg, seed: int) -> tuple:
+def write_qwen_checkpoint(dirname: str, cfg, ccfg, seed: int, ecfg=None) -> tuple:
     """Qwen3-TTS-0.6B: the talker and code predictor (model.safetensors,
     config.json) and the tokenizer-v2 decoder (speech_tokenizer.safetensors)
     in the upstream keys, bf16; tests/fixtures/qwen2_style.json as its
-    tokenizer.json. Returns (dir, bytes written)."""
+    tokenizer.json. With a MimiEncoderConfig `ecfg`, also the voice-clone
+    encoders: the Mimi encoder (speech_tokenizer.model.encoder.*) beside the
+    decoder and the speaker encoder (speaker_encoder.*, the BatchNorm-free
+    ECAPA: 128 mel bands, 512 channels, scale 8, out at the talker's width)
+    beside the talker. Returns (dir, bytes written)."""
     import shutil
 
     from tts_tpu_torch.weights import write_safetensors
@@ -5450,6 +5470,8 @@ def write_qwen_checkpoint(dirname: str, cfg, ccfg, seed: int) -> tuple:
     w.lin("talker.text_projection", t.hidden_size, cfg.text_hidden)
     w.lin("talker.code_predictor.small_to_mtp_projection", p.hidden_size, t.hidden_size,
           bias=False)
+    if ecfg is not None:
+        write_qwen_speaker_keys(w, t.hidden_size)
     write_safetensors(os.path.join(dirname, "model.safetensors"), w.sd)
 
     def stack_cfg(s):
@@ -5531,9 +5553,78 @@ def write_qwen_checkpoint(dirname: str, cfg, ccfg, seed: int) -> tuple:
     out = ccfg.decoder_dim // 2 ** n
     snake(f"{pre}.decoder.{n + 1}", out)
     c.conv(f"{pre}.decoder.{n + 2}.conv", out, 1, 7, gain=0.3)
+    if ecfg is not None:
+        write_mimi_encoder_keys(c, ecfg)
     write_safetensors(os.path.join(dirname, "speech_tokenizer.safetensors"), c.sd)
     shutil.copy(os.path.join(FIXTURES, "qwen2_style.json"), os.path.join(dirname, "tokenizer.json"))
     return dirname, w.nbytes + c.nbytes
+
+
+def write_mimi_encoder_keys(c: CkptWriter, ecfg) -> None:
+    """The Mimi encoder in the upstream keys: the SEANet convs at their
+    constructor's layer indices (the ELUs hold slots), the transformer with
+    its LayerNorms and layer scales, the downsample conv and the split RVQ
+    (input projections, codebooks as embed_sum / cluster_usage)."""
+    e = "speech_tokenizer.model.encoder"
+    idx, ch = 0, ecfg.num_filters
+    c.conv(f"{e}.encoder.layers.{idx}.conv", 1, ch, ecfg.kernel_size)
+    idx += 1
+    for ratio in reversed(ecfg.upsampling_ratios):
+        hidden = ch // ecfg.compress
+        for _ in range(ecfg.num_residual_layers):
+            c.conv(f"{e}.encoder.layers.{idx}.block.1.conv", ch, hidden,
+                   ecfg.residual_kernel_size, gain=0.5)
+            c.conv(f"{e}.encoder.layers.{idx}.block.3.conv", hidden, ch, 1, gain=0.5)
+            idx += 1
+        idx += 1                                   # the ELU
+        c.conv(f"{e}.encoder.layers.{idx}.conv", ch, 2 * ch, 2 * ratio)
+        idx += 1
+        ch *= 2
+    idx += 1
+    c.conv(f"{e}.encoder.layers.{idx}.conv", ch, ecfg.hidden_size, ecfg.last_kernel_size)
+    hs, inner = ecfg.hidden_size, ecfg.num_heads * ecfg.head_dim
+    for i in range(ecfg.num_layers):
+        lp = f"{e}.encoder_transformer.layers.{i}"
+        for n in ("q", "k", "v"):
+            c.lin(f"{lp}.self_attn.{n}_proj", inner, hs, bias=False)
+        c.lin(f"{lp}.self_attn.o_proj", hs, inner, bias=False)
+        c.lin(f"{lp}.mlp.fc1", ecfg.ffn_dim, hs, bias=False)
+        c.lin(f"{lp}.mlp.fc2", hs, ecfg.ffn_dim, bias=False)
+        c.ln(f"{lp}.input_layernorm", hs)
+        c.ln(f"{lp}.post_attention_layernorm", hs)
+        c.zero(f"{lp}.self_attn_layer_scale.scale", hs)
+        c.zero(f"{lp}.mlp_layer_scale.scale", hs)
+    c.conv(f"{e}.downsample.conv", hs, hs, 2 * ecfg.downsample_stride, bias=False)
+    q = f"{e}.quantizer"
+    for base, n in ((f"{q}.semantic_residual_vector_quantizer", 1),
+                    (f"{q}.acoustic_residual_vector_quantizer", ecfg.num_quantizers - 1)):
+        c.w(f"{base}.input_proj.weight", ecfg.rvq_dim, hs, 1)
+        for g in range(n):
+            c.w(f"{base}.layers.{g}.codebook.embed_sum", ecfg.codebook_size, ecfg.rvq_dim,
+                fan=1)
+            c.pos(f"{base}.layers.{g}.codebook.cluster_usage", ecfg.codebook_size)
+
+
+def write_qwen_speaker_keys(w: CkptWriter, spk: int, n_mels: int = 128, ch: int = 512,
+                            scale: int = 8, se: int = 128, attn: int = 128) -> None:
+    """Qwen3-TTS's speaker encoder (speaker_encoder.*) in the upstream keys:
+    TDNN convs, three SE-Res2Net blocks, MFA, attentive statistics pooling
+    and the fc to the talker's width."""
+    pre = "speaker_encoder"
+    sub = ch // scale
+    w.conv(f"{pre}.blocks.0.conv", n_mels, ch, 5)
+    for i in (1, 2, 3):
+        b = f"{pre}.blocks.{i}"
+        w.conv(f"{b}.tdnn1.conv", ch, ch, 1)
+        for j in range(scale - 1):
+            w.conv(f"{b}.res2net_block.blocks.{j}.conv", sub, sub, 3)
+        w.conv(f"{b}.tdnn2.conv", ch, ch, 1)
+        w.conv(f"{b}.se_block.conv1", ch, se, 1)
+        w.conv(f"{b}.se_block.conv2", se, ch, 1)
+    w.conv(f"{pre}.mfa.conv", 3 * ch, 3 * ch, 1)
+    w.conv(f"{pre}.asp.tdnn.conv", 9 * ch, attn, 1)
+    w.conv(f"{pre}.asp.conv", attn, 3 * ch, 1)
+    w.conv(f"{pre}.fc", 6 * ch, spk, 1)
 
 
 # the IndexTTS bpe.model: upper-case letters and punctuation, a few merges
@@ -6168,6 +6259,397 @@ def run_cli(name_limit: str, ckpt_root: str, f5_files: dict | None) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------------
+# Phase 14: voice clone, streaming, int4 on the AR families, VoxCPM's output rate
+
+CLONE_REF_IDS = np.arange(40, 52, dtype=np.int32)[None]     # the reference's text
+STREAM = dict(chunk_frames=24, window=72, left_context=24)    # Qwen's defaults
+NEAR_TIE = 1e-4             # codes may differ where two distances lie this close
+SPK_TOL = 1e-4              # speaker embedding, card against CPU, rel L2
+INT4_LEN = {"kani": 32, "qwen": 8, "voxcpm": 8}
+
+
+def rvq_code_inputs(params: dict, emb: torch.Tensor, cfg, nq: int) -> list:
+    """The vector each RVQ group's nearest-code search takes: the semantic
+    projection, then the acoustic residual before each acoustic group."""
+    from tts_tpu_torch.models.qwen_encoder import _nearest_code
+
+    ins = [torch.matmul(emb, params["sem_in_proj"])]
+    res = torch.matmul(emb, params["ac_in_proj"])
+    for g in range(nq - 1):
+        ins.append(res)
+        cb = params["ac_codebooks"][g]
+        res = res - cb[_nearest_code(res, cb).long()]
+    return ins
+
+
+def codes_near_ties(codes: np.ndarray, ref: np.ndarray, params: dict, emb_fn, cfg) -> int:
+    """Frames whose codes differ from `ref` (the CPU run's); each must differ
+    first at a group whose two least squared distances (in float64, from
+    the CPU run's input to that group; emb_fn() gives its embeddings) lie
+    within NEAR_TIE of each other, relative. Returns the count; raises on
+    any other difference."""
+    diff = np.nonzero((codes != ref).any(axis=1))[0]
+    if not len(diff):
+        return 0
+    ins = rvq_code_inputs(params, emb_fn(), cfg, ref.shape[1])
+    for t in diff:
+        g = int(np.nonzero(codes[t] != ref[t])[0][0])
+        cb = (params["sem_codebook"] if g == 0 else params["ac_codebooks"][g - 1]).double()
+        d = ((ins[g][0, t].double()[None] - cb) ** 2).sum(-1)
+        d1, d2 = torch.topk(d, 2, largest=False).values.tolist()
+        if d2 - d1 > NEAR_TIE * d2:
+            raise AssertionError(f"frame {t}: codes differ at group {g}, whose two best "
+                                 f"distances {d1:.6g} and {d2:.6g} are no near tie")
+    return len(diff)
+
+
+def grew_of(before: dict) -> dict:
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    return {k: LAUNCHES[k] - before.get(k, 0) for k in KERNELS if LAUNCHES[k] != before.get(k, 0)}
+
+
+def timed_stream(gen) -> tuple:
+    """(chunks, seconds to the first chunk, seconds to the last) of a
+    generator of int16 chunks."""
+    t0 = time.perf_counter()
+    chunks, first = [], None
+    for c in gen:
+        if first is None:
+            first = time.perf_counter() - t0
+        chunks.append(c)
+    return chunks, first, time.perf_counter() - t0
+
+
+def assembled(decode_fn, frames: np.ndarray, chunk: int, window: int, left: int,
+              upsample: int, groups: int) -> np.ndarray:
+    """runtime/streaming.ChunkedCodecStream over `frames`, pushed `chunk` at
+    a time: what a stream of those frames must give."""
+    from tts_tpu_torch.runtime.streaming import ChunkedCodecStream
+
+    stream = ChunkedCodecStream(decode_fn, window=window, left_context=left,
+                                upsample=upsample, num_groups=groups)
+    out = []
+    for i in range(0, len(frames), chunk):
+        c = stream.push_frames(frames[i:i + chunk])
+        if c is not None and len(c):
+            out.append(c)
+    out.extend(stream.finish())
+    return np.concatenate(out)
+
+
+def check_clone_step(pipe, prefill: torch.Tensor) -> None:
+    """One talker step after the voice-clone prefill at full width: kernel 12
+    (28 launches) in bf16 against the step's twins in bf16 and in fp32
+    (params and cache cast), as check_qwen_step: the kernel route no further
+    from the fp32 twins than STEP_SLACK times the bf16 twins."""
+    from tts_tpu_torch.kv.cache import KVCache
+    from tts_tpu_torch.models.qwen_tts import qwen3_stack_step
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    p, t = pipe.params, pipe.cfg.talker
+    p_len = prefill.shape[1]
+    kv = KVCache.create(t.num_layers, 1, t.num_kv_heads, pipe._kv_max(512), t.head_dim,
+                        torch.bfloat16, "cuda")
+    _, kv = qwen3_stack_step(p["talker"], prefill.to(torch.bfloat16), kv, t,
+                             p["rope_cos"][:p_len], p["rope_sin"][:p_len], return_all=True)
+    x = prefill[:, -1:]
+    rc, rs = p["rope_cos"][p_len:p_len + 1], p["rope_sin"][p_len:p_len + 1]
+
+    def step(params, dt):
+        c = KVCache(kv.k.to(dt).clone(), kv.v.to(dt).clone(), p_len)
+        return qwen3_stack_step(params, x.to(dt), c, t, rc.to(dt), rs.to(dt),
+                                fused="step")[0].float()
+
+    before = LAUNCHES["fused_qkv_attn"]
+    kern = step(p["talker"], torch.bfloat16)
+    k12 = LAUNCHES["fused_qkv_attn"] - before
+    with twins_in_qwen():
+        twin = step(p["talker"], torch.bfloat16)
+        ref = step(cast_tree(p["talker"], torch.float32), torch.float32)
+    e_k, e_t = rel_l2(kern, ref), rel_l2(twin, ref)
+    ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_t and k12 == t.num_layers
+    print(f"  talker step after the clone prefill ({p_len} rows), rel L2 against the fp32 "
+          f"twins: kernel 12 {e_k:.6g} ({k12} launches), bf16 twins {e_t:.6g} (limit "
+          f"{STEP_SLACK} x) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the clone prefill's kernel-12 step is less accurate than its "
+                             "twins or did not run through kernel 12")
+
+
+def int4_request(name_limit: str, label: str, fn, units: int, unit: str) -> dict:
+    """One quantize=4 request under torch.profiler (the card's activities:
+    kernels, copies, fills):
+    the audio finite and not silent, no launch of a hand-written kernel
+    (every int4 wqkv keeps kernels 11 and 12 off, as tts_tpu's gate), the
+    device time a unit beside the wall. Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    before = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wav, n = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the card's activities summed straight from the trace's raw events:
+    # key_averages() parses every event into Python first (8-17 s here)
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
+    grew = grew_of(before)
+    print(f"  {name_limit}: {label} quantize=4: {n} {unit}s, {len(wav)} int16 samples, wall "
+          f"{wall:.4f} s (profiled), device time {busy:.3f} ms = {busy / n:.4f} ms a {unit}, "
+          f"peak |int16| {int(np.abs(wav.astype(np.int32)).max())}, launches {grew}",
+          flush=True)
+    if n != units or wav.dtype != np.int16 or not wav.any():
+        raise AssertionError(f"{label} int4: {n} {unit}s, {wav.dtype}, expected {units} and "
+                             f"audio that is not silent")
+    if grew:
+        raise AssertionError(f"{label} int4: launches {grew}, expected none (int4 wqkv)")
+    return grew
+
+
+def run_clone(name_limit: str, ckpt_root: str) -> dict:
+    """Phase 14: a Qwen3-TTS-0.6B checkpoint with its Mimi and speaker
+    encoders written from seeds (bf16), the encoders loaded to the card in
+    fp32 (the talker and codec are phase 7's, from seeds, bf16);
+    encode_reference on the 6 s bench reference on the card and on the CPU;
+    a voice-clone request (88 kernel-12 launches a frame) and one step of
+    its prefill against the twins; Qwen and VoxCPM-2 streaming bitwise the
+    window assembly over the non-streaming decode; VoxCPM-2 at 24 kHz
+    bitwise resample_linear of the native request; kani-tts-370m,
+    Qwen3-TTS-0.6B and VoxCPM-2 at quantize=4. Returns the launches."""
+    import shutil
+    from types import SimpleNamespace
+
+    from tts_tpu_torch.audio.wav import resample_linear
+    from tts_tpu_torch.models.kani import KaniConfig
+    from tts_tpu_torch.models.kani import init_params as kani_init
+    from tts_tpu_torch.models.nanocodec import NanoCodecConfig
+    from tts_tpu_torch.models.nanocodec import init_params as codec_init
+    from tts_tpu_torch.models.qwen_encoder import MimiEncoderConfig, mimi_encode
+    from tts_tpu_torch.models.voxcpm import voxcpm_v2_config
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.kani import KaniDecodeConfig, KaniPipeline
+    from tts_tpu_torch.runtime.qwen import QwenDecodeConfig, QwenTTSPipeline
+    from tts_tpu_torch.runtime.voxcpm import VoxCPMDecodeConfig, VoxCPMPipeline
+    from tts_tpu_torch.weights import place, read_safetensors
+    from tts_tpu_torch.weights.loaders import host_state_dict
+    from tts_tpu_torch.weights.qwen_loader import load_qwen_encoder, qwen_speaker_from_state_dict
+
+    launches: dict = {}
+    t_start = time.perf_counter()
+
+    def add(grew):
+        for k, n in grew.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def part(title: str) -> None:
+        print(f"  -- {title} (phase 14 at {time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    # --- the encoders, from checkpoint files
+    part("the encoders from checkpoint files")
+    cfg, ccfg, params, cparams = qwen_models()
+    ecfg = MimiEncoderConfig()
+    t0 = time.perf_counter()
+    qdir, size = write_qwen_checkpoint(os.path.join(ckpt_root, "qwen_clone"), cfg, ccfg, 70,
+                                       ecfg=ecfg)
+    print(f"  {name_limit}: wrote Qwen3-TTS-0.6B + codec + Mimi encoder + speaker encoder "
+          f"({size / 2 ** 30:.3f} GiB bf16) in {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    enc, _ = load_qwen_encoder(qdir, ecfg)
+    t1 = time.perf_counter()
+    spk_sd = {k: v for k, v in read_safetensors(os.path.join(qdir, "model.safetensors")).items()
+              if k.startswith("speaker_encoder.")}
+    spk = place(qwen_speaker_from_state_dict(host_state_dict(spk_sd)), "cuda", torch.float32,
+                kind="ecapa")
+    torch.cuda.synchronize()
+    print(f"  {name_limit}: load_qwen_encoder to the card (fp32, the directory's every "
+          f"file read) {t1 - t0:.2f} s; the speaker encoder (its keys of model.safetensors) "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+    shutil.rmtree(qdir)
+    scfg = SimpleNamespace(res2net_scale=8)
+    pipe = QwenTTSPipeline(params, cfg, cparams, ccfg, QwenDecodeConfig(max_frames=QWEN_FRAMES))
+    ref = bench_audio(24000)
+    enc_cpu, spk_cpu = cpu_tree(enc), cpu_tree(spk)
+    t0 = time.perf_counter()
+    pipe.encode_reference(ref, enc, ecfg, spk, scfg)                    # warm-up
+    torch.cuda.synchronize()
+    part(f"encode_reference's first call {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    codes, emb_spk = pipe.encode_reference(ref, enc, ecfg, spk, scfg)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    codes_cpu, spk_ref = pipe.encode_reference(ref, enc_cpu, ecfg, spk_cpu, scfg)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    codes_np, ref_np = codes.cpu().numpy(), codes_cpu.numpy()
+    bucket = -(-len(ref) // pipe.REF_BUCKET) * pipe.REF_BUCKET
+    n_diff = codes_near_ties(codes_np, ref_np, enc_cpu, lambda: mimi_encode(
+        enc_cpu, torch.as_tensor(np.pad(ref.astype(np.float32) / 32768.0,
+                                        (0, bucket - len(ref)))[None]), ecfg), ecfg)
+    e_spk = rel_l2(emb_spk.cpu(), spk_ref)
+    groups_used = [len(np.unique(ref_np[:, g])) for g in range(ref_np.shape[1])]
+    print(f"  {name_limit}: encode_reference (6 s at 24 kHz, a {bucket}-sample bucket): codes "
+          f"{tuple(codes_np.shape)}, {n_diff} frames differ from the CPU run's (each at a near "
+          f"tie, {NEAR_TIE} relative), distinct codes a group {groups_used}; speaker "
+          f"embedding {tuple(emb_spk.shape)} rel L2 {e_spk:.3g} against the CPU run's (limit "
+          f"{SPK_TOL}); {enc_ms:.2f} ms on the card (fp32, TF32 off), {cpu_ms:.1f} ms on the "
+          f"CPU", flush=True)
+    if e_spk > SPK_TOL or codes_np.shape != (bucket // 1920, cfg.num_code_groups):
+        raise AssertionError("encode_reference: the card's output is not the CPU's")
+
+    # --- a voice-clone request (phase 13's qwen command's cap)
+    part("a voice-clone request")
+    per_iter = cfg.talker.num_layers + (cfg.num_code_groups - 1) * cfg.predictor.num_layers
+    cap = CLI_CAPS["qwen"]
+    clone = QwenTTSPipeline(params, cfg, cparams, ccfg, QwenDecodeConfig(max_frames=cap))
+    prefill, trailing = clone.build_prefill_voice_clone(QWEN_IDS, CLONE_REF_IDS, QWEN_LANG,
+                                                        codes, emb_spk)
+    before = dict(LAUNCHES)
+    wav, st = clone.synthesize_from_prefill(prefill, trailing)
+    grew = grew_of(before)
+    iters = st["frames"] if st["frames"] == cap else st["frames"] + 1
+    print(f"  {name_limit}: voice-clone request: prefill {tuple(prefill.shape)} ({len(codes)} "
+          f"reference frames), trailing {tuple(trailing.shape)}; {st['frames']} frames, "
+          f"{len(wav)} int16 samples, wall {st['wall_s']:.4f} s, launches {grew} "
+          f"({grew.get('fused_qkv_attn', 0) / iters:.1f} of kernel 12 an iteration)",
+          flush=True)
+    if grew != {"fused_qkv_attn": per_iter * iters} or not wav.any() \
+            or not math.isfinite(st["peak"]):
+        raise AssertionError(f"voice clone: launches {grew}, expected {per_iter} of kernel "
+                             f"12 a frame, and audio that is finite and not silent")
+    add(grew)
+    check_clone_step(clone, prefill)
+    del clone
+
+    # --- Qwen streaming of the bench request
+    part("Qwen streaming")
+    pre, tr = pipe.build_prefill_embeds(QWEN_IDS, QWEN_LANG)
+    before = dict(LAUNCHES)
+    chunks, first, wall = timed_stream(pipe.synthesize_streaming(pre, tr, **STREAM))
+    grew = grew_of(before)
+    add(grew)
+    decoded, real = [], pipe._decode
+    pipe._decode = lambda *a: decoded.append(real(*a)) or decoded[-1]
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    pipe.synthesize_from_prefill(pre, tr)
+    plain_wall = time.perf_counter() - t0
+    del pipe._decode
+    add(grew_of(before))
+    frames, n = decoded[0]
+    want = assembled(pipe._codec_window, frames[:n].cpu().numpy(), STREAM["chunk_frames"],
+                     STREAM["window"], STREAM["left_context"], ccfg.total_upsample,
+                     cfg.num_code_groups)
+    got = np.concatenate(chunks)
+    same = np.array_equal(got, want)
+    print(f"  {name_limit}: Qwen stream (chunk {STREAM['chunk_frames']}, window "
+          f"{STREAM['window']}, left {STREAM['left_context']}) of the bench request: "
+          f"{len(chunks)} chunks, {len(got)} samples ({n} frames), first chunk {first:.4f} s, "
+          f"whole stream {wall:.4f} s, the non-streaming request {plain_wall:.4f} s; bitwise "
+          f"the assembly over _decode's frames: {same}; launches {grew}", flush=True)
+    if not same or n != QWEN_FRAMES or grew != {"fused_qkv_attn": per_iter * n}:
+        raise AssertionError("Qwen stream: not the window assembly over _decode's frames, "
+                             "or not every frame through kernel 12")
+    del pipe, frames
+
+    # --- VoxCPM-2: a stream, and 24 kHz output
+    part("VoxCPM-2 streaming and 24 kHz")
+    cfg2 = voxcpm_v2_config()
+    params2, vae2 = voxcpm_models(cfg2, 30)
+    dec = VoxCPMDecodeConfig(max_latents=VOX_LATENTS, min_latents=VOX_LATENTS)
+    vox = VoxCPMPipeline(params2, cfg2, vae2, dec)
+    segs = [("text", np.concatenate([VOX_PROMPT[0], VOX_TARGET[0],
+                                     [cfg2.audio_start_id]]).astype(np.int32))]
+    zero = vox._zero_cond()
+    max_steps = VOX_TARGET.shape[1] * dec.decode_limit_factor + 10
+    noise = torch.randn((VOX_LATENTS, 1, cfg2.patch_size, cfg2.vae.latent_dim),
+                        generator=torch.Generator("cuda").manual_seed(14), device="cuda")
+    lat_box, real = [], vox._vocode
+    vox._vocode = lambda lat: lat_box.append(lat.clone()) or real(lat)
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    native, st = vox._run_segments(segs, zero, max_steps, None, noise)
+    plain_wall = time.perf_counter() - t0
+    del vox._vocode
+    add(grew_of(before))
+    before = dict(LAUNCHES)
+    chunks, first, wall = timed_stream(vox.synthesize_streaming(segs, zero, max_steps, chunk=4,
+                                                                noise=noise))
+    grew = grew_of(before)
+    add(grew)
+    got = np.concatenate(chunks)
+    want = assembled(vox._vae_dec_fn, lat_box[0][0, :st["latents"]].cpu().numpy(), 4, 5, 1,
+                     cfg2.samples_per_latent, cfg2.patch_size)
+    layers = cfg2.base.num_layers + cfg2.residual.num_layers
+    n_lat = len(got) // cfg2.samples_per_latent
+    same = np.array_equal(got, want)
+    print(f"  {name_limit}: VoxCPM-2 stream (chunk 4, window 5, left 1): {len(chunks)} chunks, "
+          f"{len(got)} samples ({n_lat} latents; _run_segments {st['latents']}), first chunk "
+          f"{first:.4f} s, whole stream {wall:.4f} s, the non-streaming request "
+          f"{plain_wall:.4f} s; bitwise the assembly over _run_segments' latents: {same}; "
+          f"launches {grew}", flush=True)
+    if not same or n_lat != st["latents"] or grew != {"fused_qkv_attn": layers * n_lat}:
+        raise AssertionError("VoxCPM stream: not the window assembly over the request's "
+                             "latents, or not every latent through kernel 12")
+    vox24 = VoxCPMPipeline(params2, cfg2, vae2, dec, output_sample_rate=24000)
+    wav24, st24 = vox24._run_segments(segs, zero, max_steps, None, noise)
+    same = np.array_equal(wav24, resample_linear(native, cfg2.output_sample_rate, 24000))
+    print(f"  {name_limit}: VoxCPM-2 at output_sample_rate=24000: {len(wav24)} samples (native "
+          f"{len(native)} at {cfg2.output_sample_rate} Hz), stats rate {st24['sample_rate']}, "
+          f"bitwise resample_linear of the native request: {same}", flush=True)
+    if not same or st24["sample_rate"] != 24000:
+        raise AssertionError("VoxCPM at 24 kHz is not resample_linear of the native request")
+    del vox, vox24
+
+    # --- quantize=4 on the AR families
+    part("quantize=4")
+    kcfg, kccfg = KaniConfig(max_seq_len=2048, stop_token=-1), NanoCodecConfig()
+    kparams = kani_init(kcfg, torch.Generator("cuda").manual_seed(2), torch.bfloat16)
+    kcparams = codec_init(kccfg, torch.Generator("cuda").manual_seed(3), torch.bfloat16)
+    for label, make, run, unit in (
+            ("kani-tts-370m", lambda: KaniPipeline(
+                kparams, kcfg, kcparams, kccfg,
+                KaniDecodeConfig(max_new_tokens=INT4_LEN["kani"], repeat_penalty=1.0),
+                quantize=4),
+             lambda p: (lambda w, s: (w, s["tokens"]))(*p.synthesize_ids(
+                 np.array(KANI_IDS, np.int32))), "token"),
+            ("Qwen3-TTS-0.6B", lambda: QwenTTSPipeline(
+                params, cfg, cparams, ccfg, QwenDecodeConfig(max_frames=INT4_LEN["qwen"]),
+                quantize=4),
+             lambda p: (lambda w, s: (w, s["frames"]))(*p.synthesize_ids(
+                 QWEN_IDS, language_id=QWEN_LANG)), "frame"),
+            ("VoxCPM-2", lambda: VoxCPMPipeline(
+                params2, cfg2, vae2, VoxCPMDecodeConfig(max_latents=INT4_LEN["voxcpm"],
+                                                        min_latents=INT4_LEN["voxcpm"]),
+                quantize=4),
+             lambda p: (lambda w, s: (w, s["latents"]))(*p.synthesize_ids(
+                 VOX_PROMPT, VOX_TARGET)), "latent")):
+        t0 = time.perf_counter()
+        q4 = make()
+        torch.cuda.synchronize()
+        print(f"  {label}: quantize=4 (the jitted k_quant form) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        key = {"token": "kani", "frame": "qwen", "latent": "voxcpm"}[unit]
+        int4_request(name_limit, label, lambda: run(q4), INT4_LEN[key], unit)
+        del q4
+    part("done")
+    return launches
+
+
+def cpu_tree(tree):
+    """A params tree with every tensor moved to the CPU (exact)."""
+    if isinstance(tree, dict):
+        return {k: cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cpu_tree(v) for v in tree]
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
 def profile_one(label: str, fn, classes, name_limit: str, per: tuple | None = None,
                 out_path: str | None = None) -> None:
     """torch.profiler over one fn() after a warm-up: device kernel time by
@@ -6230,11 +6712,12 @@ def main() -> None:
                          "VoxCPM-2 request, the Kani, Qwen, BigVGAN, IndexTTS "
                          "and VoxCPM tables into DIR")
     ap.add_argument("--families",
-                    default="f5,kani,qwen,bigvgan,indextts,voxcpm,serving,checkpoints,cli",
+                    default="f5,kani,qwen,bigvgan,indextts,voxcpm,serving,checkpoints,cli,"
+                            "clone",
                     help="the pipeline phases to run after phase 2, by family: "
                          "f5 (3-5d), kani (6), qwen (7), bigvgan (8, 8c), indextts (9), "
-                         "voxcpm (10), serving (11), checkpoints (12), cli (13); default "
-                         "all (the smoke run's contract)")
+                         "voxcpm (10), serving (11), checkpoints (12), cli (13), clone "
+                         "(14); default all (the smoke run's contract)")
     ap.add_argument("--servers", default=",".join(SERVERS),
                     help="the slot servers phase 11 runs: " + ", ".join(SERVERS) +
                          "; default all")
@@ -6393,9 +6876,9 @@ def main() -> None:
         for k, n in run_serving(name_limit, set(args.servers.split(","))).items():
             launches[k] = launches.get(k, 0) + n
 
-    # phases 12 and 13 write checkpoint files: one directory, removed at exit
+    # phases 12-14 write checkpoint files: one directory, removed at exit
     ckpt_root, f5_files = None, None
-    if fams & {"checkpoints", "cli"}:
+    if fams & {"checkpoints", "cli", "clone"}:
         import atexit
         import shutil
         import tempfile
@@ -6415,6 +6898,13 @@ def main() -> None:
               "families from checkpoint files)")
         for k, n in run_cli(name_limit, ckpt_root, f5_files).items():
             launches[k] = launches.get(k, 0) + n
+
+    if "clone" in fams:
+        phase("phase 14: voice clone, streaming, int4 and VoxCPM's output rate")
+        t14 = time.perf_counter()
+        for k, n in run_clone(name_limit, ckpt_root).items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"  {name_limit}: phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
 
     phase("done")
     # JAX may be installed where the port runs: nothing of the run may have

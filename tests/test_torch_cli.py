@@ -18,8 +18,8 @@ packages (`small_defaults`): the command path is the same, its widths cut.
 - Without --ckpt every command builds tts_tpu's small configs from seeded
   generators: the configs and ids each CLI hands its pipeline match, and the
   port's WAV equals its pipeline's direct call.
-- The device rule: --device cuda without a card raises; quantize 4 raises
-  where the runtimes do; the serve command's server builds on the CPU."""
+- The device rule: --device cuda without a card raises; quantize 4 runs in
+  every runtime; the serve command's server builds on the CPU."""
 import dataclasses
 import os
 import shutil
@@ -488,9 +488,25 @@ def test_device_cuda_raises_without_a_card(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("family", ["kani", "qwen", "voxcpm"])
-def test_quantize_4_raises_where_the_runtime_does(family):
-    with pytest.raises(ValueError, match="quantize"):
-        _run_port(family, "--quantize", 4)
+def test_quantize_4_raises_where_the_runtime_does(family, monkeypatch, tmp_path):
+    """Every runtime takes quantize=4 now (none raises): the command hands
+    it to its pipeline and writes the request's audio; a width the parser
+    does not offer exits there."""
+    import importlib
+
+    import tts_tpu_torch.quant.weight_only as wo
+
+    _, cls, tmod, method, extra, _ = RANDOM[family]
+    calls = _spy(monkeypatch, getattr(importlib.import_module(tmod), cls), method)
+    bits, real = [], wo.quantize_pytree
+    monkeypatch.setattr(wo, "quantize_pytree",
+                        lambda tree, **kw: bits.append(kw.get("bits")) or real(tree, **kw))
+    _run_port(family, *extra, "--quantize", 4, "--out", tmp_path / "q.wav")
+    wav = calls[0][3][0]
+    assert bits == [4]
+    assert np.array_equal(_wav(tmp_path / "q.wav")[0], wav) and len(wav) > 0
+    with pytest.raises(SystemExit):
+        _run_port(family, *extra, "--quantize", 16, "--out", tmp_path / "r.wav")
 
 
 def test_serve_builds_on_the_cpu(capsys):

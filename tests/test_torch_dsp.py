@@ -6,6 +6,8 @@ the same bases, only in another summation order. The log-mel and the
 waveform take atol 1e-5; the raw spectra, 1024-term sums whose partial
 sums reach ~10, take atol 3e-5 with rtol 1e-5 (fp32 rounding of such a
 sum is ~1e-5 in either order)."""
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,10 +20,12 @@ from tts_tpu.audio.stft import StftKernel as JStft
 from tts_tpu.models import f5 as jf5
 from tts_tpu.nn import rope as jrope
 from tts_tpu_torch.audio import mel as tmel
-from tts_tpu_torch.audio import stft as tstft
 from tts_tpu_torch.audio import windows as twin
 from tts_tpu_torch.models import f5 as tf5
 from tts_tpu_torch.nn import rope as trope
+
+# the module: `tts_tpu_torch.audio.stft` is the one-shot function, as in tts_tpu
+tstft = importlib.import_module("tts_tpu_torch.audio.stft")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -345,11 +345,11 @@ def test_kani_step_fused_step_matches_jax(models):
     assert tstate.kv.length == int(state.kv.length) == 7
 
 
-@pytest.mark.parametrize("case", ["b1", "b2", "prefill", "kv_valid", "no_layout"])
+@pytest.mark.parametrize("case", ["b1", "b2", "prefill", "kv_valid", "no_layout", "int4"])
 def test_kani_step_routes_as_tts_tpu(models, monkeypatch, case):
     """fused="step" reaches kernel 12 at B=1, S=1 only; batch rows and
-    per-row key masks degrade to kernel 11, a prefill or a layout that does
-    not pack to the plain path."""
+    per-row key masks degrade to kernel 11, a prefill, a layout that does
+    not pack or an int4 wqkv to the plain path."""
     from tts_tpu_torch.models import kani as mod
 
     calls = []
@@ -361,6 +361,8 @@ def test_kani_step_routes_as_tts_tpu(models, monkeypatch, case):
         **{**LM, "num_heads": 3, "num_kv_heads": 3})
     tp = models["tp"] if case != "no_layout" else tk.init_params(
         cfg, torch.Generator().manual_seed(3))
+    if case == "int4":
+        tp = quantize_pytree(tp, bits=4, min_size=1)
     b = 2 if case in ("b2", "kv_valid") else 1
     s = 3 if case == "prefill" else 1
     state = tk.init_state(cfg, b, torch.float32)
@@ -369,7 +371,8 @@ def test_kani_step_routes_as_tts_tpu(models, monkeypatch, case):
     x = torch.randn((b, s, cfg.hidden_size), generator=torch.Generator().manual_seed(4))
     tk.kani_step(tp, x, state, cfg, key_valid_from=kvf, fused="step")
     want = {"b1": ["fused_qkv_attn"] * 2, "b2": ["fused_qkv_rope"] * 2,
-            "kv_valid": ["fused_qkv_rope"] * 2, "prefill": [], "no_layout": []}[case]
+            "kv_valid": ["fused_qkv_rope"] * 2, "prefill": [], "no_layout": [],
+            "int4": []}[case]
     assert calls == want
 
 
@@ -426,12 +429,79 @@ def test_synthesize_ids_matches_jax(models, case):
         assert len(wt) == len(wj)
 
 
-@pytest.mark.parametrize("quantize", [4, 16, "w8a8"])
+@pytest.mark.parametrize("quantize", [16, "w8a8"])
 def test_kani_pipeline_rejects_unported_quantize(models, quantize):
-    """Only int8 is ported for Kani: int4 and anything else raise."""
+    """int8 and int4 are Kani's quantize modes: anything else raises."""
     with pytest.raises(ValueError):
         KaniPipeline(models["tp"], tk.KaniConfig(**LM), models["tcp"], models["tcc"],
                      KaniDecodeConfig(), audio_tokens_start=0, quantize=quantize)
+
+
+def assert_same_quantized(out, ref) -> None:
+    """A tree of the port's quantize_pytree against tts_tpu's: each QTensor /
+    QTensorG leaf's q and scale bit for bit, float leaves equal."""
+    from tts_tpu.quant import weight_only as jw
+
+    from tts_tpu_torch.quant.weight_only import QTensorG
+
+    if isinstance(ref, dict):
+        assert set(out) == set(ref)
+        for k in ref:
+            assert_same_quantized(out[k], ref[k])
+    elif isinstance(ref, (list, tuple)):
+        assert len(out) == len(ref)
+        for a, b in zip(out, ref):
+            assert_same_quantized(a, b)
+    elif isinstance(ref, (jw.QTensor, jw.QTensorG)):
+        assert isinstance(out, QTensor if isinstance(ref, jw.QTensor) else QTensorG)
+        np.testing.assert_array_equal(out.q.numpy(), _np(ref.q))
+        np.testing.assert_array_equal(out.scale.numpy(), _np(ref.scale))
+    else:
+        np.testing.assert_array_equal(out.numpy(), _np(ref))
+
+
+# at this width quantize_pytree's default min_size (65,536) takes every stack
+# matrix but the LM head (int4 where 32 divides the input width)
+LM4 = dict(LM, hidden_size=256, ffn_dim=256)
+
+
+@pytest.fixture(scope="module")
+def models4(models):
+    jc = jk.KaniConfig(**LM4)
+    jp = jk.init_params(jc, jax.random.key(5))
+    return dict(models, jc=jc, tc=tk.KaniConfig(**LM4), jp=jp,
+                tp=params_from_jax(jax.tree.map(np.asarray, jp), "cpu", torch.float32))
+
+
+def test_quantize_pytree_int4_matches_jax(models4):
+    """quantize=4's tree (tts_tpu's quantize_pytree runs its int4 search
+    under jit): every leaf bit for bit; every stack matrix int4."""
+    from tts_tpu.quant.weight_only import quantize_pytree as jqp
+
+    from tts_tpu_torch.quant.weight_only import QTensorG
+
+    out = quantize_pytree(models4["tp"], bits=4)
+    assert_same_quantized(out, jqp(models4["jp"], bits=4))
+    for lyr in out["layers"]:
+        for key in ("wqkv", "wo", "in_proj", "out_proj"):
+            if key in lyr:
+                assert isinstance(lyr[key], QTensorG), key
+        assert isinstance(lyr["ffn"]["w_down"], QTensorG)
+    assert isinstance(out["lm_head"], torch.Tensor)
+
+
+def test_synthesize_ids_int4_matches_jax(models4):
+    """KaniPipeline(quantize=4) against tts_tpu's: the int4 wqkv keeps every
+    step off kernels 11 and 12 (the plain route, as tts_tpu's gate); the
+    same tokens, the audio within 1 LSB."""
+    jpipe, tpipe = _pipes(models4, max_new_tokens=24, repeat_penalty=0.8, quantize=4,
+                          lm={k: LM4[k] for k in ("hidden_size", "ffn_dim")})
+    assert tk._route(tpipe.params, tpipe.cfg, 1, 1, None, tpipe._fused) is False
+    wj, sj = jpipe.synthesize_ids(IDS)
+    wt, st = tpipe.synthesize_ids(IDS)
+    assert st["tokens"] == sj["tokens"] == 24
+    assert wt.dtype == np.int16 and wt.shape == wj.shape and np.abs(wj).max() > 1000
+    assert np.abs(wt.astype(np.int32) - wj.astype(np.int32)).max() <= 1
 
 
 def test_synthesize_ids_batch_matches_jax(models):

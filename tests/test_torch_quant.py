@@ -3,11 +3,12 @@ text frontend against tts_tpu's, on the CPU.
 
 Quantizers are pinned bit for bit: the eager int8 form against tts_tpu's
 `quantize_int8` called eagerly (what its F5Pipeline runs), the jitted form
-against `jax.jit(quantize_int8)`, and the int4 k_quant search against an
-eager `quantize_int4`. Where tts_tpu runs the int4 search under jit
-(`quantize_pytree`), XLA sums each group in another order: the refit scales
-then differ by ulps, and a (group, column) whose two best candidates' errors
-lie within 1e-6 (relative) of each other may pick the other one."""
+against `jax.jit(quantize_int8)`, the int4 k_quant search against an
+eager `quantize_int4`, and its jitted form `quantize_int4_jit` against
+`jax.jit` of it (XLA sums each group in another order there, with FMAs: the
+refit scales differ from the eager ones by ulps, and a (group, column) whose
+two best candidates' errors lie within 1e-6 (relative) of each other may
+pick the other one)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -111,6 +112,26 @@ def test_quantize_int4_matches_eager(shape, scale):
                          np.asarray(ref.scale), w)
     g = out.unpack_runtime()
     assert g.pack().q.equal(out.q) and int(g.q.abs().max()) <= 7
+
+
+@pytest.mark.parametrize("shape,scale", [((512, 384), 0.02), ((96, 64), 1.0),
+                                         ((1024, 256), 3e-3)])
+def test_quantize_int4_jit_is_bit_equal(shape, scale):
+    """The jitted form against jax.jit of tts_tpu's search (what its
+    quantize_pytree runs): q and scale bit for bit, and the eager form
+    differs from it (most refit scales by an ulp)."""
+    from tts_tpu.quant.weight_only import quantize_int4 as jq4
+
+    from tts_tpu_torch.quant.weight_only import quantize_int4_jit
+
+    w = _weight(shape, scale, 45)
+    ref = jax.jit(lambda v: jq4(v).unpack_runtime())(jnp.asarray(w))
+    out = quantize_int4_jit(_t(w))
+    assert isinstance(out, QTensor4)
+    g = out.unpack_runtime()
+    np.testing.assert_array_equal(g.q.numpy(), np.asarray(ref.q))
+    np.testing.assert_array_equal(g.scale.numpy(), np.asarray(ref.scale))
+    assert (quantize_int4(_t(w)).scale != out.scale).any()
 
 
 def test_quantize_pytree_int4_against_jitted_search():

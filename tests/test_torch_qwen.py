@@ -228,22 +228,28 @@ def test_prefill_return_all_and_batch_mask_match_jax(models):
 
 
 @pytest.mark.parametrize("case", ["step_b1", "step_b2", "step_kv_valid", "all_640",
-                                  "all_768", "mlp_q8_float", "mlp_q8_int8", "prefill"])
+                                  "all_768", "mlp_q8_float", "mlp_q8_int8", "prefill",
+                                  "step_int4", "all_int4", "mlp_q8_int4"])
 def test_stack_routes_as_tts_tpu(models, case):
     """The gates: "step" holds at B = 1 only (batch rows and per-row key masks
     degrade to kernel 11); kernel 13 needs 256 | T (a 640-row talker bucket
-    fails, 768 holds); "mlp_q8" needs int8 weights; fused routes need S = 1."""
+    fails, 768 holds); "mlp_q8" needs int8 weights; fused routes need S = 1.
+    int4 weights (quantize=4's tree) keep kernels 11, 12, 14 and 15 off, as
+    tts_tpu's fusable_weight and W8A8 gates; kernel 13 reads no weight."""
     from tts_tpu_torch.quant.weight_only import quantize_pytree
 
     tp, cfg = models["tp"]["talker"], models["tc"].talker
     b = 2 if case == "step_b2" else 1
-    t = {"all_640": 640, "all_768": 768}.get(case, 128)
+    t = {"all_640": 640, "all_768": 768, "all_int4": 768}.get(case, 128)
     kv = KVCache(torch.zeros(2, b, 1, t, 128), torch.zeros(2, b, 1, t, 128), 6)
     kv_valid = torch.ones(b, t, dtype=torch.bool) if case == "step_kv_valid" else None
     fused = {"all_640": "all", "all_768": "all", "mlp_q8_float": "mlp_q8",
-             "mlp_q8_int8": "mlp_q8"}.get(case, "step")
+             "mlp_q8_int8": "mlp_q8", "all_int4": "all",
+             "mlp_q8_int4": "mlp_q8"}.get(case, "step")
     if case == "mlp_q8_int8":
         tp = quantize_pytree(tp, min_size=1)
+    if case.endswith("int4"):
+        tp = quantize_pytree(tp, bits=4)
     if case == "prefill":
         with pytest.raises(ValueError):
             tq.stack_routes(tp, cfg, b, 3, kv, kv_valid, True, fused)
@@ -252,7 +258,8 @@ def test_stack_routes_as_tts_tpu(models, case):
     want = {"step_b1": dict(step=True), "step_b2": dict(qkv=True),
             "step_kv_valid": dict(qkv=True), "all_640": dict(qkv=True, mlp=True),
             "all_768": dict(qkv=True, attn=True, mlp=True), "mlp_q8_float": dict(qkv=True),
-            "mlp_q8_int8": dict(qkv=True, mlp_q8=True)}[case]
+            "mlp_q8_int8": dict(qkv=True, mlp_q8=True), "step_int4": {},
+            "all_int4": dict(attn=True), "mlp_q8_int4": {}}[case]
     fields = ("step", "qkv", "attn", "mlp", "mlp_q8")
     assert {k: getattr(r, k) for k in fields} == {k: want.get(k, False) for k in fields}
 
@@ -379,6 +386,30 @@ def test_synthesize_ids_matches_jax(models, case):
     np.testing.assert_array_equal(ft.numpy()[:nt + 1], _np(fj)[:nt + 1])
 
 
+def test_quantize_int4_matches_jax(models):
+    """quantize=4: the quantized tree bit for bit tts_tpu's (its int4 search
+    under jit; at these widths the default min_size takes wqkv and
+    w_gate_up, int4), then a request through each package: the same frames,
+    the audio within 1 LSB."""
+    from tests.test_torch_kani import assert_same_quantized
+    from tts_tpu.quant.weight_only import quantize_pytree as jqp
+
+    from tts_tpu_torch.quant.weight_only import QTensorG
+
+    decode = dict(max_frames=8, repeat_penalty=0.8, penalty_range=3)
+    jpipe, tpipe = _pipes(models, quantize=4, **decode)
+    assert_same_quantized(tpipe.params, jqp(models["jp"], bits=4))
+    for stack in ("talker", "predictor"):
+        lyr = tpipe.params[stack]["layers"][0]
+        assert isinstance(lyr["wqkv"], QTensorG) and isinstance(lyr["w_gate_up"], QTensorG)
+        assert isinstance(lyr["wo"], torch.Tensor)
+    wj, sj = jpipe.synthesize_ids(IDS, language_id=3)
+    wt, st = tpipe.synthesize_ids(IDS, language_id=3)
+    assert st["frames"] == sj["frames"] == 8
+    assert wt.dtype == np.int16 and wt.shape == wj.shape and np.abs(wj).max() > 1000
+    assert np.abs(wt.astype(np.int32) - wj.astype(np.int32)).max() <= 1
+
+
 @pytest.mark.parametrize("beam", [False, True])
 def test_synthesize_from_prefill_batch_matches_jax(models, beam):
     decode = dict(max_frames=6, repeat_penalty=0.8, penalty_range=3)
@@ -397,8 +428,10 @@ def test_synthesize_from_prefill_batch_matches_jax(models, beam):
 
 
 def test_pipeline_rejects_unported_quantize_and_degenerate_beam(models):
+    """Degenerate beam settings fall back to greedy with a warning; a
+    quantize other than None, 4 or 8 raises."""
     with pytest.raises(ValueError):
-        QwenTTSPipeline(models["tp"], models["tc"], models["tcp"], models["tcc"], quantize=4)
+        QwenTTSPipeline(models["tp"], models["tc"], models["tcp"], models["tcc"], quantize=16)
     with pytest.warns(UserWarning):
         pipe = QwenTTSPipeline(models["tp"], models["tc"], models["tcp"], models["tcc"],
                                QwenDecodeConfig(use_beam=True, beam_size=1))

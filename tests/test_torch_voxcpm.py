@@ -430,13 +430,6 @@ def test_main_step_keeps_the_step_route(models, monkeypatch):
         assert calls == want
 
 
-def test_pipeline_rejects_unported_options(models):
-    with pytest.raises(ValueError):
-        VoxCPMPipeline(models["tp"], models["tc"], models["tvae"], quantize=4)
-    with pytest.raises(ValueError):
-        VoxCPMPipeline(models["tp"], models["tc"], models["tvae"], output_sample_rate=16000)
-
-
 # ---------------------------------------------------------------- the pipelines
 
 LATENTS = 5
@@ -452,13 +445,14 @@ def _jax_noise(seed: int, steps: int, bsz: int, cfg) -> torch.Tensor:
     return _t(np.stack(out))
 
 
-def _pipes(models, v2: bool, latents: int = LATENTS):
+def _pipes(models, v2: bool, latents: int = LATENTS, rate: int | None = None):
     dec = dict(max_latents=latents, min_latents=latents, seed=11)
     jc = _cfg(jv, v2, noise=False) if v2 else models["jc"]
     tc = _cfg(tv, v2, noise=False) if v2 else models["tc"]
     jvae, tvae = (models["jvae2"], models["tvae2"]) if v2 else (models["jvae"], models["tvae"])
-    return (JaxPipeline(models["jp"], jc, jvae, JaxDecodeConfig(**dec)),
-            VoxCPMPipeline(models["tp"], tc, tvae, VoxCPMDecodeConfig(**dec)), tc)
+    return (JaxPipeline(models["jp"], jc, jvae, JaxDecodeConfig(**dec), output_sample_rate=rate),
+            VoxCPMPipeline(models["tp"], tc, tvae, VoxCPMDecodeConfig(**dec),
+                           output_sample_rate=rate), tc)
 
 
 def _same_audio(wt, wj):
@@ -538,3 +532,75 @@ def test_synthesize_batch_matches_jax(models, v2):
     for a, b, n in zip(wt, wj, counts):
         assert len(a) == n * tc.samples_per_latent
         _same_audio(a, b)
+
+
+# ---------------------------------------------------------------- output rates
+
+@pytest.mark.parametrize("rate", [16000, 24000])
+def test_output_sample_rate_matches_jax(models, rate):
+    """v1.5 (44.1 kHz native) resampled linearly to `rate` through
+    synthesize_ids and synthesize_ids_batch: each waveform within 1 LSB of
+    tts_tpu's, the stats at the output rate, the real-time factor over the
+    native length; the port's resampled request bitwise resample_linear of
+    its native one."""
+    from tts_tpu_torch.audio.wav import resample_linear
+
+    jpipe, tpipe, tc = _pipes(models, v2=False, rate=rate)
+    noise = _jax_noise(11, LATENTS, 1, tc)
+    wj, sj = jpipe.synthesize_ids(P_IDS, T_IDS, _audio(200, 0))
+    wt, st = tpipe.synthesize_ids(P_IDS, T_IDS, _audio(200, 0), noise=noise)
+    assert st["sample_rate"] == sj["sample_rate"] == rate
+    n = LATENTS * tc.samples_per_latent
+    assert len(wt) == len(resample_linear(np.zeros(n, np.int16), tc.output_sample_rate, rate))
+    assert st["rtf"] == pytest.approx(st["wall_s"] / (n / tc.output_sample_rate))
+    _same_audio(wt, wj)
+    native = _pipes(models, v2=False)[1]
+    wn, _ = native.synthesize_ids(P_IDS, T_IDS, _audio(200, 0), noise=noise)
+    np.testing.assert_array_equal(wt, resample_linear(wn, tc.output_sample_rate, rate))
+
+    reqs = [(P_IDS, T_IDS), (np.array([[4]], np.int32), np.array([[20, 3]], np.int32))]
+    wj, sj = jpipe.synthesize_ids_batch(reqs)
+    wt, st = tpipe.synthesize_ids_batch(reqs, noise=_jax_noise(11, LATENTS, 2, tc))
+    assert st["audio_s"] == pytest.approx(sj["audio_s"])
+    for a, b in zip(wt, wj):
+        _same_audio(a, b)
+
+
+# ---------------------------------------------------------------- int4
+
+def _wide(mod):
+    """tests/test_voxcpm.py's TINY with base and residual stacks 256 wide
+    (4/2 heads x 64), where quantize_pytree's default min_size takes their
+    matrices (int4); the feature encoder and estimator stay float."""
+    c = _cfg(mod)
+    stack = mod.LlamaStackConfig(hidden_size=256, num_heads=4, num_kv_heads=2, head_dim=64,
+                                 ffn_dim=256, num_layers=2, max_seq_len=512)
+    return dataclasses.replace(c, base=stack, residual=dataclasses.replace(stack, num_layers=1))
+
+
+def test_quantize_int4_matches_jax(models):
+    """quantize=4: the tree bit for bit tts_tpu's (its int4 search under
+    jit); every step off kernels 11 and 12 (int4 wqkv, as tts_tpu's gate);
+    a request within 1 LSB of tts_tpu's with its draws."""
+    from tests.test_torch_kani import assert_same_quantized
+    from tts_tpu.quant.weight_only import quantize_pytree as jqp
+
+    from tts_tpu_torch.quant.weight_only import QTensorG
+
+    jc, tc = _wide(jv), _wide(tv)
+    jp = jv.init_params(jc, jax.random.key(4))
+    dec = dict(max_latents=LATENTS, min_latents=LATENTS, seed=11)
+    jpipe = JaxPipeline(jp, jc, models["jvae"], JaxDecodeConfig(**dec), quantize=4)
+    tpipe = VoxCPMPipeline(_conv(jp), tc, models["tvae"], VoxCPMDecodeConfig(**dec),
+                           quantize=4)
+    assert_same_quantized(tpipe.params, jqp(jp, bits=4))
+    for stack in ("base", "residual"):
+        lyr = tpipe.params[stack]["layers"][0]
+        assert all(isinstance(lyr[k], QTensorG) for k in ("wqkv", "wo", "w_gate_up", "w_down"))
+        kv = KVCache(torch.zeros(2, 1, 2, 128, 64), torch.zeros(2, 1, 2, 128, 64), 9)
+        r = tv.stack_routes(tpipe.params[stack], tc.base, 1, 1, kv, None, tpipe._fused)
+        assert not (r.step or r.qkv)
+    wj, sj = jpipe.synthesize_ids(P_IDS, T_IDS)
+    wt, st = tpipe.synthesize_ids(P_IDS, T_IDS, noise=_jax_noise(11, LATENTS, 1, tc))
+    assert st["latents"] == sj["latents"] == LATENTS
+    _same_audio(wt, wj)

@@ -25,7 +25,8 @@ def _hz_to_mel(f, mel_scale: str = "htk"):
     min_log_hz = 1000.0
     min_log_mel = (min_log_hz - f_min) / f_sp
     logstep = np.log(6.4) / 27.0
-    return np.where(f >= min_log_hz, min_log_mel + np.log(f / min_log_hz) / logstep, mel)
+    with np.errstate(divide="ignore"):       # log(0) where f = 0: np.where drops it
+        return np.where(f >= min_log_hz, min_log_mel + np.log(f / min_log_hz) / logstep, mel)
 
 
 def _mel_to_hz(m, mel_scale: str = "htk"):

@@ -11,13 +11,15 @@ TF32 off).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .windows import make_window, padded_window
 
-__all__ = ["StftKernel", "IstftKernel"]
+__all__ = ["StftKernel", "IstftKernel", "stft", "istft"]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -151,3 +153,27 @@ class IstftKernel:
                        phase: torch.Tensor) -> torch.Tensor:
         """Input (magnitude, phase), each (..., F, T)."""
         return self(magnitude * torch.cos(phase), magnitude * torch.sin(phase))
+
+
+# One-shot forms over kernels cached by their settings -----------------------
+
+@functools.lru_cache(maxsize=32)
+def _stft_kernel(n_fft, hop, win_length, window_type) -> StftKernel:
+    return StftKernel(n_fft, hop, win_length, window_type)
+
+
+@functools.lru_cache(maxsize=32)
+def _istft_kernel(n_fft, hop, win_length, window_type) -> IstftKernel:
+    return IstftKernel(n_fft, hop, win_length, window_type)
+
+
+def stft(x: torch.Tensor, n_fft: int, hop: int, win_length: int | None = None,
+         window_type: str = "hann", pad_mode: str = "reflect"):
+    """One-shot STFT -> (real, imag), each (..., n_fft//2+1, N//hop+1)."""
+    return _stft_kernel(n_fft, hop, win_length or n_fft, window_type)(x, pad_mode=pad_mode)
+
+
+def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop: int,
+          win_length: int | None = None, window_type: str = "hann") -> torch.Tensor:
+    """One-shot ISTFT from (real, imag) -> waveform (..., (T-1)*hop)."""
+    return _istft_kernel(n_fft, hop, win_length or n_fft, window_type)(real, imag)

@@ -726,8 +726,7 @@ def _parser() -> argparse.ArgumentParser:
 
     for p in (f5, ka, it, vc, qw):
         p.add_argument("--quantize", type=int, choices=(4, 8),
-                       help="weight-only int8/int4 on the model's LM/DiT "
-                            "(int4 for F5 and IndexTTS only)")
+                       help="weight-only int8/int4 on the model's LM/DiT")
         p.add_argument("--npz", help="load fused params from .npz (fast start)")
         p.add_argument("--save-npz", help="persist fused params to .npz")
     return ap

@@ -12,12 +12,16 @@ with 15 stacked LM heads (15, H, V) and group embeddings (15, V, H).
 gates plus the CUDA kernels' own limits, on every device (the CPU runs each
 kernel's twin):
   "step"    kernel 12 (qkv head + attention, ops/decode_step.py): B = 1, no
-            kv_valid, causal, head_dim 128, a batch-1 cache; else True;
+            kv_valid, causal, head_dim 128, a batch-1 cache; else True.
+            Kernels 11 and 12 take a float or int8 wqkv: an int4 one keeps
+            the plain qkv;
   True      kernel 11 (the qkv head, ops/decode_qkv.py), then attention;
   "attn"    kernel 13 (ops/decode_attention.py) for the attention, with a
             shared length, causal, and a cache bucket that min(256, T)
             divides; "all" adds kernel 11 and kernel 14;
-  "mlp"     kernel 14 (ops/decode_mlp.fused_out_mlp) for the layer tail;
+  "mlp"     kernel 14 (ops/decode_mlp.fused_out_mlp) for the layer tail,
+            when wo, w_gate_up and w_down are all float or all int8 (an
+            int4 tail takes the plain chain);
   "mlp_q8"  kernel 11 and kernel 15 (the W8A8 tail) when wo, w_gate_up and
             w_down of every layer are int8 QTensors;
   False     plain ops.
@@ -127,10 +131,13 @@ def stack_routes(params: dict, cfg: Qwen3StackConfig, batch: int, s: int, kv: KV
            and fusable_layout(batch, heads, kvh, hd))
     a_dim, ffn = heads * hd, cfg.ffn_dim
     tail_fits = out_mlp_fits(batch, a_dim, cfg.hidden_size, ffn)
-    mlp = fused in ("all", "mlp") and tail_fits
-    mlp_q8 = (fused == "mlp_q8" and tail_fits and all(
-        isinstance(p[k], QTensor) and p[k].q.dtype == torch.int8
-        for p in layers for k in ("wo", "w_gate_up", "w_down")))
+    tail = [p[k] for p in layers for k in ("wo", "w_gate_up", "w_down")]
+    tail_int8 = all(isinstance(w, QTensor) and w.q.dtype == torch.int8 for w in tail)
+    # kernel 14 takes all-float or all-int8 tails (tts_tpu's fused_out_mlp
+    # raises on an int4 one; the port takes the plain chain there)
+    tail_uniform = tail_int8 or all(isinstance(w, torch.Tensor) for w in tail)
+    mlp = fused in ("all", "mlp") and tail_fits and tail_uniform
+    mlp_q8 = fused == "mlp_q8" and tail_fits and tail_int8
     attn = (fused in ("all", "attn") and kv_valid is None and causal
             and kv.max_len % min(256, kv.max_len) == 0
             and attn_fits(heads, kvh, hd, min(256, kv.max_len)))

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["layer_norm", "rms_norm"]
+__all__ = ["layer_norm", "rms_norm", "l2_norm"]
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
@@ -28,3 +28,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
     if weight is not None:
         out = out * weight.float()
     return out.to(x.dtype)
+
+
+def l2_norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """x / sqrt(sum(x^2) + eps) along the last axis, in fp32."""
+    xf = x.float()
+    return (xf / torch.sqrt(xf.square().sum(dim=-1, keepdim=True) + eps)).to(x.dtype)

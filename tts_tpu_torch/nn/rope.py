@@ -1,11 +1,12 @@
 """Rotary position embeddings (counterpart of tts_tpu/nn/rope.py): host
-numpy tables, and the half-split rotation on tensors."""
+numpy tables, and the half-split and pairwise (interleaved) rotations on
+tensors."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["rope_table", "rope_table_interleaved", "apply_rope"]
+__all__ = ["rope_table", "rope_table_interleaved", "apply_rope", "apply_rope_interleaved"]
 
 
 def rope_table(max_seq_len: int, head_dim: int, base: float = 10000.0,
@@ -42,3 +43,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
         cos = cos[..., :, None, :]
         sin = sin[..., :, None, :]
     return x * cos + _rotate_half(x) * sin
+
+
+def _rotate_pairs(x: torch.Tensor) -> torch.Tensor:
+    """(..., 2i, 2i+1) -> (-x[2i+1], x[2i])."""
+    x2 = x.reshape(*x.shape[:-1], -1, 2)
+    return torch.stack([-x2[..., 1], x2[..., 0]], dim=-1).reshape(x.shape)
+
+
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor,
+                           sin: torch.Tensor) -> torch.Tensor:
+    """apply_rope over the pairs (x[2i], x[2i+1]), for the tables of
+    rope_table_interleaved."""
+    if x.dim() == cos.dim() + 2:
+        cos = cos[..., :, None, :]
+        sin = sin[..., :, None, :]
+    return x * cos + _rotate_pairs(x) * sin

@@ -1,6 +1,6 @@
 """1-D convolution in feature-last (B, T, C) layout with WIO weights
-(K, C_in/groups, C_out) (counterpart of tts_tpu/ops/conv.py: conv1d and
-conv_transpose1d).
+(K, C_in/groups, C_out) (counterpart of tts_tpu/ops/conv.py: conv1d,
+depthwise_conv1d and conv_transpose1d).
 
 The compute dtype follows the weights. The depthwise case at stride 1 runs
 as K shifted multiply-adds, as in tts_tpu; the others go to
@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv1d", "conv_transpose1d"]
+__all__ = ["conv1d", "conv_transpose1d", "depthwise_conv1d"]
 
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
@@ -33,6 +33,15 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     out = F.conv1d(xt, w.permute(2, 1, 0), stride=stride, groups=groups,
                    dilation=dilation).transpose(1, 2)
     return out if b is None else out + b
+
+
+def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                     padding: int | tuple[int, int] = 0) -> torch.Tensor:
+    """One filter a channel: x (B, T, C), w (K, 1, C), no bias; `padding`
+    zeros on both sides, or (left, right)."""
+    if not isinstance(padding, int):
+        x, padding = F.pad(x, (0, 0, padding[0], padding[1])), 0
+    return conv1d(x, w, None, stride=stride, padding=padding, groups=x.shape[-1])
 
 
 def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,

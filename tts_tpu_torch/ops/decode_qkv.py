@@ -55,8 +55,9 @@ _ARGTYPES = [_P, _P, _I] + [_P] * 11 + [_I] * 8 + [_F, _P]
 
 
 def fusable_weight(w) -> bool:
-    """Plain tensors and int8 QTensors fuse (the int4 forms, which stay on
-    the dense path in tts_tpu, are not ported)."""
+    """Plain tensors and int8 QTensors fuse; the int4 forms (QTensor4,
+    QTensorG) stay on the dense path, as in tts_tpu (the kernel has no
+    group-scale epilogue)."""
     return isinstance(w, (torch.Tensor, QTensor))
 
 

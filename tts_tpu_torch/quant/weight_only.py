@@ -17,9 +17,12 @@ about one weight in 10^5 then rounds the other way. Rounding is half to even, as
 The int4 forms are group-wise symmetric, `group_size` input rows a group:
 `QTensor4` is the packed storage form (two nibbles an int8 along the input
 axis), `QTensorG` the runtime form (values in [-7, 7] in an int8
-container). `quantize_int4` runs tts_tpu's k_quant scale search with its
-group sums taken in index order, as XLA's eager reduction takes them, so q
-and scale match an eager tts_tpu call bit for bit.
+container). tts_tpu's k_quant scale search also has two forms, both kept:
+`quantize_int4` takes the group sums in index order, as XLA's eager
+reduction does (F5 and IndexTTS quantize eagerly); `quantize_int4_jit`
+takes them as XLA's CPU code under jit does (`quantize_pytree`, so Kani,
+Qwen3-TTS and VoxCPM at quantize=4). Each matches its counterpart's q and
+scale bit for bit.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 __all__ = ["QTensor", "QTensor4", "QTensorG", "quantize_int8_eager",
-           "quantize_int8_jit", "quantize_int4", "dense", "quantize_pytree"]
+           "quantize_int8_jit", "quantize_int4", "quantize_int4_jit", "dequantize", "dense", "quantize_pytree"]
 
 _INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)   # XLA's constant
 
@@ -112,12 +115,29 @@ def _sum_in_order(v: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def quantize_int4(w: torch.Tensor) -> QTensor4:
-    """Int4 of a (in, out) weight in groups of 32 input rows, in % 32 == 0:
-    tts_tpu's k_quant search (its default). 14 scales from amax/7 to
-    amax/9.4, each refit by least squares on its own rounding pattern
-    (Σw·q / Σq²), the pair with the least squared error kept (the first on
-    a tie)."""
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fp32 a * b + c rounded once, emulated in float64: the product is exact
+    there, and the sum's two roundings differ from one only where it lies
+    within 2^-53 (relative) of an fp32 midpoint."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _sum_fma8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Σ a·b over dim 1 (a multiple of 8) as XLA's CPU code computes it under
+    jit: eight interleaved fp32 FMA accumulators (term j into accumulator
+    j % 8), then halved pairwise (i + i+4, i + i+2, 0 + 1)."""
+    g, n, out = a.shape
+    a8, b8 = a.reshape(g, n // 8, 8, out), b.reshape(g, n // 8, 8, out)
+    acc = torch.zeros((g, 8, out), dtype=torch.float32, device=a.device)
+    for m in range(n // 8):
+        acc = _fma(a8[:, m], b8[:, m], acc)
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    return acc[:, 0]
+
+
+def _k_quant(w: torch.Tensor, jit: bool) -> QTensor4:
     cin, cout = w.shape
     group = 32
     if cin % group:
@@ -126,10 +146,18 @@ def quantize_int4(w: torch.Tensor) -> QTensor4:
     amax = torch.clamp(wf.abs().amax(dim=1), min=1e-8)                 # (G, out)
     best_err = best_q = best_s = None
     for d in np.linspace(7.0, 9.4, 14):
-        cand = amax / float(np.float32(d))
+        if jit:          # XLA turns the division by a constant into a multiply
+            cand = amax * float(np.float32(1.0) / np.float32(d))
+        else:
+            cand = amax / float(np.float32(d))
         q = torch.clamp(torch.round(wf / cand[:, None]), -7, 7)
-        s = _sum_in_order(wf * q) / torch.clamp(_sum_in_order(q * q), min=1e-8)
-        err = _sum_in_order((wf - q * s[:, None]) ** 2)
+        if jit:
+            s = _sum_fma8(wf, q) / torch.clamp(_sum_fma8(q, q), min=1e-8)
+            sub = _fma(-q, s[:, None].expand_as(q), wf)
+            err = _sum_fma8(sub, sub)
+        else:
+            s = _sum_in_order(wf * q) / torch.clamp(_sum_in_order(q * q), min=1e-8)
+            err = _sum_in_order((wf - q * s[:, None]) ** 2)
         if best_err is None:
             best_err, best_q, best_s = err, q, s
         else:
@@ -144,6 +172,24 @@ def quantize_int4(w: torch.Tensor) -> QTensor4:
     return g.pack()
 
 
+def quantize_int4(w: torch.Tensor) -> QTensor4:
+    """Int4 of a (in, out) weight in groups of 32 input rows, in % 32 == 0:
+    tts_tpu's k_quant search (its default), as an eager call computes it.
+    14 scales from amax/7 to amax/9.4, each refit by least squares on its
+    own rounding pattern (Σw·q / Σq²), the pair with the least squared
+    error kept (the first on a tie)."""
+    return _k_quant(w, jit=False)
+
+
+def quantize_int4_jit(w: torch.Tensor) -> QTensor4:
+    """quantize_int4 as `jax.jit` of tts_tpu's computes it on an x86 CPU, so
+    its quantize_pytree: the candidate scales amax * f32(1/d), and the
+    group sums in XLA's order with fused multiply-adds (`_sum_fma8`; the
+    residual w - q·s an FMA too). Against the eager form, most refit
+    scales move by an ulp, and a near tie may pick another candidate."""
+    return _k_quant(w, jit=True)
+
+
 def _unpack_int4_int8(packed: torch.Tensor) -> torch.Tensor:
     """Packed (in//2, out) -> (in, out) int8 in [-7, 7] (sign-extended
     nibbles, low nibble first); scales not applied."""
@@ -153,6 +199,11 @@ def _unpack_int4_int8(packed: torch.Tensor) -> torch.Tensor:
     hi = torch.where(hi > 7, hi - 16, hi)
     cin2, cout = packed.shape
     return torch.stack([lo, hi], dim=1).reshape(2 * cin2, cout).to(torch.int8)
+
+
+def dequantize(qt: QTensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """An int8 QTensor's weight, q * scale in fp32, cast to `dtype`."""
+    return (qt.q.float() * qt.scale).to(dtype)
 
 
 def dense(x: torch.Tensor, w) -> torch.Tensor:
@@ -193,17 +244,15 @@ def quantize_pytree(params, keys: tuple[str, ...] = _DEFAULT_KEYS,
     """Replace the float weights reached through dict keys in `keys`, of
     ndim >= 2 and at least `min_size` elements, with quantized ones.
     bits=8: int8 QTensors, as tts_tpu's jitted quantizer gives them.
-    bits=4: the unpacked int4 QTensorG (groups of 32, the k_quant search)
-    for 2-D weights whose input dim 32 divides, int8 for the rest. (tts_tpu
-    runs its int4 search under jit too, where XLA sums the groups in
-    another order: the refit scales then differ by ulps and a near tie may
-    pick another candidate.)"""
+    bits=4: the unpacked int4 QTensorG (groups of 32, the k_quant search in
+    its jitted form, as tts_tpu's quantize_pytree runs it) for 2-D weights
+    whose input dim 32 divides, int8 for the rest."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
 
     def quant(v):
         if bits == 4 and v.dim() == 2 and v.shape[0] % 32 == 0:
-            return quantize_int4(v).unpack_runtime()
+            return quantize_int4_jit(v).unpack_runtime()
         return quantize_int8_jit(v)
 
     def walk(node):

@@ -1,6 +1,6 @@
 """KaniTTS synthesis: text -> prompt ids -> codec tokens -> waveform
-(counterpart of tts_tpu/runtime/kani.py:KaniPipeline, without `mesh` and
-int4, which are not ported yet). The tokenizer is the caller's: an
+(counterpart of tts_tpu/runtime/kani.py:KaniPipeline, without `mesh`,
+which is not ported yet). The tokenizer is the caller's: an
 `HFTokenizer` (frontend/hf_tokenizer.py) over the checkpoint's
 tokenizer.json, or any callable with transformers' `return_tensors="np"`
 surface.
@@ -74,10 +74,11 @@ class KaniPipeline:
                  codec_cfg: NanoCodecConfig, decode_cfg: KaniDecodeConfig | None = None,
                  tokenizer=None, audio_tokens_start: int | None = None,
                  quantize: int | None = None):
-        if quantize not in (None, 8):
-            raise ValueError(f"quantize must be None or 8, got {quantize!r}")
+        if quantize not in (None, 4, 8):
+            raise ValueError(f"quantize must be None, 4 or 8, got {quantize!r}")
         if quantize:
-            # weight-only int8 on the LM matmuls; the codec stays float
+            # weight-only int8 or int4 on the LM matmuls; the codec stays
+            # float
             from ..quant.weight_only import quantize_pytree
 
             params = quantize_pytree(params, bits=quantize)

@@ -1,7 +1,7 @@
 """Qwen3-TTS synthesis: the two-level talker / code-predictor decode and the
 12 Hz codec (counterpart of tts_tpu/runtime/qwen.py:QwenTTSPipeline,
-without `synthesize_streaming`, voice clone, int4 and
-`mesh`, which are not ported yet).
+without `mesh`, which is not ported yet): the custom_voice and voice_clone
+prefills, one request, a batch, and a stream of audio chunks.
 
 A frame step, as in tts_tpu's while-loop body: talker logits (codec head,
 suppress bias, repetition penalty) -> greedy group-0 token -> the
@@ -19,6 +19,16 @@ and "attn"/"all" take gqa_attention on the talker) and 768 at 128. The codec
 decodes a bucket of fb = min(max(8, ceil(frames / 8) * 8), max_frames)
 frames with the frames past the generated ones zeroed: its pre-transformer
 attends both ways, so the bucket is part of the output.
+
+`synthesize_streaming` runs the same frame loop, over the same prefill
+bucket and cache, and copies the kept frames to the host once a chunk of
+`chunk_frames`; each window of `window` frames (its last frame repeated
+to fill it, none zeroed) goes through the codec at that fixed size, and
+the windows are assembled by runtime/streaming.ChunkedCodecStream.
+
+Voice clone: `encode_reference` gives the reference's Mimi codes (the
+whole 19,200-sample bucket) and its x-vector; `build_prefill_voice_clone`
+lays them out with the text, on the device in fp32.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ from ..audio.wav import to_pcm16
 from ..decoding.sampling import apply_repetition_penalty
 from ..kv.cache import KVCache
 from ..models.qwen_codec import QwenCodecDecoderConfig, codec_decode
+from ..models.qwen_encoder import mimi_encode, rvq_encode
 from ..models.qwen_tts import (QwenTTSConfig, next_talker_input, next_talker_input_batch,
                                predictor_frame, predictor_frame_beam,
                                predictor_frame_beam_batch, qwen3_stack_step,
@@ -103,17 +114,19 @@ class QwenTTSPipeline:
     `weights.convert.params_from_jax` or the models' init functions). Runs
     on the device the params are on."""
 
-    # the 12 Hz codec's native rate (tts_tpu's default; resampling to another
-    # rate is not ported)
+    # the 12 Hz codec's rate: tts_tpu's pipeline takes an output_sample_rate
+    # argument but resamples nothing with it, so the port keeps the constant
     output_sample_rate = 24000
+    # the reference audio's bucket for the Mimi encoder: 0.8 s at 24 kHz
+    REF_BUCKET = 19200
 
     def __init__(self, params: dict, cfg: QwenTTSConfig, codec_params: dict,
                  codec_cfg: QwenCodecDecoderConfig,
                  decode_cfg: QwenDecodeConfig | None = None, quantize: int | None = None):
-        if quantize not in (None, 8):
-            raise ValueError(f"quantize must be None or 8, got {quantize!r}")
+        if quantize not in (None, 4, 8):
+            raise ValueError(f"quantize must be None, 4 or 8, got {quantize!r}")
         if quantize:
-            # int8 on the talker and predictor matmuls; lm_heads,
+            # int8 or int4 on the talker and predictor matmuls; lm_heads,
             # group_embeds, codec_head and the codec stay float
             from ..quant.weight_only import quantize_pytree
 
@@ -134,6 +147,26 @@ class QwenTTSPipeline:
 
     # ------------------------------------------------------------- prefill
 
+    def _ids(self, ids) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+
+    def _text_embed(self, ids) -> torch.Tensor:
+        """Text ids (1, T) -> their projected embeddings (1, T, H), gathered
+        on the device, projected in fp32."""
+        p = self.params
+        e = p["text_embed"][self._ids(ids)].float()
+        return torch.matmul(e, p["text_proj_w"].float()) + p["text_proj_b"].float()
+
+    def _codec_embed(self, ids) -> torch.Tensor:
+        return self.params["talker_codec_embed"][self._ids(ids)].float()
+
+    def _tts_specials(self) -> tuple:
+        """(tts_bos, tts_eos, tts_pad) embeddings, each (1, 1, H)."""
+        cfg = self.cfg
+        _check_special_ids(self.params["text_embed"].shape[0], cfg)
+        return self._text_embed([[cfg.tts_bos_token_id, cfg.tts_eos_token_id,
+                                  cfg.tts_pad_token_id]]).split(1, 1)
+
     def build_prefill_embeds(self, text_ids: np.ndarray, language_id: int,
                              speaker_id: int | None = None,
                              ref_text_ids: np.ndarray | None = None,
@@ -144,22 +177,9 @@ class QwenTTSPipeline:
         overlay, then the first text token + codec bos) and the trailing
         text. Gathered on the device, projected in fp32. Returns (prefill
         (1, P, H), trailing (1, Tt, H)), fp32."""
-        p, cfg = self.params, self.cfg
-        dev = self.device
-        _check_special_ids(p["text_embed"].shape[0], cfg)
-
-        def ids_t(ids) -> torch.Tensor:
-            return torch.as_tensor(np.asarray(ids, np.int64), device=dev)
-
-        def text_embed(ids):
-            e = p["text_embed"][ids_t(ids)].float()
-            return torch.matmul(e, p["text_proj_w"].float()) + p["text_proj_b"].float()
-
-        def codec_embed(ids):
-            return p["talker_codec_embed"][ids_t(ids)].float()
-
-        tts_bos, tts_eos, tts_pad = text_embed(
-            [[cfg.tts_bos_token_id, cfg.tts_eos_token_id, cfg.tts_pad_token_id]]).split(1, 1)
+        cfg = self.cfg
+        text_embed, codec_embed = self._text_embed, self._codec_embed
+        tts_bos, tts_eos, tts_pad = self._tts_specials()
         texts = [text_embed(text_ids), tts_eos]
         if ref_text_ids is not None:
             texts.insert(0, text_embed(ref_text_ids))
@@ -179,6 +199,75 @@ class QwenTTSPipeline:
         if instruct_ids is not None:
             prefill = torch.cat([text_embed(instruct_ids), prefill], dim=1)
         trailing = torch.cat([text_seq[:, 1:], tts_pad], dim=1)
+        return prefill, trailing
+
+    @torch.no_grad()
+    def encode_reference(self, audio: np.ndarray, encoder_params: dict, encoder_cfg,
+                         speaker_params: dict | None = None, speaker_cfg=None, mel=None):
+        """The voice_clone prompt side: 24 kHz mono audio (int16, or float in
+        [-1, 1]) -> (ref_codes (T, groups) int32, the codes of the whole
+        REF_BUCKET-padded input; speaker_embed (1, 1, H) or None), on the
+        encoder params' device. The speaker mel is `mel` or the slaney
+        128-band log-mel (n_fft 1024, hop 256, constant centre pad, log(mel +
+        1e-5)) over the padded bucket; the ECAPA variant is told by the
+        params (no "bn" entries: Qwen's reflect-padded form, no std clip)."""
+        from ..audio.mel import MelSpectrogram
+        from ..models.indextts import ecapa_speaker_encoder
+
+        if audio.dtype == np.int16:
+            audio = audio.astype(np.float32) / 32768.0
+        audio = np.asarray(audio, np.float32).reshape(-1)
+        bucket = max(1, -(-len(audio) // self.REF_BUCKET)) * self.REF_BUCKET
+        dev = encoder_params["pre"]["w"].device
+        buf = torch.as_tensor(np.pad(audio, (0, bucket - len(audio)))[None], device=dev)
+        emb = mimi_encode(encoder_params, buf, encoder_cfg)
+        codes = rvq_encode(encoder_params, emb, encoder_cfg, self.cfg.num_code_groups)[0]
+        spk = None
+        if speaker_params is not None:
+            if mel is None:
+                mel = MelSpectrogram(24000, 1024, 256, 1024, 128, mel_scale="slaney",
+                                     norm="slaney", pad_mode="constant", log_mode="add")
+            qwen_variant = "bn" not in speaker_params["block0"]
+            spk = ecapa_speaker_encoder(speaker_params, mel(buf), speaker_cfg,
+                                        reflect_pad=qwen_variant,
+                                        std_clip=None if qwen_variant else 1e-6)
+        return codes, spk
+
+    @torch.no_grad()
+    def build_prefill_voice_clone(self, text_ids: np.ndarray, ref_text_ids: np.ndarray,
+                                  language_id: int, ref_codes, speaker_embed
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The voice_clone layout: the codec prefix [think, think_bos,
+        language, think_eos, speaker_embed, pad] with the tts pad/bos
+        overlay, then the in-context run: text (reference text, target text,
+        tts_eos, padded with tts_pad to the codec run) summed with [codec
+        bos, the reference frames], each frame the talker's group-0 table
+        plus the 15 group tables; the text past the codec run trails.
+        ref_codes (T, groups) and speaker_embed (1, 1, H), numpy or tensors.
+        On the device in fp32. Returns (prefill (1, P, H), trailing (1, Tt,
+        H))."""
+        p, cfg, dev = self.params, self.cfg, self.device
+        text_embed, codec_embed = self._text_embed, self._codec_embed
+        tts_bos, tts_eos, tts_pad = self._tts_specials()
+        codes = torch.as_tensor(ref_codes, device=dev).long()
+        ref = p["talker_codec_embed"][codes[:, 0]].float()
+        for g in range(cfg.num_code_groups - 1):
+            ref = ref + p["group_embeds"][g][codes[:, g + 1]].float()
+        codec_seq = torch.cat([codec_embed([[cfg.codec_bos_id]]), ref[None]], dim=1)
+        codec_len = codec_seq.shape[1]
+        text_seq = torch.cat([text_embed(ref_text_ids), text_embed(text_ids), tts_eos], dim=1)
+        if text_seq.shape[1] < codec_len:
+            text_seq = torch.cat(
+                [text_seq, tts_pad.expand(1, codec_len - text_seq.shape[1], -1)], dim=1)
+        prefix = torch.cat([
+            codec_embed([[cfg.codec_think_id, cfg.codec_think_bos_id, language_id,
+                          cfg.codec_think_eos_id]]),
+            torch.as_tensor(speaker_embed, device=dev).float().reshape(1, 1, -1),
+            codec_embed([[cfg.codec_pad_id]])], dim=1)
+        n = prefix.shape[1]
+        prefix = prefix + torch.cat([tts_pad.expand(1, n - 1, -1), tts_bos], dim=1)
+        prefill = torch.cat([prefix, text_seq[:, :codec_len] + codec_seq], dim=1)
+        trailing = torch.cat([text_seq[:, codec_len:], tts_pad], dim=1)
         return prefill, trailing
 
     # -------------------------------------------------------------- decode
@@ -219,10 +308,12 @@ class QwenTTSPipeline:
         p = self.params
         return p["rope_cos"][pos:pos + 1], p["rope_sin"][pos:pos + 1]
 
-    def _decode(self, prefill_buf: torch.Tensor, prefill_len: int,
-                trailing: torch.Tensor) -> tuple[torch.Tensor, int]:
-        """One request: prefill over the bucket, rewind, then the frame loop.
-        Returns (frames (max_frames, G) int32 on the device, frames kept)."""
+    def _frame_steps(self, prefill_buf: torch.Tensor, prefill_len: int,
+                     trailing: torch.Tensor):
+        """One request: prefill over the bucket, rewind, then the frame loop,
+        a generator: after each frame it yields (frames (max_frames, G)
+        int32 on the device, frames computed, EOS seen). The loop stops at
+        EOS or max_frames."""
         cfg, dcfg, params = self.cfg, self.dcfg, self.params
         t = cfg.talker
         s_buf = prefill_buf.shape[1]
@@ -250,6 +341,15 @@ class QwenTTSPipeline:
                                        fused=self._fused)
             num += 1
             fin = bool(tok0[0] == cfg.codec_eos_token_id)     # the one host read a frame
+            yield frames, num, fin
+
+    def _decode(self, prefill_buf: torch.Tensor, prefill_len: int,
+                trailing: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """Returns (frames (max_frames, G) int32 on the device, frames kept:
+        the EOS frame is computed and dropped)."""
+        frames, num, fin = None, 0, False
+        for frames, num, fin in self._frame_steps(prefill_buf, prefill_len, trailing):
+            pass
         return frames, num - int(fin)
 
     def _decode_batch(self, prefill_buf: torch.Tensor, pad_start: torch.Tensor,
@@ -321,20 +421,25 @@ class QwenTTSPipeline:
         pad = trailing[:, -1:].expand(1, tb - trailing.shape[1], -1)
         return torch.cat([trailing, pad], dim=1)
 
-    @torch.no_grad()
-    def synthesize_from_prefill(self, prefill, trailing) -> tuple[np.ndarray, dict]:
-        """prefill (1, P, H), trailing (1, Tt, H) (from build_prefill_embeds;
-        numpy or tensors). Returns (int16 waveform, {"frames", "wall_s",
-        "frames_per_s", "peak"})."""
+    def _request_bufs(self, prefill, trailing) -> tuple[torch.Tensor, int, torch.Tensor]:
+        """(prefill in the MAX_PREFILL bucket, its rows, trailing in its
+        bucket), fp32 on the device."""
         prefill = torch.as_tensor(prefill, device=self.device).float()
         trailing = torch.as_tensor(trailing, device=self.device).float()
         p_len = prefill.shape[1]
         if not 1 <= p_len <= MAX_PREFILL:
             raise ValueError(f"prefill of {p_len} rows, the bucket holds {MAX_PREFILL}")
-        t0 = time.perf_counter()
         buf = torch.zeros((1, MAX_PREFILL, prefill.shape[2]), device=self.device)
         buf[:, :p_len] = prefill
-        tr = self._trailing_buf(trailing, self._trailing_bucket(trailing))
+        return buf, p_len, self._trailing_buf(trailing, self._trailing_bucket(trailing))
+
+    @torch.no_grad()
+    def synthesize_from_prefill(self, prefill, trailing) -> tuple[np.ndarray, dict]:
+        """prefill (1, P, H), trailing (1, Tt, H) (from build_prefill_embeds
+        or build_prefill_voice_clone; numpy or tensors). Returns (int16
+        waveform, {"frames", "wall_s", "frames_per_s", "peak"})."""
+        t0 = time.perf_counter()
+        buf, p_len, tr = self._request_bufs(prefill, trailing)
         frames, num = self._decode(buf, p_len, tr)
         if num == 0:
             return np.zeros(0, np.int16), {"frames": 0, "wall_s": 0.0}
@@ -381,6 +486,41 @@ class QwenTTSPipeline:
         total = sum(nfr)
         return wavs, {"frames": total, "wall_s": wall,
                       "frames_per_s": total / max(wall, 1e-9), "peak": peak}
+
+    def _codec_window(self, codes: np.ndarray) -> torch.Tensor:
+        """A streaming window (1, W, G) of codes -> int16 (1, W * upsample) on
+        the device, the codec run at the window's fixed size (its host copy
+        comes a window later)."""
+        codes = torch.as_tensor(np.asarray(codes, np.int32), device=self.device)
+        return to_pcm16(codec_decode(self.codec_params, codes, self.codec_cfg) * 32767.0)
+
+    @torch.no_grad()
+    def synthesize_streaming(self, prefill, trailing, chunk_frames: int = 24,
+                             window: int = 72, left_context: int = 24):
+        """A generator of int16 audio chunks for one request (prefill and
+        trailing as synthesize_from_prefill takes them): the frames are
+        _decode's, copied to the host a chunk of `chunk_frames` at a time
+        (the EOS frame dropped); each codec window holds `window` frames,
+        `left_context` of them already emitted, its audio discarded. The
+        chunks together are the 24 kHz waveform of the kept frames."""
+        from .streaming import ChunkedCodecStream
+
+        buf, p_len, tr = self._request_bufs(prefill, trailing)
+        codec = ChunkedCodecStream(self._codec_window, window=window,
+                                   left_context=left_context,
+                                   upsample=self.codec_cfg.total_upsample,
+                                   num_groups=self.cfg.num_code_groups)
+        sent = 0
+        for frames, num, fin in self._frame_steps(buf, p_len, tr):
+            keep = num - int(fin)
+            if keep > sent and (fin or num % chunk_frames == 0
+                                or num == self.dcfg.max_frames):
+                out = codec.push_frames(frames[sent:keep].cpu().numpy())
+                sent = keep
+                if out is not None and len(out):
+                    yield out
+        for out in codec.finish():
+            yield out
 
     def synthesize_ids(self, text_ids: np.ndarray, language_id: int = 0,
                        speaker_id: int | None = None,

@@ -1,7 +1,6 @@
 """VoxCPM-1.5 / VoxCPM-2 synthesis: prompt audio + text ids -> speech
-(counterpart of tts_tpu/runtime/voxcpm.py:VoxCPMPipeline, without
-`synthesize_streaming`, int4, `mesh` and resampling to
-another output rate, which are not ported yet).
+(counterpart of tts_tpu/runtime/voxcpm.py:VoxCPMPipeline, without `mesh`,
+which is not ported yet).
 
 A request: one dual-LM prefill over the prompt bucket (64 positions at a
 time; a per-position kind mask marks the text tokens and the audio
@@ -17,6 +16,12 @@ decode's), to int16.
 The batched form right-justifies B prompts in one bucket with per-row key
 validity, and tracks each row's cap and stop; its steps take kernel 11.
 
+`synthesize_streaming` runs the single request's loop over the same prompt
+bucket and caches, and VAE-decodes windows of chunk + 1 latents with one
+latent of left context discarded (runtime/streaming.ChunkedCodecStream),
+at the native rate. The other entries resample their output linearly to
+`output_sample_rate` where it is not the native rate.
+
 The CFM noise: a latent step draws (B, patch, latent) from a
 torch.Generator seeded from `seed` on the params' device; a `noise`
 argument of (steps, B, patch, latent) replaces the draws (tts_tpu's
@@ -30,7 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..audio.wav import to_pcm16
+from ..audio.wav import resample_linear, to_pcm16
 from ..kv.cache import KVCache
 from ..models.voxcpm import (VoxCPMConfig, cfm_feat_decoder, cfm_feat_decoder_batch,
                              feat_encoder_cond, feat_encoder_cond_batch, vae_decode,
@@ -66,14 +71,11 @@ class VoxCPMPipeline:
     def __init__(self, params: dict, cfg: VoxCPMConfig, vae_params: dict,
                  decode_cfg: VoxCPMDecodeConfig | None = None,
                  output_sample_rate: int | None = None, quantize: int | None = None):
-        if quantize not in (None, 8):
-            raise ValueError(f"quantize must be None or 8, got {quantize!r}")
-        if output_sample_rate not in (None, cfg.output_sample_rate):
-            raise ValueError(f"output_sample_rate {output_sample_rate}: resampling from the "
-                             f"native {cfg.output_sample_rate} Hz is not ported")
+        if quantize not in (None, 4, 8):
+            raise ValueError(f"quantize must be None, 4 or 8, got {quantize!r}")
         if quantize:
-            # int8 on the LM, feature-encoder and estimator matmuls; the VAE
-            # stays float
+            # int8 or int4 on the LM, feature-encoder and estimator matmuls;
+            # the VAE stays float
             from ..quant.weight_only import quantize_pytree
 
             params = quantize_pytree(params, bits=quantize)
@@ -83,7 +85,7 @@ class VoxCPMPipeline:
         self.dcfg = decode_cfg or VoxCPMDecodeConfig()
         fd = self.dcfg.fused_decode
         self._fused = "step" if fd is None else fd
-        self.output_sample_rate = cfg.output_sample_rate
+        self.output_sample_rate = output_sample_rate or cfg.output_sample_rate
         self.device = params["embed"].device
         self.dtype = params["embed"].dtype
         sr = cfg.vae.sr_bins
@@ -154,10 +156,11 @@ class VoxCPMPipeline:
 
     # ------------------------------------------------------------- decode
 
-    def _decode(self, text_buf, is_audio, prefill_len: int, fe_buf, feat_cond,
-                max_steps: int, buf: int, seed: int, noise=None):
-        """The prefill, the generation loop and the VAE decode of one
-        request. Returns (int16 (1, buf * samples_per_latent), latents)."""
+    def _latent_steps(self, text_buf, is_audio, prefill_len: int, fe_buf, feat_cond,
+                      max_steps: int, buf: int, seed: int, noise=None):
+        """The prefill and the generation loop of one request, a generator:
+        after each latent it yields (latents (1, buf, patch, latent) fp32 on
+        the device, latents generated, stopped)."""
         cfg, dcfg, params = self.cfg, self.dcfg, self.params
         dt = self.dtype
         fe_buf, feat_cond = fe_buf.to(dt), feat_cond.to(dt)
@@ -184,13 +187,23 @@ class VoxCPMPipeline:
             num += 1
             # a stop is honoured only after min_latents
             fin = num >= dcfg.min_latents and bool(stop == 1)
+            yield latents, num, fin
+
+    def _decode(self, text_buf, is_audio, prefill_len: int, fe_buf, feat_cond,
+                max_steps: int, buf: int, seed: int, noise=None):
+        """The prefill, the generation loop and the VAE decode of one
+        request. Returns (int16 (1, buf * samples_per_latent), latents)."""
+        latents, num = None, 0
+        for latents, num, _ in self._latent_steps(text_buf, is_audio, prefill_len, fe_buf,
+                                                  feat_cond, max_steps, buf, seed, noise):
+            pass
         return self._vocode(latents), num
 
-    def _run_segments(self, segments, feat_cond, max_steps: int, seed: int | None,
-                      noise=None) -> tuple[np.ndarray, dict]:
+    def _prompt_bufs(self, segments) -> tuple:
         """segments: ('text', ids (T,)) / ('audio', feat_embed (1, T, H)) in
-        prompt order. Runs the prefill, the generation and the VAE decode."""
-        cfg, dcfg = self.cfg, self.dcfg
+        prompt order -> (text ids (1, S), audio mask (S,), feat_embed buffer
+        (1, S, H), prompt length) in the 64-position bucket, on the device."""
+        cfg = self.cfg
         cap = MAX_PREFILL_TOKENS + MAX_PROMPT_FEATS
         pos = sum(len(d) if kind == "text" else d.shape[1] for kind, d in segments)
         if pos > cap:
@@ -206,12 +219,29 @@ class VoxCPMPipeline:
                 text_buf[0, p:p + n] = data
             else:
                 n = data.shape[1]
-                fe_buf[:, p:p + n] = data
+                fe_buf[:, p:p + n] = torch.as_tensor(data, device=self.device)
                 is_audio[p:p + n] = True
             p += n
-        text_buf = torch.as_tensor(text_buf, device=self.device)
-        # the latent buffer: 32-latent granularity, capped at max_latents
-        buf = min(dcfg.max_latents, max(32, -(-max_steps // 32) * 32))
+        return torch.as_tensor(text_buf, device=self.device), is_audio, fe_buf, pos
+
+    def _latent_buf(self, max_steps: int) -> int:
+        """The latent buffer: 32-latent granularity, capped at max_latents."""
+        return min(self.dcfg.max_latents, max(32, -(-max_steps // 32) * 32))
+
+    def _resampled(self, wav: np.ndarray) -> np.ndarray:
+        native = self.cfg.output_sample_rate
+        if self.output_sample_rate == native or len(wav) == 0:
+            return wav
+        return resample_linear(wav, native, self.output_sample_rate)
+
+    def _run_segments(self, segments, feat_cond, max_steps: int, seed: int | None,
+                      noise=None) -> tuple[np.ndarray, dict]:
+        """segments: ('text', ids (T,)) / ('audio', feat_embed (1, T, H)) in
+        prompt order. Runs the prefill, the generation and the VAE decode;
+        the waveform at output_sample_rate."""
+        cfg, dcfg = self.cfg, self.dcfg
+        text_buf, is_audio, fe_buf, pos = self._prompt_bufs(segments)
+        buf = self._latent_buf(max_steps)
         base_seed = dcfg.seed if seed is None else seed
 
         t0 = time.perf_counter()
@@ -221,11 +251,43 @@ class VoxCPMPipeline:
             if num < min(max_steps, buf):
                 break                       # stopped by itself
         n_samples = num * cfg.samples_per_latent
+        wav = self._resampled(wav[0, :n_samples])
         wall = time.perf_counter() - t0
-        return wav[0, :n_samples], {"latents": num, "wall_s": wall,
-                                    "sample_rate": self.output_sample_rate,
-                                    "rtf": wall / max(n_samples / self.output_sample_rate,
-                                                      1e-9)}
+        # the real-time factor over the native-rate length, as tts_tpu's
+        return wav, {"latents": num, "wall_s": wall,
+                     "sample_rate": self.output_sample_rate,
+                     "rtf": wall / max(n_samples / cfg.output_sample_rate, 1e-9)}
+
+    @torch.no_grad()
+    def synthesize_streaming(self, segments, feat_cond, max_steps: int,
+                             seed: int | None = None, chunk: int = 4, noise=None):
+        """A generator of int16 audio chunks at the native rate for one
+        request (segments and feat_cond as _run_segments takes them):
+        _decode's latents, VAE-decoded in windows of chunk + 1 latents with
+        one latent of left context discarded, a window each `chunk`
+        latents. No bad-case retry on this path. noise: the CFM draws
+        (steps, 1, patch, latent), as synthesize_ids takes them."""
+        from .streaming import ChunkedCodecStream
+
+        cfg, dcfg = self.cfg, self.dcfg
+        text_buf, is_audio, fe_buf, pos = self._prompt_bufs(segments)
+        feat_cond = torch.as_tensor(feat_cond, device=self.device)
+        stream = ChunkedCodecStream(self._vae_dec_fn, window=chunk + 1, left_context=1,
+                                    upsample=cfg.samples_per_latent,
+                                    num_groups=cfg.patch_size)
+        buf = self._latent_buf(max_steps)
+        budget = min(max_steps, buf)
+        sent = 0
+        for latents, num, fin in self._latent_steps(
+                text_buf, is_audio, pos, fe_buf, feat_cond, max_steps, buf,
+                dcfg.seed if seed is None else seed, noise):
+            if fin or num % chunk == 0 or num == budget:
+                out = stream.push_frames(latents[0, sent:num].cpu().numpy())
+                sent = num
+                if out is not None and len(out):
+                    yield out
+        for out in stream.finish():
+            yield out
 
     # -------------------------------------------------------------- public
 
@@ -367,8 +429,7 @@ class VoxCPMPipeline:
                     pos += n
             if fc is not None:
                 feat_cond0[bi], feat_cond0[bsz + bi] = fc[0], fc[1]   # pos, neg rows
-        # the latent buffer: the loop cannot pass max(caps)
-        buf = min(dcfg.max_latents, max(32, -(-int(caps.max()) // 32) * 32))
+        buf = self._latent_buf(int(caps.max()))       # the loop cannot pass max(caps)
 
         t0 = time.perf_counter()
         wav, counts = self._decode_batch(
@@ -377,7 +438,7 @@ class VoxCPMPipeline:
             torch.as_tensor(caps, device=dev), buf,
             dcfg.seed if seed is None else seed, noise)
         spl = cfg.samples_per_latent
-        wavs = [wav[bi, :counts[bi] * spl] for bi in range(bsz)]
+        wavs = [self._resampled(wav[bi, :counts[bi] * spl]) for bi in range(bsz)]
         wall = time.perf_counter() - t0
         audio_s = sum(len(w) for w in wavs) / self.output_sample_rate
         stats = {"latents": sum(counts), "wall_s": wall, "audio_s": audio_s,

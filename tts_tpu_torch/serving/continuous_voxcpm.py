@@ -301,4 +301,5 @@ class VoxCPMSlotServer(SlotEngine):
             return np.zeros(0, np.int16), 0
         live = (torch.arange(self.fbuf, device=self.pipe.device) < n)[:, None, None]
         wav = self.pipe._vocode((s["latents"][b] * live)[None])
-        return wav[0, :n * self.cfg.samples_per_latent], n
+        # at the pipeline's output rate, as its requests (streams stay native)
+        return self.pipe._resampled(wav[0, :n * self.cfg.samples_per_latent]), n

@@ -26,7 +26,7 @@ __all__ = [
     "load_f5", "load_vocos",
     "load_kani_lm", "load_nanocodec",
     "load_indextts",
-    "load_qwen_tts", "load_qwen_codec",
+    "load_qwen_tts", "load_qwen_codec", "load_qwen_encoder",
     "load_voxcpm",
     "save_params", "load_params",
 ]
@@ -39,6 +39,7 @@ _LAZY = {
     "load_indextts": ("indextts_loader", "load_indextts"),
     "load_qwen_tts": ("qwen_loader", "load_qwen_tts"),
     "load_qwen_codec": ("qwen_loader", "load_qwen_codec"),
+    "load_qwen_encoder": ("qwen_loader", "load_qwen_encoder"),
     "load_voxcpm": ("voxcpm_loader", "load_voxcpm"),
     "save_params": ("save", "save_params"),
     "load_params": ("save", "load_params"),

@@ -1,7 +1,8 @@
 """Convert tts_tpu parameter pytrees to the port's tensors.
 
 `params_from_jax` takes tts_tpu's F5, Vocos, Kani LM, NanoCodec, Qwen3-TTS
-(the merged talker + predictor tree), Qwen codec decoder, BigVGAN (either
+(the merged talker + predictor tree), Qwen codec decoder, Qwen Mimi prompt
+encoder, BigVGAN (either
 resblock kind), IndexTTS (conformer, perceiver, ECAPA, GPT, speaker-
 conditioned BigVGAN), VoxCPM (the dual LM, feature encoder and estimator)
 or VoxCPM audio VAE (encoder and "dec" decoder) tree as
@@ -12,7 +13,8 @@ schema of its keys and shapes: dimension names bind at their first use and
 must agree wherever they recur (None matches any size), so an unknown or
 missing key or an inconsistent shape raises. `_Opt` marks an optional key,
 `_OneOf` a dict of one of several kinds (Kani's attention and conv layers,
-BigVGAN's two resblock kinds).
+BigVGAN's two resblock kinds), `_Fp32` a leaf that stays fp32 whatever
+`dtype` the weights take (the Mimi encoder's RoPE tables).
 
 tts_tpu's quantized leaves (objects with `.q` and `.scale` after the tree
 map) become the port's, q int8 and scale fp32 whatever `dtype` is: an int8
@@ -33,6 +35,13 @@ __all__ = ["params_from_jax"]
 
 class _Opt:
     """A dict entry that may be absent."""
+
+    def __init__(self, schema):
+        self.schema = schema
+
+
+class _Fp32:
+    """A leaf kept in fp32 whatever dtype the tree is cast to."""
 
     def __init__(self, schema):
         self.schema = schema
@@ -186,6 +195,23 @@ _QWEN_CODEC = {
                                "act2": _QWEN_ACT, "conv2": _QWEN_CONV}]}],
     "dec_post_act": _QWEN_ACT,
     "dec_post": _QWEN_CONV,
+}
+
+# the SEANet channels double block by block, so the conv dims stay unbound
+_MIMI_CONV = {"w": (None, None, None), "b": (None,)}
+_MIMI = {
+    "pre": _MIMI_CONV,
+    "blocks": [{"res": [{"c1": _MIMI_CONV, "c2": _MIMI_CONV}], "down": _MIMI_CONV}],
+    "post": {"w": (None, None, "hs"), "b": ("hs",)},
+    "layers": [{"wqkv": ("hs", "qkv"), "bqkv": ("qkv",), "wo": ("inner", "hs"), "bo": ("hs",),
+                "fc1": _lin("hs", "ff"), "fc2": _lin("ff", "hs")}],
+    "rope_cos": _Fp32(("max_len", "hd")),
+    "rope_sin": _Fp32(("max_len", "hd")),
+    "downsample": {"w": (None, "hs", "hs"), "b": _Opt(("hs",))},
+    "sem_in_proj": ("hs", "rvq"),
+    "sem_codebook": ("bins", "rvq"),
+    "ac_in_proj": ("hs", "rvq"),
+    "ac_codebooks": ("n_ac", "bins", "rvq"),
 }
 
 # stage widths halve stage by stage, so BigVGAN's dims stay unbound
@@ -357,7 +383,8 @@ def _convert(tree, schema, path, dims, device, dtype):
             raise KeyError(f"{where}: unknown keys {sorted(unknown)}, "
                            f"missing keys {sorted(missing)}")
         return {k: _convert(tree[k], getattr(schema[k], "schema", schema[k]),
-                            path + (k,), dims, device, dtype)
+                            path + (k,), dims, device,
+                            torch.float32 if isinstance(schema[k], _Fp32) else dtype)
                 for k in schema if k in tree}
     if isinstance(schema, list):
         if not isinstance(tree, (list, tuple)):
@@ -400,18 +427,20 @@ def _quantized(tree, schema, where: str, dims: dict, device):
 def _schema_of(tree: dict) -> dict:
     for key, schema in (("fsq_down", _VOXCPM), ("enc_blocks", _VOXCPM_VAE),
                         ("gpt", _INDEXTTS), ("conv_pre", _BIGVGAN),
-                        ("talker", _QWEN), ("sem_codebook", _QWEN_CODEC),
+                        ("talker", _QWEN), ("sem_in_proj", _MIMI),
+                        ("sem_codebook", _QWEN_CODEC),
                         ("text_embed", _F5), ("lm_head", _KANI),
                         ("pre_conv", _NANOCODEC), ("head", _VOCOS)):
         if key in tree:
             return schema
     raise KeyError(f"keys {sorted(tree)} are none of F5, Vocos, Kani, NanoCodec, "
-                   f"Qwen3-TTS, the Qwen codec, BigVGAN, IndexTTS, VoxCPM or its VAE")
+                   f"Qwen3-TTS, the Qwen codec or Mimi encoder, BigVGAN, IndexTTS, VoxCPM "
+                   f"or its VAE")
 
 
 def params_from_jax(tree: dict, device, dtype: torch.dtype) -> dict:
-    """tts_tpu F5, Vocos, Kani, NanoCodec, Qwen3-TTS, Qwen codec, BigVGAN,
-    IndexTTS, VoxCPM or VoxCPM VAE params (nested dicts/lists of numpy
+    """tts_tpu F5, Vocos, Kani, NanoCodec, Qwen3-TTS, Qwen codec, Mimi
+    encoder, BigVGAN, IndexTTS, VoxCPM or VoxCPM VAE params (nested dicts/lists of numpy
     arrays) -> the same tree of torch tensors on `device`, floats cast to
     `dtype`."""
     if not isinstance(tree, dict):

@@ -1,6 +1,6 @@
 """Qwen3-TTS checkpoint loader (counterpart of tts_tpu/weights/qwen_loader.py):
-the HF safetensors directory's talker, code predictor, codec decoder and
-speaker encoder.
+the HF safetensors directory's talker, code predictor, codec decoder, Mimi
+prompt encoder and speaker encoder.
 
 The export-time folds, at load, in numpy:
   * qkv fused, the input RMSNorm absorbed into qkv;
@@ -9,9 +9,11 @@ The export-time folds, at load, in numpy:
   * gate/up fused with the post-attention norm absorbed;
   * the final norm folded into codec_head and the 15 stacked LM heads;
   * the 15 predictor LM heads stacked to (15, H, V) and the 15 group
-    embedding tables to (15, V, H).
-
-The Mimi prompt encoder (`load_qwen_encoder`) waits for its model's port.
+    embedding tables to (15, V, H);
+  * the Mimi encoder's LayerNorm affines into its qkv and fc1, its layer
+    scales into o_proj and fc2, its codebooks from embed_sum /
+    cluster_usage.
+Half-precision entries are upcast exactly to fp32 before any fold.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from ..nn.rope import rope_table
 from .loaders import CheckpointDict, _f32, host_state_dict, load_hf_state_dict, place
 
 __all__ = ["load_qwen_tts", "qwen3_stack_from_state_dict", "qwen_config_from_json",
-           "load_qwen_codec", "qwen_codec_from_state_dict", "qwen_speaker_from_state_dict"]
+           "load_qwen_codec", "qwen_codec_from_state_dict", "load_qwen_encoder",
+           "mimi_encoder_from_state_dict", "qwen_speaker_from_state_dict"]
 
 
 def qwen3_stack_from_state_dict(sd: Mapping[str, np.ndarray], prefix: str,
@@ -276,6 +279,122 @@ def load_qwen_codec(model_dir: str, cfg: QwenCodecDecoderConfig | None = None,
     sd = host_state_dict(load_hf_state_dict(model_dir))
     cfg = cfg or QwenCodecDecoderConfig()
     return place(qwen_codec_from_state_dict(sd, cfg), device, dtype), cfg
+
+
+# ---------------------------------------------------------------------------
+# Mimi prompt encoder (speech_tokenizer.model.encoder.*: the voice-clone path)
+
+def _mimi_conv(sd, pre, bias=True) -> dict:
+    """MimiConv1d `{pre}.conv`, its weight norm (either spelling) collapsed
+    in float64, -> (k, in, out), and its bias (zeros where it has none)."""
+    for gk, vk in ((f"{pre}.conv.weight_g", f"{pre}.conv.weight_v"),
+                   (f"{pre}.conv.parametrizations.weight.original0",
+                    f"{pre}.conv.parametrizations.weight.original1")):
+        if gk in sd:
+            g, v = np.asarray(sd[gk], np.float64), np.asarray(sd[vk], np.float64)
+            w = g * v / np.linalg.norm(v.reshape(v.shape[0], -1), axis=1).reshape(-1, 1, 1)
+            break
+    else:
+        w = np.asarray(sd[f"{pre}.conv.weight"])
+    p = {"w": _f32(np.transpose(w, (2, 1, 0)))}
+    if bias and f"{pre}.conv.bias" in sd:
+        p["b"] = _f32(sd[f"{pre}.conv.bias"])
+    else:
+        p["b"] = np.zeros((w.shape[0],), np.float32)
+    return p
+
+
+def _mimi_codebook(sd, pre) -> np.ndarray:
+    """MimiEuclideanCodebook: embed = embed_sum / clip(cluster_usage, 1e-5),
+    in float64."""
+    s = np.asarray(sd[f"{pre}.embed_sum"], np.float64)
+    u = np.asarray(sd[f"{pre}.cluster_usage"], np.float64)
+    return s / np.clip(u, 1e-5, None)[:, None]
+
+
+def mimi_encoder_from_state_dict(sd: Mapping[str, np.ndarray], cfg,
+                                 prefix: str = "speech_tokenizer.model.encoder") -> dict:
+    """The HF Mimi encoder (SEANet convs, transformer, downsample, split
+    RVQ) -> the host tree of models/qwen_encoder.py: the transformer's
+    LayerNorm affines folded into qkv / fc1 and its layer scales into wo /
+    fc2, q and k carrying head_dim^-0.25."""
+    sd = CheckpointDict.wrap(sd, "qwen-encoder")
+    e = f"{prefix}.encoder"
+    scale = cfg.head_dim ** -0.25
+
+    # SEANet layer indices follow the upstream constructor: ELUs hold slots
+    idx = 0
+    pre_conv = _mimi_conv(sd, f"{e}.layers.{idx}")
+    idx += 1
+    blocks = []
+    for _ in reversed(cfg.upsampling_ratios):
+        res = []
+        for _ in range(cfg.num_residual_layers):
+            res.append({"c1": _mimi_conv(sd, f"{e}.layers.{idx}.block.1"),
+                        "c2": _mimi_conv(sd, f"{e}.layers.{idx}.block.3")})
+            idx += 1
+        idx += 1                                   # the ELU
+        blocks.append({"res": res, "down": _mimi_conv(sd, f"{e}.layers.{idx}")})
+        idx += 1
+    idx += 1                                       # the final ELU
+    post_conv = _mimi_conv(sd, f"{e}.layers.{idx}")
+
+    t = f"{prefix}.encoder_transformer"
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"{t}.layers.{i}"
+        ln_w = np.asarray(sd[f"{p}.input_layernorm.weight"])[None, :]
+        ln_b = np.asarray(sd[f"{p}.input_layernorm.bias"])
+        pn_w = np.asarray(sd[f"{p}.post_attention_layernorm.weight"])[None, :]
+        pn_b = np.asarray(sd[f"{p}.post_attention_layernorm.bias"])
+        a_sc = np.asarray(sd[f"{p}.self_attn_layer_scale.scale"])[:, None]
+        m_sc = np.asarray(sd[f"{p}.mlp_layer_scale.scale"])[:, None]
+        wq = np.asarray(sd[f"{p}.self_attn.q_proj.weight"])
+        wk = np.asarray(sd[f"{p}.self_attn.k_proj.weight"])
+        wv = np.asarray(sd[f"{p}.self_attn.v_proj.weight"])
+        fc1 = np.asarray(sd[f"{p}.mlp.fc1.weight"])
+        # W (x_hat * ln_w + ln_b) = (W * ln_w) x_hat + W @ ln_b
+        qkv_w = np.concatenate([wq * ln_w * scale, wk * ln_w * scale, wv * ln_w], axis=0)
+        qkv_b = np.concatenate([wq @ ln_b * scale, wk @ ln_b * scale, wv @ ln_b])
+        layers.append({
+            "wqkv": _f32(qkv_w.T),
+            "bqkv": _f32(qkv_b),
+            "wo": _f32((np.asarray(sd[f"{p}.self_attn.o_proj.weight"]) * a_sc).T),
+            "bo": np.zeros((cfg.hidden_size,), np.float32),
+            "fc1": {"w": _f32((fc1 * pn_w).T), "b": _f32(fc1 @ pn_b)},
+            "fc2": {"w": _f32((np.asarray(sd[f"{p}.mlp.fc2.weight"]) * m_sc).T),
+                    "b": np.zeros((cfg.hidden_size,), np.float32)},
+        })
+
+    q = f"{prefix}.quantizer"
+    sem = f"{q}.semantic_residual_vector_quantizer"
+    ac = f"{q}.acoustic_residual_vector_quantizer"
+    rope_cos, rope_sin = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_base)
+    return {
+        "pre": pre_conv,
+        "blocks": blocks,
+        "post": post_conv,
+        "layers": layers,
+        "rope_cos": _f32(rope_cos),
+        "rope_sin": _f32(rope_sin),
+        "downsample": _mimi_conv(sd, f"{prefix}.downsample"),
+        "sem_in_proj": _f32(np.asarray(sd[f"{sem}.input_proj.weight"])[:, :, 0].T),
+        "sem_codebook": _f32(_mimi_codebook(sd, f"{sem}.layers.0.codebook")),
+        "ac_in_proj": _f32(np.asarray(sd[f"{ac}.input_proj.weight"])[:, :, 0].T),
+        "ac_codebooks": _f32(np.stack([_mimi_codebook(sd, f"{ac}.layers.{g}.codebook")
+                                       for g in range(cfg.num_quantizers - 1)])),
+    }
+
+
+def load_qwen_encoder(model_dir: str, cfg=None, dtype: torch.dtype = torch.float32,
+                      device="cuda"):
+    """The Mimi prompt encoder from the same HF directory as load_qwen_tts ->
+    (params on `device` in `dtype`, the RoPE tables fp32; cfg)."""
+    from ..models.qwen_encoder import MimiEncoderConfig
+
+    sd = host_state_dict(load_hf_state_dict(model_dir))
+    cfg = cfg or MimiEncoderConfig()
+    return place(mimi_encoder_from_state_dict(sd, cfg), device, dtype), cfg
 
 
 # ---------------------------------------------------------------------------
