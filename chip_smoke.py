@@ -20,6 +20,7 @@
     python3 chip_smoke.py --families checkpoints        # phases 0-2, 12
     python3 chip_smoke.py --families cli                # phases 0-2, 13
     python3 chip_smoke.py --families clone              # phases 0-2, 14
+    python3 chip_smoke.py --families parity             # phases 0-2, 15
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
@@ -199,7 +200,21 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      beside the non-streaming request's; VoxCPM-2 at output_sample_rate
      24000 bitwise resample_linear of the native request; kani-tts-370m,
      Qwen3-TTS-0.6B and VoxCPM-2 at quantize=4 (no launch of kernel 11 or
-     12: every wqkv is int4), device time a token, frame or latent.
+     12: every wqkv is int4), device time a token, frame or latent;
+  15. the parity harness (tts_tpu_torch/parity): stft_diff_report on the
+     card (tests/test_parity.py's signal under its limits; the 6 s bench
+     reference at n_fft 1024, its errors printed); run_reference's session
+     mode for all six families on phases 12-13's files (phase 8's BigVGAN
+     weights in the upstream keys), against stand-in sessions that run the
+     port's stage functions in fp32 through the twins: "ours" in bf16
+     through the kernels, then through the bf16 twins, each stage's max|Δ|
+     (F5's and BigVGAN's mel L1) on the kernels no more than STEP_SLACK
+     times the twins'; F5 and BigVGAN in fp32 within the harness's 1e-2;
+     each pass's launches as the routes predict (F5 682 of kernels 1 and
+     3, 31 of 2 in bf16, 682 of 4 in fp32; BigVGAN 12 of kernel 10, 9 of
+     its fp32 form; Qwen's predictor frame 60 of kernel 12); Kani's wav
+     mode through the CLI against phase 13's WAV of the same command, mel
+     L1 exactly 0; an "error" result fails the phase.
 Phase 2 also runs kernels 11 and 12 at the VoxCPM base-LM shape (B 1, 4, 8;
 pos 49, 64, 96 of a 128-row cache and 1000 of 2048; bf16 and int8; timed
 beside their bounds), and the Kani and VoxCPM checks over four seeds, each
@@ -5997,12 +6012,13 @@ def run_cli_command(name_limit: str, family: str, argv: list, cls, method: str, 
     return grew
 
 
-def run_cli(name_limit: str, ckpt_root: str, f5_files: dict | None) -> dict:
+def run_cli(name_limit: str, ckpt_root: str, f5_files: dict | None, keep: bool = False) -> dict:
     """Phase 13: full-width upstream-key checkpoints of kani-tts-370m (+
     NanoCodec), Qwen3-TTS-0.6B (+ codec), IndexTTS-1.5 and VoxCPM-2 written
     from seeds (bf16), the F5 files of phase 12 (written here when phase 12
     did not run); each family through `tts_tpu_torch.cli.main` in process
-    with an English --text on the card. Returns the launches."""
+    with an English --text on the card. keep: leave each family's directory
+    (ckpt_root/<family>) for phase 15. Returns the launches."""
     import dataclasses
     import importlib.util
     import shutil
@@ -6015,7 +6031,6 @@ def run_cli(name_limit: str, ckpt_root: str, f5_files: dict | None) -> dict:
     from tts_tpu_torch.frontend.indextts_text import IndexTTSTokenizer, split_sentences
     from tts_tpu_torch.frontend.voxcpm_text import (mask_multichar_chinese_tokens,
                                                      normalize_voxcpm_text)
-    from tts_tpu_torch.models.bigvgan import BigVGANConfig
     from tts_tpu_torch.models.f5 import F5Config
     from tts_tpu_torch.models.indextts import IndexTTSConfig
     from tts_tpu_torch.models.kani import KaniConfig
@@ -6120,7 +6135,8 @@ def run_cli(name_limit: str, ckpt_root: str, f5_files: dict | None) -> dict:
                              "--out", os.path.join(ckpt_root, "cli_kani.wav")],
         KaniPipeline, "synthesize_ids", [(kani_loader, ("load_kani_lm", "load_nanocodec"))],
         kani_expect, kani_direct))
-    shutil.rmtree(kdir)
+    if not keep:
+        shutil.rmtree(kdir)
     free()
 
     # Qwen3-TTS-0.6B + its codec
@@ -6160,14 +6176,13 @@ def run_cli(name_limit: str, ckpt_root: str, f5_files: dict | None) -> dict:
                              "--out", os.path.join(ckpt_root, "cli_qwen.wav")],
         QwenTTSPipeline, "synthesize_ids",
         [(qwen_loader, ("load_qwen_tts", "load_qwen_codec"))], qwen_expect, qwen_direct))
-    shutil.rmtree(qdir)
+    if not keep:
+        shutil.rmtree(qdir)
     free()
 
     # IndexTTS-1.5 at phase 9's vocoder rates
     icfg = IndexTTSConfig()
-    ivcfg = BigVGANConfig(num_mels=icfg.gpt_dim, upsample_rates=(4, 4, 4, 4, 2, 2),
-                          upsample_kernel_sizes=(8, 8, 4, 4, 4, 4),
-                          use_tanh_at_final=True, use_bias_at_final=True)
+    ivcfg = index_vocoder_cfg(icfg)
     t0 = time.perf_counter()
     idir, size = write_indextts_checkpoint(os.path.join(ckpt_root, "indextts"), icfg, ivcfg, 60)
     written("IndexTTS-1.5 (gpt.pth, bigvgan.pth, config.yaml, bpe.model)", t0, size)
@@ -6225,7 +6240,8 @@ def run_cli(name_limit: str, ckpt_root: str, f5_files: dict | None) -> dict:
             index_expect, index_direct))
     finally:
         IndexTTSPipeline.synthesize_ids = real_ids
-    shutil.rmtree(idir)
+    if not keep:
+        shutil.rmtree(idir)
     free()
 
     # VoxCPM-2
@@ -6254,7 +6270,8 @@ def run_cli(name_limit: str, ckpt_root: str, f5_files: dict | None) -> dict:
                                     "--out", os.path.join(ckpt_root, "cli_voxcpm.wav")],
         VoxCPMPipeline, "synthesize_ids", [(vox_loader, ("load_voxcpm",))], vox_expect,
         vox_direct))
-    shutil.rmtree(vdir2)
+    if not keep:
+        shutil.rmtree(vdir2)
     free()
     return launches
 
@@ -6641,6 +6658,494 @@ def run_clone(name_limit: str, ckpt_root: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------------
+# Phase 15: the parity harness (tts_tpu_torch/parity) against stand-in sessions
+
+# 41 bytes: with phase 12's 6 s reference and REF_TEXT, f5_duration gives
+# 1,024 frames, a multiple of 128, so the bf16 DiT takes kernels 1-3
+PARITY_GEN_TEXT = "The quick brown fox jumps over a lazy dog"
+# the session-mode families in the order phase 15 runs them, each with its
+# stand-ins' driver (None: run_reference's own session function)
+PARITY_DRIVERS = {"f5": None, "bigvgan": None, "kani": "kani_session_stages",
+                  "indextts": "indextts_session_stages", "qwen": "qwen_session_stages",
+                  "voxcpm": "voxcpm_session_stages"}
+
+
+@contextlib.contextmanager
+def all_twins():
+    """Every model module's kernel wrappers through their plain twins: the
+    DiT's (kernels 1-8), Qwen's (11-15), kernel 10 and the decode heads of
+    Kani, IndexTTS and VoxCPM (11, 12)."""
+    import tts_tpu_torch.models.indextts as mi
+    import tts_tpu_torch.models.kani as mk
+    import tts_tpu_torch.models.voxcpm as mv
+    import tts_tpu_torch.ops.bigvgan_stage as k10
+    from tts_tpu_torch.ops import decode_qkv, decode_step
+
+    heads = {"fused_qkv_rope": decode_qkv.fused_qkv_rope_plain,
+             "fused_qkv_attn": decode_step.fused_qkv_attn_plain}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(twins_in_dit())
+        stack.enter_context(twins_in_qwen())
+        stack.enter_context(swapped(k10, {"amp_block_fused": k10.amp_block_fused_plain}))
+        for m in (mk, mi, mv):
+            stack.enter_context(swapped(m, heads))
+        yield
+
+
+@contextlib.contextmanager
+def cached_loads():
+    """The loaders run_reference calls, memoized on their arguments for the
+    block: a family's trees load once for its passes and its stand-ins."""
+    import tts_tpu_torch.weights.f5_loader as f5l
+    import tts_tpu_torch.weights.indextts_loader as il
+    import tts_tpu_torch.weights.kani_loader as kl
+    import tts_tpu_torch.weights.loaders as bl
+    import tts_tpu_torch.weights.qwen_loader as ql
+    import tts_tpu_torch.weights.voxcpm_loader as vl
+
+    memo: dict = {}
+
+    def cached(fn):
+        def load(*a, **kw):
+            key = (fn.__name__, a, tuple(sorted((k, str(v)) for k, v in kw.items())))
+            if key not in memo:
+                memo[key] = fn(*a, **kw)
+            return memo[key]
+        return load
+
+    with contextlib.ExitStack() as stack:
+        for mod, names in ((f5l, ("load_f5", "load_vocos")), (bl, ("load_bigvgan",)),
+                           (kl, ("load_kani_lm", "load_nanocodec")),
+                           (ql, ("load_qwen_tts", "load_qwen_codec")),
+                           (il, ("load_indextts",)), (vl, ("load_voxcpm",))):
+            stack.enter_context(swapped(mod, {n: cached(getattr(mod, n)) for n in names}))
+        yield memo
+
+
+def write_bigvgan_dir(dirname: str, cfg, params: dict) -> str:
+    """A HF-style BigVGAN dir (config.json + bigvgan_generator.pt) in the
+    upstream keys from a params tree (AMPBlock1, snakebeta in log scale):
+    each conv (k, in, out) back to (out, in, k) (ConvTranspose1d (in, out,
+    k)), log(alpha) and log(1 / beta_recip - 1e-9), the loader's inverse."""
+    if cfg.resblock != "1" or cfg.activation != "snakebeta" or not cfg.snake_logscale:
+        raise ValueError("write_bigvgan_dir writes AMPBlock1 with log-scale snakebeta")
+    sd: dict = {}
+
+    def conv(pre, p, transposed=False):
+        w = p["w"].float().cpu()
+        sd[f"{pre}.weight"] = (w.permute(1, 2, 0) if transposed else w.permute(2, 1, 0)).contiguous()
+        if "b" in p:
+            sd[f"{pre}.bias"] = p["b"].float().cpu()
+
+    def act(pre, p):
+        sd[f"{pre}.alpha"] = p["alpha"].double().cpu().log().float()
+        sd[f"{pre}.beta"] = (1.0 / p["beta_recip"].double().cpu() - 1e-9).log().float()
+
+    conv("conv_pre", params["conv_pre"])
+    for i, up in enumerate(params["ups"]):
+        conv(f"ups.{i}.0", up, transposed=True)
+    for n, rb in enumerate(params["resblocks"]):
+        for m in range(len(rb["convs1"])):
+            conv(f"resblocks.{n}.convs1.{m}", rb["convs1"][m])
+            conv(f"resblocks.{n}.convs2.{m}", rb["convs2"][m])
+            act(f"resblocks.{n}.activations.{2 * m}.act", rb["acts1"][m])
+            act(f"resblocks.{n}.activations.{2 * m + 1}.act", rb["acts2"][m])
+    act("activation_post.act", params["act_post"])
+    conv("conv_post", params["conv_post"])
+    os.makedirs(dirname, exist_ok=True)
+    torch.save({"generator": sd}, os.path.join(dirname, "bigvgan_generator.pt"))
+    h = {"num_mels": cfg.num_mels, "upsample_initial_channel": cfg.upsample_initial_channel,
+         "upsample_rates": list(cfg.upsample_rates),
+         "upsample_kernel_sizes": list(cfg.upsample_kernel_sizes),
+         "resblock_kernel_sizes": list(cfg.resblock_kernel_sizes),
+         "resblock_dilation_sizes": [list(d) for d in cfg.resblock_dilation_sizes],
+         "activation": cfg.activation, "snake_logscale": cfg.snake_logscale,
+         "use_bias_at_final": cfg.use_bias_at_final, "use_tanh_at_final": cfg.use_tanh_at_final,
+         "sampling_rate": cfg.sample_rate, "resblock": cfg.resblock}
+    with open(os.path.join(dirname, "config.json"), "w") as f:
+        json.dump(h, f)
+    return dirname
+
+
+def index_vocoder_cfg(icfg):
+    """IndexTTS-1.5's vocoder at phase 9's rates (from 1280 GPT features)."""
+    from tts_tpu_torch.models.bigvgan import BigVGANConfig
+
+    return BigVGANConfig(num_mels=icfg.gpt_dim, upsample_rates=(4, 4, 4, 4, 2, 2),
+                         upsample_kernel_sizes=(8, 8, 4, 4, 4, 4),
+                         use_tanh_at_final=True, use_bias_at_final=True)
+
+
+def parity_artifacts(name_limit: str, root: str, f5_files: dict | None) -> dict:
+    """The artifact directories of phase 15 under `root`: f5/ (links to
+    phase 12's files, ref.txt, gen.txt), bigvgan/ (phase 8's weights in the
+    upstream keys), and phase 13's kani/, qwen/, indextts/ and voxcpm/
+    checkpoint directories (written here with phase 13's writers and seeds
+    where phase 13 did not keep them); each holds empty graph files named as
+    its stand-ins. Returns {family: (dir, the stand-ins' builder)}."""
+    from tts_tpu_torch.models.bigvgan import BigVGANConfig
+    from tts_tpu_torch.models.f5 import F5Config
+    from tts_tpu_torch.models.indextts import IndexTTSConfig
+    from tts_tpu_torch.models.kani import KaniConfig
+    from tts_tpu_torch.models.nanocodec import NanoCodecConfig
+    from tts_tpu_torch.models.qwen_codec import QwenCodecDecoderConfig
+    from tts_tpu_torch.models.qwen_tts import QwenTTSConfig
+    from tts_tpu_torch.models.vocos import VocosConfig
+    from tts_tpu_torch.models.voxcpm import voxcpm_v2_config
+
+    t0 = time.perf_counter()
+    wrote = []
+    if f5_files is None:
+        ckpt, vocab, _ = write_f5_checkpoint(root, F5Config(vocab_size=F5_VOCAB_LINES), seed=20)
+        vdir = write_vocos_checkpoint(root, VocosConfig(), seed=21)
+        ref_path = os.path.join(root, "ref.wav")
+        write_stereo_reference(ref_path, 6.0, seed=22)
+        f5_files = {"ckpt": ckpt, "vocab": vocab, "vocoder": vdir, "ref": ref_path}
+        wrote.append("f5")
+    f5 = os.path.join(root, "f5")
+    os.makedirs(f5, exist_ok=True)
+    for key, name in (("ckpt", os.path.basename(f5_files["ckpt"])), ("vocab", "vocab.txt"),
+                      ("vocoder", "vocos"), ("ref", "ref.wav")):
+        os.symlink(f5_files[key], os.path.join(f5, name))
+    with open(os.path.join(f5, "ref.txt"), "w") as f:
+        f.write(REF_TEXT)
+    with open(os.path.join(f5, "gen.txt"), "w") as f:
+        f.write(PARITY_GEN_TEXT)
+    bcfg = BigVGANConfig()
+    write_bigvgan_dir(os.path.join(root, "bigvgan"), bcfg,
+                      bigvgan_weights(bcfg, 9, torch.float32))
+    writers = {
+        "kani": lambda d: write_kani_checkpoint(d, KaniConfig(), NanoCodecConfig(), 40),
+        "qwen": lambda d: write_qwen_checkpoint(d, QwenTTSConfig(), QwenCodecDecoderConfig(), 50),
+        "indextts": lambda d: write_indextts_checkpoint(
+            d, IndexTTSConfig(), index_vocoder_cfg(IndexTTSConfig()), 60),
+        "voxcpm": lambda d: write_voxcpm_checkpoint(d, voxcpm_v2_config(), 70)}
+    for fam, write in writers.items():
+        if not os.path.isdir(os.path.join(root, fam)):
+            write(os.path.join(root, fam))
+            wrote.append(fam)
+    print(f"  {name_limit}: artifact dirs under {root} in {time.perf_counter() - t0:.2f} s "
+          f"(written here: {wrote or 'none, phases 12-13 kept theirs'}; bigvgan/ from phase "
+          f"8's seed)", flush=True)
+    return f5_files
+
+
+def parity_standins(fam: str, art: str) -> dict:
+    """fam's stand-ins over its files loaded to the card in fp32 (through
+    the loaders run_reference calls), every kernel through its twin."""
+    from tts_tpu_torch.parity import standins as SI
+    from tts_tpu_torch.weights import f5_loader, indextts_loader, kani_loader, loaders
+    from tts_tpu_torch.weights import qwen_loader, voxcpm_loader
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    if fam == "f5":
+        import glob
+
+        params, cfg, _ = f5_loader.load_f5(glob.glob(os.path.join(art, "*.safetensors"))[0],
+                                           os.path.join(art, "vocab.txt"), **f32)
+        vparams, vcfg = f5_loader.load_vocos(os.path.join(art, "vocos"), **f32)
+        return SI.f5_standins(params, cfg, vparams, vcfg, seed=15, wrap=all_twins)
+    if fam == "bigvgan":
+        return SI.bigvgan_standins(*loaders.load_bigvgan(art, **f32), wrap=all_twins)
+    if fam == "kani":
+        params, cfg = kani_loader.load_kani_lm(art, **f32)
+        cparams, ccfg = kani_loader.load_nanocodec(os.path.join(art, "nano_codec.nemo"), **f32)
+        return SI.kani_standins(params, cfg, cparams, ccfg, wrap=all_twins)
+    if fam == "indextts":
+        params, cfg, _ = indextts_loader.load_indextts(art, **f32)
+        return SI.indextts_standins(params["gpt"], cfg, wrap=all_twins)
+    if fam == "qwen":
+        params, cfg = qwen_loader.load_qwen_tts(art, **f32)
+        cparams, ccfg = qwen_loader.load_qwen_codec(art, **f32)
+        return SI.qwen_standins(params, cfg, cparams, ccfg, wrap=all_twins)
+    params, vae, cfg = voxcpm_loader.load_voxcpm(art, **f32)
+    return SI.voxcpm_standins(params, cfg, vae["dec"], wrap=all_twins)
+
+
+def parity_expect(fam: str, art: str, dt) -> dict:
+    """The launches one session-mode run of `fam` makes on the kernels'
+    route in dt (the stand-ins run the twins): F5 22 blocks x 31 steps of
+    kernels 1 and 3 and 31 of kernel 2 in bf16, kernel 4 in fp32; BigVGAN
+    kernel 10 as its gate picks a call; Qwen's predictor frame kernel 12 at
+    each of its 15 decode steps x 4 layers; the prefills none."""
+    from tts_tpu_torch.models.f5 import F5Config
+    from tts_tpu_torch.models.qwen_tts import QwenTTSConfig
+    from tts_tpu_torch.weights.loaders import bigvgan_config_from_json
+
+    if fam == "f5":
+        cfg = F5Config()
+        steps = cfg.nfe_steps - 1
+        if dt == torch.float32:
+            return {"flash_attention_onepass": cfg.depth * steps}
+        return {"flash_attention_flat": cfg.depth * steps, "mlp_block_fused": cfg.depth * steps,
+                "conv_pos_embed_fused": steps}
+    if fam == "bigvgan":
+        name = "amp_block_fused" if dt == torch.bfloat16 else "amp_block_fused_f32"
+        cfg = bigvgan_config_from_json(os.path.join(art, "config.json"))
+        return {name: kernel10_per_call(cfg, 512, dt)}
+    if fam == "qwen":
+        cfg = QwenTTSConfig()
+        return {"fused_qkv_attn": (cfg.num_code_groups - 1) * cfg.predictor.num_layers}
+    return {}
+
+
+def parity_pass(rr, root: str, fam: str, dt, twins: bool) -> tuple:
+    """One run_reference.run_all over `fam` on the card in dt, "ours"
+    through the kernels or (twins) their plain twins. Returns (the session
+    result, its stage diffs, the launches, seconds); an "error" result or
+    none in session mode fails."""
+    import tts_tpu_torch.parity.sessions as S
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    stages: list = []
+    drv = PARITY_DRIVERS[fam]
+    spy = {}
+    if drv:
+        real = getattr(S, drv)
+        spy = {drv: lambda *a, **kw: stages.extend(real(*a, **kw)) or stages}
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with swapped(S, spy), (all_twins() if twins else contextlib.nullcontext()):
+        results = rr.run_all(root, (fam,), "cuda", dt)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    grew = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+    for r in results:
+        if r.mode == "error":
+            raise AssertionError(f"parity {fam}: {r.line()}")
+    ses = [r for r in results if r.mode == "session"]
+    if len(ses) != 1:
+        raise AssertionError(f"parity {fam}: no session-mode result: "
+                             f"{[r.line() for r in results]}")
+    return ses[0], stages, grew, seconds
+
+
+def within_slack(kern: float, twin: float) -> bool:
+    """The kernel route no further from the fp32 stand-ins than STEP_SLACK
+    times the bf16 twins' (both 0 passes)."""
+    return math.isfinite(kern) and kern <= STEP_SLACK * twin
+
+
+def launches_of(grew: dict, into: dict) -> None:
+    for k, n in grew.items():
+        into[k] = into.get(k, 0) + n
+
+
+def predictor_group_logits(params: dict, cfg, talker_h, tok0, prefix: list, g: int,
+                           fused) -> torch.Tensor:
+    """Group g's logits of a predictor frame whose groups 0..g-1 took the
+    tokens `prefix`: `predictor_frame`'s loop on params' device and dtype
+    on the route `fused`, stopped at g. fp32."""
+    from tts_tpu_torch.models.qwen_tts import (_group_input, _predictor_prefill, _rope_row,
+                                               qwen3_stack_step)
+
+    dt = params["lm_heads"][0].dtype
+    h, kv, _ = _predictor_prefill(params, talker_h.to(dt), tok0, cfg, 1)
+    for j, tok in enumerate(prefix):
+        rc, rs = _rope_row(params, kv.length)
+        toks = torch.tensor([tok], dtype=torch.int32, device=tok0.device)
+        h, kv = qwen3_stack_step(params["predictor"], _group_input(params, j, toks), kv,
+                                 cfg.predictor, rc, rs, fused=fused)
+    return torch.matmul(h, params["lm_heads"][g]).float()
+
+
+def check_frame_flip(art: str, kern: tuple, twin: tuple) -> str:
+    """The Qwen predictor frame is a chain of argmaxes: a flip at a near tie
+    in one group changes every later code. Where the kernels' frame leaves
+    the fp32 one (the fp32 twins' predictor_frame on the stand-ins' tree),
+    compare group g's logits after the fp32 frame's prefix on the kernels
+    and on the bf16 twins against fp32: the kernels' max |Δ| must be at most
+    STEP_SLACK times the twins'. kern / twin: (talker_h, tok0, frame) of
+    each route's predictor_frame call (bf16). Returns the line to print."""
+    from tts_tpu_torch.models.qwen_tts import predictor_frame
+    from tts_tpu_torch.weights import qwen_loader
+
+    p16, cfg = qwen_loader.load_qwen_tts(art, dtype=torch.bfloat16, device="cuda")
+    p32, _ = qwen_loader.load_qwen_tts(art, dtype=torch.float32, device="cuda")
+    # the driver's fp32 talker hidden (seed 0, after the talker stage's draw),
+    # which the kernels' call got rounded to bf16
+    rng = np.random.default_rng(0)
+    rng.standard_normal((1, 3, cfg.talker.hidden_size))
+    th = torch.from_numpy(rng.standard_normal((1, 1, cfg.talker.hidden_size))
+                          .astype(np.float32)).cuda()
+    tok0 = kern[1]
+    if not torch.equal(th.to(torch.bfloat16), kern[0]):
+        raise AssertionError("check_frame_flip: the driver's talker hidden is not the seed's")
+    with torch.no_grad():
+        with all_twins():
+            ref = predictor_frame(p32, th, tok0, cfg, fused=False)[0].tolist()
+        got, tw = kern[2].tolist(), twin[2].tolist()
+        if got == ref:
+            return f"kernels' frame equals fp32's {ref}"
+        i = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+        g, prefix = i - 1, ref[1:i]
+        with all_twins():
+            l32 = predictor_group_logits(p32, cfg, th, tok0, prefix, g, False)
+            lt = predictor_group_logits(p16, cfg, th, tok0, prefix, g, "step")
+        lk = predictor_group_logits(p16, cfg, th, tok0, prefix, g, "step")
+    ek, et = ((x - l32).abs().max().item() for x in (lk, lt))
+    l32 = l32.reshape(-1)
+    margin = (l32[ref[i]] - l32[got[i]]).item()
+    line = (f"the kernels' frame leaves fp32's at group {g} (code {got[i]} for {ref[i]}: fp32 "
+            f"margin {margin:.6g}); group {g}'s logits after fp32's prefix, max |Δ| against "
+            f"fp32: kernels {ek:.6g}, twins {et:.6g} (limit {STEP_SLACK} x); the twins' frame "
+            f"{'equals' if tw == ref else 'differs from'} fp32's")
+    if not within_slack(ek, et):
+        raise AssertionError(f"parity qwen/predictor_frame: {line}")
+    return line
+
+
+def parity_family(name_limit: str, rr, root: str, fam: str, memo: dict) -> dict:
+    """Phase 15b for one family inside cached_loads: its stand-ins over its
+    files in fp32 through the twins, then the passes (bf16 kernels, bf16
+    twins, fp32 for F5 and BigVGAN), each checked. Returns the launches of
+    the kernels' and fp32 passes."""
+    import tts_tpu_torch.models.qwen_tts as mq
+
+    art = os.path.join(root, fam)
+    t0 = time.perf_counter()
+    table = parity_standins(fam, art)
+    for name in table:
+        open(os.path.join(art, name), "wb").close()
+    load_s = time.perf_counter() - t0
+    patch = {"_have_ort": lambda: True, "_session": lambda p: table[os.path.basename(p)]}
+    passes = [("kernels", torch.bfloat16, False), ("twins", torch.bfloat16, True)]
+    if fam in ("f5", "bigvgan"):
+        passes.append(("fp32", torch.float32, False))
+    out, frames = {}, []
+    real_pf = mq.predictor_frame
+
+    def spy_pf(params, talker_hidden, codec_token0, *a, **kw):
+        res = real_pf(params, talker_hidden, codec_token0, *a, **kw)
+        frames.append((talker_hidden, codec_token0, res[0]))
+        return res
+
+    with swapped(rr, patch), swapped(mq, {"predictor_frame": spy_pf}):
+        for label, dt, twins in passes:
+            out[label] = parity_pass(rr, root, fam, dt, twins)
+    kern, twin = out["kernels"], out["twins"]
+    res_line = "; ".join(f"{label} {r.mel_l1:.6g} in {s:.2f} s"
+                         for label, (r, _, _, s) in out.items())
+    print(f"  {name_limit}: parity {fam}: stand-ins loaded in fp32 in {load_s:.2f} s "
+          f"({len(memo)} loads in all); worst |Δ| or mel L1 against the stand-ins: {res_line} "
+          f"(budget {rr.MEL_L1_BUDGET:g}; bf16 {'within' if kern[0].passed else 'PAST'} it "
+          f"on the kernels, {'within' if twin[0].passed else 'PAST'} on the twins)", flush=True)
+    if len(kern[1]) != len(twin[1]) or (PARITY_DRIVERS[fam] and not kern[1]):
+        raise AssertionError(f"parity {fam}: {len(kern[1])} stages on the kernels, "
+                             f"{len(twin[1])} on the twins")
+    for a, b in zip(kern[1], twin[1]):
+        if a.stage != b.stage:
+            raise AssertionError(f"parity {fam}: stages {a.stage} / {b.stage}")
+        ok = within_slack(a.max_abs, b.max_abs)
+        print(f"    {a.stage:26s} kernels {a.max_abs:.6g}  twins {b.max_abs:.6g}  "
+              f"{'ok' if ok else 'past'} (limit {STEP_SLACK} x; budget "
+              f"{'PASS' if a.ok else 'past'})", flush=True)
+        if a.stage == "qwen/predictor_frame":
+            print(f"      {check_frame_flip(art, frames[0], frames[1])}", flush=True)
+        elif not ok:
+            raise AssertionError(f"parity {fam}: {a.stage} on the kernels {a.max_abs:.6g}, "
+                                 f"past {STEP_SLACK} x the twins' {b.max_abs:.6g}")
+    if not PARITY_DRIVERS[fam] and not within_slack(kern[0].mel_l1, twin[0].mel_l1):
+        raise AssertionError(f"parity {fam}: mel L1 on the kernels {kern[0].mel_l1:.6g}, "
+                             f"past {STEP_SLACK} x the twins' {twin[0].mel_l1:.6g}")
+    if "fp32" in out and not out["fp32"][0].passed:
+        raise AssertionError(f"parity {fam} fp32: {out['fp32'][0].line()}")
+    launches: dict = {}
+    for label, (r, _, grew, _) in out.items():
+        dt = torch.float32 if label == "fp32" else torch.bfloat16
+        want = {} if label == "twins" else parity_expect(fam, art, dt)
+        got = {k: n for k, n in grew.items() if n}
+        print(f"    {label}: launches {got} (expected {want})  | {r.line()}", flush=True)
+        if got != want:
+            raise AssertionError(f"parity {fam} {label}: launches {got}, expected {want}")
+        if label != "twins":
+            launches_of(got, launches)
+    return launches
+
+
+def run_parity(name_limit: str, ckpt_root: str, f5_files: dict | None) -> dict:
+    """Phase 15: stft_diff_report on the card; run_reference's session mode
+    for F5, BigVGAN, Kani, IndexTTS, Qwen and VoxCPM at full width against
+    stand-in sessions (the port's stage functions in fp32 through the
+    twins, on the same checkpoint files): "ours" in bf16 through the
+    kernels, again through the bf16 twins (each stage's error, or F5's and
+    BigVGAN's mel L1, within STEP_SLACK of the twins'), and F5 and BigVGAN
+    in fp32 (kernels 4 and 10 within the harness's 1e-2); the launches of
+    each pass against the routes'; then Kani's wav mode through the CLI
+    against phase 13's WAV of the same command (mel L1 0). Returns the
+    launches of the kernel-route passes."""
+    import shutil
+
+    from tts_tpu_torch.parity import run_reference as rr
+    from tts_tpu_torch.parity.compare import stft_diff_report
+
+    t_phase = time.perf_counter()
+
+    def part(label: str) -> None:
+        print(f"  [{time.perf_counter() - t_phase:.1f} s] {label}", flush=True)
+
+    # a. the STFT against torch.stft / istft on the card
+    x = np.random.default_rng(0).standard_normal(16384).astype(np.float32) * 0.1
+    rep = stft_diff_report(x, n_fft=512, hop=128, device="cuda")
+    limits = {"stft_mean_abs_err": 1e-5, "istft_vs_torch_mean_abs_err": 1e-6,
+              "roundtrip_mean_abs_err": 1e-6}
+    print(f"  {name_limit}: stft_diff_report, tests/test_parity.py's signal (n_fft 512, hop "
+          f"128): " + ", ".join(f"{k} {v:.3e} (limit {limits[k]:g})" for k, v in rep.items()),
+          flush=True)
+    if not all(rep[k] < lim for k, lim in limits.items()):
+        raise AssertionError(f"stft_diff_report past its limits on the card: {rep}")
+    bench = bench_audio(24000).astype(np.float32) / 32768.0
+    rep = stft_diff_report(bench, n_fft=1024, hop=256, device="cuda")
+    print(f"  {name_limit}: stft_diff_report, the 6 s bench reference (n_fft 1024, hop 256): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rep.items()), flush=True)
+    if not all(math.isfinite(v) for v in rep.values()):
+        raise AssertionError(f"stft_diff_report not finite: {rep}")
+
+    # b. session mode against the stand-ins
+    f5_files = parity_artifacts(name_limit, ckpt_root, f5_files)
+    part("artifacts ready")
+    launches: dict = {}
+    for fam in PARITY_DRIVERS:
+        with cached_loads() as memo:
+            launches_of(parity_family(name_limit, rr, ckpt_root, fam, memo), launches)
+        torch.cuda.empty_cache()
+        part(f"{fam} done")
+
+    # c. Kani's wav mode through the CLI against phase 13's WAV of the command
+    from tts_tpu_torch import cli
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    kdir = os.path.join(ckpt_root, "kani")
+    nemo = os.path.join(kdir, "nano_codec.nemo")
+    args = ["--codec", nemo, "--max-tokens", str(CLI_CAPS["kani"])]
+    ref = os.path.join(ckpt_root, "cli_kani.wav")
+    made = not os.path.exists(ref)
+    if made:                                     # phase 13 did not run
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["kani", "--ckpt", kdir, "--text", CLI_TEXT, *args, "--out", ref])
+    shutil.copy(ref, os.path.join(kdir, "reference.wav"))
+    with open(os.path.join(kdir, "inputs.json"), "w") as f:
+        json.dump({"text": CLI_TEXT, "cli_args": args}, f)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    # wav mode only: no graphs are opened (a present onnxruntime would try
+    # the empty files)
+    with swapped(rr, {"_have_ort": lambda: False}), contextlib.redirect_stdout(io.StringIO()):
+        results = rr.run_all(ckpt_root, ("kani",), "cuda")
+    seconds = time.perf_counter() - t0
+    grew = {k: n for k, n in LAUNCHES.items() if n}
+    print(f"  {name_limit}: parity kani wav mode (the CLI in bf16 against "
+          f"{'a first run' if made else 'phase 13'}'s WAV of the same command): "
+          f"{[r.line() for r in results]} in {seconds:.2f} s, launches {grew}", flush=True)
+    if len(results) != 1 or results[0].mode != "wav" or results[0].mel_l1 != 0.0:
+        raise AssertionError(f"parity kani wav mode: {[r.line() for r in results]}")
+    launches_of(grew, launches)
+    part("kani wav mode done")
+    return launches
+
+
 def cpu_tree(tree):
     """A params tree with every tensor moved to the CPU (exact)."""
     if isinstance(tree, dict):
@@ -6713,11 +7218,11 @@ def main() -> None:
                          "and VoxCPM tables into DIR")
     ap.add_argument("--families",
                     default="f5,kani,qwen,bigvgan,indextts,voxcpm,serving,checkpoints,cli,"
-                            "clone",
+                            "clone,parity",
                     help="the pipeline phases to run after phase 2, by family: "
                          "f5 (3-5d), kani (6), qwen (7), bigvgan (8, 8c), indextts (9), "
                          "voxcpm (10), serving (11), checkpoints (12), cli (13), clone "
-                         "(14); default all (the smoke run's contract)")
+                         "(14), parity (15); default all (the smoke run's contract)")
     ap.add_argument("--servers", default=",".join(SERVERS),
                     help="the slot servers phase 11 runs: " + ", ".join(SERVERS) +
                          "; default all")
@@ -6878,7 +7383,7 @@ def main() -> None:
 
     # phases 12-14 write checkpoint files: one directory, removed at exit
     ckpt_root, f5_files = None, None
-    if fams & {"checkpoints", "cli", "clone"}:
+    if fams & {"checkpoints", "cli", "clone", "parity"}:
         import atexit
         import shutil
         import tempfile
@@ -6896,7 +7401,7 @@ def main() -> None:
     if "cli" in fams:
         phase("phase 13: text in, speech out through the CLI (tts_tpu_torch.cli.main, five "
               "families from checkpoint files)")
-        for k, n in run_cli(name_limit, ckpt_root, f5_files).items():
+        for k, n in run_cli(name_limit, ckpt_root, f5_files, keep="parity" in fams).items():
             launches[k] = launches.get(k, 0) + n
 
     if "clone" in fams:
@@ -6905,6 +7410,13 @@ def main() -> None:
         for k, n in run_clone(name_limit, ckpt_root).items():
             launches[k] = launches.get(k, 0) + n
         print(f"  {name_limit}: phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
+
+    if "parity" in fams:
+        phase("phase 15: the parity harness (tts_tpu_torch/parity) against stand-in sessions")
+        t15 = time.perf_counter()
+        for k, n in run_parity(name_limit, ckpt_root, f5_files).items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"  {name_limit}: phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
 
     phase("done")
     # JAX may be installed where the port runs: nothing of the run may have

@@ -38,6 +38,10 @@ for name in weights.__all__:
 # the command line's entry and its timing records
 from tts_tpu_torch.cli import main
 from tts_tpu_torch.utils import StageTimer, SynthesisReport, trace_profile
+# the parity harness: its runner and drivers import no onnxruntime either
+from tts_tpu_torch.parity.run_reference import main as parity_main
+from tts_tpu_torch.models.f5 import f5_denoise, f5_preprocess
+assert "onnxruntime" not in sys.modules, "onnxruntime was imported at module level"
 assert not any(m.split(".")[0] in ("jax", "tts_tpu", "bench") for m, v in sys.modules.items()
                if v is not None), "a jax, tts_tpu or bench module was imported"
 print(len(names))
@@ -70,8 +74,9 @@ def test_port_imports_without_jax():
     # native, and weights/loaders, f5_loader, kani_loader, qwen_loader,
     # indextts_loader, voxcpm_loader and save; the text path: cli, utils (and
     # utils/timing) and the frontends normalize, spm, hf_tokenizer,
-    # indextts_text and voxcpm_text
-    assert int(proc.stdout.split()[-1]) >= 87
+    # indextts_text and voxcpm_text; the parity harness: parity, parity/compare,
+    # sessions, run_reference and standins
+    assert int(proc.stdout.split()[-1]) >= 92
 
 
 # what no module of the port, nor chip_smoke.py, may import, even inside a

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..audio.mel import MelSpectrogram
 from ..nn.norm import layer_norm
 from ..nn.rope import rope_table_interleaved
 from ..ops import dit_mlp as _k3
@@ -71,6 +72,9 @@ __all__ = [
     "input_embedding",
     "dit_forward",
     "dit_forward_cached",
+    "f5_preprocess",
+    "f5_step",
+    "f5_denoise",
     "init_params",
 ]
 
@@ -502,6 +506,63 @@ def dit_forward_cached(params: dict, noise: torch.Tensor, cond: torch.Tensor,
         cache = (torch.stack(new_attn), torch.stack(new_ff))
     pred, pred1 = _dit_out(params, x, out_mod, noise)
     return pred, pred1, cache
+
+
+# --------------------------------------------------------------------------
+# Pipeline stages (the reference's graph split: F5_Preprocess, F5_Transformer)
+
+def f5_preprocess(params: dict, audio: torch.Tensor, text_ids: torch.Tensor,
+                  max_duration: int, cfg: F5Config, noise=None,
+                  generator: torch.Generator | None = None):
+    """Stage A (tts_tpu's `f5_preprocess`): audio (1, N) float in [-1, 1];
+    text_ids (1, T_text) raw vocab ids. Returns (noise (1, max_duration,
+    n_mels) fp32, cat_mel_text, cat_mel_text_drop, ref_signal_len), the
+    tensors on the params' device. The noise is `noise` when given, else
+    one draw from `generator`, a torch.Generator on the params' device."""
+    dev = params["proj_out"]["w"].device
+    mel = MelSpectrogram(cfg.sample_rate, cfg.n_fft, cfg.hop, cfg.win_length,
+                         cfg.n_mels)(torch.as_tensor(audio, device=dev).float())
+    ref_signal_len = mel.shape[1]
+    mel = F.pad(mel, (0, 0, 0, max_duration - ref_signal_len))
+    if noise is not None:
+        noise = torch.as_tensor(noise, device=dev).float()
+    elif generator is None:
+        raise ValueError("f5_preprocess: pass the noise or a generator to draw it from")
+    else:
+        noise = torch.randn((1, max_duration, cfg.n_mels), generator=generator, device=dev)
+    text, text_drop = text_embedding(params, torch.as_tensor(text_ids, device=dev),
+                                     max_duration, cfg)
+    cat_mel_text = torch.cat([mel, text.float()], dim=-1)
+    cat_mel_text_drop = torch.cat([torch.zeros_like(mel), text_drop.float()], dim=-1)
+    return noise, cat_mel_text, cat_mel_text_drop, ref_signal_len
+
+
+def f5_step(params: dict, x: torch.Tensor, cat_mel_text: torch.Tensor,
+            cat_mel_text_drop: torch.Tensor, cfg: F5Config, step_idx: int,
+            kv_len=None) -> torch.Tensor:
+    """One Euler step of the NFE loop (the reference's F5_Transformer
+    graph): the CFG-paired `dit_forward` at step `step_idx` in the weights'
+    dtype, the update added to the fp32 carry x (1, T, n_mels). kv_len
+    masks keys as in `dit_forward`."""
+    cdt = params["proj_out"]["w"].dtype
+    t = x.shape[1]
+    pred, pred1 = dit_forward(params, x.to(cdt), cat_mel_text.to(cdt),
+                              cat_mel_text_drop.to(cdt), params["rope_cos"][:t].float(),
+                              params["rope_sin"][:t].float(), cfg, kv_len=kv_len,
+                              step_idx=step_idx)
+    return x + (pred + (pred - pred1) * cfg.cfg_strength).float() * params["delta_t"][step_idx]
+
+
+def f5_denoise(params: dict, noise: torch.Tensor, cat_mel_text: torch.Tensor,
+               cat_mel_text_drop: torch.Tensor, cfg: F5Config) -> torch.Tensor:
+    """Stage B (tts_tpu's `f5_denoise`): nfe_steps - 1 Euler steps over
+    `dit_forward` from `noise`, a Python loop whose kernels queue on the
+    params' device, no key mask (every frame is valid). Returns the
+    denoised mel (1, T, n_mels) fp32."""
+    x = noise.float()
+    for idx in range(cfg.nfe_steps - 1):
+        x = f5_step(params, x, cat_mel_text, cat_mel_text_drop, cfg, idx)
+    return x
 
 
 # --------------------------------------------------------------------------
