@@ -21,6 +21,7 @@
     python3 chip_smoke.py --families cli                # phases 0-2, 13
     python3 chip_smoke.py --families clone              # phases 0-2, 14
     python3 chip_smoke.py --families parity             # phases 0-2, 15
+    python3 chip_smoke.py --families graphs             # phases 0-2, 16
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
@@ -214,7 +215,25 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      3, 31 of 2 in bf16, 682 of 4 in fp32; BigVGAN 12 of kernel 10, 9 of
      its fp32 form; Qwen's predictor frame 60 of kernel 12); Kani's wav
      mode through the CLI against phase 13's WAV of the same command, mel
-     L1 exactly 0; an "error" result fails the phase.
+     L1 exactly 0; an "error" result fails the phase;
+  16. the per-bucket programs (runtime/program.py: one CUDA graph per shape
+     bucket, captured at the bucket's first request and replayed), each
+     call against its body run eagerly on the same inputs, bitwise, with
+     the eager run's launches: F5TTS_v1_Base + Vocos at the bench request
+     (bucket 1408) in bf16 (kernels 1-3), W8A8 (1, 2, 6-8), int4 (1, 2),
+     layer_cache_interval=2 (352 of kernel 1), fp32 (4) and fp32 W8A8 (7,
+     4, 8, 6); in bf16 a second request of the bucket with its own
+     ref_signal_len and duration on the same graph, a second bucket (1024
+     frames), the orders A, B, A and B, A, B queued back to back on the
+     shared pool, F5Pipeline.benchmark (its three queued outputs each
+     bitwise the latency output, in buffers of their own) and the
+     synthesize_batch program of 4 requests; BigVGAN's bench mel in bf16
+     (12 of kernel 10) and fp32 (9), samples/s of replays against the
+     eager body; each graph's warm-up and capture seconds and its pool's
+     bytes.
+Phases 3-15 run F5Pipeline and BigVGANVocoder on their graphs: a request's
+launches are the replay's, which the capture recorded; where a phase
+compares with the twins swapped in, it runs the program's body eagerly.
 Phase 2 also runs kernels 11 and 12 at the VoxCPM base-LM shape (B 1, 4, 8;
 pos 49, 64, 96 of a 128-row cache and 1000 of 2048; bf16 and int8; timed
 beside their bounds), and the Kani and VoxCPM checks over four seeds, each
@@ -2749,16 +2768,42 @@ def wav_diff(got: np.ndarray, ref: np.ndarray) -> tuple:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b)), int(np.abs(a - b).max())
 
 
-def rows_against_solo(pipe, reqs: list, outs: list, noise: np.ndarray) -> tuple:
+def eager_synthesize(pipe, ref_audio, ref_text: str, gen_text: str, noise) -> np.ndarray:
+    """pipe.synthesize with its bucket's program body run eagerly
+    (`Program._eager`): the twins swapped into models/f5 reach it, where a
+    replay runs the kernels its capture recorded."""
+    audio_p, ids_p, ref, dur, buckets, n_keep = pipe._prepare(ref_audio, ref_text, gen_text)
+    pcm, _ = pipe._get_fn(*buckets)._eager(
+        *pipe._inputs(audio_p, ids_p, [ref], [dur], buckets[2], None, noise))
+    return pcm.cpu().numpy().reshape(-1)[:n_keep]
+
+
+def eager_batch(pipe, reqs: list, seed: int) -> list:
+    """pipe.synthesize_batch's outputs with the batch program's body run
+    eagerly (as `eager_synthesize`)."""
+    audio_p, ids_p, refs, durs, gens, frames, gen_frames = pipe._prepare_batch(reqs)
+    fn = pipe._get_batch_fn(len(reqs), audio_p.shape[1], ids_p.shape[1], frames, gen_frames)
+    pcm, _ = fn._eager(*pipe._inputs(audio_p, ids_p, refs, durs, frames, seed, None))
+    wav = pcm.cpu().numpy()
+    return [wav[b, :g * pipe.cfg.hop] for b, g in enumerate(gens)]
+
+
+def rows_against_solo(pipe, reqs: list, outs: list, noise: np.ndarray,
+                      eager: bool = False) -> tuple:
     """Each request's solo synthesize with its row of `noise` (the draw its
-    batch row or slot took), against that row's output `outs[b]`. Returns
-    ([(rel L2, max LSB)], solo walls s, solo samples)."""
+    batch row or slot took), against that row's output `outs[b]`; with
+    `eager`, the solo runs through the program's eager body (twins swapped
+    in). Returns ([(rel L2, max LSB)], solo walls s (eager: none), solo
+    samples)."""
     diffs, walls, n = [], [], 0
     for b, r in enumerate(reqs):
         torch.cuda.synchronize()
-        solo, st = pipe.synthesize(*r, noise=noise[b:b + 1])
+        if eager:
+            solo = eager_synthesize(pipe, *r, noise[b:b + 1])
+        else:
+            solo, st = pipe.synthesize(*r, noise=noise[b:b + 1])
+            walls.append(st.wall_s)
         diffs.append(wav_diff(outs[b], solo))
-        walls.append(st.wall_s)
         n += len(solo)
     return diffs, walls, n
 
@@ -2837,9 +2882,9 @@ def run_f5_many(pipe, q8, name_limit: str) -> dict:
             raise AssertionError(f"{label} batch: {[len(o) for o in outs]} samples (expected "
                                  f"{lens}), peak {st.peak}")
         diffs, walls, n_solo = rows_against_solo(p, reqs, outs, noise)
-        with twins_in_dit():
-            touts, _ = p.synthesize_batch(reqs, seed=F5_SEED)
-            tdiffs = rows_against_solo(p, reqs, touts, noise)[0]
+        with twins_in_dit():      # eager bodies: a replay would run the kernels
+            touts = eager_batch(p, reqs, F5_SEED)
+            tdiffs = rows_against_solo(p, reqs, touts, noise, eager=True)[0]
         check_rows(f"{label} synthesize_batch of 4", diffs, tdiffs)
         rtf_b, rtf_s = st.wall_s / st.audio_s, sum(walls) / (n_solo / cfg.sample_rate)
         print(f"  {name_limit}: {label} synthesize_batch of 4 (M {2 * len(reqs) * frames}): "
@@ -2870,7 +2915,7 @@ def run_f5_many(pipe, q8, name_limit: str) -> dict:
         count(grew)
 
     fora = F5Pipeline(pipe.f5, pipe.vocab, pipe.vocos, layer_cache_interval=2)
-    fora.synthesize(audio, REF_TEXT, "word word")         # warm-up
+    fora.synthesize(audio, REF_TEXT, F5_TEXTS[3])        # warm-up: the bucket's capture
     torch.cuda.synchronize()
     before = dict(LAUNCHES)
     wav, st = fora.synthesize(audio, REF_TEXT, F5_TEXTS[3])
@@ -4842,7 +4887,7 @@ def serve_f5(name_limit: str, launches: dict) -> None:
             touts = [f.result(timeout=SERVE_WAIT_S)[0] for f in tfuts]
         finally:
             tsrv.close()
-        tdiffs = rows_against_solo(pipe, reqs[:SERVE_SLOTS], touts, noise)[0]
+        tdiffs = rows_against_solo(pipe, reqs[:SERVE_SLOTS], touts, noise, eager=True)[0]
     print(f"  F5 staggered run: {len(futs)} requests, {chunks1} chunks, {mid1} admitted "
           f"mid-flight, done {[round(done[i] - min(done.values()), 3) for i in range(6)]} s",
           flush=True)
@@ -7146,6 +7191,236 @@ def run_parity(name_limit: str, ckpt_root: str, f5_files: dict | None) -> dict:
     return launches
 
 
+# phase 16: the second request of the bench bucket (1408 frames, 128 text
+# ids, 832 generated frames, 163,840 audio samples) with its own
+# ref_signal_len (544 against 563) and duration (1327 against 1396), and
+# a second bucket (1024 frames, 448 generated) for the replay orders
+GRAPH_REF_S = 5.8
+GRAPH_TEXT_A2 = "word " * 14 + "wo"
+GRAPH_WORDS_B = 8
+
+
+def replay_check(label: str, fn, args: tuple, want: dict, name_limit: str,
+                 timed: int = 2) -> tuple:
+    """One call of a bucket's program (on its first call the warm-up, the
+    capture and a replay) against its body run eagerly on the same inputs:
+    every output bitwise, the call's kernel launches equal to the eager
+    run's and to `want`; then the best of `timed` replays and of `timed`
+    eager runs (host wall to a synchronize). Returns (the call's launches,
+    the eager outputs)."""
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    first = fn._graph is None
+    pool0 = fn.pool.nbytes()
+    torch.cuda.synchronize()
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    grew = serve_grew(before, KERNELS)
+    before = dict(LAUNCHES)
+    ref = fn._eager(*args)
+    torch.cuda.synchronize()
+    eager = serve_grew(before, KERNELS)
+    same = [g.shape == r.shape and g.dtype == r.dtype and torch.equal(g, r)
+            for g, r in zip(got, ref)]
+    diffs = [(g.float() - r.float()).abs().max().item() if g.shape == r.shape else math.inf
+             for g, r in zip(got, ref)]
+
+    def walls(call):
+        res = []
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            res.append(time.perf_counter() - t)
+        return min(res)
+
+    replay_s, eager_s = walls(lambda: fn(*args)), walls(lambda: fn._eager(*args))
+    kept = {k: n for k, n in grew.items() if n}
+    rec = {"graphs": label, "card": name_limit, "first_call": first, "call_s": call_s,
+           "warmup_s": fn.warmup_s, "capture_s": fn.capture_s,
+           "pool_bytes": fn.pool_bytes, "pool_grew_bytes": fn.pool_bytes - pool0,
+           "replay_s": replay_s, "eager_s": eager_s, "launches": kept,
+           "bitwise": all(same), "max_abs_diff": diffs}
+    print(f"  {label}: {'first call (warm-up + capture + replay)' if first else 'replay'} "
+          f"{call_s:.4f} s; warm-up {fn.warmup_s:.4f} s, capture {fn.capture_s:.4f} s, pool "
+          f"{fn.pool_bytes / 2**20:.1f} MiB (+{(fn.pool_bytes - pool0) / 2**20:.1f}); "
+          f"replay {replay_s:.4f} s, eager body {eager_s:.4f} s (best of {timed}); outputs "
+          f"against the eager body: {'bitwise' if all(same) else f'max |diff| {diffs}'}; "
+          f"launches {kept} (eager {({k: n for k, n in eager.items() if n})}) "
+          f"{'ok' if all(same) and grew == eager and kept == want else 'FAIL'}", flush=True)
+    print("  " + json.dumps(rec), flush=True)
+    if not all(same):
+        raise AssertionError(f"{label}: the replay differs from the eager body: {diffs}")
+    if grew != eager or kept != want:
+        raise AssertionError(f"{label}: launches {kept}, eager {eager}, expected {want}")
+    return grew, ref
+
+
+def request_program(pipe, audio: np.ndarray, text: str, seed: int) -> tuple:
+    """(the program of a request's bucket, its inputs at `seed`'s draw)."""
+    audio_p, ids_p, ref, dur, buckets, _ = pipe._prepare(audio, REF_TEXT, text)
+    return pipe._get_fn(*buckets), pipe._inputs(audio_p, ids_p, [ref], [dur], buckets[2],
+                                                seed, None)
+
+
+def check_orders(pipe, progs: dict, refs: dict, per_req: dict) -> None:
+    """The A, B, A and B, A, B orders of two buckets' programs (one shared
+    pool), each order queued back to back and read after: every request's
+    output bitwise its eager body's, the launches three requests'."""
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    for order in ("ABA", "BAB"):
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        outs = [progs[k][0](*progs[k][1]) for k in order]
+        torch.cuda.synchronize()
+        grew = {k: n for k, n in serve_grew(before, KERNELS).items() if n}
+        want = {k: sum(per_req[c].get(k, 0) for c in order) for k in grew}
+        ok = all(torch.equal(g, r) for k, out in zip(order, outs)
+                 for g, r in zip(out, refs[k])) and grew == want and \
+            set(grew) == {k for c in order for k in per_req[c]}
+        print(f"  bf16 replay order {', '.join(order)} (queued back to back, pool "
+              f"{pipe._pool.nbytes() / 2**20:.1f} MiB): every output bitwise its eager "
+              f"body's, launches {grew} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"replay order {order}: outputs or launches differ")
+
+
+@torch.no_grad()
+def run_graphs(name_limit: str) -> dict:
+    """Phase 16: the per-bucket programs (runtime/program.py) on the card,
+    each replay against its body run eagerly on the same inputs (bitwise)
+    with the eager run's launches: F5TTS_v1_Base + Vocos at full width
+    (phase 3's seeds) in bf16 (kernels 1-3), W8A8 (1, 2, 6-8), int4 (1, 2),
+    layer_cache_interval=2 (352 of kernel 1), fp32 (4) and fp32 W8A8 (7, 4,
+    8, 6) at the bench request; in bf16 a second request of the bench
+    bucket with its own lengths on the same graph, a second bucket, the
+    orders A, B, A and B, A, B, F5Pipeline.benchmark (its guard: the three
+    queued outputs each equal to the latency output, in buffers of their
+    own) and synthesize_batch's program at 4 requests; BigVGAN's bench mel
+    in bf16 (12 of kernel 10) and fp32 (9), samples/s of replays against
+    the eager body. Prints each graph's warm-up and capture seconds and
+    its pool's bytes. Returns the launches of the checked calls."""
+    from tts_tpu_torch.models.bigvgan import BigVGANConfig
+    from tts_tpu_torch.models.f5 import F5Config, F5Model
+    from tts_tpu_torch.models.f5 import init_params as f5_init
+    from tts_tpu_torch.models.vocos import VocosConfig, VocosModel
+    from tts_tpu_torch.models.vocos import init_params as vocos_init
+    from tts_tpu_torch.runtime.f5 import F5Pipeline
+    from tts_tpu_torch.runtime.vocoder import BigVGANVocoder
+
+    cfg, vcfg = F5Config(), VocosConfig()
+    depth, steps = cfg.depth, cfg.nfe_steps - 1
+    audio = bench_audio(cfg.sample_rate)
+    bench_text = " ".join(["word"] * 15)
+    launches: dict = {}
+
+    def count(grew):
+        for k, n in grew.items():
+            launches[k] = launches.get(k, 0) + n
+
+    flat, conv = {"flash_attention_flat": depth * steps}, {"conv_pos_embed_fused": steps}
+    q8 = dict.fromkeys(Q8_KERNELS, depth * steps)
+    for dt in (torch.bfloat16, torch.float32):
+        f5 = F5Model(cfg, f5_init(cfg, torch.Generator("cuda").manual_seed(0), dt))
+        vocos = VocosModel(vcfg, vocos_init(vcfg, torch.Generator("cuda").manual_seed(1), dt))
+        if dt == torch.bfloat16:
+            routes = {"bf16": ({}, {**flat, **conv, "mlp_block_fused": depth * steps}),
+                      "W8A8": ({"quantize": "w8a8"}, {**flat, **conv, **q8}),
+                      "int4": ({"quantize": 4}, {**flat, **conv}),
+                      "layer_cache_interval=2": (
+                          {"layer_cache_interval": 2},
+                          {"flash_attention_flat": depth * len(range(0, steps, 2)), **conv})}
+        else:
+            one = {"flash_attention_onepass": depth * steps}
+            routes = {"fp32": ({}, one), "fp32 W8A8": ({"quantize": "w8a8"}, {**one, **q8})}
+        for label, (kw, want) in routes.items():
+            pipe = F5Pipeline(f5, {" ": 0}, vocos, **kw)
+            fn, args = request_program(pipe, audio, bench_text, 9)
+            grew, ref_a = replay_check(f"F5 {label} bench request (bucket 1408)", fn, args,
+                                       want, name_limit)
+            count(grew)
+            if label != "bf16":
+                del pipe, fn, args, ref_a
+                continue
+            # a second request of the bucket, its own lengths: the same graph
+            short = audio[:int(GRAPH_REF_S * cfg.sample_rate)]
+            fn2, args2 = request_program(pipe, short, GRAPH_TEXT_A2, 10)
+            if fn2 is not fn or len(pipe._fn_cache) != 1 or \
+                    torch.equal(args2[2], args[2]) or torch.equal(args2[3], args[3]):
+                raise AssertionError("the second request did not take the bench bucket's "
+                                     "program with lengths of its own")
+            graph = fn._graph
+            count(replay_check(f"F5 bf16 second request of the bucket (ref_signal_len "
+                               f"{int(args2[2])} vs {int(args[2])}, duration "
+                               f"{int(args2[3])} vs {int(args[3])})", fn, args2, want,
+                               name_limit)[0])
+            if fn._graph is not graph:
+                raise AssertionError("the bucket's second request captured a new graph")
+            fn_b, args_b = request_program(pipe, audio, " ".join(["word"] * GRAPH_WORDS_B), 11)
+            grew_b, ref_b = replay_check("F5 bf16 second bucket (1024 frames)", fn_b, args_b,
+                                         want, name_limit)
+            count(grew_b)
+            check_orders(pipe, {"A": (fn, args), "B": (fn_b, args_b)},
+                         {"A": ref_a, "B": ref_b}, {"A": want, "B": want})
+            bench = pipe.benchmark(ref_seconds=6.0, gen_words=15, iters=3)
+            print(f"  {name_limit}: F5 bf16 benchmark on the replays: latency RTF "
+                  f"{bench['rtf']:.6f}, sustained RTF {bench['sustained_rtf']:.6f} (the three "
+                  f"queued outputs each bitwise the latency output, in buffers of their "
+                  f"own), dispatch_ms {bench['dispatch_ms']:.3f}, fence_ms "
+                  f"{bench['fence_ms']:.3f}", flush=True)
+            print("  " + json.dumps({"graphs": "F5 bf16 benchmark", **bench}), flush=True)
+            reqs = [(audio, REF_TEXT, t) for t in F5_TEXTS[:4]]
+            audio_p, ids_p, refs, durs, _, frames, gen_frames = pipe._prepare_batch(reqs)
+            fnb = pipe._get_batch_fn(len(reqs), audio_p.shape[1], ids_p.shape[1], frames,
+                                     gen_frames)
+            count(replay_check("F5 bf16 synthesize_batch program, 4 requests", fnb,
+                               pipe._inputs(audio_p, ids_p, refs, durs, frames, F5_SEED,
+                                            None), want, name_limit)[0])
+            print(f"  F5 bf16 pipeline: {len(pipe._fn_cache)} programs "
+                  f"{sorted(pipe._fn_cache)}, one pool of "
+                  f"{pipe._pool.nbytes() / 2**20:.1f} MiB", flush=True)
+            del pipe, fn, fn2, fn_b, fnb, graph, ref_a, ref_b
+        del f5, vocos
+        torch.cuda.empty_cache()
+
+    bcfg = BigVGANConfig()
+    mel = np.random.default_rng(9).standard_normal((1, 512, bcfg.num_mels)).astype(np.float32)
+    for dt, name, iters in ((torch.bfloat16, "amp_block_fused", 10),
+                            (torch.float32, "amp_block_fused_f32", 5)):
+        label = "bf16" if dt == torch.bfloat16 else "fp32"
+        voc = BigVGANVocoder(bigvgan_weights(bcfg, 9, dt), bcfg, dtype=dt)
+        fn = voc._get_fn(1, 512)
+        grew, _ = replay_check(f"BigVGAN {label} bench mel (1, 512, {bcfg.num_mels})", fn,
+                               (torch.from_numpy(mel),),
+                               {name: kernel10_per_call(bcfg, 512, dt)}, name_limit)
+        count(grew)
+        bench = voc.benchmark(mel_frames=512, iters=iters)
+        # the same chain through the eager body
+        melt = torch.zeros((1, 512, bcfg.num_mels), device="cuda")
+        out = fn._eager(melt)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn._eager(melt + out.reshape(-1)[0].float() * 0.0)[0]
+        torch.cuda.synchronize()
+        eager_s = (time.perf_counter() - t0) / iters
+        rate = out.shape[-1] / eager_s
+        print(f"  {name_limit}: BigVGAN {label} bench mel, {iters} chained calls: replays "
+              f"{bench['samples_per_sec']:.0f} samples/s ({1e3 * bench['wall_s']:.3f} ms a "
+              f"call), eager body {rate:.0f} samples/s ({1e3 * eager_s:.3f} ms a call)",
+              flush=True)
+        print("  " + json.dumps({"graphs": f"BigVGAN {label} benchmark", **bench,
+                                 "eager_wall_s": eager_s, "eager_samples_per_sec": rate}),
+              flush=True)
+        del voc, fn, out
+    return launches
+
+
 def cpu_tree(tree):
     """A params tree with every tensor moved to the CPU (exact)."""
     if isinstance(tree, dict):
@@ -7183,12 +7458,16 @@ def profile_one(label: str, fn, classes, name_limit: str, per: tuple | None = No
         shares[cls] += ms
     n_launch = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    # a replayed CUDA graph (F5, BigVGAN) launches its kernels in one call
+    n_graph = sum(e.count for e in events if e.key == "cudaGraphLaunch")
+    n_kernels = sum(count for _, count, _ in rows)
     unit = f" ({n_launch / per[0]:.1f} a {per[1]})" if per else ""
     busy_unit = f" ({busy / per[0]:.4f} ms a {per[1]})" if per else ""
     print(f"  {name_limit}: profile {label}: wall {wall:.4f} s profiled, device kernel time "
           f"{busy:.3f} ms{busy_unit}, idle {100 * (1 - busy / 1e3 / wall):.1f}% of the "
           f"profiled wall, "
-          f"{n_launch} launches{unit}", flush=True)
+          f"{n_launch} launches{unit}, {n_graph} graph launches, {n_kernels} device "
+          f"kernels", flush=True)
     for name, ms in shares.items():
         print(f"    {name}: {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)")
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:10]:
@@ -7218,11 +7497,12 @@ def main() -> None:
                          "and VoxCPM tables into DIR")
     ap.add_argument("--families",
                     default="f5,kani,qwen,bigvgan,indextts,voxcpm,serving,checkpoints,cli,"
-                            "clone,parity",
+                            "clone,parity,graphs",
                     help="the pipeline phases to run after phase 2, by family: "
                          "f5 (3-5d), kani (6), qwen (7), bigvgan (8, 8c), indextts (9), "
                          "voxcpm (10), serving (11), checkpoints (12), cli (13), clone "
-                         "(14), parity (15); default all (the smoke run's contract)")
+                         "(14), parity (15), graphs (16); default all (the smoke run's "
+                         "contract)")
     ap.add_argument("--servers", default=",".join(SERVERS),
                     help="the slot servers phase 11 runs: " + ", ".join(SERVERS) +
                          "; default all")
@@ -7265,10 +7545,10 @@ def main() -> None:
     # count itself)
     count_launch = _build.count_launch
 
-    def no_ablation(name: str) -> None:
+    def no_ablation(name: str, n: int = 1) -> None:
         if name in ABLATION_KERNELS:
             raise AssertionError(f"a pipeline launched {name}")
-        count_launch(name)
+        count_launch(name, n)
 
     _build.count_launch = no_ablation
 
@@ -7417,6 +7697,13 @@ def main() -> None:
         for k, n in run_parity(name_limit, ckpt_root, f5_files).items():
             launches[k] = launches.get(k, 0) + n
         print(f"  {name_limit}: phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
+
+    if "graphs" in fams:
+        phase("phase 16: per-bucket programs (CUDA graphs) against their eager bodies")
+        t16 = time.perf_counter()
+        for k, n in run_graphs(name_limit).items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"  {name_limit}: phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
 
     phase("done")
     # JAX may be installed where the port runs: nothing of the run may have

@@ -11,11 +11,15 @@ Each kernel wrapper launches through `launch`, which makes the tensors'
 card the current device for the call where it is not (the C entries cache
 per-device state by `cudaGetDevice`, and launch on the current device),
 checks the error code the C entry returns (`cudaGetLastError()` after the
-launch) and adds one to the wrapper's count in `LAUNCHES`.
+launch) and adds one to the wrapper's count in `LAUNCHES`. Under
+`recording()` (the warm-up and capture of a CUDA graph) a thread's counts
+go to the recorder instead: a captured launch runs at the graph's replays,
+which count it (`runtime/program.py`).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -28,7 +32,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "build", "count_launch", "launch", "library", "sm_count"]
+__all__ = ["LAUNCHES", "build", "count_launch", "launch", "library", "recording",
+           "sm_count"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -41,6 +46,8 @@ _LIB_NAME = "libtts_tpu_torch_kernels.so"
 # launch from their worker threads, so a count is added under a lock
 LAUNCHES: collections.Counter = collections.Counter()
 _count_lock = threading.Lock()
+# a thread's active recorder (`recording`), if any
+_local = threading.local()
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -143,10 +150,29 @@ def launch(name: str, argtypes: list, *args, device: torch.device) -> None:
     count_launch(name)
 
 
-def count_launch(name: str) -> None:
-    """Add one to `name`'s count in LAUNCHES (from any thread)."""
+def count_launch(name: str, n: int = 1) -> None:
+    """Add n to `name`'s count in LAUNCHES (from any thread), or to the
+    calling thread's recorder while one is active."""
+    rec = getattr(_local, "counts", None)
+    if rec is not None:
+        rec[name] += n
+        return
     with _count_lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the calling thread's launches into a fresh Counter, which the
+    block receives, instead of LAUNCHES: a CUDA graph's warm-up (counted
+    nowhere) and capture (whose counts its replays add). Other threads
+    count as before."""
+    prev = getattr(_local, "counts", None)
+    _local.counts = counts = collections.Counter()
+    try:
+        yield counts
+    finally:
+        _local.counts = prev
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,16 +2,21 @@
 (counterpart of tts_tpu/runtime/f5.py:F5Pipeline).
 
 The same static buckets as tts_tpu (audio samples, text ids, mel frames,
-generated frames) with validity carried by scalar lengths: mel frames >=
+generated frames) with validity carried by lengths: mel frames >=
 ref_signal_len are zeroed, attention keys >= duration are masked and the
 Euler carry is re-zeroed there every step, and the vocoder runs on the
-generated span only. The run is eager PyTorch: the 31-step NFE loop is a
-Python loop whose kernels queue on the current CUDA stream; only the final
-fetch waits for the device. `synthesize_batch` carries the lengths as (B,)
-vectors on the device, as tts_tpu's batched program does.
+generated span only. As tts_tpu builds one jitted program per bucket
+(`_build`, `_get_fn`, `_fn_cache`; `_build_batch` for `synthesize_batch`),
+the port builds one `runtime.program.Program` per bucket: mel -> text
+embedding -> the 31-step NFE loop -> Vocos -> int16, with ref_signal_len
+and duration as (B,) tensors on the device, so every request of a bucket
+runs one program. On a card it is a CUDA graph, captured at the bucket's
+first request and replayed for every later one; on the CPU its body runs
+eagerly. The start noise is drawn outside the program and copied in.
 """
 from __future__ import annotations
 
+import functools
 import time
 import warnings
 from dataclasses import dataclass
@@ -27,6 +32,7 @@ from ..models.f5 import F5Model, dit_forward, dit_forward_cached, text_embedding
 from ..models.vocos import VocosModel, vocos_decode
 from ..ops.quant_matmul import to_kmajor
 from ..quant.weight_only import QTensor, quantize_int4, quantize_int8_eager
+from .program import GraphPool, Program
 
 __all__ = ["F5Pipeline", "F5Stats", "quantize_dit"]
 
@@ -107,13 +113,28 @@ class F5Pipeline:
         self.vocab = vocab
         self.seed = seed
         self.allow_degraded_text = allow_degraded_text
-        # the FORA layer cache (tts_tpu's): the attention and FF outputs are
-        # recomputed every K-th Euler step only and re-modulated between;
-        # K = 1 is the exact loop
-        self.layer_cache_interval = max(1, int(layer_cache_interval))
         cfg = self.cfg
         self.melspec = MelSpectrogram(cfg.sample_rate, cfg.n_fft, cfg.hop,
                                       cfg.win_length, cfg.n_mels)
+        # one program per bucket, keyed as tts_tpu's: (audio, text, frames,
+        # generated frames) for a request, (batch, ...) for a batch; on a
+        # card their graphs share one memory pool
+        self._fn_cache: dict = {}
+        self._pool = GraphPool()
+        self.layer_cache_interval = layer_cache_interval
+
+    @property
+    def layer_cache_interval(self) -> int:
+        """The FORA layer cache (tts_tpu's): the attention and FF outputs
+        are recomputed every K-th Euler step only and re-modulated between;
+        K = 1 is the exact loop. A program is built for one K: setting it
+        drops the programs built so far."""
+        return self._layer_cache_interval
+
+    @layer_cache_interval.setter
+    def layer_cache_interval(self, k: int) -> None:
+        self._layer_cache_interval = max(1, int(k))
+        self._fn_cache.clear()
 
     @property
     def params(self) -> dict:
@@ -169,14 +190,15 @@ class F5Pipeline:
             raise ValueError(f"noise {tuple(noise.shape)} != {shape}")
         return torch.as_tensor(np.array(noise, dtype=np.float32)).to(dev)
 
-    def _stage_a(self, audio_p: np.ndarray, ids_p: np.ndarray, ref_signal_len, duration,
+    def _stage_a(self, audio_p, ids_p, ref_signal_len, duration,
                  frames: int, noise_t: torch.Tensor):
         """Preprocess B padded requests at a frame bucket: int16 PCM ->
         log-mel of the reference, zero from ref_signal_len on; the text
-        embedding; the noise zeroed from duration on. ref_signal_len and
-        duration: ints (B = 1) or (B,) integer tensors on the device.
-        Returns (x (B, frames, n_mels) fp32, cat, cat_drop in the compute
-        dtype, the (B, frames, 1) valid mask)."""
+        embedding; the noise zeroed from duration on. audio_p and ids_p:
+        arrays or tensors; ref_signal_len and duration: ints (B = 1) or (B,)
+        integer tensors on the device. Returns (x (B, frames, n_mels) fp32,
+        cat, cat_drop in the compute dtype, the (B, frames, 1) valid
+        mask)."""
         cfg, params = self.cfg, self.params
         dev = self.device
         cdt = params["proj_out"]["w"].dtype       # compute dtype follows the weights
@@ -184,7 +206,7 @@ class F5Pipeline:
         def lim(v):
             return v.reshape(-1, 1, 1) if isinstance(v, torch.Tensor) else v
 
-        audio = torch.from_numpy(audio_p).to(dev).float() * (1.0 / 32768.0)
+        audio = torch.as_tensor(audio_p, device=dev).float() * (1.0 / 32768.0)
         mel = self.melspec(audio)[:, :frames]                     # (B, Fa, M)
         mel = F.pad(mel, (0, 0, 0, frames - mel.shape[1]))
         frame_idx = torch.arange(frames, device=dev)[None, :, None]
@@ -192,7 +214,7 @@ class F5Pipeline:
         in_len = (frame_idx < lim(duration)).float()              # valid mask
         x = noise_t * in_len
 
-        ids = torch.from_numpy(ids_p).to(dev)
+        ids = torch.as_tensor(ids_p, device=dev)
         text, text_drop = text_embedding(params, ids, frames, cfg)
         cat = torch.cat([mel, text * in_len], dim=-1).to(cdt)
         cat_drop = torch.cat([torch.zeros_like(mel), text_drop * in_len], dim=-1).to(cdt)
@@ -205,7 +227,8 @@ class F5Pipeline:
         carry fp32, re-zeroed past each row's duration. With a layer cache
         interval k > 1, steps whose index is not a multiple of k reuse the
         last full step's attention and FF outputs (`dit_forward_cached`),
-        branched on the host."""
+        branched on the host by the step index (fixed in a captured graph,
+        as tts_tpu's `lax.cond` schedule in its program)."""
         cfg, params = self.cfg, self.params
         cdt = params["proj_out"]["w"].dtype
         rope_cos = params["rope_cos"][:frames].float()
@@ -231,21 +254,76 @@ class F5Pipeline:
         pcm = to_pcm16(torch.clamp(wav, -1.0, 1.0) * 32767.0)
         return pcm, wav.abs().amax()
 
-    @torch.no_grad()
+    def _run(self, audio: torch.Tensor, ids: torch.Tensor, ref: torch.Tensor,
+             dur: torch.Tensor, noise: torch.Tensor, *, frames: int, gen_frames: int,
+             k: int) -> tuple:
+        """A bucket's program body over B padded requests: int16 PCM (B,
+        audio bucket) and text ids (B, text bucket), ref_signal_len (B,)
+        int64 and duration (B,) int32 on the device, the unmasked start
+        noise (B, frames, n_mels) -> (int16 waveforms (B, samples), peak
+        |float waveform|). kv_len is cat([dur, dur]) and each row's
+        generated span is gathered from its own ref_signal_len, so the
+        lengths are data, not part of the program."""
+        cfg = self.cfg
+        x, cat, cat_drop, in_len = self._stage_a(audio, ids, ref, dur, frames, noise)
+        x = self._euler(x, cat, cat_drop, in_len, torch.cat([dur, dur]), frames, k)
+        # each row's generated span, from its own ref_signal_len
+        pos = ref[:, None] + torch.arange(gen_frames, device=x.device)[None, :]   # (B, G)
+        gen = torch.gather(F.pad(x, (0, 0, 0, gen_frames)), 1,
+                           pos[..., None].expand(-1, -1, cfg.n_mels))
+        return self._vocode(gen)
+
+    def _program(self, bsz: int, audio_len: int, text_len: int, frames: int,
+                 gen_frames: int, k: int) -> Program:
+        body = functools.partial(self._run, frames=frames, gen_frames=gen_frames, k=k)
+        return Program(body, [((bsz, audio_len), torch.int16), ((bsz, text_len), torch.int32),
+                              ((bsz,), torch.int64), ((bsz,), torch.int32),
+                              ((bsz, frames, self.cfg.n_mels), torch.float32)],
+                       self.device, self._pool)
+
+    def _build(self, audio_len: int, text_len: int, frames: int, gen_frames: int) -> Program:
+        """One request's program at a bucket (tts_tpu's `_build`), with the
+        pipeline's layer cache interval."""
+        return self._program(1, audio_len, text_len, frames, gen_frames,
+                             self.layer_cache_interval)
+
+    def _get_fn(self, audio_len: int, text_len: int, frames: int, gen_frames: int) -> Program:
+        key = (audio_len, text_len, frames, gen_frames)
+        if key not in self._fn_cache:
+            self._fn_cache.setdefault(key, self._build(*key))
+        return self._fn_cache[key]
+
+    def _build_batch(self, bsz: int, audio_len: int, text_len: int, frames: int,
+                     gen_frames: int) -> Program:
+        """A batch's program (tts_tpu's `_build_batch`): B requests in one
+        CFG batch of 2B rows, the exact DiT only."""
+        return self._program(bsz, audio_len, text_len, frames, gen_frames, 1)
+
+    def _get_batch_fn(self, bsz: int, audio_len: int, text_len: int, frames: int,
+                      gen_frames: int) -> Program:
+        key = (bsz, audio_len, text_len, frames, gen_frames)
+        if key not in self._fn_cache:
+            self._fn_cache.setdefault(key, self._build_batch(*key))
+        return self._fn_cache[key]
+
+    def _inputs(self, audio_p: np.ndarray, ids_p: np.ndarray, refs, durs, frames: int,
+                seed: int | None, noise) -> tuple:
+        """A program's inputs for B prepared requests: host tensors of the
+        padded audio, ids and lengths, and the start noise (drawn on the
+        device where `noise` is None)."""
+        bsz = audio_p.shape[0]
+        return (torch.from_numpy(audio_p), torch.from_numpy(ids_p),
+                torch.tensor(refs, dtype=torch.int64), torch.tensor(durs, dtype=torch.int32),
+                self._noise((bsz, frames, self.cfg.n_mels), seed, noise))
+
     def _dispatch(self, audio_p: np.ndarray, ids_p: np.ndarray,
                   ref_signal_len: int, duration: int, buckets,
                   seed: int | None = None, noise: np.ndarray | None = None):
-        """Queue one synthesis without waiting: returns (int16 waveform
-        (1, samples), peak |float waveform|), both on the device."""
-        frames, gen_frames = buckets[2], buckets[3]
-        noise_t = self._noise((1, frames, self.cfg.n_mels), seed, noise)
-        x, cat, cat_drop, in_len = self._stage_a(audio_p, ids_p, ref_signal_len, duration,
-                                                 frames, noise_t)
-        kv_len = torch.full((2,), duration, dtype=torch.int32, device=self.device)
-        x = self._euler(x, cat, cat_drop, in_len, kv_len, frames, self.layer_cache_interval)
-        # decode the generated span only
-        gen = F.pad(x, (0, 0, 0, gen_frames))[:, ref_signal_len:ref_signal_len + gen_frames]
-        return self._vocode(gen)
+        """Queue one synthesis through its bucket's program without
+        waiting: returns (int16 waveform (1, samples), peak |float
+        waveform|), both on the device."""
+        return self._get_fn(*buckets)(*self._inputs(audio_p, ids_p, [ref_signal_len],
+                                                    [duration], buckets[2], seed, noise))
 
     def synthesize(self, ref_audio: np.ndarray, ref_text: str, gen_text: str,
                    speed: float = 1.0, seed: int | None = None,
@@ -286,7 +364,8 @@ class F5Pipeline:
     def synthesize_batch(self, requests: list, speed: float = 1.0, seed: int | None = None,
                          noise: np.ndarray | None = None) -> tuple[list, F5Stats]:
         """B (ref_audio, ref_text, gen_text) requests in one CFG batch of 2B
-        rows (tts_tpu's batched serving). Shapes bucket on the batch maximum;
+        rows (tts_tpu's batched serving), through the program of (B, the
+        buckets). Shapes bucket on the batch maximum;
         each row's ref_signal_len and duration ride as (B,) vectors on the
         device (kv_len = cat([dur, dur])). noise: optional (B, frames,
         n_mels) start noise, else one draw of that shape from a generator
@@ -298,22 +377,13 @@ class F5Pipeline:
         if self.layer_cache_interval > 1:
             warnings.warn("synthesize_batch always runs the exact DiT; "
                           "layer_cache_interval is ignored", stacklevel=2)
-        cfg, dev = self.cfg, self.device
+        cfg = self.cfg
         audio_p, ids_p, refs, durs, gens, frames, gen_frames = \
             self._prepare_batch(requests, speed)
         bsz = len(requests)
         t0 = time.perf_counter()
-        noise_t = self._noise((bsz, frames, cfg.n_mels), seed, noise)
-        ref_t = torch.tensor(refs, dtype=torch.int64, device=dev)
-        dur_t = torch.tensor(durs, dtype=torch.int32, device=dev)
-        x, cat, cat_drop, in_len = self._stage_a(audio_p, ids_p, ref_t, dur_t, frames,
-                                                 noise_t)
-        x = self._euler(x, cat, cat_drop, in_len, torch.cat([dur_t, dur_t]), frames)
-        # each row's generated span, from its own ref_signal_len
-        pos = ref_t[:, None] + torch.arange(gen_frames, device=dev)[None, :]   # (B, G)
-        gen = torch.gather(F.pad(x, (0, 0, 0, gen_frames)), 1,
-                           pos[..., None].expand(-1, -1, cfg.n_mels))
-        pcm, peak = self._vocode(gen)
+        fn = self._get_batch_fn(bsz, audio_p.shape[1], ids_p.shape[1], frames, gen_frames)
+        pcm, peak = fn(*self._inputs(audio_p, ids_p, refs, durs, frames, seed, noise))
         wav = pcm.cpu().numpy()
         wall = time.perf_counter() - t0
         outs = [wav[b, :gens[b] * cfg.hop] for b in range(bsz)]
@@ -353,11 +423,14 @@ class F5Pipeline:
         sus_wall = float("inf")
         for _ in range(2):      # best of 2
             t0 = time.perf_counter()
-            outs = [self._dispatch(*prep[:5])[0] for _ in range(iters)]
-            outs = [o.cpu().numpy() for o in outs]
+            queued = [self._dispatch(*prep[:5])[0] for _ in range(iters)]
+            outs = [o.cpu().numpy() for o in queued]
             sus_wall = min(sus_wall, (time.perf_counter() - t0) / iters)
-        np.testing.assert_array_equal(
-            outs[0].reshape(-1)[: len(wav)], wav)    # exact-output guard
+        # exact-output guard: every queued output, each in a buffer of its own
+        if len({o.data_ptr() for o in queued}) != iters:
+            raise AssertionError("queued dispatches returned a shared output buffer")
+        for o in outs:
+            np.testing.assert_array_equal(o.reshape(-1)[: len(wav)], wav)
 
         # fixed per-request cost: the same enqueue + fetch round trip with a
         # trivial op over a buffer of the output's size

@@ -1,0 +1,179 @@
+"""One program per shape bucket: the counterpart of tts_tpu's jitted
+per-bucket programs (`runtime/f5.py`'s `_fn_cache` / `_get_fn` /
+`_build_batch`, `runtime/vocoder.py`'s jitted forward).
+
+On a card a `Program` captures its body into a CUDA graph at its first
+call and replays the graph at every later one:
+  * inputs: static buffers of the bucket's shapes, allocated outside the
+    capture; each call copies its arguments into them on the current
+    stream (host tensors through pinned memory, without a wait);
+  * warm-up: the body runs on the capture stream before the capture, so
+    first-call work (kernel attributes and SM counts, the STFT tables,
+    cuBLAS's handles and workspace) happens outside it; its launches count
+    nowhere;
+  * capture: on the capture stream of the program's `GraphPool`, into its
+    memory pool, which a pipeline's programs share (a server that sees many
+    buckets holds about the largest graph's working memory, not their sum),
+    in thread-local capture mode, so another thread's CUDA calls (a slot
+    server's worker) do not break it; the launches the wrappers make are
+    recorded (`_build.recording`), not counted;
+  * replay: copy the inputs in, replay, clone the outputs (dispatches
+    queued back to back never share an output buffer), and add the
+    recorded launch counts through `_build.count_launch`, looked up at the
+    call.
+A capture or a replay that fails raises: nothing falls back to the eager
+body. On the CPU the body runs eagerly on the arguments.
+"""
+from __future__ import annotations
+
+import threading
+import time
+
+import torch
+
+from ..ops import _build
+
+__all__ = ["GraphPool", "Program"]
+
+# CUDA allows one stream capture at a time in a process
+_capture_lock = threading.Lock()
+
+
+class GraphPool:
+    """The memory pool and capture stream that a pipeline's graphs share,
+    made on the card at the first capture."""
+
+    def __init__(self):
+        self.handle = None
+        self.stream = None
+        self._lock = threading.Lock()
+
+    def take(self, device: torch.device) -> tuple:
+        """(pool handle, capture stream) on `device`."""
+        with self._lock:
+            if self.handle is None:
+                self.handle = torch.cuda.graph_pool_handle()
+                self.stream = torch.cuda.Stream(device)
+            return self.handle, self.stream
+
+    def nbytes(self) -> int:
+        """Bytes the pool holds on the card (its segments in the caching
+        allocator's snapshot)."""
+        if self.handle is None:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(self.handle))
+
+
+class _Graph:
+    """A CUDA graph captured on a pool's stream into its memory."""
+
+    def __init__(self, device: torch.device, pool: GraphPool):
+        self.device = device
+        self.handle, self.stream = pool.take(device)
+        self.graph = torch.cuda.CUDAGraph()
+
+    def warm_up(self, fn) -> None:
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            fn()
+        cur.wait_stream(self.stream)
+        torch.cuda.synchronize(self.device)
+
+    def capture(self, fn) -> tuple:
+        with torch.cuda.graph(self.graph, pool=self.handle, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            return fn()
+
+    def replay(self) -> None:
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+
+
+class Program:
+    """body(*inputs) -> a tuple of tensors, for the inputs of one bucket:
+    `inputs` lists each one's (shape, dtype). On a CUDA `device` the first
+    call warms up and captures a graph into `pool`; every call replays it
+    (see the module's docstring). On the CPU a call runs the body.
+
+    After the capture: `launches` holds the kernel launches a replay counts,
+    `warmup_s` and `capture_s` the first call's seconds in each, and
+    `pool_bytes` the pool's size."""
+
+    def __init__(self, body, inputs: list, device, pool: GraphPool):
+        self.body = body
+        self.specs = [(tuple(shape), dtype) for shape, dtype in inputs]
+        self.device = torch.device(device)
+        self.pool = pool
+        self.launches: dict = {}
+        self.warmup_s = self.capture_s = None
+        self.pool_bytes = None
+        self._graph = None
+        self._static: list = []
+        self._outs: tuple = ()
+        self._lock = threading.Lock()
+
+    def _coerce(self, args) -> list:
+        if len(args) != len(self.specs):
+            raise TypeError(f"the program takes {len(self.specs)} inputs, got {len(args)}")
+        out = []
+        for i, (a, (shape, dtype)) in enumerate(zip(args, self.specs)):
+            a = torch.as_tensor(a)
+            if tuple(a.shape) != shape:
+                raise ValueError(f"input {i}: shape {tuple(a.shape)} is not the bucket's "
+                                 f"{shape}")
+            out.append(a.to(dtype) if a.device.type == "cpu" else a)
+        return out
+
+    @torch.no_grad()
+    def __call__(self, *args) -> tuple:
+        if self.device.type != "cuda":
+            return self.body(*self._coerce(args))
+        return self._replay(self._coerce(args))
+
+    def _eager(self, *args) -> tuple:
+        """The body on the arguments, moved to the device: the eager run a
+        replay is compared with."""
+        with torch.no_grad():
+            return self.body(*[a.to(self.device, dtype) for a, (_, dtype)
+                               in zip(self._coerce(args), self.specs)])
+
+    def _load(self, args: list) -> None:
+        for buf, a in zip(self._static, args):
+            if a.device.type == "cpu" and buf.device.type == "cuda":
+                a = a.pin_memory()
+            buf.copy_(a, non_blocking=True)
+
+    def _capture(self, args: list) -> None:
+        t0 = time.perf_counter()
+        self._static = [torch.empty(shape, dtype=dtype, device=self.device)
+                        for shape, dtype in self.specs]
+        self._load(args)
+        graph = _Graph(self.device, self.pool)
+
+        def run():
+            return self.body(*self._static)
+
+        with _build.recording():
+            graph.warm_up(run)
+        t1 = time.perf_counter()
+        with _capture_lock, _build.recording() as counts:
+            outs = graph.capture(run)
+        self._outs = tuple(outs)
+        self._graph = graph
+        self.launches = dict(counts)
+        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+        self.pool_bytes = self.pool.nbytes()
+
+    def _replay(self, args: list) -> tuple:
+        with self._lock:
+            if self._graph is None:
+                self._capture(args)
+            else:
+                self._load(args)
+            self._graph.replay()
+            outs = tuple(o.clone() for o in self._outs)
+        for name, n in self.launches.items():
+            _build.count_launch(name, n)
+        return outs

@@ -1,11 +1,14 @@
 """BigVGAN vocoder runtime: mel in, int16 waveform out, with a timing
 benchmark (counterpart of tts_tpu/runtime/vocoder.py:BigVGANVocoder).
 
-The generator runs eagerly on the device its params are on; AMPBlock1
-stages take kernel 10 where its gate admits them. The int16 conversion
-(x 32767, truncation, saturation) happens on the device, as in tts_tpu. tts_tpu's
-staged half-programs are not ported: they split one XLA compile in two,
-and eager PyTorch compiles nothing.
+The generator runs on the device its params are on; AMPBlock1 stages take
+kernel 10 where its gate admits them. The int16 conversion (x 32767,
+truncation, saturation) happens on the device, as in tts_tpu. As tts_tpu
+jits the whole generator into one program, the port builds one
+`runtime.program.Program` per mel shape (B, T): on a card a CUDA graph,
+captured at the first call of the shape and replayed for every later one;
+on the CPU its body runs eagerly. tts_tpu's staged half-programs are not
+ported: they split one XLA compile in two, which a capture does not need.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from ..audio.wav import to_pcm16
 from ..models.bigvgan import BigVGANConfig, bigvgan_apply
+from .program import GraphPool, Program
 
 __all__ = ["BigVGANVocoder"]
 
@@ -33,23 +37,42 @@ class BigVGANVocoder:
         self.params = _cast(params, dtype)
         self.dtype = dtype
         self.device = self.params["conv_pre"]["w"].device
+        # one program per mel shape (B, T); on a card their graphs share one
+        # memory pool
+        self._fn_cache: dict = {}
+        self._pool = GraphPool()
 
-    @torch.no_grad()
+    def _run(self, mel: torch.Tensor) -> tuple:
+        """The program's body: mel (B, T, num_mels) in the vocoder's dtype ->
+        (int16 (B, T * total_upsample),)."""
+        wav = bigvgan_apply(self.params, mel, self.cfg)
+        return (to_pcm16(wav.float() * 32767.0),)
+
+    def _get_fn(self, bsz: int, frames: int) -> Program:
+        key = (bsz, frames)
+        if key not in self._fn_cache:
+            self._fn_cache.setdefault(key, Program(
+                self._run, [((bsz, frames, self.cfg.num_mels), self.dtype)], self.device,
+                self._pool))
+        return self._fn_cache[key]
+
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, T, num_mels) on the device -> int16 (B, T * total_upsample)."""
-        wav = bigvgan_apply(self.params, mel.to(self.dtype), self.cfg)
-        return to_pcm16(wav.float() * 32767.0)
+        """(B, T, num_mels) on the host or the device -> int16 (B, T *
+        total_upsample) on the device, through the program of (B, T); mel
+        is cast to the vocoder's dtype on its way in."""
+        return self._get_fn(mel.shape[0], mel.shape[1])(mel)[0]
 
     def __call__(self, mel: np.ndarray) -> np.ndarray:
         """mel: (B, T, num_mels) or (T, num_mels) -> int16 (B, T*up)."""
         if mel.ndim == 2:
             mel = mel[None]
-        return self.forward(torch.as_tensor(mel, device=self.device)).cpu().numpy()
+        return self.forward(torch.as_tensor(mel)).cpu().numpy()
 
     def benchmark(self, mel_frames: int = 512, iters: int = 50) -> dict:
         """The reference benchmark shape, mel (1, mel_frames, num_mels) of
         zeros (tts_tpu's): one warm-up call, then `iters` calls chained on
-        the previous output, timed on the host to the last call's
+        the previous output (each call's mel reaches its program by a copy
+        into the static mel buffer), timed on the host to the last call's
         completion (a device synchronize). Returns wall seconds a call,
         samples, samples/s and the real-time factor."""
         mel = torch.zeros((1, mel_frames, self.cfg.num_mels), device=self.device)
