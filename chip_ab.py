@@ -49,7 +49,15 @@ the parts `--parts` names (all by default), `--rounds` times A, B, B, A:
     greedy Kani bench request (device time a token, tokens/s of two);
     BigVGAN's bench mel in bf16 and fp32: one call's device time and
     kernel 10's share under the profiler, samples/s of 10 (bf16) or 5
-    (fp32) calls.
+    (fp32) calls;
+  * kani: the Kani bench request (kani-tts-370m, 256 tokens, no stop
+    token) greedy bf16 and int8, beam 5 and a batch of 4: the first
+    request's wall (on the decode programs also their warm-up and capture
+    seconds and the pool's MiB), one request under torch.profiler (CUDA
+    activity only: device time, the card's busy time and kernel launches a
+    token, the idle share of the profiled wall), tokens/s and RTF of two
+    timed requests, and the idle share of each timed wall (1 - the
+    profiled request's busy time / the wall).
 Random weights from chip_smoke.py's seeds. Both trees' kernels build
 first, at once. Each turn prints JSON lines; compare the trees only within
 one run of this script.
@@ -349,7 +357,7 @@ def _flash_digest(tag: str) -> None:
         name: _digest(o) for name, o in outs.items()}}), flush=True)
 
 
-PARTS = ("host", "f5_bf16", "digests", "qwen", "f5_fp32", "decode")
+PARTS = ("host", "f5_bf16", "digests", "qwen", "f5_fp32", "decode", "kani")
 
 
 def turn(tag: str, parts: tuple) -> None:
@@ -377,6 +385,84 @@ def turn(tag: str, parts: tuple) -> None:
         _decode_digest(tag)
         _decode_kernels(tag, card)
         _decode_paths(tag, card)
+    if "kani" in parts:
+        _kani_routes(tag, card)
+
+
+def _kani_routes(tag: str, card: str) -> None:
+    """The `kani` part (see the module's docstring)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from tts_tpu_torch.models.kani import KaniConfig
+    from tts_tpu_torch.models.kani import init_params as kani_init
+    from tts_tpu_torch.models.nanocodec import NanoCodecConfig
+    from tts_tpu_torch.models.nanocodec import init_params as codec_init
+    from tts_tpu_torch.runtime.kani import KaniDecodeConfig, KaniPipeline
+
+    cfg, ccfg = KaniConfig(max_seq_len=2048, stop_token=-1), NanoCodecConfig()
+    params = kani_init(cfg, torch.Generator("cuda").manual_seed(2), torch.bfloat16)
+    cparams = codec_init(ccfg, torch.Generator("cuda").manual_seed(3), torch.bfloat16)
+    ids = np.array(cs.KANI_IDS, np.int32)
+    prompts = [ids, np.array([[3, 9, 4]], np.int32), np.array([[5, 8, 13, 21, 34, 55]],
+                                                               np.int32), ids[:, :4]]
+    dec = KaniDecodeConfig(max_new_tokens=cs.KANI_NEW, repeat_penalty=1.0)
+    beam = KaniDecodeConfig(max_new_tokens=cs.KANI_NEW, repeat_penalty=1.0, use_beam=True,
+                            beam_size=5, top_k=5)
+    for route, make, batch in (
+            ("greedy bf16", lambda: KaniPipeline(params, cfg, cparams, ccfg, dec), False),
+            ("greedy int8", lambda: KaniPipeline(params, cfg, cparams, ccfg, dec, quantize=8),
+             False),
+            ("beam 5", lambda: KaniPipeline(params, cfg, cparams, ccfg, beam), False),
+            ("batch of 4", lambda: KaniPipeline(params, cfg, cparams, ccfg, dec), True)):
+        pipe = make()
+
+        def request(pipe=pipe, batch=batch):
+            if batch:
+                wavs, st = pipe.synthesize_ids_batch(prompts)
+                return sum(len(w) for w in wavs), st["tokens"]
+            wav, st = pipe.synthesize_ids(ids)
+            return len(wav), st["tokens"]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        progs = []
+        for d in list(getattr(pipe, "_decode_cache", {}).values()) + \
+                list(getattr(pipe, "_batch_fns", {}).values()):
+            progs += [d.step, d.codec, *d._prefill.values()] if hasattr(d, "step") else []
+        pool = getattr(pipe, "_pool", None)
+        # CUDA activity only: a CPU trace of an eager request's ~10^5
+        # launches takes minutes to reduce
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            samples, tokens = request()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = sum(e.device_time_total for e in kern) / 1e3
+        launched = sum(e.count for e in kern)
+        busy = _busy_ms(prof)
+        walls = _walls(request, 2)
+        audio_s = samples / ccfg.sample_rate
+        print(json.dumps({
+            "tree": tag, "card": card, "kani_route": route, "tokens": tokens,
+            "first_request_s": first,
+            "warmup_s": sum(p.warmup_s for p in progs) if progs else None,
+            "capture_s": sum(p.capture_s for p in progs) if progs else None,
+            "pool_mib": pool.nbytes() / 2**20 if pool is not None else None,
+            "device_ms_a_token": device / tokens, "busy_ms_a_token": busy / tokens,
+            "idle_share": 1 - busy / 1e3 / wall, "profiled_wall_s": wall,
+            "kernel_launches_a_token": launched / tokens,
+            "tokens_per_s": [tokens / w for w in walls],
+            "rtf": [w / audio_s for w in walls],
+            "idle_share_timed": [1 - busy / 1e3 / w for w in walls]}), flush=True)
+        del pipe, prof
 
 
 # kernel 14's launches (the same names in both trees; kernel 15's are q8_*)

@@ -51,7 +51,10 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      and 8, in every form of its plan, with programmatic dependent launch
      and without, timed as CUDA events over a chain of 10 calls beside the
      device time a launch and the bound; kernel 12 with its qkv launch's
-     PDL on and off, split by launch), the Qwen3-TTS-0.6B talker and
+     PDL on and off, split by launch; kernel 12's device-position form, the
+     Kani decode programs', at every position of these sweeps, bitwise its
+     host-position form and against its device-form twin, timed beside it
+     at pos 5 and 700), the Qwen3-TTS-0.6B talker and
      predictor shapes (kernel 12 at
      head_dim 128, kernels 13-15, kernel 13 timed at both; kernel 14 in
      each of its plan's forms, with programmatic dependent launch and
@@ -102,11 +105,16 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      layer_cache_interval=2 (352 launches of kernel 1, none of kernel 3),
      device time beside the exact request's;
   6. KaniPipeline.synthesize_ids at full kani-tts-370m width (random
-     weights from a seed, the bench config: 256 new tokens, no stop token):
-     greedy bf16 and int8, beam and a batch of 4, checking the audio, that
-     every attention layer's decode step went through kernel 12 (greedy)
-     or kernel 11 (beam, batch), and one step's logits against the plain
-     route; then tokens/s and RTF of greedy bf16 and int8;
+     weights from a seed, the bench config: 256 new tokens, no stop token)
+     on its decode programs (a CUDA graph each for the prefill, STEPS decode
+     steps and the codec): greedy bf16 and int8, beam and a batch of 4,
+     each first request's warm-up and capture seconds and the pool's MiB,
+     checking the audio, that every attention layer's decode step went
+     through kernel 12 (greedy) or kernel 11 (beam, batch), 6 launches a
+     decode step in whole replays (kani_steps), the greedy tokens equal to
+     a host-driven loop's (kernel 12 at host positions), and one step's
+     logits against the plain route; then tokens/s and RTF of greedy bf16
+     and int8;
   7. QwenTTSPipeline at full Qwen3-TTS-0.6B width (random weights from a
      seed): the bench request (32 text ids, language 3, max_frames 120) in
      bf16 and int8 on the default route, 88 launches of kernel 12 an
@@ -230,7 +238,14 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      synthesize_batch program of 4 requests; BigVGAN's bench mel in bf16
      (12 of kernel 10) and fp32 (9), samples/s of replays against the
      eager body; each graph's warm-up and capture seconds and its pool's
-     bytes.
+     bytes; then the Kani decode programs at full kani-tts-370m width
+     (greedy bf16 and int8, beam 5, a batch of 4; two requests each),
+     every prefill, step and codec call, the first ones included, bitwise
+     its eager body from the same state (outputs and state) with its
+     launches (6 of kernel 12 or 11 a step); the greedy step graph's edges
+     read through the driver (no programmatic edge reaches kernel 12's
+     attention from a cache append); kernel 12 against its twin in a
+     replayed step.
 Phases 3-15 run F5Pipeline and BigVGANVocoder on their graphs: a request's
 launches are the replay's, which the capture recorded; where a phase
 compares with the twins swapped in, it runs the program's body eagerly.
@@ -676,6 +691,103 @@ def check_decode_seeds() -> None:
           f"the bf16 twin misses it as well{listed}", flush=True)
 
 
+def step_pos_cases() -> list:
+    """Kernel 12's positions in phase 2's sweeps, each case's inputs from a
+    generator of its own: the Kani and VoxCPM decode shapes (decode_cases:
+    pos 5, 700, 2047 of 2048 rows; VOX_STEP_POS), pos 4500 of 4608 rows at
+    Kani's, the Qwen3-TTS talker (pos 6, 33, 126, 639 of 640, head_dim 128)
+    and predictor (pos 0, 2, 17 of 32), bf16 and int8 weights:
+    [(label, args, kw)] with the host position at args[7]."""
+    from tts_tpu_torch.ops.decode_step import fused_qkv_attn
+    from tts_tpu_torch.quant.weight_only import quantize_int8_jit
+
+    gen = torch.Generator("cuda").manual_seed(2601)
+    cases = [(label, args, kw) for shape in ("Kani", "VoxCPM")
+             for label, kernel, _, args, kw in decode_cases(gen, shape)
+             if kernel is fused_qkv_attn]
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    kani = dict(heads=16, kv_heads=8, head_dim=64, eps=1e-5,
+                q_norm=torch.full((64,), 64 ** -0.25, device="cuda").to(torch.bfloat16),
+                k_norm=torch.full((64,), 64 ** -0.25, device="cuda").to(torch.bfloat16))
+    w = rn(1024, 32 * 64, scale=0.02)
+    kc, vc = rn(1, 1, 8, 4608, 64), rn(1, 1, 8, 4608, 64)
+    for wt, wl in ((w, "bf16"), (quantize_int8_jit(w), "int8")):
+        cases.append((f"fused_qkv_attn Kani L=1 T=4608 pos=4500 {wl}",
+                      (rn(1, 1024), wt, rn(1, 64), rn(1, 64), kc, vc, 0, 4500), kani))
+    n128 = torch.full((128,), 128 ** -0.25, device="cuda").to(torch.bfloat16)
+    qwen = dict(heads=16, kv_heads=8, head_dim=128, q_norm=n128, k_norm=n128, eps=1e-6)
+    w = rn(1024, 32 * 128, scale=0.02)
+    for stack, layers, t, positions in (("talker", 28, 640, (6, 33, 126, 639)),
+                                        ("predictor", 4, 32, (0, 2, 17))):
+        kc, vc = rn(layers, 1, 8, t, 128, scale=128 ** -0.25), rn(layers, 1, 8, t, 128)
+        for pos in positions:
+            for wt, wl in ((w, "bf16"), (quantize_int8_jit(w), "int8")):
+                cases.append((f"fused_qkv_attn hd128 {stack} L={layers} T={t} pos={pos} {wl}",
+                              (rn(1, 1024), wt, rn(1, 128), rn(1, 128), kc, vc, layers - 1,
+                               pos), qwen))
+    return cases
+
+
+def check_step_device_pos(res: dict) -> None:
+    """Phase 2: kernel 12's device form (pos read from a device int32; the
+    Kani decode programs' form) at every position of step_pos_cases: its
+    three outputs bitwise the host form's at the same pos, launched for
+    the largest bucket (top = T - 1) and for the tightest (top = pos); and
+    against its device-form twin (every cache row, those >= pos masked) in
+    fp32 within TOL, no further from fp32 than STEP_SLACK times the bf16
+    device twin (check_slack). Then both forms' time a call at Kani's pos
+    5 and 700 (CUDA events over a chain of 10 calls; top 2047 and pos)."""
+    from tts_tpu_torch.ops.decode_step import (fused_qkv_attn, fused_qkv_attn_plain,
+                                               step_bound, step_plan)
+
+    r = res["fused_qkv_attn"]
+    n = 0
+    for label, args, kw in step_pos_cases():
+        pos, t = args[7], args[4].shape[3]
+        dev = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        host = fused_qkv_attn(*args, **kw)
+        for top in sorted({t - 1, pos}):
+            got = fused_qkv_attn(*args[:7], dev, top=top, **kw)
+            same = all(torch.equal(g, h) for g, h in zip(got, host))
+            print(f"  {label}: device pos, top {top}: attn, k, v "
+                  f"{'bitwise the host form' if same else 'DIFFER from the host form'}",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"{label}: the device form differs from the host form")
+            n += 1
+        # the position rides in the closures: check_slack takes every
+        # tensor argument to fp32
+        r["max_abs_err"] = max(r["max_abs_err"], check_slack(
+            f"{label} device pos against the device twin",
+            lambda *a, dev=dev, **k: fused_qkv_attn(*a, dev, **k),
+            lambda *a, dev=dev, **k: fused_qkv_attn_plain(*a, dev, **k), args[:7],
+            dict(kw, top=t - 1)))
+    print(f"  kernel 12's device form: {n} launches bitwise the host form's", flush=True)
+    gen = torch.Generator("cuda").manual_seed(2602)
+    rn = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen, device="cuda")  # noqa
+                                    * scale).to(torch.bfloat16)
+    nw = torch.full((64,), 64 ** -0.25, device="cuda").to(torch.bfloat16)
+    kani = dict(heads=16, kv_heads=8, head_dim=64, eps=1e-5, q_norm=nw, k_norm=nw)
+    x, w, cos, sin = rn(1, 1024), rn(1024, 32 * 64, scale=0.02), rn(1, 64), rn(1, 64)
+    kc, vc = rn(6, 1, 8, 2048, 64), rn(6, 1, 8, 2048, 64)
+    for pos in (5, 700):
+        dev = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        host_ms = chain_ms(lambda: fused_qkv_attn(x, w, cos, sin, kc, vc, 3, pos, **kani))
+        dev_ms = chain_ms(lambda: fused_qkv_attn(x, w, cos, sin, kc, vc, 3, dev, top=2047,
+                                                 **kani))
+        tight_ms = chain_ms(lambda: fused_qkv_attn(x, w, cos, sin, kc, vc, 3, dev, top=pos,
+                                                   **kani))
+        if pos == 700:
+            r["dev_ms"] = dev_ms
+        print(f"  {card()}: fused_qkv_attn Kani pos {pos} (CUDA events over a chain of 10): "
+              f"host form {host_ms:.4f} ms a call ({step_plan(pos, 64)[0]} CTAs a kv head), "
+              f"device form {dev_ms:.4f} ms at top 2047 ({step_bound(2047, 64)[0]} CTAs) and "
+              f"{tight_ms:.4f} ms at top {pos}", flush=True)
+
+
 def time_qkv_forms() -> None:
     """Kernel 11 at the Kani (H 1024, 16/8 x 64, RMSNorm, q/k norms, RoPE),
     Qwen3-TTS (16/8 x 128) and IndexTTS-1.5 (H 1280, 20 x 64, LayerNorm,
@@ -1017,6 +1129,7 @@ def check_kernels(gen: torch.Generator) -> dict:
     check_qwen_kernels(gen, res)
     check_voxcpm_kernels(res)
     check_decode_seeds()
+    check_step_device_pos(res)
     check_bigvgan_kernel(gen, res)
     check_bigvgan_kernel(gen, res, f32=True)
     time_amp_forms()
@@ -3134,14 +3247,58 @@ def check_step(cfg, params: dict, ids: np.ndarray) -> None:
         raise AssertionError("the fused decode step is less accurate than the plain one")
 
 
+def kani_steps(tokens: int, limit: int) -> int:
+    """The decode steps a Kani request of `tokens` tokens runs on its
+    programs under the limit min(cap, buf): whole replays of STEPS steps.
+    At the limit, the replays that limit - 1 steps need; on a stop (tokens <
+    limit: the tokens kept, then the stop token's step) the replays that
+    reach it and one more, queued before the host read the flag, capped at
+    the former. Steps past the stop or the limit are frozen and launch
+    their kernels all the same."""
+    from tts_tpu_torch.runtime.kani import STEPS
+
+    most = -(-(limit - 1) // STEPS)
+    return STEPS * (most if tokens >= limit else min(most, -(-tokens // STEPS) + 1))
+
+
+def kani_programs(pipe) -> list:
+    """The pipeline's decode programs: (label, Program) of each bucket's
+    prefill, step and codec programs built so far."""
+    out = []
+    for key, dec in list(pipe._decode_cache.items()) + list(pipe._batch_fns.items()):
+        out += [(f"{key} prefill {b}", p) for b, p in dec._prefill.items()]
+        out += [(f"{key} step", dec.step), (f"{key} codec", dec.codec)]
+    return out
+
+
+def host_loop_tokens(pipe, ids: np.ndarray, n: int) -> torch.Tensor:
+    """Greedy tokens of a host-driven loop on pipe's weights (the port's
+    form before the decode programs: kani_step at host positions, kernel 12
+    at a host pos, no penalty): (1, n) int32 on the host."""
+    from tts_tpu_torch.decoding.sampling import greedy
+    from tts_tpu_torch.models.kani import embed_tokens, init_state, kani_step
+    from tts_tpu_torch.runtime.kani import _prefill_loop
+
+    ids_buf = torch.zeros((1, pipe._bucket(ids.shape[1])), dtype=torch.int32, device="cuda")
+    ids_buf[0, :ids.shape[1]] = torch.from_numpy(ids[0]).cuda()
+    state, logits = _prefill_loop(pipe.params, ids_buf, ids.shape[1],
+                                  init_state(pipe.cfg, 1, pipe.dtype, "cuda"), pipe.cfg)
+    toks = [greedy(logits)]
+    for _ in range(n - 1):
+        logits, state = kani_step(pipe.params, embed_tokens(pipe.params, toks[-1][:, None]),
+                                  state, pipe.cfg, fused=pipe._fused)
+        toks.append(greedy(logits))
+    return torch.stack(toks, 1).cpu()
+
+
 def run_kani(name_limit: str) -> dict:
-    """Phase 5: KaniPipeline.synthesize_ids at full kani-tts-370m width.
-    Returns the launch counts of the phase."""
+    """Phase 6: KaniPipeline.synthesize_ids at full kani-tts-370m width, on
+    its decode programs. Returns the launch counts of the phase."""
     from tts_tpu_torch.models.kani import KaniConfig, init_params
     from tts_tpu_torch.models.nanocodec import NanoCodecConfig
     from tts_tpu_torch.models.nanocodec import init_params as codec_init
     from tts_tpu_torch.ops._build import LAUNCHES
-    from tts_tpu_torch.runtime.kani import KaniDecodeConfig, KaniPipeline
+    from tts_tpu_torch.runtime.kani import STEPS, KaniDecodeConfig, KaniPipeline
 
     cfg, ccfg = KaniConfig(max_seq_len=2048, stop_token=-1), NanoCodecConfig()
     t0 = time.perf_counter()
@@ -3166,7 +3323,7 @@ def run_kani(name_limit: str) -> dict:
     layers = cfg.num_attn_layers
 
     def expect(label, grew, tokens):
-        steps = tokens - 1                          # the first token is the prefill's
+        steps = kani_steps(tokens, KANI_NEW)
         want = ({"fused_qkv_attn": layers * steps, "fused_qkv_rope": 0}
                 if label.startswith("greedy") else
                 {"fused_qkv_attn": 0, "fused_qkv_rope": layers * steps})
@@ -3183,9 +3340,21 @@ def run_kani(name_limit: str) -> dict:
         if not math.isfinite(peak) or not wav.any():
             raise AssertionError(f"{label}: waveform not finite or all zero")
 
-    for pipe in pipes.values():                     # warm-up
+    for label, pipe in pipes.items():               # warm-up: each bucket's capture
+        t0 = time.perf_counter()
         pipe.synthesize_ids(ids)
+        first = time.perf_counter() - t0
+        print(f"  {name_limit}: {label}: first request {first:.4f} s; " + "; ".join(
+            f"{k} warm-up {p.warmup_s:.4f} s, capture {p.capture_s:.4f} s"
+            for k, p in kani_programs(pipe)) + f"; pool {pipe._pool.nbytes() / 2**20:.1f} MiB",
+              flush=True)
+    t0 = time.perf_counter()
     pipes["greedy bf16"].synthesize_ids_batch(prompts)
+    print(f"  {name_limit}: batch of {len(prompts)}: first request "
+          f"{time.perf_counter() - t0:.4f} s; " + "; ".join(
+              f"{k} warm-up {p.warmup_s:.4f} s, capture {p.capture_s:.4f} s"
+              for k, p in kani_programs(pipes["greedy bf16"]) if "batch" in k)
+          + f"; pool {pipes['greedy bf16']._pool.nbytes() / 2**20:.1f} MiB", flush=True)
     torch.cuda.synchronize()
     LAUNCHES.clear()
     for label, pipe in pipes.items():
@@ -3199,6 +3368,18 @@ def run_kani(name_limit: str) -> dict:
             raise AssertionError(f"{label}: {st['tokens']} tokens, expected {KANI_NEW}")
         audio_ok(label, wav, st["tokens"], st["peak"])
         expect(label, grew, st["tokens"])
+        if label.startswith("greedy"):
+            # the programs' tokens against the host-driven loop's: kernel
+            # 12's device form is bitwise its host form, so they are equal
+            got = pipe._decode_cache[pipe._buf_for(None)[2]].save[:1, :KANI_NEW].cpu()
+            ref = host_loop_tokens(pipe, ids, KANI_NEW)
+            same = torch.equal(got, ref)
+            print(f"  {label}: {KANI_NEW} tokens of the programs against a host-driven loop "
+                  f"(kernel 12 at host positions): "
+                  f"{'equal' if same else f'{int((got != ref).sum())} differ'}", flush=True)
+            if not same:
+                raise AssertionError(f"{label}: the programs' tokens differ from the "
+                                     f"host-driven loop's")
     before = dict(LAUNCHES)
     wavs, st = pipes["greedy bf16"].synthesize_ids_batch(prompts)
     grew = {k: LAUNCHES[k] - before.get(k, 0) for k in KERNELS}
@@ -3209,6 +3390,9 @@ def run_kani(name_limit: str) -> dict:
     for w in wavs:
         audio_ok("batch", w, KANI_NEW, st["peak"])
     expect("batch", grew, KANI_NEW)
+    print(f"  launches a request: {layers} attention layers x {kani_steps(KANI_NEW, KANI_NEW)} decode "
+          f"steps ({KANI_NEW - 1} live, the rest frozen steps of the last replay of "
+          f"{STEPS})", flush=True)
     launches = dict(LAUNCHES)
 
     check_step(cfg, params, ids)
@@ -6164,9 +6348,8 @@ def run_cli(name_limit: str, ckpt_root: str, f5_files: dict | None, keep: bool =
     def kani_expect(calls):
         pipe, _, _, (_, st), _, _ = calls[0]
         cap, buf, _ = pipe._buf_for(None)
-        n = st["tokens"]
-        steps = n if n < min(cap, buf) else n - 1
-        return {"fused_qkv_attn": kcfg.num_attn_layers * steps}
+        return {"fused_qkv_attn": kcfg.num_attn_layers * kani_steps(st["tokens"],
+                                                                    min(cap, buf))}
 
     def kani_direct(calls):
         pipe, a, kw, (wav, st), _, _ = calls[0]
@@ -7418,6 +7601,296 @@ def run_graphs(name_limit: str) -> dict:
                                  "eager_wall_s": eager_s, "eager_samples_per_sec": rate}),
               flush=True)
         del voc, fn, out
+    for k, n in run_kani_graphs(name_limit).items():
+        launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+def graph_nodes_edges(graph) -> tuple:
+    """The nodes and edges of a captured torch CUDAGraph (kept after its
+    instantiation), read through the driver API: ({node: kernel name, or
+    the node's type for other nodes}, [(from, to, programmatic)]). An edge
+    is programmatic where its type or its source port is not the default
+    (cuGraphGetEdges_v2's CUgraphEdgeData)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, sz = ctypes.c_void_p, ctypes.c_size_t
+
+    def ok(err, what):
+        if err:
+            raise RuntimeError(f"{what}: CUDA driver error {err}")
+
+    g = vp(graph.raw_cuda_graph())
+    n = sz(0)
+    ok(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (vp * n.value)()
+    ok(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = {}
+    for node in nodes:
+        kind = ctypes.c_int()
+        ok(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:                     # CU_GRAPH_NODE_TYPE_KERNEL
+            names[node] = f"node type {kind.value}"
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern (a CUkernel) at 56
+        params = (ctypes.c_byte * 128)()
+        ok(cu.cuGraphKernelNodeGetParams_v2(vp(node), params), "cuGraphKernelNodeGetParams")
+        func = vp.from_buffer(params, 0).value
+        kern = vp.from_buffer(params, 56).value
+        name = ctypes.c_char_p()
+        if func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), vp(func)), "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), vp(kern)), "cuKernelGetName")
+        names[node] = name.value.decode()
+    m = sz(0)
+    ok(cu.cuGraphGetEdges_v2(g, None, None, None, ctypes.byref(m)), "cuGraphGetEdges_v2")
+    frm, to = (vp * m.value)(), (vp * m.value)()
+    data = (ctypes.c_ubyte * (8 * m.value))()
+    ok(cu.cuGraphGetEdges_v2(g, frm, to, data, ctypes.byref(m)), "cuGraphGetEdges_v2")
+    edges = [(frm[i], to[i], bool(data[8 * i] or data[8 * i + 2])) for i in range(m.value)]
+    return names, edges
+
+
+def check_ordering_premise(label: str, graph) -> None:
+    """Kernel 12's ordering premise in a captured decode step (the comment
+    at csrc/decode_step.cu's early cache loads): no programmatic edge
+    reaches a node of its attention launch (step_attn_kernel) from a node
+    that writes the cache (the append, index_copy): every node from which
+    an attention node is reached through programmatic edges alone is
+    printed by name, and none may be a cache writer."""
+    import collections
+
+    names, edges = graph_nodes_edges(graph)
+    prog_in = collections.defaultdict(list)
+    for f, t, programmatic in edges:
+        if programmatic:
+            prog_in[t].append(f)
+    attn = [n for n, name in names.items() if "step_attn_kernel" in name]
+    # the cache appends (and the token buffer's writes, index_copy too)
+    writers = {n for n, name in names.items() if "index_copy" in name}
+    seen: collections.Counter = collections.Counter()
+    bad = []
+    for a in attn:
+        stack, up = list(prog_in[a]), set()
+        while stack:
+            f = stack.pop()
+            if f not in up:
+                up.add(f)
+                stack.extend(prog_in[f])
+        bad += [names[f] for f in up & writers]
+        seen.update(names[f].split("(")[0][:60] for f in up)
+    n_prog = sum(1 for _, _, p in edges if p)
+    print(f"  {label}: the captured graph: {len(names)} nodes, {len(edges)} edges, "
+          f"{n_prog} programmatic; {len(attn)} kernel-12 attention nodes, {len(writers)} "
+          f"index_copy nodes (the cache appends and the token writes); nodes reaching an attention node through programmatic edges "
+          f"alone: {dict(seen)}; cache writers among them: {len(bad)} "
+          f"{'ok' if not bad and attn and writers else 'FAIL'}", flush=True)
+    if bad or not attn or not writers:
+        raise AssertionError(f"{label}: a programmatic edge reaches kernel 12 from a cache "
+                             f"writer ({bad[:3]}), or the graph has no attention or append")
+
+
+def _snap(dec) -> list:
+    return [t.clone() for t in dec.state]
+
+
+def _put(dec, snap: list) -> None:
+    for t, v in zip(dec.state, snap):
+        t.copy_(v)
+
+
+def stateful_call(label: str, prog, dec, args: tuple, want: dict) -> dict:
+    """One call of a Kani decode program (on its first call the warm-up,
+    the capture and a replay) against its body run eagerly from the same
+    state: every output and every tensor of the state after it bitwise,
+    the launches equal to the eager run's and to `want`. Leaves the state
+    as the call left it. Returns the call's record."""
+    from tts_tpu_torch.ops._build import LAUNCHES
+
+    first = prog._graph is None
+    s0 = _snap(dec)
+    torch.cuda.synchronize()
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    got = prog(*args)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    grew = serve_grew(before, KERNELS)
+    s1 = _snap(dec)
+    _put(dec, s0)
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    ref = prog._eager(*args)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager = serve_grew(before, KERNELS)
+    same = [torch.equal(g, r) for g, r in zip(got, ref)] + \
+        [torch.equal(a, b) for a, b in zip(s1, _snap(dec))]
+    kept = {k: n for k, n in grew.items() if n}
+    if not all(same) or grew != eager or kept != want:
+        raise AssertionError(f"{label}: the replay differs from its eager body (outputs and "
+                             f"state bitwise {same}), or its launches {kept} (eager "
+                             f"{eager}, expected {want})")
+    return {"first": first, "call_s": call_s, "eager_s": eager_s, "launches": kept}
+
+
+def kani_request_on_programs(label: str, pipe, dec, ids_buf: np.ndarray, lens, limit: int,
+                             want_step: dict) -> dict:
+    """A Kani request driven program by program (prefill, step replays
+    until the stop flag, codec), each call held bitwise against its eager
+    body from the same state (stateful_call). Returns a summary record."""
+    recs = [stateful_call(f"{label} prefill", dec.prefill(ids_buf.shape[1]), dec,
+                          (ids_buf, lens, np.int32(limit)), {})]
+    replays = 0
+    while not bool(dec.stop.cpu()):
+        recs.append(stateful_call(f"{label} step replay {replays}", dec.step, dec, (),
+                                  want_step))
+        replays += 1
+    recs.append(stateful_call(f"{label} codec", dec.codec, dec, (), {}))
+    return {"replays": replays, "first_calls": sum(r["first"] for r in recs),
+            "replay_s": sum(r["call_s"] for r in recs[1:-1] if not r["first"]),
+            "eager_s": sum(r["eager_s"] for r in recs[1:-1]),
+            "launches": {k: sum(r["launches"].get(k, 0) for r in recs)
+                         for k in want_step}}
+
+
+def check_step_twin_in_replay(pipe, dec) -> None:
+    """Kernel 12 against its twin in a replayed decode step, from the state
+    a prefill left: the step program replayed (kernels), its eager body
+    with the twin swapped in (bf16), and one plain kani_step in fp32 on the
+    same (bf16-valued) weights and state; the rows the first step appends
+    at every attention layer past the first (each reads the attention
+    outputs of the layers before it) from the kernels no further from fp32
+    than STEP_SLACK times the twin's (check_step's rule)."""
+    import tts_tpu_torch.models.kani as mk
+    from tts_tpu_torch.kv.cache import KVCache
+    from tts_tpu_torch.models.kani import KaniState, embed_tokens, kani_step
+    from tts_tpu_torch.ops.decode_step import fused_qkv_attn_plain
+
+    s0 = _snap(dec)
+    p0 = int(dec.pos.cpu())
+
+    def rows():
+        return torch.cat([dec.k[1:, 0, :, p0].float().flatten(),
+                          dec.v[1:, 0, :, p0].float().flatten()])
+
+    dec.step()
+    torch.cuda.synchronize()
+    kern = rows()
+    _put(dec, s0)
+    with swapped(mk, {"fused_qkv_attn": fused_qkv_attn_plain}):
+        dec.step._eager()
+    twin = rows()
+    _put(dec, s0)
+    p32 = cast_tree(pipe.params, torch.float32)
+    st = KaniState(KVCache(dec.k.float(), dec.v.float(), p0), dec.conv.float())
+    kani_step(p32, embed_tokens(p32, dec.tok[:, None]), st, pipe.cfg, fused=False)
+    ref = torch.cat([st.kv.k[1:, 0, :, p0].flatten(), st.kv.v[1:, 0, :, p0].flatten()])
+    e_k, e_t = rel_l2(kern, ref), rel_l2(twin, ref)
+    ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_t
+    print(f"  Kani greedy bf16: kernel 12 in a replayed step (pos {p0}): the appended k/v "
+          f"rows of attention layers 2-{pipe.cfg.num_attn_layers}, rel L2 against one fp32 "
+          f"plain step: replay {e_k:.6g}, eager body with the twin {e_t:.6g} (limit "
+          f"{STEP_SLACK} x); replay against the twin {rel_l2(kern, twin):.6g} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("kernel 12 in a replayed step is less accurate than its twin")
+
+
+def run_kani_graphs(name_limit: str) -> dict:
+    """Phase 16's Kani part: the decode programs of kani-tts-370m at full
+    width (phase 6's seeds and bench config) for greedy bf16 and int8
+    (kernel 12), beam 5 and a batch of 4 (kernel 11): two requests each,
+    driven program by program, every call of the prefill, step and codec
+    programs, the first ones included, bitwise its eager body from the same
+    state with the eager run's launches (6 a decode step); the greedy bf16
+    step graph's edges read for kernel 12's ordering premise; kernel 12
+    against its twin in a replayed step; each program's warm-up and capture
+    seconds and the pool's bytes. Returns the launches of the checked
+    calls."""
+    from tts_tpu_torch.models.kani import KaniConfig, init_params
+    from tts_tpu_torch.models.nanocodec import NanoCodecConfig
+    from tts_tpu_torch.models.nanocodec import init_params as codec_init
+    from tts_tpu_torch.runtime.kani import STEPS, KaniDecodeConfig, KaniPipeline
+
+    cfg, ccfg = KaniConfig(max_seq_len=2048, stop_token=-1), NanoCodecConfig()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(2), torch.bfloat16)
+    cparams = codec_init(ccfg, torch.Generator("cuda").manual_seed(3), torch.bfloat16)
+    dec_cfg = KaniDecodeConfig(max_new_tokens=KANI_NEW, repeat_penalty=1.0)
+    beam_cfg = KaniDecodeConfig(max_new_tokens=KANI_NEW, repeat_penalty=1.0, use_beam=True,
+                                beam_size=5, top_k=5)
+    layers = cfg.num_attn_layers
+    prompts = [np.array(KANI_IDS, np.int32), np.array([[5, 8, 13, 21, 34, 55]], np.int32),
+               np.array([[3, 9, 4]], np.int32), np.array(KANI_IDS, np.int32)[:, :4]]
+    launches: dict = {}
+    for label, make, kernel in (
+            ("greedy bf16", lambda: KaniPipeline(params, cfg, cparams, ccfg, dec_cfg),
+             "fused_qkv_attn"),
+            ("greedy int8", lambda: KaniPipeline(params, cfg, cparams, ccfg, dec_cfg,
+                                                 quantize=8), "fused_qkv_attn"),
+            ("beam 5", lambda: KaniPipeline(params, cfg, cparams, ccfg, beam_cfg),
+             "fused_qkv_rope"),
+            ("batch of 4", lambda: KaniPipeline(params, cfg, cparams, ccfg, dec_cfg),
+             "fused_qkv_rope")):
+        pipe = make()
+        cap, buf, fbuf = pipe._buf_for(None)
+        limit = min(cap, buf)
+        want = {kernel: layers * STEPS}
+        for req in range(2):
+            if label == "batch of 4":
+                dec = pipe._batch(len(prompts), fbuf)
+                order = prompts if req == 0 else prompts[::-1]
+                bucket = pipe._bucket(max(p.shape[1] for p in order))
+                ids_buf = np.zeros((len(order), bucket), np.int32)
+                lens = np.zeros((len(order),), np.int32)
+                for b, p in enumerate(order):
+                    ids_buf[b, bucket - p.shape[1]:] = p[0]
+                    lens[b] = bucket - p.shape[1]
+            else:
+                dec = pipe._solo(fbuf)
+                p = prompts[req]
+                ids_buf = np.zeros((1, pipe._bucket(p.shape[1])), np.int32)
+                ids_buf[0, :p.shape[1]] = p[0]
+                lens = np.int32(p.shape[1])
+            rec = kani_request_on_programs(f"Kani {label} request {req}", pipe, dec, ids_buf,
+                                           lens, limit, want)
+            for k, n in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            if rec["replays"] != -(-(limit - 1) // STEPS) or \
+                    rec["launches"][kernel] != layers * STEPS * rec["replays"]:
+                raise AssertionError(f"Kani {label}: {rec}")
+            progs = {"prefill": dec.prefill(ids_buf.shape[1]), "step": dec.step,
+                     "codec": dec.codec}
+            print(f"  {name_limit}: Kani {label} request {req}: prefill, {rec['replays']} step "
+                  f"replays of {STEPS} steps and the codec, each bitwise its eager body from "
+                  f"the same state (outputs and state), {rec['first_calls']} of them first "
+                  f"calls; {kernel} launched {rec['launches'][kernel]} times "
+                  f"({layers} x {STEPS} a replay); the step replays {rec['replay_s']:.4f} s "
+                  f"against their eager bodies' {rec['eager_s']:.4f} s; " + "; ".join(
+                      f"{k} warm-up {v.warmup_s:.4f} s capture {v.capture_s:.4f} s, "
+                      f"{sum(v.launches.values())} launches recorded"
+                      for k, v in progs.items()) + f"; pool {pipe._pool.nbytes() / 2**20:.1f} "
+                  f"MiB", flush=True)
+            print("  " + json.dumps({"graphs": f"Kani {label}", "card": name_limit,
+                                     "request": req, **rec,
+                                     "warmup_s": {k: v.warmup_s for k, v in progs.items()},
+                                     "capture_s": {k: v.capture_s for k, v in progs.items()},
+                                     "pool_bytes": pipe._pool.nbytes()}), flush=True)
+        if label == "greedy bf16":
+            check_ordering_premise("Kani greedy bf16 step program", dec.step._graph.graph)
+            # a third request, 16 replays in (pos 131): kernel 12 against its
+            # twin in the next replayed step
+            p = prompts[2]
+            ids_buf = np.zeros((1, pipe._bucket(p.shape[1])), np.int32)
+            ids_buf[0, :p.shape[1]] = p[0]
+            dec.prefill(ids_buf.shape[1])(ids_buf, np.int32(p.shape[1]), np.int32(limit))
+            for _ in range(16):
+                dec.step()
+            check_step_twin_in_replay(pipe, dec)
+        del pipe, dec
+        torch.cuda.empty_cache()
     return launches
 
 

@@ -41,6 +41,17 @@
 //     v_new. Three cluster barriers; one CTA alone (the plan's choice up to
 //     128 rows at head_dim 128, 64 at 64) has none.
 //     No atomics (bitwise reproducible runs); rows >= pos are never read.
+//
+// The device form (fused_qkv_attn_dev) reads pos from a device int32, for a
+// CUDA graph that replays a decode step at positions the host never reads.
+// Its cluster is launched at the most CTAs (and its scores' shared memory at
+// the most rows a CTA) that the plan gives any position up to `top`, the
+// bucket's largest; each CTA derives from the device pos the slice that
+// step_plan(pos) gives it, so the CTAs past that plan take no rows. Such a
+// CTA's max is -inf and its sums are exact zeros: the max over the cluster
+// is the plan's CTAs' max, and each sum in rank order adds +0 after the
+// plan's terms, so the output is bitwise the host form's at the same pos
+// (no NaN: m is at least s_new, which is finite).
 #include <cooperative_groups.h>
 
 #include "decode_rows.cuh"
@@ -71,7 +82,23 @@ struct StepArgs {
   const bf16* vc;
   bf16* out;             // (heads * HD,)
   int kv_heads, T, pos, rows;  // rows: a CTA's slice (the last fewer)
+  const int* pos_dev;    // the device form's pos (null: the host form's pos, rows)
+  int top, stride;       // the device form's largest pos; the scores' row stride
 };
+
+// step_plan's slice for `pos` (ops/decode_step.py): up to CR rows one CTA,
+// past that a CTA for each CR rows, at most ST_MAX_CTAS; pos 0 none
+template <int HD>
+__device__ __forceinline__ void plan_slice(int pos, int& ctas, int& rows) {
+  constexpr int CR = HD == 64 ? 64 : 128;
+  if (pos == 0) {
+    ctas = 1, rows = 0;
+    return;
+  }
+  const int c = min(ST_MAX_CTAS, (pos + CR - 1) / CR);
+  rows = (pos + c - 1) / c;
+  ctas = (pos + rows - 1) / rows;
+}
 
 // shared memory, in floats: q [G][HD], k_new and v_new [HD] each, the
 // warps' P.V sums [ST_WARPS][G][HD], the cluster's [ctas][G][HD] (each
@@ -124,8 +151,20 @@ __global__ void __launch_bounds__(ST_THREADS) step_attn_kernel(const StepArgs a)
   const int rank = nct > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int j = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, li = tid % LG, grp = tid / LG;
-  const int r0 = rank * a.rows;
-  const int n = max(0, min(a.pos - r0, a.rows));  // >= 1 when pos >= 1 (the plan)
+  // the device form reads pos here, before the wait for the qkv launch: it
+  // is written, as the cache rows below are, by an ordinary launch of an
+  // earlier step (see the premise below)
+  int pos = a.pos, rows = a.rows;
+  if (a.pos_dev != nullptr) {
+    int ctas;
+    pos = *a.pos_dev;
+    if (pos < 0 || pos > a.top) __trap();
+    plan_slice<HD>(pos, ctas, rows);
+    if (ctas > nct || rows > a.stride) __trap();
+  }
+  const int r0 = rank * rows;
+  // >= 1 for the plan's CTAs when pos >= 1; 0 past them (the device form)
+  const int n = max(0, min(pos - r0, rows));
   const bf16* kj = a.kc + ((size_t)j * a.T + r0) * HD + li * 8;
   const bf16* vj = a.vc + ((size_t)j * a.T + r0) * HD + li * 8;
   const int rounds = (n + RR - 1) / RR;
@@ -138,7 +177,13 @@ __global__ void __launch_bounds__(ST_THREADS) step_attn_kernel(const StepArgs a)
   // only at its end), so before this grid or any grid still running ahead
   // of it could start; the launches of this step before this one (kernels
   // 11-15 and plain ops) write no cache row, and this step's row pos is
-  // appended after it.
+  // appended after it. Inside a CUDA graph (the Kani decode programs) the
+  // premise is kept, not moved: the append stays an ordinary launch, so in
+  // a captured step the programmatic edges run into the qkv launch and from
+  // it into this one, from nodes that write no cache row; chip_smoke.py
+  // phase 16 reads the captured graph's edges (cuGraphGetEdges_v2) and fails
+  // a run where a programmatic edge reaches this kernel from a node that
+  // writes the cache.
   uint4 kr[U], vr[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
@@ -183,11 +228,11 @@ __global__ void __launch_bounds__(ST_THREADS) step_attn_kernel(const StepArgs a)
     }
     const int t0 = rd * RR, need = min(U, (n - t0 + NG - 1) / NG);
     if (need > U / 2)
-      round_scores<LG, NG, G, GP, U>(kr, qf, li, grp, t0, n, sc, a.rows, 1.f);
+      round_scores<LG, NG, G, GP, U>(kr, qf, li, grp, t0, n, sc, a.stride, 1.f);
     else if (need > U / 4)
-      round_scores<LG, NG, G, GP, U / 2>(kr, qf, li, grp, t0, n, sc, a.rows, 1.f);
+      round_scores<LG, NG, G, GP, U / 2>(kr, qf, li, grp, t0, n, sc, a.stride, 1.f);
     else
-      round_scores<LG, NG, G, GP, U / 4>(kr, qf, li, grp, t0, n, sc, a.rows, 1.f);
+      round_scores<LG, NG, G, GP, U / 4>(kr, qf, li, grp, t0, n, sc, a.stride, 1.f);
   }
   __syncthreads();  // the slice's scores are in
 
@@ -199,7 +244,7 @@ __global__ void __launch_bounds__(ST_THREADS) step_attn_kernel(const StepArgs a)
   // in place for P.V
   if (nct > 1) cluster_wait();  // every CTA started: its shared memory is there
   float sn = 0.f, m = 0.f, l = 0.f;
-  float* sg = sc + warp * a.rows;
+  float* sg = sc + warp * a.stride;
   if (warp < G) {
     for (int d = lane; d < HD; d += 32) sn = fmaf(qs[warp * HD + d], kn[d], sn);
     sn = warp_sum(sn);
@@ -261,7 +306,7 @@ __global__ void __launch_bounds__(ST_THREADS) step_attn_kernel(const StepArgs a)
       for (int e = 0; e < 8; ++e) vf[e] = to_f(vx.h[e]);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float pr = sc[g * a.rows + t];
+        const float pr = sc[g * a.stride + t];
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
       }
@@ -306,7 +351,7 @@ __global__ void __launch_bounds__(ST_THREADS) step_attn_kernel(const StepArgs a)
 
 template <int HD, int G>
 int launch(const StepArgs& a, int ctas, bool pdl, cudaStream_t st) {
-  const size_t smem = sizeof(float) * st_smem_floats<HD, G>(ctas, a.rows);
+  const size_t smem = sizeof(float) * st_smem_floats<HD, G>(ctas, a.stride);
   if (smem > (size_t)ST_SMEM_MAX) return (int)cudaErrorInvalidValue;
   static int allowed[MAX_DEVICES];
   const cudaError_t err = raise_attr(step_attn_kernel<HD, G>,
@@ -377,6 +422,43 @@ extern "C" int fused_qkv_attn(const void* x, const void* w, int w_int8, const vo
   a.vc = (const bf16*)vc;
   a.out = (bf16*)attn;
   a.kv_heads = kv_heads, a.T = T, a.pos = pos, a.rows = rows;
+  a.pos_dev = nullptr, a.top = pos, a.stride = rows;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int G = heads / kv_heads;
+  return hd == 64 ? tts::launch_hd<64>(a, G, ctas, pdl == 1, s)
+                  : tts::launch_hd<128>(a, G, ctas, pdl == 1, s);
+}
+
+// The device form: as fused_qkv_attn, but pos is read on the card from
+// pos_dev (an int32, 0 <= *pos_dev <= top < T), and the attention launch
+// takes `ctas` CTAs a cluster with scores of `rows` rows each: the most
+// that step_plan gives any position up to top (ops/decode_step.step_bound).
+// A device pos outside [0, top], or one whose plan needs more, traps.
+extern "C" int fused_qkv_attn_dev(const void* x, const void* w, int w_int8, const void* scale,
+                                  const void* bias, const void* qn, const void* kn,
+                                  const void* cosr, const void* sinr, const void* lnw,
+                                  const void* lnb, void* q, void* k, void* v, int H,
+                                  int heads, int kv_heads, int hd, int qctas, int qrows,
+                                  int pdl, float eps, const void* kc, const void* vc,
+                                  void* attn, int T, const void* pos_dev, int top, int ctas,
+                                  int rows, void* stream) {
+  using tts::bf16;
+  if (kv_heads < 1 || heads % kv_heads || heads / kv_heads > tts::MAX_G || pos_dev == nullptr ||
+      top < 0 || top >= T || (hd != 64 && hd != 128) || ctas < 1 || ctas > tts::ST_MAX_CTAS ||
+      rows < 0 || (long long)ctas * rows < top)
+    return (int)cudaErrorInvalidValue;
+  const int err = fused_qkv_rope(x, w, w_int8, scale, bias, qn, kn, cosr, sinr, lnw, lnb, q, k,
+                                 v, 1, H, heads, kv_heads, hd, qctas, qrows, pdl, eps, stream);
+  if (err) return err;
+  tts::StepArgs a;
+  a.q = (const bf16*)q;
+  a.k_new = (const bf16*)k;
+  a.v_new = (const bf16*)v;
+  a.kc = (const bf16*)kc;
+  a.vc = (const bf16*)vc;
+  a.out = (bf16*)attn;
+  a.kv_heads = kv_heads, a.T = T, a.pos = 0, a.rows = 0;
+  a.pos_dev = (const int*)pos_dev, a.top = top, a.stride = rows;
   cudaStream_t s = (cudaStream_t)stream;
   const int G = heads / kv_heads;
   return hd == 64 ? tts::launch_hd<64>(a, G, ctas, pdl == 1, s)

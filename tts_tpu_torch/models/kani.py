@@ -13,6 +13,13 @@ state kani_step returns shares its buffers with the one it was given. An
 attention layer's decode step has three routes, as in tts_tpu: "step" (the
 qkv head and attention in one kernel, ops/decode_step.py), True (the qkv
 head kernel, ops/decode_qkv.py, then gqa_attention) and False (plain ops).
+
+A step runs at a host position (`state.kv.length` an int) or at a device
+one (a 0-dim int32 tensor, the form the decode programs of runtime/kani.py
+capture): the RoPE rows are then gathered at the device position, the plain
+attention reads the cache's `bound` rows under a mask built from it, and
+kernel 12 reads the position itself with the bound's last row as its top;
+`valid_len` may be a device tensor too. The routes do not change.
 """
 from __future__ import annotations
 
@@ -73,8 +80,10 @@ class KaniState:
 
     def clone(self) -> "KaniState":
         """A copy that owns its buffers (a step from it leaves self alone)."""
-        return KaniState(KVCache(self.kv.k.clone(), self.kv.v.clone(), self.kv.length),
-                         self.conv.clone())
+        length = self.kv.length
+        return KaniState(KVCache(self.kv.k.clone(), self.kv.v.clone(),
+                                 length.clone() if self.kv.on_device else length,
+                                 self.kv.bound), self.conv.clone())
 
 
 def init_state(cfg: KaniConfig, batch: int = 1, kv_dtype=torch.bfloat16,
@@ -95,10 +104,11 @@ def _attn_layer(p: dict, x: torch.Tensor, state: KaniState, layer_idx: int,
     pos = state.kv.length
     if fused == "step":
         # kani_step's gate guarantees b == s == 1 and a plain causal mask
+        top = state.kv.rows - 1 if state.kv.on_device else None
         attn, kf, vf = fused_qkv_attn(
             x[:, 0], p["wqkv"], rope_cos, rope_sin, state.kv.k, state.kv.v,
             layer_idx, pos, heads=heads, kv_heads=kvh, head_dim=hd,
-            q_norm=p["q_norm"], k_norm=p["k_norm"], eps=cfg.rms_eps)
+            q_norm=p["q_norm"], k_norm=p["k_norm"], eps=cfg.rms_eps, top=top)
         state.kv.update_layer(layer_idx, kf.reshape(b, 1, kvh, hd),
                               vf.reshape(b, 1, kvh, hd))
         return dense(attn[:, None], p["wo"])
@@ -118,7 +128,7 @@ def _attn_layer(p: dict, x: torch.Tensor, state: KaniState, layer_idx: int,
         k = apply_rope(rms_norm(k, p["k_norm"], eps=cfg.rms_eps), rope_cos, rope_sin)
     _, k_full, v_full = state.kv.update_layer(layer_idx, k, v)
     # keys past pos + s are masked: attend over the rows that can be valid
-    n = pos + s
+    n = state.kv.rows if state.kv.on_device else pos + s
     out = gqa_attention(q, k_full[:, :, :n], v_full[:, :, :n], mask)
     return dense(out.reshape(b, s, -1), p["wo"])
 
@@ -135,8 +145,12 @@ def _conv_layer(p: dict, x: torch.Tensor, state: KaniState, conv_idx: int,
     km1 = cfg.conv_kernel - 1
     # seq is left-extended by the k-1 carry, so the last k-1 valid inputs
     # start at seq position valid_len
-    start = seq.shape[1] - km1 if valid_len is None else valid_len
-    state.conv[conv_idx] = seq[:, start:start + km1]
+    if isinstance(valid_len, torch.Tensor):
+        idx = valid_len.long() + torch.arange(km1, device=seq.device)
+        state.conv[conv_idx] = seq.index_select(1, idx)
+    else:
+        start = seq.shape[1] - km1 if valid_len is None else valid_len
+        state.conv[conv_idx] = seq[:, start:start + km1]
     conv_out = conv1d(seq, p["conv_w"], p.get("conv_b"), padding=0,
                       groups=cfg.hidden_size)                   # (B, S, H)
     return dense(c_gate * conv_out, p["out_proj"])
@@ -172,17 +186,27 @@ def kani_step(params: dict, hidden: torch.Tensor, state: KaniState, cfg: KaniCon
               fused=False) -> tuple[torch.Tensor, KaniState]:
     """One LM step over S new tokens. hidden (B, S, H) embedded inputs.
     Returns (logits (B, vocab), the state with kv.length advanced by S).
-    valid_len: the true length inside a padded bucket (batched prefill): the
-    logits come from position valid_len - 1 and the conv carries from the
-    last valid inputs; the caller rewinds kv.length to valid_len.
+    valid_len: the true length inside a padded bucket (batched prefill), a
+    host int or a 0-dim device tensor: the logits come from position
+    valid_len - 1 and the conv carries from the last valid inputs; the
+    caller rewinds kv.length to valid_len.
     key_valid_from: (B,) first valid key per row, for prompts right-
     justified in one bucket (the caller zeroes their pad embeddings)."""
     b, s, _ = hidden.shape
     pos = state.kv.length
-    rope_cos = params["rope_cos"][pos:pos + s]
-    rope_sin = params["rope_sin"][pos:pos + s]
-    n = pos + s
-    mask = attention_mask(s, n, pos, n, causal=True, device=hidden.device)
+    if state.kv.on_device:
+        # the rows [pos, pos + s) and a mask over the bound's rows, from the
+        # device position: no shape depends on it
+        idx = pos + torch.arange(s, device=pos.device, dtype=pos.dtype)
+        rope_cos = params["rope_cos"].index_select(0, idx)
+        rope_sin = params["rope_sin"].index_select(0, idx)
+        n = state.kv.rows
+        mask = attention_mask(s, n, pos, pos + s, causal=True, device=hidden.device)
+    else:
+        rope_cos = params["rope_cos"][pos:pos + s]
+        rope_sin = params["rope_sin"][pos:pos + s]
+        n = pos + s
+        mask = attention_mask(s, n, pos, n, causal=True, device=hidden.device)
     if key_valid_from is not None:
         mask = combine_kv_valid(
             mask, torch.arange(n, device=hidden.device)[None, :] >= key_valid_from[:, None])
@@ -202,7 +226,10 @@ def kani_step(params: dict, hidden: torch.Tensor, state: KaniState, cfg: KaniCon
         x = x + _ffn(p["ffn"], x, cfg)
 
     state = KaniState(state.kv.advance(s), state.conv)
-    last = x[:, -1] if valid_len is None else x[:, valid_len - 1]
+    if isinstance(valid_len, torch.Tensor):
+        last = x.index_select(1, (valid_len.long() - 1).reshape(1))[:, 0]
+    else:
+        last = x[:, -1] if valid_len is None else x[:, valid_len - 1]
     logits = dense(rms_norm(last, eps=cfg.rms_eps), params["lm_head"])
     return logits, state
 

@@ -55,10 +55,13 @@ def fsq_dequantize(codes: torch.Tensor, cfg: NanoCodecConfig) -> torch.Tensor:
     levels[d] // 2 and shifted by -1 (floor division and modulo as Python's
     and jnp's, for codes out of range too)."""
     levels = np.asarray(cfg.levels, np.int64)
-    base = torch.as_tensor(np.concatenate([[1], np.cumprod(levels[:-1])]),
-                           device=codes.device)
-    lv = torch.as_tensor(levels, device=codes.device)
-    half = torch.as_tensor((levels // 2).astype(np.float32), device=codes.device)
+    # the per-dim constants filled on the device, with no copy from the
+    # host (a CUDA graph's capture, runtime/kani.py, takes none)
+    base, lv, half = (torch.stack([torch.full((), v, dtype=dt, device=codes.device)
+                                   for v in vals.tolist()])
+                      for vals, dt in ((np.concatenate([[1], np.cumprod(levels[:-1])]),
+                                        torch.int64), (levels, torch.int64),
+                                       (levels // 2, torch.float32)))
     c = codes.long()[..., None]                                 # (B, T, G, 1)
     nonneg = torch.remainder(torch.div(c, base, rounding_mode="floor"), lv)
     out = nonneg.float() / half - 1.0

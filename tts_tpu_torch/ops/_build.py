@@ -127,10 +127,13 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, argtypes: list, *args, device: torch.device) -> None:
+def launch(name: str, argtypes: list, *args, device: torch.device,
+           count: str | None = None) -> None:
     """Call C entry `name` (its last argument is a CUDA stream of `device`)
     with `device` current, and raise if the launch failed; count the launch
-    under `name`. The device is switched only where another is current."""
+    under `count` (default `name`: a kernel's other C entries count under
+    the kernel's name). The device is switched only where another is
+    current."""
     lib = library()
     fn = getattr(lib, name)
     if name not in _declared:
@@ -147,7 +150,7 @@ def launch(name: str, argtypes: list, *args, device: torch.device) -> None:
     if err:
         msg = lib.tts_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
-    count_launch(name)
+    count_launch(count or name)
 
 
 def count_launch(name: str, n: int = 1) -> None:

@@ -24,18 +24,29 @@ two branches:
 Cache rows >= pos are never read: masked rows add exp(-1e30 - m) = 0 in
 fp32, so skipping them changes nothing and bounds the work by the real
 context rather than the cache length.
+
+`pos` is a host int, or a 0-dim int32 tensor on the card (the device form,
+for a CUDA graph that replays a decode step at a position it never reads on
+the host), with `top`, the largest position the caller will give it (a
+static bound: a decode bucket's). The device form's kernel launches its
+cluster at `step_bound(top)`'s split and each CTA derives from the device
+position the slice `step_plan(pos)` gives it; the CTAs past that plan take
+no rows and add exact zeros to the merge, so its output is bitwise the host
+form's at the same pos. `step_fits` is checked at `top`. Its twin attends
+over the whole cache with rows >= pos masked, so no shape depends on pos.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 from .decode_qkv import check_contract, fused_qkv_rope_plain, launch_args
 
-__all__ = ["fused_qkv_attn", "fused_qkv_attn_plain", "MAX_GROUP", "step_fits",
-           "step_plan"]
+__all__ = ["fused_qkv_attn", "fused_qkv_attn_plain", "MAX_GROUP", "step_bound",
+           "step_fits", "step_plan"]
 
 MAX_GROUP = 8                     # q heads per kv head the CUDA kernel takes
 _MAX_SMEM = 200 * 1024            # the route gate's shared-memory budget
@@ -46,6 +57,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # k, v, H, heads, kv_heads, head_dim, qkv ctas, qkv rows, pdl, eps, k_cache,
 # v_cache (the layer's (KVH, T, D) slices), attn, T, pos, ctas, rows, stream
 _ARGTYPES = [_P, _P, _I] + [_P] * 11 + [_I] * 7 + [_F, _P, _P, _P] + [_I] * 4 + [_P]
+# the device form: ... attn, T, pos (a device int32), top, ctas, rows, stream
+_ARGTYPES_DEV = _ARGTYPES[:25] + [_I, _P, _I, _I, _I, _P]
 
 
 def _smem_bytes(group: int, head_dim: int, pos: int) -> int:
@@ -79,36 +92,55 @@ def step_plan(pos: int, head_dim: int) -> tuple[int, int]:
     return -(-pos // rows), rows
 
 
-def _attend(q, k_row, v_row, kc, vc, pos: int, heads: int, kv_heads: int,
+@functools.lru_cache(maxsize=None)
+def step_bound(top: int, head_dim: int) -> tuple[int, int]:
+    """The device form's launch for positions 0 .. top: (the most CTAs and
+    the most rows a CTA) that `step_plan` gives any of them. The cluster is
+    launched at that many CTAs, and a CTA's scores take that many rows of
+    shared memory."""
+    plans = [step_plan(p, head_dim) for p in range(top + 1)]
+    return max(c for c, _ in plans), max(r for _, r in plans)
+
+
+def _attend(q, k_row, v_row, kc, vc, pos, heads: int, kv_heads: int,
             head_dim: int) -> torch.Tensor:
     """The twin's attention: q (1, heads*hd), k_row/v_row (1, kvh*hd), kc/vc
-    the layer's (KVH, T, D) cache; returns (1, heads*hd)."""
+    the layer's (KVH, T, D) cache, pos a host int (rows < pos) or a 0-dim
+    tensor (every row, those >= pos masked); returns (1, heads*hd)."""
     dt = q.dtype
     g = heads // kv_heads
     qh = q.reshape(kv_heads, g, head_dim).float()
     kn = k_row.reshape(kv_heads, 1, head_dim).float()
     vn = v_row.reshape(kv_heads, 1, head_dim).float()
-    s = torch.matmul(qh, kc[:, :pos].float().transpose(1, 2))      # (KVH, G, pos)
+    rows = kc.shape[1] if isinstance(pos, torch.Tensor) else pos
+    s = torch.matmul(qh, kc[:, :rows].float().transpose(1, 2))     # (KVH, G, rows)
     s_new = (qh * kn).sum(dim=-1, keepdim=True)                     # (KVH, G, 1)
-    m = torch.maximum(s.amax(dim=-1, keepdim=True), s_new) if pos else s_new
-    p = torch.exp(s - m)
+    if isinstance(pos, torch.Tensor):
+        live = torch.arange(rows, device=kc.device) < pos
+        s = torch.where(live, s, float("-inf"))
+        m = torch.maximum(s.amax(dim=-1, keepdim=True), s_new)
+        p = torch.where(live, torch.exp(s - m), 0.0)
+    else:
+        m = torch.maximum(s.amax(dim=-1, keepdim=True), s_new) if pos else s_new
+        p = torch.exp(s - m)
     p_new = torch.exp(s_new - m)
     denom = p.sum(dim=-1, keepdim=True) + p_new
     probs = (p / denom).to(dt).float()
     probs_new = p_new / denom
     if head_dim >= 128:
         probs_new = probs_new.to(dt).float()
-    pv = torch.matmul(probs, vc[:, :pos].float()) + probs_new * vn
+    pv = torch.matmul(probs, vc[:, :rows].float()) + probs_new * vn
     return pv.to(dt).reshape(1, heads * head_dim)
 
 
 def fused_qkv_attn_plain(x: torch.Tensor, wqkv, rope_cos=None, rope_sin=None,
                          k_cache: torch.Tensor = None, v_cache: torch.Tensor = None,
-                         layer: int = 0, pos: int = 0, *, heads: int, kv_heads: int,
+                         layer: int = 0, pos=0, *, heads: int, kv_heads: int,
                          head_dim: int, q_norm=None, k_norm=None, bqkv=None,
                          norm: str = "rms", ln_weight=None, ln_bias=None,
-                         eps: float = 1e-6):
-    """Plain PyTorch twin of the kernel: same contract, same rounding points."""
+                         eps: float = 1e-6, top: int | None = None):
+    """Plain PyTorch twin of the kernel: same contract, same rounding points
+    (`top` is the device form's launch bound, which the twin does not need)."""
     q, k, v = fused_qkv_rope_plain(
         x, wqkv, rope_cos, rope_sin, heads=heads, kv_heads=kv_heads,
         head_dim=head_dim, q_norm=q_norm, k_norm=k_norm, bqkv=bqkv, norm=norm,
@@ -118,8 +150,8 @@ def fused_qkv_attn_plain(x: torch.Tensor, wqkv, rope_cos=None, rope_sin=None,
     return attn, k, v
 
 
-def _check_cache(x, k_cache, v_cache, layer: int, pos: int, kv_heads: int,
-                 head_dim: int) -> None:
+def _check_cache(x, k_cache, v_cache, layer: int, pos, kv_heads: int,
+                 head_dim: int, top: int | None) -> None:
     if x.shape[0] != 1:
         raise ValueError("fused_qkv_attn is the M=1 decode head")
     if k_cache is None or v_cache is None or k_cache.shape != v_cache.shape:
@@ -130,27 +162,35 @@ def _check_cache(x, k_cache, v_cache, layer: int, pos: int, kv_heads: int,
                          f"{kv_heads}, T, {head_dim})")
     if not 0 <= layer < num_layers:
         raise ValueError(f"layer {layer} outside a cache of {num_layers} layers")
-    if not 0 <= pos < t:
+    if isinstance(pos, torch.Tensor):
+        if pos.numel() != 1 or pos.dtype != torch.int32 or pos.device != x.device:
+            raise TypeError(f"a device pos is one int32 value on {x.device}")
+        if top is None or not 0 <= top < t:
+            raise ValueError(f"the device form needs a top position inside the cache's "
+                             f"{t} rows, got {top}")
+    elif not 0 <= pos < t:
         raise ValueError(f"pos {pos} outside a cache of {t} rows")
 
 
 def fused_qkv_attn(x: torch.Tensor, wqkv, rope_cos=None, rope_sin=None,
                    k_cache: torch.Tensor = None, v_cache: torch.Tensor = None,
-                   layer: int = 0, pos: int = 0, *, heads: int, kv_heads: int,
+                   layer: int = 0, pos=0, *, heads: int, kv_heads: int,
                    head_dim: int, q_norm=None, k_norm=None, bqkv=None,
                    norm: str = "rms", ln_weight=None, ln_bias=None,
-                   eps: float = 1e-6):
+                   eps: float = 1e-6, top: int | None = None):
     """x (1, H); wqkv (H, (heads+2*kvh)*hd), a tensor or an int8 QTensor;
     rope_cos/rope_sin the (1, hd) rows of position `pos` (None: no RoPE);
     k_cache/v_cache the stacked (L, 1, KVH, T, D) buffers, read only;
-    `layer` and `pos` host ints (cache rows < pos are valid).
+    `layer` a host int; `pos` a host int (cache rows < pos are valid) or a
+    0-dim int32 tensor on x's device with `top` >= every value it takes
+    (the device form, see the module's docstring).
 
     Returns (attn (1, heads*hd), k_row (1, kvh*hd), v_row (1, kvh*hd)):
     attention over cache[:pos] and the step's own roped k/v row, and the
     rows for the caller's cache append."""
     check_contract(x, wqkv, heads, kv_heads, head_dim, q_norm, k_norm, rope_cos,
                    rope_sin, norm, ln_weight, ln_bias)
-    _check_cache(x, k_cache, v_cache, layer, pos, kv_heads, head_dim)
+    _check_cache(x, k_cache, v_cache, layer, pos, kv_heads, head_dim, top)
     if heads % kv_heads:
         raise ValueError(f"heads {heads} is not a multiple of kv_heads {kv_heads}")
     if x.device.type == "cpu":
@@ -164,8 +204,10 @@ def fused_qkv_attn(x: torch.Tensor, wqkv, rope_cos=None, rope_sin=None,
     if g > MAX_GROUP:
         raise ValueError(f"the CUDA kernel takes at most {MAX_GROUP} q heads per "
                          f"kv head, got {g}")
-    if not step_fits(g, head_dim, pos):
-        raise ValueError(f"pos {pos} needs {_smem_bytes(g, head_dim, pos)} bytes of "
+    on_device = isinstance(pos, torch.Tensor)
+    most = top if on_device else pos
+    if not step_fits(g, head_dim, most):
+        raise ValueError(f"pos {most} needs {_smem_bytes(g, head_dim, most)} bytes of "
                          f"shared memory, over the kernel's {_MAX_SMEM}")
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
         if c.dtype != torch.bfloat16 or c.device != x.device \
@@ -175,10 +217,17 @@ def fused_qkv_attn(x: torch.Tensor, wqkv, rope_cos=None, rope_sin=None,
     args, (_, k, v), attn, plan = launch_args(
         x, wqkv, rope_cos, rope_sin, heads, kv_heads, head_dim, q_norm, k_norm, bqkv, norm,
         ln_weight, ln_bias, extra=heads * head_dim)
-    ctas, rows = step_plan(pos, head_dim)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.launch("fused_qkv_attn", _ARGTYPES, *args, x.shape[1], heads, kv_heads, head_dim,
-                  plan.ctas, plan.rows, int(plan.pdl), eps, k_cache[layer].data_ptr(),
-                  v_cache[layer].data_ptr(), attn.data_ptr(), k_cache.shape[3], pos, ctas,
-                  rows, stream, device=x.device)
+    head = [*args, x.shape[1], heads, kv_heads, head_dim, plan.ctas, plan.rows,
+            int(plan.pdl), eps, k_cache[layer].data_ptr(), v_cache[layer].data_ptr(),
+            attn.data_ptr(), k_cache.shape[3]]
+    if on_device:
+        # the C entry and its launches count under the one kernel's name
+        ctas, rows = step_bound(top, head_dim)
+        _build.launch("fused_qkv_attn_dev", _ARGTYPES_DEV, *head, pos.data_ptr(), top, ctas,
+                      rows, stream, device=x.device, count="fused_qkv_attn")
+    else:
+        ctas, rows = step_plan(pos, head_dim)
+        _build.launch("fused_qkv_attn", _ARGTYPES, *head, pos, ctas, rows, stream,
+                      device=x.device)
     return attn.view(1, heads * head_dim), k, v

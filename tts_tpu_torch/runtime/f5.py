@@ -13,6 +13,8 @@ and duration as (B,) tensors on the device, so every request of a bucket
 runs one program. On a card it is a CUDA graph, captured at the bucket's
 first request and replayed for every later one; on the CPU its body runs
 eagerly. The start noise is drawn outside the program and copied in.
+A graph reads the weights it was captured on: replacing `f5` or `vocos`, or
+moving or casting their tensors, drops the programs (`_programs`).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from ..models.f5 import F5Model, dit_forward, dit_forward_cached, text_embedding
 from ..models.vocos import VocosModel, vocos_decode
 from ..ops.quant_matmul import to_kmajor
 from ..quant.weight_only import QTensor, quantize_int4, quantize_int8_eager
-from .program import GraphPool, Program
+from .program import GraphPool, Program, weights_key
 
 __all__ = ["F5Pipeline", "F5Stats", "quantize_dit"]
 
@@ -106,9 +108,14 @@ class F5Pipeline:
     def __init__(self, f5: F5Model, vocab: dict[str, int], vocos: VocosModel,
                  seed: int = 9527, allow_degraded_text: bool = False,
                  quantize: int | str | None = None, layer_cache_interval: int = 1):
+        # one program per bucket, keyed as tts_tpu's: (audio, text, frames,
+        # generated frames) for a request, (batch, ...) for a batch; on a
+        # card their graphs share one memory pool
+        self._fn_cache: dict = {}
+        self._pool = GraphPool()
+        self._weights = None
+        self._quantize = quantize
         self.f5, self.vocos = f5, vocos
-        # quantized weights are made once, on the model's device
-        self._qparams = None if quantize is None else quantize_dit(f5.params, quantize)
         self.cfg, self.vcfg = f5.cfg, vocos.cfg
         self.vocab = vocab
         self.seed = seed
@@ -116,12 +123,40 @@ class F5Pipeline:
         cfg = self.cfg
         self.melspec = MelSpectrogram(cfg.sample_rate, cfg.n_fft, cfg.hop,
                                       cfg.win_length, cfg.n_mels)
-        # one program per bucket, keyed as tts_tpu's: (audio, text, frames,
-        # generated frames) for a request, (batch, ...) for a batch; on a
-        # card their graphs share one memory pool
-        self._fn_cache: dict = {}
-        self._pool = GraphPool()
         self.layer_cache_interval = layer_cache_interval
+
+    @property
+    def f5(self) -> F5Model:
+        """The F5 model (of the pipeline's config). Setting it drops the
+        programs built so far and, with `quantize`, quantizes its weights
+        anew, once, on its device."""
+        return self._f5
+
+    @f5.setter
+    def f5(self, model: F5Model) -> None:
+        self._f5 = model
+        self._qparams = None if self._quantize is None else quantize_dit(model.params,
+                                                                         self._quantize)
+        self._fn_cache.clear()
+
+    @property
+    def vocos(self) -> VocosModel:
+        """The Vocos model. Setting it drops the programs built so far."""
+        return self._vocos
+
+    @vocos.setter
+    def vocos(self, model: VocosModel) -> None:
+        self._vocos = model
+        self._fn_cache.clear()
+
+    def _programs(self) -> dict:
+        """`_fn_cache`, emptied first where a tensor its programs read was
+        replaced, moved or cast since they were built (`weights_key`)."""
+        key = weights_key(self.params, self.vocos.params)
+        if key != self._weights:
+            self._fn_cache.clear()
+            self._weights = key
+        return self._fn_cache
 
     @property
     def layer_cache_interval(self) -> int:
@@ -288,10 +323,10 @@ class F5Pipeline:
                              self.layer_cache_interval)
 
     def _get_fn(self, audio_len: int, text_len: int, frames: int, gen_frames: int) -> Program:
-        key = (audio_len, text_len, frames, gen_frames)
-        if key not in self._fn_cache:
-            self._fn_cache.setdefault(key, self._build(*key))
-        return self._fn_cache[key]
+        key, cache = (audio_len, text_len, frames, gen_frames), self._programs()
+        if key not in cache:
+            cache.setdefault(key, self._build(*key))
+        return cache[key]
 
     def _build_batch(self, bsz: int, audio_len: int, text_len: int, frames: int,
                      gen_frames: int) -> Program:
@@ -301,10 +336,10 @@ class F5Pipeline:
 
     def _get_batch_fn(self, bsz: int, audio_len: int, text_len: int, frames: int,
                       gen_frames: int) -> Program:
-        key = (bsz, audio_len, text_len, frames, gen_frames)
-        if key not in self._fn_cache:
-            self._fn_cache.setdefault(key, self._build_batch(*key))
-        return self._fn_cache[key]
+        key, cache = (bsz, audio_len, text_len, frames, gen_frames), self._programs()
+        if key not in cache:
+            cache.setdefault(key, self._build_batch(*key))
+        return cache[key]
 
     def _inputs(self, audio_p: np.ndarray, ids_p: np.ndarray, refs, durs, frames: int,
                 seed: int | None, noise) -> tuple:

@@ -5,20 +5,42 @@ which is not ported yet). The tokenizer is the caller's: an
 tokenizer.json, or any callable with transformers' `return_tensors="np"`
 surface.
 
-One batched prefill over the padded prompt bucket, then a Python loop of
-decode steps (LM step, repetition penalty, greedy or beam selection) that
-stops where tts_tpu's while-loop stops: on the stop token (greedy), on beam
-0's stop token (beam), when every row has stopped (batch), or at the cap.
-The stop flag is read on the host once a token. The codec then runs over
-the whole bucket of `fbuf` frames, positions past the generated frames
-padded with the group-base token, and the waveform is cropped: the HiFiGAN
-is causal, so the kept samples equal a compact decode's.
+tts_tpu jits a request into one program per bucket: a batched prefill over
+the padded prompt bucket, a `lax.while_loop` of decode steps (LM step,
+repetition penalty, greedy or beam selection) and the codec epilogue,
+cached in `_decode_cache[fbuf]` (`_batch_fns[("batch", B, fbuf)]` for a
+batch). The port keeps those keys and builds, for each, a `_Decode`: three
+kinds of `runtime.program.Program` over a state that lives on the device
+(the KV cache with its length as a device int32, the conv carries, the
+token buffer, the decoded count, the last token, the stop flags, the beam's
+log-probs), on a card each a CUDA graph on the pipeline's `GraphPool`:
+  * a prefill program for each prompt bucket (`_bucket`), which resets the
+    state and runs the prefill and the first selection;
+  * one step program, whose replay runs STEPS decode steps; a step freezes
+    the request (the count, the tokens and the stop flags stop changing)
+    once the stop token came (greedy: the token; beam: beam 0's; batch:
+    every row's) or the count reached min(cap, buf), so the result is
+    tts_tpu's exact `while_loop` stop, and a replay's steps past it are
+    frozen steps, which still launch their kernels;
+  * a codec program for the bucket's `fbuf` frames: positions past the
+    generated frames are the group-base token, and the waveform is cropped
+    on the host (the HiFiGAN is causal, so the kept samples equal a compact
+    decode's).
+The host replays the step program until the stop flag, read once a replay
+through a non-blocking copy into pinned memory, is set; it reads each
+replay's flag after queueing the next replay, so past a stop one more
+replay runs, all frozen (at the cap none: the host counts the replays
+min(cap, buf) needs). A step the cache
+has no row for freezes the request, and the host raises afterwards, as the
+host-driven loop raised at that step. On the CPU every program runs its
+body eagerly, on the same state.
 
 Prompt format: [64403] + tokenizer("speaker: text") + [2, 64404]; the codec
 reads ids[2:num] as frames of 4 codebook tokens.
 """
 from __future__ import annotations
 
+import threading
 import time
 import warnings
 from dataclasses import dataclass
@@ -29,15 +51,21 @@ import torch
 from ..audio.wav import to_pcm16
 from ..decoding.beam import beam_init, beam_step
 from ..decoding.sampling import apply_repetition_penalty, greedy
+from ..kv.cache import KVCache
 from ..models.kani import KaniConfig, KaniState, embed_tokens, init_state, kani_step
 from ..models.nanocodec import (NanoCodecConfig, fsq_dequantize, hifigan_decode,
                                 tokens_to_codes)
+from .program import GraphPool, Program, weights_key
 
-__all__ = ["KaniPipeline", "KaniDecodeConfig"]
+__all__ = ["KaniPipeline", "KaniDecodeConfig", "STEPS"]
 
 HEAD_IDS = (64403,)
 TAIL_IDS = (2, 64404)
 MAX_PROMPT = 256
+# decode steps a replay of a step program covers: the host reads the stop
+# flag once a replay, and a request's last replay runs up to STEPS - 1
+# frozen steps
+STEPS = 8
 
 
 @dataclass(frozen=True)
@@ -65,10 +93,214 @@ def _prefill_loop(params: dict, ids_buf: torch.Tensor, prompt_len: int,
     return KaniState(state.kv.rewind(prompt_len), state.conv), logits
 
 
+class _Decode:
+    """One decode bucket's programs and the device state they share: the
+    counterpart of one jitted `run` of tts_tpu's `_decode_cache[fbuf]`
+    (`kind` "greedy" or "beam") or `_batch_fns[("batch", B, fbuf)]`
+    ("batch"), for `rows` rows (1, the beam size, B) of `buf` tokens.
+
+    `prefill(bucket)` is the prefill program of a prompt bucket, `step` the
+    program of STEPS decode steps, `codec` the epilogue; `state` lists every
+    tensor they update. `bound` is the rows a step may reach, the largest
+    prompt bucket plus buf, within the cache: its attention reads them and
+    kernel 12 is launched for positions up to bound - 1. A request holds
+    `lock` from its prefill to its fetch: the state is one request's."""
+
+    def __init__(self, pipe: "KaniPipeline", kind: str, rows: int, buf: int, fbuf: int):
+        cfg, dev = pipe.cfg, pipe.device
+        self.pipe, self.kind, self.rows, self.buf, self.fbuf = pipe, kind, rows, buf, fbuf
+        self.bound = min(min(MAX_PROMPT, cfg.max_seq_len // 2) + buf, cfg.max_seq_len)
+        st = init_state(cfg, rows, pipe.dtype, dev)
+        self.k, self.v, self.conv = st.kv.k, st.kv.v, st.conv
+
+        def i32(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        def flag(*shape):
+            return torch.zeros(shape, dtype=torch.bool, device=dev)
+
+        # pos: the cache length; num: tokens decoded; limit: min(cap, buf);
+        # fin: the stop token came (a row's, in a batch); over: a step found
+        # no cache row; stop: the loop's exit; done: a batch row's stop index
+        self.pos, self.num, self.limit = i32(), i32(), i32()
+        self.save, self.tok, self.done, self.pad = i32(rows, buf), i32(rows), i32(rows), i32(rows)
+        self.fin = flag(rows) if kind == "batch" else flag()
+        self.over, self.stop = flag(), flag()
+        self.keep = torch.arange(rows, device=dev)
+        self.lp = torch.zeros((rows, 1), dtype=pipe.dtype, device=dev)
+        self.state = (self.k, self.v, self.conv, self.pos, self.num, self.limit, self.save,
+                      self.tok, self.done, self.pad, self.fin, self.over, self.stop, self.lp)
+        self._prefill: dict = {}
+        self.lock = threading.Lock()
+        self.step = Program(self._steps, [], dev, pipe._pool, self.state)
+        self.codec = Program(self._codec, [], dev, pipe._pool, self.state)
+        # two slots of the stop flag on the host: one replay runs ahead of
+        # the flag the host reads
+        self._flags = [torch.zeros((), dtype=torch.bool, pin_memory=dev.type == "cuda")
+                       for _ in range(2)]
+        self._events = [torch.cuda.Event() for _ in range(2)] if dev.type == "cuda" else None
+
+    # ------------------------------------------------------------ programs
+
+    def prefill(self, bucket: int) -> Program:
+        """The prefill program of a prompt bucket: ids (1 or B, bucket)
+        int32, the prompt length () (a batch: each row's pad start (B,)),
+        the limit () int32 -> (the stop flag,)."""
+        if bucket not in self._prefill:
+            lens = ((self.rows,), torch.int32) if self.kind == "batch" else ((), torch.int32)
+            self._prefill[bucket] = Program(
+                self._prefill_body, [((1 if self.kind != "batch" else self.rows, bucket),
+                                      torch.int32), lens, ((), torch.int32)],
+                self.pipe.device, self.pipe._pool, self.state)
+        return self._prefill[bucket]
+
+    def _prefill_body(self, ids, lens, limit) -> tuple:
+        p, cfg = self.pipe, self.pipe.cfg
+        for t in (self.k, self.v, self.conv, self.save, self.over):
+            t.zero_()
+        if self.kind == "batch":
+            # prompts right-justified in the bucket; lens: each row's pad start
+            valid = torch.arange(ids.shape[1], device=ids.device)[None, :] >= lens[:, None]
+            emb = embed_tokens(p.params, ids) * valid[..., None]
+            logits, _ = kani_step(p.params, emb, KaniState(KVCache(self.k, self.v, 0),
+                                                           self.conv), cfg, key_valid_from=lens)
+            tok = greedy(logits)
+            self.fin.copy_(tok == cfg.stop_token)
+            # done[b]: the index of row b's stop token (the tokens kept before it)
+            self.done.copy_(torch.where(self.fin, 0, self.buf))
+            self.pad.copy_(lens)
+            self.pos.fill_(ids.shape[1])
+        else:
+            # one row's prefill, then (beam) its cache and carries tiled
+            st = KaniState(KVCache(self.k[:, :1], self.v[:, :1], 0), self.conv[:, :1])
+            logits, _ = kani_step(p.params, embed_tokens(p.params, ids), st, cfg,
+                                  valid_len=lens)
+            if self.rows > 1:
+                for t in (self.k, self.v, self.conv):
+                    t[:, 1:].copy_(t[:, :1].expand_as(t[:, 1:]))
+            if self.kind == "beam":
+                bs = beam_init(logits, self.rows)
+                tok = bs.tokens
+                self.lp.copy_(bs.log_probs)
+            else:
+                tok = greedy(logits)
+            self.fin.copy_(tok[0] == cfg.stop_token)
+            self.pos.copy_(lens)
+        self.tok.copy_(tok)
+        self.save[:, 0] = tok
+        self.num.fill_(1)
+        self.limit.copy_(limit)
+        self._set_stop()
+        return (self.stop,)
+
+    def _steps(self) -> tuple:
+        for _ in range(STEPS):
+            self._one_step()
+        return (self.stop,)
+
+    def _set_stop(self) -> None:
+        fin = self.fin.all() if self.kind == "batch" else self.fin
+        self.stop.copy_(fin | (self.num >= self.limit) | self.over)
+
+    def _one_step(self) -> None:
+        """One decode step of tts_tpu's while-loop body, applied only while
+        its condition holds (`go`); otherwise a frozen step."""
+        p, cfg, dcfg = self.pipe, self.pipe.cfg, self.pipe.dcfg
+        t_max = cfg.max_seq_len
+        fin = self.fin.all() if self.kind == "batch" else self.fin
+        active = ~fin & (self.num < self.limit)
+        go = active & (self.pos < t_max)
+        self.over.copy_(self.over | (active & ~go))
+        kv = KVCache(self.k, self.v, self.pos.clamp(max=t_max - 1), self.bound)
+        logits, _ = kani_step(p.params, embed_tokens(p.params, self.tok[:, None]),
+                              KaniState(kv, self.conv), cfg,
+                              key_valid_from=self.pad if self.kind == "batch" else None,
+                              fused=p._fused)
+        logits = p._penalized(logits, self.save, self.num)
+        at = self.num.clamp(max=self.buf - 1).long().reshape(1)
+        if self.kind == "beam":
+            nbs = beam_step(logits, self.lp, self.rows, dcfg.top_k)
+            parent = torch.where(go, nbs.parent, self.keep).long()
+            kv.select_batch(parent)
+            self.conv.copy_(self.conv.index_select(1, parent))
+            self.save.copy_(self.save.index_select(0, parent))
+            tok = nbs.tokens
+            self.lp.copy_(torch.where(go, nbs.log_probs, self.lp))
+            self.fin.copy_(self.fin | (go & (tok[0] == cfg.stop_token)))
+        elif self.kind == "batch":
+            tok = torch.where(self.fin, cfg.stop_token, greedy(logits)).to(torch.int32)
+            newly = (tok == cfg.stop_token) & ~self.fin & go
+            self.done.copy_(torch.where(newly, self.num, self.done))
+            self.fin.copy_(self.fin | newly)
+        else:
+            tok = greedy(logits)
+            self.fin.copy_(self.fin | (go & (tok[0] == cfg.stop_token)))
+        cur = self.save.index_select(1, at)
+        self.save.index_copy_(1, at, torch.where(go, tok[:, None], cur))
+        self.tok.copy_(torch.where(go, tok, self.tok))
+        step = go.to(torch.int32)
+        self.num.add_(step)
+        self.pos.add_(step)
+        self._set_stop()
+
+    def _counts(self) -> torch.Tensor:
+        """(rows kept,) int32: the tokens each output row keeps."""
+        if self.kind == "batch":
+            return torch.minimum(self.done, self.num)
+        return (self.num - self.fin.to(torch.int32)).reshape(1)
+
+    def _codec(self) -> tuple:
+        save = self.save if self.kind == "batch" else self.save[:1]
+        n = self._counts()
+        wav, peak = self.pipe._vocode(save, n, self.fbuf)
+        return wav, n, peak, self.over
+
+    # ---------------------------------------------------------------- host
+
+    def _post(self, stop: torch.Tensor, slot: int) -> None:
+        """Queue a copy of the stop flag into a host slot (pinned memory on
+        a card, with an event after it)."""
+        self._flags[slot].copy_(stop, non_blocking=self._events is not None)
+        if self._events is not None:
+            self._events[slot].record()
+
+    def _stopped(self, slot: int) -> bool:
+        """A slot's stop flag, once its copy is done (no .item())."""
+        if self._events is not None:
+            self._events[slot].synchronize()
+        return bool(self._flags[slot].numpy())
+
+    def decode(self, ids: np.ndarray, lens, limit: int) -> None:
+        """The prefill of ids' bucket, then replays of the step program, at
+        most enough for limit - 1 steps. Each replay is queued before the
+        host reads the flag of the one before it (the prefill's, at first),
+        so the card does not wait for the host between replays; after the
+        stop, at most one replay of frozen steps runs."""
+        stop, = self.prefill(ids.shape[1])(ids, lens, np.int32(limit))
+        self._post(stop, 0)
+        for r in range(-(-(limit - 1) // STEPS)):
+            stop, = self.step()
+            self._post(stop, (r + 1) % 2)
+            if self._stopped(r % 2):
+                return
+
+    def fetch(self) -> tuple:
+        """The codec program's outputs on the host: (int16 waveforms (rows
+        kept, fbuf * total_upsample), tokens each row keeps, peak |float
+        waveform|); raises where a step found no cache row."""
+        wav, n, peak, over = self.codec()
+        wav, n, over = wav.cpu().numpy(), n.cpu().numpy(), bool(over.cpu())
+        if over:
+            raise ValueError(f"cache of {self.pipe.cfg.max_seq_len} rows cannot take the "
+                             f"next decode step")
+        return wav, n, float(peak)
+
+
 class KaniPipeline:
     """KaniTTS over an LM params dict and a NanoCodec params dict (tts_tpu's
     layouts, e.g. from `weights.convert.params_from_jax` or the models'
-    `init_params`). Runs on the device the params are on."""
+    `init_params`). Runs on the device the params are on, through the
+    decode programs of the module's docstring."""
 
     def __init__(self, params: dict, cfg: KaniConfig, codec_params: dict,
                  codec_cfg: NanoCodecConfig, decode_cfg: KaniDecodeConfig | None = None,
@@ -82,8 +314,15 @@ class KaniPipeline:
             from ..quant.weight_only import quantize_pytree
 
             params = quantize_pytree(params, bits=quantize)
-        self.params = params
+        # the decode programs, keyed as tts_tpu's: fbuf for a request of the
+        # configured route, ("batch", B, fbuf) for a batch; on a card their
+        # graphs share one memory pool
+        self._decode_cache: dict = {}
+        self._batch_fns: dict = {}
+        self._pool = GraphPool()
+        self._weights = None
         self.cfg = cfg
+        self.params = params
         self.codec_params = codec_params
         self.codec_cfg = codec_cfg
         self.dcfg = decode_cfg or KaniDecodeConfig()
@@ -92,8 +331,41 @@ class KaniPipeline:
         self.tokenizer = tokenizer
         self.audio_tokens_start = (audio_tokens_start if audio_tokens_start is not None
                                    else cfg.vocab_size - 4 * codec_cfg.codebook_size)
+
+    @property
+    def params(self) -> dict:
+        """The LM's params (quantized where the pipeline was built with
+        `quantize`). Setting them drops the decode programs built so far."""
+        return self._params
+
+    @params.setter
+    def params(self, params: dict) -> None:
+        self._params = params
         self.device = params["embed"].device
         self.dtype = params["embed"].dtype
+        self._drop()
+
+    @property
+    def codec_params(self) -> dict:
+        """The NanoCodec's params. Setting them drops the decode programs."""
+        return self._codec_params
+
+    @codec_params.setter
+    def codec_params(self, params: dict) -> None:
+        self._codec_params = params
+        self._drop()
+
+    def _drop(self) -> None:
+        self._decode_cache.clear()
+        self._batch_fns.clear()
+
+    def _programs(self) -> None:
+        """Drop the decode programs where a tensor they read was replaced,
+        moved or cast since they were built (`weights_key`)."""
+        key = weights_key(self.params, self.codec_params)
+        if key != self._weights:
+            self._drop()
+            self._weights = key
 
     # ------------------------------------------------------------------ codec
 
@@ -116,79 +388,46 @@ class KaniPipeline:
 
     # ------------------------------------------------------------------ LM
 
-    def _penalized(self, logits, save_ids, num: int):
+    def _penalized(self, logits, save_ids, num):
         d = self.dcfg
         if d.repeat_penalty == 1.0:
             return logits
         return apply_repetition_penalty(logits, save_ids, num, d.repeat_penalty,
                                         d.penalty_range)
 
+    def _route(self) -> str:
+        degenerate = self.dcfg.top_k < 2 or self.dcfg.beam_size < 2
+        return "beam" if self.dcfg.use_beam and not degenerate else "greedy"
+
+    def _solo(self, fbuf: int) -> _Decode:
+        """The configured route's decode programs for a request of fbuf
+        frames (tts_tpu's `_decode_cache[fbuf]`)."""
+        self._programs()
+        if fbuf not in self._decode_cache:
+            kind = self._route()
+            rows = self.dcfg.beam_size if kind == "beam" else 1
+            self._decode_cache[fbuf] = _Decode(self, kind, rows,
+                                               fbuf * self.codec_cfg.num_groups + 2, fbuf)
+        return self._decode_cache[fbuf]
+
+    def _batch(self, bsz: int, fbuf: int) -> _Decode:
+        """A batch's decode programs (tts_tpu's `_batch_fns[("batch", B,
+        fbuf)]`)."""
+        self._programs()
+        key = ("batch", bsz, fbuf)
+        if key not in self._batch_fns:
+            self._batch_fns[key] = _Decode(self, "batch", bsz,
+                                           fbuf * self.codec_cfg.num_groups + 2, fbuf)
+        return self._batch_fns[key]
+
     def _greedy_run(self, ids_buf, prompt_len: int, cap: int, buf: int):
-        cfg, params = self.cfg, self.params
-        state, logits = _prefill_loop(params, ids_buf, prompt_len,
-                                      init_state(cfg, 1, self.dtype, self.device), cfg)
-        tok = greedy(logits)
-        save_ids = torch.zeros((1, buf), dtype=torch.int32, device=self.device)
-        save_ids[:, 0] = tok
-        num, finished = 1, bool(tok.item() == cfg.stop_token)
-        while not finished and num < min(cap, buf):
-            logits, state = kani_step(params, embed_tokens(params, tok[:, None]), state,
-                                      cfg, fused=self._fused)
-            tok = greedy(self._penalized(logits, save_ids, num))
-            save_ids[:, num] = tok
-            num += 1
-            finished = tok.item() == cfg.stop_token
-        return save_ids, num - int(finished)
-
-    def _beam_run(self, ids_buf, prompt_len: int, cap: int, buf: int):
-        cfg, params, beam = self.cfg, self.params, self.dcfg.beam_size
-        state, logits = _prefill_loop(params, ids_buf, prompt_len,
-                                      init_state(cfg, 1, self.dtype, self.device), cfg)
-        bs = beam_init(logits, beam)
-        state = KaniState(state.kv.repeat_batch(beam), state.conv.repeat(1, beam, 1, 1))
-        save_ids = torch.zeros((beam, buf), dtype=torch.int32, device=self.device)
-        save_ids[:, 0] = bs.tokens
-        num, finished = 1, bool(bs.tokens[0].item() == cfg.stop_token)
-        while not finished and num < min(cap, buf):
-            logits, state = kani_step(params, embed_tokens(params, bs.tokens[:, None]),
-                                      state, cfg, fused=self._fused)
-            bs = beam_step(self._penalized(logits, save_ids, num), bs.log_probs, beam,
-                           self.dcfg.top_k)
-            parent = bs.parent.long()
-            state = KaniState(state.kv.select_batch(parent),
-                              state.conv.index_select(1, parent))
-            save_ids = save_ids.index_select(0, parent)
-            save_ids[:, num] = bs.tokens
-            num += 1
-            finished = bs.tokens[0].item() == cfg.stop_token
-        return save_ids[:1], num - int(finished)
-
-    def _batch_run(self, ids_buf, pad_start, cap: int, buf: int):
-        """B prompts right-justified in one bucket; per-row stop tracking."""
-        cfg, params, bsz = self.cfg, self.params, ids_buf.shape[0]
-        valid = torch.arange(ids_buf.shape[1], device=self.device)[None, :] \
-            >= pad_start[:, None]
-        emb = embed_tokens(params, ids_buf) * valid[..., None]
-        state = init_state(cfg, bsz, self.dtype, self.device)
-        logits, state = kani_step(params, emb, state, cfg, key_valid_from=pad_start)
-        tok = greedy(logits)
-        save = torch.zeros((bsz, buf), dtype=torch.int32, device=self.device)
-        save[:, 0] = tok
-        fin = tok == cfg.stop_token
-        # done[b]: index of row b's stop token (the tokens kept before it)
-        done = torch.where(fin, 0, buf).to(torch.int32)
-        num = 1
-        while not bool(fin.all()) and num < min(cap, buf):
-            logits, state = kani_step(params, embed_tokens(params, tok[:, None]), state,
-                                      cfg, key_valid_from=pad_start, fused=self._fused)
-            tok = greedy(self._penalized(logits, save, num))
-            tok = torch.where(fin, cfg.stop_token, tok).to(torch.int32)
-            save[:, num] = tok
-            newly = (tok == cfg.stop_token) & ~fin
-            done = torch.where(newly, num, done).to(torch.int32)
-            fin = fin | newly
-            num += 1
-        return save, torch.clamp(done, max=num)
+        """The configured route's decode of one padded prompt through its
+        programs, without the codec: (the kept row's token buffer (1, buf)
+        on the device, tokens kept)."""
+        dec = self._solo((buf - 2) // self.codec_cfg.num_groups)
+        with dec.lock:
+            dec.decode(torch.as_tensor(ids_buf).to(torch.int32), np.int32(prompt_len), cap)
+            return dec.save[:1].clone(), int(dec._counts()[0])
 
     def _buf_for(self, max_new_tokens: int | None) -> tuple[int, int, int]:
         """(cap, buf, fbuf): token cap, the bucketed token capacity and the
@@ -220,27 +459,27 @@ class KaniPipeline:
     def synthesize_ids(self, ids: np.ndarray, max_new_tokens: int | None = None
                        ) -> tuple[np.ndarray, dict]:
         """ids: (1, P) full prompt (head and tail ids attached). Returns
-        (int16 waveform, {"tokens", "wall_s", "tokens_per_s"})."""
+        (int16 waveform, {"tokens", "wall_s", "tokens_per_s", "peak"})."""
         cap, buf, fbuf = self._buf_for(max_new_tokens)
         prompt_len = ids.shape[1]
         ids_buf = np.zeros((1, self._bucket(prompt_len)), np.int32)
         ids_buf[0, :prompt_len] = ids[0]
-        t0 = time.perf_counter()
-        ids_dev = torch.from_numpy(ids_buf).to(self.device)
-        degenerate = self.dcfg.top_k < 2 or self.dcfg.beam_size < 2
-        if self.dcfg.use_beam and degenerate:
+        if self.dcfg.use_beam and self._route() == "greedy":
             warnings.warn("beam search requested with beam_size/top_k < 2; "
                           "falling back to greedy", stacklevel=2)
-        run = self._beam_run if (self.dcfg.use_beam and not degenerate) else self._greedy_run
-        save_ids, n = run(ids_dev, prompt_len, min(cap, buf), buf)
+        t0 = time.perf_counter()
+        dec = self._solo(fbuf)
+        with dec.lock:
+            dec.decode(ids_buf, np.int32(prompt_len), min(cap, buf))
+            wav, n, peak = dec.fetch()
+        n = int(n[0])
         frames = max((n - 2) // self.codec_cfg.num_groups, 0)
         if frames == 0:
             return np.zeros(0, np.int16), {"tokens": n, "wall_s": 0.0}
-        wav, peak = self._vocode(save_ids, torch.tensor([n], device=self.device), fbuf)
-        wav = wav[0, :frames * self.codec_cfg.total_upsample].cpu().numpy()
+        wav = wav[0, :frames * self.codec_cfg.total_upsample]
         wall = time.perf_counter() - t0
         return wav, {"tokens": n, "wall_s": wall, "tokens_per_s": n / max(wall, 1e-9),
-                     "peak": float(peak)}
+                     "peak": peak}
 
     @torch.no_grad()
     def synthesize_ids_batch(self, ids_list: list[np.ndarray],
@@ -258,11 +497,10 @@ class KaniPipeline:
             ids_buf[b, bucket - p:] = ids[0]
             pad_start[b] = bucket - p
         t0 = time.perf_counter()
-        save, done = self._batch_run(torch.from_numpy(ids_buf).to(self.device),
-                                     torch.from_numpy(pad_start).to(self.device),
-                                     min(cap, buf), buf)
-        wav, peak = self._vocode(save, done, fbuf)
-        wav, done = wav.cpu().numpy(), done.cpu().numpy()
+        dec = self._batch(bsz, fbuf)
+        with dec.lock:
+            dec.decode(ids_buf, pad_start, min(cap, buf))
+            wav, done, peak = dec.fetch()
         g, up = self.codec_cfg.num_groups, self.codec_cfg.total_upsample
         wavs = []
         for b in range(bsz):
@@ -271,7 +509,7 @@ class KaniPipeline:
         wall = time.perf_counter() - t0
         total = int(done.sum())
         return wavs, {"tokens": total, "wall_s": wall,
-                      "tokens_per_s": total / max(wall, 1e-9), "peak": float(peak)}
+                      "tokens_per_s": total / max(wall, 1e-9), "peak": peak}
 
     def synthesize(self, text: str, speaker: str = "jenny") -> tuple[np.ndarray, dict]:
         return self.synthesize_ids(self.tokenize(text, speaker))

@@ -23,9 +23,20 @@ call and replays the graph at every later one:
     call.
 A capture or a replay that fails raises: nothing falls back to the eager
 body. On the CPU the body runs eagerly on the arguments.
+
+A program may carry state: tensors outside the pool that its body updates
+in place (the Kani decode programs' KV cache, counters and stop flags,
+runtime/kani.py). Its warm-up then runs on that state and puts it back as
+it found it, so the first call advances the state once, as every later one.
+
+A graph reads the weights' memory as it was at the capture. A pipeline keys
+its programs to `weights_key` of the trees their bodies read and drops them
+when the key changes (a weight replaced, moved or cast), so no replay reads
+a tensor that is no longer the pipeline's.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 
@@ -33,10 +44,35 @@ import torch
 
 from ..ops import _build
 
-__all__ = ["GraphPool", "Program"]
+__all__ = ["GraphPool", "Program", "weights_key"]
 
 # CUDA allows one stream capture at a time in a process
 _capture_lock = threading.Lock()
+
+
+def weights_key(*trees) -> tuple:
+    """The identity of every tensor in `trees` (dicts, lists, tuples and
+    dataclasses such as the quantized weights, down to tensors): its data
+    pointer, shape and dtype, in order. Two calls give equal keys while
+    no tensor was replaced, moved or cast."""
+    out: list = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            out.append((x.data_ptr(), x.shape, x.dtype))
+        elif isinstance(x, dict):
+            for k in x:
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+
+    for tree in trees:
+        walk(tree)
+    return tuple(out)
 
 
 class GraphPool:
@@ -71,7 +107,9 @@ class _Graph:
     def __init__(self, device: torch.device, pool: GraphPool):
         self.device = device
         self.handle, self.stream = pool.take(device)
-        self.graph = torch.cuda.CUDAGraph()
+        # the graph's template is kept after instantiation, so its nodes and
+        # edges can be read (`raw_cuda_graph`); capture() instantiates it
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
 
     def warm_up(self, fn) -> None:
         cur = torch.cuda.current_stream(self.device)
@@ -84,7 +122,9 @@ class _Graph:
     def capture(self, fn) -> tuple:
         with torch.cuda.graph(self.graph, pool=self.handle, stream=self.stream,
                               capture_error_mode="thread_local"):
-            return fn()
+            outs = fn()
+        self.graph.instantiate()
+        return outs
 
     def replay(self) -> None:
         with torch.cuda.device(self.device):
@@ -95,14 +135,17 @@ class Program:
     """body(*inputs) -> a tuple of tensors, for the inputs of one bucket:
     `inputs` lists each one's (shape, dtype). On a CUDA `device` the first
     call warms up and captures a graph into `pool`; every call replays it
-    (see the module's docstring). On the CPU a call runs the body.
+    (see the module's docstring). On the CPU a call runs the body. `state`:
+    the tensors the body updates in place, which its warm-up leaves as it
+    found them.
 
     After the capture: `launches` holds the kernel launches a replay counts,
     `warmup_s` and `capture_s` the first call's seconds in each, and
     `pool_bytes` the pool's size."""
 
-    def __init__(self, body, inputs: list, device, pool: GraphPool):
+    def __init__(self, body, inputs: list, device, pool: GraphPool, state: tuple = ()):
         self.body = body
+        self.state = tuple(state)
         self.specs = [(tuple(shape), dtype) for shape, dtype in inputs]
         self.device = torch.device(device)
         self.pool = pool
@@ -155,8 +198,12 @@ class Program:
         def run():
             return self.body(*self._static)
 
+        kept = [t.clone() for t in self.state]
         with _build.recording():
             graph.warm_up(run)
+        for t, k in zip(self.state, kept):
+            t.copy_(k)
+        del kept
         t1 = time.perf_counter()
         with _capture_lock, _build.recording() as counts:
             outs = graph.capture(run)

@@ -9,6 +9,8 @@ jits the whole generator into one program, the port builds one
 captured at the first call of the shape and replayed for every later one;
 on the CPU its body runs eagerly. tts_tpu's staged half-programs are not
 ported: they split one XLA compile in two, which a capture does not need.
+A graph reads the weights it was captured on: setting `params`, or moving or
+casting a tensor of them, drops the programs.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from ..audio.wav import to_pcm16
 from ..models.bigvgan import BigVGANConfig, bigvgan_apply
-from .program import GraphPool, Program
+from .program import GraphPool, Program, weights_key
 
 __all__ = ["BigVGANVocoder"]
 
@@ -34,13 +36,25 @@ class BigVGANVocoder:
     def __init__(self, params: dict, cfg: BigVGANConfig | None = None,
                  dtype=torch.bfloat16):
         self.cfg = cfg or BigVGANConfig()
-        self.params = _cast(params, dtype)
         self.dtype = dtype
-        self.device = self.params["conv_pre"]["w"].device
         # one program per mel shape (B, T); on a card their graphs share one
         # memory pool
         self._fn_cache: dict = {}
         self._pool = GraphPool()
+        self._weights = None
+        self.params = params
+
+    @property
+    def params(self) -> dict:
+        """The generator's params, in the vocoder's dtype. Setting them
+        (cast to it) drops the programs built so far; `device` follows."""
+        return self._params
+
+    @params.setter
+    def params(self, params: dict) -> None:
+        self._params = _cast(params, self.dtype)
+        self.device = self._params["conv_pre"]["w"].device
+        self._fn_cache.clear()
 
     def _run(self, mel: torch.Tensor) -> tuple:
         """The program's body: mel (B, T, num_mels) in the vocoder's dtype ->
@@ -49,7 +63,11 @@ class BigVGANVocoder:
         return (to_pcm16(wav.float() * 32767.0),)
 
     def _get_fn(self, bsz: int, frames: int) -> Program:
-        key = (bsz, frames)
+        key, wkey = (bsz, frames), weights_key(self.params)
+        if wkey != self._weights:
+            # a tensor of the params was replaced, moved or cast in place
+            self._fn_cache.clear()
+            self._weights = wkey
         if key not in self._fn_cache:
             self._fn_cache.setdefault(key, Program(
                 self._run, [((bsz, frames, self.cfg.num_mels), self.dtype)], self.device,
