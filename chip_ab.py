@@ -26,11 +26,19 @@ the parts `--parts` names (all by default), `--rounds` times A, B, B, A:
     gives it (`_card_layout`: what its quantize_dit does on the card), so
     two trees whose kernels compute the same bits give the same digests,
     which the last line compares;
-  * qwen: after a warm-up, one Qwen3-TTS-0.6B request on fused_decode="all"
-    (bench ids, max_frames 128) under torch.profiler (device time a frame,
-    the card's busy time a frame (the union of the kernels' intervals:
-    kernel 14's launches overlap), kernel 13's and kernel 14's share of it)
-    and two timed;
+  * qwen: the Qwen3-TTS-0.6B bench request (32 text ids, language 3,
+    max_frames 120) on each route: the default route ("step", kernel 12)
+    bf16 and int8, beam 3, a batch of 4 (8 frames, kernel 11), "all" at
+    max_frames 128 (kernels 11, 13, 14) and "mlp_q8" int8 (11, 15): the
+    first request's wall (on the decode programs also their warm-up and
+    capture seconds and the pool's MiB), one request under torch.profiler
+    (CUDA activity only: device time, the card's busy time (the union of
+    the kernels' intervals: PDL launches overlap) and kernel launches a
+    frame, the idle share of the profiled wall; on "all" kernel 13's device
+    time and kernel 14's busy time a frame), frames/s and RTF of two timed
+    requests and the idle share of each timed wall, and host launch calls
+    a frame (kernel and graph launches in a CPU trace of an 8-frame request
+    of the route);
   * f5_fp32: the fp32 F5TTS_v1_Base bench request (float and
     quantize="w8a8") under the profiler (device time, kernels 4-5's share)
     and three timed;
@@ -469,28 +477,101 @@ def _kani_routes(tag: str, card: str) -> None:
 K14 = ("oproj_kernel", "gateup_kernel", "down_kernel")
 
 
+# host calls that launch work on the card: kernels, and graphs
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                 "cudaGraphLaunch")
+
+
+def _host_launches(fn) -> int:
+    """Host launch calls (kernels and graphs) of one fn() in a CPU trace,
+    after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in HOST_LAUNCHES)
+
+
 def _qwen(tag: str, card: str) -> None:
+    """The `qwen` part (see the module's docstring)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     import chip_smoke as cs
     from tts_tpu_torch.runtime.qwen import QwenDecodeConfig, QwenTTSPipeline
 
     cfg, ccfg, params, cparams = cs.qwen_models()
-    qp = QwenTTSPipeline(params, cfg, cparams, ccfg,
-                         QwenDecodeConfig(max_frames=128, fused_decode="all"))
+    int8 = QwenTTSPipeline(params, cfg, cparams, ccfg, QwenDecodeConfig(max_frames=120),
+                           quantize=8).params
+    prompts = [cs.QWEN_IDS, np.arange(5, 20, dtype=np.int32)[None],
+               np.arange(40, 90, dtype=np.int32)[None], np.array([[7, 1, 4]], np.int32)]
+    beam = dict(use_beam=True, beam_size=3, beam_top_k=3)
+    routes = [("default bf16", params, {}, 120, False), ("default int8", int8, {}, 120, False),
+              ("beam 3", params, beam, 120, False), ("batch of 4", params, {}, 8, True),
+              ('"all" bf16', params, {"fused_decode": "all"}, 128, False),
+              ('"mlp_q8" int8', int8, {"fused_decode": "mlp_q8"}, 120, False)]
+    for route, weights, kw, cap, batch in routes:
+        def make(max_frames, weights=weights, kw=kw):
+            return QwenTTSPipeline(weights, cfg, cparams, ccfg,
+                                   QwenDecodeConfig(max_frames=max_frames, **kw))
 
-    def qwen():
-        return qp.synthesize_ids(cs.QWEN_IDS, language_id=cs.QWEN_LANG)
+        def request(pipe):
+            if batch:
+                reqs = [pipe.build_prefill_embeds(i, cs.QWEN_LANG) for i in prompts]
+                wavs, st = pipe.synthesize_from_prefill_batch(reqs)
+                return sum(len(w) for w in wavs), st["frames"]
+            wav, st = pipe.synthesize_ids(cs.QWEN_IDS, language_id=cs.QWEN_LANG)
+            return len(wav), st["frames"]
 
-    (_, st), rows, busy = _profile(qwen, busy={"all": None, "k14": K14})
-    frames = st["frames"]
-    k13 = sum(ms for k, ms in rows
-              if any(p in k for p in ("block_kernel", "merge_kernel", "cluster_kernel")))
-    print(json.dumps({"tree": tag, "card": card, "qwen_all_frames": frames,
-                      "frames_per_s": [frames / w for w in _walls(qwen, 2)],
-                      "device_ms_a_frame": sum(ms for _, ms in rows) / frames,
-                      "device_busy_ms_a_frame": busy["all"] / frames,
-                      "kernel13_ms_a_frame": k13 / frames,
-                      "kernel14_busy_ms_a_frame": busy["k14"] / frames}), flush=True)
-    del qp, params, cparams
+        t_route = time.perf_counter()
+        pipe = make(cap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        request(pipe)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        progs = cs.qwen_programs(pipe) if hasattr(cs, "qwen_programs") else []
+        pool = getattr(pipe, "_pool", None)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            samples, frames = request(pipe)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = sum(e.device_time_total for e in kern) / 1e3
+        launched = sum(e.count for e in kern)
+        busy = _busy_ms(prof)
+        extra = {}
+        if kw.get("fused_decode") == "all":
+            extra = {"kernel13_ms_a_frame": sum(
+                e.device_time_total for e in kern if "cluster_kernel" in e.key) / 1e3 / frames,
+                "kernel14_busy_ms_a_frame": _busy_ms(prof, K14) / frames}
+        walls = _walls(lambda: request(pipe), 2)
+        del prof
+        short = make(8)
+        calls = _host_launches(lambda: request(short))
+        audio_s = samples / pipe.output_sample_rate
+        print(json.dumps({
+            "tree": tag, "card": card, "qwen_route": route, "frames": frames,
+            "first_request_s": first,
+            "warmup_s": sum(pr.warmup_s for _, pr in progs) if progs else None,
+            "capture_s": sum(pr.capture_s for _, pr in progs) if progs else None,
+            "pool_mib": pool.nbytes() / 2**20 if pool is not None else None,
+            "device_ms_a_frame": device / frames, "busy_ms_a_frame": busy / frames,
+            "idle_share": 1 - busy / 1e3 / wall, "profiled_wall_s": wall,
+            "kernel_launches_a_frame": launched / frames,
+            "host_launch_calls_a_frame": calls / (8 * (len(prompts) if batch else 1)),
+            "frames_per_s": [frames / w for w in walls], "rtf": [w / audio_s for w in walls],
+            "idle_share_timed": [1 - busy / 1e3 / w for w in walls], **extra,
+            "route_s": time.perf_counter() - t_route}), flush=True)
+        del pipe, short
+        torch.cuda.empty_cache()
 
 
 def _f5_fp32(tag: str, card: str) -> None:

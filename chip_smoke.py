@@ -22,6 +22,7 @@
     python3 chip_smoke.py --families clone              # phases 0-2, 14
     python3 chip_smoke.py --families parity             # phases 0-2, 15
     python3 chip_smoke.py --families graphs             # phases 0-2, 16
+    python3 chip_smoke.py --families qwen,clone,graphs  # phases 0-2, 7, 14, 16
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
@@ -54,7 +55,11 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      PDL on and off, split by launch; kernel 12's device-position form, the
      Kani decode programs', at every position of these sweeps, bitwise its
      host-position form and against its device-form twin, timed beside it
-     at pos 5 and 700), the Qwen3-TTS-0.6B talker and
+     at pos 5 and 700; kernel 13's device-length form, the Qwen3-TTS
+     talker programs' "all" route, at every kv_len of its sweep (talker T
+     768 and 640, predictor T 32; B 1 and 3), bitwise its host form and
+     against its device-form twin, timed beside it), the Qwen3-TTS-0.6B
+     talker and
      predictor shapes (kernel 12 at
      head_dim 128, kernels 13-15, kernel 13 timed at both; kernel 14 in
      each of its plan's forms, with programmatic dependent launch and
@@ -116,12 +121,16 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      logits against the plain route; then tokens/s and RTF of greedy bf16
      and int8;
   7. QwenTTSPipeline at full Qwen3-TTS-0.6B width (random weights from a
-     seed): the bench request (32 text ids, language 3, max_frames 120) in
-     bf16 and int8 on the default route, 88 launches of kernel 12 an
-     iteration and none of kernels 13-15, frames/s and RTF; beam 3 and a
-     batch of 4 (kernel 11); fused_decode="all" at max_frames 128 (kernels
-     11, 13, 14 on talker and predictor) and "mlp_q8" (kernels 11, 15);
-     one talker step through "step", "all" and "mlp_q8" against fp32;
+     seed) on its decode programs (a CUDA graph each for the prefill,
+     one frame step and the codec; each route's first request's
+     warm-up and capture seconds and the pool's MiB): the bench request (32
+     text ids, language 3, max_frames 120) in bf16 and int8 on the default
+     route, 88 launches of kernel 12 a frame step the programs ran
+     (qwen_frames_run) and none of kernels 13-15, frames/s and RTF; beam 3
+     and a batch of 4 (kernel 11); fused_decode="all" at max_frames 128
+     (kernels 11, 13, 14 on talker and predictor; kernel 13's device form
+     on the talker) and "mlp_q8" (kernels 11, 15); one talker step through
+     "step", "all" and "mlp_q8" against fp32;
   8. BigVGANVocoder at full bigvgan_v2_24khz_100band_256x width (random
      weights from a seed, scaled to keep the waveform off zero and off the
      clamp): the bench mel (1, 512, 100) -> 131,072 int16 samples, 12
@@ -204,12 +213,14 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      voice-clone request from build_prefill_voice_clone (16 frames, 88
      kernel-12 launches a frame) and one talker step of its prefill against the
      twins; the Qwen bench request streamed (chunk 24, window 72, left 24)
+     on its decode programs and window codec program (each a CUDA graph)
      and VoxCPM-2's (chunk 4, draws injected), each bitwise the window
      assembly over the non-streaming decode, first-chunk time and wall
      beside the non-streaming request's; VoxCPM-2 at output_sample_rate
      24000 bitwise resample_linear of the native request; kani-tts-370m,
      Qwen3-TTS-0.6B and VoxCPM-2 at quantize=4 (no launch of kernel 11 or
-     12: every wqkv is int4), device time a token, frame or latent;
+     12: every wqkv is int4), device time a token, frame or latent of a
+     request after a warm-up one;
   15. the parity harness (tts_tpu_torch/parity): stft_diff_report on the
      card (tests/test_parity.py's signal under its limits; the 6 s bench
      reference at n_fft 1024, its errors printed); run_reference's session
@@ -245,6 +256,14 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      launches (6 of kernel 12 or 11 a step); the greedy step graph's edges
      read through the driver (no programmatic edge reaches kernel 12's
      attention from a cache append); kernel 12 against its twin in a
+     replayed step; then the Qwen3-TTS-0.6B decode programs (phase 7's
+     seeds) on every route (default bf16 and int8, beam 3, a batch of 4 at
+     max_frames 15, "all" at 128, "mlp_q8"; two requests each), every
+     prefill, step and codec call, the first ones included, bitwise its
+     eager body from the same state with its launches (a step: one frame
+     step); the default step graph's edges read for kernel 12's
+     premise (the predictor's host-position appends, copy kernels, counted
+     as cache writers); kernels 12 and 13 against their twins in a
      replayed step.
 Phases 3-15 run F5Pipeline and BigVGANVocoder on their graphs: a request's
 launches are the replay's, which the capture recorded; where a phase
@@ -900,6 +919,69 @@ def time_qkv_forms() -> None:
             print_split(f"{name_limit}: {label}", call)
 
 
+def check_attention_device_len(res: dict) -> None:
+    """Phase 2: kernel 13's device form (kv_len read from a device int32;
+    the Qwen3-TTS talker programs' "all" route) at every kv_len of its
+    sweep: the talker's buckets (T 768, 16/8 heads x 128: kv_len 1, 2, 17,
+    64, 126, 128-130, 200, 256, 257, 384, 511-513, 640, 700, 767, 768;
+    B 1 and 3) and T 640 (the bench bucket, block 128: kv_len 1, 126, 129,
+    639, 640), the predictor's (T 32: kv_len 1-17); its output bitwise the
+    host form's, launched for the bucket (top = T) and for the tightest
+    (top = kv_len), and against its device-form twin (every row, those >=
+    kv_len masked) in fp32 within TOL. Then both forms' device time a call
+    at the talker's kv_len 126 and 700 (top 768 and kv_len) and the
+    predictor's 17 (top 32), profiler over 10 calls."""
+    from tts_tpu_torch.ops.decode_attention import (cluster_bound, cluster_plan,
+                                                    decode_gqa_attention,
+                                                    decode_gqa_attention_plain)
+
+    r = res["decode_gqa_attention"]
+    gen = torch.Generator("cuda").manual_seed(2701)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    talker = (1, 2, 17, 64, 126, 128, 129, 130, 200, 256, 257, 384, 511, 512, 513, 640, 700,
+              767, 768)
+    n = 0
+    for label, b, t, lens, block in (("talker", 1, 768, talker, 256),
+                                     ("talker", 3, 768, (17, 129, 513, 768), 256),
+                                     ("talker bench bucket", 1, 640, (1, 126, 129, 639, 640),
+                                      128),
+                                     ("predictor", 1, 32, tuple(range(1, 18)), 256)):
+        q, k, v = rn(b, 16, 128), rn(b, 8, t, 128), rn(b, 8, t, 128)
+        for kv_len in lens:
+            dev = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+            host = decode_gqa_attention(q, k, v, kv_len, block_kv=block)
+            for top in sorted({t, kv_len}):
+                got = decode_gqa_attention(q, k, v, dev, block_kv=block, top=top)
+                if not torch.equal(got, host):
+                    raise AssertionError(f"decode_gqa_attention {label} B={b} T={t} kv_len="
+                                         f"{kv_len} top {top}: the device form differs from "
+                                         f"the host form")
+                n += 1
+            r["max_abs_err"] = max(r["max_abs_err"], check(
+                f"decode_gqa_attention device kv_len {label} B={b} T={t} kv_len={kv_len} "
+                f"(plan {cluster_plan(kv_len)}, launched {cluster_bound(t)}) against the "
+                f"device twin", decode_gqa_attention(q, k, v, dev, block_kv=block, top=t),
+                decode_gqa_attention_plain(q.float(), k.float(), v.float(), dev,
+                                           block_kv=block, top=t)))
+    print(f"  kernel 13's device form: {n} launches bitwise the host form's", flush=True)
+    name_limit = card()
+    for label, t, kv_len in (("talker", 768, 126), ("talker", 768, 700), ("predictor", 32, 17)):
+        q, k, v = rn(1, 16, 128), rn(1, 8, t, 128), rn(1, 8, t, 128)
+        dev = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        host_ms = device_ms(lambda: decode_gqa_attention(q, k, v, kv_len))
+        dev_ms = device_ms(lambda: decode_gqa_attention(q, k, v, dev, top=t))
+        tight_ms = device_ms(lambda: decode_gqa_attention(q, k, v, dev, top=kv_len))
+        if (label, kv_len) == ("talker", 126):
+            r["dev_ms"] = dev_ms
+        print(f"  {name_limit}: decode_gqa_attention {label} kv_len {kv_len} (device time a "
+              f"call, profiler over 10 calls): host form {host_ms:.4f} ms "
+              f"({cluster_plan(kv_len)[0]} CTAs a kv head), device form {dev_ms:.4f} ms at top "
+              f"{t} ({cluster_bound(t)[0]} CTAs) and {tight_ms:.4f} ms at top {kv_len}", flush=True)
+
+
 def check_qwen_kernels(gen: torch.Generator, res: dict) -> None:
     """Phase 2 at the Qwen3-TTS-0.6B talker and predictor shapes (hidden
     1024, 16/8 heads x 128, FFN 3072): kernel 12 at head_dim 128 (talker L =
@@ -1130,6 +1212,7 @@ def check_kernels(gen: torch.Generator) -> dict:
     check_voxcpm_kernels(res)
     check_decode_seeds()
     check_step_device_pos(res)
+    check_attention_device_len(res)
     check_bigvgan_kernel(gen, res)
     check_bigvgan_kernel(gen, res, f32=True)
     time_amp_forms()
@@ -3501,6 +3584,31 @@ def qwen_models() -> tuple:
     return cfg, ccfg, params, cparams
 
 
+def qwen_frames_run(frames: int, cap: int) -> int:
+    """The frame steps a Qwen request of `frames` kept frames (a batch: its
+    longest row's) runs on its programs under the max_frames cap, one a
+    replay of the step program: at the cap, cap of them; on an EOS (frames
+    < cap: the kept frames, then the EOS frame) those and one more, queued
+    before the host read the stop flag, at most cap. That frame is frozen
+    and launches its kernels all the same."""
+    return cap if frames >= cap else min(cap, frames + 2)
+
+
+def qwen_programs(pipe) -> list:
+    """The pipeline's programs built so far: (label, Program) of each decode
+    bucket's prefill and step programs (the streams' too) and each codec
+    program."""
+    out = []
+    decs = list(pipe._decode_fn.items()) + list(pipe._batch_fns.items()) + [
+        (k, v) for k, v in pipe._codec_cache.items() if isinstance(v, list)]
+    for key, held in decs:
+        for i, dec in enumerate(held):
+            out += [(f"{key}.{i} prefill", dec.prefill), (f"{key}.{i} step", dec.step)]
+    out += [(f"codec {key}", v) for key, v in pipe._codec_cache.items()
+            if not isinstance(v, list)]
+    return out
+
+
 def twins_in_qwen():
     """Run models/qwen_tts's kernels through their plain twins on the card."""
     import tts_tpu_torch.models.qwen_tts as mq
@@ -3583,25 +3691,29 @@ def run_qwen(name_limit: str) -> tuple:
     def dec(**kw):
         return QwenDecodeConfig(**{"max_frames": QWEN_FRAMES, **kw})
 
-    def iters(frames: int, cap: int) -> int:
-        """Loop iterations: the EOS frame is computed and dropped."""
-        return frames if frames == cap else frames + 1
-
-    def checked(label, fn, cap, per, rows=1):
-        """Run fn() -> (list of int16 waveforms, stats); check the audio and
-        per[k] launches of each kernel k an iteration. Returns (stats,
-        wall, launches)."""
+    def checked(label, fn, cap, per, rows=1, pipe=None):
+        """Run fn() -> (list of int16 waveforms, stats) on the pipeline's
+        programs; check the audio and per[k] launches of each kernel k a
+        frame step the programs ran (qwen_frames_run). Returns (stats, wall,
+        launches)."""
         before = dict(LAUNCHES)
+        first = pipe is not None and not qwen_programs(pipe)
         t0 = time.perf_counter()
         wavs, st = fn()
         wall = time.perf_counter() - t0
         grew = {k: LAUNCHES[k] - before.get(k, 0) for k in QWEN_KERNELS}
         frames = [len(w) // up for w in wavs]
-        n_it = max(iters(f, cap) for f in frames)
+        n_it = qwen_frames_run(max(frames), cap)
+        progs = qwen_programs(pipe) if pipe is not None else []
+        if pipe is not None and (not progs or any(pr._graph is None for _, pr in progs)):
+            raise AssertionError(f"{label}: a program of the request is not a CUDA graph")
+        how = ("; the first request: warm-up " + ", ".join(
+            f"{k} {pr.warmup_s:.3f} s + capture {pr.capture_s:.3f} s" for k, pr in progs) +
+            f", pool {pipe._pool.nbytes() / 2**20:.1f} MiB") if first else ""
         print(f"  {label}: frames {frames} ({sum(len(w) for w in wavs)} int16 samples), "
-              f"{n_it} loop iterations, wall {wall:.4f} s, peak |wav| "
+              f"{n_it} frame steps on the programs, wall {wall:.4f} s, peak |wav| "
               f"{st.get('peak', float('nan')):.6g}, "
-              f"launches {grew}", flush=True)
+              f"launches {grew}{how}", flush=True)
         for w, f in zip(wavs, frames):
             if w.dtype != np.int16 or len(w) != f * up or not 1 <= f <= cap:
                 raise AssertionError(f"{label}: {len(w)} {w.dtype} samples, not frames x {up}")
@@ -3622,8 +3734,9 @@ def run_qwen(name_limit: str) -> tuple:
 
     pipes = {"bf16": QwenTTSPipeline(params, cfg, cparams, ccfg, dec()),
              "int8": QwenTTSPipeline(params, cfg, cparams, ccfg, dec(), quantize=8)}
-    for pipe in pipes.values():                     # warm-up
-        pipe.synthesize_ids(QWEN_IDS, language_id=QWEN_LANG)
+    for label, pipe in pipes.items():               # warm-up: the first request
+        checked(f"bench request {label}, default route, the first", single(pipe),
+                QWEN_FRAMES, {"fused_qkv_attn": per_iter}, pipe=pipe)
     torch.cuda.synchronize()
     LAUNCHES.clear()
     for label, pipe in pipes.items():
@@ -3639,13 +3752,13 @@ def run_qwen(name_limit: str) -> tuple:
     beam = QwenTTSPipeline(params, cfg, cparams, ccfg, dec(
         max_frames=8, use_beam=True, beam_size=3, beam_top_k=3))
     checked("beam 3 / top-k 3, 8 frames", single(beam), 8,
-            {"fused_qkv_attn": talker, "fused_qkv_rope": beam_pred})
+            {"fused_qkv_attn": talker, "fused_qkv_rope": beam_pred}, pipe=beam)
     small = QwenTTSPipeline(params, cfg, cparams, ccfg, dec(max_frames=8))
     prompts = [QWEN_IDS, np.arange(5, 20, dtype=np.int32)[None],
                np.arange(40, 90, dtype=np.int32)[None], np.array([[7, 1, 4]], np.int32)]
     reqs = [small.build_prefill_embeds(i, QWEN_LANG) for i in prompts]
     checked("batch of 4, 8 frames", lambda: small.synthesize_from_prefill_batch(reqs), 8,
-            {"fused_qkv_rope": per_iter}, rows=4)
+            {"fused_qkv_rope": per_iter}, rows=4, pipe=small)
 
     launches = {}
     q8 = pipes["int8"].params
@@ -3658,9 +3771,10 @@ def run_qwen(name_limit: str) -> tuple:
                    "fused_out_mlp": per_iter}),
             ('fused_decode="mlp_q8" int8', mlp_q8,
              QWEN_FRAMES, {"fused_qkv_rope": per_iter, "fused_out_mlp_q8": per_iter})):
-        st, wall, grew = checked(label, single(pipe), cap, per)
+        st, wall, grew = checked(label, single(pipe), cap, per, pipe=pipe)
         print(f"  {name_limit}: Qwen {label}: {st['frames'] / wall:.2f} frames/s, RTF "
-              f"{wall / (st['frames'] / 12.0):.6f} (first call)", flush=True)
+              f"{wall / (st['frames'] / 12.0):.6f} (first call: warm-up and capture "
+              f"included)", flush=True)
         launches.update({k: grew[k] for k in ("decode_gqa_attention", "fused_out_mlp",
                                                "fused_out_mlp_q8") if grew[k]})
     check_qwen_step(cfg, params, {"talker": q8["talker"]})
@@ -6388,8 +6502,7 @@ def run_cli(name_limit: str, ckpt_root: str, f5_files: dict | None, keep: bool =
         return len(calls[0][3][0]) // up
 
     def qwen_expect(calls):
-        f = qwen_frames(calls)
-        return {"fused_qkv_attn": per_iter * (f if f == cap else f + 1)}
+        return {"fused_qkv_attn": per_iter * qwen_frames_run(qwen_frames(calls), cap)}
 
     def qwen_direct(calls):
         pipe, a, kw, (wav, _), _, _ = calls[0]
@@ -6757,11 +6870,12 @@ def run_clone(name_limit: str, ckpt_root: str) -> dict:
     before = dict(LAUNCHES)
     wav, st = clone.synthesize_from_prefill(prefill, trailing)
     grew = grew_of(before)
-    iters = st["frames"] if st["frames"] == cap else st["frames"] + 1
+    iters = qwen_frames_run(st["frames"], cap)
     print(f"  {name_limit}: voice-clone request: prefill {tuple(prefill.shape)} ({len(codes)} "
           f"reference frames), trailing {tuple(trailing.shape)}; {st['frames']} frames, "
           f"{len(wav)} int16 samples, wall {st['wall_s']:.4f} s, launches {grew} "
-          f"({grew.get('fused_qkv_attn', 0) / iters:.1f} of kernel 12 an iteration)",
+          f"({grew.get('fused_qkv_attn', 0) / iters:.1f} of kernel 12 a frame step of the "
+          f"programs)",
           flush=True)
     if grew != {"fused_qkv_attn": per_iter * iters} or not wav.any() \
             or not math.isfinite(st["peak"]):
@@ -6787,6 +6901,11 @@ def run_clone(name_limit: str, ckpt_root: str) -> dict:
     del pipe._decode
     add(grew_of(before))
     frames, n = decoded[0]
+    tb = pipe._trailing_bucket(tr)
+    on_graphs = [d.step for d in pipe._codec_cache[("chunk", STREAM["chunk_frames"], tb)]
+                 + pipe._decode_fn[tb]] + [pipe._codec_cache[STREAM["window"]]]
+    if any(prog._graph is None for prog in on_graphs):
+        raise AssertionError("Qwen stream: its decode or window codec is not on a CUDA graph")
     want = assembled(pipe._codec_window, frames[:n].cpu().numpy(), STREAM["chunk_frames"],
                      STREAM["window"], STREAM["left_context"], ccfg.total_upsample,
                      cfg.num_code_groups)
@@ -6880,6 +6999,7 @@ def run_clone(name_limit: str, ckpt_root: str) -> dict:
         print(f"  {label}: quantize=4 (the jitted k_quant form) in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         key = {"token": "kani", "frame": "qwen", "latent": "voxcpm"}[unit]
+        run(q4)             # warm-up: the first request captures the programs
         int4_request(name_limit, label, lambda: run(q4), INT4_LEN[key], unit)
         del q4
     part("done")
@@ -7603,6 +7723,8 @@ def run_graphs(name_limit: str) -> dict:
         del voc, fn, out
     for k, n in run_kani_graphs(name_limit).items():
         launches[k] = launches.get(k, 0) + n
+    for k, n in run_qwen_graphs(name_limit).items():
+        launches[k] = launches.get(k, 0) + n
     return launches
 
 
@@ -7653,13 +7775,15 @@ def graph_nodes_edges(graph) -> tuple:
     return names, edges
 
 
-def check_ordering_premise(label: str, graph) -> None:
+def check_ordering_premise(label: str, graph, patterns: tuple = ("index_copy",)) -> None:
     """Kernel 12's ordering premise in a captured decode step (the comment
     at csrc/decode_step.cu's early cache loads): no programmatic edge
     reaches a node of its attention launch (step_attn_kernel) from a node
-    that writes the cache (the append, index_copy): every node from which
-    an attention node is reached through programmatic edges alone is
-    printed by name, and none may be a cache writer."""
+    that writes the cache (a node whose kernel name holds one of `patterns`:
+    the device-position append, index_copy; where a host-position cache is
+    appended in the graph too, as the Qwen predictor's, its copy kernels):
+    every node from which an attention node is reached through programmatic
+    edges alone is printed by name, and none may be a cache writer."""
     import collections
 
     names, edges = graph_nodes_edges(graph)
@@ -7669,7 +7793,7 @@ def check_ordering_premise(label: str, graph) -> None:
             prog_in[t].append(f)
     attn = [n for n, name in names.items() if "step_attn_kernel" in name]
     # the cache appends (and the token buffer's writes, index_copy too)
-    writers = {n for n, name in names.items() if "index_copy" in name}
+    writers = {n for n, name in names.items() if any(w in name for w in patterns)}
     seen: collections.Counter = collections.Counter()
     bad = []
     for a in attn:
@@ -7684,7 +7808,8 @@ def check_ordering_premise(label: str, graph) -> None:
     n_prog = sum(1 for _, _, p in edges if p)
     print(f"  {label}: the captured graph: {len(names)} nodes, {len(edges)} edges, "
           f"{n_prog} programmatic; {len(attn)} kernel-12 attention nodes, {len(writers)} "
-          f"index_copy nodes (the cache appends and the token writes); nodes reaching an attention node through programmatic edges "
+          f"nodes named by {patterns} (the cache appends and the token writes); nodes "
+          f"reaching an attention node through programmatic edges "
           f"alone: {dict(seen)}; cache writers among them: {len(bad)} "
           f"{'ok' if not bad and attn and writers else 'FAIL'}", flush=True)
     if bad or not attn or not writers:
@@ -7889,6 +8014,197 @@ def run_kani_graphs(name_limit: str) -> dict:
             for _ in range(16):
                 dec.step()
             check_step_twin_in_replay(pipe, dec)
+        del pipe, dec
+        torch.cuda.empty_cache()
+    return launches
+
+
+# phase 16's Qwen requests: 15 frames, each a step replay held against its
+# eager body ("all" runs at 128 frames: its 768-row cache takes kernel 13)
+QWEN_GRAPH_FRAMES = 15
+
+
+def qwen_request_on_programs(label: str, pipe, dec, args: tuple, want_step: dict) -> dict:
+    """A Qwen request driven program by program (prefill, step replays
+    until the stop flag, the codec of the kept frames), each call held
+    bitwise against its eager body from the same state (stateful_call).
+    Returns a summary record."""
+    recs = [stateful_call(f"{label} prefill", dec.prefill, dec, args, {})]
+    replays = 0
+    while not bool(dec.stop.cpu()):
+        recs.append(stateful_call(f"{label} step replay {replays}", dec.step, dec, (),
+                                  want_step))
+        replays += 1
+    if dec.kind == "batch":
+        done = torch.clamp(dec.done, max=dec.num)
+        live = (done > 0).nonzero()[:, 0]
+        nfr = done.index_select(0, live)
+        codec = pipe._codec(pipe._codec_fb(int(nfr.max())), len(live))
+        cargs = (dec.frames.index_select(0, live), nfr)
+    else:
+        kept = int(dec.num) - int(dec.fin)
+        codec = pipe._codec(pipe._codec_fb(kept))
+        cargs = (dec.frames[:1].clone(), np.array([kept], np.int32))
+    recs.append(stateful_call(f"{label} codec", codec, dec, cargs, {}))
+    return {"replays": replays, "frames": int(dec.num),
+            "first_calls": sum(r["first"] for r in recs),
+            "replay_s": sum(r["call_s"] for r in recs[1:-1] if not r["first"]),
+            "eager_s": sum(r["eager_s"] for r in recs[1:-1]),
+            "launches": {k: sum(r["launches"].get(k, 0) for r in recs) for k in want_step},
+            "programs": {"prefill": dec.prefill, "step": dec.step, "codec": codec}}
+
+
+def check_qwen_twin_in_replay(pipe, dec, label: str) -> None:
+    """Kernels 12 and 13 against their twins in a replayed step program,
+    from the state a prefill and some replays left: the replay (the route's
+    kernels), then from the same state its first frame's talker step with
+    every kernel's twin swapped in (bf16) and one plain talker step in fp32
+    on the same (bf16-valued) weights and cache, each on the talker input
+    the replay's first frame computed (rebuilt from the frame it wrote);
+    the rows that step appends at every talker layer past the first (each
+    reads the attention outputs of the layers before it) from the kernels
+    no further from fp32 than STEP_SLACK times the twins' (check_step's
+    rule)."""
+    from tts_tpu_torch.kv.cache import KVCache
+    from tts_tpu_torch.models.qwen_tts import next_talker_input, qwen3_stack_step
+
+    s0 = _snap(dec)
+    p0, n0 = int(dec.pos.cpu()), int(dec.num.cpu())
+    if bool(dec.stop.cpu()):
+        raise AssertionError(f"{label}: the twin check needs a live frame")
+
+    def rows(k, v):
+        return torch.cat([k[1:, 0, :, p0].float().flatten(), v[1:, 0, :, p0].float().flatten()])
+
+    dec.step()
+    torch.cuda.synchronize()
+    kern = rows(dec.k, dec.v)
+    frame = dec.frames[0, n0].clone()
+    _put(dec, s0)
+    p, t = pipe.params, pipe.cfg.talker
+    ce0 = p["talker_codec_embed"][frame[:1].long()][:, None]
+    nxt = next_talker_input(p, frame, ce0, dec.tr, dec.num.clamp(max=dec.tb - 1), pipe.cfg)
+    pos = dec.pos.clone()
+    with twins_in_qwen():
+        qwen3_stack_step(p["talker"], nxt, KVCache(dec.k, dec.v, pos, dec.kv_max), t,
+                         *pipe._rope(pos), fused=pipe._fused)
+    twin = rows(dec.k, dec.v)
+    _put(dec, s0)
+    kf, vf = dec.k.float(), dec.v.float()
+    rc, rs = pipe._rope(p0)
+    qwen3_stack_step(cast_tree(p["talker"], torch.float32), nxt.float(), KVCache(kf, vf, p0),
+                     t, rc.float(), rs.float(), fused=False)
+    ref = rows(kf, vf)
+    e_k, e_t = rel_l2(kern, ref), rel_l2(twin, ref)
+    ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_t
+    print(f"  {label}: the talker step in a replayed step program (pos {p0}, frame {n0}): the "
+          f"appended k/v rows of talker layers 2-{t.num_layers}, rel L2 against one fp32 plain "
+          f"step: replay {e_k:.6g}, the twins {e_t:.6g} (limit {STEP_SLACK} x); replay against "
+          f"the twins {rel_l2(kern, twin):.6g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the replayed step is less accurate than its twins")
+
+
+@torch.no_grad()
+def run_qwen_graphs(name_limit: str) -> dict:
+    """Phase 16's Qwen part: the decode programs of Qwen3-TTS-0.6B at full
+    width (phase 7's seeds) on every route, two requests each (the default
+    route bf16 and int8 (kernel 12), beam 3 (12 on the talker, 11 on the
+    predictor), a batch of 4 (11), "all" at max_frames 128 (11, 13, 14),
+    "mlp_q8" int8 (11, 15)), driven program by program, every prefill, step
+    and codec call, the first ones included, bitwise its eager body from
+    the same state with the eager run's launches (a step: one frame
+    step); the default step graph's edges read for kernel 12's ordering
+    premise; kernels 12 and 13 against their twins in a replayed step; each
+    program's warm-up and capture seconds and the pool's bytes. Returns
+    the launches of the checked calls."""
+    from tts_tpu_torch.runtime.qwen import QwenDecodeConfig, QwenTTSPipeline
+
+    cfg, ccfg, params, cparams = qwen_models()
+    g = cfg.num_code_groups
+    talker, pred = cfg.talker.num_layers, (g - 1) * cfg.predictor.num_layers
+    per_iter, beam_pred = talker + pred, (g - 2) * cfg.predictor.num_layers
+    solo_ids = [QWEN_IDS, np.arange(5, 20, dtype=np.int32)[None]]
+    batch_ids = [QWEN_IDS, np.arange(5, 20, dtype=np.int32)[None],
+                 np.arange(40, 90, dtype=np.int32)[None], np.array([[7, 1, 4]], np.int32)]
+
+    def dec_cfg(**kw):
+        return QwenDecodeConfig(**{"max_frames": QWEN_GRAPH_FRAMES, **kw})
+
+    int8 = QwenTTSPipeline(params, cfg, cparams, ccfg, dec_cfg(), quantize=8)
+    routes = (
+        ("default bf16", lambda: QwenTTSPipeline(params, cfg, cparams, ccfg, dec_cfg()),
+         {"fused_qkv_attn": per_iter}),
+        ("default int8", lambda: int8, {"fused_qkv_attn": per_iter}),
+        ("beam 3", lambda: QwenTTSPipeline(params, cfg, cparams, ccfg, dec_cfg(
+            use_beam=True, beam_size=3, beam_top_k=3)),
+         {"fused_qkv_attn": talker, "fused_qkv_rope": beam_pred}),
+        ("batch of 4", lambda: QwenTTSPipeline(params, cfg, cparams, ccfg, dec_cfg()),
+         {"fused_qkv_rope": per_iter}),
+        ('"all" bf16, max_frames 128', lambda: QwenTTSPipeline(
+            params, cfg, cparams, ccfg, dec_cfg(max_frames=128, fused_decode="all")),
+         {"fused_qkv_rope": per_iter, "decode_gqa_attention": per_iter,
+          "fused_out_mlp": per_iter}),
+        ('"mlp_q8" int8', lambda: QwenTTSPipeline(int8.params, cfg, cparams, ccfg,
+                                                 dec_cfg(fused_decode="mlp_q8")),
+         {"fused_qkv_rope": per_iter, "fused_out_mlp_q8": per_iter}))
+    launches: dict = {}
+    for label, make, per in routes:
+        pipe = make()
+        for req in range(2):
+            if label == "batch of 4":
+                order = batch_ids if req == 0 else batch_ids[::-1]
+                reqs = [pipe.build_prefill_embeds(i, QWEN_LANG) for i in order]
+                pmax = max(64, -(-max(pr.shape[1] for pr, _ in reqs) // 64) * 64)
+                tb = max(pipe._trailing_bucket(tr) for _, tr in reqs)
+                buf = torch.zeros((len(reqs), pmax, cfg.talker.hidden_size), device="cuda")
+                pad = np.array([pmax - pr.shape[1] for pr, _ in reqs], np.int32)
+                for b, (pr, _) in enumerate(reqs):
+                    buf[b, pmax - pr.shape[1]:] = pr[0]
+                trb = torch.cat([pipe._trailing_buf(tr, tb) for _, tr in reqs], dim=0)
+                held = pipe._batch(len(reqs), pmax, tb)
+                args = (buf, pad, trb)
+            else:
+                pre, tr = pipe.build_prefill_embeds(solo_ids[req], QWEN_LANG)
+                buf, p_len, trb = pipe._request_bufs(pre, tr)
+                held = pipe._solo(trb.shape[1])
+                args = (buf, np.int32(p_len), trb)
+            with held as dec:
+                rec = qwen_request_on_programs(f"Qwen {label} request {req}", pipe, dec, args,
+                                               per)
+            progs = rec.pop("programs")
+            for k, n in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            if any(rec["launches"][k] != n * rec["replays"] for k, n in per.items()):
+                raise AssertionError(f"Qwen {label}: {rec}")
+            print(f"  {name_limit}: Qwen {label} request {req}: prefill, {rec['replays']} step "
+                  f"replays of one frame step ({rec['frames']} of them live) and the "
+                  f"codec, each bitwise its eager body from the same state (outputs and "
+                  f"state), {rec['first_calls']} of them first calls; launches "
+                  f"{rec['launches']} ({per} a frame step); the step replays "
+                  f"{rec['replay_s']:.4f} s against their eager bodies' {rec['eager_s']:.4f} s; "
+                  + "; ".join(f"{k} warm-up {v.warmup_s:.4f} s capture {v.capture_s:.4f} s, "
+                              f"{sum(v.launches.values())} launches recorded"
+                              for k, v in progs.items())
+                  + f"; pool {pipe._pool.nbytes() / 2**20:.1f} MiB", flush=True)
+            print("  " + json.dumps({"graphs": f"Qwen {label}", "card": name_limit,
+                                     "request": req, **rec,
+                                     "warmup_s": {k: v.warmup_s for k, v in progs.items()},
+                                     "capture_s": {k: v.capture_s for k, v in progs.items()},
+                                     "pool_bytes": pipe._pool.nbytes()}), flush=True)
+        if label in ("default bf16", '"all" bf16, max_frames 128'):
+            if label == "default bf16":
+                check_ordering_premise("Qwen default bf16 step program", dec.step._graph.graph,
+                                       patterns=("index_copy", "copy_kernel"))
+            # a third request, 4 replays in: kernel 12 (13 on "all") against
+            # its twin in the next replayed step
+            pre, tr = pipe.build_prefill_embeds(batch_ids[2], QWEN_LANG)
+            buf, p_len, trb = pipe._request_bufs(pre, tr)
+            with pipe._solo(trb.shape[1]) as dec:
+                dec.prefill(buf, np.int32(p_len), trb)
+                for _ in range(4):
+                    dec.step()
+                check_qwen_twin_in_replay(pipe, dec, f"Qwen {label}")
         del pipe, dec
         torch.cuda.empty_cache()
     return launches

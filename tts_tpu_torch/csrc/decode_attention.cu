@@ -41,6 +41,19 @@
 // memory alive until rank 0 has read it. One launch at every kv_len, no
 // scratch in device memory, no atomics (bitwise reproducible runs), rows
 // >= kv_len never read.
+//
+// The device form (decode_gqa_attention_dev) reads kv_len from a device
+// int32, for a CUDA graph that replays a decode step at lengths the host
+// never reads (the Qwen3-TTS decode programs' talker). Its grid is launched
+// at the most CTAs (and its scores' shared memory at the most rows a CTA)
+// that cluster_plan gives any kv_len up to `top`, the bucket's largest
+// (ops/decode_attention.cluster_bound); each CTA derives from the device
+// kv_len the slice that cluster_plan(kv_len) gives it (plan_slice), so the
+// CTAs past that plan take no rows. They still arrive at both
+// cluster.sync() calls, and rank 0 merges the plan's ranks alone, in the
+// host form's order, so the output is bitwise the host form's at the same
+// kv_len. A kv_len outside [1, top], or one whose plan needs more CTAs or
+// rows than the launch has, traps.
 #include <cooperative_groups.h>
 
 #include "decode_rows.cuh"
@@ -63,7 +76,21 @@ struct DaArgs {
   bf16* out;
   int KVH, T, kv_len, rows;  // rows: the live rows a CTA takes (the last fewer)
   float scale;
+  const int* kv_dev;  // the device form's kv_len (null: the host form's kv_len, rows)
+  int top, stride;    // the device form's largest kv_len; the scores' row stride
 };
+
+// cluster_plan's slice for kv_len (ops/decode_attention.py): up to 128 rows
+// one CTA, past that a CTA for each 64 rows, at most DA_MAX_CTAS
+__device__ __forceinline__ void plan_slice(int kv_len, int& ctas, int& rows) {
+  if (kv_len <= 128) {
+    ctas = 1, rows = kv_len;
+    return;
+  }
+  const int c = min(DA_MAX_CTAS, (kv_len + 63) / 64);
+  rows = (kv_len + c - 1) / c;
+  ctas = (kv_len + rows - 1) / rows;
+}
 
 // shared memory, in floats: what rank 0 reads (acc [G][HD], m [G], l [G]),
 // then the per-warp sums ([DA_WARPS][G][HD] acc, [DA_WARPS][G] l) and the
@@ -94,8 +121,18 @@ __global__ void __launch_bounds__(DA_THREADS) cluster_kernel(const DaArgs a) {
   const int rank = nct > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int j = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, li = tid % LG, grp = tid / LG;
-  const int r0 = rank * a.rows;
-  const int n = min(a.kv_len - r0, a.rows);  // >= 1: the plan leaves no slice empty
+  // live: the plan's CTAs, the ranks rank 0 merges (the grid's, in the host form)
+  int kv_len = a.kv_len, rows = a.rows, live = nct;
+  if (a.kv_dev != nullptr) {
+    kv_len = *a.kv_dev;
+    if (kv_len < 1 || kv_len > a.top) __trap();
+    plan_slice(kv_len, live, rows);
+    if (live > nct || rows > a.stride) __trap();
+  }
+  const int stride = a.stride;
+  const int r0 = rank * rows;
+  // >= 1 for the plan's CTAs (the plan leaves no slice empty); 0 past them
+  const int n = max(0, min(kv_len - r0, rows));
   const size_t head = (size_t)b * a.KVH + j;
   const bf16* kj = a.k + (head * a.T + r0) * HD + li * 8;
   const bf16* vj = a.v + (head * a.T + r0) * HD + li * 8;
@@ -125,11 +162,11 @@ __global__ void __launch_bounds__(DA_THREADS) cluster_kernel(const DaArgs a) {
     // the group's rows this round: fewer rows take a smaller butterfly
     const int t0 = rd * RR, need = min(U, (n - t0 + NG - 1) / NG);
     if (need > U / 2)
-      round_scores<LG, NG, G, GP, U>(kr, qf, li, grp, t0, n, sc, a.rows, a.scale);
+      round_scores<LG, NG, G, GP, U>(kr, qf, li, grp, t0, n, sc, stride, a.scale);
     else if (need > U / 4)
-      round_scores<LG, NG, G, GP, U / 2>(kr, qf, li, grp, t0, n, sc, a.rows, a.scale);
+      round_scores<LG, NG, G, GP, U / 2>(kr, qf, li, grp, t0, n, sc, stride, a.scale);
     else
-      round_scores<LG, NG, G, GP, U / 4>(kr, qf, li, grp, t0, n, sc, a.rows, a.scale);
+      round_scores<LG, NG, G, GP, U / 4>(kr, qf, li, grp, t0, n, sc, stride, a.scale);
   }
   __syncthreads();
 
@@ -138,7 +175,7 @@ __global__ void __launch_bounds__(DA_THREADS) cluster_kernel(const DaArgs a) {
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     float v = __int_as_float(static_cast<int>(0xff800000u));  // -inf
-    for (int t = lane; t < n; t += 32) v = fmaxf(v, sc[g * a.rows + t]);
+    for (int t = lane; t < n; t += 32) v = fmaxf(v, sc[g * stride + t]);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
     mx[g] = v;
@@ -171,7 +208,7 @@ __global__ void __launch_bounds__(DA_THREADS) cluster_kernel(const DaArgs a) {
       for (int e = 0; e < 8; ++e) vf[e] = to_f(vx.h[e]);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float p = expf(sc[g * a.rows + t] - mx[g]);
+        const float p = expf(sc[g * stride + t] - mx[g]);
         lsum[g] += p;
         const float pr = rnd(p);
 #pragma unroll
@@ -228,16 +265,17 @@ __global__ void __launch_bounds__(DA_THREADS) cluster_kernel(const DaArgs a) {
     }
   }
 
-  // the merge: rank 0 reads every CTA's (m, l, acc) in rank order
+  // the merge: rank 0 reads the plan's CTAs' (m, l, acc) in rank order (the
+  // CTAs past the plan, in the device form, took no rows)
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   if (rank == 0) {
     for (int i = tid; i < G * HD; i += DA_THREADS) {
       const int g = i / HD;
       float M = __int_as_float(static_cast<int>(0xff800000u));
-      for (int r = 0; r < nct; ++r) M = fmaxf(M, cluster.map_shared_rank(m_s, r)[g]);
+      for (int r = 0; r < live; ++r) M = fmaxf(M, cluster.map_shared_rank(m_s, r)[g]);
       float L = 0.f, A = 0.f;
-      for (int r = 0; r < nct; ++r) {
+      for (int r = 0; r < live; ++r) {
         const float w = expf(cluster.map_shared_rank(m_s, r)[g] - M);
         L += cluster.map_shared_rank(l_s, r)[g] * w;
         A += cluster.map_shared_rank(acc_s, r)[i] * w;
@@ -250,7 +288,7 @@ __global__ void __launch_bounds__(DA_THREADS) cluster_kernel(const DaArgs a) {
 
 template <int HD, int G>
 int launch(const DaArgs& a, int B, int ctas, cudaStream_t st) {
-  const size_t smem = sizeof(float) * da_smem_floats<HD, G>(a.rows);
+  const size_t smem = sizeof(float) * da_smem_floats<HD, G>(a.stride);
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   static int allowed[MAX_DEVICES];
   if (smem > 48 * 1024) {
@@ -301,6 +339,31 @@ extern "C" int decode_gqa_attention(const void* q, const void* k, const void* v,
   a.v = (const tts::bf16*)v;
   a.out = (tts::bf16*)out;
   a.KVH = KVH, a.T = T, a.kv_len = kv_len, a.rows = rows, a.scale = scale;
+  a.kv_dev = nullptr, a.top = kv_len, a.stride = rows;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (hd == 64) return tts::launch_hd<64>(a, B, G, ctas, st);
+  if (hd == 128) return tts::launch_hd<128>(a, B, G, ctas, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The device form: as decode_gqa_attention, but kv_len is read on the card
+// from kv_dev (an int32, 1 <= *kv_dev <= top <= T), and the launch takes
+// `ctas` CTAs with scores of `rows` rows each: the most that cluster_plan
+// gives any kv_len up to top (ops/decode_attention.cluster_bound).
+extern "C" int decode_gqa_attention_dev(const void* q, const void* k, const void* v, void* out,
+                                        int B, int KVH, int G, int T, const void* kv_dev,
+                                        int top, int ctas, int rows, int hd, float scale,
+                                        void* stream) {
+  if (G < 1 || G > tts::DA_MAX_G || kv_dev == nullptr || top < 1 || top > T || ctas < 1 ||
+      ctas > tts::DA_MAX_CTAS || rows < 1 || (long long)ctas * rows < top)
+    return (int)cudaErrorInvalidValue;
+  tts::DaArgs a;
+  a.q = (const tts::bf16*)q;
+  a.k = (const tts::bf16*)k;
+  a.v = (const tts::bf16*)v;
+  a.out = (tts::bf16*)out;
+  a.KVH = KVH, a.T = T, a.kv_len = 0, a.rows = 0, a.scale = scale;
+  a.kv_dev = (const int*)kv_dev, a.top = top, a.stride = rows;
   cudaStream_t st = (cudaStream_t)stream;
   if (hd == 64) return tts::launch_hd<64>(a, B, G, ctas, st);
   if (hd == 128) return tts::launch_hd<128>(a, B, G, ctas, st);

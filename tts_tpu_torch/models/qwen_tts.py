@@ -27,6 +27,14 @@ kernel's twin):
   False     plain ops.
 The KV cache is written in place (kv/cache.py). The decode loops of
 runtime/qwen.py keep every selection on the device.
+
+A step runs at a host position (`kv.length` an int) or at a device one (a
+0-dim int32 tensor, the form the talker's decode programs capture): the
+plain attention then reads the cache's `bound` rows under a mask built on
+the device, kernel 12 reads the position itself with the bound's last row
+as its top, and kernel 13 reads the length plus the step's row with the
+bound as its top. The routes and their gates do not change, but kernel
+12's is taken at that top.
 """
 from __future__ import annotations
 
@@ -122,9 +130,10 @@ def stack_routes(params: dict, cfg: Qwen3StackConfig, batch: int, s: int, kv: KV
     wqkv_ok = all(fusable_weight(p["wqkv"]) for p in layers)
     # kernels 11/12: head dims 64 and 128, <= 8 rows, their input widths
     qkv_ok = qkv_fits(batch, cfg.hidden_size, hd)
+    top = kv.rows - 1 if kv.on_device else kv.length
     step = (fused == "step" and batch == 1 and kv_valid is None and causal
             and hd == 128 and kv.k.shape[1] == 1 and wqkv_ok and qkv_ok
-            and heads % kvh == 0 and step_fits(heads // kvh, hd, kv.length))
+            and heads % kvh == 0 and step_fits(heads // kvh, hd, top))
     if fused == "step" and not step:
         fused = True                                  # degrade to the qkv head
     qkv = (fused in (True, "all", "qkv", "mlp_q8") and qkv_ok and wqkv_ok
@@ -149,19 +158,23 @@ def qwen3_stack_step(params: dict, hidden: torch.Tensor, kv: KVCache,
                      kv_valid: torch.Tensor | None = None, causal: bool = True,
                      return_all: bool = False, fused=False):
     """One pass over S new positions. hidden (B, S, H); kv_valid (B, T) key
-    validity per row or None. Returns (final hidden rms-normed, (B, H), or
+    validity per row or None; rope_cos / rope_sin the rows of positions
+    [kv.length, kv.length + S). Returns (final hidden rms-normed, (B, H), or
     (B, S, H) with return_all; the cache advanced by S). The cache rows are
-    written in place."""
+    written in place. kv.length may live on the device (see the module's
+    docstring)."""
     b, s, _ = hidden.shape
     pos = kv.length
-    n = pos + s
+    # the keys a step may see: pos + s, and in the device form its bound's rows
+    n = kv.rows if kv.on_device else pos + s
+    top = kv.rows if kv.on_device else None
     routes = stack_routes(params, cfg, b, s, kv, kv_valid, causal, fused)
     heads, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q_sz, kv_sz = heads * hd, kvh * hd
     mask = None
     if not (routes.step or routes.attn):
         # keys past pos + s are masked: attend over the rows that can be valid
-        mask = attention_mask(s, n, pos, n, causal=causal, device=hidden.device)
+        mask = attention_mask(s, n, pos, pos + s, causal=causal, device=hidden.device)
         if kv_valid is not None:
             mask = combine_kv_valid(mask, kv_valid[:, :n])
     x = hidden
@@ -170,7 +183,8 @@ def qwen3_stack_step(params: dict, hidden: torch.Tensor, kv: KVCache,
             out, kf, vf = fused_qkv_attn(
                 x[:, 0], p["wqkv"], rope_cos, rope_sin, kv.k, kv.v, i, pos,
                 heads=heads, kv_heads=kvh, head_dim=hd, q_norm=p["q_norm"],
-                k_norm=p["k_norm"], bqkv=p.get("bqkv"), eps=cfg.rms_eps)
+                k_norm=p["k_norm"], bqkv=p.get("bqkv"), eps=cfg.rms_eps,
+                top=None if top is None else top - 1)
             kv.update_layer(i, kf.reshape(b, 1, kvh, hd), vf.reshape(b, 1, kvh, hd))
             out = out[:, None]
         else:
@@ -193,8 +207,9 @@ def qwen3_stack_step(params: dict, hidden: torch.Tensor, kv: KVCache,
                 k = apply_rope(rms_norm(k, p["k_norm"], eps=cfg.rms_eps), rope_cos, rope_sin)
             _, k_full, v_full = kv.update_layer(i, k, v)
             if routes.attn:
+                # the live rows with the step's own: pos + 1
                 out = decode_gqa_attention(q.reshape(b, heads, hd), k_full, v_full,
-                                           pos + 1).reshape(b, 1, -1)
+                                           pos + 1, top=top).reshape(b, 1, -1)
             else:
                 out = gqa_attention(q, k_full[:, :, :n], v_full[:, :, :n],
                                     mask).reshape(b, s, -1)
@@ -373,14 +388,19 @@ def predictor_frame_beam_batch(params: dict, talker_hidden: torch.Tensor,
 
 
 def next_talker_input(params: dict, frame_ids: torch.Tensor, codec_embed0: torch.Tensor,
-                      trailing_text: torch.Tensor, gather_id: int,
+                      trailing_text: torch.Tensor, gather_id,
                       cfg: QwenTTSConfig) -> torch.Tensor:
     """The talker's next input: codec_embed0 + trailing_text[gather_id] +
-    the 15 groups' embeddings, added in group order (1, 1, tH)."""
+    the 15 groups' embeddings, added in group order (1, 1, tH). gather_id a
+    host int or a 0-dim device tensor (gathered, not sliced)."""
     groups = cfg.num_code_groups - 1
     picked = params["group_embeds"][torch.arange(groups, device=frame_ids.device),
                                     frame_ids[1:].long()]                       # (15, tH)
-    emb = codec_embed0 + trailing_text[:, gather_id][:, None]
+    if isinstance(gather_id, torch.Tensor):
+        row = trailing_text.index_select(1, gather_id.reshape(1).long())
+    else:
+        row = trailing_text[:, gather_id][:, None]
+    emb = codec_embed0 + row
     for g in range(groups):
         emb = emb + picked[g]
     return emb

@@ -21,17 +21,29 @@ first CTA merges the slices in order, scaling each by exp(m_i - M). So
 its p round to bf16 at the slice's max, not at the TPU's running one: the
 same sums, other bf16 roundings. The block size selects tts_tpu's errors
 and the route only. Rows >= kv_len are never read, by either.
+
+`kv_len` is a host int, or a 0-dim int32 tensor on the card (the device
+form, for a CUDA graph that replays a decode step at a length it never
+reads on the host: the Qwen3-TTS talker's "all" / "attn" route), with
+`top`, the largest kv_len the caller will give it (a decode bucket's
+rows). The device form's kernel launches the grid of `cluster_bound(top)`
+and each CTA derives from the device kv_len the slice `cluster_plan(kv_len)`
+gives it; the CTAs past that plan take no rows, and the merge reads the
+plan's CTAs alone, so its output is bitwise the host form's at the same
+kv_len. Its twin masks the rows >= kv_len over the whole buffer (the TPU
+kernel's masked blocks), so no shape depends on kv_len.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
 __all__ = ["decode_gqa_attention", "decode_gqa_attention_plain", "attn_fits",
-           "cluster_plan"]
+           "cluster_bound", "cluster_plan"]
 
 NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)        # head widths the CUDA kernel is built for
@@ -43,6 +55,9 @@ _CTA_ROWS = 64                # rows a CTA of a cluster takes before the slices 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k, v, out, B, KVH, G, T, kv_len, ctas, rows, hd, scale, stream
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+# the device form: q, k, v, out, B, KVH, G, T, kv_len (a device int32), top,
+# ctas, rows, hd, scale, stream
+_ARGTYPES_DEV = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _F, _P]
 
 
 def cluster_plan(kv_len: int) -> tuple[int, int]:
@@ -61,9 +76,20 @@ def cluster_plan(kv_len: int) -> tuple[int, int]:
     return -(-kv_len // rows), rows
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int,
-           block_kv: int) -> int:
-    """tts_tpu's errors, and the kv_len range. Returns the block rows."""
+@functools.lru_cache(maxsize=None)
+def cluster_bound(top: int) -> tuple[int, int]:
+    """The device form's launch for kv_len 1 .. top: (the most CTAs and the
+    most rows a CTA) that `cluster_plan` gives any of them. The grid is
+    launched at that many CTAs, and a CTA's scores take that many rows of
+    shared memory."""
+    plans = [cluster_plan(n) for n in range(1, top + 1)]
+    return max(c for c, _ in plans), max(r for _, r in plans)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len,
+           block_kv: int, top: int | None = None) -> int:
+    """tts_tpu's errors, and the kv_len range (the device form's: top).
+    Returns the block rows."""
     b, h, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit "
@@ -74,7 +100,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int,
     bkv = min(block_kv, t)
     if t % bkv:
         raise ValueError(f"kv buffer {t} must divide block_kv {bkv}")
-    if not 1 <= kv_len <= t:
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.numel() != 1 or kv_len.dtype != torch.int32 or kv_len.device != q.device:
+            raise TypeError(f"a device kv_len is one int32 value on {q.device}")
+        if top is None or not 1 <= top <= t:
+            raise ValueError(f"the device form needs a top kv_len inside the buffer's {t} "
+                             f"rows, got {top}")
+    elif not 1 <= kv_len <= t:
         raise ValueError(f"kv_len {kv_len} outside 1..{t}")
     return bkv
 
@@ -87,24 +119,28 @@ def attn_fits(heads: int, kv_heads: int, head_dim: int, block_kv: int = 256) -> 
 
 
 def decode_gqa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                               kv_len: int, scale: float = 1.0,
-                               block_kv: int = 256) -> torch.Tensor:
+                               kv_len, scale: float = 1.0, block_kv: int = 256,
+                               top: int | None = None) -> torch.Tensor:
     """Plain PyTorch twin: the TPU kernel's block loop, rounding points and
-    all."""
-    bkv = _check(q, k, v, kv_len, block_kv)
+    all. A device kv_len (with its `top`, which the twin does not need)
+    walks every block of the buffer with the rows >= kv_len masked."""
+    on_device = isinstance(kv_len, torch.Tensor)
+    bkv = _check(q, k, v, kv_len, block_kv, top)
     b, h, d = q.shape
-    kvh = k.shape[1]
+    kvh, t = k.shape[1], k.shape[2]
     dt = q.dtype
     qr = q.reshape(b, kvh, h // kvh, d).float()
     m = torch.full((b, kvh, h // kvh, 1), NEG_INF, device=q.device)
     l_run = torch.zeros_like(m)
     acc = torch.zeros_like(qr)
-    for i in range(-(-kv_len // bkv)):
+    for i in range(t // bkv if on_device else -(-kv_len // bkv)):
         # the live rows of block i: a masked row adds exp(-1e30 - m) = 0
-        lo, hi = i * bkv, min((i + 1) * bkv, kv_len)
+        lo, hi = i * bkv, (i + 1) * bkv if on_device else min((i + 1) * bkv, kv_len)
         s = torch.matmul(qr, k[:, :, lo:hi].to(dt).float().transpose(-1, -2))
         if scale != 1.0:
             s = s * scale
+        if on_device:
+            s = torch.where(torch.arange(lo, hi, device=q.device) < kv_len, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
@@ -116,14 +152,18 @@ def decode_gqa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def decode_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         kv_len: int, scale: float = 1.0,
-                         block_kv: int = 256) -> torch.Tensor:
-    """q (B, H, D); k, v (B, KVH, T, D); kv_len host int, 1 <= kv_len <= T.
-    Returns (B, H, D) in q's dtype."""
-    kv_len = int(kv_len)
-    bkv = _check(q, k, v, kv_len, block_kv)
+                         kv_len, scale: float = 1.0, block_kv: int = 256,
+                         top: int | None = None) -> torch.Tensor:
+    """q (B, H, D); k, v (B, KVH, T, D); kv_len a host int, 1 <= kv_len <=
+    T, or a 0-dim int32 tensor on q's device with `top` >= every value it
+    takes (the device form, see the module's docstring). Returns (B, H, D)
+    in q's dtype."""
+    on_device = isinstance(kv_len, torch.Tensor)
+    if not on_device:
+        kv_len = int(kv_len)
+    bkv = _check(q, k, v, kv_len, block_kv, top)
     if q.device.type == "cpu":
-        return decode_gqa_attention_plain(q, k, v, kv_len, scale, block_kv)
+        return decode_gqa_attention_plain(q, k, v, kv_len, scale, block_kv, top)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     b, h, d = q.shape
@@ -137,9 +177,17 @@ def decode_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 or not a.is_contiguous() or a.data_ptr() % 16:
             raise TypeError(f"{name} must be a contiguous, 16-byte aligned bf16 "
                             f"tensor on {q.device}")
-    ctas, rows = cluster_plan(kv_len)
     out = torch.empty_like(q)
-    _build.launch("decode_gqa_attention", _ARGTYPES, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), b, kvh, h // kvh, t, kv_len, ctas, rows, d,
-                  scale, torch.cuda.current_stream(q.device).cuda_stream, device=q.device)
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, kvh, h // kvh, t]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if on_device:
+        # the C entry counts under the kernel's name
+        ctas, rows = cluster_bound(top)
+        _build.launch("decode_gqa_attention_dev", _ARGTYPES_DEV, *head, kv_len.data_ptr(),
+                      top, ctas, rows, d, scale, stream, device=q.device,
+                      count="decode_gqa_attention")
+    else:
+        ctas, rows = cluster_plan(kv_len)
+        _build.launch("decode_gqa_attention", _ARGTYPES, *head, kv_len, ctas, rows, d, scale,
+                      stream, device=q.device)
     return out

@@ -55,7 +55,7 @@ from ..kv.cache import KVCache
 from ..models.kani import KaniConfig, KaniState, embed_tokens, init_state, kani_step
 from ..models.nanocodec import (NanoCodecConfig, fsq_dequantize, hifigan_decode,
                                 tokens_to_codes)
-from .program import GraphPool, Program, weights_key
+from .program import GraphPool, HostSlots, Program, replay_ahead, weights_key
 
 __all__ = ["KaniPipeline", "KaniDecodeConfig", "STEPS"]
 
@@ -136,9 +136,7 @@ class _Decode:
         self.codec = Program(self._codec, [], dev, pipe._pool, self.state)
         # two slots of the stop flag on the host: one replay runs ahead of
         # the flag the host reads
-        self._flags = [torch.zeros((), dtype=torch.bool, pin_memory=dev.type == "cuda")
-                       for _ in range(2)]
-        self._events = [torch.cuda.Event() for _ in range(2)] if dev.type == "cuda" else None
+        self._slots = HostSlots((self.stop,), dev)
 
     # ------------------------------------------------------------ programs
 
@@ -257,31 +255,16 @@ class _Decode:
 
     # ---------------------------------------------------------------- host
 
-    def _post(self, stop: torch.Tensor, slot: int) -> None:
-        """Queue a copy of the stop flag into a host slot (pinned memory on
-        a card, with an event after it)."""
-        self._flags[slot].copy_(stop, non_blocking=self._events is not None)
-        if self._events is not None:
-            self._events[slot].record()
-
-    def _stopped(self, slot: int) -> bool:
-        """A slot's stop flag, once its copy is done (no .item())."""
-        if self._events is not None:
-            self._events[slot].synchronize()
-        return bool(self._flags[slot].numpy())
-
     def decode(self, ids: np.ndarray, lens, limit: int) -> None:
         """The prefill of ids' bucket, then replays of the step program, at
         most enough for limit - 1 steps. Each replay is queued before the
         host reads the flag of the one before it (the prefill's, at first),
         so the card does not wait for the host between replays; after the
         stop, at most one replay of frozen steps runs."""
-        stop, = self.prefill(ids.shape[1])(ids, lens, np.int32(limit))
-        self._post(stop, 0)
-        for r in range(-(-(limit - 1) // STEPS)):
-            stop, = self.step()
-            self._post(stop, (r + 1) % 2)
-            if self._stopped(r % 2):
+        first = self.prefill(ids.shape[1])(ids, lens, np.int32(limit))
+        for stop, in replay_ahead(self._slots, first, self.step,
+                                  -(-(limit - 1) // STEPS)):
+            if stop:
                 return
 
     def fetch(self) -> tuple:

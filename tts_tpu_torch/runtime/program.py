@@ -33,6 +33,12 @@ A graph reads the weights' memory as it was at the capture. A pipeline keys
 its programs to `weights_key` of the trees their bodies read and drops them
 when the key changes (a weight replaced, moved or cast), so no replay reads
 a tensor that is no longer the pipeline's.
+
+A decode loop replays a step program until a stop flag that the program
+sets on the device: `replay_ahead` queues each replay before the host
+reads the flag (and the counts beside it) of the one before, through two
+pinned slots (`HostSlots`), so the card does not wait for the host between
+replays (the Kani and Qwen3-TTS decode programs).
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ import torch
 
 from ..ops import _build
 
-__all__ = ["GraphPool", "Program", "weights_key"]
+__all__ = ["GraphPool", "HostSlots", "Program", "replay_ahead", "weights_key"]
 
 # CUDA allows one stream capture at a time in a process
 _capture_lock = threading.Lock()
@@ -224,3 +230,41 @@ class Program:
         for name, n in self.launches.items():
             _build.count_launch(name, n)
         return outs
+
+
+class HostSlots:
+    """Two host slots of a few small device tensors (a stop flag, a count):
+    on a card each in pinned memory with an event after its copy. `post`
+    queues a non-blocking copy into a slot; `read` waits for that copy alone
+    (no .item(), which would wait for the whole stream)."""
+
+    def __init__(self, like: tuple, device):
+        card = torch.device(device).type == "cuda"
+        self._slots = [[torch.zeros(t.shape, dtype=t.dtype, pin_memory=card) for t in like]
+                       for _ in range(2)]
+        self._events = [torch.cuda.Event() for _ in range(2)] if card else None
+
+    def post(self, slot: int, tensors: tuple) -> None:
+        for dst, src in zip(self._slots[slot], tensors):
+            dst.copy_(src, non_blocking=self._events is not None)
+        if self._events is not None:
+            self._events[slot].record()
+
+    def read(self, slot: int) -> list:
+        """The slot's values as numpy arrays, once its copy is done."""
+        if self._events is not None:
+            self._events[slot].synchronize()
+        return [t.numpy() for t in self._slots[slot]]
+
+
+def replay_ahead(slots: HostSlots, first: tuple, step, most: int):
+    """A decode loop's replays: yields the host values of `first` (the
+    outputs of a prefill program), then of each of at most `most` calls of
+    `step` (a step program's outputs), in order. Each call is queued before
+    the host reads the values of the one before it, so after the caller
+    stops reading (at its stop flag) one more call may have run."""
+    slots.post(0, first)
+    for r in range(most):
+        slots.post((r + 1) % 2, step())
+        yield slots.read(r % 2)
+    yield slots.read(most % 2)

@@ -6,25 +6,56 @@ prefills, one request, a batch, and a stream of audio chunks.
 A frame step, as in tts_tpu's while-loop body: talker logits (codec head,
 suppress bias, repetition penalty) -> greedy group-0 token -> the
 predictor's 15 groups (greedy or beam) -> the next talker input (the
-group embeddings and the trailing text) -> one talker step. Here it is a
-Python loop over frames. Every selection stays on the device; the host
-reads one flag a frame, the EOS stop (every row stopped, in a batch). The
-EOS frame is computed and dropped, as in tts_tpu.
+group embeddings and the trailing text) -> one talker step. The EOS frame
+is computed and dropped, as in tts_tpu.
 
-The prefill goes through the talker as one pass over the MAX_PREFILL
-bucket, then the cache is rewound to the true length. The cache bucket is
-tts_tpu's: kv_max = min(max_seq_len, ceil((512 + max_frames + 1) / 128) *
-128), 640 rows at max_frames = 120 (where kernel 13's gate, 256 | T, fails
-and "attn"/"all" take gqa_attention on the talker) and 768 at 128. The codec
-decodes a bucket of fb = min(max(8, ceil(frames / 8) * 8), max_frames)
-frames with the frames past the generated ones zeroed: its pre-transformer
-attends both ways, so the bucket is part of the output.
+tts_tpu jits a request into one program per bucket: the talker prefill
+over the MAX_PREFILL bucket (one pass, then the cache rewound to the true
+length), a `lax.while_loop` of frame steps and the codec, cached in
+`_decode_fn[tb]` (tb: the trailing text's bucket), `_batch_fns[("batch", B,
+pmax, tb)]` for a batch, `_codec_cache[(fb, "dev", nlive)]` for the codec,
+and for a stream `_prefill_fn` with `_codec_cache[("chunk", chunk, tb)]`
+and the window codec `_codec_cache[window]`. The port keeps those keys. A
+decode key holds a `_Decode`: two `runtime.program.Program`s over a state
+that lives on the device (the talker's KV cache with its length as a device
+int32 and `kv_max` rows, the hidden state, the frames, the group-0 history,
+the count, the stop flags), on a card each a CUDA graph on the pipeline's
+`GraphPool`:
+  * a prefill program over the prefill bucket, which resets the state and
+    runs the prefill and the rewind on the device;
+  * a step program, whose replay runs one frame step; every state write
+    is masked by a device flag `go`, tts_tpu's exact `(~fin) & (num <
+    max_frames)` (a batch: not every row finished), so a replay past the
+    stop is a frozen frame, which still launches its kernels.
+The talker's attention reads the device length itself (kernel 12's device
+form on the default route, kernel 13's on "all" / "attn", the plain
+masked chain over the cache's `kv_max` rows elsewhere); the predictor's
+positions 0..16 are the same every frame, so its steps stay host-indexed
+inside the graph. The host replays the step program until the stop flag,
+read with the count through `program.replay_ahead` (one replay queued
+ahead of the read: after an EOS one frozen frame runs); at the max_frames
+cap it queues exactly max_frames replays. A frame for which the cache has
+no row freezes the request, and the host raises afterwards, as the
+host-driven loop raised at that frame. The codec programs take the
+frames on the device (frames past a row's count zeroed); a stream copies
+the kept frames to the host a chunk of `chunk_frames` at a time, after it
+read the count and the flag, and runs each window of `window` frames (its
+last frame repeated to fill it, none zeroed) through the window codec,
+assembled by runtime/streaming.ChunkedCodecStream. On the CPU every
+program runs its body eagerly, on the same state.
 
-`synthesize_streaming` runs the same frame loop, over the same prefill
-bucket and cache, and copies the kept frames to the host once a chunk of
-`chunk_frames`; each window of `window` frames (its last frame repeated
-to fill it, none zeroed) goes through the codec at that fixed size, and
-the windows are assembled by runtime/streaming.ChunkedCodecStream.
+A decode key holds a list of `_Decode`s, each one request's while it
+runs: a request takes a free one or builds another, so requests in
+threads, and streams of one bucket consumed in turn, each decode on a
+state of their own (tts_tpu's programs are functional and allow both).
+
+The cache bucket is tts_tpu's: kv_max = min(max_seq_len, ceil((512 +
+max_frames + 1) / 128) * 128), 640 rows at max_frames = 120 (where kernel
+13's gate, 256 | T, fails and "attn"/"all" take the plain chain on the
+talker) and 768 at 128. The codec decodes a bucket of fb = min(max(8,
+ceil(frames / 8) * 8), max_frames) frames with the frames past the
+generated ones zeroed: its pre-transformer attends both ways, so the
+bucket is part of the output.
 
 Voice clone: `encode_reference` gives the reference's Mimi codes (the
 whole 19,200-sample bucket) and its x-vector; `build_prefill_voice_clone`
@@ -32,8 +63,10 @@ lays them out with the text, on the device in fp32.
 """
 from __future__ import annotations
 
+import threading
 import time
 import warnings
+from contextlib import contextmanager
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -48,6 +81,7 @@ from ..models.qwen_tts import (QwenTTSConfig, next_talker_input, next_talker_inp
                                predictor_frame, predictor_frame_beam,
                                predictor_frame_beam_batch, qwen3_stack_step,
                                talker_logits)
+from .program import GraphPool, HostSlots, Program, replay_ahead, weights_key
 
 __all__ = ["QwenTTSPipeline", "QwenDecodeConfig", "LANGUAGE_ID_MAP", "SPEAKER_ID_MAP",
            "resolve_voice", "MAX_PREFILL"]
@@ -108,11 +142,172 @@ class QwenDecodeConfig:
     fused_decode: bool | str | None = None
 
 
+class _Decode:
+    """One decode bucket's programs and the device state they share: the
+    counterpart of one jitted `run` of tts_tpu's `_decode_fn[tb]` or of the
+    stream's `_prefill_fn` and chunk program (`kind` "solo": one request,
+    the predictor greedy or beam) or of `_batch_fns[("batch", B, pmax, tb)]`
+    ("batch"), for `rows` talker rows (1 or B), a prefill bucket of `s_buf`
+    rows and a trailing bucket of `tb`.
+
+    `prefill` is the prefill program: prefill (rows, s_buf, H) fp32, the
+    prefill length () (a batch: each row's pad start (rows,)) int32, the
+    trailing text (rows, tb, H) fp32. `step` is the program of one frame
+    step. Each returns `outs`: the stop flag, the count and (solo) the EOS
+    flag, and the overflow flag. `state` lists every tensor they update. A
+    request holds `lock` from its prefill to its last read of the state
+    (`QwenTTSPipeline._held`)."""
+
+    def __init__(self, pipe: "QwenTTSPipeline", kind: str, rows: int, s_buf: int, tb: int):
+        cfg, dcfg, dev, dt = pipe.cfg, pipe.dcfg, pipe.device, pipe.dtype
+        t = cfg.talker
+        self.pipe, self.kind, self.rows, self.tb = pipe, kind, rows, tb
+        self.kv_max = pipe._kv_max(s_buf)
+        shape = (t.num_layers, rows, t.num_kv_heads, self.kv_max, t.head_dim)
+        self.k = torch.zeros(shape, dtype=dt, device=dev)
+        self.v = torch.zeros(shape, dtype=dt, device=dev)
+
+        def i32(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        def flag(*shape):
+            return torch.zeros(shape, dtype=torch.bool, device=dev)
+
+        # pos: the talker cache's length; num: frames computed; fin: EOS came
+        # (each row's, in a batch); done: a batch row's EOS frame; over: a
+        # frame found no cache row; stop: the loop's exit
+        self.pos, self.num = i32(), i32()
+        self.hid = torch.zeros((rows, t.hidden_size), dtype=dt, device=dev)
+        self.tr = torch.zeros((rows, tb, t.hidden_size), dtype=dt, device=dev)
+        self.frames = i32(rows, dcfg.max_frames, cfg.num_code_groups)
+        self.save0 = i32(rows, dcfg.max_frames)
+        self.fin = flag(rows) if kind == "batch" else flag()
+        self.done = i32(rows)
+        # a batch's key validity: its prompts are right-justified in the bucket
+        self.kv_valid = flag(rows, self.kv_max) if kind == "batch" else None
+        self.over, self.stop = flag(), flag()
+        self.state = tuple(x for x in (
+            self.k, self.v, self.pos, self.num, self.hid, self.tr, self.frames, self.save0,
+            self.fin, self.done, self.kv_valid, self.over, self.stop) if x is not None)
+        self.outs = ((self.stop, self.num, self.over) if kind == "batch"
+                     else (self.stop, self.num, self.fin, self.over))
+        lens = ((rows,), torch.int32) if kind == "batch" else ((), torch.int32)
+        self.prefill = Program(self._prefill_body, [
+            ((rows, s_buf, t.hidden_size), torch.float32), lens,
+            ((rows, tb, t.hidden_size), torch.float32)], dev, pipe._pool, self.state)
+        self.step = Program(self._one_frame, [], dev, pipe._pool, self.state)
+        # the host's two slots of outs: one replay runs ahead of the read
+        self._slots = HostSlots(self.outs, dev)
+        self.lock = threading.Lock()
+
+    # ------------------------------------------------------------ programs
+
+    def _prefill_body(self, buf, lens, trailing) -> tuple:
+        p, cfg, t = self.pipe.params, self.pipe.cfg, self.pipe.cfg.talker
+        dt, s_buf = self.pipe.dtype, buf.shape[1]
+        for x in (self.k, self.v, self.num, self.frames, self.save0, self.fin, self.over):
+            x.zero_()
+        kv = KVCache(self.k, self.v, 0)
+        rope = p["rope_cos"][:s_buf], p["rope_sin"][:s_buf]
+        if self.kind == "batch":
+            # prompts right-justified in the bucket; lens: each row's pad start
+            valid = torch.arange(s_buf, device=buf.device)[None, :] >= lens[:, None]
+            self.kv_valid.copy_(torch.arange(self.kv_max, device=buf.device)[None, :]
+                                >= lens[:, None])
+            hid_all, _ = qwen3_stack_step(p["talker"], buf.to(dt) * valid[..., None], kv, t,
+                                          *rope, kv_valid=self.kv_valid, return_all=True)
+            self.hid.copy_(hid_all[:, -1])
+            self.pos.fill_(s_buf)
+            self.done.fill_(self.pipe.dcfg.max_frames)
+        else:
+            # one pass over the bucket, then the rewind to the true length:
+            # the frames append there and overwrite the padded rows
+            hid_all, _ = qwen3_stack_step(p["talker"], buf.to(dt), kv, t, *rope,
+                                          return_all=True)
+            self.hid.copy_(hid_all.index_select(1, (lens.long() - 1).reshape(1))[:, 0])
+            self.pos.copy_(lens)
+        self.tr.copy_(trailing)
+        self._set_stop()
+        return self.outs
+
+    def _set_stop(self) -> None:
+        fin = self.fin.all() if self.kind == "batch" else self.fin
+        self.stop.copy_(fin | (self.num >= self.pipe.dcfg.max_frames) | self.over)
+
+    def _one_frame(self) -> tuple:
+        """One frame step of tts_tpu's while-loop body, applied only while
+        its condition holds (`go`); otherwise a frozen frame."""
+        pipe, cfg, dcfg = self.pipe, self.pipe.cfg, self.pipe.dcfg
+        p, batch = pipe.params, self.kind == "batch"
+        active = ~(self.fin.all() if batch else self.fin) & (self.num < dcfg.max_frames)
+        go = active & (self.pos < self.kv_max)
+        self.over.copy_(self.over | (active & ~go))
+        logits = pipe._penalized(talker_logits(p, self.hid, cfg), self.save0, self.num)
+        tok0 = torch.argmax(logits, dim=-1).to(torch.int32)                    # (rows,)
+        gather = self.num.clamp(max=self.tb - 1)
+        if batch:
+            newly = (tok0 == cfg.codec_eos_token_id) & ~self.fin & go
+            self.done.copy_(torch.where(newly, self.num, self.done))
+            self.fin.copy_(self.fin | newly)
+            tok0 = torch.where(self.fin, cfg.codec_pad_id, tok0).to(torch.int32)
+            frame_ids, ce0 = pipe._predictor_batch(self.hid[:, None], tok0, self.rows)
+            nxt = next_talker_input_batch(p, frame_ids, ce0, self.tr,
+                                          gather.expand(self.rows), cfg)
+        else:
+            newly = go & (tok0[0] == cfg.codec_eos_token_id)
+            frame_ids, ce0 = pipe._predictor(self.hid[:, None], tok0)
+            nxt = next_talker_input(p, frame_ids, ce0, self.tr, gather, cfg)
+            frame_ids = frame_ids[None]
+        at = self.num.clamp(max=dcfg.max_frames - 1).long().reshape(1)
+        self.save0.index_copy_(1, at, torch.where(go, tok0[:, None],
+                                                  self.save0.index_select(1, at)))
+        self.frames.index_copy_(1, at, torch.where(go, frame_ids[:, None],
+                                                   self.frames.index_select(1, at)))
+        # a frozen frame's talker step writes row pos, which no kept row is
+        pos = self.pos.clamp(max=self.kv_max - 1)
+        h, _ = qwen3_stack_step(p["talker"], nxt, KVCache(self.k, self.v, pos, self.kv_max),
+                                cfg.talker, *pipe._rope(pos), kv_valid=self.kv_valid,
+                                fused=pipe._fused)
+        self.hid.copy_(torch.where(go, h, self.hid))
+        if not batch:
+            self.fin.copy_(self.fin | newly)
+        step = go.to(torch.int32)
+        self.num.add_(step)
+        self.pos.add_(step)
+        self._set_stop()
+        return self.outs
+
+    # ---------------------------------------------------------------- host
+
+    def replays(self, buf, lens, trailing):
+        """The prefill, then at most max_frames replays of the step program:
+        yields the host values of `outs` after the prefill and after each
+        replay, each replay queued before the host reads the one before it.
+        The caller stops at the stop flag; past it at most one frozen frame
+        runs."""
+        yield from replay_ahead(self._slots, self.prefill(buf, lens, trailing), self.step,
+                                self.pipe.dcfg.max_frames)
+
+    def decode(self, buf, lens, trailing) -> list:
+        """Runs `replays` to the stop flag; returns the last values read
+        (stop, count, ...), and raises where a frame found no cache row."""
+        for vals in self.replays(buf, lens, trailing):
+            if vals[0]:
+                break
+        self.check(vals)
+        return vals
+
+    def check(self, vals) -> None:
+        if vals[-1]:
+            raise ValueError(f"cache of {self.kv_max} rows cannot take the next talker step")
+
+
 class QwenTTSPipeline:
     """Qwen3-TTS over the merged talker + predictor params dict and the
     codec decoder's (tts_tpu's layouts, e.g. from
     `weights.convert.params_from_jax` or the models' init functions). Runs
-    on the device the params are on."""
+    on the device the params are on, through the programs of the module's
+    docstring."""
 
     # the 12 Hz codec's rate: tts_tpu's pipeline takes an output_sample_rate
     # argument but resamples nothing with it, so the port keeps the constant
@@ -131,6 +326,13 @@ class QwenTTSPipeline:
             from ..quant.weight_only import quantize_pytree
 
             params = quantize_pytree(params, bits=quantize)
+        # the programs, keyed as tts_tpu's (the module's docstring); on a
+        # card their graphs share one memory pool
+        self._decode_fn: dict = {}
+        self._batch_fns: dict = {}
+        self._codec_cache: dict = {}
+        self._pool = GraphPool()
+        self._weights = None
         self.params = params
         self.cfg = cfg
         self.codec_params = codec_params
@@ -142,8 +344,43 @@ class QwenTTSPipeline:
             self.dcfg = replace(self.dcfg, use_beam=False)
         fd = self.dcfg.fused_decode
         self._fused = "step" if fd is None else fd
+
+    @property
+    def params(self) -> dict:
+        """The talker's and predictor's params (quantized where the pipeline
+        was built with `quantize`). Setting them drops the programs built so
+        far."""
+        return self._params
+
+    @params.setter
+    def params(self, params: dict) -> None:
+        self._params = params
         self.device = params["talker_codec_embed"].device
         self.dtype = params["talker_codec_embed"].dtype
+        self._drop()
+
+    @property
+    def codec_params(self) -> dict:
+        """The codec decoder's params. Setting them drops the programs."""
+        return self._codec_params
+
+    @codec_params.setter
+    def codec_params(self, params: dict) -> None:
+        self._codec_params = params
+        self._drop()
+
+    def _drop(self) -> None:
+        self._decode_fn.clear()
+        self._batch_fns.clear()
+        self._codec_cache.clear()
+
+    def _programs(self) -> None:
+        """Drop the programs where a tensor they read was replaced, moved or
+        cast since they were built (`weights_key`)."""
+        key = weights_key(self.params, self.codec_params)
+        if key != self._weights:
+            self._drop()
+            self._weights = key
 
     # ------------------------------------------------------------- prefill
 
@@ -277,7 +514,7 @@ class QwenTTSPipeline:
         return min(t.max_seq_len,
                    -(-(prefill_rows + self.dcfg.max_frames + 1) // 128) * 128)
 
-    def _penalized(self, logits: torch.Tensor, save0: torch.Tensor, num: int):
+    def _penalized(self, logits: torch.Tensor, save0: torch.Tensor, num):
         d = self.dcfg
         if d.repeat_penalty == 1.0:
             return logits
@@ -304,96 +541,59 @@ class QwenTTSPipeline:
                                          fused=self._fused)
         return frame_ids.reshape(bsz, self.cfg.num_code_groups), ce0
 
-    def _rope(self, pos: int) -> tuple:
+    def _rope(self, pos) -> tuple:
+        """The talker's RoPE rows of position pos: sliced at a host int,
+        gathered at a 0-dim device tensor."""
         p = self.params
+        if isinstance(pos, torch.Tensor):
+            idx = pos.reshape(1).long()
+            return p["rope_cos"].index_select(0, idx), p["rope_sin"].index_select(0, idx)
         return p["rope_cos"][pos:pos + 1], p["rope_sin"][pos:pos + 1]
 
-    def _frame_steps(self, prefill_buf: torch.Tensor, prefill_len: int,
-                     trailing: torch.Tensor):
-        """One request: prefill over the bucket, rewind, then the frame loop,
-        a generator: after each frame it yields (frames (max_frames, G)
-        int32 on the device, frames computed, EOS seen). The loop stops at
-        EOS or max_frames."""
-        cfg, dcfg, params = self.cfg, self.dcfg, self.params
-        t = cfg.talker
-        s_buf = prefill_buf.shape[1]
-        kv = KVCache.create(t.num_layers, 1, t.num_kv_heads, self._kv_max(s_buf),
-                            t.head_dim, self.dtype, self.device)
-        hid_all, kv = qwen3_stack_step(params["talker"], prefill_buf.to(self.dtype), kv, t,
-                                       params["rope_cos"][:s_buf], params["rope_sin"][:s_buf],
-                                       return_all=True)
-        hid = hid_all[:, prefill_len - 1]
-        kv = kv.rewind(prefill_len)
-        trailing = trailing.to(self.dtype)
-        frames = torch.zeros((dcfg.max_frames, cfg.num_code_groups), dtype=torch.int32,
-                             device=self.device)
-        save0 = torch.zeros((1, dcfg.max_frames), dtype=torch.int32, device=self.device)
-        num, fin = 0, False
-        while not fin and num < dcfg.max_frames:
-            logits = self._penalized(talker_logits(params, hid, cfg), save0, num)
-            tok0 = torch.argmax(logits, dim=-1).to(torch.int32)                 # (1,)
-            save0[:, num] = tok0
-            frame_ids, ce0 = self._predictor(hid[:, None], tok0)
-            frames[num] = frame_ids
-            nxt = next_talker_input(params, frame_ids, ce0, trailing,
-                                    min(num, trailing.shape[1] - 1), cfg)
-            hid, kv = qwen3_stack_step(params["talker"], nxt, kv, t, *self._rope(kv.length),
-                                       fused=self._fused)
-            num += 1
-            fin = bool(tok0[0] == cfg.codec_eos_token_id)     # the one host read a frame
-            yield frames, num, fin
+    @contextmanager
+    def _held(self, table: dict, key, kind: str, rows: int, s_buf: int, tb: int):
+        """A `_Decode` of `table[key]` (a list) that no other request holds,
+        held for the `with` block: the first free one, or a new one where
+        each is held (by a request in another thread, or by a stream not
+        consumed to its end)."""
+        self._programs()
+        decs = table.setdefault(key, [])
+        for dec in list(decs):
+            if dec.lock.acquire(blocking=False):
+                break
+        else:
+            dec = _Decode(self, kind, rows, s_buf, tb)
+            dec.lock.acquire()
+            decs.append(dec)
+        try:
+            yield dec
+        finally:
+            dec.lock.release()
+
+    def _solo(self, tb: int):
+        """A request's decode programs for trailing bucket tb (tts_tpu's
+        `_decode_fn[tb]`), held (`_held`)."""
+        return self._held(self._decode_fn, tb, "solo", 1, MAX_PREFILL, tb)
+
+    def _batch(self, bsz: int, pmax: int, tb: int):
+        """A batch's decode programs (tts_tpu's `_batch_fns[("batch", B,
+        pmax, tb)]`), held."""
+        return self._held(self._batch_fns, ("batch", bsz, pmax, tb), "batch", bsz, pmax, tb)
+
+    def _stream(self, chunk: int, tb: int):
+        """A stream's decode programs (tts_tpu's `_prefill_fn` and
+        `_codec_cache[("chunk", chunk, tb)]`): a request's, on states of
+        their own, held."""
+        return self._held(self._codec_cache, ("chunk", chunk, tb), "solo", 1, MAX_PREFILL, tb)
 
     def _decode(self, prefill_buf: torch.Tensor, prefill_len: int,
                 trailing: torch.Tensor) -> tuple[torch.Tensor, int]:
-        """Returns (frames (max_frames, G) int32 on the device, frames kept:
-        the EOS frame is computed and dropped)."""
-        frames, num, fin = None, 0, False
-        for frames, num, fin in self._frame_steps(prefill_buf, prefill_len, trailing):
-            pass
-        return frames, num - int(fin)
-
-    def _decode_batch(self, prefill_buf: torch.Tensor, pad_start: torch.Tensor,
-                      trailing: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """B prefills right-justified in one bucket, per-row key validity
-        masking the left pad, per-row stop tracking. Returns (frames (B,
-        max_frames, G), frames kept per row (B,))."""
-        cfg, dcfg, params = self.cfg, self.dcfg, self.params
-        t = cfg.talker
-        bsz, s_buf = prefill_buf.shape[:2]
-        dev = self.device
-        valid = torch.arange(s_buf, device=dev)[None, :] >= pad_start[:, None]
-        prefill_buf = prefill_buf.to(self.dtype) * valid[..., None]
-        kv_max = self._kv_max(s_buf)
-        kv = KVCache.create(t.num_layers, bsz, t.num_kv_heads, kv_max, t.head_dim,
-                            self.dtype, dev)
-        kv_valid = torch.arange(kv_max, device=dev)[None, :] >= pad_start[:, None]
-        hid_all, kv = qwen3_stack_step(params["talker"], prefill_buf, kv, t,
-                                       params["rope_cos"][:s_buf], params["rope_sin"][:s_buf],
-                                       kv_valid=kv_valid, return_all=True)
-        hid = hid_all[:, -1]
-        trailing = trailing.to(self.dtype)
-        frames = torch.zeros((bsz, dcfg.max_frames, cfg.num_code_groups), dtype=torch.int32,
-                             device=dev)
-        save0 = torch.zeros((bsz, dcfg.max_frames), dtype=torch.int32, device=dev)
-        fin = torch.zeros((bsz,), dtype=torch.bool, device=dev)
-        done = torch.full((bsz,), dcfg.max_frames, dtype=torch.int32, device=dev)
-        num = 0
-        while num < dcfg.max_frames and not (num and bool(fin.all())):
-            logits = self._penalized(talker_logits(params, hid, cfg), save0, num)
-            tok0 = torch.argmax(logits, dim=-1).to(torch.int32)                 # (B,)
-            newly = (tok0 == cfg.codec_eos_token_id) & ~fin
-            done = torch.where(newly, num, done)
-            fin = fin | newly
-            tok0 = torch.where(fin, cfg.codec_pad_id, tok0).to(torch.int32)
-            save0[:, num] = tok0
-            frame_ids, ce0 = self._predictor_batch(hid[:, None], tok0, bsz)
-            frames[:, num] = frame_ids
-            nxt = next_talker_input_batch(params, frame_ids, ce0, trailing,
-                                          min(num, trailing.shape[1] - 1), cfg)
-            hid, kv = qwen3_stack_step(params["talker"], nxt, kv, t, *self._rope(kv.length),
-                                       kv_valid=kv_valid, fused=self._fused)
-            num += 1
-        return frames, torch.clamp(done, max=num)
+        """One request through its decode programs. Returns (frames
+        (max_frames, G) int32 on the device, frames kept: the EOS frame is
+        computed and dropped)."""
+        with self._solo(trailing.shape[1]) as dec:
+            _, num, fin, _ = dec.decode(prefill_buf, np.int32(prefill_len), trailing)
+            return dec.frames[0].clone(), int(num) - int(fin)
 
     # --------------------------------------------------------------- codec
 
@@ -408,6 +608,21 @@ class QwenTTSPipeline:
         codes = frames[:, :fb] * live[..., None]
         wav = codec_decode(self.codec_params, codes, self.codec_cfg)
         return to_pcm16(wav * 32767.0), wav.abs().amax()
+
+    def _codec(self, fb: int, nlive: int | None = None) -> Program:
+        """The codec program of fb frames (tts_tpu's `_codec_cache[(fb,
+        "dev", nlive)]`, nlive None for one request): frames (rows,
+        max_frames, G) int32 on the device, each row's frames kept (rows,)
+        int32 -> `_vocode`'s (int16 waveforms, peak)."""
+        self._programs()
+        key = (fb, "dev", nlive)
+        if key not in self._codec_cache:
+            rows, g = 1 if nlive is None else nlive, self.cfg.num_code_groups
+            self._codec_cache[key] = Program(
+                lambda frames, nfr: self._vocode(frames, nfr, fb),
+                [((rows, self.dcfg.max_frames, g), torch.int32), ((rows,), torch.int32)],
+                self.device, self._pool)
+        return self._codec_cache[key]
 
     # -------------------------------------------------------------- public
 
@@ -443,8 +658,7 @@ class QwenTTSPipeline:
         frames, num = self._decode(buf, p_len, tr)
         if num == 0:
             return np.zeros(0, np.int16), {"frames": 0, "wall_s": 0.0}
-        wav, peak = self._vocode(frames[None], torch.tensor([num], device=self.device),
-                                 self._codec_fb(num))
+        wav, peak = self._codec(self._codec_fb(num))(frames[None], np.array([num], np.int32))
         wav = wav[0, :num * self.codec_cfg.total_upsample].cpu().numpy()
         wall = time.perf_counter() - t0
         return wav, {"frames": num, "wall_s": wall, "frames_per_s": num / max(wall, 1e-9),
@@ -464,20 +678,23 @@ class QwenTTSPipeline:
         tb = max(self._trailing_bucket(tr) for _, tr in reqs)
         t0 = time.perf_counter()
         buf = torch.zeros((bsz, pmax, hs), device=dev)
-        pad_start = torch.tensor([pmax - p.shape[1] for p, _ in reqs], dtype=torch.int32,
-                                 device=dev)
+        pad_start = np.array([pmax - p.shape[1] for p, _ in reqs], np.int32)
         for b, (p, _) in enumerate(reqs):
             buf[b, pmax - p.shape[1]:] = p[0]
         tr_buf = torch.cat([self._trailing_buf(tr, tb) for _, tr in reqs], dim=0)
-        frames, done = self._decode_batch(buf, pad_start, tr_buf)
-        nfr = [int(n) for n in done.cpu()]
         wavs = [np.zeros(0, np.int16)] * bsz
-        live = [b for b in range(bsz) if nfr[b] > 0]
         peak = 0.0
+        with self._batch(bsz, pmax, tb) as dec:
+            dec.decode(buf, pad_start, tr_buf)
+            # each row's frames kept: to its EOS frame, within the count
+            done = torch.clamp(dec.done, max=dec.num)
+            nfr = [int(n) for n in done.cpu()]
+            live = [b for b in range(bsz) if nfr[b] > 0]
+            if live:
+                rows = torch.tensor(live, device=dev)
+                prog = self._codec(self._codec_fb(max(nfr[b] for b in live)), len(live))
+                wav, pk = prog(dec.frames.index_select(0, rows), done.index_select(0, rows))
         if live:
-            rows = torch.tensor(live, device=dev)
-            wav, pk = self._vocode(frames.index_select(0, rows), done.index_select(0, rows),
-                                   self._codec_fb(max(nfr[b] for b in live)))
             wav, peak = wav.cpu().numpy(), float(pk)
             up = self.codec_cfg.total_upsample
             for i, b in enumerate(live):
@@ -487,22 +704,35 @@ class QwenTTSPipeline:
         return wavs, {"frames": total, "wall_s": wall,
                       "frames_per_s": total / max(wall, 1e-9), "peak": peak}
 
+    def _window_body(self, codes: torch.Tensor) -> tuple:
+        return (to_pcm16(codec_decode(self.codec_params, codes, self.codec_cfg) * 32767.0),)
+
     def _codec_window(self, codes: np.ndarray) -> torch.Tensor:
         """A streaming window (1, W, G) of codes -> int16 (1, W * upsample) on
-        the device, the codec run at the window's fixed size (its host copy
-        comes a window later)."""
-        codes = torch.as_tensor(np.asarray(codes, np.int32), device=self.device)
-        return to_pcm16(codec_decode(self.codec_params, codes, self.codec_cfg) * 32767.0)
+        the device, the codec run at the window's fixed size through its
+        program (tts_tpu's `_codec_cache[W]`; the host copy comes a window
+        later)."""
+        self._programs()
+        window = codes.shape[1]
+        if window not in self._codec_cache:
+            self._codec_cache[window] = Program(
+                self._window_body, [((1, window, self.cfg.num_code_groups), torch.int32)],
+                self.device, self._pool)
+        return self._codec_cache[window](np.asarray(codes, np.int32))[0]
 
     @torch.no_grad()
     def synthesize_streaming(self, prefill, trailing, chunk_frames: int = 24,
                              window: int = 72, left_context: int = 24):
         """A generator of int16 audio chunks for one request (prefill and
-        trailing as synthesize_from_prefill takes them): the frames are
-        _decode's, copied to the host a chunk of `chunk_frames` at a time
-        (the EOS frame dropped); each codec window holds `window` frames,
-        `left_context` of them already emitted, its audio discarded. The
-        chunks together are the 24 kHz waveform of the kept frames."""
+        trailing as synthesize_from_prefill takes them): the frames are those
+        of the request's decode programs (replayed on a state of the
+        stream's own), copied to the host a chunk of `chunk_frames` at a time
+        (the EOS frame dropped) once the count and the stop flag after a
+        replay say the chunk is done; each codec window holds `window`
+        frames, `left_context` of them already emitted, its audio
+        discarded. The chunks together are the 24 kHz waveform of the kept
+        frames, pushed where the frame-by-frame loop pushed them: at each
+        multiple of chunk_frames, and the rest at the end."""
         from .streaming import ChunkedCodecStream
 
         buf, p_len, tr = self._request_bufs(prefill, trailing)
@@ -510,15 +740,23 @@ class QwenTTSPipeline:
                                    left_context=left_context,
                                    upsample=self.codec_cfg.total_upsample,
                                    num_groups=self.cfg.num_code_groups)
-        sent = 0
-        for frames, num, fin in self._frame_steps(buf, p_len, tr):
-            keep = num - int(fin)
-            if keep > sent and (fin or num % chunk_frames == 0
-                                or num == self.dcfg.max_frames):
-                out = codec.push_frames(frames[sent:keep].cpu().numpy())
-                sent = keep
-                if out is not None and len(out):
-                    yield out
+        with self._stream(chunk_frames, tr.shape[1]) as dec:
+            sent = 0
+            for vals in dec.replays(buf, np.int32(p_len), tr):
+                dec.check(vals)
+                stop, num, fin, _ = vals
+                keep = int(num) - int(fin)
+                cuts = list(range((sent // chunk_frames + 1) * chunk_frames, keep + 1,
+                                  chunk_frames))
+                if stop and keep > (cuts[-1] if cuts else sent):
+                    cuts.append(keep)
+                for cut in cuts:
+                    out = codec.push_frames(dec.frames[0, sent:cut].cpu().numpy())
+                    sent = cut
+                    if out is not None and len(out):
+                        yield out
+                if stop:
+                    break
         for out in codec.finish():
             yield out
 
