@@ -65,7 +65,18 @@ the parts `--parts` names (all by default), `--rounds` times A, B, B, A:
     activity only: device time, the card's busy time and kernel launches a
     token, the idle share of the profiled wall), tokens/s and RTF of two
     timed requests, and the idle share of each timed wall (1 - the
-    profiled request's busy time / the wall).
+    profiled request's busy time / the wall);
+  * indextts: the IndexTTS-1.5 bench request (32 text ids, 256 tokens, no
+    stop token, chip_smoke's 6 s reference) in bf16 and int8, a batch of
+    4 (row-tokens/s), and where the tree has decode programs bf16 at 4
+    decode steps a replay: the first request's wall with its encode (on
+    the programs also their warm-up and capture seconds and the pool's
+    MiB), one request under torch.profiler (CUDA activity only: device
+    time, the card's busy time and kernel 11's a token, the idle share of
+    the profiled wall), kernel launches a token, host launch calls a token
+    (a CPU trace of a 16-token request), tokens/s and RTF of two timed
+    requests and the idle share of each timed wall; for bf16 also the
+    vocoder call's and the encode's wall (best of 3) and busy ms.
 Random weights from chip_smoke.py's seeds. Both trees' kernels build
 first, at once. Each turn prints JSON lines; compare the trees only within
 one run of this script.
@@ -365,7 +376,7 @@ def _flash_digest(tag: str) -> None:
         name: _digest(o) for name, o in outs.items()}}), flush=True)
 
 
-PARTS = ("host", "f5_bf16", "digests", "qwen", "f5_fp32", "decode", "kani")
+PARTS = ("host", "f5_bf16", "digests", "qwen", "f5_fp32", "decode", "kani", "indextts")
 
 
 def turn(tag: str, parts: tuple) -> None:
@@ -395,6 +406,8 @@ def turn(tag: str, parts: tuple) -> None:
         _decode_paths(tag, card)
     if "kani" in parts:
         _kani_routes(tag, card)
+    if "indextts" in parts:
+        _indextts(tag, card)
 
 
 def _kani_routes(tag: str, card: str) -> None:
@@ -751,9 +764,7 @@ def _decode_paths(tag: str, card: str) -> None:
     on the default route (bf16) and "mlp_q8" (int8): device time a frame
     and the share of kernel 12 (default) or 15 ("mlp_q8") under the
     profiler, frames/s of two; the Kani bench request greedy (kernel 12)
-    and beam 5 (kernel 11): device time a token, tokens/s of two; one
-    IndexTTS-1.5 bf16 request (kernel 11): the card's busy time a token,
-    kernel 11's, and the idle share of the profiled wall, tokens/s of two;
+    and beam 5 (kernel 11): device time a token, tokens/s of two;
     BigVGAN's bench mel: samples/s of 10 calls."""
     import numpy as np
     import torch
@@ -835,29 +846,6 @@ def _decode_paths(tag: str, card: str) -> None:
                       / cs.KANI_NEW}), flush=True)
     del kani, kparams, kcparams
 
-    from tts_tpu_torch.runtime.indextts import IndexTTSPipeline
-
-    icfg, ivcfg, iparams = cs.indextts_models()
-    index = IndexTTSPipeline(iparams, icfg, ivcfg)
-    tt = np.arange(6 * ivcfg.sample_rate) / ivcfg.sample_rate
-    sig = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
-           + 0.1 * np.sin(2 * np.pi * 330 * tt)
-           + 0.05 * np.random.default_rng(12).standard_normal(tt.size))
-    ref = index.encode_reference((sig * 12000).astype(np.int16))
-
-    def index_request():
-        return index.synthesize_ids(cs.INDEX_IDS, ref, max_gen=cs.INDEX_GEN)
-
-    _, rows, wall, busy = _profile(index_request, walled=True,
-                                   busy={"all": None, "kernel11": k12[1:]})
-    print(json.dumps({"tree": tag, "card": card, "indextts": "bf16 request",
-                      "tokens": cs.INDEX_GEN, "busy_ms_a_token": busy["all"] / cs.INDEX_GEN,
-                      "kernel11_busy_ms_a_token": busy["kernel11"] / cs.INDEX_GEN,
-                      "idle_share": 1 - busy["all"] / 1e3 / wall,
-                      "tokens_per_s": [cs.INDEX_GEN / w for w in _walls(index_request, 2)]}),
-          flush=True)
-    del index, iparams
-
     vcfg = BigVGANConfig()
     mel = np.random.default_rng(9).standard_normal((1, 512, vcfg.num_mels)).astype(np.float32)
     for dt in (torch.bfloat16, torch.float32):
@@ -871,6 +859,132 @@ def _decode_paths(tag: str, card: str) -> None:
                           "samples_per_s": bench["samples_per_sec"], "rtf": bench["rtf"]}),
               flush=True)
         del voc
+
+
+def _index_audio(rate: int):
+    """chip_smoke's 6 s IndexTTS reference."""
+    import numpy as np
+
+    tt = np.arange(6 * rate) / rate
+    sig = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
+           + 0.1 * np.sin(2 * np.pi * 330 * tt)
+           + 0.05 * np.random.default_rng(12).standard_normal(tt.size))
+    return (sig * 12000).astype(np.int16)
+
+
+def _indextts(tag: str, card: str) -> None:
+    """The `indextts` part (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    import tts_tpu_torch.runtime.indextts as ri
+    from tts_tpu_torch.runtime.indextts import IndexTTSPipeline
+
+    cfg, vcfg, params = cs.indextts_models()
+    audio = _index_audio(vcfg.sample_rate)
+    prompts = [cs.INDEX_IDS, np.arange(5, 20, dtype=np.int32)[None],
+               np.arange(40, 90, dtype=np.int32)[None], np.array([[7, 1, 4]], np.int32)]
+    k11 = ("qkv_head", "qkv_matvec", "qkv_epilogue")
+    routes = [("bf16", {}, False, 1), ("int8", {"quantize": 8}, False, 1),
+              ("batch of 4", {}, True, 1)]
+    if hasattr(ri, "STEPS"):
+        # the step program at 4 decode steps a replay (a tree with programs)
+        routes.append(("bf16, 4 steps a replay", {}, False, 4))
+    steps0 = getattr(ri, "STEPS", None)
+    for route, kw, batch, steps in routes:
+        if steps0 is not None:
+            ri.STEPS = steps
+        t_route = time.perf_counter()
+        pipe = IndexTTSPipeline(params, cfg, vcfg, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = pipe.encode_reference(audio)
+
+        def request(max_gen=cs.INDEX_GEN, pipe=pipe, ref=ref):
+            if batch:
+                wavs, st = pipe.synthesize_ids_batch([(p, ref) for p in prompts],
+                                                     max_gen=max_gen)
+                return sum(len(w) for w in wavs), st["tokens"]
+            wav, st = pipe.synthesize_ids(cs.INDEX_IDS, ref, max_gen=max_gen)
+            return len(wav), st.tokens
+
+        request()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        progs = cs.index_programs(pipe) if hasattr(cs, "index_programs") else []
+        pool = getattr(pipe, "_pool", None)
+        # CUDA activity only: a CPU trace of an eager request's ~10^5
+        # launches takes minutes to reduce
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            samples, tokens = request()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = sum(e.device_time_total for e in kern) / 1e3
+        busy = {"all": _busy_ms(prof), "kernel11": _busy_ms(prof, k11)}
+        launched = sum(e.count for e in kern)
+        del prof
+        walls = _walls(request, 2)
+        audio_s = samples / vcfg.sample_rate
+        short = 16
+        calls = _host_launches(lambda: request(short))
+        rec = {"tree": tag, "card": card, "indextts": route, "tokens": tokens,
+               "first_request_s": first,
+               "warmup_s": sum(p.warmup_s for _, p in progs) if progs else None,
+               "capture_s": sum(p.capture_s for _, p in progs) if progs else None,
+               "pool_mib": pool.nbytes() / 2**20 if pool is not None else None,
+               "device_ms_a_token": device / tokens, "busy_ms_a_token": busy["all"] / tokens,
+               "kernel11_busy_ms_a_token": busy["kernel11"] / tokens,
+               "idle_share": 1 - busy["all"] / 1e3 / wall, "profiled_wall_s": wall,
+               "kernel_launches_a_token": launched / tokens,
+               "host_launch_calls_a_token": calls / (short * (len(prompts) if batch else 1)),
+               "tokens_per_s": [tokens / w for w in walls], "rtf": [w / audio_s for w in walls],
+               "idle_share_timed": [1 - busy["all"] / 1e3 / w for w in walls]}
+        if route == "bf16":
+            rec.update(_index_parts(pipe, ref, audio))
+        rec["route_s"] = time.perf_counter() - t_route
+        print(json.dumps(rec), flush=True)
+        del pipe, ref
+        torch.cuda.empty_cache()
+    if steps0 is not None:
+        ri.STEPS = steps0
+
+
+def _index_parts(pipe, ref, audio) -> dict:
+    """The bench request's vocoder call (its hiddens from one decode) and
+    the encode of the reference: best wall of 3 (ms) and the card's busy
+    time under the profiler (ms), each on the tree's own path (the
+    programs where the tree has them, else the eager calls)."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    ids = np.zeros((1, 32), np.int32)
+    ids[0] = cs.INDEX_IDS[0]
+    hiddens, done, _ = pipe._decode(ref[0], ids, np.array([32]), cs.INDEX_GEN)
+    n = int(done[0]) - 2
+    fb = min(max(8, -(-n // 8) * 8), cs.INDEX_GEN)
+    ce, conds = ref[1], ref[2]
+    if hasattr(pipe, "_vocoder"):
+        prog = pipe._vocoder(fb, None, ce, conds)
+
+        def vocode():
+            return prog(hiddens[:, :fb], np.array([n], np.int32), ce, *conds)
+    else:
+        def vocode():
+            return pipe._vocode(hiddens, [n], fb, ce, conds)
+
+    out = {}
+    for name, fn in (("vocode", vocode), ("encode", lambda: pipe.encode_reference(audio))):
+        _, _, _, busy = _profile(fn, walled=True, busy={"all": None})
+        out[f"{name}_ms"] = 1e3 * min(_walls(fn, 3))
+        out[f"{name}_busy_ms"] = busy["all"]
+    return out
 
 
 def main() -> None:

@@ -141,11 +141,13 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      samples/s and RTF;
   9. IndexTTSPipeline at full IndexTTS-1.5 width (GPT 24 x 1280, 20 heads;
      conformer 6 x 512; ECAPA 512; BigVGAN 1536 channels from 1280 inputs;
-     random weights from seeds, no stop token): encode_reference on a 6 s
-     reference, requests of 32 text ids x 256 tokens in bf16 and int8 and a
-     batch of 4, 24 launches of kernel 11 a decode step, none of kernel 12,
-     12 of kernel 10 a vocoder call, one GPT step's logits against fp32,
-     tokens/s and RTF;
+     random weights from seeds, no stop token), on its encode, prefill,
+     step and vocode programs: encode_reference on a 6 s reference,
+     requests of 32 text ids x 256 tokens in bf16 and int8 and a batch of
+     4, 24 launches of kernel 11 a decode step, none of kernel 12, 12 of
+     kernel 10 a vocoder call, one GPT step's logits against fp32, tokens/s
+     and RTF, each pipeline's first request (warm-up and capture seconds)
+     and its pool's MiB;
   10. VoxCPMPipeline at full VoxCPM-2 width (voxcpm_v2_config(): base 24 x
      1024 and residual 4 layers, 16/2 heads x 64; feature encoder 3 x 512;
      estimator 6 x 512; VAE decoder 2048 channels, 48 kHz; random weights
@@ -264,7 +266,12 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      step); the default step graph's edges read for kernel 12's
      premise (the predictor's host-position appends, copy kernels, counted
      as cache writers); kernels 12 and 13 against their twins in a
-     replayed step.
+     replayed step; then the IndexTTS-1.5 programs (phase 9's seeds) at
+     max_gen 24: the encode program, bf16 and int8 requests and a batch of
+     4 (two each), every prefill, step, and vocode call, the first ones
+     included, bitwise its eager body from the same state with its
+     launches (24 of kernel 11 a step); kernel 11 against its twin in a
+     replayed step and kernel 10 in a replayed vocode call.
 Phases 3-15 run F5Pipeline and BigVGANVocoder on their graphs: a request's
 launches are the replay's, which the capture recorded; where a phase
 compares with the twins swapped in, it runs the program's body eagerly.
@@ -4073,20 +4080,20 @@ def indextts_models() -> tuple:
 
 
 def check_index_step(pipe, ref) -> None:
-    """One GPT decode step after the bench request's prefill, through
-    kernel 11 (the route every decode step takes) in bf16, against the
-    plain route in bf16 and in fp32 (params and cache cast): as check_step
-    for Kani, the kernel route's error at most STEP_SLACK times the plain
-    route's."""
+    """One GPT decode step from the state the bench request's prefill
+    program left, through kernel 11 (the route every decode step takes) in
+    bf16, against the plain route in bf16 and in fp32 (params and cache
+    cast): as check_step for Kani, the kernel route's error at most
+    STEP_SLACK times the plain route's."""
     from tts_tpu_torch.kv.cache import KVCache
     from tts_tpu_torch.models.indextts import gpt_step
 
     cfg, gpt = pipe.cfg, pipe.params["gpt"]
-    ids = np.zeros((1, 32), np.int32)
-    ids[0] = INDEX_IDS[0]
-    logits, _, kv, kv_valid, vec = pipe._prefill(ref[0], ids, np.array([32]), INDEX_GEN)
-    tok = logits.argmax(-1)
-    h = (gpt["mel_embed"][tok] + gpt["mel_pos"][1][None])[:, None]
+    with pipe._held(1, INDEX_IDS.shape[1], INDEX_GEN, ref[0].dtype) as dec:
+        dec.prefill(ref[0], INDEX_IDS, np.array([INDEX_IDS.shape[1]], np.int32))
+        kv = KVCache(dec.k.clone(), dec.v.clone(), dec.p_len)
+        kv_valid, vec = dec.kv_valid.clone(), dec.vec.clone()
+        h = (gpt["mel_embed"][dec.tok] + gpt["mel_pos"][1][None])[:, None]
 
     def step(p, dt, route):
         c = KVCache(kv.k.to(dt).clone(), kv.v.to(dt).clone(), kv.length)
@@ -4141,20 +4148,38 @@ def check_index_vocode(pipe, args: tuple, label: str) -> None:
         raise AssertionError(f"{label}: kernel 10's vocoder is less accurate than its twin's")
 
 
-def run_indextts(name_limit: str) -> tuple:
-    """Phase 9: IndexTTSPipeline at full IndexTTS-1.5 width. Returns the
-    launch counts of the bf16 request, the bf16 pipeline and reference, and
-    the arguments the bf16 request's vocoder call took."""
-    from tts_tpu_torch.ops._build import LAUNCHES
-    from tts_tpu_torch.runtime.indextts import IndexTTSPipeline
-
-    cfg, vcfg, params = indextts_models()
-    rate = vcfg.sample_rate
+def index_audio(rate: int) -> np.ndarray:
+    """The 6 s synthetic IndexTTS reference (int16) of phases 9 and 16."""
     tt = np.arange(6 * rate) / rate
     rng = np.random.default_rng(12)
     sig = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
            + 0.1 * np.sin(2 * np.pi * 330 * tt) + 0.05 * rng.standard_normal(tt.size))
-    audio = (sig * 12000).astype(np.int16)
+    return (sig * 12000).astype(np.int16)
+
+
+def index_programs(pipe) -> list:
+    """The IndexTTS pipeline's programs built so far: (label, Program) of
+    each encode bucket, each decode key's prefill and step programs and
+    each vocode bucket."""
+    out = [(f"encode {k}", v) for k, v in pipe._enc_cache.items()]
+    for key, held in pipe._dec_cache.items():
+        for i, dec in enumerate(held):
+            out += [(f"{key}.{i} prefill", dec.prefill), (f"{key}.{i} step", dec.step)]
+    return out + [(f"vocode {k}", v) for k, v in pipe._voc_cache.items()]
+
+
+def run_indextts(name_limit: str) -> tuple:
+    """Phase 9: IndexTTSPipeline at full IndexTTS-1.5 width, on its
+    programs (encode, prefill, step and vocode; the first request of each
+    pipeline captures them). Returns the launch counts of the bf16 request,
+    the bf16 pipeline and reference, and the arguments the bf16 request's
+    vocode program took."""
+    from tts_tpu_torch.ops._build import LAUNCHES
+    from tts_tpu_torch.runtime.indextts import STEPS, IndexTTSPipeline
+
+    cfg, vcfg, params = indextts_models()
+    rate = vcfg.sample_rate
+    audio = index_audio(rate)
     pipes = {"bf16": IndexTTSPipeline(params, cfg, vcfg),
              "int8": IndexTTSPipeline(params, cfg, vcfg, quantize=8)}
     t0 = time.perf_counter()
@@ -4170,12 +4195,13 @@ def run_indextts(name_limit: str) -> tuple:
         raise AssertionError("encode_reference gave non-finite conditioning")
     k10 = kernel10_per_call(vcfg, INDEX_GEN)
     names = ("fused_qkv_rope", "fused_qkv_attn", "amp_block_fused")
+    # decode steps a request at the cap runs: whole replays of STEPS
+    steps = STEPS * -(-(INDEX_GEN - 1) // STEPS)
 
     def checked(label, fn, rows):
         before = dict(LAUNCHES)
         wavs, tokens, wall = fn()
         grew = {k: LAUNCHES[k] - before.get(k, 0) for k in names}
-        steps = INDEX_GEN - 1                  # the first token is the prefill's
         audio_s = sum(len(w) for w in wavs) / rate
         print(f"  {name_limit}: IndexTTS {label}: {tokens} tokens, "
               f"{[len(w) for w in wavs]} int16 samples, wall {wall:.4f} s, "
@@ -4203,12 +4229,30 @@ def run_indextts(name_limit: str) -> tuple:
             return [wav], st.tokens, st.wall_s
         return fn
 
-    for pipe in pipes.values():                     # warm-up
+    for label, pipe in pipes.items():               # warm-up: the programs' captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         pipe.synthesize_ids(INDEX_IDS, ref, max_gen=INDEX_GEN)
-    torch.cuda.synchronize()
-    vocoded = []                                    # _vocode's arguments, by call
-    real_vocode = pipes["bf16"]._vocode
-    pipes["bf16"]._vocode = lambda *a: vocoded.append(a) or real_vocode(*a)
+        torch.cuda.synchronize()
+        progs = index_programs(pipe)
+        print(f"  {name_limit}: IndexTTS {label} first request {time.perf_counter() - t0:.3f} "
+              f"s: {len(progs)} programs, warm-up "
+              f"{sum(p.warmup_s for _, p in progs):.3f} s, capture "
+              f"{sum(p.capture_s for _, p in progs):.3f} s, pool "
+              f"{pipe._pool.nbytes() / 2**20:.1f} MiB", flush=True)
+    vocoded = []                  # the vocode programs' arguments, by call
+    real_vocoder = pipes["bf16"]._vocoder
+
+    def vocoder(*a):
+        prog = real_vocoder(*a)
+
+        def call(h, n, cond_embed, *conds):
+            vocoded.append((h.clone(), [int(f) for f in n], h.shape[1], cond_embed.clone(),
+                            [c.clone() for c in conds]))
+            return prog(h, n, cond_embed, *conds)
+        return call
+
+    pipes["bf16"]._vocoder = vocoder
     LAUNCHES.clear()
     launches = checked("bf16 request", single(pipes["bf16"]), 1)
     checked("int8 request", single(pipes["int8"]), 1)
@@ -4221,7 +4265,9 @@ def run_indextts(name_limit: str) -> tuple:
         return wavs, st["tokens"], st["wall_s"]
 
     checked("batch of 4 (bf16)", batch, 4)
-    del pipes["bf16"]._vocode
+    print(f"  IndexTTS bf16 pipeline: programs {[k for k, _ in index_programs(pipes['bf16'])]}, "
+          f"one pool of {pipes['bf16']._pool.nbytes() / 2**20:.1f} MiB", flush=True)
+    del pipes["bf16"]._vocoder
     for args, label in zip(vocoded, ("bf16 request", "batch of 4")):
         check_index_vocode(pipes["bf16"], args, label)
     check_index_step(pipes["bf16"], ref)
@@ -7725,6 +7771,8 @@ def run_graphs(name_limit: str) -> dict:
         launches[k] = launches.get(k, 0) + n
     for k, n in run_qwen_graphs(name_limit).items():
         launches[k] = launches.get(k, 0) + n
+    for k, n in run_index_graphs(name_limit).items():
+        launches[k] = launches.get(k, 0) + n
     return launches
 
 
@@ -8207,6 +8255,206 @@ def run_qwen_graphs(name_limit: str) -> dict:
                 check_qwen_twin_in_replay(pipe, dec, f"Qwen {label}")
         del pipe, dec
         torch.cuda.empty_cache()
+    return launches
+
+
+# phase 16's IndexTTS requests: 24 tokens, each decode step a replay held
+# against its eager body
+INDEX_GRAPH_GEN = 24
+
+
+def index_request_on_programs(label: str, pipe, ref_of, ids: list, want_step: dict) -> dict:
+    """An IndexTTS request (one row, or a batch) driven program by program
+    (prefill, step replays until the stop flag, the vocode program of the
+    kept frames), each call held bitwise against its eager body from the
+    same state (stateful_call). `ref_of(b)` is row b's reference. Returns
+    a summary record."""
+    from tts_tpu_torch.runtime.indextts import STEPS
+
+    rows = len(ids)
+    tb = max(16, -(-max(i.shape[1] for i in ids) // 16) * 16)
+    buf = np.zeros((rows, tb), np.int32)
+    for b, i in enumerate(ids):
+        buf[b, :i.shape[1]] = i[0]
+    tlens = np.array([i.shape[1] for i in ids], np.int32)
+    lat = torch.cat([ref_of(b)[0] for b in range(rows)])
+    with pipe._held(rows, tb, INDEX_GRAPH_GEN, lat.dtype, batch=rows > 1) as dec:
+        recs = [stateful_call(f"{label} prefill", dec.prefill, dec, (lat, buf, tlens), {})]
+        replays = 0
+        while not bool(dec.stop.cpu()):
+            recs.append(stateful_call(f"{label} step replay {replays}", dec.step, dec, (),
+                                      want_step))
+            replays += 1
+        done = dec.cnt.cpu().numpy()
+        frames = [max(int(d) - 2, 0) for d in done]
+        fb = pipe._frame_bucket(max(frames), INDEX_GRAPH_GEN)
+        ce = torch.cat([ref_of(b)[1] for b in range(rows)])
+        conds = [torch.cat([ref_of(b)[2][i] for b in range(rows)]) for i in range(len(
+            ref_of(0)[2]))]
+        voc = pipe._vocoder(fb, rows if rows > 1 else None, ce, conds)
+        vargs = (dec.hiddens[:, :fb].clone(), np.array(frames, np.int32), ce, *conds)
+        recs.append(stateful_call(f"{label} vocode", voc, dec, vargs,
+                                  {"amp_block_fused": kernel10_per_call(pipe.vcfg, fb)}))
+    if replays != -(-(INDEX_GRAPH_GEN - 1) // STEPS):
+        raise AssertionError(f"{label}: {replays} step replays")
+    return {"replays": replays, "tokens": [int(d) for d in done],
+            "first_calls": sum(r["first"] for r in recs),
+            "replay_s": sum(r["call_s"] for r in recs[1:-1] if not r["first"]),
+            "eager_s": sum(r["eager_s"] for r in recs[1:-1]),
+            "launches": {k: sum(r["launches"].get(k, 0) for r in recs)
+                         for k in (*want_step, "amp_block_fused")},
+            "programs": {"prefill": dec.prefill, "step": dec.step, "vocode": voc},
+            "vocode_args": vargs}
+
+
+def check_index_step_in_replay(pipe, ref) -> None:
+    """Kernel 11 against its twin in a replayed decode step, from the state
+    a prefill and 4 replays left: the step program replayed (kernel 11),
+    its eager body with the twin swapped in (bf16), and one plain gpt_step
+    in fp32 on the same (bf16-valued) weights, cache and input; the rows
+    the step appends at every GPT layer past the first (each reads the
+    attention outputs of the layers before it) from the kernel no further
+    from fp32 than STEP_SLACK times the twin's (check_step's rule)."""
+    import tts_tpu_torch.models.indextts as mi
+    from tts_tpu_torch.kv.cache import KVCache
+    from tts_tpu_torch.models.indextts import gpt_step
+    from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope_plain
+
+    ids = INDEX_IDS
+    with pipe._held(1, ids.shape[1], INDEX_GRAPH_GEN, ref[0].dtype) as dec:
+        dec.prefill(ref[0], ids, np.array([ids.shape[1]], np.int32))
+        for _ in range(4):
+            dec.step()
+        s0 = _snap(dec)
+        p0, n0 = int(dec.pos.cpu()), int(dec.num.cpu())
+
+        def rows():
+            return torch.cat([dec.k[1:, 0, :, p0].float().flatten(),
+                              dec.v[1:, 0, :, p0].float().flatten()])
+
+        dec.step()
+        torch.cuda.synchronize()
+        kern = rows()
+        _put(dec, s0)
+        with swapped(mi, {"fused_qkv_rope": fused_qkv_rope_plain}):
+            dec.step._eager()
+        twin = rows()
+        _put(dec, s0)
+        gpt = pipe.params["gpt"]
+        h = (gpt["mel_embed"][dec.tok] + gpt["mel_pos"][n0][None])[:, None]
+        kf, vf = dec.k.float(), dec.v.float()
+        gpt_step(cast_tree(gpt, torch.float32), h.float(), KVCache(kf, vf, p0), dec.vec,
+                 pipe.cfg, dec.kv_valid[0], fused=False)
+        ref32 = torch.cat([kf[1:, 0, :, p0].flatten(), vf[1:, 0, :, p0].flatten()])
+    e_k, e_t = rel_l2(kern, ref32), rel_l2(twin, ref32)
+    ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_t
+    print(f"  IndexTTS bf16: kernel 11 in a replayed decode step (pos {p0}, token {n0}): the "
+          f"appended k/v rows of GPT layers 2-{pipe.cfg.gpt_layers}, rel L2 against one fp32 "
+          f"plain step: replay {e_k:.6g}, eager body with the twin {e_t:.6g} (limit "
+          f"{STEP_SLACK} x); replay against the twin {rel_l2(kern, twin):.6g} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("kernel 11 in a replayed IndexTTS step is less accurate than its "
+                             "twin")
+
+
+def check_index_vocode_in_replay(pipe, prog, args: tuple) -> None:
+    """Kernel 10 against its twin in a replayed vocode call: the program's
+    int16 output (the replay), its body run eagerly with the twin swapped in
+    (bf16), and the body in fp32 (the GPT's final_norm and the BigVGAN
+    cast, the inputs too); the replay's rel L2 against fp32 at most
+    STEP_SLACK times the twin's."""
+    import types
+
+    import tts_tpu_torch.ops.bigvgan_stage as k10
+    from tts_tpu_torch.runtime.indextts import IndexTTSPipeline
+
+    (got,) = prog(*args)
+    with swapped(k10, {"amp_block_fused": k10.amp_block_fused_plain}):
+        (twin,) = prog._eager(*args)
+        p32 = cast_tree({"gpt": {"final_norm": pipe.params["gpt"]["final_norm"]},
+                         "bigvgan": pipe.params["bigvgan"]}, torch.float32)
+        f32 = types.SimpleNamespace(params=p32, vcfg=pipe.vcfg)
+        h, n, ce, *conds = [torch.as_tensor(a, device="cuda") for a in args]
+        (ref32,) = IndexTTSPipeline._vocode_body(f32, h.float(), n, ce.float(),
+                                                 *[c.float() for c in conds])
+    kern, twin, ref32 = got.float(), twin.float(), ref32.float()
+    e_k, e_t = rel_l2(kern, ref32), rel_l2(twin, ref32)
+    ok = bool(kern.abs().max() > 0) and e_k <= STEP_SLACK * e_t
+    print(f"  IndexTTS bf16: kernel 10 in a replayed vocode call ({tuple(got.shape)} int16): "
+          f"rel L2 against the fp32 body: replay {e_k:.6g}, eager body with the twin "
+          f"{e_t:.6g} (limit {STEP_SLACK} x); replay against the twin "
+          f"{rel_l2(kern, twin):.6g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("kernel 10 in a replayed vocode call is less accurate than its "
+                             "twin")
+
+
+@torch.no_grad()
+def run_index_graphs(name_limit: str) -> dict:
+    """Phase 16's IndexTTS part: the programs of IndexTTS-1.5 at full width
+    (phase 9's seeds and reference) at max_gen INDEX_GRAPH_GEN, no stop
+    token: the encode program of the 6 s reference (two calls); bf16 and
+    int8 requests and a batch of 4, two each, driven program by program,
+    every prefill, step and vocode call, the first ones included, bitwise
+    its eager body from the same state with the eager run's launches (24 of
+    kernel 11 a decode step, kernel 10 on the vocode call's stages its gate
+    admits); kernel 11
+    against its twin in a replayed step and kernel 10 in a replayed vocode
+    call; each program's warm-up and capture seconds and the pool's bytes
+    by route. Returns the launches of the checked calls."""
+    from tts_tpu_torch.runtime.indextts import ENC_BUCKET, STEPS, IndexTTSPipeline
+
+    cfg, vcfg, params = indextts_models()
+    launches: dict = {}
+    pipe = IndexTTSPipeline(params, cfg, vcfg)
+    ref = pipe.encode_reference(index_audio(vcfg.sample_rate))
+    (key, enc), = pipe._enc_cache.items()
+    padded = enc._static[0].clone()                 # the bucket's audio, as the call gave it
+    for i in range(2):
+        replay_check(f"IndexTTS encode program (bucket {key} = {key // ENC_BUCKET} x "
+                     f"{ENC_BUCKET} samples), call {i + 2}", enc, (padded,), {}, name_limit)
+    prompts = [INDEX_IDS, np.arange(5, 20, dtype=np.int32)[None],
+               np.arange(40, 90, dtype=np.int32)[None], np.array([[7, 1, 4]], np.int32)]
+    want = {"fused_qkv_rope": cfg.gpt_layers * STEPS}
+    for label, make, reqs in (
+            ("bf16", lambda: pipe, [[prompts[0]], [prompts[1]]]),
+            ("int8", lambda: IndexTTSPipeline(params, cfg, vcfg, quantize=8),
+             [[prompts[0]], [prompts[1]]]),
+            ("batch of 4", lambda: IndexTTSPipeline(params, cfg, vcfg),
+             [prompts, prompts[::-1]])):
+        p = make()
+        for req, ids in enumerate(reqs):
+            rec = index_request_on_programs(f"IndexTTS {label} request {req}", p,
+                                            lambda b: ref, ids, want)
+            progs, vargs = rec.pop("programs"), rec.pop("vocode_args")
+            for k, n in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            print(f"  {name_limit}: IndexTTS {label} request {req}: prefill, {rec['replays']} "
+                  f"step replays of {STEPS} decode step(s) and the vocode call, each bitwise "
+                  f"its eager body from the same state (outputs and state), "
+                  f"{rec['first_calls']} of them first calls; tokens {rec['tokens']}; "
+                  f"launches {rec['launches']} ({want} a replay); the step replays "
+                  f"{rec['replay_s']:.4f} s against their eager bodies' {rec['eager_s']:.4f} "
+                  f"s; " + "; ".join(f"{k} warm-up {v.warmup_s:.4f} s capture "
+                                      f"{v.capture_s:.4f} s, {sum(v.launches.values())} "
+                                      f"launches recorded" for k, v in progs.items())
+                  + f"; pool {p._pool.nbytes() / 2**20:.1f} MiB", flush=True)
+            print("  " + json.dumps({"graphs": f"IndexTTS {label}", "card": name_limit,
+                                     "request": req, **rec,
+                                     "warmup_s": {k: v.warmup_s for k, v in progs.items()},
+                                     "capture_s": {k: v.capture_s for k, v in progs.items()},
+                                     "pool_bytes": p._pool.nbytes()}), flush=True)
+        if label == "bf16":
+            check_index_step_in_replay(p, ref)
+            check_index_vocode_in_replay(p, progs["vocode"], vargs)
+        if p is not pipe:
+            del p
+        torch.cuda.empty_cache()
+    print(f"  IndexTTS bf16 pipeline: programs {[k for k, _ in index_programs(pipe)]}, one "
+          f"pool of {pipe._pool.nbytes() / 2**20:.1f} MiB", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
     return launches
 
 

@@ -27,6 +27,14 @@ kernel's twin):
   False   plain ops.
 A prefill (S > 1) always takes the plain ops. The KV cache is written in
 place (kv/cache.py).
+
+A step runs at a host position (`kv.length` an int) or at a device one (a
+0-dim int32 tensor, the form the decode programs of runtime/indextts.py
+capture): the plain attention then reads the cache's `bound` rows
+(`kv.rows`) under a mask built on the device from the length and
+`kv_valid`, and the "step" route, gated at the bound's last row, gives
+kernel 12 the device position with that row as its top. The routes do not
+change; no shape depends on the length and nothing reads it on the host.
 """
 from __future__ import annotations
 
@@ -273,8 +281,10 @@ def gpt_route(params: dict, cfg: IndexTTSConfig, batch: int, s: int, kv: KVCache
             and all(fusable_weight(p["wqkv"]) for p in params["layers"])
             and qkv_fits(batch, cfg.gpt_dim, hd)):
         return False
+    # the device form is gated at its top row, the host form at the length
+    most = kv.rows - 1 if kv.on_device else kv.length
     if fused == "step" and (batch != 1 or kv_valid is not None or (heads * hd) % 128
-                            or kv.k.shape[1] != 1 or not step_fits(1, hd, kv.length)):
+                            or kv.k.shape[1] != 1 or not step_fits(1, hd, most)):
         return True
     return fused
 
@@ -285,14 +295,16 @@ def gpt_step(params: dict, hidden: torch.Tensor, kv: KVCache, penalty_vec: torch
     (B, vocab) multiplies the logits; kv_valid (T,) or (B, T) masks the
     text-bucket holes. Returns (logits (B, vocab) fp32, last hidden (B, D)
     after ln_f, the cache advanced by S); the cache rows are written in
-    place."""
+    place. kv.length may live on the device (see the module's docstring)."""
     b, s, d = hidden.shape
     pos = kv.length
-    n = pos + s
+    # the keys a step may see: pos + s, and in the device form its bound's rows
+    n = kv.rows if kv.on_device else pos + s
+    top = kv.rows - 1 if kv.on_device else None
     heads, hd = cfg.gpt_heads, cfg.gpt_head_dim
     route = gpt_route(params, cfg, b, s, kv, kv_valid, fused)
     # keys past pos + s are masked: attend over the rows that can be valid
-    mask = attention_mask(s, n, pos, n, causal=True, device=hidden.device)
+    mask = attention_mask(s, n, pos, pos + s, causal=True, device=hidden.device)
     if kv_valid is not None:
         mask = combine_kv_valid(mask, kv_valid[..., :n])
     x = hidden
@@ -301,7 +313,7 @@ def gpt_step(params: dict, hidden: torch.Tensor, kv: KVCache, penalty_vec: torch
             out, kf, vf = fused_qkv_attn(
                 x[:, 0], p["wqkv"], None, None, kv.k, kv.v, i, pos, heads=heads,
                 kv_heads=heads, head_dim=hd, bqkv=p["bqkv"], norm="ln",
-                ln_weight=p["ln1"]["w"], ln_bias=p["ln1"]["b"], eps=1e-5)
+                ln_weight=p["ln1"]["w"], ln_bias=p["ln1"]["b"], eps=1e-5, top=top)
             kv.update_layer(i, kf.reshape(b, 1, heads, hd), vf.reshape(b, 1, heads, hd))
             out = out[:, None]
         else:
