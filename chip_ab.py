@@ -76,7 +76,20 @@ the parts `--parts` names (all by default), `--rounds` times A, B, B, A:
     the profiled wall), kernel launches a token, host launch calls a token
     (a CPU trace of a 16-token request), tokens/s and RTF of two timed
     requests and the idle share of each timed wall; for bf16 also the
-    vocoder call's and the encode's wall (best of 3) and busy ms.
+    vocoder call's and the encode's wall (best of 3) and busy ms;
+  * voxcpm: the VoxCPM bench request (16 prompt ids, 32 target ids, 48
+    latents, min_latents = max_latents) on VoxCPM-2 bf16 and int8, a
+    VoxCPM-1.5 batch of 8 (row-latents/s), and where the tree has decode
+    programs VoxCPM-2 bf16 at 2 latent steps a replay: the first request's
+    wall (on the programs also their warm-up and capture seconds and the
+    pool's MiB), one request under torch.profiler (CUDA activity only:
+    device time, the card's busy time and kernel launches a latent, the
+    idle share of the profiled wall), latents/s and RTF of two timed
+    requests and the idle share of each timed wall, host launch calls a
+    latent (a CPU trace of an 8-latent request); for bf16 also the VAE
+    decode of the request's 48 latents and the 6 s prompt's encode (wall,
+    best of 3, and busy ms), and the first chunk of a stream (chunk 4),
+    its first and its second run.
 Random weights from chip_smoke.py's seeds. Both trees' kernels build
 first, at once. Each turn prints JSON lines; compare the trees only within
 one run of this script.
@@ -376,7 +389,8 @@ def _flash_digest(tag: str) -> None:
         name: _digest(o) for name, o in outs.items()}}), flush=True)
 
 
-PARTS = ("host", "f5_bf16", "digests", "qwen", "f5_fp32", "decode", "kani", "indextts")
+PARTS = ("host", "f5_bf16", "digests", "qwen", "f5_fp32", "decode", "kani", "indextts",
+         "voxcpm")
 
 
 def turn(tag: str, parts: tuple) -> None:
@@ -408,6 +422,8 @@ def turn(tag: str, parts: tuple) -> None:
         _kani_routes(tag, card)
     if "indextts" in parts:
         _indextts(tag, card)
+    if "voxcpm" in parts:
+        _voxcpm(tag, card)
 
 
 def _kani_routes(tag: str, card: str) -> None:
@@ -984,6 +1000,148 @@ def _index_parts(pipe, ref, audio) -> dict:
         _, _, _, busy = _profile(fn, walled=True, busy={"all": None})
         out[f"{name}_ms"] = 1e3 * min(_walls(fn, 3))
         out[f"{name}_busy_ms"] = busy["all"]
+    return out
+
+
+def _vox_audio(rate: int):
+    """chip_smoke's 6 s VoxCPM prompt."""
+    import numpy as np
+
+    tt = np.arange(6 * rate) / rate
+    sig = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
+           + 0.1 * np.sin(2 * np.pi * 330 * tt)
+           + 0.05 * np.random.default_rng(16).standard_normal(tt.size))
+    return (sig * 12000).astype(np.int16)
+
+
+def _voxcpm(tag: str, card: str) -> None:
+    """The `voxcpm` part (see the module's docstring)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    import tts_tpu_torch.runtime.voxcpm as rv
+    from tts_tpu_torch.models.voxcpm import VoxCPMConfig, voxcpm_v2_config
+    from tts_tpu_torch.runtime.voxcpm import VoxCPMDecodeConfig, VoxCPMPipeline
+
+    cfg2, cfg15 = voxcpm_v2_config(), VoxCPMConfig()
+    params2, vae2 = cs.voxcpm_models(cfg2, 30)
+    batch = [(cs.VOX_PROMPT, np.arange(21, 53 + 2 * i, dtype=np.int32)[None])
+             for i in range(8)]
+    routes = [("VoxCPM-2 bf16", cfg2, None, 1, False), ("VoxCPM-2 int8", cfg2, 8, 1, False),
+              ("VoxCPM-1.5 batch of 8", cfg15, None, 1, True)]
+    steps0 = getattr(rv, "STEPS", None)
+    if steps0 is not None:
+        # the step program at 2 latent steps a replay (a tree with programs)
+        routes.append(("VoxCPM-2 bf16, 2 latent steps a replay", cfg2, None, 2, False))
+    for route, cfg, quantize, steps, is_batch in routes:
+        if steps0 is not None:
+            rv.STEPS = steps
+        t_route = time.perf_counter()
+        if cfg is cfg2:
+            params, vae = params2, vae2
+        else:
+            params, vae = cs.voxcpm_models(cfg15, 40)
+
+        def make(latents, params=params, vae=vae, cfg=cfg, quantize=quantize):
+            return VoxCPMPipeline(params, cfg, vae, VoxCPMDecodeConfig(
+                max_latents=latents, min_latents=latents), quantize=quantize)
+
+        def request(pipe, is_batch=is_batch):
+            if is_batch:
+                wavs, st = pipe.synthesize_ids_batch(batch)
+                return sum(len(w) for w in wavs), st["latents"]
+            wav, st = pipe.synthesize_ids(cs.VOX_PROMPT, cs.VOX_TARGET)
+            return len(wav), st["latents"]
+
+        pipe = make(cs.VOX_LATENTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        request(pipe)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        progs = cs.vox_programs(pipe) if hasattr(cs, "vox_programs") else []
+        pool = getattr(pipe, "_pool", None)
+        # CUDA activity only: a CPU trace of an eager request's ~1.5e5
+        # launches takes minutes to reduce
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            samples, latents = request(pipe)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = sum(e.device_time_total for e in kern) / 1e3
+        busy = _busy_ms(prof)
+        launched = sum(e.count for e in kern)
+        del prof
+        walls = _walls(lambda: request(pipe), 2)
+        audio_s = samples / cfg.output_sample_rate
+        short = make(8)
+        calls = _host_launches(lambda: request(short))
+        rec = {"tree": tag, "card": card, "voxcpm": route, "latents": latents,
+               "first_request_s": first,
+               "warmup_s": sum(p.warmup_s for _, p in progs) if progs else None,
+               "capture_s": sum(p.capture_s for _, p in progs) if progs else None,
+               "pool_mib": pool.nbytes() / 2**20 if pool is not None else None,
+               "device_ms_a_latent": device / latents, "busy_ms_a_latent": busy / latents,
+               "idle_share": 1 - busy / 1e3 / wall, "profiled_wall_s": wall,
+               "kernel_launches_a_latent": launched / latents,
+               "host_launch_calls_a_latent": calls / (8 * (len(batch) if is_batch else 1)),
+               "latents_per_s": [latents / w for w in walls],
+               "rtf": [w / audio_s for w in walls],
+               "idle_share_timed": [1 - busy / 1e3 / w for w in walls]}
+        if route == "VoxCPM-2 bf16":
+            rec.update(_vox_parts(pipe))
+        rec["route_s"] = time.perf_counter() - t_route
+        print(json.dumps(rec), flush=True)
+        del pipe, short
+        torch.cuda.empty_cache()
+    if steps0 is not None:
+        rv.STEPS = steps0
+
+
+def _vox_parts(pipe) -> dict:
+    """The bench request's VAE decode (its 48 latents from one decode) and
+    the 6 s prompt's encode: best wall of 3 (ms, the VAE's host copy
+    included) and the card's busy time under the profiler (ms), each on the
+    tree's own path (the programs where the tree has them, else the eager
+    calls); a stream's first chunk (chunk 4), its first and second run."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    cfg = pipe.cfg
+    segs = [("text", np.concatenate([cs.VOX_PROMPT[0], cs.VOX_TARGET[0],
+                                     [cfg.audio_start_id]]).astype(np.int32))]
+    max_steps = cs.VOX_TARGET.shape[1] * pipe.dcfg.decode_limit_factor + 10
+    buf = pipe._latent_buf(max_steps)
+    text, is_audio, fe, pos = pipe._prompt_bufs(segs)
+    lat = None
+    for lat, num, _ in pipe._latent_steps(text, is_audio, pos, fe, pipe._zero_cond(),
+                                          max_steps, buf, pipe.dcfg.seed):
+        pass
+    lat = lat.clone()
+    if hasattr(pipe, "_vae"):
+        prog = pipe._vae(1, buf)
+        counts = np.array([num], np.int32)
+
+        def vae():
+            return prog(lat, counts)[0].cpu()
+    else:
+        def vae():
+            return pipe._vocode(lat)
+
+    audio = _vox_audio(cfg.sample_rate)
+    out = {}
+    for name, fn in (("vae", vae), ("encode", lambda: pipe.encode_prompt(audio))):
+        _, _, _, busy = _profile(fn, walled=True, busy={"all": None})
+        out[f"{name}_ms"] = 1e3 * min(_walls(fn, 3))
+        out[f"{name}_busy_ms"] = busy["all"]
+    for run in ("stream_first_chunk_s", "stream_first_chunk_s_again"):
+        _, out[run], _ = cs.timed_stream(pipe.synthesize_streaming(
+            segs, pipe._zero_cond(), max_steps, chunk=4))
     return out
 
 

@@ -23,6 +23,7 @@
     python3 chip_smoke.py --families parity             # phases 0-2, 15
     python3 chip_smoke.py --families graphs             # phases 0-2, 16
     python3 chip_smoke.py --families qwen,clone,graphs  # phases 0-2, 7, 14, 16
+    python3 chip_smoke.py --families voxcpm,clone,graphs  # phases 0-2, 10, 14, 16
 
 Phases, each raising on failure (a failed phase ends the run non-zero):
   0. require a CUDA card; print its name and power limit as nvidia-smi
@@ -151,7 +152,10 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
   10. VoxCPMPipeline at full VoxCPM-2 width (voxcpm_v2_config(): base 24 x
      1024 and residual 4 layers, 16/2 heads x 64; feature encoder 3 x 512;
      estimator 6 x 512; VAE decoder 2048 channels, 48 kHz; random weights
-     from seeds): the bench request (16 prompt ids, 32 target ids, 48
+     from seeds), on its programs (the encode, a prefill, a step of one
+     latent step and the VAE, each a CUDA graph; each pipeline's and
+     key's first request prints its warm-up and capture seconds and the
+     pool's MiB): the bench request (16 prompt ids, 32 target ids, 48
      latents) in bf16 and int8 and synthesize_v2("continuation") on a 6 s
      prompt at 16 kHz, each 368,640 int16 samples and 1,344 launches of
      kernel 12 (28 a latent), none of kernel 11; VoxCPM-1.5 (1536 decoder
@@ -216,8 +220,8 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      kernel-12 launches a frame) and one talker step of its prefill against the
      twins; the Qwen bench request streamed (chunk 24, window 72, left 24)
      on its decode programs and window codec program (each a CUDA graph)
-     and VoxCPM-2's (chunk 4, draws injected), each bitwise the window
-     assembly over the non-streaming decode, first-chunk time and wall
+     and VoxCPM-2's on its programs (chunk 4, draws injected), each bitwise
+     the window assembly over the non-streaming decode, first-chunk time and wall
      beside the non-streaming request's; VoxCPM-2 at output_sample_rate
      24000 bitwise resample_linear of the native request; kani-tts-370m,
      Qwen3-TTS-0.6B and VoxCPM-2 at quantize=4 (no launch of kernel 11 or
@@ -271,7 +275,16 @@ Phases, each raising on failure (a failed phase ends the run non-zero):
      4 (two each), every prefill, step, and vocode call, the first ones
      included, bitwise its eager body from the same state with its
      launches (24 of kernel 11 a step); kernel 11 against its twin in a
-     replayed step and kernel 10 in a replayed vocode call.
+     replayed step and kernel 10 in a replayed vocode call; then the
+     VoxCPM programs (phase 10's seeds) at 12 latents: VoxCPM-2 bf16 and
+     int8 requests, a "continuation" request with its encode program, a
+     stream (its decode and every window VAE call, the assembly bitwise
+     synthesize_streaming) and a VoxCPM-1.5 batch of 4 (two each), every
+     encode, prefill, step, VAE and window call, the first ones included,
+     bitwise its eager body from the same state with its launches (28 of
+     kernel 12 a solo step, 28 of kernel 11 a batch step); the bf16 step
+     graph's edges read for kernel 12's premise; kernel 12 against its
+     twin in a replayed step and kernel 11 in a replayed batch step.
 Phases 3-15 run F5Pipeline and BigVGANVocoder on their graphs: a request's
 launches are the replay's, which the capture recorded; where a phase
 compares with the twins swapped in, it runs the program's body eagerly.
@@ -4377,8 +4390,33 @@ def check_voxcpm_step(pipe) -> None:
                              "or did not run through kernel 12")
 
 
+def vox_audio(rate: int) -> np.ndarray:
+    """The 6 s synthetic VoxCPM prompt (int16) of phases 10 and 16."""
+    tt = np.arange(6 * rate) / rate
+    rng = np.random.default_rng(16)
+    sig = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
+           + 0.1 * np.sin(2 * np.pi * 330 * tt) + 0.05 * rng.standard_normal(tt.size))
+    return (sig * 12000).astype(np.int16)
+
+
+def vox_programs(pipe) -> list:
+    """The VoxCPM pipeline's programs built so far: (label, Program) of each
+    encode bucket, each decode key's prefill and step programs (a request's
+    and a batch's) and each VAE bucket (the whole buffer's, a stream
+    window's)."""
+    out = [(f"encode {k}", v) for k, v in pipe._enc_cache.items()]
+    for table in (pipe._dec_cache, pipe._batch_fns):
+        for key, held in table.items():
+            for i, dec in enumerate(held):
+                out += [(f"{key}.{i} prefill", dec.prefill), (f"{key}.{i} step", dec.step)]
+    return out + [(f"VAE {k}", v) for k, v in pipe._voc_cache.items()] + [
+        (f"window VAE {k}", v) for k, v in pipe._vae_dec_cache.items()]
+
+
 def run_voxcpm(name_limit: str) -> tuple:
-    """Phase 10: VoxCPMPipeline at full width. VoxCPM-2 (voxcpm_v2_config():
+    """Phase 10: VoxCPMPipeline at full width, on its programs (encode,
+    prefill, step and VAE; the first request of each pipeline and key
+    captures them). VoxCPM-2 (voxcpm_v2_config():
     LM 24 + 4 layers x 1024, 16/2 heads x 64; feature encoder 3 x 512;
     estimator 6 x 512; VAE decoder 2048 channels at rates (8, 8, 6, 5), 48
     kHz) bf16 and int8 on the bench request, and synthesize_v2
@@ -4409,12 +4447,7 @@ def run_voxcpm(name_limit: str) -> tuple:
     pipes = {"VoxCPM-2 bf16": VoxCPMPipeline(params2, cfg2, vae2, dec),
              "VoxCPM-2 int8": VoxCPMPipeline(params2, cfg2, vae2, dec, quantize=8)}
     pipe15 = VoxCPMPipeline(params15, cfg15, vae15, dec)
-    rate = cfg2.sample_rate
-    tt = np.arange(6 * rate) / rate
-    rng = np.random.default_rng(16)
-    sig = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
-           + 0.1 * np.sin(2 * np.pi * 330 * tt) + 0.05 * rng.standard_normal(tt.size))
-    prompt_audio = (sig * 12000).astype(np.int16)
+    prompt_audio = vox_audio(cfg2.sample_rate)
     layers = b.num_layers + cfg2.residual.num_layers
     names = ("fused_qkv_rope", "fused_qkv_attn")
     batch = [(VOX_PROMPT, np.arange(21, 53 + 2 * i, dtype=np.int32)[None]) for i in range(8)]
@@ -4451,10 +4484,21 @@ def run_voxcpm(name_limit: str) -> tuple:
         return [pipes["VoxCPM-2 bf16"].synthesize_v2(
             "continuation", VOX_TARGET, prompt_audio=prompt_audio, prompt_ids=VOX_PROMPT)[0]]
 
-    for pipe in pipes.values():                     # warm-up
-        pipe.synthesize_ids(VOX_PROMPT, VOX_TARGET)
-    pipe15.synthesize_ids_batch(batch)
-    torch.cuda.synchronize()
+    warm = [(label, pipe, single(pipe)) for label, pipe in pipes.items()] + [
+        ("VoxCPM-2 bf16 continuation", pipes["VoxCPM-2 bf16"], continuation),
+        ("VoxCPM-1.5 batch of 8", pipe15, lambda: pipe15.synthesize_ids_batch(batch))]
+    for label, pipe, fn in warm:                    # warm-up: the programs' captures
+        before = {id(p) for _, p in vox_programs(pipe)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        progs = [(k, p) for k, p in vox_programs(pipe) if id(p) not in before]
+        print(f"  {name_limit}: {label} first request {time.perf_counter() - t0:.3f} s: "
+              f"{len(progs)} programs {[k for k, _ in progs]}, warm-up "
+              f"{sum(p.warmup_s for _, p in progs):.3f} s, capture "
+              f"{sum(p.capture_s for _, p in progs):.3f} s, pool "
+              f"{pipe._pool.nbytes() / 2**20:.1f} MiB", flush=True)
     LAUNCHES.clear()
     launches = dict.fromkeys(names, 0)
     runs = [("VoxCPM-2 bf16 request", single(pipes["VoxCPM-2 bf16"]), cfg2, 1,
@@ -6979,14 +7023,16 @@ def run_clone(name_limit: str, ckpt_root: str) -> dict:
     max_steps = VOX_TARGET.shape[1] * dec.decode_limit_factor + 10
     noise = torch.randn((VOX_LATENTS, 1, cfg2.patch_size, cfg2.vae.latent_dim),
                         generator=torch.Generator("cuda").manual_seed(14), device="cuda")
-    lat_box, real = [], vox._vocode
-    vox._vocode = lambda lat: lat_box.append(lat.clone()) or real(lat)
     before = dict(LAUNCHES)
     t0 = time.perf_counter()
     native, st = vox._run_segments(segs, zero, max_steps, None, noise)
     plain_wall = time.perf_counter() - t0
-    del vox._vocode
     add(grew_of(before))
+    # the request's latents: its decode state's, where the request left them
+    (state,) = vox._dec_cache[(64, vox._latent_buf(max_steps))]
+    lat_box = [state.latents.clone()]
+    # the window program's capture, before the timed stream
+    vox._vae_dec_fn(np.zeros((1, 5, cfg2.patch_size, cfg2.vae.latent_dim), np.float32))
     before = dict(LAUNCHES)
     chunks, first, wall = timed_stream(vox.synthesize_streaming(segs, zero, max_steps, chunk=4,
                                                                 noise=noise))
@@ -7773,6 +7819,8 @@ def run_graphs(name_limit: str) -> dict:
         launches[k] = launches.get(k, 0) + n
     for k, n in run_index_graphs(name_limit).items():
         launches[k] = launches.get(k, 0) + n
+    for k, n in run_vox_graphs(name_limit).items():
+        launches[k] = launches.get(k, 0) + n
     return launches
 
 
@@ -8454,6 +8502,247 @@ def run_index_graphs(name_limit: str) -> dict:
     print(f"  IndexTTS bf16 pipeline: programs {[k for k, _ in index_programs(pipe)]}, one "
           f"pool of {pipe._pool.nbytes() / 2**20:.1f} MiB", flush=True)
     del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+# phase 16's VoxCPM requests: 12 latents (min_latents = max_latents), each
+# latent step a replay held against its eager body
+VOX_GRAPH_LATENTS = 12
+
+
+def vox_request_on_programs(label: str, pipe, dec, inputs: tuple, cap: int,
+                            want_step: dict) -> dict:
+    """A VoxCPM request (one row, or a batch; its CFM noise filled into the
+    state) driven program by program: the prefill, step replays until the
+    stop flag, the VAE program over the latents kept, each call held
+    bitwise against its eager body from the same state (stateful_call).
+    Returns a summary record."""
+    from tts_tpu_torch.runtime.voxcpm import STEPS
+
+    recs = [stateful_call(f"{label} prefill", dec.prefill, dec, inputs, {})]
+    replays = 0
+    while not bool(dec.stop.cpu()):
+        recs.append(stateful_call(f"{label} step replay {replays}", dec.step, dec, (),
+                                  want_step))
+        replays += 1
+    vae = pipe._vae(dec.rows, dec.buf)
+    recs.append(stateful_call(f"{label} VAE", vae, dec, (dec.latents.clone(), dec.cnt.clone()),
+                              {}))
+    if replays != -(-cap // STEPS) or int(dec.cnt.min()) != cap:
+        raise AssertionError(f"{label}: {replays} step replays, latents {dec.cnt.tolist()}")
+    return {"replays": replays, "latents": dec.cnt.tolist(),
+            "first_calls": sum(r["first"] for r in recs),
+            "replay_s": sum(r["call_s"] for r in recs[1:-1] if not r["first"]),
+            "eager_s": sum(r["eager_s"] for r in recs[1:-1]),
+            "launches": {k: sum(r["launches"].get(k, 0) for r in recs) for k in want_step},
+            "programs": {"prefill": dec.prefill, "step": dec.step, "VAE": vae}}
+
+
+def check_vox_step_in_replay(label: str, pipe, dec, name: str, twin) -> None:
+    """Kernel `name` (12 or 11) against its twin in a replayed latent step,
+    from the state a prefill and 4 replays left: the step program replayed
+    (the kernel), its eager body with the twin swapped in (bf16), and the
+    step's body in fp32 (the CFM at the state's noise row, the feature
+    encoder and a plain dual-LM step, on fp32 copies of the weights and the
+    state); the rows the step appends at every base and residual layer
+    past the first (each reads the attention outputs of the layers before
+    it) and the new dit_hidden from the kernel no further from fp32 than
+    STEP_SLACK times the twin's (check_step's rule)."""
+    import tts_tpu_torch.models.voxcpm as vm
+    from tts_tpu_torch.kv.cache import KVCache
+
+    for _ in range(4):
+        dec.step()
+    s0 = _snap(dec)
+    p0, n0 = int(dec.pos.cpu()), int(dec.num.cpu())
+
+    def rows(bk, bv, rk, rv, dit):
+        return torch.cat([t[1:, :, :, p0].float().flatten() for t in (bk, bv, rk, rv)]
+                         + [dit.float().flatten()])
+
+    def state_rows():
+        return rows(dec.bk, dec.bv, dec.rk, dec.rv, dec.dit)
+
+    dec.step()
+    torch.cuda.synchronize()
+    kern = state_rows()
+    _put(dec, s0)
+    with swapped(vm, {name: twin}):
+        dec.step._eager()
+    tw = state_rows()
+    _put(dec, s0)
+    cfg, p32 = pipe.cfg, cast_tree(pipe.params, torch.float32)
+    at = torch.tensor([n0], device=dec.noise.device)
+    latent = vm.cfm_feat_decoder_batch(p32, dec.noise.index_select(0, at)[0], dec.dit.float(),
+                                       dec.feat_cond.float(), cfg)
+    fe, _ = vm.feat_encoder_cond_batch(p32, latent, cfg)
+    bk, bv, rk, rv = (t.float() for t in (dec.bk, dec.bv, dec.rk, dec.rv))
+    dit, _, _, _ = vm.voxcpm_main_step(p32, fe, fe, 0, KVCache(bk, bv, p0), KVCache(rk, rv, p0),
+                                       cfg, kv_valid=dec.kv_valid)
+    ref = rows(bk, bv, rk, rv, dit)
+    e_k, e_t = rel_l2(kern, ref), rel_l2(tw, ref)
+    ok = bool(torch.isfinite(kern).all()) and e_k <= STEP_SLACK * e_t
+    print(f"  {label}: {name} in a replayed latent step (pos {p0}, latent {n0}): the appended "
+          f"k/v rows of base layers 2-{cfg.base.num_layers} and residual layers "
+          f"2-{cfg.residual.num_layers} and dit_hidden, rel L2 against the fp32 step: replay "
+          f"{e_k:.6g}, eager body with the twin {e_t:.6g} (limit {STEP_SLACK} x); replay "
+          f"against the twin {rel_l2(kern, tw):.6g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: {name} in a replayed step is less accurate than its "
+                             f"twin")
+
+
+@torch.no_grad()
+def run_vox_graphs(name_limit: str) -> dict:
+    """Phase 16's VoxCPM part: the programs of VoxCPM-2 and VoxCPM-1.5 at
+    full width (phase 10's seeds) at VOX_GRAPH_LATENTS latents, two requests
+    a route, driven program by program: VoxCPM-2 bf16 and int8 requests, a
+    "continuation" request with its encode (the encode program called
+    twice more), a stream (its decode, then each window VAE call), and a
+    VoxCPM-1.5 batch of 4; every encode, prefill, step, VAE and window call,
+    the first ones included, bitwise its eager body from the same state
+    with the eager run's launches (28 of kernel 12 a solo step, 28 of
+    kernel 11 a batch step); the stream bitwise synthesize_streaming with
+    the same seed; the bf16 step graph's edges read for kernel 12's
+    ordering premise; kernel 12 against its twin in a replayed step and
+    kernel 11 in a replayed batch step; each route's warm-up and capture
+    seconds and the pool's bytes. Returns the launches of the checked
+    calls."""
+    from tts_tpu_torch.models.voxcpm import VoxCPMConfig, voxcpm_v2_config
+    from tts_tpu_torch.ops.decode_qkv import fused_qkv_rope_plain
+    from tts_tpu_torch.ops.decode_step import fused_qkv_attn_plain
+    from tts_tpu_torch.runtime.streaming import ChunkedCodecStream
+    from tts_tpu_torch.runtime.voxcpm import STEPS, VoxCPMDecodeConfig, VoxCPMPipeline
+
+    cfg2, cfg15 = voxcpm_v2_config(), VoxCPMConfig()
+    dec_cfg = VoxCPMDecodeConfig(max_latents=VOX_GRAPH_LATENTS, min_latents=VOX_GRAPH_LATENTS)
+    layers = cfg2.base.num_layers + cfg2.residual.num_layers
+    max_steps = VOX_TARGET.shape[1] * dec_cfg.decode_limit_factor + 10
+    launches: dict = {}
+
+    def report(label, pipe, rec, req):
+        progs = rec.pop("programs")
+        for k, n in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"  {name_limit}: {label} request {req}: prefill, {rec['replays']} step replays "
+              f"of {STEPS} latent step(s) and the VAE call, each bitwise its eager body from "
+              f"the same state (outputs and state), {rec['first_calls']} of them first calls; "
+              f"latents {rec['latents']}; launches {rec['launches']}; the step replays "
+              f"{rec['replay_s']:.4f} s against their eager bodies' {rec['eager_s']:.4f} s; "
+              + "; ".join(f"{k} warm-up {v.warmup_s:.4f} s capture {v.capture_s:.4f} s, "
+                          f"{sum(v.launches.values())} launches recorded"
+                          for k, v in progs.items())
+              + f"; pool {pipe._pool.nbytes() / 2**20:.1f} MiB", flush=True)
+        print("  " + json.dumps({"graphs": label, "card": name_limit, "request": req, **rec,
+                                 "warmup_s": {k: v.warmup_s for k, v in progs.items()},
+                                 "capture_s": {k: v.capture_s for k, v in progs.items()},
+                                 "pool_bytes": pipe._pool.nbytes()}), flush=True)
+
+    def solo(pipe, segments, fc):
+        """A request's held state, inputs and cap from `seed`'s noise."""
+        bufs = pipe._prompt_bufs(segments)
+        return lambda seed: pipe._solo(*bufs[:2], bufs[3], bufs[2], fc, max_steps,
+                                       pipe._latent_buf(max_steps), seed)
+
+    params2, vae2 = voxcpm_models(cfg2, 30)
+    ids_seg = [("text", np.concatenate([VOX_PROMPT[0], VOX_TARGET[0],
+                                        [cfg2.audio_start_id]]).astype(np.int32))]
+    want12 = {"fused_qkv_attn": layers * STEPS}
+    bf16 = VoxCPMPipeline(params2, cfg2, vae2, dec_cfg)
+    for label, pipe in (("VoxCPM-2 bf16", bf16),
+                        ("VoxCPM-2 int8", VoxCPMPipeline(params2, cfg2, vae2, dec_cfg,
+                                                         quantize=8))):
+        held = solo(pipe, ids_seg, pipe._zero_cond())
+        for req, seed in enumerate((5, 6)):
+            with held(seed) as (dec, inputs, cap):
+                report(label, pipe, vox_request_on_programs(f"{label} request {req}", pipe, dec,
+                                                            inputs, cap, want12), req)
+        if pipe is bf16:
+            with held(7) as (dec, inputs, _):
+                check_ordering_premise(f"{label} step program", dec.step._graph.graph)
+                dec.prefill(*inputs)
+                check_vox_step_in_replay(label, pipe, dec, "fused_qkv_attn",
+                                         fused_qkv_attn_plain)
+        del pipe
+        torch.cuda.empty_cache()
+
+    # continuation: the encode program, then two requests of its bucket
+    segments, fc = bf16._v2_plan("continuation", VOX_TARGET, prompt_audio=vox_audio(
+        cfg2.sample_rate), prompt_ids=VOX_PROMPT)
+    (key, enc), = bf16._enc_cache.items()
+    padded = enc._static[0].clone()                 # the bucket's audio, as the call gave it
+    for i in range(2):
+        replay_check(f"VoxCPM-2 encode program (bucket {key} samples), call {i + 2}", enc,
+                     (padded,), {}, name_limit)
+    held = solo(bf16, segments, fc)
+    for req, seed in enumerate((5, 6)):
+        with held(seed) as (dec, inputs, cap):
+            report("VoxCPM-2 continuation", bf16, vox_request_on_programs(
+                f"VoxCPM-2 continuation request {req}", bf16, dec, inputs, cap, want12), req)
+
+    # a stream: the request's decode programs, then every window VAE call
+    held = solo(bf16, ids_seg, bf16._zero_cond())
+    for req, seed in enumerate((8, 9)):
+        with held(seed) as (dec, inputs, cap):
+            rec = vox_request_on_programs(f"VoxCPM-2 stream {req}", bf16, dec, inputs, cap,
+                                          want12)
+            lat = dec.latents[0, :cap].cpu().numpy()
+        report("VoxCPM-2 stream decode", bf16, rec, req)
+
+        def window(w, req=req):
+            prog = bf16._window(w.shape[1])
+            return replay_check(f"VoxCPM-2 stream {req} window VAE ({w.shape[1]} latents)", prog,
+                                (torch.from_numpy(np.ascontiguousarray(w, np.float32)),), {},
+                                name_limit, timed=1)[1][0]
+
+        stream = ChunkedCodecStream(window, window=5, left_context=1,
+                                    upsample=cfg2.samples_per_latent, num_groups=cfg2.patch_size)
+        got = []
+        for i in range(0, cap, 4):
+            out = stream.push_frames(lat[i:i + 4])
+            if out is not None and len(out):
+                got.append(out)
+        got.extend(stream.finish())
+        ref = list(bf16.synthesize_streaming(ids_seg, bf16._zero_cond(), max_steps, seed=seed,
+                                             chunk=4))
+        same = np.array_equal(np.concatenate(got), np.concatenate(ref))
+        print(f"  {name_limit}: VoxCPM-2 stream {req}: {len(got)} chunks, each window VAE call "
+              f"bitwise its eager body; the assembly bitwise synthesize_streaming with the same "
+              f"seed: {same}", flush=True)
+        if not same:
+            raise AssertionError("the VoxCPM stream differs from its checked program calls")
+    print(f"  VoxCPM-2 bf16 pipeline: programs {[k for k, _ in vox_programs(bf16)]}, one pool "
+          f"of {bf16._pool.nbytes() / 2**20:.1f} MiB", flush=True)
+    del bf16, params2, vae2
+    torch.cuda.empty_cache()
+
+    # VoxCPM-1.5: a batch of 4
+    params15, vae15 = voxcpm_models(cfg15, 40)
+    pipe15 = VoxCPMPipeline(params15, cfg15, vae15, dec_cfg)
+    rows = [np.arange(21, 53 + 2 * i, dtype=np.int32)[None] for i in range(4)]
+    want11 = {"fused_qkv_rope": layers * STEPS}
+    for req, order in enumerate((rows, rows[::-1])):
+        plans = [([("text", np.concatenate([VOX_PROMPT[0], t[0], [cfg15.audio_start_id]])
+                   .astype(np.int32))], None,
+                  min(t.shape[1] * dec_cfg.decode_limit_factor + 10, dec_cfg.max_latents))
+                 for t in order]
+        inputs, buf = pipe15._batch_bufs(plans)
+        s_buf = inputs[0].shape[1]
+        with pipe15._held(pipe15._batch_fns, ("batch", 4, s_buf, buf), 4, s_buf, buf,
+                          True) as dec:
+            dec.fill_noise(None, 10 + req)
+            report("VoxCPM-1.5 batch of 4", pipe15, vox_request_on_programs(
+                f"VoxCPM-1.5 batch of 4 request {req}", pipe15, dec, inputs,
+                int(inputs[-1].max()), want11), req)
+    with pipe15._held(pipe15._batch_fns, ("batch", 4, s_buf, buf), 4, s_buf, buf, True) as dec:
+        dec.fill_noise(None, 7)
+        dec.prefill(*inputs)
+        check_vox_step_in_replay("VoxCPM-1.5 batch of 4", pipe15, dec, "fused_qkv_rope",
+                                 fused_qkv_rope_plain)
+    print(f"  VoxCPM-1.5 pipeline: programs {[k for k, _ in vox_programs(pipe15)]}, one pool "
+          f"of {pipe15._pool.nbytes() / 2**20:.1f} MiB", flush=True)
+    del pipe15, params15, vae15
     torch.cuda.empty_cache()
     return launches
 

@@ -79,10 +79,16 @@ class KVCache:
     def advance(self, num_tokens: int) -> "KVCache":
         return dataclasses.replace(self, length=self.length + int(num_tokens))
 
-    def rewind(self, length: int) -> "KVCache":
+    def rewind(self, length) -> "KVCache":
         """Set length to a value <= the current one: after a prefill over a
         padded bucket, decode appends at the true prompt length and
-        overwrites the padded rows, which the causal mask never exposes."""
+        overwrites the padded rows, which the causal mask never exposes.
+        In the device form `length` may be a 0-dim device tensor: it is
+        written into the cache's length tensor in place (a graph replays
+        the write), and the new KVCache shares that tensor."""
+        if self.on_device and isinstance(length, torch.Tensor):
+            self.length.copy_(length.reshape(()))
+            return dataclasses.replace(self)
         return dataclasses.replace(self, length=int(length))
 
     def repeat_batch(self, n: int) -> "KVCache":

@@ -30,6 +30,14 @@ runs each kernel's twin):
 (tts_tpu's `fused and s == 1` turns "step" into True, so its VoxCPM never
 reaches kernel 12; the port keeps the route asked for.)
 
+Both take a cache whose length is a host int, or a 0-dim int32 device
+tensor (kv/cache.py; the decode programs of runtime/voxcpm.py, which a CUDA
+graph replays without a host read). In the device form the RoPE rows come
+by `index_select` at the device position, the plain attention reads the
+cache's `bound` rows under a mask built on the device, the "step" route is
+gated at the bound's top row and takes kernel 12's device form (`top`), and
+a device `valid_len` picks the last row by `index_select`.
+
 Precision: activations run in the params' dtype. The CFM's Euler state and
 its noise stay fp32 and are cast to the params' dtype where they enter a
 matmul (tts_tpu promotes the whole estimator to fp32 there, by JAX's
@@ -180,10 +188,12 @@ def stack_routes(params: dict, cfg: LlamaStackConfig, batch: int, s: int, kv: KV
           and qkv_fits(batch, cfg.hidden_size, hd))
     if not ok:
         return _Routes()
+    # the device form is gated at its top row, the host form at the length
+    most = kv.rows - 1 if kv.on_device else kv.length
     step = (fused == "step" and batch == 1 and kv_valid is None and hd in (64, 128)
             and (heads * hd) % 128 == 0 and (kvh * hd) % 128 == 0
             and kv.k.shape[1] == 1 and heads % kvh == 0
-            and step_fits(heads // kvh, hd, kv.length))
+            and step_fits(heads // kvh, hd, most))
     return _Routes(step=step, qkv=not step)
 
 
@@ -193,17 +203,20 @@ def llama_stack_step(params: dict, hidden: torch.Tensor, kv: KVCache,
     """A causal cached pass over S new positions. hidden (B, S, H); kv_valid
     (T,) shared or (B, T) per row, key validity over the cache rows, or
     None. Returns (the hidden sequence (B, S, H) before the final norm, the
-    cache advanced by S). The cache rows are written in place."""
+    cache advanced by S). The cache rows are written in place. kv.length
+    may live on the device (see the module's docstring)."""
     b, s, _ = hidden.shape
     pos = kv.length
-    n = pos + s
+    # the keys a step may see: pos + s, and in the device form its bound's rows
+    n = kv.rows if kv.on_device else pos + s
+    top = kv.rows - 1 if kv.on_device else None
     routes = stack_routes(params, cfg, b, s, kv, kv_valid, fused)
     heads, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q_sz, kv_sz = heads * hd, kvh * hd
     mask = None
     if not routes.step:
         # keys past pos + s are masked: attend over the rows that can be valid
-        mask = attention_mask(s, n, pos, n, causal=True, device=hidden.device)
+        mask = attention_mask(s, n, pos, pos + s, causal=True, device=hidden.device)
         if kv_valid is not None:
             mask = combine_kv_valid(mask, kv_valid[..., :n])
     x = hidden
@@ -212,7 +225,7 @@ def llama_stack_step(params: dict, hidden: torch.Tensor, kv: KVCache,
             out, kf, vf = fused_qkv_attn(
                 x[:, 0], p["wqkv"], rope_cos, rope_sin, kv.k, kv.v, i, pos,
                 heads=heads, kv_heads=kvh, head_dim=hd, bqkv=p.get("bqkv"),
-                eps=cfg.rms_eps)
+                eps=cfg.rms_eps, top=top)
             # an ordinary launch: kernel 12 loads cache rows before its wait
             kv.update_layer(i, kf.reshape(b, 1, kvh, hd), vf.reshape(b, 1, kvh, hd))
             out = out[:, None]
@@ -458,17 +471,24 @@ def voxcpm_main_step(params: dict, hidden: torch.Tensor, feat_embed: torch.Tenso
     Audio positions go through the FSQ bottleneck, and get feat_embed added
     before the residual LM; feat_embed aligns with hidden.
 
-    valid_len (host int): the true length inside a padded bucket; dit and
-    stop come from position valid_len - 1 and the caller rewinds the
-    caches. kv_valid: per-row (B, T) key validity (right-justified batch
-    rows). fused: the decode route of both stacks at S = 1.
+    valid_len (a host int, or a 0-dim int32 device tensor): the true length
+    inside a padded bucket; dit and stop come from position valid_len - 1
+    and the caller rewinds the caches. kv_valid: per-row (B, T) key
+    validity (right-justified batch rows). fused: the decode route of both
+    stacks at S = 1. The caches' length may live on the device (both share
+    it; see the module's docstring).
 
     Returns (dit_hidden (B, 1, est_H), stop_flag (int32, () at B = 1, (B,)
     otherwise), base_kv, res_kv)."""
     b = cfg.base
     bsz, s, _ = hidden.shape
     pos = base_kv.length
-    rope_cos, rope_sin = params["rope_cos"][pos:pos + s], params["rope_sin"][pos:pos + s]
+    if base_kv.on_device:
+        idx = pos.long() + torch.arange(s, device=pos.device)
+        rope_cos = params["rope_cos"].index_select(0, idx)
+        rope_sin = params["rope_sin"].index_select(0, idx)
+    else:
+        rope_cos, rope_sin = params["rope_cos"][pos:pos + s], params["rope_sin"][pos:pos + s]
     fused = fused if s == 1 else False
     x, base_kv = llama_stack_step(params["base"], hidden, base_kv, b, rope_cos, rope_sin,
                                   kv_valid=kv_valid, fused=fused)
@@ -485,9 +505,14 @@ def voxcpm_main_step(params: dict, hidden: torch.Tensor, feat_embed: torch.Tenso
     r, res_kv = llama_stack_step(params["residual"], res_in, res_kv, cfg.residual,
                                  rope_cos, rope_sin, kv_valid=kv_valid, fused=fused)
 
-    last = s if valid_len is None else valid_len
-    lm_hidden = mixed[:, last - 1:last]                          # before the feat add
-    res_hidden = rms_norm(r[:, last - 1:last], eps=cfg.residual.rms_eps)
+    if isinstance(valid_len, torch.Tensor):
+        at = (valid_len.long() - 1).reshape(1)
+        lm_hidden, r_last = mixed.index_select(1, at), r.index_select(1, at)
+    else:
+        last = s if valid_len is None else valid_len
+        lm_hidden, r_last = mixed[:, last - 1:last], r[:, last - 1:last]
+    # lm_hidden: before the feat add
+    res_hidden = rms_norm(r_last, eps=cfg.residual.rms_eps)
     both = _linear(lm_hidden, params["dit_stop"])
     dit_dim = cfg.estimator.hidden_size
     dit_hidden = both[..., :dit_dim] + torch.matmul(res_hidden, params["res_to_dit"]["w"])

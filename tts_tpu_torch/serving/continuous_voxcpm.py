@@ -9,11 +9,13 @@ layers take kernel 11 at 1-8 slots (the masks keep kernel 12 off).
 
 Each slot draws its CFM noise from its OWN source, one (1, patch, latent)
 draw a generated latent: a torch.Generator seeded from the request's seed,
-on the params' device, as the solo decode draws (runtime/voxcpm.py), or the
-draws the request brought (`submit(..., noise=)`; tts_tpu's per-request
-jax.random chain cannot be reproduced in torch, so the tests pass its
-draws). A request therefore reproduces its solo output whenever it is
-admitted and whichever rows share the batch.
+on the params' device, or the draws the request brought (`submit(...,
+noise=)`; tts_tpu's per-request jax.random chain cannot be reproduced in
+torch, so the tests pass its draws). A request therefore gives the same
+output whenever it is admitted and whichever rows share the batch, and
+with the same draws passed its solo output (from a seed the solo decode
+programs, runtime/voxcpm.py, draw their whole buffer at once, so one seed
+gives the two paths other values).
 
 Admission prefills ONE row at the batch's current shared position (rope is
 relative, so the right-justified offset prefill decodes as a solo request
